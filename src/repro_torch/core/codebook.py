@@ -1,0 +1,150 @@
+"""VQ codebook state and its inference-time reads.
+
+Torch twin of the serving half of ``repro.core.codebook``: the state
+containers, the product-VQ branch layout, initialisation, the implicit
+whitening helpers, the (un-whitened) codeword reads and the feature-half
+assignment that the inductive refresh runs.  The streaming EMA update
+(``update``, Alg. 2) comes with the training slice.
+
+A codebook quantizes the concatenation ``V = X^(l) || G^(l+1)`` of a node's
+layer input and its pre-activation gradient; codewords are stored in
+whitened space and read back un-whitened.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels import ops as kops
+
+
+class CodebookState(NamedTuple):
+    """One layer's product-VQ codebooks (``n_branches`` leading axis)."""
+
+    codewords_w: torch.Tensor   # [n_branches, k, f_blk]   whitened codewords
+    cluster_size: torch.Tensor  # [n_branches, k]          EMA cluster sizes
+    cluster_sum: torch.Tensor   # [n_branches, k, f_blk]   EMA cluster sums
+    mean: torch.Tensor          # [n_branches, f_blk]      smoothed E[V]
+    var: torch.Tensor           # [n_branches, f_blk]      smoothed Var[V]
+    step: torch.Tensor          # []                       update counter
+
+    @property
+    def n_branches(self) -> int:
+        return self.codewords_w.shape[0]
+
+    @property
+    def k(self) -> int:
+        return self.codewords_w.shape[1]
+
+    @property
+    def f_blk(self) -> int:
+        return self.codewords_w.shape[2]
+
+
+class CodebookConfig(NamedTuple):
+    k: int = 256                 # number of codewords per branch
+    f_prod: int = 4              # feature dims per product-VQ branch
+    gamma: float = 0.99          # EMA decay for codeword stats (Alg. 2)
+    beta: float = 0.999          # EMA decay for whitening stats (Alg. 2)
+    eps: float = 1e-5
+    whiten: bool = True          # implicit whitening (App. E)
+    revive_threshold: float = 0.05
+
+
+def branch_layout(f_feat: int, f_grad: int,
+                  f_prod: int) -> tuple[int, int, int]:
+    """Return (n_branches, f_feat_blk, f_grad_blk): feature block i pairs
+    with gradient block i under one assignment, so both sides get the same
+    number of blocks (the larger side gets the wider block)."""
+    cap = min(max(1, f_feat // f_prod), max(1, f_grad // f_prod))
+    g = math.gcd(f_feat, f_grad)
+    n_branches = 1
+    for d in range(1, g + 1):
+        if g % d == 0 and d <= cap:
+            n_branches = d
+    return n_branches, f_feat // n_branches, f_grad // n_branches
+
+
+def init_codebook(f_feat: int, f_grad: int, cfg: CodebookConfig, *,
+                  generator: Optional[torch.Generator] = None,
+                  device: str | torch.device = "cpu") -> CodebookState:
+    n_branches, fb, gb = branch_layout(f_feat, f_grad, cfg.f_prod)
+    f_blk = fb + gb
+    cw = 0.02 * torch.randn((n_branches, cfg.k, f_blk), generator=generator,
+                            dtype=torch.float32).to(device)
+    return CodebookState(
+        codewords_w=cw,
+        cluster_size=torch.ones((n_branches, cfg.k), device=device),
+        cluster_sum=cw.clone(),
+        mean=torch.zeros((n_branches, f_blk), device=device),
+        var=torch.ones((n_branches, f_blk), device=device),
+        step=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# whitening helpers (Alg. 2 lines 2-4, 9); mean/var broadcast over rows
+# ---------------------------------------------------------------------------
+
+def _whiten(v: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    return (v - mean) * torch.rsqrt(var + eps)
+
+
+def _unwhiten(v: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    return v * torch.sqrt(var + eps) + mean
+
+
+def _split_branches(x: torch.Tensor, n_branches: int) -> torch.Tensor:
+    """[b, f] -> [n_branches, b, f // n_branches] (a strided view)."""
+    b, f = x.shape
+    return x.reshape(b, n_branches, f // n_branches).transpose(0, 1)
+
+
+# ---------------------------------------------------------------------------
+# codeword reads
+# ---------------------------------------------------------------------------
+
+def _unwhitened_codewords(state: CodebookState, eps: float) -> torch.Tensor:
+    """[n_branches, k, f_blk] in original (un-whitened) space."""
+    return _unwhiten(state.codewords_w, state.mean[:, None, :],
+                     state.var[:, None, :], eps)
+
+
+def feature_codewords(state: CodebookState, f_feat: int,
+                      cfg: CodebookConfig) -> torch.Tensor:
+    """Per-branch feature codewords X~: [n_branches, k, f_feat_blk],
+    contiguous (the kernels take contiguous tables; the slice is small)."""
+    fb = f_feat // state.n_branches
+    return _unwhitened_codewords(state, cfg.eps)[:, :, :fb].contiguous()
+
+
+def gradient_codewords(state: CodebookState, f_feat: int,
+                       cfg: CodebookConfig) -> torch.Tensor:
+    """Per-branch gradient codewords G~: [n_branches, k, f_grad_blk]."""
+    fb = f_feat // state.n_branches
+    return _unwhitened_codewords(state, cfg.eps)[:, :, fb:].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# assignment
+# ---------------------------------------------------------------------------
+
+def assign_features_only(state: CodebookState, feats: torch.Tensor,
+                         f_feat: int, cfg: CodebookConfig) -> torch.Tensor:
+    """Nearest codeword using only the feature half (inference / inductive
+    setting, paper Sec. 6): [n, f_feat] -> [n_branches, n] int32.
+
+    ONE ``kops.vq_assign`` call for all branches.  The whitened rows stay in
+    their natural [n, nb, fb] layout and reach the kernel as a strided
+    [nb, n, fb] view, so no transposing copy of the [n, f] table is made."""
+    n_br = state.n_branches
+    fb = f_feat // n_br
+    v = feats.float().reshape(feats.shape[0], n_br, fb)       # [n, nb, fb]
+    if cfg.whiten:
+        v = _whiten(v, state.mean[:, :fb], state.var[:, :fb], cfg.eps)
+    return kops.vq_assign(v.transpose(0, 1),
+                          state.codewords_w[:, :, :fb].contiguous())

@@ -1,0 +1,223 @@
+"""Kernels of the PyTorch port: the plain PyTorch versions in
+``repro_torch.kernels.ref`` against the JAX oracles (``repro.kernels.ref``)
+and the Pallas kernels in interpret mode, on the reference's own sweep
+shapes; the device-only dispatch of ``ops.py``; the isolation of the
+package from JAX.  The CUDA kernels themselves are held against their
+plain versions on a card by ``tests/test_torch_cuda.py``.
+
+Tolerances: fp32 sums over at most 32 slots or 128 dims in another order,
+``rtol=1e-5, atol=1e-6``.  Assignments must be equal except where the
+reference's two candidate distances differ by at most ``1e-5 * (1 + |d|)``
+(a near-tie that any two summation orders may break differently).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+from numpy.testing import assert_allclose
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp                                      # noqa: E402
+
+from repro.kernels import ref as jref                        # noqa: E402
+from repro.kernels.context_ell import context_ell_pallas     # noqa: E402
+from repro.kernels.spmm_ell import spmm_ell_pallas           # noqa: E402
+from repro.kernels.vq_assign import vq_assign_pallas         # noqa: E402
+from repro_torch.kernels import _build, ops                  # noqa: E402
+from repro_torch.kernels import context_ell as tce           # noqa: E402
+from repro_torch.kernels import ref as tref                  # noqa: E402
+from repro_torch.kernels import spmm_ell as tsp              # noqa: E402
+from repro_torch.kernels import vq_assign as tva             # noqa: E402
+
+from test_torch_cuda import assert_assign_equal_but_near_ties  # noqa: E402
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+# ---------------------------------------------------------------------------
+# plain versions vs the JAX oracles and interpret-mode Pallas
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,k,f", [(1, 1, 1), (7, 3, 5), (64, 16, 4),
+                                   (130, 33, 12), (256, 512, 128),
+                                   (100, 1024, 8)])
+@pytest.mark.parametrize("nb", [1, 3])
+def test_vq_assign_ref_vs_jax(b, k, f, nb):
+    rng = np.random.default_rng(b * 131 + k + nb)
+    x = rng.normal(size=(nb, b, f)).astype(np.float32)
+    cw = rng.normal(size=(nb, k, f)).astype(np.float32)
+    got = tref.vq_assign(torch.from_numpy(x), torch.from_numpy(cw))
+    assert got.dtype == torch.int32 and got.shape == (nb, b)
+    want = np.stack([np.asarray(jref.vq_assign(x[i], cw[i]))
+                     for i in range(nb)])
+    assert_assign_equal_but_near_ties(got, want, x, cw)
+    pallas = np.stack([np.asarray(vq_assign_pallas(
+        jnp.asarray(x[i]), jnp.asarray(cw[i]), interpret=True))
+        for i in range(nb)])
+    assert_assign_equal_but_near_ties(got, pallas, x, cw)
+
+
+def test_vq_assign_ref_ties_keep_lowest_index():
+    """Exact ties (duplicate codewords) resolve to the first index, as
+    jnp.argmin and the Pallas kernel's strict-< combine do."""
+    cw = np.zeros((2, 6, 4), np.float32)
+    cw[:, 1] = cw[:, 4] = 1.0           # codewords 1 and 4 coincide
+    cw[:, 2] = cw[:, 5] = -3.0
+    x = np.ones((2, 5, 4), np.float32)
+    got = tref.vq_assign(torch.from_numpy(x), torch.from_numpy(cw)).numpy()
+    assert (got == 1).all()
+    assert (np.asarray(jref.vq_assign(x[0], cw[0])) == 1).all()
+
+
+def test_vq_assign_ref_strided_rows_and_blocking(monkeypatch):
+    """The [nb, n, f] branch view of an [n, nb*f] table (the codebook's
+    layout) and the row blocking of the plain version change nothing."""
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.normal(size=(300, 4 * 8)).astype(np.float32))
+    cw = torch.from_numpy(rng.normal(size=(4, 32, 8)).astype(np.float32))
+    view = table.reshape(300, 4, 8).transpose(0, 1)
+    assert not view.is_contiguous()
+    want = tref.vq_assign(view.contiguous(), cw)
+    monkeypatch.setattr(tref, "_ASSIGN_BLOCK_ELEMS", 4 * 32 * 7)
+    assert torch.equal(tref.vq_assign(view, cw), want)
+
+
+@pytest.mark.parametrize("b,deg,n,f", [(1, 1, 1, 1), (8, 4, 16, 8),
+                                       (33, 7, 50, 12), (128, 32, 300, 64),
+                                       (256, 18, 256, 128)])
+def test_spmm_ell_ref_vs_jax(b, deg, n, f):
+    rng = np.random.default_rng(b + deg * 100)
+    idx = rng.integers(0, n, (b, deg)).astype(np.int32)
+    val = rng.normal(size=(b, deg)).astype(np.float32)
+    val[:, -1] = 0.0                    # a padding column (val 0, idx valid)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    got = tref.spmm_ell(torch.from_numpy(idx), torch.from_numpy(val),
+                        torch.from_numpy(x)).numpy()
+    assert got.shape == (b, f) and got.dtype == np.float32
+    assert_allclose(got, np.asarray(jref.spmm_ell(idx, val, x)), **TOL)
+    assert_allclose(got, np.asarray(spmm_ell_pallas(
+        jnp.asarray(idx), jnp.asarray(val), jnp.asarray(x),
+        interpret=True)), **TOL)
+
+
+@pytest.mark.parametrize("b,deg,n,nb,k,f_blk", [
+    (1, 1, 1, 1, 1, 1),        # degenerate minimum
+    (8, 4, 16, 2, 4, 8),       # everything below one tile
+    (33, 7, 50, 4, 16, 8),     # b a non-multiple of the Pallas tile, nb=4
+    (128, 32, 300, 2, 64, 16), # multi-tile
+    (5, 0, 10, 4, 8, 8),       # D=0: no out-of-batch slots
+    (257, 5, 999, 1, 256, 8),  # single branch, paper-scale k
+])
+def test_context_ell_ref_vs_jax(b, deg, n, nb, k, f_blk):
+    rng = np.random.default_rng(b * 131 + deg * 7 + nb)
+    ids = rng.integers(0, n, (b, deg)).astype(np.int32)
+    val = rng.normal(size=(b, deg)).astype(np.float32)
+    assign = rng.integers(0, k, (nb, n)).astype(np.int32)
+    cw = rng.normal(size=(nb, k, f_blk)).astype(np.float32)
+    got = tref.context_ell(torch.from_numpy(ids), torch.from_numpy(val),
+                           torch.from_numpy(assign),
+                           torch.from_numpy(cw)).numpy()
+    assert got.shape == (b, nb * f_blk) and got.dtype == np.float32
+    assert_allclose(got, np.asarray(jref.context_ell(ids, val, assign, cw)),
+                    **TOL)
+    assert_allclose(got, np.asarray(context_ell_pallas(
+        jnp.asarray(ids), jnp.asarray(val), jnp.asarray(assign),
+        jnp.asarray(cw), interpret=True)), **TOL)
+    if deg == 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("case", ["all_out_of_batch", "padded_rows"])
+def test_context_ell_ref_edge_rows(case):
+    """Rows whose every slot is a real out-of-batch edge, and rows that are
+    all padding (val 0 everywhere -> a zero row)."""
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, 100, (40, 6)).astype(np.int32)
+    val = rng.normal(size=(40, 6)).astype(np.float32)
+    if case == "all_out_of_batch":
+        val = np.abs(val) + 0.5
+    else:
+        val[[3, 17]] = 0.0
+    assign = rng.integers(0, 16, (4, 100)).astype(np.int32)
+    cw = rng.normal(size=(4, 16, 8)).astype(np.float32)
+    got = tref.context_ell(*map(torch.from_numpy, (ids, val, assign,
+                                                   cw))).numpy()
+    assert_allclose(got, np.asarray(jref.context_ell(ids, val, assign, cw)),
+                    **TOL)
+    if case == "padded_rows":
+        assert not got[[3, 17]].any()
+
+
+# ---------------------------------------------------------------------------
+# dispatch: the device decides; CPU tensors never reach a kernel
+# ---------------------------------------------------------------------------
+
+def test_ops_cpu_tensors_take_the_plain_versions():
+    before = (tva.launches, tsp.launches, tce.launches)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(2, 20, 4)).astype(np.float32))
+    cw = torch.from_numpy(rng.normal(size=(2, 8, 4)).astype(np.float32))
+    assert torch.equal(ops.vq_assign(x, cw), tref.vq_assign(x, cw))
+    idx = torch.from_numpy(rng.integers(0, 20, (5, 3)).astype(np.int32))
+    val = torch.from_numpy(rng.normal(size=(5, 3)).astype(np.float32))
+    src = torch.from_numpy(rng.normal(size=(20, 6)).astype(np.float32))
+    assert torch.equal(ops.spmm_ell(idx, val, src),
+                       tref.spmm_ell(idx, val, src))
+    a = torch.from_numpy(rng.integers(0, 8, (2, 20)).astype(np.int32))
+    assert torch.equal(ops.context_ell(idx, val, a, cw),
+                       tref.context_ell(idx, val, a, cw))
+    assert (tva.launches, tsp.launches, tce.launches) == before
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A wrapper launches on CUDA tensors or raises; it never computes the
+    plain version itself."""
+    x = torch.zeros((1, 4, 4))
+    cw = torch.zeros((1, 2, 4))
+    idx = torch.zeros((4, 2), dtype=torch.int32)
+    val = torch.zeros((4, 2))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tva.vq_assign_cuda(x, cw)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tsp.spmm_ell_cuda(idx, val, x[0])
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tce.context_ell_cuda(idx, val, torch.zeros((1, 4), dtype=torch.int32),
+                             cw)
+
+
+def test_build_is_keyed_on_sources_and_lazy():
+    h = _build.source_hash()
+    assert len(h) == 16 and h == _build.source_hash()
+    assert _build.library_path().parent.name == h
+    assert {p.name for p in _build._sources()} == {
+        "vq_assign.cu", "spmm_ell.cu", "context_ell.cu"}
+    for src in _build._sources():      # each names the TPU kernel it ports
+        assert "Replaces the TPU kernel src/repro/kernels/" in src.read_text()
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Importing every repro_torch module pulls in no jax and no repro
+    module, imports no triton and builds nothing."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "assert len(mods) >= 15, mods\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro', 'triton'))\n"
+        "assert not bad, bad\n"
+        "from repro_torch.kernels import _build\n"
+        "assert _build._lib is None\n"
+        "print('ok', len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
