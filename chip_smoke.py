@@ -7,24 +7,35 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-   sm_90a) and report the build time;
-3. hold every kernel against its plain PyTorch version on the card, on
-   operands taken from the served model's own state at the serving shapes
-   (spmm_ell b=256 D=deg_cap f=128; context_ell with (nb, k, fb) =
-   (32, 1024, 4) and (8, 1024, 16); vq_assign over all 169,343 nodes at
-   both geometries), timing kernel, plain version and -- where one PyTorch
-   call computes the same function -- that call, with CUDA events;
-4. the main path at the paper's full width (GCN, hidden 128, 3 layers,
-   k 1024, f_prod 4) on a 169,343-node ogbn-arxiv look-alike with random
-   weights from seed 0: ``GNNServer.refresh``, then ``warmup`` and
-   ``drain_requests`` over 200 requests of U[1, 64] nodes, with the
-   kernels' launch counters reset before and read after each and checked
-   exactly;
-5. copy the served state to the CPU and serve the same requests through
+   sm_90a, one process per source, all started together) and report the
+   build time;
+3. training, the first main path, at the paper's full width (GCN, hidden
+   128, 3 layers, k 1024, f_prod 4) on a 169,343-node ogbn-arxiv
+   look-alike: ``train_vq`` for 2 epochs of 4 batches of 42,335 nodes
+   (``paper_batch_size``) from seed 0, the kernels' launch counters reset
+   before and read after and checked exactly; per-step loss and VQ error,
+   epoch seconds, val/test accuracy; the losses must be finite and the
+   VQ error fall on average; the same run without the Eq. 7 injection,
+   whose loss must fall on average; then 8 timed steps (step ms p50/p99)
+   and a torch.profiler window over 2 steps;
+4. hold every kernel against its plain PyTorch version on the card, on
+   operands taken from the trained model: vq_update on the whitened
+   (X || G) rows of a training batch at both branch geometries, the w_t
+   form of context_ell and spmm_ell_t on that batch's reverse-edge and
+   intra-batch operands, and the serving shapes of vq_assign, spmm_ell
+   and context_ell; timing kernel, plain version and -- where one
+   PyTorch call computes the same function -- that call, with CUDA events;
+5. one training step at batch 4,096 on the card and the same step on the
+   CPU plain path from the trained state copied over: loss, params,
+   optimizer and codebook state must agree;
+6. serving, the second main path, with the trained weights:
+   ``GNNServer.refresh``, then ``warmup`` and ``drain_requests`` over 200
+   requests of U[1, 64] nodes, launch counters checked exactly;
+7. copy the served state to the CPU and serve the same requests through
    the plain versions there; the served rows must agree;
-6. a torch.profiler window over 20 serve steps: the device's busy share
+8. a torch.profiler window over 20 serve steps: the device's busy share
    of the wall time and the kernels that take it;
-7. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+9. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 The script needs a CUDA card: without one (or outside a checkout of the
 repository) it exits non-zero and prints no result.
@@ -47,10 +58,16 @@ BATCH = 256
 REQUESTS = 200
 MAX_REQUEST = 64
 SEED = 0
+DEVICE = "cuda"
+TRAIN_EPOCHS = 2
+TIMED_STEPS = 8
+PARITY_BATCH = 4096
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-6)
 SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
+STEP_TOL = dict(rtol=1e-4, atol=1e-5)
+U32 = 2.0 ** -24              # fp32 unit roundoff
 
 
 def log(msg: str) -> None:
@@ -112,6 +129,25 @@ def check_close(name: str, got, want, tol: dict) -> float:
     return err
 
 
+def check_scatter(name: str, got, want, abs_sum, terms) -> float:
+    """A scatter-add against its plain version: two fp32 sums of the same
+    ``terms`` terms in different orders differ by at most
+    ``2 * terms * 2^-24 * sum |term|`` per element."""
+    import torch
+    g, w = got.detach().cpu().double(), want.detach().cpu().double()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        raise SystemExit(f"{name}: bad output shape {tuple(g.shape)} vs "
+                         f"{tuple(w.shape)} or non-finite values")
+    err = (g - w).abs()
+    tol = 2 * terms.detach().cpu().double() * U32 \
+        * abs_sum.detach().cpu().double()
+    if bool((err > tol).any()):
+        raise SystemExit(f"{name}: {int((err > tol).sum())} elements beyond "
+                         f"the scatter-order bound (max abs err "
+                         f"{float(err.max())})")
+    return float(err.max()) if err.numel() else 0.0
+
+
 def assign_agreement(got, want, x, cw) -> tuple[float, float]:
     """(agreement rate, max |d(got) - d(want)|); every mismatch must be a
     near-tie of the plain version's own distances."""
@@ -160,6 +196,425 @@ def phase_build() -> float:
     log(f"build: {path.relative_to(ROOT)} in {dt:.2f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     return dt
+
+
+class Model:
+    """The graph's device tables for the training phases."""
+
+    def __init__(self, g, cfg, batch: int, dev):
+        import torch
+        from repro_torch.graph.batching import build_epoch_plan, full_operands
+        self.g, self.cfg, self.batch, self.dev = g, cfg, batch, dev
+        self.ops = full_operands(g, device=dev)
+        self.plan = build_epoch_plan(g, full_ops=self.ops, device=dev)
+        self.x = torch.from_numpy(g.features).to(dev)
+        self.labels = torch.from_numpy(g.labels).to(dev)
+        mask = np.zeros(g.n, np.float32)
+        mask[g.train_idx] = 1.0
+        self.train_mask = torch.from_numpy(mask).to(dev)
+
+    def batch_inputs(self, bids_np: np.ndarray):
+        """(pack, x_b, labels_b, loss mask) of one batch of node ids."""
+        import torch
+        from repro_torch.graph.batching import plan_batch
+        bids = torch.from_numpy(bids_np.astype(np.int32)).to(self.dev)
+        i = bids.long()
+        return (plan_batch(self.plan, bids), self.x[i], self.labels[i],
+                self.train_mask[i])
+
+
+def _train(what: str, g, cfg, batch: int) -> tuple[dict, dict]:
+    """``train_vq`` at the paper's batch size for TRAIN_EPOCHS epochs, with
+    the launch counts of every step (and of the full-graph evaluations)
+    checked exactly, every step's loss and VQ error printed and required
+    finite."""
+    import torch
+    from repro_torch.train.gnn_trainer import train_vq
+    n_layers = cfg.n_layers
+    steps = TRAIN_EPOCHS * -(-g.n // batch)
+    inject = n_layers - 1 if cfg.grad_inject else 0
+    reset_counts()
+    t0 = time.time()
+    r = train_vq(g, cfg, epochs=TRAIN_EPOCHS, batch_size=batch, seed=SEED,
+                 eval_every=1, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    # per step: every layer's forward runs spmm_ell and context_ell and its
+    # codebook update vq_update; the backward of every layer but the first
+    # (whose input needs no gradient) runs spmm_ell_t and, with the Eq. 7
+    # injection, the w_t form of context_ell.  Each full-graph evaluation
+    # runs spmm_ell once per layer.
+    expect_counts(what, counts, {
+        "vq_assign": 0, "vq_update": n_layers * steps,
+        "spmm_ell": n_layers * steps + n_layers * TRAIN_EPOCHS,
+        "spmm_ell_t": (n_layers - 1) * steps,
+        "context_ell": (n_layers + inject) * steps,
+        "context_ell_wt": inject * steps})
+    losses, errs = r["step_losses"], r["step_vq_errs"]
+    if losses.shape != (steps,) or errs.shape != (steps, n_layers):
+        raise SystemExit(f"{what}: {losses.shape} losses, {errs.shape} VQ "
+                         f"errors for {steps} steps")
+    for i, (loss, e) in enumerate(zip(losses, errs)):
+        log(f"{what} step {i}: loss {loss:.6f} vq_err "
+            f"{' '.join(f'{v:.4f}' for v in e)}")
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(errs))):
+        raise SystemExit(f"{what}: non-finite loss or VQ error")
+    for h, es in zip(r["history"], r["epoch_s"]):
+        log(f"{what} epoch {h['epoch']}: {es:.3f} s, val {h['val']:.4f} "
+            f"test {h['test']:.4f} vq_err {h['vq_err']:.4f}")
+    r.update(wall_s=wall,
+             epoch_loss=losses.reshape(TRAIN_EPOCHS, -1).mean(1).tolist(),
+             epoch_vq_err=errs.reshape(TRAIN_EPOCHS, -1).mean(1).tolist())
+    log(f"{what}: {steps} steps of {batch} nodes in {wall:.3f} s (incl. "
+        f"{TRAIN_EPOCHS} full-graph evaluations); mean loss per epoch "
+        f"{r['epoch_loss']}, mean VQ error per epoch {r['epoch_vq_err']}")
+    return r, counts
+
+
+def phase_train(g, cfg, batch: int) -> tuple[dict, dict]:
+    """The training main path, paper-faithful (Eq. 7 injection on).  Its
+    codebooks must learn: the mean VQ relative error falls from the first
+    epoch to the last.  Its loss is printed, not required to fall: the
+    injected gradient codewords start as random 0.02 N(0, 1) draws, far
+    larger than the true gradients, and the reference's loss rises over
+    its first epochs at this width just the same."""
+    r, counts = _train("train", g, cfg, batch)
+    if not r["epoch_vq_err"][-1] < r["epoch_vq_err"][0]:
+        raise SystemExit(f"train: mean VQ error per epoch "
+                         f"{r['epoch_vq_err']} did not fall")
+    return r, counts
+
+
+def phase_learning_check(g, cfg, batch: int) -> dict:
+    """The same training without the Eq. 7 injection: the loss must fall
+    on average from the first epoch to the last (outside the main path's
+    counts; its own launch counts are checked)."""
+    r, _ = _train("train without injection", g,
+                  cfg._replace(grad_inject=False), batch)
+    if not r["epoch_loss"][-1] < r["epoch_loss"][0]:
+        raise SystemExit(f"train without injection: mean loss per epoch "
+                         f"{r['epoch_loss']} did not fall")
+    return r
+
+
+def phase_step_timing(m: Model, params, vq, ost) -> dict:
+    """Host-clock time of single training steps, each synchronised, on
+    fresh batches from the trained state (outside the counted main path;
+    the states they produce are dropped)."""
+    import torch
+    from repro_torch.graph.batching import epoch_slices
+    from repro_torch.models.gnn import vq_train_step
+    from repro_torch.train.optimizer import rmsprop
+    from repro_torch.configs.vq_gnn_paper import PAPER_LR
+    opt = rmsprop(PAPER_LR)
+    rng = np.random.default_rng(SEED + 11)
+    ids = np.concatenate([epoch_slices(rng.permutation(m.g.n), m.batch)[0]
+                          for _ in range(-(-TIMED_STEPS * m.batch // m.g.n)
+                                         + 1)])[:TIMED_STEPS]
+    times = []
+    for bids in ids:
+        pack, x_b, y_b, lm = m.batch_inputs(bids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, vq, ost, loss, _, _ = vq_train_step(
+            params, vq, ost, pack, x_b, y_b, m.ops.degrees, m.cfg, opt,
+            loss_mask=lm)
+        float(loss)                              # synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+    t = np.sort(times)
+    rep = {"steps": len(t), "step_p50_ms": float(np.percentile(t, 50)),
+           "step_p99_ms": float(np.percentile(t, 99)),
+           "step_ms": [float(v) for v in times]}
+    log(f"train step timing: {len(t)} steps of {m.batch} nodes, p50 "
+        f"{rep['step_p50_ms']:.3f} ms p99 {rep['step_p99_ms']:.3f} ms")
+    return rep
+
+
+def _vq_update_row(name, vw, cw) -> dict:
+    """vq_update against its plain version on one layer's rows."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.vq_update import vq_assign_update_cuda
+    got = vq_assign_update_cuda(vw, cw)
+    want = ref.vq_assign_update(vw, cw)
+    torch.cuda.synchronize()
+    nb, b, f = vw.shape
+    k = cw.shape[1]
+    if not torch.equal(got[0], want[0]):
+        raise SystemExit(f"{name}: assignment differs from the plain version "
+                         f"({int((got[0] != want[0]).sum())} rows)")
+    if not torch.equal(got[1], want[1]):
+        raise SystemExit(f"{name}: qerr not bit-equal to the plain version "
+                         f"(max abs err {float((got[1] - want[1]).abs().max())})")
+    if not torch.equal(got[2], want[2]):
+        raise SystemExit(f"{name}: counts differ from the plain version")
+    flat = (want[0].long() + k * torch.arange(nb, device=vw.device)[:, None]
+            ).reshape(-1)
+    abs_sum = torch.zeros((nb * k, f), device=vw.device).index_add_(
+        0, flat, vw.abs().reshape(-1, f)).reshape(nb, k, f)
+    err = check_scatter(f"{name} sums", got[3], want[3], abs_sum,
+                        want[2][..., None])
+    byt = 4 * nb * b * f + 4 * nb * k * f + 8 * nb * b + 4 * nb * k * (f + 1)
+    bms, by = bound(byt, 2 * nb * b * k * f)
+    ms, call_ms = cuda_ms(lambda: vq_assign_update_cuda(vw, cw), 5, inner=4)
+    row = dict(max_abs_err=err, ms=ms, call_ms=call_ms, bound_ms=bms,
+               bound_by=by,
+               plain_ms=cuda_ms(lambda: ref.vq_assign_update(vw, cw), 3,
+                                inner=1)[0],
+               hot_share=float(want[2].max()) / b,
+               at=f"x=[{nb}, {b}, {f}] cw=[{nb}, {k}, {f}]")
+    log(f"{name} {row['at']}: idx/qerr/counts equal, sums max_abs_err "
+        f"{err:.3g}  kernel {ms:.4f} ms (one call {call_ms:.4f} ms)  plain "
+        f"{row['plain_ms']:.4f} ms  bound {bms:.4f} ms ({by})  largest "
+        f"cluster {row['hot_share']:.4f} of the rows  library none")
+    return row
+
+
+def phase_train_kernels(m: Model, params, vq) -> tuple[list[dict], list]:
+    """vq_update, the w_t form of context_ell and spmm_ell_t against their
+    plain versions on one training batch of the trained model; vq_update
+    also on the untrained model's rows (early training: the atomic hot
+    spot of rows crowding few codewords)."""
+    import torch
+    from repro_torch.core import codebook as cbm
+    from repro_torch.core.conv import fixed_conv_operands
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.context_ell import context_ell_cuda
+    from repro_torch.kernels.spmm_ell import spmm_ell_t_cuda
+    from repro_torch.models.gnn import (init_gnn, init_vq_states,
+                                        vq_loss_and_grads)
+    cfg, dev = m.cfg, m.dev
+    cb = cfg.layer_codebook_cfg()
+    last = cfg.n_layers - 1
+    rng = np.random.default_rng(SEED + 5)
+    pack, x_b, y_b, lm = m.batch_inputs(rng.permutation(m.g.n)[:m.batch])
+    ops_, _ = fixed_conv_operands("gcn", pack, m.ops.degrees)
+    b, deg = ops_.in_pos.shape
+
+    # --- vq_update: each layer's whitened (X || G) rows ---
+    upd = []
+    init = (init_gnn(cfg, torch.Generator().manual_seed(SEED), device=dev),
+            init_vq_states(cfg, m.g.n, torch.Generator().manual_seed(
+                SEED + 1), device=dev))
+    for tag, (p, v) in (("trained", (params, vq)), ("untrained", init)):
+        _, _, acts, _, gprobes = vq_loss_and_grads(
+            p, v, pack, x_b, y_b, m.ops.degrees, cfg, lm)
+        for layer in (0, last):
+            st = v[layer].codebook
+            vw = cbm.whitened_rows(st, acts[layer], gprobes[layer], cb)[0]
+            row = _vq_update_row(f"vq_update layer {layer} {tag}", vw,
+                                 st.codewords_w.contiguous())
+            row["at"] += f" layer {layer} {tag}"
+            upd.append(row)
+    rows = [dict(name="vq_update", route="cuda",
+                 source="src/repro_torch/kernels/csrc/vq_update.cu",
+                 replaces="src/repro/kernels/vq_update.py:106",
+                 **{k: upd[0][k] for k in upd[0] if k != "max_abs_err"},
+                 max_abs_err=max(c["max_abs_err"] for c in upd),
+                 library_ms=None, also=upd[1:])]
+
+    # --- context_ell w_t: the Eq. 7 backward of layers 1..L-1 ---
+    wt = []
+    ids, vals = ops_.rev_ids.contiguous(), ops_.rev_vals.contiguous()
+    dr = ids.shape[1]
+    for layer in range(1, cfg.n_layers):
+        fi = cfg.layer_dims()[layer][0]
+        gcw = cbm.gradient_codewords(vq[layer].codebook, fi, cb)
+        w_t = params[layer]["w"].t().contiguous()
+        a = vq[layer].assignment
+        got = context_ell_cuda(ids, vals, a, gcw, w_t)
+        want = ref.context_ell(ids, vals, a, gcw, w_t)
+        err = check_close(f"context_ell w_t layer {layer}", got, want, TOL)
+        nb, k, gb = gcw.shape
+        f_out = w_t.shape[1]
+        uid = torch.unique(ids.long())
+        pairs = torch.unique(a[:, uid].long()
+                             + k * torch.arange(nb, device=dev)[:, None])
+        byt = 8 * b * dr + 4 * nb * uid.numel() + 4 * gb * pairs.numel() \
+            + 4 * nb * gb * f_out + 4 * b * f_out
+        bms, by = bound(byt, 2 * b * dr * nb * gb + 2 * b * nb * gb * f_out)
+        ms, call_ms = cuda_ms(lambda: context_ell_cuda(ids, vals, a, gcw,
+                                                       w_t), 5)
+        wt.append(dict(
+            form="w_t", max_abs_err=err, bound_ms=bms, bound_by=by, ms=ms,
+            call_ms=call_ms, library_ms=None,
+            plain_ms=cuda_ms(lambda: ref.context_ell(ids, vals, a, gcw, w_t),
+                             3, inner=2)[0],
+            at=f"b={b} Dr={dr} n={a.shape[1]} nb={nb} k={k} fb={gb} "
+               f"f_out={f_out} (layer {layer} backward)"))
+        c = wt[-1]
+        log(f"context_ell w_t {c['at']}: max_abs_err {err:.3g}  kernel "
+            f"{ms:.5f} ms (one call {call_ms:.5f} ms)  plain "
+            f"{c['plain_ms']:.5f} ms  bound {bms:.6f} ms ({by})  "
+            f"library none")
+
+    # --- spmm_ell_t: the intra-batch SpMM's backward ---
+    idx = torch.clamp(ops_.in_pos, min=0).contiguous()
+    val = ops_.in_vals.contiguous()
+    f = cfg.hidden
+    gr = torch.randn((b, f), generator=torch.Generator(device=dev)
+                     .manual_seed(SEED), device=dev)
+    got = spmm_ell_t_cuda(idx, val, gr, b)
+    want = ref.spmm_ell_t(idx, val, gr, b)
+    err = check_scatter("spmm_ell_t", got, want,
+                        ref.spmm_ell_t(idx, val.abs(), gr.abs(), b),
+                        ref.spmm_ell_t(idx, (val != 0).float(),
+                                       torch.ones_like(gr), b))
+    nz = val != 0
+    nnz = int(nz.sum())
+    byt = 8 * b * deg + 4 * b * f + 4 * b * f
+    bms, by = bound(byt, 2 * nnz * f)
+    rows_i = torch.arange(b, device=dev)[:, None].expand(b, deg)
+    coo_t = torch.sparse_coo_tensor(
+        torch.stack([idx.long()[nz], rows_i[nz]]), val[nz], (b, b),
+        check_invariants=True).coalesce()
+    lib = torch.sparse.mm(coo_t, gr)
+    check_close("spmm_ell_t library call", lib, want, SERVE_TOL)
+    ms, call_ms = cuda_ms(lambda: spmm_ell_t_cuda(idx, val, gr, b), 10)
+    row = dict(name="spmm_ell_t", route="cuda",
+               source="src/repro_torch/kernels/csrc/spmm_ell.cu",
+               replaces="src/repro/kernels/spmm_ell.py:56 (backward in x; "
+                        "JAX autodiff, no Pallas kernel)",
+               max_abs_err=err, ms=ms, call_ms=call_ms,
+               plain_ms=cuda_ms(lambda: ref.spmm_ell_t(idx, val, gr, b), 5,
+                                inner=2)[0],
+               bound_ms=bms, bound_by=by,
+               library_ms=cuda_ms(lambda: torch.sparse.mm(coo_t, gr), 10)[0],
+               at=f"b={b} D={deg} f={f} nnz={nnz} n_src={b}")
+    rows.append(row)
+    log(f"spmm_ell_t {row['at']}: max_abs_err {err:.3g}  kernel {ms:.5f} ms "
+        f"(one call {call_ms:.5f} ms)  plain {row['plain_ms']:.5f} ms  "
+        f"sparse.mm {row['library_ms']:.5f} ms  bound {bms:.6f} ms ({by})")
+    return rows, wt
+
+
+def _codeword_mismatch(a, b) -> "torch.Tensor":
+    """[nb, k] mask of codewords whose state differs between two layer
+    states beyond STEP_TOL."""
+    import torch
+    cb_a, cb_b = a.codebook, b.codebook
+    bad = torch.zeros(cb_a.cluster_size.shape, dtype=torch.bool)
+    for fa, fb in ((cb_a.codewords_w, cb_b.codewords_w),
+                   (cb_a.cluster_sum, cb_b.cluster_sum)):
+        bad |= ~torch.isclose(fa, fb, **STEP_TOL).all(-1)
+    for fa, fb in ((cb_a.cluster_size, cb_b.cluster_size),
+                   (a.counts, b.counts)):
+        bad |= ~torch.isclose(fa, fb, **STEP_TOL)
+    return bad
+
+
+def phase_train_parity(m: Model, params, vq, ost) -> dict:
+    """One training step at batch PARITY_BATCH on the card and on the CPU
+    plain path from the same (trained) state.  Loss, output, params,
+    optimizer state, VQ errors and whitening moments agree within
+    STEP_TOL; the refreshed assignments agree on >= 99.9 % of the batch's
+    entries and every mismatch is a near-tie; codeword statistics agree
+    except on codewords a flipped row touched or that were revived."""
+    import torch
+    from repro_torch.convert import to_device
+    from repro_torch.core import codebook as cbm
+    from repro_torch.models.gnn import vq_loss_and_grads, vq_train_step
+    from repro_torch.train.optimizer import rmsprop
+    from repro_torch.configs.vq_gnn_paper import PAPER_LR
+    opt = rmsprop(PAPER_LR)
+    bids = np.random.default_rng(SEED + 3).choice(
+        m.g.n, PARITY_BATCH, replace=False)
+    cpu = Model(m.g, m.cfg, PARITY_BATCH, "cpu")
+    state_c = to_device((params, vq, ost), "cpu")
+    res = {}
+    for tag, mm, (p, v, o) in (("cuda", m, (params, vq, ost)),
+                               ("cpu", cpu, state_c)):
+        pack, x_b, y_b, lm = mm.batch_inputs(bids)
+        t0 = time.time()
+        out = vq_train_step(p, v, o, pack, x_b, y_b, mm.ops.degrees, m.cfg,
+                            opt, loss_mask=lm)
+        out = to_device(out, "cpu")
+        res[tag] = (out, time.time() - t0)
+    (pg, vg, og, lg, yg, eg), t_gpu = res["cuda"]
+    (pc, vc, oc, lc, yc, ec), t_cpu = res["cpu"]
+    if not np.isfinite(float(lg)):
+        raise SystemExit("train parity: non-finite loss")
+    worst = 0.0
+    for name, a, b in [("loss", lg, lc), ("output", yg, yc),
+                       ("vq_errs", eg, ec)] + [
+            (f"param {l}.{k}", pg[l][k], pc[l][k])
+            for l in range(len(pg)) for k in pg[l]] + [
+            (f"rmsprop nu {l}.{k}", og.nu[l][k], oc.nu[l][k])
+            for l in range(len(pg)) for k in pg[l]]:
+        worst = max(worst, check_close(f"train parity {name}", a, b,
+                                       STEP_TOL))
+    cb = m.cfg.layer_codebook_cfg()
+    bids_t = torch.from_numpy(bids).long()
+    outside = ~torch.isin(torch.arange(m.g.n), bids_t)
+    vw_c = None
+    summary = []
+    for l, (a, b) in enumerate(zip(vg, vc)):
+        for name in ("mean", "var"):
+            check_close(f"train parity layer {l} {name}",
+                        getattr(a.codebook, name), getattr(b.codebook, name),
+                        STEP_TOL)
+        if int(a.codebook.step) != int(b.codebook.step):
+            raise SystemExit(f"train parity layer {l}: codebook step")
+        ag, ac = a.assignment[:, bids_t], b.assignment[:, bids_t]
+        flip = ag != ac
+        agree = 1.0 - float(flip.float().mean())
+        if not torch.equal(a.assignment[:, outside],
+                           b.assignment[:, outside]):
+            raise SystemExit(f"train parity layer {l}: assignments outside "
+                             f"the batch changed")
+        if bool(flip.any()):
+            if vw_c is None:     # the CPU step's own whitened rows
+                pack, x_b, y_b, lm = cpu.batch_inputs(bids)
+                _, _, acts, _, gpr = vq_loss_and_grads(
+                    state_c[0], state_c[1], pack, x_b, y_b,
+                    cpu.ops.degrees, m.cfg, lm)
+                vw_c = [cbm.whitened_rows(state_c[1][i].codebook, acts[i],
+                                          gpr[i], cb)[0]
+                        for i in range(len(acts))]
+            c = state_c[1][l].codebook.codewords_w.double()
+            x = vw_c[l].double()
+            beta = torch.arange(c.shape[0])[:, None]
+
+            def dist(idx):
+                cr = c[beta, idx.long()]
+                return (cr * cr).sum(-1) - 2 * (x * cr).sum(-1)
+            dg, dc = dist(ag), dist(ac)
+            far = flip & ((dg - dc).abs() > 1e-5 * (1 + dc.abs()))
+            if bool(far.any()):
+                raise SystemExit(f"train parity layer {l}: {int(far.sum())} "
+                                 f"assignment mismatches are not near-ties")
+        if agree < 0.999:
+            raise SystemExit(f"train parity layer {l}: assignment agreement "
+                             f"{agree:.6f} < 0.999")
+        k = a.codebook.k
+        touched = torch.zeros((ag.shape[0], k), dtype=torch.bool)
+        rows_b = torch.arange(ag.shape[0])[:, None].expand_as(ag)
+        touched[rows_b[flip], ag[flip].long()] = True
+        touched[rows_b[flip], ac[flip].long()] = True
+        revived = (a.codebook.cluster_size == 1.0) | \
+            (b.codebook.cluster_size == 1.0)
+        bad = _codeword_mismatch(a, b)
+        if bool((bad & ~(touched | revived)).any()):
+            raise SystemExit(f"train parity layer {l}: "
+                             f"{int((bad & ~(touched | revived)).sum())} "
+                             f"codewords differ that no flipped or revived "
+                             f"row explains")
+        if int(bad.sum()) > max(4, 0.001 * bad.numel()):
+            raise SystemExit(f"train parity layer {l}: {int(bad.sum())} "
+                             f"codewords differ")
+        summary.append(dict(layer=l, agreement=agree, flips=int(flip.sum()),
+                            codewords_differ=int(bad.sum()),
+                            revived=int(revived.sum())))
+        log(f"train parity layer {l}: assignment agreement {agree:.6f} "
+            f"({int(flip.sum())} near-tie flips), {int(bad.sum())} of "
+            f"{bad.numel()} codewords differ (flipped or revived rows), "
+            f"{int(revived.sum())} revived")
+    log(f"train parity: one step at batch {PARITY_BATCH}, card vs CPU plain "
+        f"path: loss {float(lg):.6f} vs {float(lc):.6f}, max abs err "
+        f"{worst:.3g} (rtol 1e-4, atol 1e-5); card {t_gpu:.3f} s, CPU "
+        f"{t_cpu:.3f} s")
+    return {"layers": summary, "max_abs_err": worst}
 
 
 def phase_kernels(server) -> list[dict]:
@@ -293,19 +748,24 @@ def phase_kernels(server) -> list[dict]:
     return rows
 
 
-def _counters():
-    from repro_torch.kernels import context_ell, spmm_ell, vq_assign
-    return {"vq_assign": vq_assign, "spmm_ell": spmm_ell,
-            "context_ell": context_ell}
+def _counters() -> dict:
+    """Kernel name -> (wrapper module, counter attribute)."""
+    from repro_torch.kernels import context_ell, spmm_ell, vq_assign, vq_update
+    return {"vq_assign": (vq_assign, "launches"),
+            "vq_update": (vq_update, "launches"),
+            "spmm_ell": (spmm_ell, "launches"),
+            "spmm_ell_t": (spmm_ell, "launches_t"),
+            "context_ell": (context_ell, "launches"),
+            "context_ell_wt": (context_ell, "launches_wt")}
 
 
 def reset_counts() -> None:
-    for m in _counters().values():
-        m.launches = 0
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: m.launches for k, m in _counters().items()}
+    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
 
 
 def expect_counts(what: str, got: dict, want: dict) -> None:
@@ -322,8 +782,9 @@ def phase_main_path(server, requests) -> tuple[dict, dict]:
     t_refresh = server.refresh()
     refresh_counts = read_counts()
     expect_counts("refresh", refresh_counts, {
-        "vq_assign": n_layers, "spmm_ell": n_layers * steps_per_layer,
-        "context_ell": n_layers * steps_per_layer})
+        "vq_assign": n_layers, "vq_update": 0,
+        "spmm_ell": n_layers * steps_per_layer, "spmm_ell_t": 0,
+        "context_ell": n_layers * steps_per_layer, "context_ell_wt": 0})
     log(f"refresh: {t_refresh:.3f} s for {server.g.n} nodes x {n_layers} "
         f"layers ({steps_per_layer} batches of {server.batch} per layer)")
     reset_counts()
@@ -332,8 +793,9 @@ def phase_main_path(server, requests) -> tuple[dict, dict]:
     serve_counts = read_counts()
     steps = rep["steps"] + 1                      # + the warm-up step
     expect_counts("serve", serve_counts, {
-        "vq_assign": 0, "spmm_ell": n_layers * steps,
-        "context_ell": n_layers * steps})
+        "vq_assign": 0, "vq_update": 0, "spmm_ell": n_layers * steps,
+        "spmm_ell_t": 0, "context_ell": n_layers * steps,
+        "context_ell_wt": 0})
     rep.update(refresh_s=t_refresh, warmup_s=t_warm)
     log(f"serve: {rep['nodes']} nodes / {rep['requests']} requests in "
         f"{rep['steps']} steps, {rep['wall_s']:.4f} s -> "
@@ -370,37 +832,62 @@ def phase_cpu_parity(server, requests) -> None:
         f"the CPU plain path, max abs err {worst:.3g} (rtol 1e-4, atol 1e-5)")
 
 
-def phase_profile(server, requests) -> None:
-    """Device busy share and kernel time by name over 20 serve steps (only
-    device-side events count: an aten op's row repeats its kernels')."""
+def _profile(what: str, steps: list, run) -> None:
+    """Device busy share and kernel time by name over ``run(s)`` for each
+    of ``steps`` (only device-side events count: an aten op's row repeats
+    its kernels')."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    flat = np.concatenate(requests)[:20 * server.batch]
-    steps = [flat[i:i + server.batch] for i in range(0, len(flat),
-                                                      server.batch)]
-    steps = [s for s in steps if len(s) == server.batch]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for s in steps:
-            server.step(s)
+            run(s)
+        torch.cuda.synchronize()
         wall = time.time() - t0
     evs = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
            and e.self_device_time_total > 0]
     if not evs:
-        raise SystemExit("profiler recorded no device time")
+        raise SystemExit(f"{what}: profiler recorded no device time")
     dev_us = sum(e.self_device_time_total for e in evs)
-    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
     log(json.dumps({"profile": {
-        "steps": len(steps), "wall_ms": wall * 1e3,
+        "what": what, "steps": len(steps), "wall_ms": wall * 1e3,
         "device_ms": dev_us / 1e3, "device_busy_share": dev_us / 1e3 /
         (wall * 1e3), "kernels_per_step": sum(e.count for e in evs) /
         len(steps), "top": [[e.key[:60], e.count,
                              e.self_device_time_total / 1e3]
                             for e in top]}}))
+
+
+def phase_profile(server, requests) -> None:
+    """The profile of 20 serve steps."""
+    flat = np.concatenate(requests)[:20 * server.batch]
+    steps = [flat[i:i + server.batch] for i in range(0, len(flat),
+                                                      server.batch)]
+    _profile("serve", [s for s in steps if len(s) == server.batch],
+             server.step)
+
+
+def phase_train_profile(m: Model, params, vq, ost) -> None:
+    """The profile of 2 training steps from the trained state (their
+    results are dropped)."""
+    from repro_torch.configs.vq_gnn_paper import PAPER_LR
+    from repro_torch.models.gnn import vq_train_step
+    from repro_torch.train.optimizer import rmsprop
+    opt = rmsprop(PAPER_LR)
+    rng = np.random.default_rng(SEED + 13)
+    batches = [rng.permutation(m.g.n)[:m.batch] for _ in range(2)]
+
+    def step(bids):
+        pack, x_b, y_b, lm = m.batch_inputs(bids)
+        vq_train_step(params, vq, ost, pack, x_b, y_b, m.ops.degrees, m.cfg,
+                      opt, loss_mask=lm)
+    step(batches[0])                      # warm: allocator, first launches
+    _profile("train", batches, step)
 
 
 def main() -> int:
@@ -409,36 +896,61 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    from repro_torch.configs.vq_gnn_paper import paper_config
+    from repro_torch.configs.vq_gnn_paper import (paper_batch_size,
+                                                  paper_config)
+    from repro_torch.graph.datasets import synthetic_arxiv
     from repro_torch.launch import serve_gnn
 
     phase_card()
     build_s = phase_build()
 
     t0 = time.time()
-    args = serve_gnn.parser().parse_args(
-        ["--n", str(N_NODES), "--batch", str(BATCH), "--hidden", "128",
-         "--layers", "3", "--k", "1024", "--requests", str(REQUESTS),
-         "--max-request", str(MAX_REQUEST), "--seed", str(SEED)])
-    server = serve_gnn.build_server(args)
-    if server.cfg != paper_config(server.g, full_scale=True):
-        raise SystemExit(f"served config {server.cfg} is not the paper's "
-                         f"full-scale config")
-    log(f"setup: {server.g.n} nodes, {server.g.m} edges, deg_cap "
-        f"{server.plan.nbr_ids.shape[1]}, config {server.cfg} "
+    g = synthetic_arxiv(n=N_NODES, seed=SEED)
+    cfg = paper_config(g, full_scale=True)
+    batch = paper_batch_size(g)
+    m = Model(g, cfg, batch, torch.device(DEVICE))
+    log(f"setup: {g.n} nodes, {g.m} edges, deg_cap "
+        f"{m.plan.nbr_ids.shape[1]}, config {cfg}, training batch {batch} "
         f"in {time.time() - t0:.2f} s")
 
-    kernels = phase_kernels(server)
-    requests = serve_gnn.make_requests(server.g.n, REQUESTS, MAX_REQUEST,
-                                       SEED)
-    rep, launches = phase_main_path(server, requests)
+    r, train_counts = phase_train(g, cfg, batch)
+    learn = phase_learning_check(g, cfg, batch)
+    params, vq, ost = r["params"], r["vq_states"], r["opt_state"]
+    timing = phase_step_timing(m, params, vq, ost)
+    phase_train_profile(m, params, vq, ost)
+    train_rows, wt_rows = phase_train_kernels(m, params, vq)
+    parity = phase_train_parity(m, params, vq, ost)
+
+    server = serve_gnn.GNNServer(g, cfg, params, vq, BATCH, device=DEVICE)
+    serve_rows = phase_kernels(server)
+    requests = serve_gnn.make_requests(g.n, REQUESTS, MAX_REQUEST, SEED)
+    rep, serve_counts = phase_main_path(server, requests)
+    launches = {k: train_counts[k] + serve_counts[k] for k in train_counts}
+    by_name = {row["name"]: row for row in serve_rows + train_rows}
+    by_name["context_ell"]["also"] += [
+        dict(c, launches=launches["context_ell_wt"]) for c in wt_rows]
+    kernels = [by_name[n] for n in ("vq_assign", "spmm_ell", "spmm_ell_t",
+                                    "context_ell", "vq_update")]
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["launches"] < 1:
             raise SystemExit(f"{row['name']} never launched on the main path")
+    if launches["context_ell_wt"] < 1:
+        raise SystemExit("context_ell's w_t form never launched on the main "
+                         "path")
     phase_cpu_parity(server, requests)
     phase_profile(server, requests)
 
+    log(json.dumps({"train": {
+        "steps": int(r["step_losses"].shape[0]), "batch": batch,
+        "wall_s": r["wall_s"], "epoch_s": r["epoch_s"],
+        "epoch_loss": r["epoch_loss"], "epoch_vq_err": r["epoch_vq_err"],
+        "step_loss": r["step_losses"].tolist(),
+        "no_inject_epoch_loss": learn["epoch_loss"],
+        "no_inject_final": learn["final"],
+        "final": r["final"], **{k: timing[k] for k in (
+            "step_p50_ms", "step_p99_ms", "step_ms")},
+        "parity": parity}}))
     log(json.dumps({"serve": {k: rep[k] for k in (
         "refresh_s", "warmup_s", "nodes", "requests", "steps", "wall_s",
         "nodes_per_s", "step_p50_ms", "step_p99_ms", "request_p50_ms",

@@ -1,14 +1,17 @@
-"""PyTorch + CUDA port of VQ-GNN's serving path (the H100 twin of ``repro``).
+"""PyTorch + CUDA port of VQ-GNN (the H100 twin of ``repro``).
 
 The package mirrors ``repro``'s module layout so each port module sits
 where its JAX counterpart does.  It imports ``torch`` and numpy only --
 never ``jax`` and never a module of ``repro`` (the host-side numpy modules
-are carried as copies).  The three TPU kernels of the serving path
-(``vq_assign``, ``spmm_ell``, ``context_ell``) are hand-written CUDA C++
-for ``sm_90a`` under ``kernels/csrc/``, built with ``nvcc`` on first use.
+are carried as copies).  The TPU kernels of the serving and training
+paths (``vq_assign``, ``vq_update``, ``spmm_ell`` and its backward
+``spmm_ell_t``, ``context_ell`` with its ``w_t`` epilogue) are
+hand-written CUDA C++ for ``sm_90a`` under ``kernels/csrc/``, built with
+``nvcc`` on first use.
 
-Slice coverage: forward/inference only, fp32 operands, int32 assignment
-tables, GCN/SAGE/GIN backbones.  Training, the quantized precision tiers,
-GAT/Transformer, meshes and sharded graph state raise a clear error that
-names the later slice (see ROADMAP.md).
+Slice coverage: serving and node-task training on one device (Alg. 1,
+the Alg. 2 codebook update, the Eq. 7 injection, RMSprop / Adam), fp32
+operands, int32 assignment tables, GCN/SAGE/GIN backbones.  The quantized
+precision tiers, GAT/Transformer, the link task and meshes raise a clear
+error that names the later slice (see ROADMAP.md).
 """

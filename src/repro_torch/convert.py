@@ -5,8 +5,10 @@
 ``vq_states_from_numpy`` takes per-layer states whose fields are those of
 ``CodebookState`` / ``LayerVQState`` (any objects with those attributes
 holding numpy-convertible arrays, so a reference state converts without
-this package importing its framework).  ``to_device`` moves the port's own
-params and states between devices.
+this package importing its framework).  ``opt_state_from_numpy`` takes
+an optimizer state with ``step``, ``mu`` and ``nu`` (moments in the
+params' layout).  ``to_device`` moves the port's own params, states and
+optimizer states between devices.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from repro_torch.core.codebook import CodebookState
 from repro_torch.core.conv import LayerVQState
 from repro_torch.runtime import PRECISION_SLICE, resolve_device
+from repro_torch.train.optimizer import OptState
 
 _CODEBOOK_FIELDS = CodebookState._fields
 
@@ -32,6 +35,18 @@ def params_from_numpy(params: Sequence[Mapping[str, np.ndarray]],
     dev = resolve_device(device)
     return [{name: _tensor(v, dev) for name, v in layer.items()}
             for layer in params]
+
+
+def opt_state_from_numpy(state: Any, device: str | torch.device = "cuda"
+                         ) -> OptState:
+    """An optimizer state from an object with ``step`` (scalar) and ``mu``
+    / ``nu`` (per-layer ``{name: array}`` moments, the params' layout)."""
+    dev = resolve_device(device)
+    return OptState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        mu=params_from_numpy(state.mu, dev),
+        nu=params_from_numpy(state.nu, dev))
 
 
 def vq_states_from_numpy(states: Sequence[Any],

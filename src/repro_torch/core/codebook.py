@@ -1,10 +1,13 @@
-"""VQ codebook state and its inference-time reads.
+"""VQ codebook state, its reads and the streaming EMA update (Alg. 2).
 
-Torch twin of the serving half of ``repro.core.codebook``: the state
-containers, the product-VQ branch layout, initialisation, the implicit
-whitening helpers, the (un-whitened) codeword reads and the feature-half
-assignment that the inductive refresh runs.  The streaming EMA update
-(``update``, Alg. 2) comes with the training slice.
+Torch twin of ``repro.core.codebook``: the state containers, the
+product-VQ branch layout, initialisation, the implicit whitening helpers,
+the (un-whitened) codeword reads, the feature-half assignment that the
+inductive refresh runs, and :func:`update` -- one streaming VQ update per
+layer and training step, with exactly ONE fused distance pass for all
+branches (``kops.vq_assign_update``, one kernel launch) whose assignment,
+per-row quantization error and per-codeword (counts, sums) feed the EMA,
+the dead-codeword revival and the relative-error monitor.
 
 A codebook quantizes the concatenation ``V = X^(l) || G^(l+1)`` of a node's
 layer input and its pre-activation gradient; codewords are stored in
@@ -18,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime import resolve_device
 
 
 class CodebookState(NamedTuple):
@@ -41,6 +45,20 @@ class CodebookState(NamedTuple):
     @property
     def f_blk(self) -> int:
         return self.codewords_w.shape[2]
+
+
+class UpdateStats(NamedTuple):
+    """Per-batch byproducts of :func:`update`, in whitened concat space
+    (the space assignments are made in), from the single fused pass."""
+
+    assignment: torch.Tensor   # [n_branches, b] int32  nearest codeword
+    qerr: torch.Tensor         # [n_branches, b]        ||v_w - c_assign||^2
+    vnorm2: torch.Tensor       # [n_branches, b]        ||v_w||^2
+
+    def relative_error(self) -> torch.Tensor:
+        """Whitened-space VQ relative error ||V - R V~|| / ||V|| of this
+        batch (the training loop's free convergence monitor)."""
+        return torch.sqrt(self.qerr.sum() / (self.vnorm2.sum() + 1e-12))
 
 
 class CodebookConfig(NamedTuple):
@@ -69,7 +87,10 @@ def branch_layout(f_feat: int, f_grad: int,
 
 def init_codebook(f_feat: int, f_grad: int, cfg: CodebookConfig, *,
                   generator: Optional[torch.Generator] = None,
-                  device: str | torch.device = "cpu") -> CodebookState:
+                  device: str | torch.device = "cuda") -> CodebookState:
+    """Random whitened codewords (drawn on the CPU from ``generator``, so
+    a seed gives the same codebook on every device)."""
+    device = resolve_device(device)
     n_branches, fb, gb = branch_layout(f_feat, f_grad, cfg.f_prod)
     f_blk = fb + gb
     cw = 0.02 * torch.randn((n_branches, cfg.k, f_blk), generator=generator,
@@ -148,3 +169,70 @@ def assign_features_only(state: CodebookState, feats: torch.Tensor,
         v = _whiten(v, state.mean[:, :fb], state.var[:, :fb], cfg.eps)
     return kops.vq_assign(v.transpose(0, 1),
                           state.codewords_w[:, :, :fb].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# VQ-Update (Algorithm 2)
+# ---------------------------------------------------------------------------
+
+def whitened_rows(state: CodebookState, feats: torch.Tensor,
+                  grads: torch.Tensor, cfg: CodebookConfig
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Alg. 2 lines 2-4 for one batch: the concat rows ``V = X || G`` split
+    into branches, the EMA whitening moments moved by the batch moments,
+    and the rows whitened with them.  Returns (vw [nb, b, f_blk]
+    contiguous, new_mean, new_var); without whitening the rows and moments
+    pass through."""
+    n = state.n_branches
+    v = torch.cat([_split_branches(feats.float(), n),
+                   _split_branches(grads.float(), n)], dim=-1)
+    if not cfg.whiten:
+        return v, state.mean, state.var
+    batch_mean = v.mean(dim=1)                         # [nb, f_blk]
+    batch_var = v.var(dim=1, correction=0)             # population, as jnp
+    new_mean = state.mean * cfg.beta + batch_mean * (1.0 - cfg.beta)
+    new_var = state.var * cfg.beta + batch_var * (1.0 - cfg.beta)
+    vw = _whiten(v, new_mean[:, None, :], new_var[:, None, :], cfg.eps)
+    return vw, new_mean, new_var
+
+
+def update(state: CodebookState, feats: torch.Tensor, grads: torch.Tensor,
+           cfg: CodebookConfig) -> tuple[CodebookState, UpdateStats]:
+    """One streaming VQ update with a mini-batch of (features || gradients):
+    feats [b, f_feat], grads [b, f_grad] -> (new state, UpdateStats).
+
+    Whitening, then ONE ``kops.vq_assign_update`` launch for all branches
+    (assignment, qerr, counts, sums), the cluster EMA, the ``alive`` mask
+    (dead codewords keep their position) and dead-codeword revival:
+    codewords whose EMA size fell under ``revive_threshold`` are parked on
+    the batch rows with the largest quantization error, ranked by
+    ``torch.topk(sorted=True)`` of the kernel's qerr.  Returns a new state;
+    the old one is left untouched, as in the reference."""
+    vw, new_mean, new_var = whitened_rows(state, feats, grads, cfg)
+    assignment, qerr, counts, sums = kops.vq_assign_update(
+        vw, state.codewords_w.contiguous())
+    new_size = state.cluster_size * cfg.gamma + counts * (1.0 - cfg.gamma)
+    new_sum = state.cluster_sum * cfg.gamma + sums * (1.0 - cfg.gamma)
+    new_cw = new_sum / torch.clamp(new_size, min=cfg.eps)[..., None]
+    alive = (new_size > 1e-3)[..., None]
+    new_cw = torch.where(alive, new_cw, state.codewords_w)
+
+    if cfg.revive_threshold > 0:
+        nb, b, f_blk = vw.shape
+        n_rev = min(state.k, b)
+        _, worst = torch.topk(qerr, n_rev, dim=-1, sorted=True)  # [nb, n_rev]
+        worst_rows = torch.gather(vw, 1, worst[..., None].expand(
+            nb, n_rev, f_blk))
+        dead = new_size < cfg.revive_threshold                 # [nb, k]
+        # rank dead codewords so each picks a distinct worst row
+        rank = torch.clamp(torch.cumsum(dead.int(), dim=1) - 1, 0, n_rev - 1)
+        repl = torch.gather(worst_rows, 1, rank[..., None].expand(
+            nb, state.k, f_blk))
+        new_cw = torch.where(dead[..., None], repl, new_cw)
+        new_size = torch.where(dead, torch.ones_like(new_size), new_size)
+        new_sum = torch.where(dead[..., None], repl, new_sum)
+
+    stats = UpdateStats(assignment=assignment, qerr=qerr,
+                        vnorm2=(vw * vw).sum(-1))
+    return CodebookState(new_cw, new_size, new_sum, new_mean, new_var,
+                         state.step + 1), stats

@@ -15,7 +15,7 @@ import torch
 from repro_torch.core import codebook as cbm
 from repro_torch.core.codebook import CodebookConfig, CodebookState
 from repro_torch.core.message_passing import ConvOperands
-from repro_torch.runtime import PRECISION_SLICE
+from repro_torch.runtime import PRECISION_SLICE, resolve_device
 
 
 class MinibatchPack(NamedTuple):
@@ -102,7 +102,8 @@ def layer_codewords(vq: LayerVQState, f_feat: int, cfg: CodebookConfig
 def init_layer_vq_state(n_nodes: int, f_feat: int, f_grad: int,
                         cfg: CodebookConfig, *,
                         generator: Optional[torch.Generator] = None,
-                        device: str | torch.device = "cpu") -> LayerVQState:
+                        device: str | torch.device = "cuda") -> LayerVQState:
+    device = resolve_device(device)
     cb = cbm.init_codebook(f_feat, f_grad, cfg, generator=generator,
                            device=device)
     assignment = torch.randint(0, cfg.k, (cb.n_branches, n_nodes),

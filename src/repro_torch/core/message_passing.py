@@ -1,17 +1,22 @@
-"""Approximated forward message passing (paper Eq. 6).
+"""Approximated forward and backward message passing (paper Eq. 6 / 7).
 
-Torch twin of the forward half of ``repro.core.message_passing``.  A
-mini-batch's messages split into
+Torch twin of the fixed-convolution half of ``repro.core.message_passing``.
+A mini-batch's messages split into
 
-  * intra-batch messages  C_in X_B  -- exact, the ``spmm_ell`` kernel;
+  * intra-batch messages  C_in X_B  -- exact, the ``spmm_ell`` kernel
+    (its backward is the transposed ``spmm_ell_t`` kernel);
   * out-of-batch messages C~_out X~ -- from codewords, reconstruction form:
     neighbor j's features are rebuilt as concat_beta X~^beta[R^beta[j]]
     inside ONE ``context_ell`` launch for any branch count.
 
-The Eq. 7 backward injection (``inject_context_grad``, a
-``torch.autograd.Function`` streaming the gradient codewords through the
-same context kernel with a ``w_t`` epilogue) comes with the training
-slice; ``approx_message_passing(inject=True)`` raises until then.
+Back-propagation uses the transposed approximated weights: the gradient
+codewords G~ stand in for the messages that flow back from out-of-batch
+nodes (Eq. 7).  Autograd cannot produce that rule (the codebook is
+streaming EMA state), so :class:`InjectContextGrad` is a
+``torch.autograd.Function``: identity on ``x_b`` in the forward pass, and
+in the backward pass ONE ``context_ell`` launch with the fused ``@ W^T``
+epilogue over the reverse edges.  Its residuals are lazy -- the edge
+operands and the codebook, never a reconstructed [b, Dr, f_grad] tensor.
 """
 from __future__ import annotations
 
@@ -20,7 +25,47 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.runtime import TRAINING_SLICE
+
+
+class InjectContextGrad(torch.autograd.Function):
+    """Eq. 7's out-of-batch gradient messages as a custom backward.
+
+    Forward: ``x_b`` unchanged; only ``(rev_vals, rev_ids, grad_codewords,
+    assignment, w)`` are saved.  Backward: adds
+
+        grad_X_B += (sum_d rev_vals[:, d] * G~[c(rev_ids[:, d])]) @ W^T
+
+    where ``rev_vals[i, d] = C_{j_d, i}`` weighs the reverse (batch ->
+    out-of-batch) edge and ``G~[c(j)]`` is node j's branch-concatenated
+    gradient codeword -- the ``D_out G~ W^T`` term, one ``context_ell``
+    launch with the ``w_t = W^T`` epilogue fused in.  ``w=None`` skips the
+    W^T factor.  The saved operands get no gradient (the reference's
+    custom_vjp returns zeros for them)."""
+
+    @staticmethod
+    def forward(ctx, x_b, rev_vals, rev_ids, grad_codewords, assignment, w):
+        ctx.save_for_backward(rev_vals, rev_ids, grad_codewords, assignment,
+                              w)
+        return x_b.view_as(x_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        rev_vals, rev_ids, grad_codewords, assignment, w = ctx.saved_tensors
+        w_t = None if w is None else w.float().t().contiguous()
+        phantom = kops.context_ell(rev_ids, rev_vals, assignment,
+                                   grad_codewords, w_t)
+        return g + phantom.to(g.dtype), None, None, None, None, None
+
+
+def inject_context_grad(x_b: torch.Tensor, rev_vals: torch.Tensor,
+                        rev_ids: torch.Tensor, grad_codewords: torch.Tensor,
+                        assignment: torch.Tensor,
+                        w: Optional[torch.Tensor]) -> torch.Tensor:
+    """Identity on ``x_b`` with the Eq. 7 backward attached.  The codewords
+    and ``w`` enter detached: the injection must add no gradient to them."""
+    return InjectContextGrad.apply(
+        x_b, rev_vals, rev_ids, grad_codewords.detach(), assignment,
+        None if w is None else w.detach())
 
 
 def context_messages_reconstruct(out_vals: torch.Tensor,
@@ -64,14 +109,12 @@ def approx_message_passing(ops_: ConvOperands, x_b: torch.Tensor,
                            assignment: torch.Tensor,
                            w: Optional[torch.Tensor],
                            inject: bool = True) -> torch.Tensor:
-    """Eq. 6 forward: M = C_in X_B + C~_out X~, shape [b, f].
-
-    ``grad_codewords`` and ``w`` only feed the Eq. 7 backward injection,
-    which this slice does not carry: ``inject=True`` raises."""
+    """Eq. 6 forward: M = C_in X_B + C~_out X~, shape [b, f], with the Eq. 7
+    backward injection attached when ``inject`` (``grad_codewords`` and
+    ``w`` feed only that injection)."""
     if inject:
-        raise NotImplementedError(
-            f"the Eq. 7 backward injection (inject=True) comes with "
-            f"{TRAINING_SLICE}; serving and inference pass inject=False")
+        x_b = inject_context_grad(x_b, ops_.rev_vals, ops_.rev_ids,
+                                  grad_codewords, assignment, w)
     m = intra_messages(ops_.in_pos, ops_.in_vals, x_b.contiguous())
     return m + context_messages_reconstruct(
         ops_.out_vals, ops_.out_ids, feat_codewords, assignment)

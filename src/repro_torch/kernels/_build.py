@@ -35,6 +35,12 @@ SIGNATURES = {
     "repro_spmm_ell_f32": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
     "repro_context_ell_f32": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
                               _int, _int, _int, _vp],
+    "repro_context_ell_wt_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
+                                 _int, _int, _int, _int, _int, _vp],
+    "repro_spmm_ell_t_f32": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
+                             _vp],
+    "repro_vq_update_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+                            _int, _vp],
 }
 
 _lib: ctypes.CDLL | None = None

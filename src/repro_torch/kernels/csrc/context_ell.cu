@@ -25,6 +25,25 @@
 // own (the plain version's order, bit for bit); padding slots (val == 0)
 // are multiplied, not skipped; out-of-range ids are clamped as a JAX
 // gather would.  D == 0 never reaches the kernel: the wrapper returns zeros.
+//
+// Second entry point, repro_context_ell_wt_f32: the same accumulate
+// followed by the epilogue  out[i, :] = acc[i, :] @ w_t  (w_t [nb*fb,
+// f_out]) -- the _context_ell_wt_kernel form of context_ell_pallas, called
+// by the Eq. 7 backward injection (core/message_passing.py:
+// inject_context_grad) with reverse-edge operands, the gradient codewords
+// and w_t = W^T.  The Pallas kernel does the @ W^T on its MXU inside the
+// kernel body, so the epilogue belongs here too, not in a matmul after it.
+// What bounds it: at the training shape (b = 42,335 rows, Dr = 18 reverse
+// slots, nb*fb = 128 or 40 columns, f_out = 128) the epilogue is 2*b*128*
+// 128 = 1.4 GFLOP (0.02 ms at 67 TFLOP/s) and the [b, f_out] output 21.7
+// MB (0.0065 ms at 3.35 TB/s): both small, so latency and the L2 reads of
+// w_t bound it.  Design: one block per kWtRows = 8 output rows; the block
+// accumulates the rows' [8, nb*fb] context into shared memory exactly as
+// the forward kernel does (same order, padding multiplied, ids clamped),
+// then thread o computes out[r, o] for all 8 rows, summing over the
+// columns c in order with each multiply and add rounded on its own (the
+// plain version's loop, bit for bit) -- every w_t element read from L2
+// serves 8 rows.
 #include <cuda_runtime.h>
 
 namespace {
@@ -55,6 +74,58 @@ context_ell_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
   }
 }
 
+constexpr int kWtRows = 8;   // output rows per block of the w_t form
+
+__global__ void __launch_bounds__(kMaxThreads)
+context_ell_wt_kernel(const int* __restrict__ ids,
+                      const float* __restrict__ vals,
+                      const int* __restrict__ assign,
+                      const float* __restrict__ cw,
+                      const float* __restrict__ w_t, float* __restrict__ out,
+                      int b, int deg, int n, int nb, int k, int f_blk,
+                      int f_out) {
+  extern __shared__ float acc_s[];               // [kWtRows, nb * f_blk]
+  const int ncol = nb * f_blk;
+  const long long row0 = (long long)blockIdx.x * kWtRows;
+  const int rows = b - row0 < kWtRows ? (int)(b - row0) : kWtRows;
+  for (int t = threadIdx.x; t < kWtRows * ncol; t += blockDim.x) {
+    const int r = t / ncol;
+    const int c = t - r * ncol;
+    if (r >= rows) {          // rows past the end of the last block
+      acc_s[t] = 0.f;
+      continue;
+    }
+    const int br = c / f_blk;
+    const int j = c - br * f_blk;
+    const int* ir = ids + (row0 + r) * deg;
+    const float* vr = vals + (row0 + r) * deg;
+    const int* ab = assign + (size_t)br * n;
+    const float* cb = cw + (size_t)br * k * f_blk;
+    float acc = 0.f;
+    for (int d = 0; d < deg; ++d) {
+      const int id = min(max(ir[d], 0), n - 1);
+      const int a = min(max(ab[id], 0), k - 1);
+      acc = __fadd_rn(acc, __fmul_rn(vr[d], cb[(size_t)a * f_blk + j]));
+    }
+    acc_s[r * ncol + c] = acc;
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < f_out; o += blockDim.x) {
+    float y[kWtRows];
+#pragma unroll
+    for (int r = 0; r < kWtRows; ++r) y[r] = 0.f;
+    for (int c = 0; c < ncol; ++c) {
+      const float w = w_t[(size_t)c * f_out + o];
+#pragma unroll
+      for (int r = 0; r < kWtRows; ++r)
+        y[r] = __fadd_rn(y[r], __fmul_rn(acc_s[r * ncol + c], w));
+    }
+#pragma unroll
+    for (int r = 0; r < kWtRows; ++r)
+      if (r < rows) out[(row0 + r) * f_out + o] = y[r];
+  }
+}
+
 }  // namespace
 
 // ids/vals: [b, deg] contiguous int32/fp32 (deg >= 1); assign: [nb, n]
@@ -71,5 +142,24 @@ extern "C" cudaError_t repro_context_ell_f32(const int* ids, const float* vals,
   if (threads > kMaxThreads) threads = kMaxThreads;
   context_ell_kernel<<<(unsigned)b, threads, 0, stream>>>(
       ids, vals, assign, cw, out, deg, n, nb, k, f_blk);
+  return cudaGetLastError();
+}
+
+// As repro_context_ell_f32, then the epilogue with w_t: [nb*f_blk, f_out]
+// contiguous fp32; out: [b, f_out] contiguous fp32.
+extern "C" cudaError_t repro_context_ell_wt_f32(
+    const int* ids, const float* vals, const int* assign, const float* cw,
+    const float* w_t, float* out, int b, int deg, int n, int nb, int k,
+    int f_blk, int f_out, cudaStream_t stream) {
+  if (b < 1 || deg < 1 || n < 1 || nb < 1 || k < 1 || f_blk < 1 || f_out < 1)
+    return cudaErrorInvalidValue;
+  const size_t smem = (size_t)kWtRows * nb * f_blk * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      context_ell_wt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)((b + kWtRows - 1) / kWtRows);
+  context_ell_wt_kernel<<<blocks, kMaxThreads, smem, stream>>>(
+      ids, vals, assign, cw, w_t, out, b, deg, n, nb, k, f_blk, f_out);
   return cudaGetLastError();
 }

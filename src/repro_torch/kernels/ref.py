@@ -1,16 +1,20 @@
-"""Plain PyTorch versions of the serving path's kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Twins of ``repro.kernels.ref`` (``vq_assign``, ``spmm_ell``,
-``context_ell``): the numerical ground truth each CUDA kernel is held
-against, and the CPU execution path of ``ops.py``.  On a CUDA card nothing
-on the main path calls them; ``chip_smoke.py`` runs them there only to
-compare with the kernels.
+Twins of ``repro.kernels.ref`` (``vq_assign``, ``vq_assign_update``,
+``spmm_ell``, ``context_ell`` with its optional ``w_t`` epilogue) plus
+``spmm_ell_t``, the transposed SpMM that is ``spmm_ell``'s backward in
+``x`` (the reference gets it from JAX autodiff): the numerical ground
+truth each CUDA kernel is held against, and the CPU execution path of
+``ops.py``.  On a CUDA card nothing on the main path calls them;
+``chip_smoke.py`` runs them there only to compare with the kernels.
 
 Each sums in the kernel's order -- over the D neighbor slots, or over the
 f feature dims, one separately rounded multiply and add at a time, as the
 Pallas kernels' loops do -- so a CUDA kernel that keeps that order (and
 rounds each step, ``__fmul_rn``/``__fadd_rn``) agrees with its plain
-version bit for bit.
+version bit for bit.  The exceptions are the scatter-adds (the
+``vq_assign_update`` cluster sums and ``spmm_ell_t``): their kernels add
+with atomics in no fixed order, so they agree to a stated tolerance.
 """
 from __future__ import annotations
 
@@ -21,19 +25,20 @@ import torch
 _ASSIGN_BLOCK_ELEMS = 1 << 26
 
 
-def vq_assign(x: torch.Tensor, codewords: torch.Tensor) -> torch.Tensor:
-    """Nearest codeword by squared L2, every branch at once.
+def _sq_norms(v: torch.Tensor) -> torch.Tensor:
+    """sum_j v[..., j]^2 over the last dim, in j order: [..., f] -> [...]."""
+    acc = torch.zeros(v.shape[:-1], dtype=torch.float32, device=v.device)
+    for j in range(v.shape[-1]):
+        acc = acc + v[..., j] * v[..., j]
+    return acc
 
-    x: [nb, b, f] (any strides), codewords: [nb, k, f] -> [nb, b] int32.
-    The distance is ``|c|^2 - 2 x.c`` (``|x|^2`` is constant per row); ties
-    keep the lowest index, as ``jnp.argmin`` does."""
+
+def _min_dist_blocks(x: torch.Tensor, c32: torch.Tensor):
+    """Yield (row slice, argmin [nb, r], min distance [nb, r]) over row
+    blocks of ``|c|^2 - 2 x.c``, the dot summed over j in order."""
     nb, b, f = x.shape
-    k = codewords.shape[1]
-    c32 = codewords.float()
-    cn2 = torch.zeros((nb, 1, k), dtype=torch.float32, device=x.device)
-    for j in range(f):
-        cn2 = cn2 + (c32[:, :, j] * c32[:, :, j])[:, None, :]
-    out = torch.empty((nb, b), dtype=torch.int32, device=x.device)
+    k = c32.shape[1]
+    cn2 = _sq_norms(c32)[:, None, :]                           # [nb, 1, k]
     rows = max(1, _ASSIGN_BLOCK_ELEMS // max(1, nb * k))
     for s in range(0, b, rows):
         xs = x[:, s:s + rows].float()                          # [nb, r, f]
@@ -42,8 +47,53 @@ def vq_assign(x: torch.Tensor, codewords: torch.Tensor) -> torch.Tensor:
         for j in range(f):
             dot = dot + xs[:, :, j, None] * c32[:, None, :, j]
         dist = cn2 - 2.0 * dot
-        out[:, s:s + rows] = torch.argmin(dist, dim=2).to(torch.int32)
+        arg = torch.argmin(dist, dim=2)          # first index on ties
+        yield slice(s, s + rows), arg, dist.gather(2, arg[..., None])[..., 0]
+
+
+def vq_assign(x: torch.Tensor, codewords: torch.Tensor) -> torch.Tensor:
+    """Nearest codeword by squared L2, every branch at once.
+
+    x: [nb, b, f] (any strides), codewords: [nb, k, f] -> [nb, b] int32.
+    The distance is ``|c|^2 - 2 x.c`` (``|x|^2`` is constant per row); ties
+    keep the lowest index, as ``jnp.argmin`` does."""
+    nb, b, _ = x.shape
+    out = torch.empty((nb, b), dtype=torch.int32, device=x.device)
+    for rows, arg, _ in _min_dist_blocks(x, codewords.float()):
+        out[:, rows] = arg.to(torch.int32)
     return out
+
+
+def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """Fused assign + cluster statistics, every branch at once (the
+    reference vmaps its one-branch oracle over the branches).
+
+    x: [nb, b, f], codewords: [nb, k, f] -> (assignment [nb, b] int32,
+    qerr [nb, b], counts [nb, k], sums [nb, k, f]).  The assignment is
+    :func:`vq_assign`'s, from the same distances in the same order;
+    ``qerr = max(min_dist + |x|^2, 0)`` completes the winning
+    ``|c|^2 - 2 x.c`` to the squared error as the reference does (not a
+    direct ``|x - c|^2``, which rounds differently); counts and sums are
+    scatter-adds keyed by the assignment, no [b, k] one-hot."""
+    nb, b, f = x.shape
+    k = codewords.shape[1]
+    dev = x.device
+    idx = torch.empty((nb, b), dtype=torch.int32, device=dev)
+    mind = torch.empty((nb, b), dtype=torch.float32, device=dev)
+    for rows, arg, m in _min_dist_blocks(x, codewords.float()):
+        idx[:, rows] = arg.to(torch.int32)
+        mind[:, rows] = m
+    x32 = x.float()
+    qerr = torch.clamp(mind + _sq_norms(x32), min=0.0)
+    flat = (idx.long() + k * torch.arange(nb, device=dev)[:, None]
+            ).reshape(-1)
+    counts = torch.zeros(nb * k, dtype=torch.float32, device=dev).index_add_(
+        0, flat, torch.ones(nb * b, dtype=torch.float32, device=dev))
+    sums = torch.zeros((nb * k, f), dtype=torch.float32, device=dev
+                       ).index_add_(0, flat, x32.reshape(nb * b, f))
+    return idx, qerr, counts.reshape(nb, k), sums.reshape(nb, k, f)
 
 
 def spmm_ell(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
@@ -64,15 +114,35 @@ def spmm_ell(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
     return acc
 
 
+def spmm_ell_t(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
+               g: torch.Tensor, n_src: int) -> torch.Tensor:
+    """Transposed ELLPACK SpMM, the backward of :func:`spmm_ell` in x:
+    grad_x[idx[i, d]] += val[i, d] * g[i], over d in order.
+
+    nbr_idx/nbr_val: [b, D]; g: [b, f] -> [n_src, f]."""
+    idx = nbr_idx.long()
+    val = nbr_val.float()
+    g32 = g.float()
+    out = torch.zeros((n_src, g.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    for d in range(nbr_idx.shape[1]):
+        out.index_add_(0, idx[:, d], val[:, d, None] * g32)
+    return out
+
+
 def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,
-                assignment: torch.Tensor,
-                codewords: torch.Tensor) -> torch.Tensor:
-    """Multi-branch VQ-context SpMM (the Eq. 6 out-of-batch term).
+                assignment: torch.Tensor, codewords: torch.Tensor,
+                w_t: torch.Tensor | None = None) -> torch.Tensor:
+    """Multi-branch VQ-context SpMM (the Eq. 6 out-of-batch term; with
+    reverse-edge operands, gradient codewords and ``w_t`` the Eq. 7
+    backward).
 
     out_ids/out_vals: [b, D] (padding entries carry val == 0)
     assignment: [nb, n] int codeword id of every node per branch
     codewords:  [nb, k, f_blk]
+    w_t:        optional [nb * f_blk, f_out] epilogue matrix
     out[i] = sum_d val[i, d] * concat_beta cw[beta, assignment[beta, ids[i, d]]]
+    (then ``@ w_t``, summed over the nb * f_blk columns in order)
     """
     nb, _, f_blk = codewords.shape
     b, deg = out_ids.shape
@@ -86,4 +156,12 @@ def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,
     for d in range(deg):
         rows = cw[beta, a[:, ids[:, d]].t()]                  # [b, nb, fb]
         acc = acc + vals[:, d, None, None] * rows
-    return acc.reshape(b, nb * f_blk)
+    acc = acc.reshape(b, nb * f_blk)
+    if w_t is None:
+        return acc
+    wt = w_t.float()
+    out = torch.zeros((b, wt.shape[1]), dtype=torch.float32,
+                      device=out_vals.device)
+    for c in range(nb * f_blk):
+        out = out + acc[:, c, None] * wt[c]
+    return out

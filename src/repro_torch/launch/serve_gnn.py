@@ -15,9 +15,13 @@ large ones span several), and the report gives nodes/s plus p50/p99 step
 and request latency.  Each step's latency includes the ``.cpu()`` copy of
 its output, which synchronises with the card.
 
+``--train-epochs N`` first trains the model with ``train_vq`` (batch
+``--batch``, N epochs) and serves the trained weights; without it the
+weights are random from ``--seed``.
+
 Not in this slice (each raises, naming the slice that brings it):
-``--train-epochs > 0``, ``--precision`` other than fp32, ``--mesh`` /
-``--shard-graph``, and the ``gat`` / ``transformer`` backbones.
+``--precision`` other than fp32, ``--mesh`` / ``--shard-graph``, and the
+``gat`` / ``transformer`` backbones.
 """
 from __future__ import annotations
 
@@ -37,8 +41,8 @@ from repro_torch.graph.structure import Graph
 from repro_torch.models.gnn import (GNNConfig, _layer_out_dims, init_gnn,
                                     init_vq_states, vq_infer_epoch,
                                     vq_serve_batch)
-from repro_torch.runtime import (MESH_SLICE, PRECISION_SLICE, TRAINING_SLICE,
-                                 resolve_device)
+from repro_torch.runtime import MESH_SLICE, PRECISION_SLICE, resolve_device
+from repro_torch.train.gnn_trainer import train_vq
 
 PRECISIONS = ("fp32", "int8", "fp8", "int8+a4", "fp8+a4")
 
@@ -196,7 +200,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--k", type=int, default=256)
     ap.add_argument("--train-epochs", type=int, default=0,
-                    help="warm training before serving (not in this slice)")
+                    help="train the model with train_vq for N epochs "
+                    "(batch --batch) before serving")
     ap.add_argument("--mesh", type=int, default=0,
                     help="data mesh over N devices (not in this slice)")
     ap.add_argument("--shard-graph", action="store_true",
@@ -212,9 +217,6 @@ def parser() -> argparse.ArgumentParser:
 
 
 def _reject_unported(args: argparse.Namespace) -> None:
-    if args.train_epochs > 0:
-        raise NotImplementedError(
-            f"--train-epochs comes with {TRAINING_SLICE}")
     if args.precision != "fp32":
         raise NotImplementedError(
             f"--precision {args.precision} comes with {PRECISION_SLICE}")
@@ -224,7 +226,8 @@ def _reject_unported(args: argparse.Namespace) -> None:
 
 
 def build_server(args: argparse.Namespace) -> GNNServer:
-    """Graph, config, random weights from ``--seed`` and the server."""
+    """Graph, config, weights (random from ``--seed``, or trained for
+    ``--train-epochs``) and the server."""
     _reject_unported(args)
     dev = resolve_device(args.device)
     from repro_torch.graph.datasets import synthetic_arxiv
@@ -232,9 +235,15 @@ def build_server(args: argparse.Namespace) -> GNNServer:
     cfg = GNNConfig(backbone=args.backbone, f_in=g.f, hidden=args.hidden,
                     n_out=g.num_classes, n_layers=args.layers,
                     codebook=CodebookConfig(k=args.k, f_prod=4))
-    gen = torch.Generator().manual_seed(args.seed)
-    params = init_gnn(cfg, gen, device=dev)
-    vq = init_vq_states(cfg, g.n, gen, device=dev)
+    if args.train_epochs > 0:
+        r = train_vq(g, cfg, epochs=args.train_epochs,
+                     batch_size=args.batch, eval_every=args.train_epochs,
+                     device=dev)
+        params, vq = r["params"], r["vq_states"]
+    else:
+        gen = torch.Generator().manual_seed(args.seed)
+        params = init_gnn(cfg, gen, device=dev)
+        vq = init_vq_states(cfg, g.n, gen, device=dev)
     return GNNServer(g, cfg, params, vq, args.batch, device=dev)
 
 

@@ -1,13 +1,19 @@
-"""Full GNN model: assembly, probe-free VQ forward, mini-batched inference
+"""Full GNN model: assembly, losses, train steps, VQ mini-batch inference
 and the serving step.
 
-Torch twin of the inference half of ``repro.models.gnn``: ``GNNConfig``,
-``init_gnn``, ``init_vq_states``, ``vq_forward`` (probe-free),
-``vq_infer_layer`` / ``vq_infer_epoch`` (layer-locked inference over the
-static wrap-padded batches, optionally refreshing every node's feature-half
-assignment first -- the inductive path) and ``vq_serve_batch`` (one
-request micro-batch through every layer).  JAX's ``lax.scan`` over the
-batches is a Python loop here; PyTorch runs eagerly.
+Torch twin of the node-task, single-device half of ``repro.models.gnn``:
+``GNNConfig``, ``init_gnn``, ``init_vq_states``, ``probe_shapes``,
+``vq_forward`` (with or without probe taps), the node losses and metric,
+the VQ train step of Alg. 1 (``_vq_step_body`` behind ``vq_train_step``
+and ``vq_train_epoch``: forward with probes, one ``torch.autograd.grad``
+for the params and the probes -- the probe gradients are G^(l+1) -- the
+optimizer, then per layer ``codebook.update`` and ``refresh_assignment``),
+``vq_eval_batch``, the full-graph oracle (``full_forward``,
+``full_train_step``, ``full_predict``), and inference: ``vq_infer_layer``
+/ ``vq_infer_epoch`` (layer-locked, optionally inductive) and
+``vq_serve_batch``.  JAX's ``lax.scan`` over the batches is a Python loop
+here; PyTorch runs eagerly.  Params are lists of ``{name: tensor}`` dicts
+and every step returns new ones, as the reference's pure functions do.
 """
 from __future__ import annotations
 
@@ -19,9 +25,11 @@ from repro_torch.core import codebook as cbm
 from repro_torch.core.codebook import CodebookConfig
 from repro_torch.core.conv import (LayerVQState, MinibatchPack,
                                    init_layer_vq_state, refresh_assignment)
-from repro_torch.graph.batching import EpochPlan, plan_batch
+from repro_torch.graph.batching import (EpochPlan, FullGraphOperands,
+                                        plan_batch)
 from repro_torch.nn.gnn_layers import Params, backbone
-from repro_torch.runtime import TRAINING_SLICE, resolve_device
+from repro_torch.runtime import LINK_SLICE, resolve_device
+from repro_torch.train.optimizer import OptState, Optimizer
 
 
 class GNNConfig(NamedTuple):
@@ -81,9 +89,27 @@ def init_vq_states(cfg: GNNConfig, n_nodes: int,
             for fi, fo in _layer_out_dims(cfg)]
 
 
+def probe_shapes(cfg: GNNConfig, b: int) -> list[tuple[int, ...]]:
+    bk = backbone(cfg.backbone)
+    return [bk.probe_shape(b, fi, fo, heads=cfg.heads)
+            for fi, fo in _layer_out_dims(cfg)]
+
+
 def _act_for_layer(cfg: GNNConfig, l: int):
     last = l == cfg.n_layers - 1
     return (lambda z: z) if last else torch.relu
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def full_forward(params: list[Params], x: torch.Tensor,
+                 ops_: FullGraphOperands, cfg: GNNConfig) -> torch.Tensor:
+    bk = backbone(cfg.backbone)
+    for l, p in enumerate(params):
+        x = bk.full_apply(p, x, ops_, _act_for_layer(cfg, l))
+    return x
 
 
 def vq_forward(params: list[Params], x_b: torch.Tensor,
@@ -93,11 +119,10 @@ def vq_forward(params: list[Params], x_b: torch.Tensor,
                inject: Optional[bool] = None
                ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """All-layer approximated forward of one mini-batch.  Returns (output,
-    per-layer input activations).  Forward only in this slice: ``probes``
-    must be None and ``inject`` resolve to False."""
-    if probes is not None:
-        raise NotImplementedError(
-            f"probe taps come with {TRAINING_SLICE}; pass probes=None")
+    per-layer input activations) -- the activations pair with the probe
+    gradients for the codebook update (Alg. 1 line 15).  ``inject``
+    overrides ``cfg.grad_inject`` (the Eq. 7 backward injection);
+    ``probes=None`` skips the probe taps (the gradient-free paths)."""
     bk = backbone(cfg.backbone)
     cb_cfg = cfg.layer_codebook_cfg()
     inject = cfg.grad_inject if inject is None else inject
@@ -106,9 +131,204 @@ def vq_forward(params: list[Params], x_b: torch.Tensor,
     for l, (p, vq, (fi, fo)) in enumerate(
             zip(params, vq_states, _layer_out_dims(cfg))):
         acts.append(x)
-        x = bk.vq_apply(p, x, None, pack, vq, degrees, cb_cfg,
-                        _act_for_layer(cfg, l), fi, fo, inject=inject)
+        x = bk.vq_apply(p, x, None if probes is None else probes[l], pack,
+                        vq, degrees, cb_cfg, _act_for_layer(cfg, l), fi, fo,
+                        inject=inject)
     return x, acts
+
+
+# ---------------------------------------------------------------------------
+# losses / metrics
+# ---------------------------------------------------------------------------
+
+def node_loss_terms(logits: torch.Tensor, labels: torch.Tensor,
+                    multilabel: bool, mask: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(numerator, denominator) of the masked-mean CE/BCE."""
+    if multilabel:
+        per = torch.mean(torch.clamp(logits, min=0) - logits * labels
+                         + torch.log1p(torch.exp(-torch.abs(logits))),
+                         dim=-1)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        per = -logp.gather(1, labels.long()[:, None])[:, 0]
+    return torch.sum(per * mask), torch.sum(mask)
+
+
+def node_loss(logits: torch.Tensor, labels: torch.Tensor, multilabel: bool,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE/BCE over (optionally masked) rows: batches traverse ALL
+    nodes (so every assignment stays fresh) but only labeled nodes
+    contribute to the loss."""
+    if mask is None:
+        mask = torch.ones(logits.shape[0], dtype=logits.dtype,
+                          device=logits.device)
+    num, den = node_loss_terms(logits, labels, multilabel, mask)
+    return num / torch.clamp(den, min=1.0)
+
+
+def node_metric(logits: torch.Tensor, labels: torch.Tensor,
+                multilabel: bool) -> torch.Tensor:
+    """Accuracy, or micro-F1 at threshold 0 for multilabel tasks."""
+    if multilabel:
+        pred = (logits > 0).float()
+        tp = torch.sum(pred * labels)
+        return 2 * tp / torch.clamp(pred.sum() + labels.sum(), min=1.0)
+    return (torch.argmax(logits, -1) == labels).float().mean()
+
+
+# ---------------------------------------------------------------------------
+# train steps
+# ---------------------------------------------------------------------------
+
+def _grad_leaves(params: list[Params]) -> list[Params]:
+    """Fresh leaves of the params that autograd differentiates."""
+    return [{k: v.detach().requires_grad_(True) for k, v in p.items()}
+            for p in params]
+
+
+def _grads(loss: torch.Tensor, params: list[Params],
+           extra: list[torch.Tensor]
+           ) -> tuple[list[Params], list[torch.Tensor]]:
+    """d loss / d (params, extra); an unused leaf gets zeros."""
+    flat = [v for p in params for v in p.values()]
+    got = torch.autograd.grad(loss, flat + extra, allow_unused=True)
+    got = [torch.zeros_like(t) if g is None else g
+           for t, g in zip(flat + extra, got)]
+    it = iter(got[:len(flat)])
+    return [{k: next(it) for k in p} for p in params], got[len(flat):]
+
+
+def _node_task(cfg: GNNConfig) -> None:
+    if cfg.task != "node":
+        raise NotImplementedError(f"the {cfg.task!r} task comes with "
+                                  f"{LINK_SLICE}")
+
+
+def vq_loss_and_grads(params: list[Params], vq_states: list[LayerVQState],
+                      pack: MinibatchPack, x_b: torch.Tensor,
+                      labels_b: torch.Tensor, degrees: torch.Tensor,
+                      cfg: GNNConfig,
+                      loss_mask: Optional[torch.Tensor] = None):
+    """The differentiation half of an Alg. 1 step (node task): forward with
+    zero probes at every layer's pre-activation, then one
+    ``torch.autograd.grad`` of the masked-mean loss for the params AND the
+    probes -- the probe gradients are G^(l+1) = d loss / d Z^(l+1).
+    Returns (loss, output, per-layer input activations, param grads,
+    probe grads), all detached."""
+    _node_task(cfg)
+    dev = x_b.device
+    lmask = loss_mask if loss_mask is not None \
+        else torch.ones(pack.b, dtype=torch.float32, device=dev)
+    den = torch.clamp(lmask.sum(), min=1.0)
+    leaves = _grad_leaves(params)
+    probes = [torch.zeros(s, dtype=torch.float32, device=dev,
+                          requires_grad=True)
+              for s in probe_shapes(cfg, pack.b)]
+    with torch.enable_grad():
+        out, acts = vq_forward(leaves, x_b, probes, pack, vq_states,
+                               degrees, cfg)
+        num, _ = node_loss_terms(out, labels_b, cfg.multilabel, lmask)
+        loss = num / den
+        gparams, gprobes = _grads(loss, leaves, probes)
+    return (loss.detach(), out.detach(), [a.detach() for a in acts],
+            gparams, gprobes)
+
+
+def _vq_step_body(params: list[Params], vq_states: list[LayerVQState],
+                  opt_state: OptState, pack: MinibatchPack,
+                  x_b: torch.Tensor, labels_b: torch.Tensor,
+                  degrees: torch.Tensor, cfg: GNNConfig, opt: Optimizer,
+                  loss_mask: Optional[torch.Tensor] = None):
+    """One Alg. 1 step (node task): the one implementation behind
+    ``vq_train_step`` and ``vq_train_epoch``.
+
+    ``vq_loss_and_grads``, the optimizer step, then under ``no_grad`` each
+    layer's codebook update from (X^(l) || G^(l+1)) and the refresh of the
+    batch's assignments (Alg. 1 lines 15-16).  Returns (params,
+    vq_states, opt_state, loss, output, vq_errs [L])."""
+    loss, out, acts, gparams, gprobes = vq_loss_and_grads(
+        params, vq_states, pack, x_b, labels_b, degrees, cfg, loss_mask)
+    with torch.no_grad():
+        new_params, new_opt = opt.update(gparams, opt_state, params)
+        cb_cfg = cfg.layer_codebook_cfg()
+        new_states, vq_errs = [], []
+        for l, vq in enumerate(vq_states):
+            feats = acts[l].float()
+            grads = gprobes[l].reshape(pack.b, -1).float()
+            # gradients enter the codebook unscaled: Alg. 2's whitening
+            # normalizes every concat dim
+            new_cb, stats = cbm.update(vq.codebook, feats, grads, cb_cfg)
+            vq_errs.append(stats.relative_error())
+            new_states.append(refresh_assignment(
+                LayerVQState(new_cb, vq.assignment, vq.counts, vq.qcw),
+                pack.batch_ids, stats.assignment))
+    return new_params, new_states, new_opt, loss, out, torch.stack(vq_errs)
+
+
+# the reference jits this entry point around the shared body; eager
+# PyTorch needs no wrapper
+vq_train_step = _vq_step_body
+
+
+def vq_train_epoch(params, vq_states, opt_state, plan: EpochPlan,
+                   perm: torch.Tensor, slot_mask: torch.Tensor,
+                   x: torch.Tensor, labels: torch.Tensor,
+                   train_mask: torch.Tensor, degrees: torch.Tensor,
+                   cfg: GNNConfig, opt: Optimizer):
+    """One epoch of Alg. 1 on the device: the step body over the S stacked
+    batches (a Python loop where the reference scans), each batch's pack
+    derived from the pack-once plan on device (``plan_batch``).
+
+    perm [S, b] node ids per batch (``epoch_slices``), slot_mask [S, b] (0
+    on wrap-padded tail slots, which are loss-masked), x / labels /
+    train_mask full [n, ...] device tables.  Returns (params, vq_states,
+    opt_state, losses [S], vq_errs [S, L])."""
+    losses, errs = [], []
+    for s in range(perm.shape[0]):
+        bids, smask = perm[s], slot_mask[s]
+        ids64 = bids.long()
+        pack = plan_batch(plan, bids, smask)
+        params, vq_states, opt_state, loss, _, e = _vq_step_body(
+            params, vq_states, opt_state, pack, x[ids64], labels[ids64],
+            degrees, cfg, opt, loss_mask=train_mask[ids64] * smask)
+        losses.append(loss)
+        errs.append(e)
+    dev = x.device
+    return (params, vq_states, opt_state,
+            torch.stack(losses) if losses
+            else torch.zeros(0, device=dev),
+            torch.stack(errs) if errs
+            else torch.zeros((0, cfg.n_layers), device=dev))
+
+
+@torch.no_grad()
+def vq_eval_batch(params, vq_states, pack: MinibatchPack, x_b, degrees,
+                  cfg: GNNConfig) -> torch.Tensor:
+    out, _ = vq_forward(params, x_b, None, pack, vq_states, degrees, cfg,
+                        inject=False)
+    return out
+
+
+def full_train_step(params, opt_state, x, ops_: FullGraphOperands, labels,
+                    loss_mask, cfg: GNNConfig, opt: Optimizer):
+    """One exact-message-passing step over the whole graph (the oracle);
+    loss_mask [n] weighs the nodes.  Returns (params, opt_state, loss)."""
+    _node_task(cfg)
+    leaves = _grad_leaves(params)
+    with torch.enable_grad():
+        out = full_forward(leaves, x, ops_, cfg)
+        loss = node_loss(out, labels, cfg.multilabel, loss_mask)
+        grads, _ = _grads(loss, leaves, [])
+    with torch.no_grad():
+        new_params, new_opt = opt.update(grads, opt_state, params)
+    return new_params, new_opt, loss.detach()
+
+
+@torch.no_grad()
+def full_predict(params, x, ops_: FullGraphOperands,
+                 cfg: GNNConfig) -> torch.Tensor:
+    return full_forward(params, x, ops_, cfg)
 
 
 # ---------------------------------------------------------------------------

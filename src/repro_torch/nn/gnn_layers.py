@@ -6,8 +6,10 @@ parameter dict (weights in the reference's ``[f_in, f_out]`` layout):
 
   * ``full_apply`` -- exact message passing over the whole graph;
   * ``vq_apply``   -- the paper's approximated message passing on a
-    mini-batch (Eq. 6 forward).  This slice is forward only: ``probe`` must
-    be None and ``inject`` False (the training slice brings both).
+    mini-batch (Eq. 6 forward, Eq. 7 backward through the injection when
+    ``inject``), with the probe-trick gradient tap: ``z + probe`` at the
+    pre-activation, whose gradient is G^(l+1) for the codebook update.
+    ``probe=None`` skips the tap (inference, serving, evaluation).
 
 All three route their messages through the same two kernels
 (``spmm_ell`` and ``context_ell``); the dense ``m @ w + b`` stays a plain
@@ -26,7 +28,7 @@ from repro_torch.core.conv import (LayerVQState, MinibatchPack,
 from repro_torch.core.message_passing import approx_message_passing
 from repro_torch.graph.batching import FullGraphOperands
 from repro_torch.kernels import ops as kops
-from repro_torch.runtime import BACKBONE_SLICE, TRAINING_SLICE
+from repro_torch.runtime import BACKBONE_SLICE, resolve_device
 
 Params = dict[str, torch.Tensor]
 
@@ -37,11 +39,8 @@ def _dense(f_in: int, f_out: int, generator: Optional[torch.Generator],
     return (w / math.sqrt(f_in)).to(device)
 
 
-def _no_probe(probe) -> None:
-    if probe is not None:
-        raise NotImplementedError(
-            f"probe taps (codebook gradient extraction) come with "
-            f"{TRAINING_SLICE}; pass probe=None")
+def _tap(z: torch.Tensor, probe: Optional[torch.Tensor]) -> torch.Tensor:
+    return z if probe is None else z + probe
 
 
 def _gcn_edge_vals(ops_: FullGraphOperands
@@ -56,14 +55,19 @@ class GCN:
     name = "gcn"
 
     @staticmethod
-    def init(f_in: int, f_out: int, *, generator=None, device="cpu",
+    def init(f_in: int, f_out: int, *, generator=None, device="cuda",
              **_) -> Params:
+        device = resolve_device(device)
         return {"w": _dense(f_in, f_out, generator, device),
                 "b": torch.zeros(f_out, device=device)}
 
     @staticmethod
     def f_grad(f_in: int, f_out: int, **_) -> int:
         return f_out          # gradient codewords live at the Z level
+
+    @staticmethod
+    def probe_shape(b: int, f_in: int, f_out: int, **_) -> tuple[int, ...]:
+        return (b, f_out)
 
     @staticmethod
     def full_apply(p: Params, x, ops_: FullGraphOperands, act):
@@ -75,13 +79,12 @@ class GCN:
     def vq_apply(p: Params, x_b, probe, pack: MinibatchPack,
                  vq: LayerVQState, degrees, cfg: CodebookConfig, act,
                  f_in: int, f_out: int, inject: bool = True):
-        _no_probe(probe)
         ops_, self_vals = fixed_conv_operands('gcn', pack, degrees)
         fcw, gcw = layer_codewords(vq, f_in, cfg)
         m = approx_message_passing(ops_, x_b, fcw, gcw, vq.assignment,
                                    p["w"], inject)
         m = m + self_vals[:, None] * x_b
-        return act(m @ p["w"] + p["b"])
+        return act(_tap(m @ p["w"] + p["b"], probe))
 
 
 class SAGE:
@@ -89,8 +92,9 @@ class SAGE:
     name = "sage"
 
     @staticmethod
-    def init(f_in: int, f_out: int, *, generator=None, device="cpu",
+    def init(f_in: int, f_out: int, *, generator=None, device="cuda",
              **_) -> Params:
+        device = resolve_device(device)
         return {"w1": _dense(f_in, f_out, generator, device),
                 "w2": _dense(f_in, f_out, generator, device),
                 "b": torch.zeros(f_out, device=device)}
@@ -98,6 +102,10 @@ class SAGE:
     @staticmethod
     def f_grad(f_in: int, f_out: int, **_) -> int:
         return f_out
+
+    @staticmethod
+    def probe_shape(b: int, f_in: int, f_out: int, **_) -> tuple[int, ...]:
+        return (b, f_out)
 
     @staticmethod
     def full_apply(p: Params, x, ops_: FullGraphOperands, act):
@@ -108,12 +116,12 @@ class SAGE:
     @staticmethod
     def vq_apply(p: Params, x_b, probe, pack, vq, degrees, cfg, act,
                  f_in: int, f_out: int, inject: bool = True):
-        _no_probe(probe)
         ops_, _ = fixed_conv_operands('mean', pack, degrees)
         fcw, gcw = layer_codewords(vq, f_in, cfg)
         m2 = approx_message_passing(ops_, x_b, fcw, gcw, vq.assignment,
                                     p["w2"], inject)
-        return act(x_b @ p["w1"] + m2 @ p["w2"] + p["b"])
+        # the identity convolution is always intra-batch: exact autograd
+        return act(_tap(x_b @ p["w1"] + m2 @ p["w2"] + p["b"], probe))
 
 
 class GIN:
@@ -121,8 +129,9 @@ class GIN:
     name = "gin"
 
     @staticmethod
-    def init(f_in: int, f_out: int, *, generator=None, device="cpu",
+    def init(f_in: int, f_out: int, *, generator=None, device="cuda",
              **_) -> Params:
+        device = resolve_device(device)
         return {"w1": _dense(f_in, f_out, generator, device),
                 "b1": torch.zeros(f_out, device=device),
                 "w2": _dense(f_out, f_out, generator, device),
@@ -134,6 +143,10 @@ class GIN:
         return f_out
 
     @staticmethod
+    def probe_shape(b: int, f_in: int, f_out: int, **_) -> tuple[int, ...]:
+        return (b, f_out)
+
+    @staticmethod
     def full_apply(p: Params, x, ops_: FullGraphOperands, act):
         s = kops.spmm_ell(ops_.nbr_ids, ops_.nbr_mask, x)
         m = (1.0 + p["eps"]) * x + s
@@ -143,13 +156,12 @@ class GIN:
     @staticmethod
     def vq_apply(p: Params, x_b, probe, pack, vq, degrees, cfg, act,
                  f_in: int, f_out: int, inject: bool = True):
-        _no_probe(probe)
         ops_, _ = fixed_conv_operands('adj', pack, degrees)
         fcw, gcw = layer_codewords(vq, f_in, cfg)
         s = approx_message_passing(ops_, x_b, fcw, gcw, vq.assignment,
                                    p["w1"], inject)
         m = (1.0 + p["eps"]) * x_b + s
-        h = torch.relu(m @ p["w1"] + p["b1"])
+        h = torch.relu(_tap(m @ p["w1"] + p["b1"], probe))
         return act(h @ p["w2"] + p["b2"])
 
 

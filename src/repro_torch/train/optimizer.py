@@ -1,0 +1,161 @@
+"""Optimizers as pure functions over parameter trees (no torch.optim).
+
+Torch twin of ``repro.train.optimizer``: Adam and RMSprop (paper App. F:
+RMSprop for VQ-GNN, whose EMA-smoothed gradient statistics interact badly
+with Adam's cumulative moments; Adam for the baselines), gradient clipping
+by global norm, weight decay, and learning-rate schedules.  Written out
+rather than wrapping ``torch.optim`` because the reference differs from
+it: its Adam folds the bias correction into the step size and adds ``eps``
+to the uncorrected ``sqrt(v)``, and both optimizers decay only the
+``ndim >= 2`` params.
+
+A tree is a tensor, or a list / tuple / dict of trees (the port's params
+are a list of ``{name: tensor}`` dicts).  ``update`` returns new params
+and a new :class:`OptState`; nothing is updated in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+Tree = Any
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor   # [] int32 update counter
+    mu: Tree             # first moment (Adam) / unused zeros (RMSprop)
+    nu: Tree             # second moment
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Tree], OptState]
+    update: Callable[[Tree, OptState, Tree], tuple[Tree, OptState]]
+
+
+def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """Apply ``fn`` leaf by leaf over trees of the same structure."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    raise TypeError(f"tree_map: unsupported node {type(tree)}")
+
+
+def tree_leaves(tree: Tree) -> list[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    vals = tree.values() if isinstance(tree, dict) else tree
+    return [leaf for v in vals for leaf in tree_leaves(v)]
+
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(tree: Tree, max_norm: float) -> Tree:
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda x: x * scale, tree)
+
+
+def constant_lr(base_lr: float) -> Callable[[torch.Tensor], torch.Tensor]:
+    return lambda step: torch.full((), base_lr, dtype=torch.float32,
+                                   device=step.device)
+
+
+def warmup_cosine(base_lr: float, warmup: int, total: int,
+                  min_frac: float = 0.1
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
+    def sched(step: torch.Tensor) -> torch.Tensor:
+        step = step.float()
+        warm = step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0,
+                           1.0)
+        cos = min_frac + (1 - min_frac) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return base_lr * torch.where(step < warmup, warm, cos)
+    return sched
+
+
+def _step_of(params: Tree) -> torch.Tensor:
+    leaves = tree_leaves(params)
+    dev = leaves[0].device if leaves else torch.device("cpu")
+    return torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def _zeros_f32(params: Tree) -> Tree:
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                          device=x.device), params)
+
+
+def adam(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, weight_decay: float = 0.0,
+         clip_norm: Optional[float] = None) -> Optimizer:
+    """The reference's Adam: ``lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t)``,
+    ``p -= lr_t * m / (sqrt(v) + eps)`` (+ ``lr * wd * p`` on ndim >= 2)."""
+    sched = lr if callable(lr) else constant_lr(lr)
+
+    def init(params):
+        return OptState(_step_of(params), _zeros_f32(params),
+                        _zeros_f32(params))
+
+    def update(grads, state, params):
+        if clip_norm is not None:
+            grads = clip_by_global_norm(grads, clip_norm)
+        step = state.step + 1
+        t = step.float()
+        lr_s = sched(step)
+        lr_t = lr_s * torch.sqrt(1 - torch.pow(b2, t)) / (1 - torch.pow(b1, t))
+        new_m = tree_map(lambda g, m: b1 * m + (1 - b1) * g.float(),
+                         grads, state.mu)
+        new_v = tree_map(lambda g, v: b2 * v + (1 - b2) * g.float()
+                         * g.float(), grads, state.nu)
+
+        def upd(p, m, v):
+            delta = lr_t * m / (torch.sqrt(v) + eps)
+            if weight_decay and p.dim() >= 2:
+                delta = delta + lr_s * weight_decay * p.float()
+            return (p.float() - delta).to(p.dtype)
+        return (tree_map(upd, params, new_m, new_v),
+                OptState(step, new_m, new_v))
+
+    return Optimizer(init, update)
+
+
+def rmsprop(lr: float | Callable = 3e-3, alpha: float = 0.99,
+            eps: float = 1e-8, weight_decay: float = 0.0,
+            clip_norm: Optional[float] = None) -> Optimizer:
+    """RMSprop(alpha=0.99), the paper's optimizer for VQ-GNN (App. F):
+    ``p -= lr * g / (sqrt(v) + eps)`` (+ ``lr * wd * p`` on ndim >= 2)."""
+    sched = lr if callable(lr) else constant_lr(lr)
+
+    def init(params):
+        return OptState(_step_of(params), _zeros_f32(params),
+                        _zeros_f32(params))
+
+    def update(grads, state, params):
+        if clip_norm is not None:
+            grads = clip_by_global_norm(grads, clip_norm)
+        step = state.step + 1
+        lr_t = sched(step)
+        new_v = tree_map(lambda g, v: alpha * v + (1 - alpha) * g.float()
+                         * g.float(), grads, state.nu)
+
+        def upd(g, v, p):
+            delta = lr_t * g.float() / (torch.sqrt(v) + eps)
+            if weight_decay and p.dim() >= 2:
+                delta = delta + lr_t * weight_decay * p.float()
+            return (p.float() - delta).to(p.dtype)
+        return (tree_map(upd, grads, new_v, params),
+                OptState(step, state.mu, new_v))
+
+    return Optimizer(init, update)
+
+
+OPTIMIZERS = {"adam": adam, "rmsprop": rmsprop}

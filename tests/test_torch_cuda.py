@@ -8,7 +8,11 @@ installed:
 
 The kernels keep their plain versions' summation order, so values agree
 well inside ``rtol=1e-5, atol=1e-6``; assignments are equal except at
-near-ties of ``1e-5 * (1 + |d|)``.
+near-ties of ``1e-5 * (1 + |d|)``.  The scatter-adds (``vq_update``'s
+cluster sums, ``spmm_ell_t``) use atomics in no fixed order: a sum of
+``c`` terms may move by ``c * 2^-24 * sum |term|``, which
+:func:`assert_scatter_close` allows.  One ``vq_train_step`` on the card
+is held against the same step on the CPU at ``rtol=1e-4, atol=1e-5``.
 """
 import numpy as np
 import pytest
@@ -17,11 +21,14 @@ from numpy.testing import assert_allclose
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import context_ell as tce           # noqa: E402
+from repro_torch.kernels import ops                          # noqa: E402
 from repro_torch.kernels import ref as tref                  # noqa: E402
 from repro_torch.kernels import spmm_ell as tsp              # noqa: E402
 from repro_torch.kernels import vq_assign as tva             # noqa: E402
+from repro_torch.kernels import vq_update as tvu             # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
+STEP = dict(rtol=1e-4, atol=1e-5)
 
 
 @pytest.fixture
@@ -47,6 +54,18 @@ def assert_assign_equal_but_near_ties(got, want, x, cw):
     near = np.abs(d_got - d_want) <= 1e-5 * (1 + np.abs(d_want))
     assert np.all(near[diff]), f"{diff.sum()} non-tie mismatches"
     return diff.mean()
+
+
+def assert_scatter_close(got, want, terms_abs, terms):
+    """A scatter-add's result against its plain version: each element may
+    move by ``terms * 2^-24 * sum |term|`` (any order of fp32 adds),
+    plus 1e-30 for exact zeros."""
+    got, want = np.asarray(got), np.asarray(want)
+    tol = np.maximum(np.asarray(terms), 1) * 2.0 ** -24 \
+        * np.asarray(terms_abs) + 1e-30
+    bad = np.abs(got - want) > tol
+    assert not bad.any(), (f"{bad.sum()} elements off by up to "
+                           f"{np.abs(got - want).max()}")
 
 
 # ---------------------------------------------------------------------------
@@ -113,3 +132,194 @@ def test_kernel_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         tva.vq_assign_cuda(torch.zeros((1, 4, 32), device=cuda),
                            torch.zeros((1, 4096, 32), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the training slice's kernels
+# ---------------------------------------------------------------------------
+
+def _vq_update_case(cuda, nb, n, k, f, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((nb, n, f), generator=g)
+    cw = torch.randn((nb, k, f), generator=g)
+    before = tvu.launches
+    got = tvu.vq_assign_update_cuda(x.to(cuda), cw.to(cuda))
+    torch.cuda.synchronize()
+    assert tvu.launches == before + 1
+    got = [t.cpu() for t in got]
+    want = tref.vq_assign_update(x, cw)
+    assert [t.dtype for t in got] == [t.dtype for t in want]
+    assert [t.shape for t in got] == [t.shape for t in want]
+    rate = assert_assign_equal_but_near_ties(got[0], want[0], x.numpy(),
+                                             cw.numpy())
+    assert rate <= 1e-3
+    same = (got[0] == want[0]).numpy()
+    # same order, each step rounded: qerr bit-equal where idx agrees
+    assert np.array_equal(got[1].numpy()[same], want[1].numpy()[same])
+    if same.all():
+        assert torch.equal(got[2], want[2])               # counts exact
+        flat = (want[0].long() + k * torch.arange(nb)[:, None]).reshape(-1)
+        terms_abs = torch.zeros((nb * k, f)).index_add_(
+            0, flat, x.abs().reshape(-1, f)).reshape(nb, k, f)
+        assert_scatter_close(got[3], want[3], terms_abs,
+                             want[2][..., None].numpy())
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,n,k,f", [(32, 5000, 1024, 8), (8, 3000, 1024, 21),
+                                      (3, 130, 33, 12), (2, 700, 64, 5),
+                                      (1, 1, 1, 1), (4, 1, 16, 21)])
+def test_vq_update_kernel_vs_plain(cuda, nb, n, k, f):
+    """Both training widths (8 and the odd 21), a generic width, b = 1."""
+    _vq_update_case(cuda, nb, n, k, f, seed=n + k + f)
+
+
+@pytest.mark.gpu
+def test_vq_update_dynamic_shared_memory(cuda):
+    """k = 2048 codewords of width 21 take 180 KiB of shared memory per
+    block (the opt-in above 48 KiB); too large a table is refused."""
+    _vq_update_case(cuda, 2, 1000, 2048, 21, seed=5)
+    with pytest.raises(ValueError, match="shared memory"):
+        tvu.vq_assign_update_cuda(torch.zeros((1, 4, 32), device=cuda),
+                                  torch.zeros((1, 4096, 32), device=cuda))
+
+
+@pytest.mark.gpu
+def test_vq_update_hot_spot(cuda):
+    """Every row on one codeword (the early-training hot spot): counts
+    exact, sums within the scatter tolerance."""
+    x = torch.rand((4, 20000, 8)) + 3.0
+    cw = torch.zeros((4, 64, 8))
+    cw[:, 7] = 3.5
+    got = [t.cpu() for t in tvu.vq_assign_update_cuda(x.to(cuda),
+                                                      cw.to(cuda))]
+    assert (got[0] == 7).all()
+    assert (got[2][:, 7] == 20000).all() and got[2].sum() == 4 * 20000
+    want = tref.vq_assign_update(x, cw)
+    assert_scatter_close(got[3], want[3], want[3].abs(),
+                         want[2][..., None].numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,deg,n_src,f", [(256, 18, 256, 128),
+                                           (33, 7, 50, 12), (1, 1, 1, 1),
+                                           (300, 0, 20, 8)])
+def test_spmm_ell_t_kernel_vs_plain(cuda, b, deg, n_src, f):
+    g = torch.Generator().manual_seed(b + deg + f)
+    idx = torch.randint(0, n_src, (b, deg), generator=g, dtype=torch.int32)
+    val = torch.randn((b, deg), generator=g)
+    pad = torch.rand((b, deg), generator=g) < 0.5      # val 0 at row 0
+    idx[pad], val[pad] = 0, 0.0
+    gr = torch.randn((b, f), generator=g)
+    before = tsp.launches_t
+    got = tsp.spmm_ell_t_cuda(idx.to(cuda), val.to(cuda), gr.to(cuda), n_src)
+    torch.cuda.synchronize()
+    assert tsp.launches_t == before + (deg > 0)
+    want = tref.spmm_ell_t(idx, val, gr, n_src)
+    terms = tref.spmm_ell_t(idx, (val != 0).float(), torch.ones_like(gr),
+                            n_src)
+    assert_scatter_close(got.cpu(), want,
+                         tref.spmm_ell_t(idx, val.abs(), gr.abs(), n_src),
+                         terms)
+
+
+@pytest.mark.gpu
+def test_spmm_ell_autograd_backward_is_the_kernel(cuda):
+    g = torch.Generator().manual_seed(3)
+    idx = torch.randint(0, 40, (64, 6), generator=g, dtype=torch.int32)
+    val = torch.randn((64, 6), generator=g)
+    x = torch.randn((40, 16), generator=g)
+    w = torch.randn((64, 16), generator=g)
+    xc = x.to(cuda).requires_grad_(True)
+    before = tsp.launches_t
+    (ops.spmm_ell(idx.to(cuda), val.to(cuda), xc) * w.to(cuda)).sum() \
+        .backward()
+    assert tsp.launches_t == before + 1
+    xr = x.clone().requires_grad_(True)
+    (ops.spmm_ell(idx, val, xr) * w).sum().backward()
+    assert_allclose(xc.grad.cpu().numpy(), xr.grad.numpy(), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,deg,n,nb,k,f_blk,f_out", [
+    (300, 18, 5000, 32, 1024, 4, 128), (100, 18, 5000, 8, 1024, 5, 128),
+    (13, 3, 40, 4, 16, 8, 7), (1, 1, 1, 1, 1, 1, 1), (5, 0, 10, 4, 8, 8, 3)])
+def test_context_ell_wt_kernel_vs_plain(cuda, b, deg, n, nb, k, f_blk, f_out):
+    """The w_t epilogue, b not a multiple of the kernel's 8-row blocks,
+    and D = 0 (zeros, no launch)."""
+    g = torch.Generator().manual_seed(b + nb + f_out)
+    ids = torch.randint(0, n, (b, deg), generator=g, dtype=torch.int32)
+    val = torch.randn((b, deg), generator=g)
+    assign = torch.randint(0, k, (nb, n), generator=g, dtype=torch.int32)
+    cw = torch.randn((nb, k, f_blk), generator=g)
+    w_t = torch.randn((nb * f_blk, f_out), generator=g)
+    before = (tce.launches, tce.launches_wt)
+    got = tce.context_ell_cuda(*(t.to(cuda) for t in (ids, val, assign, cw)),
+                               w_t=w_t.to(cuda))
+    torch.cuda.synchronize()
+    assert (tce.launches, tce.launches_wt) == tuple(
+        c + (deg > 0) for c in before)
+    assert got.shape == (b, f_out)
+    assert_allclose(got.cpu().numpy(),
+                    tref.context_ell(ids, val, assign, cw, w_t).numpy(),
+                    **TOL)
+
+
+@pytest.mark.gpu
+def test_vq_train_step_cuda_vs_cpu(cuda):
+    """One Alg. 1 step on the card against the same step on the CPU plain
+    path, from the same state and batch; the kernels each launch as the
+    step's layer count says."""
+    from repro_torch.convert import to_device
+    from repro_torch.core.codebook import CodebookConfig
+    from repro_torch.graph import batching as tb
+    from repro_torch.graph.datasets import synthetic_arxiv
+    from repro_torch.models import gnn as tgnn
+    from repro_torch.train.optimizer import rmsprop
+    g = synthetic_arxiv(n=600, seed=0)
+    cfg = tgnn.GNNConfig(backbone="gcn", f_in=g.f, hidden=32,
+                         n_out=g.num_classes, n_layers=2,
+                         codebook=CodebookConfig(k=32, f_prod=4))
+    opt = rmsprop(3e-3)
+    bids = np.random.default_rng(0).choice(g.n, 150, replace=False)
+    mask = np.zeros(g.n, np.float32)
+    mask[g.train_idx] = 1.0
+    outs = {}
+    for dev in ("cpu", cuda):
+        params = tgnn.init_gnn(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+        vq = tgnn.init_vq_states(cfg, g.n, torch.Generator().manual_seed(1),
+                                 device=dev)
+        ops_ = tb.full_operands(g, device=dev)
+        plan = tb.build_epoch_plan(g, full_ops=ops_, device=dev)
+        ids = torch.from_numpy(bids.astype(np.int32)).to(dev)
+        pack = tb.plan_batch(plan, ids)
+        counts = (tvu.launches, tce.launches, tce.launches_wt, tsp.launches,
+                  tsp.launches_t)
+        res = tgnn.vq_train_step(
+            params, vq, opt.init(params), pack,
+            torch.from_numpy(g.features[bids]).to(dev),
+            torch.from_numpy(g.labels[bids]).to(dev), ops_.degrees, cfg, opt,
+            loss_mask=torch.from_numpy(mask[bids]).to(dev))
+        outs[str(dev)] = to_device(list(res[:2]) + list(res[3:]), "cpu")
+        if dev == cuda:
+            torch.cuda.synchronize()
+            got = tuple(a - b for a, b in zip(
+                (tvu.launches, tce.launches, tce.launches_wt, tsp.launches,
+                 tsp.launches_t), counts))
+            assert got == (2, 3, 1, 2, 1)
+    (pc, vc, lc, oc, ec), (pg, vg, lg, og, eg) = outs["cpu"], outs["cuda"]
+    assert_allclose(lg.numpy(), lc.numpy(), **STEP)
+    assert_allclose(og.numpy(), oc.numpy(), **STEP)
+    assert_allclose(eg.numpy(), ec.numpy(), **STEP)
+    for a, b in zip(pg, pc):
+        for name in a:
+            assert_allclose(a[name].numpy(), b[name].numpy(), **STEP)
+    for a, b in zip(vg, vc):
+        agree = (a.assignment == b.assignment).float().mean()
+        assert agree >= 0.99
+        if agree == 1:
+            for fa, fb in zip(a.codebook, b.codebook):
+                assert_allclose(fa.numpy(), fb.numpy(), **STEP)
+            assert torch.equal(a.counts, b.counts)

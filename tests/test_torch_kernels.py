@@ -8,7 +8,11 @@ plain versions on a card by ``tests/test_torch_cuda.py``.
 Tolerances: fp32 sums over at most 32 slots or 128 dims in another order,
 ``rtol=1e-5, atol=1e-6``.  Assignments must be equal except where the
 reference's two candidate distances differ by at most ``1e-5 * (1 + |d|)``
-(a near-tie that any two summation orders may break differently).
+(a near-tie that any two summation orders may break differently).  The
+fused update's cluster statistics: counts exact, sums (up to a few hundred
+rows each, summed in another order) ``rtol=1e-5, atol=1e-5``.  The
+``w_t`` epilogue sums up to 40 products of unit-scale context and weights
+whose terms cancel to much smaller results: ``rtol=1e-5, atol=1e-5``.
 """
 import os
 import subprocess
@@ -20,21 +24,25 @@ from numpy.testing import assert_allclose
 
 torch = pytest.importorskip("torch")
 
+import jax                                                   # noqa: E402
 import jax.numpy as jnp                                      # noqa: E402
 
 from repro.kernels import ref as jref                        # noqa: E402
 from repro.kernels.context_ell import context_ell_pallas     # noqa: E402
 from repro.kernels.spmm_ell import spmm_ell_pallas           # noqa: E402
 from repro.kernels.vq_assign import vq_assign_pallas         # noqa: E402
+from repro.kernels.vq_update import vq_assign_update_pallas  # noqa: E402
 from repro_torch.kernels import _build, ops                  # noqa: E402
 from repro_torch.kernels import context_ell as tce           # noqa: E402
 from repro_torch.kernels import ref as tref                  # noqa: E402
 from repro_torch.kernels import spmm_ell as tsp              # noqa: E402
 from repro_torch.kernels import vq_assign as tva             # noqa: E402
+from repro_torch.kernels import vq_update as tvu             # noqa: E402
 
 from test_torch_cuda import assert_assign_equal_but_near_ties  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
+WT_TOL = dict(rtol=1e-5, atol=1e-5)
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 
@@ -152,9 +160,147 @@ def test_context_ell_ref_edge_rows(case):
         assert not got[[3, 17]].any()
 
 
+@pytest.mark.parametrize("b,k,f", [(1, 1, 1), (7, 3, 5), (130, 33, 12),
+                                   (300, 64, 21), (100, 1024, 8),
+                                   (257, 16, 21)])
+@pytest.mark.parametrize("nb", [1, 3])
+def test_vq_assign_update_ref_vs_jax(b, k, f, nb):
+    """The fused update's plain version against the reference oracle and
+    the Pallas kernel in interpret mode, per branch: f = 21 (the odd
+    training width), b not a multiple of the kernel's 256-row tile."""
+    rng = np.random.default_rng(b * 7 + k + f + nb)
+    x = rng.normal(size=(nb, b, f)).astype(np.float32)
+    cw = rng.normal(size=(nb, k, f)).astype(np.float32)
+    idx, qerr, counts, sums = tref.vq_assign_update(torch.from_numpy(x),
+                                                    torch.from_numpy(cw))
+    assert idx.dtype == torch.int32 and idx.shape == (nb, b)
+    assert qerr.shape == (nb, b) and counts.shape == (nb, k)
+    assert sums.shape == (nb, k, f)
+    assert counts.sum() == nb * b
+    assert torch.equal(idx, tref.vq_assign(torch.from_numpy(x),
+                                           torch.from_numpy(cw)))
+    for want in (jref.vq_assign_update, lambda a, c: vq_assign_update_pallas(
+            jnp.asarray(a), jnp.asarray(c), interpret=True)):
+        w = [np.stack([np.asarray(want(x[i], cw[i])[j]) for i in range(nb)])
+             for j in range(4)]
+        assert_assign_equal_but_near_ties(idx, w[0], x, cw)
+        same = idx.numpy() == w[0]
+        assert_allclose(qerr.numpy()[same], w[1][same], rtol=1e-5,
+                        atol=1e-6)
+        if same.all():
+            assert np.array_equal(counts.numpy(), w[2])
+            assert_allclose(sums.numpy(), w[3], rtol=1e-5, atol=1e-5)
+
+
+def test_vq_assign_update_ref_ties_and_qerr():
+    """Duplicate codewords resolve to the lowest index; qerr is the squared
+    distance to the winner (clamped at 0 for a row on its codeword)."""
+    cw = np.zeros((2, 6, 4), np.float32)
+    cw[:, 1] = cw[:, 4] = 1.0
+    x = np.ones((2, 5, 4), np.float32)
+    idx, qerr, counts, sums = tref.vq_assign_update(torch.from_numpy(x),
+                                                    torch.from_numpy(cw))
+    assert (idx == 1).all() and (qerr == 0).all()
+    assert (counts[:, 1] == 5).all() and counts.sum() == 10
+    assert (sums[:, 1] == 5).all()
+
+
+@pytest.mark.parametrize("b,deg,n,nb,k,f_blk,f_out", [
+    (1, 1, 1, 1, 1, 1, 1), (33, 7, 50, 4, 16, 8, 12),
+    (128, 18, 300, 8, 64, 5, 32), (5, 0, 10, 4, 8, 8, 3)])
+def test_context_ell_wt_ref_vs_jax(b, deg, n, nb, k, f_blk, f_out):
+    """The fused ``@ w_t`` epilogue (the Eq. 7 backward form)."""
+    rng = np.random.default_rng(b + f_out)
+    ids = rng.integers(0, n, (b, deg)).astype(np.int32)
+    val = rng.normal(size=(b, deg)).astype(np.float32)
+    assign = rng.integers(0, k, (nb, n)).astype(np.int32)
+    cw = rng.normal(size=(nb, k, f_blk)).astype(np.float32)
+    w_t = rng.normal(size=(nb * f_blk, f_out)).astype(np.float32)
+    got = tref.context_ell(*map(torch.from_numpy, (ids, val, assign, cw)),
+                           w_t=torch.from_numpy(w_t)).numpy()
+    assert got.shape == (b, f_out)
+    assert_allclose(got, np.asarray(jref.context_ell(ids, val, assign, cw,
+                                                     w_t=w_t)), **WT_TOL)
+    assert_allclose(got, np.asarray(context_ell_pallas(
+        *map(jnp.asarray, (ids, val, assign, cw)), w_t=jnp.asarray(w_t),
+        interpret=True)), **WT_TOL)
+    assert_allclose(got, tref.context_ell(
+        *map(torch.from_numpy, (ids, val, assign, cw))).numpy() @ w_t,
+        **WT_TOL)
+
+
+@pytest.mark.parametrize("b,deg,n,f", [(1, 1, 1, 1), (33, 7, 50, 12),
+                                       (128, 18, 128, 64)])
+def test_spmm_ell_backward_vs_jax_vjp(b, deg, n, f):
+    """``ops.spmm_ell``'s autograd backward (the plain ``spmm_ell_t`` on
+    the CPU) against ``jax.vjp`` of the reference SpMM, padding slots
+    (val 0 at row 0, as intra_messages leaves them) included."""
+    rng = np.random.default_rng(b + deg + f)
+    idx = rng.integers(0, n, (b, deg)).astype(np.int32)
+    val = rng.normal(size=(b, deg)).astype(np.float32)
+    pad = rng.random((b, deg)) < 0.4
+    idx[pad], val[pad] = 0, 0.0
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    g = rng.normal(size=(b, f)).astype(np.float32)
+    _, vjp = jax.vjp(lambda xx: jref.spmm_ell(idx, val, xx), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = ops.spmm_ell(torch.from_numpy(idx), torch.from_numpy(val), xt)
+    assert_allclose(out.detach().numpy(), np.asarray(jref.spmm_ell(
+        idx, val, x)), **TOL)
+    (got,) = torch.autograd.grad(out, xt, torch.from_numpy(g))
+    assert_allclose(got.numpy(), want, **TOL)
+    assert_allclose(tref.spmm_ell_t(*map(torch.from_numpy, (idx, val, g)),
+                                    n).numpy(), want, **TOL)
+
+
+def test_spmm_ell_refuses_edge_values_that_require_grad():
+    idx = torch.zeros((4, 2), dtype=torch.int32)
+    val = torch.ones((4, 2), requires_grad=True)
+    with pytest.raises(ValueError, match="nbr_val requires grad"):
+        ops.spmm_ell(idx, val, torch.zeros((3, 5)))
+    with torch.no_grad():
+        assert ops.spmm_ell(idx, val, torch.ones((3, 5))).shape == (4, 5)
+
+
 # ---------------------------------------------------------------------------
 # dispatch: the device decides; CPU tensors never reach a kernel
 # ---------------------------------------------------------------------------
+
+def test_ops_cpu_tensors_take_the_plain_versions_training_kernels():
+    counters = (tvu, "launches"), (tce, "launches_wt"), (tsp, "launches_t")
+    before = [getattr(m, a) for m, a in counters]
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(2, 20, 5)).astype(np.float32))
+    cw = torch.from_numpy(rng.normal(size=(2, 8, 5)).astype(np.float32))
+    for a, b in zip(ops.vq_assign_update(x, cw),
+                    tref.vq_assign_update(x, cw)):
+        assert torch.equal(a, b)
+    idx = torch.from_numpy(rng.integers(0, 20, (6, 3)).astype(np.int32))
+    val = torch.from_numpy(rng.normal(size=(6, 3)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(6, 4)).astype(np.float32))
+    assert torch.equal(ops.spmm_ell_t(idx, val, g, 20),
+                       tref.spmm_ell_t(idx, val, g, 20))
+    a = torch.from_numpy(rng.integers(0, 8, (2, 20)).astype(np.int32))
+    w_t = torch.from_numpy(rng.normal(size=(10, 7)).astype(np.float32))
+    assert torch.equal(ops.context_ell(idx, val, a, cw, w_t),
+                       tref.context_ell(idx, val, a, cw, w_t))
+    assert [getattr(m, a) for m, a in counters] == before
+
+
+def test_training_kernel_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tvu.vq_assign_update_cuda(torch.zeros((1, 4, 4)),
+                                  torch.zeros((1, 2, 4)))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tsp.spmm_ell_t_cuda(torch.zeros((4, 2), dtype=torch.int32),
+                            torch.zeros((4, 2)), torch.zeros((4, 3)), 5)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tce.context_ell_cuda(torch.zeros((4, 2), dtype=torch.int32),
+                             torch.zeros((4, 2)),
+                             torch.zeros((1, 4), dtype=torch.int32),
+                             torch.zeros((1, 2, 4)), w_t=torch.zeros((4, 3)))
+
 
 def test_ops_cpu_tensors_take_the_plain_versions():
     before = (tva.launches, tsp.launches, tce.launches)
@@ -194,7 +340,7 @@ def test_build_is_keyed_on_sources_and_lazy():
     assert len(h) == 16 and h == _build.source_hash()
     assert _build.library_path().parent.name == h
     assert {p.name for p in _build._sources()} == {
-        "vq_assign.cu", "spmm_ell.cu", "context_ell.cu"}
+        "vq_assign.cu", "vq_update.cu", "spmm_ell.cu", "context_ell.cu"}
     for src in _build._sources():      # each names the TPU kernel it ports
         assert "Replaces the TPU kernel src/repro/kernels/" in src.read_text()
 

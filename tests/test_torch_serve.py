@@ -355,22 +355,16 @@ def test_paper_config_matches_reference(graphs):
 def test_unported_options_raise(gcn, graphs):
     from repro_torch.launch import serve_gnn
     w = gcn
-    for argv, match in [(["--train-epochs", "1"], "training slice"),
-                        (["--precision", "int8"], "precision-tier"),
+    for argv, match in [(["--precision", "int8"], "precision-tier"),
                         (["--mesh", "2"], "multi-device"),
                         (["--shard-graph"], "multi-device"),
                         (["--backbone", "gat"], "GAT/Transformer"),
                         (["--backbone", "transformer"], "GAT/Transformer")]:
         with pytest.raises(NotImplementedError, match=match):
             serve_gnn.main(["--n", "300", "--device", "cpu", *argv])
-    bids = np.arange(16)
-    _, tp = w.packs(bids)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tgnn.vq_forward(w.tparams, w.tx[:16], None, tp, w.tvq,
-                        w.tops.degrees, w.tcfg)     # grad_inject defaults on
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tgnn.vq_forward(w.tparams, w.tx[:16], [torch.zeros(1)], tp, w.tvq,
-                        w.tops.degrees, w.tcfg, inject=False)
+    with pytest.raises(NotImplementedError, match="link-task"):
+        tgnn.vq_train_step(w.tparams, w.tvq, None, None, None, None, None,
+                           w.tcfg._replace(task="link"), None)
     # quantized reference states are refused by the bridge
     jq = jgnn.quantize_vq_states(w.jvq, w.jcfg, precision="int8")
     with pytest.raises(NotImplementedError, match="precision-tier"):
