@@ -11,20 +11,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    build time;
 3. training, the first main path, at the paper's full width (GCN, hidden
    128, 3 layers, k 1024, f_prod 4) on a 169,343-node ogbn-arxiv
-   look-alike: ``train_vq`` for 2 epochs of 4 batches of 42,335 nodes
-   (``paper_batch_size``) from seed 0, the kernels' launch counters reset
-   before and read after and checked exactly; per-step loss and VQ error,
-   epoch seconds, val/test accuracy; the losses must be finite and the
-   VQ error fall on average; the same run without the Eq. 7 injection,
-   whose loss must fall on average; then 8 timed steps (step ms p50/p99)
-   and a torch.profiler window over 2 steps;
-4. hold every kernel against its plain PyTorch version on the card, on
-   operands taken from the trained model: vq_update on the whitened
-   (X || G) rows of a training batch at both branch geometries, the w_t
-   form of context_ell and spmm_ell_t on that batch's reverse-edge and
-   intra-batch operands, and the serving shapes of vq_assign, spmm_ell
-   and context_ell; timing kernel, plain version and -- where one
-   PyTorch call computes the same function -- that call, with CUDA events;
+   look-alike: ``train_vq`` for 70 epochs of 5 batches of 42,335 nodes
+   (``paper_batch_size``; the fifth is the wrap-padded tail) from seed
+   0, the kernels' launch counters reset before and read after and
+   checked exactly; per-step loss and VQ error, epoch seconds, val/test
+   accuracy; the losses must be finite and fall on average, and no
+   layer's codebook may end collapsed; then 8 timed steps (step ms
+   p50/p99) and a torch.profiler window over 2 steps;
+4. hold every kernel against its plain PyTorch version on the card at
+   every shape the main paths give it, on operands taken from the
+   trained model: vq_update on the whitened (X || G) rows of a training
+   batch at both branch geometries (its sums also exact on rows rounded
+   so that fp32 sums are exact in any order), the w_t form of
+   context_ell and spmm_ell_t on that batch's reverse-edge and
+   intra-batch operands, spmm_ell on that batch's intra-batch operands
+   and on the full graph (the evaluation's SpMM, whose 86.7 MB source
+   the reference sends to its HBM-staged kernel), the plain form of
+   context_ell on that batch's forward operands, and the serving shapes
+   of vq_assign, spmm_ell and context_ell; timing kernel, plain version
+   and -- where one PyTorch call computes the same function -- that
+   call, with CUDA events;
 5. one training step at batch 4,096 on the card and the same step on the
    CPU plain path from the trained state copied over: loss, params,
    optimizer and codebook state must agree;
@@ -50,6 +56,7 @@ import time
 
 import numpy as np
 
+T_START = time.time()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -59,7 +66,9 @@ REQUESTS = 200
 MAX_REQUEST = 64
 SEED = 0
 DEVICE = "cuda"
-TRAIN_EPOCHS = 2
+TRAIN_EPOCHS = 70             # 350 steps: past the revival at step ~300
+EVAL_EVERY = 5
+MAX_CLUSTER_SHARE = 0.5       # of a layer's nodes on one codeword, at the end
 TIMED_STEPS = 8
 PARITY_BATCH = 4096
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
@@ -223,11 +232,36 @@ class Model:
                 self.train_mask[i])
 
 
-def _train(what: str, g, cfg, batch: int) -> tuple[dict, dict]:
-    """``train_vq`` at the paper's batch size for TRAIN_EPOCHS epochs, with
-    the launch counts of every step (and of the full-graph evaluations)
-    checked exactly, every step's loss and VQ error printed and required
-    finite."""
+def largest_cluster_share(vq_states) -> list[float]:
+    """Per layer: the largest share of the nodes that one codeword of one
+    branch holds in the assignment table (1.0 is a collapsed codebook)."""
+    import torch
+    out = []
+    for st in vq_states:
+        nb, n = st.assignment.shape
+        k = st.codebook.k
+        flat = st.assignment.long() + k * torch.arange(
+            nb, device=st.assignment.device)[:, None]
+        counts = torch.bincount(flat.reshape(-1), minlength=nb * k)
+        out.append(float(counts.max()) / n)
+    return out
+
+
+def phase_train(g, cfg, batch: int) -> tuple[dict, dict]:
+    """The training main path: ``train_vq`` at the paper's batch size for
+    TRAIN_EPOCHS epochs, paper-faithful (Eq. 7 injection on), with the
+    launch counts of every step and of the full-graph evaluations checked
+    exactly and every step's loss and VQ error printed.
+
+    Gates: every loss and VQ error finite; the mean loss of the last 5
+    epochs under that of the first 5; no layer's codebook collapsed at
+    the end (at most MAX_CLUSTER_SHARE of the nodes on one codeword).
+    The run is long enough for the last two: while the injection reads
+    the random initial gradient codewords the loss rises and the last
+    layer's codebook collapses -- the reference does the same
+    (tests/test_torch_train.py) -- until the codewords nobody picks have
+    decayed under ``revive_threshold`` (0.99^t < 0.05 at step ~300) and
+    are re-seeded from the worst-quantized rows."""
     import torch
     from repro_torch.train.gnn_trainer import train_vq
     n_layers = cfg.n_layers
@@ -236,7 +270,7 @@ def _train(what: str, g, cfg, batch: int) -> tuple[dict, dict]:
     reset_counts()
     t0 = time.time()
     r = train_vq(g, cfg, epochs=TRAIN_EPOCHS, batch_size=batch, seed=SEED,
-                 eval_every=1, device=DEVICE)
+                 eval_every=EVAL_EVERY, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_counts()
@@ -245,57 +279,44 @@ def _train(what: str, g, cfg, batch: int) -> tuple[dict, dict]:
     # (whose input needs no gradient) runs spmm_ell_t and, with the Eq. 7
     # injection, the w_t form of context_ell.  Each full-graph evaluation
     # runs spmm_ell once per layer.
-    expect_counts(what, counts, {
+    evals = -(-TRAIN_EPOCHS // EVAL_EVERY)
+    expect_counts("train", counts, {
         "vq_assign": 0, "vq_update": n_layers * steps,
-        "spmm_ell": n_layers * steps + n_layers * TRAIN_EPOCHS,
+        "spmm_ell": n_layers * steps + n_layers * evals,
         "spmm_ell_t": (n_layers - 1) * steps,
         "context_ell": (n_layers + inject) * steps,
         "context_ell_wt": inject * steps})
     losses, errs = r["step_losses"], r["step_vq_errs"]
     if losses.shape != (steps,) or errs.shape != (steps, n_layers):
-        raise SystemExit(f"{what}: {losses.shape} losses, {errs.shape} VQ "
+        raise SystemExit(f"train: {losses.shape} losses, {errs.shape} VQ "
                          f"errors for {steps} steps")
     for i, (loss, e) in enumerate(zip(losses, errs)):
-        log(f"{what} step {i}: loss {loss:.6f} vq_err "
+        log(f"train step {i}: loss {loss:.6f} vq_err "
             f"{' '.join(f'{v:.4f}' for v in e)}")
+    for h in r["history"]:
+        log(f"train epoch {h['epoch']}: {r['epoch_s'][h['epoch'] - 1]:.3f} "
+            f"s, val {h['val']:.4f} test {h['test']:.4f} vq_err "
+            f"{h['vq_err']:.4f}")
+    epoch_loss = losses.reshape(TRAIN_EPOCHS, -1).mean(1)
+    share = largest_cluster_share(r["vq_states"])
+    r.update(wall_s=wall, epoch_loss=epoch_loss.tolist(),
+             epoch_vq_err=errs.reshape(TRAIN_EPOCHS, -1).mean(1).tolist(),
+             largest_cluster_share=share)
+    log(f"train: {steps} steps of {batch} nodes in {wall:.3f} s (incl. "
+        f"{evals} full-graph evaluations); mean loss per epoch "
+        f"{[round(v, 4) for v in r['epoch_loss']]}; largest cluster share "
+        f"per layer at the end {[round(v, 4) for v in share]}")
     if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(errs))):
-        raise SystemExit(f"{what}: non-finite loss or VQ error")
-    for h, es in zip(r["history"], r["epoch_s"]):
-        log(f"{what} epoch {h['epoch']}: {es:.3f} s, val {h['val']:.4f} "
-            f"test {h['test']:.4f} vq_err {h['vq_err']:.4f}")
-    r.update(wall_s=wall,
-             epoch_loss=losses.reshape(TRAIN_EPOCHS, -1).mean(1).tolist(),
-             epoch_vq_err=errs.reshape(TRAIN_EPOCHS, -1).mean(1).tolist())
-    log(f"{what}: {steps} steps of {batch} nodes in {wall:.3f} s (incl. "
-        f"{TRAIN_EPOCHS} full-graph evaluations); mean loss per epoch "
-        f"{r['epoch_loss']}, mean VQ error per epoch {r['epoch_vq_err']}")
+        raise SystemExit("train: non-finite loss or VQ error")
+    first, last = float(epoch_loss[:5].mean()), float(epoch_loss[-5:].mean())
+    if not last < first:
+        raise SystemExit(f"train: mean loss of the last 5 epochs {last} not "
+                         f"under that of the first 5 {first}")
+    if max(share) > MAX_CLUSTER_SHARE:
+        raise SystemExit(f"train: a codebook collapsed, largest cluster "
+                         f"share per layer {share} (cap "
+                         f"{MAX_CLUSTER_SHARE})")
     return r, counts
-
-
-def phase_train(g, cfg, batch: int) -> tuple[dict, dict]:
-    """The training main path, paper-faithful (Eq. 7 injection on).  Its
-    codebooks must learn: the mean VQ relative error falls from the first
-    epoch to the last.  Its loss is printed, not required to fall: the
-    injected gradient codewords start as random 0.02 N(0, 1) draws, far
-    larger than the true gradients, and the reference's loss rises over
-    its first epochs at this width just the same."""
-    r, counts = _train("train", g, cfg, batch)
-    if not r["epoch_vq_err"][-1] < r["epoch_vq_err"][0]:
-        raise SystemExit(f"train: mean VQ error per epoch "
-                         f"{r['epoch_vq_err']} did not fall")
-    return r, counts
-
-
-def phase_learning_check(g, cfg, batch: int) -> dict:
-    """The same training without the Eq. 7 injection: the loss must fall
-    on average from the first epoch to the last (outside the main path's
-    counts; its own launch counts are checked)."""
-    r, _ = _train("train without injection", g,
-                  cfg._replace(grad_inject=False), batch)
-    if not r["epoch_loss"][-1] < r["epoch_loss"][0]:
-        raise SystemExit(f"train without injection: mean loss per epoch "
-                         f"{r['epoch_loss']} did not fall")
-    return r
 
 
 def phase_step_timing(m: Model, params, vq, ost) -> dict:
@@ -331,11 +352,14 @@ def phase_step_timing(m: Model, params, vq, ost) -> dict:
     return rep
 
 
-def _vq_update_row(name, vw, cw) -> dict:
-    """vq_update against its plain version on one layer's rows."""
+def _vq_update_row(name, vw, cw, generic: bool = False) -> dict:
+    """vq_update against its plain version on one layer's rows; with
+    ``generic`` also the kernel's generic-width instantiation, which must
+    give the same result, timed beside the fixed-width build."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.vq_update import vq_assign_update_cuda
+    from repro_torch.kernels.vq_update import (vq_assign_update_cuda,
+                                               vq_assign_update_generic_cuda)
     got = vq_assign_update_cuda(vw, cw)
     want = ref.vq_assign_update(vw, cw)
     torch.cuda.synchronize()
@@ -355,6 +379,24 @@ def _vq_update_row(name, vw, cw) -> dict:
         0, flat, vw.abs().reshape(-1, f)).reshape(nb, k, f)
     err = check_scatter(f"{name} sums", got[3], want[3], abs_sum,
                         want[2][..., None])
+    # The bound above grows with a codeword's row count and is loose on a
+    # codeword thousands of rows share.  On rows rounded to multiples of
+    # 2^-6 within [-4, 4], every partial sum of at most 2^16 rows is a
+    # multiple of 2^-6 under 2^18, 24 significant bits: exact in fp32 in any
+    # order, so there the sums must equal the float64 sums bit for bit.
+    assert b <= 1 << 16
+    vq_ = ((vw * 64).round().clamp(-256, 256) / 64).contiguous()
+    gq = vq_assign_update_cuda(vq_, cw)
+    wq = ref.vq_assign_update(vq_, cw)
+    flat_q = (gq[0].long() + k * torch.arange(nb, device=vw.device)[:, None]
+              ).reshape(-1)
+    exact = torch.zeros((nb * k, f), dtype=torch.float64,
+                        device=vw.device).index_add_(
+        0, flat_q, vq_.double().reshape(-1, f)).reshape(nb, k, f)
+    if not (torch.equal(gq[0], wq[0]) and torch.equal(gq[2], wq[2])
+            and torch.equal(gq[3].double(), exact)):
+        raise SystemExit(f"{name}: on rows with exact fp32 sums the kernel's "
+                         f"assignment, counts or sums are not exact")
     byt = 4 * nb * b * f + 4 * nb * k * f + 8 * nb * b + 4 * nb * k * (f + 1)
     bms, by = bound(byt, 2 * nb * b * k * f)
     ms, call_ms = cuda_ms(lambda: vq_assign_update_cuda(vw, cw), 5, inner=4)
@@ -364,18 +406,32 @@ def _vq_update_row(name, vw, cw) -> dict:
                                 inner=1)[0],
                hot_share=float(want[2].max()) / b,
                at=f"x=[{nb}, {b}, {f}] cw=[{nb}, {k}, {f}]")
+    if generic:
+        gen = vq_assign_update_generic_cuda(vq_, cw)
+        if not all(torch.equal(u, v) for u, v in zip(gen, gq)):
+            raise SystemExit(f"{name}: the generic-width instantiation "
+                             f"differs from the fixed-width build")
+        row["generic_ms"] = cuda_ms(
+            lambda: vq_assign_update_generic_cuda(vw, cw), 5, inner=4)[0]
+        log(f"{name}: generic-width instantiation {row['generic_ms']:.4f} "
+            f"ms against the fixed-width build's {ms:.4f} ms")
     log(f"{name} {row['at']}: idx/qerr/counts equal, sums max_abs_err "
-        f"{err:.3g}  kernel {ms:.4f} ms (one call {call_ms:.4f} ms)  plain "
+        f"{err:.3g} (exact on grid rows)  kernel {ms:.4f} ms (one call {call_ms:.4f} ms)  plain "
         f"{row['plain_ms']:.4f} ms  bound {bms:.4f} ms ({by})  largest "
         f"cluster {row['hot_share']:.4f} of the rows  library none")
     return row
 
 
-def phase_train_kernels(m: Model, params, vq) -> tuple[list[dict], list]:
-    """vq_update, the w_t form of context_ell and spmm_ell_t against their
-    plain versions on one training batch of the trained model; vq_update
-    also on the untrained model's rows (early training: the atomic hot
-    spot of rows crowding few codewords)."""
+def phase_train_kernels(m: Model, params, vq) -> tuple[list[dict], dict]:
+    """Every kernel of the training path against its plain version at the
+    shapes training gives it, on one training batch of the trained model:
+    vq_update (also on the untrained model's rows -- early training, the
+    atomic hot spot of rows crowding few codewords), the w_t form of
+    context_ell and spmm_ell_t, and the forward kernels at the training
+    batch (spmm_ell's intra-batch term, context_ell's plain form) and on
+    the full graph (the evaluation's spmm_ell).  Returns the vq_update and
+    spmm_ell_t rows and, by kernel name, the rows that go under the
+    spmm_ell and context_ell rows' ``also``."""
     import torch
     from repro_torch.core import codebook as cbm
     from repro_torch.core.conv import fixed_conv_operands
@@ -403,10 +459,19 @@ def phase_train_kernels(m: Model, params, vq) -> tuple[list[dict], list]:
         for layer in (0, last):
             st = v[layer].codebook
             vw = cbm.whitened_rows(st, acts[layer], gprobes[layer], cb)[0]
-            row = _vq_update_row(f"vq_update layer {layer} {tag}", vw,
-                                 st.codewords_w.contiguous())
+            cw = st.codewords_w.contiguous()
+            row = _vq_update_row(f"vq_update layer {layer} {tag}", vw, cw,
+                                 generic=tag == "trained")
             row["at"] += f" layer {layer} {tag}"
             upd.append(row)
+            if tag == "trained":
+                # the hot spot: every row of a branch on one codeword, as
+                # in a collapsed codebook (each branch's first row repeated)
+                hot = vw[:, :1].expand_as(vw).contiguous()
+                row = _vq_update_row(f"vq_update layer {layer} hot spot",
+                                     hot, cw)
+                row["at"] += f" layer {layer} hot spot (rows all alike)"
+                upd.append(row)
     rows = [dict(name="vq_update", route="cuda",
                  source="src/repro_torch/kernels/csrc/vq_update.cu",
                  replaces="src/repro/kernels/vq_update.py:106",
@@ -486,7 +551,27 @@ def phase_train_kernels(m: Model, params, vq) -> tuple[list[dict], list]:
     log(f"spmm_ell_t {row['at']}: max_abs_err {err:.3g}  kernel {ms:.5f} ms "
         f"(one call {call_ms:.5f} ms)  plain {row['plain_ms']:.5f} ms  "
         f"sparse.mm {row['library_ms']:.5f} ms  bound {bms:.6f} ms ({by})")
-    return rows, wt
+
+    # --- spmm_ell and context_ell's plain form at the training shapes ---
+    from repro_torch.nn.gnn_layers import _gcn_edge_vals
+    spmm = [_spmm_row(idx, val, x_b.contiguous(),
+                      "(training forward, intra-batch)"),
+            _spmm_row(m.ops.nbr_ids.contiguous(),
+                      _gcn_edge_vals(m.ops)[0].contiguous(), m.x,
+                      "(full-graph evaluation)")]
+    for row in spmm:       # both sources exceed the reference's VMEM budget
+        row["replaces"] = ("src/repro/kernels/spmm_ell_hbm.py:168 (the "
+                           "reference's dispatch, src/repro/kernels/ops.py:"
+                           "241, sends a source above 8 MB there)")
+    ctx = []
+    for layer in (0, last):
+        fi = cfg.layer_dims()[layer][0]
+        ctx.append(_context_row(
+            ops_.out_ids.contiguous(), ops_.out_vals.contiguous(),
+            vq[layer].assignment,
+            cbm.feature_codewords(vq[layer].codebook, fi, cb),
+            f"(training forward, layer {layer})"))
+    return rows, {"spmm_ell": spmm, "context_ell": wt + ctx}
 
 
 def _codeword_mismatch(a, b) -> "torch.Tensor":
@@ -617,6 +702,72 @@ def phase_train_parity(m: Model, params, vq, ost) -> dict:
     return {"layers": summary, "max_abs_err": worst}
 
 
+def _spmm_row(idx, val, x, at: str) -> dict:
+    """spmm_ell against its plain version and ``torch.sparse.mm`` on one
+    set of operands: idx/val [b, D], source x [n_src, f]."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spmm_ell import spmm_ell_cuda
+    got, want = spmm_ell_cuda(idx, val, x), ref.spmm_ell(idx, val, x)
+    err = check_close(f"spmm_ell {at}", got, want, TOL)
+    b, deg = idx.shape
+    f = x.shape[1]
+    n_rows = int(torch.unique(idx).numel())
+    bms, by = bound(8 * b * deg + 4 * n_rows * f + 4 * b * f, 2 * b * deg * f)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.arange(b, device=x.device).repeat_interleave(deg),
+                     idx.reshape(-1).long()]), val.reshape(-1),
+        (b, x.shape[0]), check_invariants=True).coalesce()
+    check_close(f"spmm_ell library call {at}", torch.sparse.mm(coo, x), want,
+                SERVE_TOL)
+    big = b * deg * f > 1e7              # fewer repetitions of the big ones
+    ms, call_ms = cuda_ms(lambda: spmm_ell_cuda(idx, val, x), 5 if big else 10)
+    row = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+               plain_ms=cuda_ms(lambda: ref.spmm_ell(idx, val, x),
+                                3 if big else 5, inner=1 if big else 20)[0],
+               bound_ms=bms, bound_by=by,
+               library_ms=cuda_ms(lambda: torch.sparse.mm(coo, x),
+                                  5 if big else 10)[0],
+               at=f"b={b} D={deg} f={f} n_src={x.shape[0]} "
+                  f"({4 * x.shape[0] * f / 1e6:.1f} MB source) {at}")
+    log(f"spmm_ell {row['at']}: max_abs_err {err:.3g}  kernel {ms:.5f} ms "
+        f"(one call {call_ms:.5f} ms)  plain {row['plain_ms']:.5f} ms  "
+        f"sparse.mm {row['library_ms']:.5f} ms  bound {bms:.6f} ms ({by})")
+    return row
+
+
+def _context_row(ids, vals, a, cw, at: str) -> dict:
+    """The plain form of context_ell against its plain version on one set
+    of operands: ids/vals [b, D], assignment a [nb, n], codewords cw
+    [nb, k, fb]."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.context_ell import context_ell_cuda
+    got, want = context_ell_cuda(ids, vals, a, cw), ref.context_ell(
+        ids, vals, a, cw)
+    err = check_close(f"context_ell {at}", got, want, TOL)
+    b, deg = ids.shape
+    nb, k, fb = cw.shape
+    uid = torch.unique(ids.long())
+    pairs = torch.unique(a[:, uid].long()
+                         + k * torch.arange(nb, device=a.device)[:, None])
+    byt = 8 * b * deg + 4 * nb * uid.numel() + 4 * fb * pairs.numel() \
+        + 4 * b * nb * fb
+    bms, by = bound(byt, 2 * b * deg * nb * fb)
+    big = b * deg * nb * fb > 1e7
+    ms, call_ms = cuda_ms(lambda: context_ell_cuda(ids, vals, a, cw),
+                          5 if big else 10)
+    row = dict(max_abs_err=err, bound_ms=bms, bound_by=by, ms=ms,
+               call_ms=call_ms, library_ms=None,
+               plain_ms=cuda_ms(lambda: ref.context_ell(ids, vals, a, cw), 3
+                                if big else 5, inner=2 if big else 20)[0],
+               at=f"b={b} D={deg} n={a.shape[1]} nb={nb} k={k} fb={fb} {at}")
+    log(f"context_ell {row['at']}: max_abs_err {err:.3g}  kernel {ms:.5f} ms "
+        f"(one call {call_ms:.5f} ms)  plain {row['plain_ms']:.5f} ms  "
+        f"bound {bms:.6f} ms ({by})  library none")
+    return row
+
+
 def phase_kernels(server) -> list[dict]:
     """Each kernel vs its plain version on the served model's operands."""
     import torch
@@ -624,8 +775,6 @@ def phase_kernels(server) -> list[dict]:
     from repro_torch.core.conv import fixed_conv_operands
     from repro_torch.graph.batching import plan_batch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.context_ell import context_ell_cuda
-    from repro_torch.kernels.spmm_ell import spmm_ell_cuda
     from repro_torch.kernels.vq_assign import vq_assign_cuda
 
     dev = server.device
@@ -638,74 +787,27 @@ def phase_kernels(server) -> list[dict]:
     rows = []
 
     # --- spmm_ell: the intra-batch term of one serve step ---
-    idx = torch.clamp(ops_.in_pos, min=0).contiguous()
-    val = ops_.in_vals.contiguous()
     x_b = server.x[bids.long()].contiguous()
-    got, want = spmm_ell_cuda(idx, val, x_b), ref.spmm_ell(idx, val, x_b)
-    err = check_close("spmm_ell", got, want, TOL)
-    b, deg = idx.shape
-    f = x_b.shape[1]
-    n_rows = int(torch.unique(idx).numel())
-    byt = 8 * b * deg + 4 * n_rows * f + 4 * b * f
-    bms, by = bound(byt, 2 * b * deg * f)
-    coo = torch.sparse_coo_tensor(
-        torch.stack([torch.arange(b, device=dev).repeat_interleave(deg),
-                     idx.reshape(-1).long()]), val.reshape(-1),
-        (b, x_b.shape[0]), check_invariants=True).coalesce()
-    lib = torch.sparse.mm(coo, x_b)
-    check_close("spmm_ell library call", lib, want, SERVE_TOL)
-    ms, call_ms = cuda_ms(lambda: spmm_ell_cuda(idx, val, x_b), 10)
-    row = dict(name="spmm_ell", route="cuda",
-               source="src/repro_torch/kernels/csrc/spmm_ell.cu",
-               replaces="src/repro/kernels/spmm_ell.py:56",
-               max_abs_err=err, ms=ms,
-               plain_ms=cuda_ms(lambda: ref.spmm_ell(idx, val, x_b), 5)[0],
-               bound_ms=bms, bound_by=by,
-               library_ms=cuda_ms(lambda: torch.sparse.mm(coo, x_b), 10)[0],
-               call_ms=call_ms, at=f"b={b} D={deg} f={f}")
-    rows.append(row)
-    log(f"spmm_ell {row['at']}: max_abs_err {err:.3g}  kernel "
-        f"{ms:.5f} ms (one call {call_ms:.5f} ms)  plain "
-        f"{row['plain_ms']:.5f} ms  sparse.mm {row['library_ms']:.5f} ms  "
-        f"bound {bms:.6f} ms ({by})")
+    row = _spmm_row(torch.clamp(ops_.in_pos, min=0).contiguous(),
+                    ops_.in_vals.contiguous(), x_b, "(serve step)")
+    rows.append(dict(name="spmm_ell", route="cuda",
+                     source="src/repro_torch/kernels/csrc/spmm_ell.cu",
+                     replaces="src/repro/kernels/spmm_ell.py:56", **row))
 
     # --- context_ell: the codeword context of layer 0 and layer 2 ---
     ctx = []
     for layer in (0, len(server.vq) - 1):
         vq = server.vq[layer]
         fi = server.cfg.layer_dims()[layer][0]
-        cw = cbm.feature_codewords(vq.codebook, fi, cfg)
-        ids, vals = ops_.out_ids.contiguous(), ops_.out_vals.contiguous()
-        a = vq.assignment
-        got = context_ell_cuda(ids, vals, a, cw)
-        want = ref.context_ell(ids, vals, a, cw)
-        err = check_close(f"context_ell layer {layer}", got, want, TOL)
-        nb, k, fb = cw.shape
-        uid = torch.unique(ids.long())
-        pairs = torch.unique(a[:, uid].long()
-                             + k * torch.arange(nb, device=dev)[:, None])
-        byt = 8 * b * deg + 4 * nb * uid.numel() + 4 * fb * pairs.numel() \
-            + 4 * b * nb * fb
-        bms, by = bound(byt, 2 * b * deg * nb * fb)
-        ms, call_ms = cuda_ms(lambda: context_ell_cuda(ids, vals, a, cw), 10)
-        ctx.append(dict(
-            max_abs_err=err, bound_ms=bms, bound_by=by, ms=ms,
-            plain_ms=cuda_ms(lambda: ref.context_ell(ids, vals, a, cw), 5)[0],
-            call_ms=call_ms,
-            at=f"b={b} D={deg} n={a.shape[1]} nb={nb} k={k} fb={fb}"))
-        c = ctx[-1]
-        log(f"context_ell {c['at']}: max_abs_err {err:.3g}  kernel "
-            f"{ms:.5f} ms (one call {call_ms:.5f} ms)  plain "
-            f"{c['plain_ms']:.5f} ms  bound {bms:.6f} ms ({by})  "
-            f"library none")
+        ctx.append(_context_row(
+            ops_.out_ids.contiguous(), ops_.out_vals.contiguous(),
+            vq.assignment, cbm.feature_codewords(vq.codebook, fi, cfg),
+            f"(serve step, layer {layer})"))
     rows.append(dict(name="context_ell", route="cuda",
                      source="src/repro_torch/kernels/csrc/context_ell.cu",
                      replaces="src/repro/kernels/context_ell.py:138",
+                     **{k: v for k, v in ctx[0].items() if k != "max_abs_err"},
                      max_abs_err=max(c["max_abs_err"] for c in ctx),
-                     ms=ctx[0]["ms"], plain_ms=ctx[0]["plain_ms"],
-                     bound_ms=ctx[0]["bound_ms"],
-                     bound_by=ctx[0]["bound_by"], library_ms=None,
-                     call_ms=ctx[0]["call_ms"], at=ctx[0]["at"],
                      also=ctx[1:]))
 
     # --- vq_assign: the inductive refresh over every node ---
@@ -914,11 +1016,10 @@ def main() -> int:
         f"in {time.time() - t0:.2f} s")
 
     r, train_counts = phase_train(g, cfg, batch)
-    learn = phase_learning_check(g, cfg, batch)
     params, vq, ost = r["params"], r["vq_states"], r["opt_state"]
     timing = phase_step_timing(m, params, vq, ost)
     phase_train_profile(m, params, vq, ost)
-    train_rows, wt_rows = phase_train_kernels(m, params, vq)
+    train_rows, train_also = phase_train_kernels(m, params, vq)
     parity = phase_train_parity(m, params, vq, ost)
 
     server = serve_gnn.GNNServer(g, cfg, params, vq, BATCH, device=DEVICE)
@@ -927,8 +1028,12 @@ def main() -> int:
     rep, serve_counts = phase_main_path(server, requests)
     launches = {k: train_counts[k] + serve_counts[k] for k in train_counts}
     by_name = {row["name"]: row for row in serve_rows + train_rows}
-    by_name["context_ell"]["also"] += [
-        dict(c, launches=launches["context_ell_wt"]) for c in wt_rows]
+    by_name["spmm_ell"].setdefault("also", [])
+    for name, extra in train_also.items():
+        by_name[name]["also"] += extra
+    for c in by_name["context_ell"]["also"]:
+        if c.get("form") == "w_t":
+            c["launches"] = launches["context_ell_wt"]
     kernels = [by_name[n] for n in ("vq_assign", "spmm_ell", "spmm_ell_t",
                                     "context_ell", "vq_update")]
     for row in kernels:
@@ -946,15 +1051,16 @@ def main() -> int:
         "wall_s": r["wall_s"], "epoch_s": r["epoch_s"],
         "epoch_loss": r["epoch_loss"], "epoch_vq_err": r["epoch_vq_err"],
         "step_loss": r["step_losses"].tolist(),
-        "no_inject_epoch_loss": learn["epoch_loss"],
-        "no_inject_final": learn["final"],
-        "final": r["final"], **{k: timing[k] for k in (
+        "largest_cluster_share": r["largest_cluster_share"],
+        "history": r["history"], "final": r["final"], **{k: timing[k] for k in (
             "step_p50_ms", "step_p99_ms", "step_ms")},
         "parity": parity}}))
     log(json.dumps({"serve": {k: rep[k] for k in (
         "refresh_s", "warmup_s", "nodes", "requests", "steps", "wall_s",
         "nodes_per_s", "step_p50_ms", "step_p99_ms", "request_p50_ms",
         "request_p99_ms")}, "build_s": build_s}))
+    log(f"chip_smoke: {time.time() - T_START:.1f} s from start to the "
+        f"result lines, the kernels' build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [

@@ -41,6 +41,8 @@ SIGNATURES = {
                              _vp],
     "repro_vq_update_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
                             _int, _vp],
+    "repro_vq_update_generic_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
+                                    _int, _int, _vp],
 }
 
 _lib: ctypes.CDLL | None = None

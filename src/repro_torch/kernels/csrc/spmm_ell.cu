@@ -1,9 +1,12 @@
 // ELLPACK SpMM: out[i, :] = sum_d val[i, d] * x[idx[i, d], :], fp32.
 //
 // Replaces the TPU kernel src/repro/kernels/spmm_ell.py:spmm_ell_pallas
-// (_spmm_ell_kernel, the f32 form): the exact intra-batch messages C_in X_B
-// of core/message_passing.py:intra_messages, and the full-graph SpMM of
-// the backbones' full_apply.
+// (_spmm_ell_kernel, the f32 form) and stands in for spmm_ell_hbm.py:
+// spmm_ell_hbm_pallas, which the reference's dispatch (kernels/ops.py:241)
+// picks for a source above its 8 MB VMEM budget and which stages the
+// source from HBM in stripes: the exact intra-batch messages C_in X_B of
+// core/message_passing.py:intra_messages, and the full-graph SpMM of the
+// backbones' full_apply.
 //
 // What bounds it on an H100: memory traffic, and at the serving shape
 // (b = 256 rows, D = 18 slots, f = 128) launch latency.  The work is
@@ -18,8 +21,12 @@
 // (no FMA contraction) -- the plain version's order, bit for bit.
 // Padding slots (val == 0) are multiplied, not skipped, exactly as in the
 // reference; an index outside [0, n_src) is clamped, which is also what a
-// JAX gather does.  The source stays in L2
-// (128 KiB at the serving shape), so no shared-memory staging is needed.
+// JAX gather does.  Gathered rows are read straight from global memory,
+// with no staging: the source fits the 50 MB L2 at the serving shape
+// (128 KiB) and at the training batch (42,335 x 128, 21.7 MB), but not in
+// the full-graph SpMM (169,343 x 128, 86.7 MB), whose gathers partly miss
+// L2 and go to HBM -- the case the TPU's HBM variant exists for; here the
+// same kernel serves it, and chip_smoke.py times it at that shape.
 //
 // Second entry point, repro_spmm_ell_t_f32: the transposed product
 //     grad_x[idx[i, d], :] += val[i, d] * g[i, :]

@@ -33,7 +33,10 @@
 // f = 21 (the gradient half of the 40-class layer is 5 wide) is odd: rows
 // are read element by element, so no width assumes vector alignment; the
 // two training widths (8 and 21) are compile-time instantiations, any
-// other f <= 32 takes the predicated generic one.
+// other f <= 32 takes the predicated generic one.  The generic one is also
+// exported on its own (repro_vq_update_generic_f32) so that chip_smoke.py
+// can time it at the training widths: on an H100 the fixed-width builds
+// run 5.7x (f = 8) and 2.0x (f = 21) faster there (PERF.md).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -143,4 +146,14 @@ extern "C" cudaError_t repro_vq_update_f32(const float* x, const float* cw,
     default:
       return launch<0>(x, cw, idx, qerr, counts, sums, nb, n, k, f, stream);
   }
+}
+
+// The generic-width instantiation at any f <= 32, the same contract as
+// repro_vq_update_f32: for comparing it with the fixed-width builds.
+extern "C" cudaError_t repro_vq_update_generic_f32(
+    const float* x, const float* cw, int* idx, float* qerr, float* counts,
+    float* sums, int nb, int n, int k, int f, cudaStream_t stream) {
+  if (f < 1 || f > kMaxF || k < 1 || nb < 1 || n < 1)
+    return cudaErrorInvalidValue;
+  return launch<0>(x, cw, idx, qerr, counts, sums, nb, n, k, f, stream);
 }

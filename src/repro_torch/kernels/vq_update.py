@@ -25,6 +25,19 @@ def vq_assign_update_cuda(x: torch.Tensor, codewords: torch.Tensor
     -> (assignment [nb, n] int32, qerr [nb, n], counts [nb, k],
     sums [nb, k, f]).  The statistics are added with atomics into buffers
     zeroed here: counts are exact, sums depend on the order of the adds."""
+    return _run("repro_vq_update_f32", x, codewords, count=True)
+
+
+def vq_assign_update_generic_cuda(x: torch.Tensor, codewords: torch.Tensor
+                                  ) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor, torch.Tensor]:
+    """The same function through the kernel's generic-width instantiation,
+    whatever f is: for timing it against the fixed-width builds.  No path
+    of the package calls it, and ``launches`` does not count it."""
+    return _run("repro_vq_update_generic_f32", x, codewords, count=False)
+
+
+def _run(entry: str, x: torch.Tensor, codewords: torch.Tensor, count: bool):
     global launches
     _build.check_operands("vq_update", {"x": torch.float32,
                                         "codewords": torch.float32},
@@ -50,10 +63,10 @@ def vq_assign_update_cuda(x: torch.Tensor, codewords: torch.Tensor
     sums = torch.zeros((nb, k, f), dtype=torch.float32, device=dev)
     if nb == 0 or n == 0:
         return idx, qerr, counts, sums
-    err = _build.library().repro_vq_update_f32(
+    err = getattr(_build.library(), entry)(
         x.data_ptr(), codewords.data_ptr(), idx.data_ptr(), qerr.data_ptr(),
         counts.data_ptr(), sums.data_ptr(), nb, n, k, f,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "vq_update")
-    launches += 1
+    launches += count
     return idx, qerr, counts, sums

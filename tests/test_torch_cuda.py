@@ -186,6 +186,24 @@ def test_vq_update_dynamic_shared_memory(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nb,n,k,f", [(32, 5000, 1024, 8),
+                                      (8, 3000, 1024, 21)])
+def test_vq_update_generic_matches_fixed_width(cuda, nb, n, k, f):
+    """The generic-width instantiation (timed against the fixed-width
+    builds) computes the same function, and is not counted as a launch;
+    on rows whose fp32 sums are exact in any order both sums are exact."""
+    g = torch.Generator().manual_seed(f)
+    x = ((torch.randn((nb, n, f), generator=g) * 64).round() / 64).to(cuda)
+    cw = torch.randn((nb, k, f), generator=g).to(cuda)
+    fixed = tvu.vq_assign_update_cuda(x, cw)
+    before = tvu.launches
+    generic = tvu.vq_assign_update_generic_cuda(x, cw)
+    assert tvu.launches == before
+    for a, b in zip(fixed, generic):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_vq_update_hot_spot(cuda):
     """Every row on one codeword (the early-training hot spot): counts
     exact, sums within the scatter tolerance."""

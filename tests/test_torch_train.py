@@ -434,25 +434,47 @@ def test_train_vq_end_to_end_tracks_reference(graphs, monkeypatch):
     assert abs(acc.mean() - jacc.mean()) <= 0.05
 
 
-def test_train_vq_full_width_first_steps_track_reference(monkeypatch):
+@pytest.mark.parametrize("n", [800, 4000])
+def test_train_vq_full_width_first_steps_track_reference(monkeypatch, n):
     """The paper's full-width config (hidden 128, 3 layers, k 1024) at
     batch n/4: the port's per-step losses and VQ errors over the first
     two epochs follow the reference's from the same initial state --
     including the rise of the loss while the injected gradient codewords
-    are still their random initial draws."""
+    are still their random initial draws, and the collapse of the last
+    layer's codebook that comes with it (after the second epoch every
+    node of some branch sits on one codeword, in both packages)."""
     from repro.configs import vq_gnn_paper as jpaper
     from repro.train import gnn_trainer as jtrain
     from repro_torch.configs import vq_gnn_paper as tpaper
-    jg, tg = j_arxiv(n=800, seed=0), t_arxiv(n=800, seed=0)
+    jg, tg = j_arxiv(n=n, seed=0), t_arxiv(n=n, seed=0)
     jcfg, tcfg = jpaper.paper_config(jg, full_scale=True), \
         tpaper.paper_config(tg, full_scale=True)
     b = tpaper.paper_batch_size(tg)
     jparams = jgnn.init_gnn(jax.random.PRNGKey(0), jcfg)
     jvq = jgnn.init_vq_states(jax.random.PRNGKey(1), jcfg, jg.n)
-    losses = []
-    monkeypatch.setattr(jtrain, "vq_train_epoch", lambda *a, **k: (
-        lambda out: losses.append(np.asarray(out[3])) or out)(
-        jgnn.vq_train_epoch(*a, **k)))
+    losses, shares = [], {"ref": [], "port": []}
+
+    def largest_cluster_share(vq_states):
+        """Per layer: the largest share of the nodes one codeword of one
+        branch holds."""
+        out = []
+        for st in vq_states:
+            a = np.asarray(st.assignment)
+            out.append(max(np.bincount(r).max() for r in a) / a.shape[1])
+        return out
+
+    def recorded(epoch_fn, tag, loss_list=None):
+        def run(*a, **k):
+            out = epoch_fn(*a, **k)
+            if loss_list is not None:
+                loss_list.append(np.asarray(out[3]))
+            shares[tag].append(largest_cluster_share(out[1]))
+            return out
+        return run
+    monkeypatch.setattr(jtrain, "vq_train_epoch",
+                        recorded(jgnn.vq_train_epoch, "ref", losses))
+    monkeypatch.setattr(ttrain, "vq_train_epoch",
+                        recorded(tgnn.vq_train_epoch, "port"))
     monkeypatch.setattr(jtrain, "init_gnn", lambda *a, **k: jparams)
     monkeypatch.setattr(jtrain, "init_vq_states", lambda *a, **k: jvq)
     # converted before the reference runs: its epoch donates the buffers
@@ -468,6 +490,8 @@ def test_train_vq_full_width_first_steps_track_reference(monkeypatch):
     assert_allclose(tr["step_losses"], np.concatenate(losses), rtol=1e-2)
     assert_allclose(tr["final"]["vq_err"], jr["final"]["vq_err"], rtol=1e-2)
     assert tr["step_losses"][-1] > tr["step_losses"][0]
+    assert_allclose(shares["port"], shares["ref"], atol=0.01)
+    assert shares["ref"][-1][-1] == 1.0 and shares["port"][-1][-1] == 1.0
 
 
 def test_vq_inference_matches_reference(graphs):
