@@ -41,13 +41,37 @@ Phases (each prints its own lines; any failure exits non-zero):
    the plain versions there; the served rows must agree;
 8. a torch.profiler window over 20 serve steps: the device's busy share
    of the wall time and the kernels that take it;
-9. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+9. tier-train, the third main path: the same model with k = 256 (the
+   paper's alternative codebook size, the largest a uint8 table holds)
+   trained by ``train_vq`` under the int8 tier for the same 70 epochs --
+   uint8 tables, int8 codeword snapshots requantized after every update,
+   the quantized forms of context_ell and its w_t epilogue in place of
+   the f32 ones, launch counts exact, the same gates as phase 3, the
+   states ending in the tier's storage -- and one step at batch 4,096
+   card vs CPU under int8 and under fp8 (the state converted by
+   ``quantize_vq_states``), the requantized snapshots within two quanta;
+10. tier-serve: the tier-trained state served as trained (int8) and
+   converted to fp8, each with refresh, the 200 requests (counts exact),
+   CPU parity and ``vq_inference`` over every node agreeing with the
+   fp32 inference of the same state on >= 95 % of the argmaxes;
+11. a4-serve: k = 16 from the seed's initial state (no training) under
+   int8, int8+a4 and fp8+a4, each with refresh, the requests (counts
+   exact) and CPU parity; the packed tables must be the int8 tables
+   packed and the int8+a4 rows bit-equal to the int8 rows;
+12. every quantized kernel form against its plain version, bit for bit,
+   and timed: context_ell and its w_t form with int8 / fp8 codewords over
+   uint8, packed and int32 tables at the serving and the training batch,
+   spmm_ell's int8 / fp8 source, vq_update's uint8 emit;
+13. a ``{"kernels": [...]}`` line (the quantized forms under each
+   kernel's ``also``, each with its launches on the main paths), each
+   phase's seconds, then the ``{"ok": true, ...}`` line.
 
 The script needs a CUDA card: without one (or outside a checkout of the
 repository) it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -77,6 +101,12 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
 STEP_TOL = dict(rtol=1e-4, atol=1e-5)
 U32 = 2.0 ** -24              # fp32 unit roundoff
+TIER_PRECISION = "int8"       # the tier the tier-train path trains under
+TIER_K = 256                  # the paper's alternative codebook size, the
+#                               largest a uint8 table holds
+A4_K = 16                     # the '+a4' tiers pack tables only for k <= 16
+TIER_AGREEMENT = 0.95         # argmax agreement with fp32 serving
+TIER_INFER_BATCH = 42335      # vq_inference batch of the agreement check
 
 
 def log(msg: str) -> None:
@@ -236,65 +266,102 @@ def largest_cluster_share(vq_states) -> list[float]:
     """Per layer: the largest share of the nodes that one codeword of one
     branch holds in the assignment table (1.0 is a collapsed codebook)."""
     import torch
+    from repro_torch.distributed.quantization import PackedAssignment
     out = []
     for st in vq_states:
-        nb, n = st.assignment.shape
+        a = st.assignment
+        if isinstance(a, PackedAssignment):
+            a = a.unpack()
+        nb, n = a.shape
         k = st.codebook.k
-        flat = st.assignment.long() + k * torch.arange(
-            nb, device=st.assignment.device)[:, None]
+        flat = a.long() + k * torch.arange(nb, device=a.device)[:, None]
         counts = torch.bincount(flat.reshape(-1), minlength=nb * k)
         out.append(float(counts.max()) / n)
     return out
 
 
-def phase_train(g, cfg, batch: int) -> tuple[dict, dict]:
-    """The training main path: ``train_vq`` at the paper's batch size for
+def check_tier_storage(what: str, vq_states, precision: str) -> None:
+    """Every layer state in the storage of ``precision``: uint8 tables
+    (nibble-packed under '+a4') and int8 / fp8 codeword snapshots."""
+    import torch
+    from repro_torch.distributed.quantization import PackedAssignment
+    cw = torch.float8_e4m3fn if precision.startswith("fp8") else torch.int8
+    for l, st in enumerate(vq_states):
+        a = st.assignment
+        packed = isinstance(a, PackedAssignment)
+        ok = (packed == precision.endswith("+a4")
+              and (a.packed if packed else a).dtype == torch.uint8
+              and st.qcw is not None and st.qcw.feat.q.dtype == cw
+              and st.qcw.grad.q.dtype == cw)
+        if not ok:
+            raise SystemExit(f"{what}: layer {l} is not in the {precision} "
+                             f"tier's storage")
+
+
+def phase_train(g, cfg, batch: int, tier: str | None = None
+                ) -> tuple[dict, dict]:
+    """A training main path: ``train_vq`` at the paper's batch size for
     TRAIN_EPOCHS epochs, paper-faithful (Eq. 7 injection on), with the
     launch counts of every step and of the full-graph evaluations checked
-    exactly and every step's loss and VQ error printed.
+    exactly and every step's loss and VQ error printed (each epoch's under
+    a tier).  Under ``tier`` the run is ``train_vq`` with that tier
+    configured: uint8 tables, int8 snapshots requantized every step, the
+    quantized forms of context_ell in place of the f32 ones.
 
     Gates: every loss and VQ error finite; the mean loss of the last 5
     epochs under that of the first 5; no layer's codebook collapsed at
-    the end (at most MAX_CLUSTER_SHARE of the nodes on one codeword).
-    The run is long enough for the last two: while the injection reads
+    the end (at most MAX_CLUSTER_SHARE of the nodes on one codeword); a
+    tier's states end in its storage.  The run is long enough for the
+    falling loss and the uncollapsed codebooks: while the injection reads
     the random initial gradient codewords the loss rises and the last
     layer's codebook collapses -- the reference does the same
     (tests/test_torch_train.py) -- until the codewords nobody picks have
     decayed under ``revive_threshold`` (0.99^t < 0.05 at step ~300) and
     are re-seeded from the worst-quantized rows."""
     import torch
+    from repro_torch.kernels import ops as kops
     from repro_torch.train.gnn_trainer import train_vq
+    tag = "train" if tier is None else f"tier-train {tier}"
     n_layers = cfg.n_layers
     steps = TRAIN_EPOCHS * -(-g.n // batch)
     inject = n_layers - 1 if cfg.grad_inject else 0
     reset_counts()
     t0 = time.time()
-    r = train_vq(g, cfg, epochs=TRAIN_EPOCHS, batch_size=batch, seed=SEED,
-                 eval_every=EVAL_EVERY, device=DEVICE)
+    kops.configure_kernel_precision(tier or "fp32")
+    try:
+        r = train_vq(g, cfg, epochs=TRAIN_EPOCHS, batch_size=batch,
+                     seed=SEED, eval_every=EVAL_EVERY, device=DEVICE)
+    finally:
+        kops.configure_kernel_precision(reset=True)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_counts()
     # per step: every layer's forward runs spmm_ell and context_ell and its
     # codebook update vq_update; the backward of every layer but the first
     # (whose input needs no gradient) runs spmm_ell_t and, with the Eq. 7
-    # injection, the w_t form of context_ell.  Each full-graph evaluation
-    # runs spmm_ell once per layer.
+    # injection, the w_t form of context_ell -- each context_ell launch in
+    # its quantized form under a tier.  Each full-graph evaluation runs
+    # spmm_ell once per layer.
     evals = -(-TRAIN_EPOCHS // EVAL_EVERY)
-    expect_counts("train", counts, {
+    q = tier is not None
+    expect_counts(tag, counts, {
         "vq_assign": 0, "vq_update": n_layers * steps,
         "spmm_ell": n_layers * steps + n_layers * evals,
         "spmm_ell_t": (n_layers - 1) * steps,
         "context_ell": (n_layers + inject) * steps,
-        "context_ell_wt": inject * steps})
+        "context_ell_wt": inject * steps,
+        "context_ell_q": (n_layers + inject) * steps if q else 0,
+        "context_ell_q_wt": inject * steps if q else 0})
     losses, errs = r["step_losses"], r["step_vq_errs"]
     if losses.shape != (steps,) or errs.shape != (steps, n_layers):
-        raise SystemExit(f"train: {losses.shape} losses, {errs.shape} VQ "
+        raise SystemExit(f"{tag}: {losses.shape} losses, {errs.shape} VQ "
                          f"errors for {steps} steps")
-    for i, (loss, e) in enumerate(zip(losses, errs)):
-        log(f"train step {i}: loss {loss:.6f} vq_err "
-            f"{' '.join(f'{v:.4f}' for v in e)}")
+    if tier is None:
+        for i, (loss, e) in enumerate(zip(losses, errs)):
+            log(f"train step {i}: loss {loss:.6f} vq_err "
+                f"{' '.join(f'{v:.4f}' for v in e)}")
     for h in r["history"]:
-        log(f"train epoch {h['epoch']}: {r['epoch_s'][h['epoch'] - 1]:.3f} "
+        log(f"{tag} epoch {h['epoch']}: {r['epoch_s'][h['epoch'] - 1]:.3f} "
             f"s, val {h['val']:.4f} test {h['test']:.4f} vq_err "
             f"{h['vq_err']:.4f}")
     epoch_loss = losses.reshape(TRAIN_EPOCHS, -1).mean(1)
@@ -302,20 +369,22 @@ def phase_train(g, cfg, batch: int) -> tuple[dict, dict]:
     r.update(wall_s=wall, epoch_loss=epoch_loss.tolist(),
              epoch_vq_err=errs.reshape(TRAIN_EPOCHS, -1).mean(1).tolist(),
              largest_cluster_share=share)
-    log(f"train: {steps} steps of {batch} nodes in {wall:.3f} s (incl. "
+    log(f"{tag}: {steps} steps of {batch} nodes in {wall:.3f} s (incl. "
         f"{evals} full-graph evaluations); mean loss per epoch "
         f"{[round(v, 4) for v in r['epoch_loss']]}; largest cluster share "
         f"per layer at the end {[round(v, 4) for v in share]}")
     if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(errs))):
-        raise SystemExit("train: non-finite loss or VQ error")
+        raise SystemExit(f"{tag}: non-finite loss or VQ error")
     first, last = float(epoch_loss[:5].mean()), float(epoch_loss[-5:].mean())
     if not last < first:
-        raise SystemExit(f"train: mean loss of the last 5 epochs {last} not "
+        raise SystemExit(f"{tag}: mean loss of the last 5 epochs {last} not "
                          f"under that of the first 5 {first}")
     if max(share) > MAX_CLUSTER_SHARE:
-        raise SystemExit(f"train: a codebook collapsed, largest cluster "
+        raise SystemExit(f"{tag}: a codebook collapsed, largest cluster "
                          f"share per layer {share} (cap "
                          f"{MAX_CLUSTER_SHARE})")
+    if tier is not None:
+        check_tier_storage(tag, r["vq_states"], tier)
     return r, counts
 
 
@@ -574,6 +643,13 @@ def phase_train_kernels(m: Model, params, vq) -> tuple[list[dict], dict]:
     return rows, {"spmm_ell": spmm, "context_ell": wt + ctx}
 
 
+def _dense_table(a):
+    """An assignment table as a plain [nb, n] tensor (a packed one
+    unpacked)."""
+    from repro_torch.distributed.quantization import PackedAssignment
+    return a.unpack() if isinstance(a, PackedAssignment) else a
+
+
 def _codeword_mismatch(a, b) -> "torch.Tensor":
     """[nb, k] mask of codewords whose state differs between two layer
     states beyond STEP_TOL."""
@@ -589,13 +665,39 @@ def _codeword_mismatch(a, b) -> "torch.Tensor":
     return bad
 
 
-def phase_train_parity(m: Model, params, vq, ost) -> dict:
+def _check_snapshots(tag: str, a, b, agree_cw) -> None:
+    """Quantize-on-update snapshots of a card step and a CPU step: on the
+    codewords whose state agrees (``agree_cw`` [nb, k]) every dequantized
+    value within two quanta of the other's (each is its codeword rounded
+    to its own grid: half a quantum apart at most, plus the STEP_TOL the
+    codewords may differ by) -- 1 for int8, 2^-3 of the value (2^-9 near
+    zero) for fp8 e4m3 -- and the storage dtypes equal."""
+    import torch
+    for name in ("feat", "grad"):
+        qa, qb = getattr(a.qcw, name), getattr(b.qcw, name)
+        if qa.q.dtype != qb.q.dtype:
+            raise SystemExit(f"{tag}: {name} snapshot dtypes differ")
+        va, vb = qa.q.float(), qb.q.float()
+        step = 1.0 if qa.q.dtype == torch.int8 \
+            else torch.maximum(va.abs(), vb.abs()) / 8 + 2.0 ** -9
+        da, db = va * qa.scale, vb * qb.scale
+        tol = 2 * step * torch.maximum(qa.scale, qb.scale) \
+            + STEP_TOL["atol"] + STEP_TOL["rtol"] * db.abs()
+        bad = ((da - db).abs() > tol) & agree_cw[..., None]
+        if bool(bad.any()):
+            raise SystemExit(f"{tag}: {int(bad.sum())} {name} snapshot "
+                             f"values beyond two quanta")
+
+
+def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
+                       tag: str = "train parity") -> dict:
     """One training step at batch PARITY_BATCH on the card and on the CPU
     plain path from the same (trained) state.  Loss, output, params,
     optimizer state, VQ errors and whitening moments agree within
     STEP_TOL; the refreshed assignments agree on >= 99.9 % of the batch's
     entries and every mismatch is a near-tie; codeword statistics agree
-    except on codewords a flipped row touched or that were revived."""
+    except on codewords a flipped row touched or that were revived; under
+    a tier the requantized snapshots agree within two quanta."""
     import torch
     from repro_torch.convert import to_device
     from repro_torch.core import codebook as cbm
@@ -605,21 +707,20 @@ def phase_train_parity(m: Model, params, vq, ost) -> dict:
     opt = rmsprop(PAPER_LR)
     bids = np.random.default_rng(SEED + 3).choice(
         m.g.n, PARITY_BATCH, replace=False)
-    cpu = Model(m.g, m.cfg, PARITY_BATCH, "cpu")
     state_c = to_device((params, vq, ost), "cpu")
     res = {}
-    for tag, mm, (p, v, o) in (("cuda", m, (params, vq, ost)),
-                               ("cpu", cpu, state_c)):
+    for side, mm, (p, v, o) in (("cuda", m, (params, vq, ost)),
+                                ("cpu", cpu, state_c)):
         pack, x_b, y_b, lm = mm.batch_inputs(bids)
         t0 = time.time()
         out = vq_train_step(p, v, o, pack, x_b, y_b, mm.ops.degrees, m.cfg,
                             opt, loss_mask=lm)
         out = to_device(out, "cpu")
-        res[tag] = (out, time.time() - t0)
+        res[side] = (out, time.time() - t0)
     (pg, vg, og, lg, yg, eg), t_gpu = res["cuda"]
     (pc, vc, oc, lc, yc, ec), t_cpu = res["cpu"]
     if not np.isfinite(float(lg)):
-        raise SystemExit("train parity: non-finite loss")
+        raise SystemExit(f"{tag}: non-finite loss")
     worst = 0.0
     for name, a, b in [("loss", lg, lc), ("output", yg, yc),
                        ("vq_errs", eg, ec)] + [
@@ -627,8 +728,7 @@ def phase_train_parity(m: Model, params, vq, ost) -> dict:
             for l in range(len(pg)) for k in pg[l]] + [
             (f"rmsprop nu {l}.{k}", og.nu[l][k], oc.nu[l][k])
             for l in range(len(pg)) for k in pg[l]]:
-        worst = max(worst, check_close(f"train parity {name}", a, b,
-                                       STEP_TOL))
+        worst = max(worst, check_close(f"{tag} {name}", a, b, STEP_TOL))
     cb = m.cfg.layer_codebook_cfg()
     bids_t = torch.from_numpy(bids).long()
     outside = ~torch.isin(torch.arange(m.g.n), bids_t)
@@ -636,17 +736,17 @@ def phase_train_parity(m: Model, params, vq, ost) -> dict:
     summary = []
     for l, (a, b) in enumerate(zip(vg, vc)):
         for name in ("mean", "var"):
-            check_close(f"train parity layer {l} {name}",
+            check_close(f"{tag} layer {l} {name}",
                         getattr(a.codebook, name), getattr(b.codebook, name),
                         STEP_TOL)
         if int(a.codebook.step) != int(b.codebook.step):
-            raise SystemExit(f"train parity layer {l}: codebook step")
-        ag, ac = a.assignment[:, bids_t], b.assignment[:, bids_t]
+            raise SystemExit(f"{tag} layer {l}: codebook step")
+        ta, tb_ = _dense_table(a.assignment), _dense_table(b.assignment)
+        ag, ac = ta[:, bids_t], tb_[:, bids_t]
         flip = ag != ac
         agree = 1.0 - float(flip.float().mean())
-        if not torch.equal(a.assignment[:, outside],
-                           b.assignment[:, outside]):
-            raise SystemExit(f"train parity layer {l}: assignments outside "
+        if not torch.equal(ta[:, outside], tb_[:, outside]):
+            raise SystemExit(f"{tag} layer {l}: assignments outside "
                              f"the batch changed")
         if bool(flip.any()):
             if vw_c is None:     # the CPU step's own whitened rows
@@ -667,10 +767,10 @@ def phase_train_parity(m: Model, params, vq, ost) -> dict:
             dg, dc = dist(ag), dist(ac)
             far = flip & ((dg - dc).abs() > 1e-5 * (1 + dc.abs()))
             if bool(far.any()):
-                raise SystemExit(f"train parity layer {l}: {int(far.sum())} "
+                raise SystemExit(f"{tag} layer {l}: {int(far.sum())} "
                                  f"assignment mismatches are not near-ties")
         if agree < 0.999:
-            raise SystemExit(f"train parity layer {l}: assignment agreement "
+            raise SystemExit(f"{tag} layer {l}: assignment agreement "
                              f"{agree:.6f} < 0.999")
         k = a.codebook.k
         touched = torch.zeros((ag.shape[0], k), dtype=torch.bool)
@@ -681,21 +781,23 @@ def phase_train_parity(m: Model, params, vq, ost) -> dict:
             (b.codebook.cluster_size == 1.0)
         bad = _codeword_mismatch(a, b)
         if bool((bad & ~(touched | revived)).any()):
-            raise SystemExit(f"train parity layer {l}: "
+            raise SystemExit(f"{tag} layer {l}: "
                              f"{int((bad & ~(touched | revived)).sum())} "
                              f"codewords differ that no flipped or revived "
                              f"row explains")
         if int(bad.sum()) > max(4, 0.001 * bad.numel()):
-            raise SystemExit(f"train parity layer {l}: {int(bad.sum())} "
+            raise SystemExit(f"{tag} layer {l}: {int(bad.sum())} "
                              f"codewords differ")
+        if a.qcw is not None or b.qcw is not None:
+            _check_snapshots(f"{tag} layer {l}", a, b, ~bad)
         summary.append(dict(layer=l, agreement=agree, flips=int(flip.sum()),
                             codewords_differ=int(bad.sum()),
                             revived=int(revived.sum())))
-        log(f"train parity layer {l}: assignment agreement {agree:.6f} "
+        log(f"{tag} layer {l}: assignment agreement {agree:.6f} "
             f"({int(flip.sum())} near-tie flips), {int(bad.sum())} of "
             f"{bad.numel()} codewords differ (flipped or revived rows), "
             f"{int(revived.sum())} revived")
-    log(f"train parity: one step at batch {PARITY_BATCH}, card vs CPU plain "
+    log(f"{tag}: one step at batch {PARITY_BATCH}, card vs CPU plain "
         f"path: loss {float(lg):.6f} vs {float(lc):.6f}, max abs err "
         f"{worst:.3g} (rtol 1e-4, atol 1e-5); card {t_gpu:.3f} s, CPU "
         f"{t_cpu:.3f} s")
@@ -855,61 +957,88 @@ def _counters() -> dict:
     from repro_torch.kernels import context_ell, spmm_ell, vq_assign, vq_update
     return {"vq_assign": (vq_assign, "launches"),
             "vq_update": (vq_update, "launches"),
+            "vq_update_u8": (vq_update, "launches_u8"),
             "spmm_ell": (spmm_ell, "launches"),
+            "spmm_ell_q": (spmm_ell, "launches_q"),
             "spmm_ell_t": (spmm_ell, "launches_t"),
             "context_ell": (context_ell, "launches"),
-            "context_ell_wt": (context_ell, "launches_wt")}
+            "context_ell_wt": (context_ell, "launches_wt"),
+            "context_ell_q": (context_ell, "launches_q"),
+            "context_ell_q_wt": (context_ell, "launches_q_wt")}
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import context_ell
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
+    context_ell.launches_by_entry.clear()
 
 
 def read_counts() -> dict:
-    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+    """The counters, and context_ell's launches by library entry under
+    ``"entries"``."""
+    from repro_torch.kernels import context_ell
+    got = {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+    got["entries"] = dict(context_ell.launches_by_entry)
+    return got
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    out = {k: a[k] + b[k] for k in a if k != "entries"}
+    out["entries"] = {e: a["entries"].get(e, 0) + b["entries"].get(e, 0)
+                      for e in {**a["entries"], **b["entries"]}}
+    return out
 
 
 def expect_counts(what: str, got: dict, want: dict) -> None:
+    """The counters against ``want`` (a counter it does not name must be
+    0); the per-entry counts are printed."""
+    want = {k: want.get(k, 0) for k in got if k != "entries"}
     log(f"{what} launches: {got}")
-    if got != want:
+    if {k: v for k, v in got.items() if k != "entries"} != want:
         raise SystemExit(f"{what}: launch counts {got}, expected {want}")
 
 
-def phase_main_path(server, requests) -> tuple[dict, dict]:
+def phase_main_path(server, requests, tag: str = "serve"
+                    ) -> tuple[dict, dict]:
+    """A serving main path: refresh, warm-up and the drain of
+    ``requests``, launch counts checked exactly (the quantized forms of
+    context_ell in place of the f32 one when the states carry codeword
+    snapshots)."""
     from repro_torch.launch.serve_gnn import drain_requests
     n_layers = server.cfg.n_layers
     steps_per_layer = -(-server.g.n // server.batch)
+    q = server.vq[0].qcw is not None
     reset_counts()
     t_refresh = server.refresh()
     refresh_counts = read_counts()
-    expect_counts("refresh", refresh_counts, {
-        "vq_assign": n_layers, "vq_update": 0,
-        "spmm_ell": n_layers * steps_per_layer, "spmm_ell_t": 0,
-        "context_ell": n_layers * steps_per_layer, "context_ell_wt": 0})
-    log(f"refresh: {t_refresh:.3f} s for {server.g.n} nodes x {n_layers} "
-        f"layers ({steps_per_layer} batches of {server.batch} per layer)")
+    expect_counts(f"{tag} refresh", refresh_counts, {
+        "vq_assign": n_layers,
+        "spmm_ell": n_layers * steps_per_layer,
+        "context_ell": n_layers * steps_per_layer,
+        "context_ell_q": n_layers * steps_per_layer if q else 0})
+    log(f"{tag} refresh: {t_refresh:.3f} s for {server.g.n} nodes x "
+        f"{n_layers} layers ({steps_per_layer} batches of {server.batch} "
+        f"per layer)")
     reset_counts()
     t_warm = server.warmup()
     rep = drain_requests(server, requests)
     serve_counts = read_counts()
     steps = rep["steps"] + 1                      # + the warm-up step
-    expect_counts("serve", serve_counts, {
-        "vq_assign": 0, "vq_update": 0, "spmm_ell": n_layers * steps,
-        "spmm_ell_t": 0, "context_ell": n_layers * steps,
-        "context_ell_wt": 0})
+    expect_counts(tag, serve_counts, {
+        "spmm_ell": n_layers * steps, "context_ell": n_layers * steps,
+        "context_ell_q": n_layers * steps if q else 0})
     rep.update(refresh_s=t_refresh, warmup_s=t_warm)
-    log(f"serve: {rep['nodes']} nodes / {rep['requests']} requests in "
+    log(f"{tag}: {rep['nodes']} nodes / {rep['requests']} requests in "
         f"{rep['steps']} steps, {rep['wall_s']:.4f} s -> "
         f"{rep['nodes_per_s']:.1f} nodes/s; step p50 "
         f"{rep['step_p50_ms']:.4f} ms p99 {rep['step_p99_ms']:.4f} ms; "
         f"request p50 {rep['request_p50_ms']:.4f} ms p99 "
         f"{rep['request_p99_ms']:.4f} ms; warmup {t_warm:.4f} s")
-    total = {k: refresh_counts[k] + serve_counts[k] for k in refresh_counts}
-    return rep, total
+    return rep, add_counts(refresh_counts, serve_counts)
 
 
-def phase_cpu_parity(server, requests) -> None:
+def phase_cpu_parity(server, requests, tag: str = "cpu parity") -> None:
     """The GPU server's state on the CPU, served through the plain
     versions: the same rows must come out."""
     from repro_torch.convert import to_device
@@ -926,11 +1055,11 @@ def phase_cpu_parity(server, requests) -> None:
                 not np.all(np.isfinite(got)):
             raise SystemExit(f"served rows: shape {got.shape} or non-finite")
         if not np.allclose(got, want, **SERVE_TOL):
-            raise SystemExit(f"batch {i}: GPU rows disagree with the CPU "
-                             f"plain path (max abs err "
+            raise SystemExit(f"{tag} batch {i}: GPU rows disagree with "
+                             f"the CPU plain path (max abs err "
                              f"{np.abs(got - want).max()})")
         worst = max(worst, float(np.abs(got - want).max()))
-    log(f"cpu parity: {sum(len(b) for b in batches)} served rows agree with "
+    log(f"{tag}: {sum(len(b) for b in batches)} served rows agree with "
         f"the CPU plain path, max abs err {worst:.3g} (rtol 1e-4, atol 1e-5)")
 
 
@@ -992,6 +1121,290 @@ def phase_train_profile(m: Model, params, vq, ost) -> None:
     _profile("train", batches, step)
 
 
+# ---------------------------------------------------------------------------
+# the precision tiers
+# ---------------------------------------------------------------------------
+
+def tier_agreement(server, tag: str) -> float:
+    """``vq_inference`` over every node with the server's tier state
+    against the fp32 inference of the same codebooks, tables and weights
+    (the snapshots dropped, the tables widened to int32): the share of
+    nodes whose argmax agrees, gated at TIER_AGREEMENT (the reference's
+    own gate)."""
+    from repro_torch.train.gnn_trainer import vq_inference
+    dense = [st._replace(assignment=_dense_table(st.assignment).int(),
+                         qcw=None) for st in server.vq]
+    t0 = time.time()
+    yq = vq_inference(server.params, server.vq, server.g, server.cfg,
+                      TIER_INFER_BATCH)
+    y32 = vq_inference(server.params, dense, server.g, server.cfg,
+                       TIER_INFER_BATCH)
+    if yq.shape != y32.shape or not np.all(np.isfinite(yq)):
+        raise SystemExit(f"{tag}: inference rows {yq.shape} or non-finite")
+    agree = float((np.argmax(yq, -1) == np.argmax(y32, -1)).mean())
+    log(f"{tag}: vq_inference over {yq.shape[0]} nodes, argmax agreement "
+        f"with the fp32 inference of the same state {agree:.6f} (gate "
+        f"{TIER_AGREEMENT}), max abs diff {float(np.abs(yq - y32).max()):.4g}"
+        f" ({time.time() - t0:.2f} s)")
+    if agree < TIER_AGREEMENT:
+        raise SystemExit(f"{tag}: argmax agreement {agree} with fp32 under "
+                         f"{TIER_AGREEMENT}")
+    return agree
+
+
+def phase_tier_serve(g, cfg, params, vq, requests) -> tuple[dict, dict,
+                                                             dict]:
+    """Serving main paths of the tier-trained state: as trained (int8) and
+    converted to fp8 by ``quantize_vq_states``.  Each: refresh, the 200
+    requests with exact launch counts, CPU parity, and the inference
+    agreement with fp32 serving.  Returns the reports, the summed counts
+    and the servers by tier."""
+    from repro_torch.launch.serve_gnn import GNNServer, vq_state_bytes
+    from repro_torch.models.gnn import quantize_vq_states
+    reps, total, servers = {}, None, {}
+    for tier in ("int8", "fp8"):
+        tag = f"tier-serve {tier}"
+        st = vq if tier == TIER_PRECISION \
+            else quantize_vq_states(vq, cfg, precision=tier)
+        check_tier_storage(tag, st, tier)
+        server = GNNServer(g, cfg, params, st, BATCH, device=DEVICE)
+        rep, counts = phase_main_path(server, requests, tag)
+        phase_cpu_parity(server, requests, f"{tag} cpu parity")
+        rep["agreement"] = tier_agreement(server, tag)
+        rep["vq_state_bytes"] = vq_state_bytes(server.vq)
+        reps[tier], servers[tier] = rep, server
+        total = counts if total is None else add_counts(total, counts)
+    return reps, total, servers
+
+
+def phase_a4_serve(g, cfg, requests) -> tuple[dict, dict, dict]:
+    """Serving at k = A4_K from the seed's initial state (no training, the
+    reference's default) under int8, int8+a4 and fp8+a4, each built as
+    ``serve_gnn`` builds it (the tier configured, ``init_gnn`` /
+    ``init_vq_states``, ``quantize_vq_states``): refresh, the requests
+    with exact counts, CPU parity.  The packed tables after refresh must
+    be ``pack_nibbles`` of the int8 tier's uint8 tables, and the int8+a4
+    rows bit-equal to the int8 rows (packing changes storage only)."""
+    import torch
+    from repro_torch.distributed.quantization import pack_nibbles
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve_gnn import GNNServer, vq_state_bytes
+    from repro_torch.models.gnn import (init_gnn, init_vq_states,
+                                        quantize_vq_states)
+    reps, total, servers = {}, None, {}
+    for tier in ("int8", "int8+a4", "fp8+a4"):
+        tag = f"a4-serve {tier}"
+        kops.configure_kernel_precision(tier)
+        try:
+            gen = torch.Generator().manual_seed(SEED)
+            params = init_gnn(cfg, gen, device=DEVICE)
+            vq = quantize_vq_states(init_vq_states(cfg, g.n, gen,
+                                                   device=DEVICE),
+                                    cfg, precision=tier)
+        finally:
+            kops.configure_kernel_precision(reset=True)
+        check_tier_storage(tag, vq, tier)
+        server = GNNServer(g, cfg, params, vq, BATCH, device=DEVICE)
+        rep, counts = phase_main_path(server, requests, tag)
+        phase_cpu_parity(server, requests, f"{tag} cpu parity")
+        rep["vq_state_bytes"] = vq_state_bytes(server.vq)
+        reps[tier], servers[tier] = rep, server
+        total = counts if total is None else add_counts(total, counts)
+    for l, (a, b) in enumerate(zip(servers["int8+a4"].vq,
+                                   servers["int8"].vq)):
+        if not torch.equal(a.assignment.packed, pack_nibbles(b.assignment)):
+            raise SystemExit(f"a4-serve: layer {l}'s packed table is not "
+                             f"the int8 tier's table packed")
+    ids = np.concatenate(requests[:12])
+    got, want = servers["int8+a4"].serve(ids), servers["int8"].serve(ids)
+    if not np.array_equal(got, want):
+        raise SystemExit(f"a4-serve: int8+a4 rows differ from int8 rows "
+                         f"(max abs err {np.abs(got - want).max()})")
+    log(f"a4-serve: packed tables == pack_nibbles(int8 tables) in every "
+        f"layer; {len(ids)} int8+a4 rows bit-equal to the int8 rows; vq "
+        f"operand bytes {reps['int8']['vq_state_bytes']} (int8) -> "
+        f"{reps['int8+a4']['vq_state_bytes']} (int8+a4)")
+    return reps, total, servers
+
+
+def _table_bytes(a) -> float:
+    """Bytes an assignment entry takes in a table's storage."""
+    from repro_torch.distributed.quantization import PackedAssignment
+    return 0.5 if isinstance(a, PackedAssignment) else a.element_size()
+
+
+def _ctx_q_row(ids, vals, a, qt, w_t, at: str) -> dict:
+    """A quantized form of context_ell against its plain version on one
+    set of operands (bit-equal), timed: ids/vals [b, D], table a (int32,
+    uint8 or packed), codewords qt (QTensor), optional w_t."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.context_ell import context_ell_cuda
+    got = context_ell_cuda(ids, vals, a, qt.q, w_t, qt.scale)
+    want = ref.context_ell(ids, vals, a, qt.q, w_t, qt.scale)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise SystemExit(f"context_ell {at}: not bit-equal to its plain "
+                         f"version (max abs err "
+                         f"{float((got - want).abs().max())})")
+    b, deg = ids.shape
+    nb, k, fb = qt.q.shape
+    dense = _dense_table(a)
+    uid = torch.unique(ids.long())
+    pairs = torch.unique(dense[:, uid].long()
+                         + k * torch.arange(nb, device=ids.device)[:, None])
+    f_out = nb * fb if w_t is None else w_t.shape[1]
+    byt = 8 * b * deg + _table_bytes(a) * nb * uid.numel() \
+        + fb * pairs.numel() + 4 * nb * fb + 4 * b * f_out
+    ops_ = 2 * b * deg * nb * fb + b * nb * fb
+    if w_t is not None:
+        byt += 4 * nb * fb * f_out
+        ops_ += 2 * b * nb * fb * f_out
+    bms, by = bound(byt, ops_)
+    big = b > 10000
+    ms, call_ms = cuda_ms(lambda: context_ell_cuda(ids, vals, a, qt.q, w_t,
+                                                   qt.scale),
+                          3 if big else 5, inner=4 if big else 20)
+    plain_ms = cuda_ms(lambda: ref.context_ell(ids, vals, a, qt.q, w_t,
+                                               qt.scale),
+                       2, inner=1 if big else 5)[0]
+    row = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, library_ms=None,
+               at=f"b={b} D={deg} n={dense.shape[1]} nb={nb} k={k} fb={fb}"
+                  + ("" if w_t is None else f" f_out={f_out}") + f" {at}")
+    log(f"context_ell {row['at']}: bit-equal  kernel {ms:.5f} ms (one call "
+        f"{call_ms:.5f} ms)  plain {plain_ms:.5f} ms  bound {bms:.6f} ms "
+        f"({by})  library none")
+    return row
+
+
+def phase_tier_kernels(m: Model, params, vq, servers: dict) -> dict:
+    """Every quantized form against its plain version, bit for bit, at the
+    shapes the tier paths give it: context_ell and its w_t form with int8
+    and fp8 codewords over uint8 (k 256), nibble-packed (k 16) and int32
+    tables at the serving batch (256) and the training batch (42,335);
+    spmm_ell's int8 / fp8 source at the training batch from the
+    169,343-row feature table; vq_update's uint8 emit on the tier-trained
+    model's whitened rows.  Returns the rows by kernel name (they go
+    under that kernel's ``also``), each with its ``form``."""
+    import torch
+    from repro_torch.core import codebook as cbm
+    from repro_torch.core.conv import fixed_conv_operands
+    from repro_torch.distributed.quantization import quantize_codewords
+    from repro_torch.graph.batching import plan_batch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spmm_ell import spmm_ell_cuda
+    from repro_torch.kernels.vq_update import vq_assign_update_cuda
+    from repro_torch.models.gnn import vq_loss_and_grads
+    dev = m.dev
+    rng = np.random.default_rng(SEED + 17)
+    shapes = {"serve": rng.choice(m.g.n, BATCH, replace=False),
+              "train": rng.permutation(m.g.n)[:m.batch]}
+    rows = {"context_ell": [], "spmm_ell": [], "vq_update": []}
+    # codewords of the plain form: layer 0's feature snapshot; of the w_t
+    # form: layer 1's gradient snapshot with W^T of layer 1
+    w_t = params[1]["w"].t().contiguous()
+    for shape, bids_np in shapes.items():
+        bids = torch.from_numpy(bids_np.astype(np.int32)).to(dev)
+        ops_, _ = fixed_conv_operands("gcn", plan_batch(m.plan, bids),
+                                      m.ops.degrees)
+        fwd = (ops_.out_ids.contiguous(), ops_.out_vals.contiguous())
+        rev = (ops_.rev_ids.contiguous(), ops_.rev_vals.contiguous())
+        for cw_name, src in (("i8", "int8"), ("f8", "fp8")):
+            for tab in ("u8", "a4", "i32"):
+                srv = servers[src if tab != "a4" else f"{src}+a4"]
+                st0, st1 = srv.vq[0], srv.vq[1]
+                a0, a1 = st0.assignment, st1.assignment
+                if tab == "i32":
+                    a0, a1 = a0.int(), a1.int()
+                for form, (ids, vals), a, qt, wt in (
+                        ("q", fwd, a0, st0.qcw.feat, None),
+                        ("q_wt", rev, a1, st1.qcw.grad, w_t)):
+                    at = f"({shape} batch, {cw_name} codewords, {tab} table)"
+                    row = _ctx_q_row(ids, vals, a, qt, wt, at)
+                    row["form"] = f"{form} {cw_name} {tab}"
+                    row["entry"] = ("repro_context_ell_" + (
+                        "wt_" if wt is not None else "") + f"{cw_name}_{tab}")
+                    rows["context_ell"].append(row)
+
+    # spmm_ell's quantized source: the training batch's in-edges into the
+    # 169,343-row feature table, quantized per channel
+    bids = torch.from_numpy(shapes["train"].astype(np.int32)).to(dev)
+    pack = plan_batch(m.plan, bids)
+    ops_, _ = fixed_conv_operands("gcn", pack, m.ops.degrees)
+    idx = ops_.out_ids.contiguous()
+    val = (ops_.in_vals + ops_.out_vals).contiguous()
+    for cw_name, dt in (("i8", torch.int8), ("f8", torch.float8_e4m3fn)):
+        qx = quantize_codewords(m.x[None], dtype=dt)
+        q, sc = qx.q[0].contiguous(), qx.scale[0].contiguous()
+        got = spmm_ell_cuda(idx, val, q, sc)
+        want = ref.spmm_ell(idx, val, q, sc)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"spmm_ell {cw_name} source: not bit-equal")
+        b, deg = idx.shape
+        f = q.shape[1]
+        n_rows = int(torch.unique(idx).numel())
+        bms, by = bound(8 * b * deg + n_rows * f + 4 * f + 4 * b * f,
+                        2 * b * deg * f + b * f)
+        ms, call_ms = cuda_ms(lambda: spmm_ell_cuda(idx, val, q, sc), 5)
+        plain_ms = cuda_ms(lambda: ref.spmm_ell(idx, val, q, sc), 2,
+                           inner=1)[0]
+        row = dict(form=f"q {cw_name}", max_abs_err=0.0, ms=ms,
+                   call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=None,
+                   at=f"b={b} D={deg} f={f} n_src={q.shape[0]} "
+                      f"({q.shape[0] * f / 1e6:.1f} MB {cw_name} source, "
+                      f"training batch)")
+        rows["spmm_ell"].append(row)
+        log(f"spmm_ell {row['at']}: bit-equal  kernel {ms:.5f} ms (one call "
+            f"{call_ms:.5f} ms)  plain {plain_ms:.5f} ms  bound {bms:.6f} ms "
+            f"({by})  library none")
+
+    # vq_update's uint8 emit on the tier-trained model's rows
+    pack, x_b, y_b, lm = m.batch_inputs(shapes["train"])
+    _, _, acts, _, gprobes = vq_loss_and_grads(params, vq, pack, x_b, y_b,
+                                               m.ops.degrees, m.cfg, lm)
+    cb = m.cfg.layer_codebook_cfg()
+    for layer in (0, m.cfg.n_layers - 1):
+        st = vq[layer].codebook
+        vw = cbm.whitened_rows(st, acts[layer], gprobes[layer], cb)[0]
+        cw = st.codewords_w.contiguous()
+        got = vq_assign_update_cuda(vw, cw, torch.uint8)
+        wide = vq_assign_update_cuda(vw, cw)
+        want = ref.vq_assign_update(vw, cw, torch.uint8)
+        torch.cuda.synchronize()
+        if got[0].dtype != torch.uint8 or not (
+                torch.equal(got[0], want[0])
+                and torch.equal(got[0].int(), wide[0])
+                and torch.equal(got[1], want[1])
+                and torch.equal(got[2], want[2])):
+            raise SystemExit(f"vq_update uint8 emit layer {layer}: ids, "
+                             f"qerr or counts differ")
+        nb, b, f = vw.shape
+        k = cw.shape[1]
+        bms, by = bound(4 * nb * b * f + 4 * nb * k * f + 5 * nb * b
+                        + 4 * nb * k * (f + 1), 2 * nb * b * k * f)
+        ms, call_ms = cuda_ms(lambda: vq_assign_update_cuda(
+            vw, cw, torch.uint8), 5, inner=4)
+        int32_ms = cuda_ms(lambda: vq_assign_update_cuda(vw, cw), 5,
+                           inner=4)[0]
+        plain_ms = cuda_ms(lambda: ref.vq_assign_update(vw, cw, torch.uint8),
+                           2, inner=1)[0]
+        row = dict(form="uint8 emit", max_abs_err=0.0, ms=ms,
+                   call_ms=call_ms, int32_emit_ms=int32_ms,
+                   plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=None,
+                   at=f"x=[{nb}, {b}, {f}] cw=[{nb}, {k}, {f}] layer {layer} "
+                      f"tier-trained")
+        rows["vq_update"].append(row)
+        log(f"vq_update uint8 emit {row['at']}: ids equal to the int32 "
+            f"emit and the plain version  kernel {ms:.4f} ms (one call "
+            f"{call_ms:.4f} ms, int32 emit {int32_ms:.4f} ms)  plain "
+            f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({by})  library none")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1002,49 +1415,114 @@ def main() -> int:
                                                   paper_config)
     from repro_torch.graph.datasets import synthetic_arxiv
     from repro_torch.launch import serve_gnn
+    from repro_torch.models.gnn import quantize_vq_states
 
     phase_card()
     build_s = phase_build()
+    seconds = {"build": build_s}
+
+    def timed(name, fn, *a):
+        t = time.time()
+        out = fn(*a)
+        seconds[name] = seconds.get(name, 0.0) + time.time() - t
+        log(f"phase {name}: {seconds[name]:.2f} s")
+        return out
 
     t0 = time.time()
     g = synthetic_arxiv(n=N_NODES, seed=SEED)
     cfg = paper_config(g, full_scale=True)
     batch = paper_batch_size(g)
     m = Model(g, cfg, batch, torch.device(DEVICE))
+    cpu = Model(g, cfg, PARITY_BATCH, "cpu")
+    seconds["setup"] = time.time() - t0
     log(f"setup: {g.n} nodes, {g.m} edges, deg_cap "
         f"{m.plan.nbr_ids.shape[1]}, config {cfg}, training batch {batch} "
-        f"in {time.time() - t0:.2f} s")
+        f"in {seconds['setup']:.2f} s")
 
-    r, train_counts = phase_train(g, cfg, batch)
+    # --- fp32: training, then serving the trained model ---
+    r, train_counts = timed("train", phase_train, g, cfg, batch)
     params, vq, ost = r["params"], r["vq_states"], r["opt_state"]
-    timing = phase_step_timing(m, params, vq, ost)
-    phase_train_profile(m, params, vq, ost)
-    train_rows, train_also = phase_train_kernels(m, params, vq)
-    parity = phase_train_parity(m, params, vq, ost)
-
+    timing = timed("train timing", phase_step_timing, m, params, vq, ost)
+    timed("train profile", phase_train_profile, m, params, vq, ost)
+    train_rows, train_also = timed("train kernels", phase_train_kernels, m,
+                                   params, vq)
+    parity = timed("train parity", phase_train_parity, m, params, vq, ost,
+                   cpu)
     server = serve_gnn.GNNServer(g, cfg, params, vq, BATCH, device=DEVICE)
-    serve_rows = phase_kernels(server)
+    serve_rows = timed("serve kernels", phase_kernels, server)
     requests = serve_gnn.make_requests(g.n, REQUESTS, MAX_REQUEST, SEED)
-    rep, serve_counts = phase_main_path(server, requests)
-    launches = {k: train_counts[k] + serve_counts[k] for k in train_counts}
+    rep, serve_counts = timed("serve", phase_main_path, server, requests)
+    rep["vq_state_bytes"] = serve_gnn.vq_state_bytes(server.vq)
+    timed("serve cpu parity", phase_cpu_parity, server, requests)
+    timed("serve profile", phase_profile, server, requests)
+
+    # --- the precision tiers: int8 training at k = TIER_K, its serving
+    # under int8 and fp8, and the '+a4' tiers at k = A4_K ---
+    cfg_t = cfg._replace(codebook=cfg.codebook._replace(k=TIER_K))
+    m_t, cpu_t = copy.copy(m), copy.copy(cpu)
+    m_t.cfg = cpu_t.cfg = cfg_t
+    rt, tier_train_counts = timed("tier-train", phase_train, g, cfg_t,
+                                  batch, TIER_PRECISION)
+    params_t, vq_t, ost_t = rt["params"], rt["vq_states"], rt["opt_state"]
+    tier_parity = {TIER_PRECISION: timed(
+        "tier-train parity", phase_train_parity, m_t, params_t, vq_t, ost_t,
+        cpu_t, f"tier-train parity {TIER_PRECISION}")}
+    tier_parity["fp8"] = timed(
+        "tier-train parity", phase_train_parity, m_t, params_t,
+        quantize_vq_states(vq_t, cfg_t, precision="fp8"), ost_t, cpu_t,
+        "tier-train parity fp8")
+    tier_reps, tier_serve_counts, tier_servers = timed(
+        "tier-serve", phase_tier_serve, g, cfg_t, params_t, vq_t, requests)
+    cfg_a4 = cfg._replace(codebook=cfg.codebook._replace(k=A4_K))
+    a4_reps, a4_counts, a4_servers = timed("a4-serve", phase_a4_serve, g,
+                                           cfg_a4, requests)
+    tier_rows = timed("tier kernels", phase_tier_kernels, m_t, params_t,
+                      vq_t, {"int8": tier_servers["int8"],
+                             "fp8": tier_servers["fp8"],
+                             "int8+a4": a4_servers["int8+a4"],
+                             "fp8+a4": a4_servers["fp8+a4"]})
+
+    # --- launches on the main paths, and the kernels line ---
+    launches = train_counts
+    for c in (serve_counts, tier_train_counts, tier_serve_counts, a4_counts):
+        launches = add_counts(launches, c)
+    entries = launches["entries"]
     by_name = {row["name"]: row for row in serve_rows + train_rows}
     by_name["spmm_ell"].setdefault("also", [])
     for name, extra in train_also.items():
         by_name[name]["also"] += extra
-    for c in by_name["context_ell"]["also"]:
-        if c.get("form") == "w_t":
-            c["launches"] = launches["context_ell_wt"]
+    for name, extra in tier_rows.items():
+        by_name[name]["also"] += extra
     kernels = [by_name[n] for n in ("vq_assign", "spmm_ell", "spmm_ell_t",
                                     "context_ell", "vq_update")]
+    # each row and form with its own count: the top rows are the f32 /
+    # int32-emit forms, the quantized forms sit under ``also``
+    form_launches = {
+        "vq_assign": launches["vq_assign"],
+        "spmm_ell": launches["spmm_ell"] - launches["spmm_ell_q"],
+        "spmm_ell_t": launches["spmm_ell_t"],
+        "context_ell": entries.get("repro_context_ell_f32_i32", 0),
+        "vq_update": launches["vq_update"] - launches["vq_update_u8"]}
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = form_launches[row["name"]]
         if row["launches"] < 1:
             raise SystemExit(f"{row['name']} never launched on the main path")
-    if launches["context_ell_wt"] < 1:
-        raise SystemExit("context_ell's w_t form never launched on the main "
-                         "path")
-    phase_cpu_parity(server, requests)
-    phase_profile(server, requests)
+        for c in row.get("also", []):
+            form = c.get("form", "")
+            if "entry" in c:
+                c["launches"] = entries.get(c["entry"], 0)
+            elif form == "w_t":
+                c["launches"] = entries.get("repro_context_ell_wt_f32_i32", 0)
+            elif form.startswith("q "):
+                c["launches"] = launches["spmm_ell_q"]
+            elif form == "uint8 emit":
+                c["launches"] = launches["vq_update_u8"]
+    for entry in ("repro_context_ell_wt_f32_i32", "repro_context_ell_i8_u8",
+                  "repro_context_ell_wt_i8_u8", "repro_context_ell_f8_u8",
+                  "repro_context_ell_i8_a4", "repro_context_ell_f8_a4"):
+        if entries.get(entry, 0) < 1:
+            raise SystemExit(f"{entry} never launched on the main paths")
+    log(f"main-path launches by context_ell entry: {entries}")
 
     log(json.dumps({"train": {
         "steps": int(r["step_losses"].shape[0]), "batch": batch,
@@ -1055,11 +1533,28 @@ def main() -> int:
         "history": r["history"], "final": r["final"], **{k: timing[k] for k in (
             "step_p50_ms", "step_p99_ms", "step_ms")},
         "parity": parity}}))
-    log(json.dumps({"serve": {k: rep[k] for k in (
-        "refresh_s", "warmup_s", "nodes", "requests", "steps", "wall_s",
-        "nodes_per_s", "step_p50_ms", "step_p99_ms", "request_p50_ms",
-        "request_p99_ms")}, "build_s": build_s}))
-    log(f"chip_smoke: {time.time() - T_START:.1f} s from start to the "
+    log(json.dumps({"tier_train": {
+        "precision": TIER_PRECISION, "k": TIER_K, "wall_s": rt["wall_s"],
+        "epoch_s": rt["epoch_s"], "epoch_loss": rt["epoch_loss"],
+        "epoch_vq_err": rt["epoch_vq_err"],
+        "largest_cluster_share": rt["largest_cluster_share"],
+        "history": rt["history"], "final": rt["final"],
+        "mem_bytes": rt["mem_bytes"], "parity": tier_parity}}))
+    keep = ("refresh_s", "warmup_s", "nodes", "requests", "steps", "wall_s",
+            "nodes_per_s", "step_p50_ms", "step_p99_ms", "request_p50_ms",
+            "request_p99_ms")
+    log(json.dumps({"serve": {k: rep[k] for k in keep + ("vq_state_bytes",)},
+                    "build_s": build_s}))
+    log(json.dumps({"tier_serve": {
+        f"{t} k={TIER_K}": {k: v for k, v in x.items()
+                            if k in keep + ("agreement", "vq_state_bytes")}
+        for t, x in tier_reps.items()} | {
+        f"{t} k={A4_K}": {k: v for k, v in x.items()
+                          if k in keep + ("vq_state_bytes",)}
+        for t, x in a4_reps.items()}}))
+    seconds["total"] = time.time() - T_START
+    log(json.dumps({"seconds": seconds}))
+    log(f"chip_smoke: {seconds['total']:.1f} s from start to the "
         f"result lines, the kernels' build included")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -4,14 +4,16 @@ The package mirrors ``repro``'s module layout so each port module sits
 where its JAX counterpart does.  It imports ``torch`` and numpy only --
 never ``jax`` and never a module of ``repro`` (the host-side numpy modules
 are carried as copies).  The TPU kernels of the serving and training
-paths (``vq_assign``, ``vq_update``, ``spmm_ell`` and its backward
-``spmm_ell_t``, ``context_ell`` with its ``w_t`` epilogue) are
+paths (``vq_assign``, ``vq_update`` with its narrow emit, ``spmm_ell``
+with its quantized form and its backward ``spmm_ell_t``, ``context_ell``
+with its ``w_t`` epilogue and its quantized forms) are
 hand-written CUDA C++ for ``sm_90a`` under ``kernels/csrc/``, built with
 ``nvcc`` on first use.
 
 Slice coverage: serving and node-task training on one device (Alg. 1,
-the Alg. 2 codebook update, the Eq. 7 injection, RMSprop / Adam), fp32
-operands, int32 assignment tables, GCN/SAGE/GIN backbones.  The quantized
-precision tiers, GAT/Transformer, the link task and meshes raise a clear
-error that names the later slice (see ROADMAP.md).
+the Alg. 2 codebook update, the Eq. 7 injection, RMSprop / Adam) in every
+precision tier (fp32; int8 / fp8 codeword snapshots with uint8 or
+nibble-packed assignment tables), GCN/SAGE/GIN backbones.  GAT/Transformer,
+the link task and meshes raise a clear error that names the later slice
+(see ROADMAP.md).
 """

@@ -5,7 +5,10 @@
 ``vq_states_from_numpy`` takes per-layer states whose fields are those of
 ``CodebookState`` / ``LayerVQState`` (any objects with those attributes
 holding numpy-convertible arrays, so a reference state converts without
-this package importing its framework).  ``opt_state_from_numpy`` takes
+this package importing its framework), in every precision tier: int32 or
+uint8 tables, nibble-packed ones (``packed`` + ``n``) and int8 / fp8
+codeword snapshots (``qcw.feat`` / ``qcw.grad`` with ``q`` and ``scale``;
+fp8 values cross as their bytes).  ``opt_state_from_numpy`` takes
 an optimizer state with ``step``, ``mu`` and ``nu`` (moments in the
 params' layout).  ``to_device`` moves the port's own params, states and
 optimizer states between devices.
@@ -18,15 +21,27 @@ import numpy as np
 import torch
 
 from repro_torch.core.codebook import CodebookState
-from repro_torch.core.conv import LayerVQState
-from repro_torch.runtime import PRECISION_SLICE, resolve_device
+from repro_torch.core.conv import LayerVQState, QuantizedCodewords
+from repro_torch.distributed.quantization import PackedAssignment, QTensor
+from repro_torch.runtime import resolve_device
 from repro_torch.train.optimizer import OptState
 
 _CODEBOOK_FIELDS = CodebookState._fields
+_TABLE_DTYPES = (np.int32, np.uint8)
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "float8_e4m3fn":
+        # numpy knows fp8 only through an extension dtype torch cannot
+        # read: carry the bytes and reinterpret them
+        return torch.from_numpy(a.view(np.uint8)).to(dev).view(
+            torch.float8_e4m3fn)
+    return torch.from_numpy(a).to(dev)
+
+
+def _qtensor(t, dev: torch.device) -> QTensor:
+    return QTensor(_tensor(t.q, dev), _tensor(t.scale, dev))
 
 
 def params_from_numpy(params: Sequence[Mapping[str, np.ndarray]],
@@ -53,39 +68,41 @@ def vq_states_from_numpy(states: Sequence[Any],
                          device: str | torch.device = "cuda"
                          ) -> list[LayerVQState]:
     """Per-layer VQ states from objects with ``codebook`` (the six
-    ``CodebookState`` fields), ``assignment``, ``counts`` and ``qcw``.
-    Only dense int32 assignment tables and no quantized snapshot are taken:
-    the uint8 / nibble-packed tables and int8/fp8 snapshots raise."""
+    ``CodebookState`` fields), ``assignment`` (an int32 or uint8 array, or
+    an object with ``packed`` and ``n``), ``counts`` and ``qcw`` (None, or
+    ``feat`` / ``grad`` objects with ``q`` and ``scale``)."""
     dev = resolve_device(device)
     out = []
     for l, s in enumerate(states):
-        if getattr(s, "qcw", None) is not None:
-            raise NotImplementedError(
-                f"layer {l}: a quantized codeword snapshot (qcw) comes with "
-                f"{PRECISION_SLICE}")
         a = s.assignment
-        if hasattr(a, "packed") and hasattr(a, "unpack"):
-            raise NotImplementedError(
-                f"layer {l}: a PackedAssignment (nibble-packed table) comes "
-                f"with {PRECISION_SLICE}")
-        a = np.asarray(a)
-        if a.dtype != np.int32:
-            raise NotImplementedError(
-                f"layer {l}: {a.dtype} assignment tables come with "
-                f"{PRECISION_SLICE}; this slice takes int32")
+        if hasattr(a, "packed") and hasattr(a, "n"):
+            a = PackedAssignment(_tensor(a.packed, dev), a.n)
+        else:
+            a = np.asarray(a)
+            if a.dtype not in _TABLE_DTYPES:
+                raise TypeError(f"layer {l}: {a.dtype} assignment table; "
+                                f"want int32 or uint8")
+            a = _tensor(a, dev)
+        qcw = getattr(s, "qcw", None)
+        if qcw is not None:
+            qcw = QuantizedCodewords(_qtensor(qcw.feat, dev),
+                                     _qtensor(qcw.grad, dev))
         cb = CodebookState(*(
             _tensor(getattr(s.codebook, f), dev) for f in _CODEBOOK_FIELDS))
-        out.append(LayerVQState(cb, _tensor(a, dev), _tensor(s.counts, dev)))
+        out.append(LayerVQState(cb, a, _tensor(s.counts, dev), qcw))
     return out
 
 
 def to_device(tree, device: str | torch.device):
-    """Copy params (list of dicts) or VQ states (NamedTuples) to a device."""
+    """Copy params (list of dicts) or VQ states (NamedTuples, packed
+    tables included) to a device."""
     dev = resolve_device(device)
     if isinstance(tree, torch.Tensor):
         return tree.to(dev)
     if tree is None:
         return None
+    if isinstance(tree, PackedAssignment):
+        return tree.to(dev)
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):

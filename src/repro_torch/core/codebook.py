@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed import quantization
 from repro_torch.kernels import ops as kops
 from repro_torch.runtime import resolve_device
 
@@ -148,6 +149,25 @@ def gradient_codewords(state: CodebookState, f_feat: int,
     """Per-branch gradient codewords G~: [n_branches, k, f_grad_blk]."""
     fb = f_feat // state.n_branches
     return _unwhitened_codewords(state, cfg.eps)[:, :, fb:].contiguous()
+
+
+def quantized_codewords(state: CodebookState, f_feat: int,
+                        cfg: CodebookConfig, *,
+                        prev_feat: Optional[quantization.QTensor] = None,
+                        prev_grad: Optional[quantization.QTensor] = None,
+                        dtype: torch.dtype = torch.int8
+                        ) -> tuple[quantization.QTensor,
+                                   quantization.QTensor]:
+    """Quantized kernel operands of the (feature, gradient) codeword
+    tables: each a QTensor with [nb, 1, f_blk] per-branch/per-channel
+    scales, the layout ``kops.context_ell`` dequantizes in one epilogue
+    row.  ``dtype`` (int8 or float8_e4m3fn) picks a fresh snapshot's
+    storage; the previous step's QTensors pin it to theirs and reuse their
+    scales inside the drift band (quantize-on-update)."""
+    fcw = feature_codewords(state, f_feat, cfg)
+    gcw = gradient_codewords(state, f_feat, cfg)
+    return (quantization.quantize_codewords(fcw, prev=prev_feat, dtype=dtype),
+            quantization.quantize_codewords(gcw, prev=prev_grad, dtype=dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,25 @@
 """Generalized graph convolution operand builders (paper Sec. 2, Eq. 1-2).
 
-Torch twin of the serving half of ``repro.core.conv``: the mini-batch pack,
-the per-layer VQ state, the assignment histogram and refresh, the codeword
-reads a layer feeds the context kernel, and the fixed-convolution edge
-values (paper Table 1) that turn a pack into
-:class:`~repro_torch.core.message_passing.ConvOperands`.
+Torch twin of the fixed-convolution half of ``repro.core.conv``: the
+mini-batch pack, the per-layer VQ state in every precision tier, the
+assignment histogram and refresh, the tier's storage choices and
+quantized snapshot, the codeword reads a layer feeds the context kernel,
+and the fixed-convolution edge values (paper Table 1) that turn a pack
+into :class:`~repro_torch.core.message_passing.ConvOperands`.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import codebook as cbm
 from repro_torch.core.codebook import CodebookConfig, CodebookState
 from repro_torch.core.message_passing import ConvOperands
-from repro_torch.runtime import PRECISION_SLICE, resolve_device
+from repro_torch.distributed.quantization import (PackedAssignment, QTensor,
+                                                  last_occurrence)
+from repro_torch.kernels import ops as kops
+from repro_torch.runtime import resolve_device
 
 
 class MinibatchPack(NamedTuple):
@@ -39,23 +43,34 @@ class MinibatchPack(NamedTuple):
         return self.batch_ids.shape[0]
 
 
+class QuantizedCodewords(NamedTuple):
+    """int8 / fp8 kernel-operand snapshot of a layer's codeword tables:
+    [nb, k, f_blk] values with [nb, 1, f_blk] f32 scales each."""
+    feat: QTensor   # feature codewords X~ (Eq. 6 forward)
+    grad: QTensor   # gradient codewords G~ (Eq. 7 backward)
+
+
 class LayerVQState(NamedTuple):
     """Per-layer VQ state: codebook + global assignment table.
 
-    This slice keeps ``assignment`` int32 and ``qcw`` None; the quantized
-    snapshot and the uint8/packed tables come with the precision tiers."""
+    ``assignment`` is int32, uint8 under the int8 / fp8 tiers (k <= 256)
+    or a nibble-packed ``PackedAssignment`` under the '+a4' tiers
+    (k <= 16).  ``qcw``, when present, is the int8 / fp8 snapshot of the
+    codeword tables the layers feed the context kernel instead of dense
+    f32 reads; the codebook update rebuilds it (quantize-on-update, in its
+    own storage dtype) and assignment refreshes keep it."""
     codebook: CodebookState
-    assignment: torch.Tensor   # [n_branches, n] int32 codeword id per node
+    assignment: torch.Tensor | PackedAssignment   # [n_branches, n]
     counts: torch.Tensor       # [n_branches, k] f32 histogram of assignment
-    qcw: Optional[Any] = None
+    qcw: Optional[QuantizedCodewords] = None
 
 
 def branch_histogram(ids: torch.Tensor, k: int,
                      weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-branch codeword histogram as ONE flattened segment-sum:
-    ids [n_branches, m] -> [n_branches, k] f32 (branch beta's ids offset by
-    beta * k).  Counts are whole numbers, so the f32 sum is exact in any
-    order."""
+    ids [n_branches, m] (int32 or uint8) -> [n_branches, k] f32 (branch
+    beta's ids offset by beta * k).  Counts are whole numbers, so the f32
+    sum is exact in any order."""
     nb, m = ids.shape
     offs = k * torch.arange(nb, dtype=torch.int64, device=ids.device)
     flat = (ids.long() + offs[:, None]).reshape(-1)
@@ -68,33 +83,68 @@ def branch_histogram(ids: torch.Tensor, k: int,
 def refresh_assignment(state: LayerVQState, batch_ids: torch.Tensor,
                        new_assign: torch.Tensor) -> LayerVQState:
     """Scatter refreshed batch assignments into the global table (Alg. 1
-    line 16) and move the histogram with them: -1 on the evicted ids, +1 on
-    the new ones, in one bincount.  Returns a new state (the old table is
-    left untouched, as in the reference)."""
-    if state.assignment.dtype != torch.int32:
-        raise NotImplementedError(
-            f"assignment tables of dtype {state.assignment.dtype} come "
-            f"with {PRECISION_SLICE}")
+    line 16) in its storage type (int32, uint8 or nibble-packed) and move
+    the histogram with them: -1 on the evicted ids, +1 on the new ones, in
+    one bincount.  Where an id repeats in ``batch_ids`` its last entry
+    wins, as in the reference's sequential scatter, on every device.
+    Returns a new state (the old table is left untouched, as in the
+    reference)."""
     k = state.counts.shape[-1]
     idx = batch_ids.long()
-    old = state.assignment[:, idx]                             # [nb, b]
-    new = new_assign.to(torch.int32)
+    table = state.assignment
+    packed = isinstance(table, PackedAssignment)
+    old = table.gather(idx) if packed else table[:, idx]        # [nb, b]
+    dtype = torch.uint8 if packed else table.dtype
+    new = new_assign.to(dtype)
     delta = branch_histogram(
         torch.cat([old, new], dim=1), k,
         torch.cat([torch.full(old.shape, -1.0, device=old.device),
                    torch.ones(new.shape, device=new.device)], dim=1))
-    assignment = state.assignment.index_copy(1, idx, new)
+    if packed:
+        assignment = table.scatter(idx, new)
+    else:
+        keep = last_occurrence(idx, table.shape[1])
+        assignment = table.index_copy(1, idx[keep], new[:, keep])
     return LayerVQState(state.codebook, assignment, state.counts + delta,
                         state.qcw)
 
 
-def layer_codewords(vq: LayerVQState, f_feat: int, cfg: CodebookConfig
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The (feature, gradient) codeword tables a layer feeds the context
-    kernel: dense f32 reads of the codebook."""
+def assignment_dtype(cfg: CodebookConfig) -> torch.dtype:
+    """Element type of the global assignment table under the active tier:
+    uint8 when a quantized tier is on and k fits a byte (4x smaller than
+    int32), else int32.  The '+a4' tiers also pack the uint8 values two a
+    byte -- see :func:`assignment_packed`."""
+    quantized = kops.precision_codeword_dtype() is not None and cfg.k <= 256
+    return torch.uint8 if quantized else torch.int32
+
+
+def assignment_packed(cfg: CodebookConfig) -> bool:
+    """True when the active tier nibble-packs the table (a '+a4' tier and
+    k <= 16; a larger k stays unpacked, as k > 256 stays int32)."""
+    return kops.precision_packs_assignment() and cfg.k <= 16
+
+
+def quantize_layer_state(state: LayerVQState, f_feat: int,
+                         cfg: CodebookConfig,
+                         dtype: torch.dtype = torch.int8) -> LayerVQState:
+    """(Re)build the quantized codeword snapshot from the current codebook,
+    reusing the previous snapshot's scales inside the drift band.
+    ``dtype`` (int8 or float8_e4m3fn) only matters on the first build; an
+    existing snapshot keeps its storage dtype."""
+    prev = state.qcw
+    qf, qg = cbm.quantized_codewords(
+        state.codebook, f_feat, cfg,
+        prev_feat=None if prev is None else prev.feat,
+        prev_grad=None if prev is None else prev.grad, dtype=dtype)
+    return state._replace(qcw=QuantizedCodewords(qf, qg))
+
+
+def layer_codewords(vq: LayerVQState, f_feat: int, cfg: CodebookConfig):
+    """The (feature, gradient) codeword operands a layer feeds the context
+    kernel: the int8 / fp8 QTensor snapshot when one is attached, else
+    dense f32 reads of the codebook."""
     if vq.qcw is not None:
-        raise NotImplementedError(
-            f"quantized codeword snapshots (qcw) come with {PRECISION_SLICE}")
+        return vq.qcw.feat, vq.qcw.grad
     return (cbm.feature_codewords(vq.codebook, f_feat, cfg),
             cbm.gradient_codewords(vq.codebook, f_feat, cfg))
 
@@ -103,13 +153,25 @@ def init_layer_vq_state(n_nodes: int, f_feat: int, f_grad: int,
                         cfg: CodebookConfig, *,
                         generator: Optional[torch.Generator] = None,
                         device: str | torch.device = "cuda") -> LayerVQState:
+    """A fresh layer state in the active tier's storage: the table uint8
+    or nibble-packed where the tier and k allow (the ids are drawn as
+    int32 either way, so a seed gives the same ids in every tier) and,
+    under a quantized tier, the codeword snapshot."""
     device = resolve_device(device)
     cb = cbm.init_codebook(f_feat, f_grad, cfg, generator=generator,
                            device=device)
     assignment = torch.randint(0, cfg.k, (cb.n_branches, n_nodes),
                                generator=generator,
                                dtype=torch.int32).to(device)
-    return LayerVQState(cb, assignment, branch_histogram(assignment, cfg.k))
+    assignment = assignment.to(assignment_dtype(cfg))
+    counts = branch_histogram(assignment, cfg.k)
+    if assignment_packed(cfg):
+        assignment = PackedAssignment.pack(assignment)
+    state = LayerVQState(cb, assignment, counts)
+    cw_dtype = kops.precision_codeword_dtype()
+    if cw_dtype is not None:
+        state = quantize_layer_state(state, f_feat, cfg, dtype=cw_dtype)
+    return state
 
 
 # ---------------------------------------------------------------------------

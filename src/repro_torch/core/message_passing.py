@@ -17,6 +17,11 @@ streaming EMA state), so :class:`InjectContextGrad` is a
 in the backward pass ONE ``context_ell`` launch with the fused ``@ W^T``
 epilogue over the reverse edges.  Its residuals are lazy -- the edge
 operands and the codebook, never a reconstructed [b, Dr, f_grad] tensor.
+
+Under the precision tiers the codewords are ``QTensor`` snapshots (int8 /
+fp8 values + f32 scales) and the table may be uint8 or a
+``PackedAssignment``; both pass through to the kernels in their storage
+types, the backward injection launching the quantized ``w_t`` form.
 """
 from __future__ import annotations
 
@@ -24,14 +29,20 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.quantization import PackedAssignment, QTensor
 from repro_torch.kernels import ops as kops
+
+Codewords = torch.Tensor | QTensor
+Table = torch.Tensor | PackedAssignment
 
 
 class InjectContextGrad(torch.autograd.Function):
     """Eq. 7's out-of-batch gradient messages as a custom backward.
 
-    Forward: ``x_b`` unchanged; only ``(rev_vals, rev_ids, grad_codewords,
-    assignment, w)`` are saved.  Backward: adds
+    Forward: ``x_b`` unchanged; only the edge operands, the gradient
+    codewords (values and, for a QTensor, scales), the assignment table
+    (the packed buffer and its node count for a ``PackedAssignment``) and
+    ``w`` are saved.  Backward: adds
 
         grad_X_B += (sum_d rev_vals[:, d] * G~[c(rev_ids[:, d])]) @ W^T
 
@@ -43,44 +54,57 @@ class InjectContextGrad(torch.autograd.Function):
     custom_vjp returns zeros for them)."""
 
     @staticmethod
-    def forward(ctx, x_b, rev_vals, rev_ids, grad_codewords, assignment, w):
-        ctx.save_for_backward(rev_vals, rev_ids, grad_codewords, assignment,
-                              w)
+    def forward(ctx, x_b, rev_vals, rev_ids, cw, cw_scale, table, packed_n,
+                w):
+        ctx.save_for_backward(rev_vals, rev_ids, cw, cw_scale, table, w)
+        ctx.packed_n = packed_n
         return x_b.view_as(x_b)
 
     @staticmethod
     def backward(ctx, g):
-        rev_vals, rev_ids, grad_codewords, assignment, w = ctx.saved_tensors
+        rev_vals, rev_ids, cw, cw_scale, table, w = ctx.saved_tensors
+        codewords = cw if cw_scale is None else QTensor(cw, cw_scale)
+        assignment = table if ctx.packed_n is None \
+            else PackedAssignment(table, ctx.packed_n)
         w_t = None if w is None else w.float().t().contiguous()
-        phantom = kops.context_ell(rev_ids, rev_vals, assignment,
-                                   grad_codewords, w_t)
-        return g + phantom.to(g.dtype), None, None, None, None, None
+        phantom = kops.context_ell(rev_ids, rev_vals, assignment, codewords,
+                                   w_t)
+        return (g + phantom.to(g.dtype),) + (None,) * 7
 
 
 def inject_context_grad(x_b: torch.Tensor, rev_vals: torch.Tensor,
-                        rev_ids: torch.Tensor, grad_codewords: torch.Tensor,
-                        assignment: torch.Tensor,
+                        rev_ids: torch.Tensor, grad_codewords: Codewords,
+                        assignment: Table,
                         w: Optional[torch.Tensor]) -> torch.Tensor:
     """Identity on ``x_b`` with the Eq. 7 backward attached.  The codewords
     and ``w`` enter detached: the injection must add no gradient to them."""
+    if isinstance(grad_codewords, QTensor):
+        cw, cw_scale = grad_codewords.q, grad_codewords.scale
+    else:
+        cw, cw_scale = grad_codewords.detach(), None
+    packed = isinstance(assignment, PackedAssignment)
     return InjectContextGrad.apply(
-        x_b, rev_vals, rev_ids, grad_codewords.detach(), assignment,
+        x_b, rev_vals, rev_ids, cw, cw_scale,
+        assignment.packed if packed else assignment,
+        assignment.n if packed else None,
         None if w is None else w.detach())
 
 
 def context_messages_reconstruct(out_vals: torch.Tensor,
                                  out_ids: torch.Tensor,
-                                 feat_codewords: torch.Tensor,
-                                 assignment: torch.Tensor) -> torch.Tensor:
+                                 feat_codewords: Codewords,
+                                 assignment: Table) -> torch.Tensor:
     """Out-of-batch forward messages, reconstruction form.
 
     out_vals: [b, D] C_{i, j_d} for out-of-batch neighbors (0 = padding)
     out_ids:  [b, D] their global node ids
-    feat_codewords: [n_branches, k, f_blk];  assignment: [n_branches, n]
+    feat_codewords: [n_branches, k, f_blk] (or its QTensor snapshot);
+    assignment: [n_branches, n] (int32, uint8 or packed)
     returns   [b, f] = sum_d out_vals[:, d] * X^_{j_d}
     """
-    return kops.context_ell(out_ids, out_vals, assignment,
-                            feat_codewords.detach())
+    if isinstance(feat_codewords, torch.Tensor):
+        feat_codewords = feat_codewords.detach()
+    return kops.context_ell(out_ids, out_vals, assignment, feat_codewords)
 
 
 def intra_messages(in_pos: torch.Tensor, in_vals: torch.Tensor,
@@ -104,9 +128,9 @@ class ConvOperands(NamedTuple):
 
 
 def approx_message_passing(ops_: ConvOperands, x_b: torch.Tensor,
-                           feat_codewords: torch.Tensor,
-                           grad_codewords: torch.Tensor,
-                           assignment: torch.Tensor,
+                           feat_codewords: Codewords,
+                           grad_codewords: Codewords,
+                           assignment: Table,
                            w: Optional[torch.Tensor],
                            inject: bool = True) -> torch.Tensor:
     """Eq. 6 forward: M = C_in X_B + C~_out X~, shape [b, f], with the Eq. 7

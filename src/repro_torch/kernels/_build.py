@@ -33,17 +33,23 @@ SIGNATURES = {
     "repro_vq_assign_f32": [_vp, _ll, _ll, _vp, _vp, _int, _int, _int, _int,
                             _vp],
     "repro_spmm_ell_f32": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
-    "repro_context_ell_f32": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
-                              _int, _int, _int, _vp],
-    "repro_context_ell_wt_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
-                                 _int, _int, _int, _int, _int, _vp],
     "repro_spmm_ell_t_f32": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
                              _vp],
     "repro_vq_update_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
                             _int, _vp],
+    "repro_vq_update_u8_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
+                               _int, _int, _vp],
     "repro_vq_update_generic_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
                                     _int, _int, _vp],
 }
+for _cw in ("i8", "f8"):
+    SIGNATURES[f"repro_spmm_ell_q_{_cw}"] = [_vp] * 5 + [_int] * 4 + [_vp]
+for _cw in ("f32", "i8", "f8"):
+    for _tab in ("i32", "u8", "a4"):
+        SIGNATURES[f"repro_context_ell_{_cw}_{_tab}"] = \
+            [_vp] * 6 + [_int] * 6 + [_vp]
+        SIGNATURES[f"repro_context_ell_wt_{_cw}_{_tab}"] = \
+            [_vp] * 7 + [_int] * 7 + [_vp]
 
 _lib: ctypes.CDLL | None = None
 

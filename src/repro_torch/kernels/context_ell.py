@@ -1,56 +1,103 @@
 """Checked wrapper of the fused VQ-context CUDA kernel
 (``csrc/context_ell.cu``).
 
-Counterpart of ``repro.kernels.context_ell.context_ell_pallas`` with f32
-codewords and an int32 ``[nb, n]`` assignment table read in place, in both
-its forms: the plain accumulate (``_context_ell_kernel``) and the fused
-``@ w_t`` epilogue of the Eq. 7 backward (``_context_ell_wt_kernel``).
-``launches`` counts the launches of either kernel in this process,
-``launches_wt`` those of the ``w_t`` form alone.
+Counterpart of ``repro.kernels.context_ell.context_ell_pallas`` in all its
+forms: the plain accumulate (``_context_ell_kernel``), the fused ``@ w_t``
+epilogue of the Eq. 7 backward (``_context_ell_wt_kernel``) and their
+quantized twins (``_context_ell_q_kernel``, ``_context_ell_q_wt_kernel``:
+int8 / fp8 codewords with [nb, 1, f_blk] f32 scales), each over an int32
+or uint8 ``[nb, n]`` assignment table or a nibble-packed
+``PackedAssignment``, every table read in place in its storage type.
+``launches`` counts every launch of the kernel in this process,
+``launches_wt`` those of the ``w_t`` forms, ``launches_q`` those with
+quantized codewords and ``launches_q_wt`` the quantized ``w_t`` ones;
+``launches_by_entry`` counts them by the library entry launched
+(``repro_context_ell[_wt]_<f32|i8|f8>_<i32|u8|a4>``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.quantization import PackedAssignment
 from repro_torch.kernels import _build
 
 launches = 0
 launches_wt = 0
+launches_q = 0
+launches_q_wt = 0
+launches_by_entry: dict[str, int] = {}
 
 WT_ROWS = 8                   # output rows per block of the w_t kernel
 SMEM_LIMIT = 232448           # dynamic shared memory one H100 block may use
+# codeword storage dtype -> entry name part; table kind -> (part, largest k)
+_CW = {torch.float32: "f32", torch.int8: "i8", torch.float8_e4m3fn: "f8"}
+_TABLE_K = {"i32": None, "u8": 256, "a4": 16}
 
 
 def context_ell_cuda(out_ids: torch.Tensor, out_vals: torch.Tensor,
-                     assignment: torch.Tensor, codewords: torch.Tensor,
-                     w_t: torch.Tensor | None = None) -> torch.Tensor:
-    """out_ids [b, D] int32, out_vals [b, D] f32, assignment [nb, n] int32,
-    codewords [nb, k, f_blk] f32, all contiguous CUDA tensors ->
-    [b, nb * f_blk] f32 (branch-concatenated codeword context), or, with
-    ``w_t`` [nb * f_blk, f_out] contiguous f32, that context ``@ w_t``:
+                     assignment: torch.Tensor | PackedAssignment,
+                     codewords: torch.Tensor,
+                     w_t: torch.Tensor | None = None,
+                     cw_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """out_ids [b, D] int32, out_vals [b, D] f32, assignment [nb, n] int32
+    or uint8 (k <= 256) or a ``PackedAssignment`` (k <= 16), codewords
+    [nb, k, f_blk] f32 -- or int8 / float8_e4m3fn with ``cw_scale``
+    [nb, 1, f_blk] f32 -- all contiguous CUDA tensors -> [b, nb * f_blk]
+    f32 (branch-concatenated codeword context), or, with ``w_t``
+    [nb * f_blk, f_out] contiguous f32, that context ``@ w_t``:
     [b, f_out]."""
-    global launches, launches_wt
-    operands = dict(out_ids=out_ids, out_vals=out_vals,
-                    assignment=assignment, codewords=codewords)
+    global launches, launches_wt, launches_q, launches_q_wt
+    packed = isinstance(assignment, PackedAssignment)
+    table = assignment.packed if packed else assignment
+    operands = dict(out_ids=out_ids, out_vals=out_vals, assignment=table,
+                    codewords=codewords)
+    cw_name = _CW.get(codewords.dtype)
+    if cw_name is None:
+        raise TypeError(f"context_ell: codewords of dtype {codewords.dtype}; "
+                        f"the kernel takes {sorted(map(str, _CW))}")
+    quantized = cw_name != "f32"
+    if quantized != (cw_scale is not None):
+        raise ValueError("context_ell: int8 / fp8 codewords take cw_scale "
+                         "[nb, 1, f_blk], f32 codewords none")
+    if quantized:
+        operands["cw_scale"] = cw_scale
     if w_t is not None:
         operands["w_t"] = w_t
+    if packed:
+        tab, a_dtype = "a4", torch.uint8
+    else:
+        tab = {torch.int32: "i32", torch.uint8: "u8"}.get(table.dtype)
+        if tab is None:
+            raise TypeError(f"context_ell: assignment of dtype {table.dtype}; "
+                            f"the kernel takes int32, uint8 or a "
+                            f"PackedAssignment")
+        a_dtype = table.dtype
     _build.check_operands("context_ell", {"out_ids": torch.int32,
                                           "out_vals": torch.float32,
-                                          "assignment": torch.int32,
-                                          "codewords": torch.float32,
+                                          "assignment": a_dtype,
+                                          "codewords": codewords.dtype,
+                                          "cw_scale": torch.float32,
                                           "w_t": torch.float32},
                           **operands)
     if out_ids.dim() != 2 or out_vals.shape != out_ids.shape \
-            or assignment.dim() != 2 or codewords.dim() != 3 \
-            or assignment.shape[0] != codewords.shape[0]:
+            or table.dim() != 2 or codewords.dim() != 3 \
+            or table.shape[0] != codewords.shape[0] \
+            or (packed and table.shape[1] != (assignment.n + 1) // 2):
         raise ValueError(
-            f"context_ell: want ids/vals [b, D], assignment [nb, n], "
-            f"codewords [nb, k, f_blk]; got {tuple(out_ids.shape)}, "
-            f"{tuple(out_vals.shape)}, {tuple(assignment.shape)}, "
-            f"{tuple(codewords.shape)}")
+            f"context_ell: want ids/vals [b, D], assignment [nb, n] (packed "
+            f"[nb, ceil(n / 2)]), codewords [nb, k, f_blk]; got "
+            f"{tuple(out_ids.shape)}, {tuple(out_vals.shape)}, "
+            f"{tuple(table.shape)}, {tuple(codewords.shape)}")
     b, deg = out_ids.shape
     nb, n = assignment.shape
     _, k, f_blk = codewords.shape
+    k_max = _TABLE_K[tab]
+    if k_max is not None and k > k_max:
+        raise ValueError(f"context_ell: a {'packed' if packed else 'uint8'} "
+                         f"assignment table holds ids < {k_max}, got k={k}")
+    if quantized and cw_scale.shape != (nb, 1, f_blk):
+        raise ValueError(f"context_ell: cw_scale must be [{nb}, 1, {f_blk}], "
+                         f"got {tuple(cw_scale.shape)}")
     if w_t is not None and (w_t.dim() != 2 or w_t.shape[0] != nb * f_blk):
         raise ValueError(f"context_ell: w_t must be [nb * f_blk = "
                          f"{nb * f_blk}, f_out], got {tuple(w_t.shape)}")
@@ -71,18 +118,22 @@ def context_ell_cuda(out_ids: torch.Tensor, out_vals: torch.Tensor,
         return out
     stream = torch.cuda.current_stream(out.device).cuda_stream
     lib = _build.library()
+    scale = cw_scale.data_ptr() if quantized else None
+    head = (out_ids.data_ptr(), out_vals.data_ptr(), table.data_ptr(),
+            codewords.data_ptr(), scale)
     if w_t is None:
-        err = lib.repro_context_ell_f32(
-            out_ids.data_ptr(), out_vals.data_ptr(), assignment.data_ptr(),
-            codewords.data_ptr(), out.data_ptr(), b, deg, n, nb, k, f_blk,
-            stream)
+        entry = f"repro_context_ell_{cw_name}_{tab}"
+        err = getattr(lib, entry)(
+            *head, out.data_ptr(), b, deg, n, nb, k, f_blk, stream)
     else:
-        err = lib.repro_context_ell_wt_f32(
-            out_ids.data_ptr(), out_vals.data_ptr(), assignment.data_ptr(),
-            codewords.data_ptr(), w_t.data_ptr(), out.data_ptr(), b, deg, n,
-            nb, k, f_blk, f_out, stream)
+        entry = f"repro_context_ell_wt_{cw_name}_{tab}"
+        err = getattr(lib, entry)(
+            *head, w_t.data_ptr(), out.data_ptr(), b, deg, n, nb, k, f_blk,
+            f_out, stream)
     _build.check(err, "context_ell")
+    launches_by_entry[entry] = launches_by_entry.get(entry, 0) + 1
     launches += 1
-    if w_t is not None:
-        launches_wt += 1
+    launches_wt += w_t is not None
+    launches_q += quantized
+    launches_q_wt += quantized and w_t is not None
     return out

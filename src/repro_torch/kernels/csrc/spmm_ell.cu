@@ -44,16 +44,32 @@
 // is exact for finite g (0 * g adds nothing); the forward kernel keeps
 // multiplying its padding.  The adds land in no fixed order, so the
 // result agrees with the plain version to a stated tolerance.
+//
+// Third and fourth entry points, repro_spmm_ell_q_i8 and repro_spmm_ell_q_f8:
+// the _spmm_ell_q_kernel form of spmm_ell_pallas -- an int8 or fp8 e4m3
+// source x [n_src, f] with per-channel scales x_scale [1, f] fp32.  The same
+// template as the fp32 kernel: each 1-byte element widens to fp32 exactly,
+// the slots accumulate in the same order, and the scale multiplies once
+// after the last slot, so it is bit-equal to the plain version.  The source
+// is read in place in its 1-byte type: a quarter of the fp32 bytes.
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxThreads = 256;
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(int8_t v) { return (float)v; }
+__device__ __forceinline__ float widen(__nv_fp8_e4m3 v) { return (float)v; }
+
+// scale: nullptr for an fp32 source, else the [f] per-channel scales
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 spmm_ell_kernel(const int* __restrict__ idx, const float* __restrict__ val,
-                const float* __restrict__ x, float* __restrict__ out,
-                int deg, int n_src, int f) {
+                const T* __restrict__ x, const float* __restrict__ scale,
+                float* __restrict__ out, int deg, int n_src, int f) {
   const long long row = blockIdx.x;
   const int* ir = idx + row * deg;
   const float* vr = val + row * deg;
@@ -61,10 +77,23 @@ spmm_ell_kernel(const int* __restrict__ idx, const float* __restrict__ val,
     float acc = 0.f;
     for (int d = 0; d < deg; ++d) {
       const int j = min(max(ir[d], 0), n_src - 1);
-      acc = __fadd_rn(acc, __fmul_rn(vr[d], x[(size_t)j * f + c]));
+      acc = __fadd_rn(acc, __fmul_rn(vr[d], widen(x[(size_t)j * f + c])));
     }
-    out[row * f + c] = acc;
+    out[row * f + c] = scale == nullptr ? acc : __fmul_rn(acc, scale[c]);
   }
+}
+
+template <typename T>
+cudaError_t launch(const int* idx, const float* val, const T* x,
+                   const float* scale, float* out, int b, int deg, int n_src,
+                   int f, cudaStream_t stream) {
+  if (b < 1 || f < 1 || deg < 0 || (deg > 0 && n_src < 1))
+    return cudaErrorInvalidValue;
+  int threads = ((f + 31) / 32) * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  spmm_ell_kernel<T><<<(unsigned)b, threads, 0, stream>>>(
+      idx, val, x, scale, out, deg, n_src, f);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -94,13 +123,26 @@ extern "C" cudaError_t repro_spmm_ell_f32(const int* idx, const float* val,
                                           const float* x, float* out, int b,
                                           int deg, int n_src, int f,
                                           cudaStream_t stream) {
-  if (b < 1 || f < 1 || deg < 0 || (deg > 0 && n_src < 1))
-    return cudaErrorInvalidValue;
-  int threads = ((f + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  spmm_ell_kernel<<<(unsigned)b, threads, 0, stream>>>(idx, val, x, out, deg,
-                                                       n_src, f);
-  return cudaGetLastError();
+  return launch<float>(idx, val, x, nullptr, out, b, deg, n_src, f, stream);
+}
+
+// As repro_spmm_ell_f32 with x: [n_src, f] contiguous int8 / fp8 e4m3 and
+// scale: [f] contiguous fp32.
+extern "C" cudaError_t repro_spmm_ell_q_i8(const int* idx, const float* val,
+                                           const int8_t* x,
+                                           const float* scale, float* out,
+                                           int b, int deg, int n_src, int f,
+                                           cudaStream_t stream) {
+  return launch<int8_t>(idx, val, x, scale, out, b, deg, n_src, f, stream);
+}
+
+extern "C" cudaError_t repro_spmm_ell_q_f8(const int* idx, const float* val,
+                                           const __nv_fp8_e4m3* x,
+                                           const float* scale, float* out,
+                                           int b, int deg, int n_src, int f,
+                                           cudaStream_t stream) {
+  return launch<__nv_fp8_e4m3>(idx, val, x, scale, out, b, deg, n_src, f,
+                               stream);
 }
 
 // idx/val: [b, deg] contiguous int32/fp32; g: [b, f] contiguous fp32;

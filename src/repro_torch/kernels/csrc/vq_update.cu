@@ -37,8 +37,16 @@
 // exported on its own (repro_vq_update_generic_f32) so that chip_smoke.py
 // can time it at the training widths: on an H100 the fixed-width builds
 // run 5.7x (f = 8) and 2.0x (f = 21) faster there (PERF.md).
+//
+// Narrow emit, repro_vq_update_u8_f32: the same kernel with the assignment
+// written as uint8 (emit_dtype uint8, k <= 256, the int8 / fp8 tiers'
+// table type; and uint4, k <= 16, whose ids the wrapper returns in the
+// same uint8 tensor -- the Pallas kernel also writes uint4 through its
+// uint8 block and narrows in the wrapper).  The index type is a template
+// parameter; every other output is the int32 build's.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -47,10 +55,10 @@ constexpr int kMaxF = 32;   // widest row the generic instantiation holds
 
 // F > 0: the row width is a compile-time constant.  F == 0: generic width
 // f <= kMaxF, predicated per element.
-template <int F>
+template <int F, typename Idx>
 __global__ void __launch_bounds__(kThreads)
 vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
-                 int* __restrict__ idx, float* __restrict__ qerr,
+                 Idx* __restrict__ idx, float* __restrict__ qerr,
                  float* __restrict__ counts, float* __restrict__ sums, int n,
                  int k, int f) {
   constexpr int W = F > 0 ? F : kMaxF;
@@ -100,7 +108,7 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
     if (j < fd) xn2 = __fadd_rn(xn2, __fmul_rn(xv[j], xv[j]));
   }
   const size_t out = (size_t)br * n + row;
-  idx[out] = arg;
+  idx[out] = (Idx)arg;
   qerr[out] = fmaxf(__fadd_rn(best, xn2), 0.f);
   const size_t cid = (size_t)br * k + arg;
   atomicAdd(counts + cid, 1.f);
@@ -111,31 +119,25 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
   }
 }
 
-template <int F>
-cudaError_t launch(const float* x, const float* cw, int* idx, float* qerr,
+template <int F, typename Idx>
+cudaError_t launch(const float* x, const float* cw, Idx* idx, float* qerr,
                    float* counts, float* sums, int nb, int n, int k, int f,
                    cudaStream_t stream) {
   const size_t smem = ((size_t)k * f + (size_t)k) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      vq_update_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      vq_update_kernel<F, Idx>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((n + kThreads - 1) / kThreads), (unsigned)nb);
-  vq_update_kernel<F><<<grid, kThreads, smem, stream>>>(
+  vq_update_kernel<F, Idx><<<grid, kThreads, smem, stream>>>(
       x, cw, idx, qerr, counts, sums, n, k, f);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// x: [nb, n, f] contiguous fp32; cw: [nb, k, f] contiguous fp32; idx: [nb, n]
-// int32; qerr: [nb, n] fp32; counts: [nb, k] and sums: [nb, k, f] fp32,
-// zeroed by the caller (the kernel accumulates into them).
-extern "C" cudaError_t repro_vq_update_f32(const float* x, const float* cw,
-                                           int* idx, float* qerr,
-                                           float* counts, float* sums, int nb,
-                                           int n, int k, int f,
-                                           cudaStream_t stream) {
+template <typename Idx>
+cudaError_t dispatch(const float* x, const float* cw, Idx* idx, float* qerr,
+                     float* counts, float* sums, int nb, int n, int k, int f,
+                     cudaStream_t stream) {
   if (f < 1 || f > kMaxF || k < 1 || nb < 1 || n < 1)
     return cudaErrorInvalidValue;
   switch (f) {
@@ -148,6 +150,30 @@ extern "C" cudaError_t repro_vq_update_f32(const float* x, const float* cw,
   }
 }
 
+}  // namespace
+
+// x: [nb, n, f] contiguous fp32; cw: [nb, k, f] contiguous fp32; idx: [nb, n]
+// int32; qerr: [nb, n] fp32; counts: [nb, k] and sums: [nb, k, f] fp32,
+// zeroed by the caller (the kernel accumulates into them).
+extern "C" cudaError_t repro_vq_update_f32(const float* x, const float* cw,
+                                           int* idx, float* qerr,
+                                           float* counts, float* sums, int nb,
+                                           int n, int k, int f,
+                                           cudaStream_t stream) {
+  return dispatch<int>(x, cw, idx, qerr, counts, sums, nb, n, k, f, stream);
+}
+
+// As repro_vq_update_f32 with idx: [nb, n] uint8 (k <= 256).
+extern "C" cudaError_t repro_vq_update_u8_f32(const float* x, const float* cw,
+                                              uint8_t* idx, float* qerr,
+                                              float* counts, float* sums,
+                                              int nb, int n, int k, int f,
+                                              cudaStream_t stream) {
+  if (k > 256) return cudaErrorInvalidValue;
+  return dispatch<uint8_t>(x, cw, idx, qerr, counts, sums, nb, n, k, f,
+                           stream);
+}
+
 // The generic-width instantiation at any f <= 32, the same contract as
 // repro_vq_update_f32: for comparing it with the fixed-width builds.
 extern "C" cudaError_t repro_vq_update_generic_f32(
@@ -155,5 +181,5 @@ extern "C" cudaError_t repro_vq_update_generic_f32(
     float* sums, int nb, int n, int k, int f, cudaStream_t stream) {
   if (f < 1 || f > kMaxF || k < 1 || nb < 1 || n < 1)
     return cudaErrorInvalidValue;
-  return launch<0>(x, cw, idx, qerr, counts, sums, nb, n, k, f, stream);
+  return launch<0, int>(x, cw, idx, qerr, counts, sums, nb, n, k, f, stream);
 }

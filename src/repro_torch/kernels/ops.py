@@ -6,16 +6,89 @@ launches or raises.  There is no environment knob and no fallback: a CUDA
 tensor that the kernel refuses is an error, never a silent plain-PyTorch
 run.  ``spmm_ell`` is differentiable in ``x``: its backward is the
 transposed kernel ``spmm_ell_t`` (dispatched the same way).
+
+The precision tiers are data-driven here as in the reference: quantized
+codewords arrive as a ``QTensor``, narrow tables as uint8 tensors or a
+``PackedAssignment``, and each reaches its kernel form in its storage
+type.  The tier setting (``configure_kernel_precision`` /
+``REPRO_KERNEL_PRECISION``) only tells the functions that build VQ states
+which storage to make (``core/conv.py``, ``models/gnn.py``,
+``launch/serve_gnn.py``).
 """
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import torch
 
+from repro_torch.distributed.quantization import PackedAssignment, QTensor
 from repro_torch.kernels import ref
 from repro_torch.kernels.context_ell import context_ell_cuda
 from repro_torch.kernels.spmm_ell import spmm_ell_cuda, spmm_ell_t_cuda
 from repro_torch.kernels.vq_assign import vq_assign_cuda
-from repro_torch.kernels.vq_update import vq_assign_update_cuda
+from repro_torch.kernels.vq_update import check_emit, vq_assign_update_cuda
+
+# ---------------------------------------------------------------------------
+# operand precision tiers
+# ---------------------------------------------------------------------------
+
+# 'fp32' (dense), 'int8' (int8 codewords + uint8 tables, k <= 256), 'fp8'
+# (float8_e4m3fn codewords, the same uint8 tables), and the '+a4' tiers that
+# also nibble-pack the tables for k <= 16 (two ids a byte, 8x vs int32).
+PRECISIONS = ("fp32", "int8", "fp8", "int8+a4", "fp8+a4")
+_precision_override: list[str] = []
+
+
+def _check_precision(p: str, source: str) -> str:
+    if p not in PRECISIONS:
+        raise ValueError(
+            f"{source}={p!r}: unknown kernel precision tier; valid tiers "
+            f"are {', '.join(PRECISIONS)}")
+    return p
+
+
+def configure_kernel_precision(precision: Optional[str] = None, *,
+                               reset: bool = False) -> None:
+    """Programmatic override of ``REPRO_KERNEL_PRECISION`` (it wins over
+    the environment); ``reset`` drops it first.  An unknown tier raises,
+    listing the valid ones."""
+    if reset:
+        _precision_override.clear()
+    if precision is not None:
+        _check_precision(precision, "kernel precision")
+        _precision_override[:] = [precision]
+
+
+def kernel_precision() -> str:
+    """The active tier: the override, else ``REPRO_KERNEL_PRECISION``, else
+    'fp32'."""
+    if _precision_override:
+        return _precision_override[0]
+    return _check_precision(os.environ.get("REPRO_KERNEL_PRECISION", "fp32"),
+                            "REPRO_KERNEL_PRECISION")
+
+
+def precision_codeword_dtype(precision: Optional[str] = None
+                             ) -> Optional[torch.dtype]:
+    """Codeword storage dtype of a tier: None (dense f32), int8 or fp8."""
+    p = _check_precision(precision if precision is not None
+                         else kernel_precision(), "kernel precision")
+    if p == "fp32":
+        return None
+    return torch.float8_e4m3fn if p.startswith("fp8") else torch.int8
+
+
+def precision_packs_assignment(precision: Optional[str] = None) -> bool:
+    """True for the '+a4' tiers that nibble-pack assignment tables."""
+    p = _check_precision(precision if precision is not None
+                         else kernel_precision(), "kernel precision")
+    return p.endswith("+a4")
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
 
 
 def vq_assign(x: torch.Tensor, codewords: torch.Tensor) -> torch.Tensor:
@@ -25,15 +98,20 @@ def vq_assign(x: torch.Tensor, codewords: torch.Tensor) -> torch.Tensor:
     return ref.vq_assign(x, codewords)
 
 
-def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor
+def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor, *,
+                     emit_dtype=torch.int32
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                 torch.Tensor]:
     """Fused assign + cluster stats: [nb, b, f] rows vs [nb, k, f]
-    codewords -> (assignment [nb, b] int32, qerr [nb, b], counts [nb, k],
-    sums [nb, k, f])."""
+    codewords -> (assignment [nb, b] ``emit_dtype``, qerr [nb, b], counts
+    [nb, k], sums [nb, k, f]).  ``emit_dtype`` torch.uint8 (k <= 256) or
+    ``"uint4"`` (k <= 16, a uint8 tensor of values < 16) emits the
+    assignment in a narrow tier's table type; an emit dtype that cannot
+    index k raises, on either device."""
+    check_emit(emit_dtype, codewords.shape[1])
     if x.is_cuda:
-        return vq_assign_update_cuda(x, codewords)
-    return ref.vq_assign_update(x, codewords)
+        return vq_assign_update_cuda(x, codewords, emit_dtype)
+    return ref.vq_assign_update(x, codewords, emit_dtype)
 
 
 def spmm_ell_t(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
@@ -64,10 +142,21 @@ class _SpmmEll(torch.autograd.Function):
 
 
 def spmm_ell(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+             x: torch.Tensor | QTensor, *,
+             x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ELLPACK SpMM: [b, D] ids/values into an [n_src, f] source -> [b, f],
-    differentiable in ``x``.  Edge values that require grad are refused:
-    on every path they are degree constants of the graph."""
+    differentiable in an f32 ``x``.  ``x`` may also be a ``QTensor`` of
+    int8 / float8_e4m3fn rows with [1, f] scales (or pass ``x_scale`` with
+    a quantized ``x``): a constant source, read in its storage type with
+    one scale multiply after the accumulate.  Edge values that require
+    grad are refused: on every path they are degree constants of the
+    graph."""
+    if isinstance(x, QTensor):
+        x, x_scale = x.q, x.scale
+    if x_scale is not None:
+        if x.is_cuda:
+            return spmm_ell_cuda(nbr_idx, nbr_val, x, x_scale)
+        return ref.spmm_ell(nbr_idx, nbr_val, x, x_scale)
     if nbr_val.requires_grad and torch.is_grad_enabled():
         raise ValueError("spmm_ell: nbr_val requires grad; the kernel's "
                          "backward covers x only (edge values are constants)")
@@ -75,10 +164,18 @@ def spmm_ell(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
 
 
 def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,
-                assignment: torch.Tensor, codewords: torch.Tensor,
+                assignment: torch.Tensor | PackedAssignment,
+                codewords: torch.Tensor | QTensor,
                 w_t: torch.Tensor | None = None) -> torch.Tensor:
     """Multi-branch codeword context -> [b, nb * f_blk], or ``@ w_t``
-    fused into the same kernel -> [b, f_out]."""
+    fused into the same kernel -> [b, f_out].  ``codewords`` f32 or a
+    ``QTensor`` (int8 / fp8 + [nb, 1, f_blk] scales); ``assignment`` int32,
+    uint8 or a ``PackedAssignment`` -- one launch in every case."""
+    cw_scale = None
+    if isinstance(codewords, QTensor):
+        codewords, cw_scale = codewords.q, codewords.scale
     if out_vals.is_cuda:
-        return context_ell_cuda(out_ids, out_vals, assignment, codewords, w_t)
-    return ref.context_ell(out_ids, out_vals, assignment, codewords, w_t)
+        return context_ell_cuda(out_ids, out_vals, assignment, codewords, w_t,
+                                cw_scale)
+    return ref.context_ell(out_ids, out_vals, assignment, codewords, w_t,
+                           cw_scale)

@@ -1,7 +1,10 @@
 """Plain PyTorch versions of the port's kernels.
 
-Twins of ``repro.kernels.ref`` (``vq_assign``, ``vq_assign_update``,
-``spmm_ell``, ``context_ell`` with its optional ``w_t`` epilogue) plus
+Twins of ``repro.kernels.ref`` (``vq_assign``, ``vq_assign_update`` with
+its narrow ``emit_dtype``, ``spmm_ell`` with its int8 / fp8 source and
+``x_scale``, ``context_ell`` with its optional ``w_t`` epilogue, int8 /
+fp8 codewords with ``cw_scale`` and uint8 or nibble-packed assignment
+tables) plus
 ``spmm_ell_t``, the transposed SpMM that is ``spmm_ell``'s backward in
 ``x`` (the reference gets it from JAX autodiff): the numerical ground
 truth each CUDA kernel is held against, and the CPU execution path of
@@ -12,13 +15,18 @@ Each sums in the kernel's order -- over the D neighbor slots, or over the
 f feature dims, one separately rounded multiply and add at a time, as the
 Pallas kernels' loops do -- so a CUDA kernel that keeps that order (and
 rounds each step, ``__fmul_rn``/``__fadd_rn``) agrees with its plain
-version bit for bit.  The exceptions are the scatter-adds (the
+version bit for bit.  A 1-byte int8 or fp8 e4m3 value widens to f32
+exactly, and the scale multiplies once, after the last slot (before the
+``w_t`` columns are summed), so the quantized forms are bit-equal too.
+The exceptions are the scatter-adds (the
 ``vq_assign_update`` cluster sums and ``spmm_ell_t``): their kernels add
 with atomics in no fixed order, so they agree to a stated tolerance.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.quantization import PackedAssignment
 
 # rows per [nb, rows, k] distance block of vq_assign: bounds the plain
 # version's scratch to 256 MiB per temporary at any n (the kernel needs none)
@@ -64,7 +72,8 @@ def vq_assign(x: torch.Tensor, codewords: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor
+def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor,
+                     emit_dtype=torch.int32
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                 torch.Tensor]:
     """Fused assign + cluster statistics, every branch at once (the
@@ -76,7 +85,11 @@ def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor
     ``qerr = max(min_dist + |x|^2, 0)`` completes the winning
     ``|c|^2 - 2 x.c`` to the squared error as the reference does (not a
     direct ``|x - c|^2``, which rounds differently); counts and sums are
-    scatter-adds keyed by the assignment, no [b, k] one-hot."""
+    scatter-adds keyed by the assignment, no [b, k] one-hot.
+
+    ``emit_dtype`` (``torch.int32``, ``torch.uint8`` or ``"uint4"``, whose
+    result is a uint8 tensor of values < 16) is the assignment's storage
+    type; the caller checks that k fits it (``ops.vq_assign_update``)."""
     nb, b, f = x.shape
     k = codewords.shape[1]
     dev = x.device
@@ -93,16 +106,21 @@ def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor
         0, flat, torch.ones(nb * b, dtype=torch.float32, device=dev))
     sums = torch.zeros((nb * k, f), dtype=torch.float32, device=dev
                        ).index_add_(0, flat, x32.reshape(nb * b, f))
+    if emit_dtype != torch.int32:
+        idx = idx.to(torch.uint8)
     return idx, qerr, counts.reshape(nb, k), sums.reshape(nb, k, f)
 
 
 def spmm_ell(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+             x: torch.Tensor, x_scale: torch.Tensor | None = None
+             ) -> torch.Tensor:
     """Padded-neighbor (ELLPACK) sparse @ dense.
 
     nbr_idx: [b, D] int (padding entries point at a valid row, val 0)
-    nbr_val: [b, D] float;  x: [n_src, f]
-    returns  [b, f] with out[i] = sum_d val[i,d] * x[idx[i,d]]
+    nbr_val: [b, D] float;  x: [n_src, f] f32, or int8 / float8_e4m3fn
+    rows with ``x_scale`` [1, f] f32 per-channel scales, multiplied once
+    after the last slot
+    returns  [b, f] with out[i] = sum_d val[i,d] * x[idx[i,d]] (* scale)
     """
     b, deg = nbr_idx.shape
     idx = nbr_idx.long()
@@ -111,6 +129,8 @@ def spmm_ell(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
     acc = torch.zeros((b, x.shape[1]), dtype=torch.float32, device=x.device)
     for d in range(deg):
         acc = acc + val[:, d, None] * x32[idx[:, d]]
+    if x_scale is not None:
+        acc = acc * x_scale.float().reshape(1, -1)
     return acc
 
 
@@ -131,23 +151,29 @@ def spmm_ell_t(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
 
 
 def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,
-                assignment: torch.Tensor, codewords: torch.Tensor,
-                w_t: torch.Tensor | None = None) -> torch.Tensor:
+                assignment: torch.Tensor | PackedAssignment,
+                codewords: torch.Tensor, w_t: torch.Tensor | None = None,
+                cw_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Multi-branch VQ-context SpMM (the Eq. 6 out-of-batch term; with
     reverse-edge operands, gradient codewords and ``w_t`` the Eq. 7
     backward).
 
     out_ids/out_vals: [b, D] (padding entries carry val == 0)
-    assignment: [nb, n] int codeword id of every node per branch
-    codewords:  [nb, k, f_blk]
+    assignment: [nb, n] int32 or uint8 codeword id of every node per
+                branch, or a nibble-packed ``PackedAssignment``
+    codewords:  [nb, k, f_blk] f32, or int8 / float8_e4m3fn with
+    cw_scale:   [nb, 1, f_blk] f32 per-branch/per-channel scales
     w_t:        optional [nb * f_blk, f_out] epilogue matrix
     out[i] = sum_d val[i, d] * concat_beta cw[beta, assignment[beta, ids[i, d]]]
-    (then ``@ w_t``, summed over the nb * f_blk columns in order)
+    (then ``* cw_scale`` as one flat [nb * f_blk] row, then ``@ w_t``,
+    summed over the nb * f_blk columns in order)
     """
     nb, _, f_blk = codewords.shape
     b, deg = out_ids.shape
     ids = out_ids.long()
     vals = out_vals.float()
+    if isinstance(assignment, PackedAssignment):
+        assignment = assignment.unpack()
     a = assignment.long()
     cw = codewords.float()
     beta = torch.arange(nb, device=codewords.device)[None, :]
@@ -157,6 +183,8 @@ def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,
         rows = cw[beta, a[:, ids[:, d]].t()]                  # [b, nb, fb]
         acc = acc + vals[:, d, None, None] * rows
     acc = acc.reshape(b, nb * f_blk)
+    if cw_scale is not None:
+        acc = acc * cw_scale.float().reshape(1, nb * f_blk)
     if w_t is None:
         return acc
     wt = w_t.float()

@@ -1,31 +1,62 @@
 """Checked wrapper of the fused VQ assign + cluster-statistics CUDA kernel
 (``csrc/vq_update.cu``).
 
-Counterpart of ``repro.kernels.vq_update.vq_assign_update_pallas`` with
-int32 emit, as ``core/codebook.py:update`` uses it: vmapped over the
-product-VQ branches, which here is one launch for all branches.
-``launches`` counts the kernel launches of this process.
+Counterpart of ``repro.kernels.vq_update.vq_assign_update_pallas`` as
+``core/codebook.py:update`` uses it: vmapped over the product-VQ branches,
+which here is one launch for all branches.  The assignment is emitted as
+int32, or narrow: uint8 (k <= 256) written by the kernel itself, and
+uint4 (k <= 16), which the kernel writes through the same uint8 output --
+the port's uint4 is a uint8 tensor of values < 16, so the wrapper's
+narrowing is that k check.  ``launches`` counts the counted launches of
+this process, ``launches_u8`` those with a narrow emit.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.quantization import dtype_name
 from repro_torch.kernels import _build
 
 launches = 0
+launches_u8 = 0
+
+# narrow emit dtypes and the largest k each can index (int32: any k);
+# signed int4 would wrap ids 8..15, so it is absent, as in the reference
+EMIT_K_LIMITS = {"uint8": 256, "uint4": 16}
+
+
+def check_emit(emit_dtype, k: int) -> str:
+    """The emit dtype's name, after the reference's checks: an emit dtype
+    that is not int32, uint8 or uint4, or a k it cannot index, raises."""
+    emit = dtype_name(emit_dtype)
+    limit = EMIT_K_LIMITS.get(emit)
+    if emit != "int32" and limit is None:
+        raise ValueError(
+            f"emit_dtype={emit!r} is not a supported assignment storage "
+            f"dtype; want int32 or one of {sorted(EMIT_K_LIMITS)}")
+    if limit is not None and k > limit:
+        raise ValueError(
+            f"emit_dtype={emit!r} supports k <= {limit}, got k={k}; use "
+            f"emit_dtype=int32 (always valid)"
+            + (" or uint8 (k <= 256)" if emit == "uint4" else ""))
+    return emit
 
 MAX_F = 32                    # widest branch the kernel holds in registers
 SMEM_LIMIT = 232448           # dynamic shared memory one H100 block may use
 
 
-def vq_assign_update_cuda(x: torch.Tensor, codewords: torch.Tensor
+def vq_assign_update_cuda(x: torch.Tensor, codewords: torch.Tensor,
+                          emit_dtype=torch.int32
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor, torch.Tensor]:
     """x [nb, n, f] and codewords [nb, k, f], contiguous f32 CUDA tensors
-    -> (assignment [nb, n] int32, qerr [nb, n], counts [nb, k],
-    sums [nb, k, f]).  The statistics are added with atomics into buffers
-    zeroed here: counts are exact, sums depend on the order of the adds."""
-    return _run("repro_vq_update_f32", x, codewords, count=True)
+    -> (assignment [nb, n] int32 -- uint8 for ``emit_dtype`` uint8 or
+    ``"uint4"`` --, qerr [nb, n], counts [nb, k], sums [nb, k, f]).  The
+    statistics are added with atomics into buffers zeroed here: counts are
+    exact, sums depend on the order of the adds."""
+    narrow = check_emit(emit_dtype, codewords.shape[1]) != "int32"
+    return _run("repro_vq_update_u8_f32" if narrow else "repro_vq_update_f32",
+                x, codewords, count=True)
 
 
 def vq_assign_update_generic_cuda(x: torch.Tensor, codewords: torch.Tensor
@@ -38,7 +69,7 @@ def vq_assign_update_generic_cuda(x: torch.Tensor, codewords: torch.Tensor
 
 
 def _run(entry: str, x: torch.Tensor, codewords: torch.Tensor, count: bool):
-    global launches
+    global launches, launches_u8
     _build.check_operands("vq_update", {"x": torch.float32,
                                         "codewords": torch.float32},
                           x=x, codewords=codewords)
@@ -57,7 +88,9 @@ def _run(entry: str, x: torch.Tensor, codewords: torch.Tensor, count: bool):
         raise ValueError(f"vq_update: k={k} codewords of width {f} do not "
                          f"fit one block's shared memory ({SMEM_LIMIT} B)")
     dev = x.device
-    idx = torch.empty((nb, n), dtype=torch.int32, device=dev)
+    narrow = entry == "repro_vq_update_u8_f32"
+    idx = torch.empty((nb, n), dtype=torch.uint8 if narrow else torch.int32,
+                      device=dev)
     qerr = torch.empty((nb, n), dtype=torch.float32, device=dev)
     counts = torch.zeros((nb, k), dtype=torch.float32, device=dev)
     sums = torch.zeros((nb, k, f), dtype=torch.float32, device=dev)
@@ -69,4 +102,5 @@ def _run(entry: str, x: torch.Tensor, codewords: torch.Tensor, count: bool):
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "vq_update")
     launches += count
+    launches_u8 += count and narrow
     return idx, qerr, counts, sums

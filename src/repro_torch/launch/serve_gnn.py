@@ -3,7 +3,8 @@ traffic-shaped service (torch twin of ``repro.launch.serve_gnn``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --n 169343 \
         --hidden 128 --layers 3 --k 1024 --batch 256 --requests 200 \
-        [--device cpu] [--json out.json]
+        [--precision {fp32,int8,fp8,int8+a4,fp8+a4}] [--device cpu] \
+        [--json out.json]
 
 The server keeps params, per-layer VQ states, node features and the
 pack-once :class:`~repro_torch.graph.batching.EpochPlan` on the device.
@@ -19,9 +20,15 @@ its output, which synchronises with the card.
 ``--batch``, N epochs) and serves the trained weights; without it the
 weights are random from ``--seed``.
 
+``--precision`` picks the operand tier: the states are built (and
+trained) under it, then converted by ``quantize_vq_states`` -- uint8
+tables (k <= 256), nibble-packed under the '+a4' tiers (k <= 16), and an
+int8 / fp8 codeword snapshot -- and the report's ``vq_state_bytes`` counts
+the tables and snapshots the kernels read.
+
 Not in this slice (each raises, naming the slice that brings it):
-``--precision`` other than fp32, ``--mesh`` / ``--shard-graph``, and the
-``gat`` / ``transformer`` backbones.
+``--mesh`` / ``--shard-graph`` and the ``gat`` / ``transformer``
+backbones.
 """
 from __future__ import annotations
 
@@ -35,16 +42,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.codebook import CodebookConfig
+from repro_torch.distributed.quantization import tree_bytes
 from repro_torch.graph.batching import (build_epoch_plan, full_operands,
                                         inference_slices)
 from repro_torch.graph.structure import Graph
+from repro_torch.kernels import ops as kops
 from repro_torch.models.gnn import (GNNConfig, _layer_out_dims, init_gnn,
-                                    init_vq_states, vq_infer_epoch,
-                                    vq_serve_batch)
-from repro_torch.runtime import MESH_SLICE, PRECISION_SLICE, resolve_device
+                                    init_vq_states, quantize_vq_states,
+                                    vq_infer_epoch, vq_serve_batch)
+from repro_torch.runtime import MESH_SLICE, resolve_device
 from repro_torch.train.gnn_trainer import train_vq
-
-PRECISIONS = ("fp32", "int8", "fp8", "int8+a4", "fp8+a4")
 
 
 class GNNServer:
@@ -206,8 +213,12 @@ def parser() -> argparse.ArgumentParser:
                     help="data mesh over N devices (not in this slice)")
     ap.add_argument("--shard-graph", action="store_true",
                     help="row-shard the graph state (not in this slice)")
-    ap.add_argument("--precision", default="fp32", choices=list(PRECISIONS),
-                    help="kernel operand precision tier (fp32 only here)")
+    ap.add_argument("--precision", default="fp32",
+                    choices=list(kops.PRECISIONS),
+                    help="kernel operand precision tier: int8/fp8 serve "
+                    "uint8 assignment tables + int8/fp8 codeword "
+                    "snapshots; the '+a4' tiers nibble-pack the tables "
+                    "(k <= 16, 2 ids/byte)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the CUDA kernels; cpu their plain "
                     "PyTorch versions")
@@ -217,9 +228,6 @@ def parser() -> argparse.ArgumentParser:
 
 
 def _reject_unported(args: argparse.Namespace) -> None:
-    if args.precision != "fp32":
-        raise NotImplementedError(
-            f"--precision {args.precision} comes with {PRECISION_SLICE}")
     if args.mesh or args.shard_graph:
         raise NotImplementedError(
             f"--mesh / --shard-graph come with {MESH_SLICE}")
@@ -227,7 +235,10 @@ def _reject_unported(args: argparse.Namespace) -> None:
 
 def build_server(args: argparse.Namespace) -> GNNServer:
     """Graph, config, weights (random from ``--seed``, or trained for
-    ``--train-epochs``) and the server."""
+    ``--train-epochs``) and the server, the VQ states built under
+    ``--precision`` and converted to its storage.  The tier setting holds
+    while the states are built and is reset after: serving reads the
+    storage types, not the setting."""
     _reject_unported(args)
     dev = resolve_device(args.device)
     from repro_torch.graph.datasets import synthetic_arxiv
@@ -235,16 +246,30 @@ def build_server(args: argparse.Namespace) -> GNNServer:
     cfg = GNNConfig(backbone=args.backbone, f_in=g.f, hidden=args.hidden,
                     n_out=g.num_classes, n_layers=args.layers,
                     codebook=CodebookConfig(k=args.k, f_prod=4))
-    if args.train_epochs > 0:
-        r = train_vq(g, cfg, epochs=args.train_epochs,
-                     batch_size=args.batch, eval_every=args.train_epochs,
-                     device=dev)
-        params, vq = r["params"], r["vq_states"]
-    else:
-        gen = torch.Generator().manual_seed(args.seed)
-        params = init_gnn(cfg, gen, device=dev)
-        vq = init_vq_states(cfg, g.n, gen, device=dev)
+    kops.configure_kernel_precision(args.precision)
+    try:
+        if args.train_epochs > 0:
+            r = train_vq(g, cfg, epochs=args.train_epochs,
+                         batch_size=args.batch, eval_every=args.train_epochs,
+                         device=dev)
+            params, vq = r["params"], r["vq_states"]
+        else:
+            gen = torch.Generator().manual_seed(args.seed)
+            params = init_gnn(cfg, gen, device=dev)
+            vq = init_vq_states(cfg, g.n, gen, device=dev)
+        if args.precision != "fp32":
+            vq = quantize_vq_states(vq, cfg, precision=args.precision)
+    finally:
+        kops.configure_kernel_precision(reset=True)
     return GNNServer(g, cfg, params, vq, args.batch, device=dev)
+
+
+def vq_state_bytes(vq_states) -> int:
+    """Bytes of the VQ operands the serve step's kernels read: every
+    layer's assignment table and, under a quantized tier, its codeword
+    snapshot (values and scales), as the reference counts them."""
+    return int(sum(tree_bytes((s.assignment,) if s.qcw is None
+                              else (s.assignment, s.qcw)) for s in vq_states))
 
 
 def run(args: argparse.Namespace) -> tuple[GNNServer, dict]:
@@ -263,9 +288,7 @@ def run(args: argparse.Namespace) -> tuple[GNNServer, dict]:
         if server.device.type == "cuda" else "cpu",
         "graph_state_bytes_per_device":
             server.graph_state_bytes_per_device(),
-        "vq_state_bytes": int(sum(s.assignment.numel() *
-                                  s.assignment.element_size()
-                                  for s in server.vq)),
+        "vq_state_bytes": vq_state_bytes(server.vq),
         "refresh_s": t_refresh, "warmup_s": t_warm})
     return server, report
 
@@ -275,7 +298,8 @@ def main(argv: Sequence[str] | None = None) -> dict:
     _, report = run(args)
     print(f"serve_gnn {args.backbone} n={report['graph_n']} "
           f"batch={report['batch']} device={report['device_name']} "
-          f"precision={args.precision}: refresh {report['refresh_s']:.2f}s, "
+          f"precision={args.precision} (vq operand bytes "
+          f"{report['vq_state_bytes']}): refresh {report['refresh_s']:.2f}s, "
           f"warmup {report['warmup_s']:.2f}s")
     print(f"  {report['nodes']} nodes / {report['requests']} requests in "
           f"{report['wall_s']:.3f}s -> {report['nodes_per_s']:.0f} nodes/s, "

@@ -7,7 +7,9 @@ Torch twin of the node-task, single-device half of ``repro.models.gnn``:
 the VQ train step of Alg. 1 (``_vq_step_body`` behind ``vq_train_step``
 and ``vq_train_epoch``: forward with probes, one ``torch.autograd.grad``
 for the params and the probes -- the probe gradients are G^(l+1) -- the
-optimizer, then per layer ``codebook.update`` and ``refresh_assignment``),
+optimizer, then per layer ``codebook.update``, ``refresh_assignment`` and,
+under a quantized tier, the snapshot's quantize-on-update),
+``quantize_vq_states`` (the serving conversion into a tier's storage),
 ``vq_eval_batch``, the full-graph oracle (``full_forward``,
 ``full_train_step``, ``full_predict``), and inference: ``vq_infer_layer``
 / ``vq_infer_epoch`` (layer-locked, optionally inductive) and
@@ -24,9 +26,12 @@ import torch
 from repro_torch.core import codebook as cbm
 from repro_torch.core.codebook import CodebookConfig
 from repro_torch.core.conv import (LayerVQState, MinibatchPack,
-                                   init_layer_vq_state, refresh_assignment)
+                                   init_layer_vq_state, quantize_layer_state,
+                                   refresh_assignment)
+from repro_torch.distributed.quantization import PackedAssignment
 from repro_torch.graph.batching import (EpochPlan, FullGraphOperands,
                                         plan_batch)
+from repro_torch.kernels import ops as kops
 from repro_torch.nn.gnn_layers import Params, backbone
 from repro_torch.runtime import LINK_SLICE, resolve_device
 from repro_torch.train.optimizer import OptState, Optimizer
@@ -87,6 +92,45 @@ def init_vq_states(cfg: GNNConfig, n_nodes: int,
                                                        heads=cfg.heads),
                                 cb_cfg, generator=generator, device=dev)
             for fi, fo in _layer_out_dims(cfg)]
+
+
+def quantize_vq_states(vq_states: list[LayerVQState], cfg: GNNConfig,
+                       precision: str | None = None) -> list[LayerVQState]:
+    """The per-layer VQ states in a quantized tier's storage, for serving.
+
+    ``precision`` is a tier of ``kops.PRECISIONS`` (default: the active
+    ``kernel_precision()``, with fp32 read as int8, as the reference
+    does); fp32 returns the states as they are.  Each layer gets a uint8
+    table (k <= 256), nibble-packed under the '+a4' tiers (k <= 16), and a
+    fresh codeword snapshot in the tier's storage dtype; the f32 codebook
+    stays for updates.  Idempotent."""
+    if precision is None:
+        p = kops.kernel_precision()
+        precision = p if p != "fp32" else "int8"
+    cw_dtype = kops.precision_codeword_dtype(precision)
+    if cw_dtype is None:
+        return list(vq_states)
+    pack = kops.precision_packs_assignment(precision)
+    cb_cfg = cfg.layer_codebook_cfg()
+    if cb_cfg.k > 256:
+        raise ValueError(
+            f"quantized assignment tables need k <= 256, got k={cb_cfg.k}")
+    if pack and cb_cfg.k > 16:
+        raise ValueError(
+            f"nibble-packed ('+a4') assignment tables need k <= 16, got "
+            f"k={cb_cfg.k}; use precision={precision.split('+')[0]!r}")
+    out = []
+    for (fi, _), vq in zip(_layer_out_dims(cfg), vq_states):
+        a = vq.assignment
+        if isinstance(a, PackedAssignment):
+            a = a if pack else a.unpack()
+        else:
+            a = a.to(torch.uint8)
+            if pack:
+                a = PackedAssignment.pack(a)
+        st = vq._replace(assignment=a, qcw=None)
+        out.append(quantize_layer_state(st, fi, cb_cfg, dtype=cw_dtype))
+    return out
 
 
 def probe_shapes(cfg: GNNConfig, b: int) -> list[tuple[int, ...]]:
@@ -260,9 +304,14 @@ def _vq_step_body(params: list[Params], vq_states: list[LayerVQState],
             # normalizes every concat dim
             new_cb, stats = cbm.update(vq.codebook, feats, grads, cb_cfg)
             vq_errs.append(stats.relative_error())
-            new_states.append(refresh_assignment(
+            st = refresh_assignment(
                 LayerVQState(new_cb, vq.assignment, vq.counts, vq.qcw),
-                pack.batch_ids, stats.assignment))
+                pack.batch_ids, stats.assignment)
+            if vq.qcw is not None:
+                # quantize-on-update: the snapshot follows the post-EMA
+                # codebook, keeping its scales inside the drift band
+                st = quantize_layer_state(st, feats.shape[-1], cb_cfg)
+            new_states.append(st)
     return new_params, new_states, new_opt, loss, out, torch.stack(vq_errs)
 
 

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import codebook as cbm
+from repro_torch.distributed.quantization import dtype_nbits
 from repro_torch.graph.batching import (build_epoch_plan, epoch_slices,
                                         full_operands, inference_slices)
 from repro_torch.graph.structure import Graph
@@ -35,6 +36,7 @@ from repro_torch.models.gnn import (GNNConfig, _layer_out_dims, full_predict,
                                     full_train_step, init_gnn, init_vq_states,
                                     node_metric, vq_infer_epoch,
                                     vq_train_epoch)
+from repro_torch.kernels import ops as kops
 from repro_torch.nn.gnn_layers import backbone
 from repro_torch.runtime import resolve_device
 from repro_torch.train.optimizer import adam, rmsprop
@@ -61,16 +63,27 @@ def _eval_full(params, g: Graph, cfg: GNNConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def vq_batch_bytes(b: int, deg: int, f: int, L: int, k: int,
-                   f_prod: int = 4, f_grad: Optional[int] = None) -> int:
-    """VQ-GNN per-batch device bytes at fp32: batch features/acts + packed
+                   f_prod: int = 4, f_grad: Optional[int] = None,
+                   precision: Optional[str] = None) -> int:
+    """VQ-GNN per-batch device bytes: batch features/acts + packed
     neighbor lists + codebooks (their actual ``branch_layout``) +
     reconstructed context messages.  ``f_grad`` defaults to ``f`` (the
-    Z-level gradient codewords of the fixed-convolution backbones)."""
+    Z-level gradient codewords of the fixed-convolution backbones).
+    ``precision`` (a tier of ``kops.PRECISIONS``; default fp32) sizes the
+    codeword tables the kernels read under it -- int8 / fp8 tables at 8
+    bits through ``dtype_nbits``, plus their f32 per-channel scales."""
     f_grad = f if f_grad is None else f_grad
     n_branches, fb, gb = cbm.branch_layout(f, f_grad, f_prod)
     pack = b * deg * 4 * 6                     # ids/mask/pos x2 directions
     acts = L * b * f * 4
-    books = L * n_branches * k * (fb + gb) * 4
+    cw_dtype = None if precision is None \
+        else kops.precision_codeword_dtype(precision)
+    if cw_dtype is None:
+        books = L * n_branches * k * (fb + gb) * 4
+    else:
+        bits = L * n_branches * k * (fb + gb) * dtype_nbits(cw_dtype)
+        books = (bits + 7) // 8 \
+            + L * n_branches * (fb + gb) * 4   # f32 per-channel scales
     recon = b * deg * f * 4                    # reconstructed neighbors
     return pack + acts + books + recon
 
@@ -113,7 +126,11 @@ def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
              lr: float = 3e-3, seed: int = 0, eval_every: int = 10,
              deg_cap: Optional[int] = None,
              device: str | torch.device = "cuda") -> dict:
-    """VQ-GNN training (Alg. 1), node task, one device.
+    """VQ-GNN training (Alg. 1), node task, one device, in the active
+    precision tier (``kops.configure_kernel_precision``): under a
+    quantized tier the VQ states start in its storage (uint8 or packed
+    tables, an int8 / fp8 codeword snapshot) and every step requantizes
+    the snapshot after the codebook update.
 
     The graph is packed once into an ``EpochPlan``; each epoch draws one
     ``rng.permutation`` (numpy, ``seed``) and runs ``vq_train_epoch`` over
@@ -168,7 +185,8 @@ def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
             "vq_states": vq, "opt_state": ost,
             "mem_bytes": vq_batch_bytes(
                 batch_size, deg, cfg.hidden, cfg.n_layers, cfg.codebook.k,
-                f_prod=cfg.layer_codebook_cfg().f_prod, f_grad=f_grad),
+                f_prod=cfg.layer_codebook_cfg().f_prod, f_grad=f_grad,
+                precision=kops.kernel_precision()),
             "messages": messages_per_batch_vq(g, batch_size),
             "step_losses": np.concatenate(losses),
             "step_vq_errs": np.concatenate(errs), "epoch_s": epoch_s}

@@ -341,3 +341,184 @@ def test_vq_train_step_cuda_vs_cpu(cuda):
             for fa, fb in zip(a.codebook, b.codebook):
                 assert_allclose(fa.numpy(), fb.numpy(), **STEP)
             assert torch.equal(a.counts, b.counts)
+
+
+# ---------------------------------------------------------------------------
+# the precision tiers' kernel forms
+# ---------------------------------------------------------------------------
+
+QDTYPES = [torch.int8, torch.float8_e4m3fn]
+
+
+def _tier_case(b, deg, n, nb, k, f_blk, seed):
+    from repro_torch.distributed.quantization import quantize_codewords
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, n, (b, deg), generator=g, dtype=torch.int32)
+    val = torch.randn((b, deg), generator=g)
+    assign = torch.randint(0, k, (nb, n), generator=g, dtype=torch.int32)
+    cw = torch.randn((nb, k, f_blk), generator=g)
+    return ids, val, assign, cw, quantize_codewords
+
+
+def _table(assign, tab):
+    from repro_torch.distributed.quantization import PackedAssignment
+    if tab == "a4":
+        return PackedAssignment.pack(assign)
+    return assign.to(torch.uint8 if tab == "u8" else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cw_dtype", QDTYPES)
+@pytest.mark.parametrize("tab", ["u8", "a4", "i32"])
+@pytest.mark.parametrize("b,deg,n,nb,k,f_blk,f_out", [
+    (256, 18, 5001, 32, 16, 4, 128), (300, 18, 5001, 8, 16, 5, 128),
+    (13, 3, 41, 4, 16, 8, 7), (1, 1, 1, 1, 1, 1, 1)])
+def test_context_ell_q_kernel_vs_plain(cuda, cw_dtype, tab, b, deg, n, nb, k,
+                                       f_blk, f_out):
+    """Quantized codewords over uint8, packed (odd n) and int32 tables,
+    the plain and the w_t form: bit-equal to the plain version."""
+    ids, val, assign, cw, quantize = _tier_case(b, deg, n, nb, k, f_blk,
+                                                b + nb + f_out)
+    qt = quantize(cw, dtype=cw_dtype)
+    w_t = torch.randn((nb * f_blk, f_out),
+                      generator=torch.Generator().manual_seed(1))
+    a = _table(assign, tab)
+    a_dev = a.to(cuda)
+    for wt in (None, w_t):
+        before = (tce.launches_q, tce.launches_q_wt)
+        got = tce.context_ell_cuda(
+            ids.to(cuda), val.to(cuda), a_dev, qt.q.to(cuda),
+            None if wt is None else wt.to(cuda), qt.scale.to(cuda))
+        torch.cuda.synchronize()
+        assert (tce.launches_q, tce.launches_q_wt) == (
+            before[0] + 1, before[1] + (wt is not None))
+        want = tref.context_ell(ids, val, a, qt.q, wt, qt.scale)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", QDTYPES)
+@pytest.mark.parametrize("b,deg,n,f", [(256, 18, 5000, 128),
+                                       (33, 7, 51, 12), (1, 1, 1, 1)])
+def test_spmm_ell_q_kernel_vs_plain(cuda, x_dtype, b, deg, n, f):
+    from repro_torch.distributed.quantization import quantize_codewords
+    g = torch.Generator().manual_seed(b + f)
+    idx = torch.randint(0, n, (b, deg), generator=g, dtype=torch.int32)
+    val = torch.randn((b, deg), generator=g)
+    qt = quantize_codewords(torch.randn((1, n, f), generator=g),
+                            dtype=x_dtype)
+    x, sc = qt.q[0], qt.scale[0]
+    before = (tsp.launches, tsp.launches_q)
+    got = ops.spmm_ell(idx.to(cuda), val.to(cuda),
+                       type(qt)(x.to(cuda), sc.to(cuda)))
+    torch.cuda.synchronize()
+    assert (tsp.launches, tsp.launches_q) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got.cpu(), tref.spmm_ell(idx, val, x, sc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emit,k", [(torch.uint8, 256), (torch.uint8, 40),
+                                    ("uint4", 16)])
+def test_vq_update_narrow_emit_kernel(cuda, emit, k):
+    """The uint8 emit (the uint4 one through it) gives the int32 build's
+    ids, qerr and counts; ``launches_u8`` counts it."""
+    g = torch.Generator().manual_seed(k)
+    x = torch.randn((8, 3000, 8), generator=g).to(cuda)
+    cw = torch.randn((8, k, 8), generator=g).to(cuda)
+    wide = tvu.vq_assign_update_cuda(x, cw)
+    before = tvu.launches_u8
+    narrow = tvu.vq_assign_update_cuda(x, cw, emit)
+    torch.cuda.synchronize()
+    assert tvu.launches_u8 == before + 1
+    assert narrow[0].dtype == torch.uint8
+    assert torch.equal(narrow[0].int(), wide[0])
+    assert torch.equal(narrow[1], wide[1]) and torch.equal(narrow[2], wide[2])
+
+
+@pytest.mark.gpu
+def test_tier_kernels_reject_what_they_do_not_take(cuda):
+    """A narrow table whose ids cannot reach k, a quantized table without
+    its scales: raised before any launch, never a plain-version run."""
+    from repro_torch.distributed.quantization import PackedAssignment
+    ids = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    val = torch.zeros((4, 2), device=cuda)
+    sc = torch.ones((1, 1, 4), device=cuda)
+    q = torch.zeros((1, 300, 4), dtype=torch.int8, device=cuda)
+    before = tce.launches
+    with pytest.raises(ValueError, match="ids < 256"):
+        tce.context_ell_cuda(ids, val, torch.zeros(
+            (1, 4), dtype=torch.uint8, device=cuda), q, cw_scale=sc)
+    with pytest.raises(ValueError, match="ids < 16"):
+        tce.context_ell_cuda(ids, val, PackedAssignment(torch.zeros(
+            (1, 2), dtype=torch.uint8, device=cuda), 4), q[:, :17],
+            cw_scale=sc)
+    with pytest.raises(ValueError, match="cw_scale"):
+        tce.context_ell_cuda(ids, val, torch.zeros(
+            (1, 4), dtype=torch.uint8, device=cuda), q[:, :16])
+    with pytest.raises(ValueError, match="k <= 256"):
+        tvu.vq_assign_update_cuda(torch.zeros((1, 4, 4), device=cuda),
+                                  torch.zeros((1, 300, 4), device=cuda),
+                                  torch.uint8)
+    assert tce.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["int8", "fp8+a4"])
+def test_vq_train_step_under_tier_cuda_vs_cpu(cuda, tier):
+    """One Alg. 1 step under a tier on the card against the CPU plain path:
+    loss and params within STEP, the quantized forms launched in place of
+    the f32 ones, the snapshots requantized on both within a quantum."""
+    from repro_torch.convert import to_device
+    from repro_torch.core.codebook import CodebookConfig
+    from repro_torch.graph import batching as tb
+    from repro_torch.graph.datasets import synthetic_arxiv
+    from repro_torch.models import gnn as tgnn
+    from repro_torch.train.optimizer import rmsprop
+    g = synthetic_arxiv(n=600, seed=0)
+    cfg = tgnn.GNNConfig(backbone="gcn", f_in=g.f, hidden=32,
+                         n_out=g.num_classes, n_layers=2,
+                         codebook=CodebookConfig(k=16, f_prod=4))
+    opt = rmsprop(3e-3)
+    bids = np.random.default_rng(0).choice(g.n, 150, replace=False)
+    mask = np.zeros(g.n, np.float32)
+    mask[g.train_idx] = 1.0
+    ops.configure_kernel_precision(tier)
+    try:
+        params = tgnn.init_gnn(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        vq = tgnn.init_vq_states(cfg, g.n, torch.Generator().manual_seed(1),
+                                 device="cpu")
+    finally:
+        ops.configure_kernel_precision(reset=True)
+    outs = {}
+    for dev in ("cpu", cuda):
+        p, v = to_device(params, dev), to_device(vq, dev)
+        ops_ = tb.full_operands(g, device=dev)
+        plan = tb.build_epoch_plan(g, full_ops=ops_, device=dev)
+        pack = tb.plan_batch(plan, torch.from_numpy(
+            bids.astype(np.int32)).to(dev))
+        q0 = (tce.launches_q, tce.launches_q_wt)
+        res = tgnn.vq_train_step(
+            p, v, opt.init(p), pack,
+            torch.from_numpy(g.features[bids]).to(dev),
+            torch.from_numpy(g.labels[bids]).to(dev), ops_.degrees, cfg, opt,
+            loss_mask=torch.from_numpy(mask[bids]).to(dev))
+        outs[str(dev)] = to_device([res[0], res[1], res[3]], "cpu")
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert (tce.launches_q - q0[0], tce.launches_q_wt - q0[1]) \
+                == (3, 1)
+    (pc, vc, lc), (pg, vg, lg) = outs["cpu"], outs["cuda"]
+    assert_allclose(lg.numpy(), lc.numpy(), **STEP)
+    for a, b in zip(pg, pc):
+        for name in a:
+            assert_allclose(a[name].numpy(), b[name].numpy(), **STEP)
+    for a, b in zip(vg, vc):
+        assert type(a.assignment) is type(b.assignment)
+        for qa, qb in ((a.qcw.feat, b.qcw.feat), (a.qcw.grad, b.qcw.grad)):
+            assert qa.q.dtype == qb.q.dtype
+            assert_allclose(qa.scale.numpy(), qb.scale.numpy(), rtol=1e-4)
+            va, vb = qa.q.float().numpy(), qb.q.float().numpy()
+            quantum = 1.0 if qa.q.dtype == torch.int8 \
+                else np.maximum(np.abs(va), np.abs(vb)) / 8 + 2.0 ** -9
+            assert np.all(np.abs(va - vb) <= quantum * 1.0001)

@@ -13,6 +13,14 @@ fused update's cluster statistics: counts exact, sums (up to a few hundred
 rows each, summed in another order) ``rtol=1e-5, atol=1e-5``.  The
 ``w_t`` epilogue sums up to 40 products of unit-scale context and weights
 whose terms cancel to much smaller results: ``rtol=1e-5, atol=1e-5``.
+
+The quantized forms (int8 / fp8 codewords or sources with their scales,
+uint8 and nibble-packed tables, the narrow emit) are held to the same
+tolerances: their operands widen to f32 exactly, but XLA's CPU code fuses
+each slot's multiply and add into one FMA (one rounding where the port
+rounds twice; an FMA emulation reproduces the reference's bits), so the
+port's plain versions -- which round as the CUDA kernels do, and agree
+with them bit for bit -- differ from the JAX oracles in the last bits.
 """
 import os
 import subprocess
@@ -27,11 +35,13 @@ torch = pytest.importorskip("torch")
 import jax                                                   # noqa: E402
 import jax.numpy as jnp                                      # noqa: E402
 
+from repro.distributed import quantization as jq             # noqa: E402
 from repro.kernels import ref as jref                        # noqa: E402
 from repro.kernels.context_ell import context_ell_pallas     # noqa: E402
 from repro.kernels.spmm_ell import spmm_ell_pallas           # noqa: E402
 from repro.kernels.vq_assign import vq_assign_pallas         # noqa: E402
 from repro.kernels.vq_update import vq_assign_update_pallas  # noqa: E402
+from repro_torch.distributed import quantization as tq       # noqa: E402
 from repro_torch.kernels import _build, ops                  # noqa: E402
 from repro_torch.kernels import context_ell as tce           # noqa: E402
 from repro_torch.kernels import ref as tref                  # noqa: E402
@@ -264,6 +274,144 @@ def test_spmm_ell_refuses_edge_values_that_require_grad():
 
 
 # ---------------------------------------------------------------------------
+# the precision tiers' forms: quantized codewords / sources, narrow tables
+# ---------------------------------------------------------------------------
+
+QDTYPES = [(jnp.int8, torch.int8), (jnp.float8_e4m3fn, torch.float8_e4m3fn)]
+
+
+def _q_codewords(cw, jdt, tdt):
+    """The same codewords quantized by both packages (byte-equal, held by
+    tests/test_torch_quant.py) -> (jax QTensor, torch QTensor)."""
+    return (jq.quantize_codewords(jnp.asarray(cw), dtype=jdt),
+            tq.quantize_codewords(torch.from_numpy(cw), dtype=tdt))
+
+
+def _tables(assign, tab):
+    """One [nb, n] id table in a storage form, for both packages."""
+    if tab == "a4":
+        return (jq.PackedAssignment.pack(jnp.asarray(assign)),
+                tq.PackedAssignment.pack(torch.from_numpy(assign)))
+    a = assign.astype(np.int32 if tab == "i32" else np.uint8)
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("jdt,tdt", QDTYPES)
+@pytest.mark.parametrize("tab", ["u8", "a4", "i32"])
+@pytest.mark.parametrize("b,deg,n,nb,k,f_blk,f_out", [
+    (1, 1, 1, 1, 1, 1, 1), (33, 7, 51, 4, 16, 8, 12),
+    (130, 18, 301, 8, 16, 5, 32), (5, 0, 10, 4, 8, 8, 3)])
+def test_context_ell_q_ref_vs_jax(jdt, tdt, tab, b, deg, n, nb, k, f_blk,
+                                  f_out):
+    """``_context_ell_q_kernel`` / ``_context_ell_q_wt_kernel`` over uint8,
+    nibble-packed (odd n: a padded high nibble) and int32 tables: the
+    plain version against the reference oracle and the interpret-mode
+    Pallas kernel, with and without the ``w_t`` epilogue."""
+    rng = np.random.default_rng(b * 13 + n + f_out)
+    ids = rng.integers(0, n, (b, deg)).astype(np.int32)
+    val = rng.normal(size=(b, deg)).astype(np.float32)
+    assign = rng.integers(0, k, (nb, n)).astype(np.uint8)
+    cw = rng.normal(size=(nb, k, f_blk)).astype(np.float32)
+    w_t = rng.normal(size=(nb * f_blk, f_out)).astype(np.float32)
+    qj, qt = _q_codewords(cw, jdt, tdt)
+    ja, ta = _tables(assign, tab)
+    ti, tv = torch.from_numpy(ids), torch.from_numpy(val)
+    for wt in (None, w_t):
+        got = tref.context_ell(ti, tv, ta, qt.q,
+                               None if wt is None else torch.from_numpy(wt),
+                               qt.scale).numpy()
+        assert got.shape == (b, nb * f_blk if wt is None else f_out)
+        tol = TOL if wt is None else WT_TOL
+        assert_allclose(got, np.asarray(jref.context_ell(
+            ids, val, ja, qj.q, w_t=wt, cw_scale=qj.scale)), **tol)
+        if deg:
+            assert_allclose(got, np.asarray(context_ell_pallas(
+                jnp.asarray(ids), jnp.asarray(val), ja, qj.q,
+                cw_scale=qj.scale,
+                w_t=None if wt is None else jnp.asarray(wt),
+                interpret=True)), **tol)
+        # every table form gives the same bits as the int32 one
+        assert np.array_equal(got, tref.context_ell(
+            ti, tv, torch.from_numpy(assign.astype(np.int32)), qt.q,
+            None if wt is None else torch.from_numpy(wt), qt.scale).numpy())
+        # ops unwraps the QTensor onto the same plain version
+        assert np.array_equal(got, ops.context_ell(
+            ti, tv, ta, qt,
+            None if wt is None else torch.from_numpy(wt)).numpy())
+
+
+@pytest.mark.parametrize("jdt,tdt", QDTYPES)
+@pytest.mark.parametrize("b,deg,n,f", [(1, 1, 1, 1), (33, 7, 50, 12),
+                                       (256, 18, 300, 128)])
+def test_spmm_ell_q_ref_vs_jax(jdt, tdt, b, deg, n, f):
+    """``_spmm_ell_q_kernel``: an int8 / fp8 source with [1, f] scales,
+    through ``ops.spmm_ell(QTensor)``, the reference oracle and the
+    interpret-mode Pallas kernel."""
+    rng = np.random.default_rng(b + f)
+    idx = rng.integers(0, n, (b, deg)).astype(np.int32)
+    val = rng.normal(size=(b, deg)).astype(np.float32)
+    val[:, -1] = 0.0
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    qj, qt = _q_codewords(x[None], jdt, tdt)
+    jqx, jsc = qj.q[0], qj.scale[0]
+    tqx = tq.QTensor(qt.q[0], qt.scale[0])
+    got = ops.spmm_ell(torch.from_numpy(idx), torch.from_numpy(val),
+                       tqx).numpy()
+    assert got.shape == (b, f) and got.dtype == np.float32
+    assert np.array_equal(got, tref.spmm_ell(
+        torch.from_numpy(idx), torch.from_numpy(val), *tqx).numpy())
+    assert_allclose(got, np.asarray(jref.spmm_ell(idx, val, jqx, jsc)),
+                    **TOL)
+    assert_allclose(got, np.asarray(spmm_ell_pallas(
+        jnp.asarray(idx), jnp.asarray(val), jqx, x_scale=jsc,
+        interpret=True)), **TOL)
+
+
+@pytest.mark.parametrize("emit,jemit,k", [
+    (torch.uint8, jnp.uint8, 256), (torch.uint8, jnp.uint8, 33),
+    ("uint4", jnp.uint4, 16), ("uint4", jnp.uint4, 5)])
+def test_vq_assign_update_narrow_emit(emit, jemit, k):
+    """The narrow emit: the ids of the int32 emit in a uint8 tensor
+    (values < 16 for uint4), equal to the interpret-mode Pallas kernel's
+    narrow emit; every other output unchanged."""
+    rng = np.random.default_rng(k)
+    x = rng.normal(size=(3, 300, 8)).astype(np.float32)
+    cw = rng.normal(size=(3, k, 8)).astype(np.float32)
+    tx, tc = torch.from_numpy(x), torch.from_numpy(cw)
+    wide = ops.vq_assign_update(tx, tc)
+    narrow = ops.vq_assign_update(tx, tc, emit_dtype=emit)
+    assert narrow[0].dtype == torch.uint8
+    assert torch.equal(narrow[0].int(), wide[0])
+    for a, b in zip(narrow[1:], wide[1:]):
+        assert torch.equal(a, b)
+    for i in range(3):
+        jidx = vq_assign_update_pallas(jnp.asarray(x[i]), jnp.asarray(cw[i]),
+                                       emit_dtype=jemit, interpret=True)[0]
+        assert jidx.dtype == jemit
+        same = np.asarray(jidx).astype(np.int32) == wide[0][i].numpy()
+        assert_assign_equal_but_near_ties(
+            wide[0][i:i + 1], np.asarray(jidx).astype(np.int32)[None],
+            x[i:i + 1], cw[i:i + 1])
+        assert same.mean() > 0.99
+
+
+@pytest.mark.parametrize("emit,jemit,k,match", [
+    (torch.uint8, jnp.uint8, 257, "k <= 256"),
+    ("uint4", jnp.uint4, 17, "k <= 16"),
+    (torch.int8, jnp.int8, 4, "not a supported assignment storage"),
+    ("int4", jnp.int4, 4, "not a supported assignment storage")])
+def test_vq_assign_update_emit_errors_match_reference(emit, jemit, k, match):
+    x = np.zeros((1, 8, 4), np.float32)
+    cw = np.zeros((1, k, 4), np.float32)
+    with pytest.raises(ValueError, match=match):
+        vq_assign_update_pallas(jnp.asarray(x[0]), jnp.asarray(cw[0]),
+                                emit_dtype=jemit, interpret=True)
+    with pytest.raises(ValueError, match=match):
+        ops.vq_assign_update(torch.from_numpy(x), torch.from_numpy(cw),
+                             emit_dtype=emit)
+
+
+# ---------------------------------------------------------------------------
 # dispatch: the device decides; CPU tensors never reach a kernel
 # ---------------------------------------------------------------------------
 
@@ -317,6 +465,49 @@ def test_ops_cpu_tensors_take_the_plain_versions():
     assert torch.equal(ops.context_ell(idx, val, a, cw),
                        tref.context_ell(idx, val, a, cw))
     assert (tva.launches, tsp.launches, tce.launches) == before
+
+
+def test_tier_kernel_wrappers_refuse_what_they_do_not_take():
+    """The quantized forms' wrappers check before any launch: CPU
+    tensors, a uint8 table with k > 256, a packed table with k > 16,
+    quantized codewords without scales, an emit dtype that cannot index
+    k."""
+    idx = torch.zeros((4, 2), dtype=torch.int32)
+    val = torch.zeros((4, 2))
+    sc = torch.ones((1, 1, 4))
+    cases = [
+        (ValueError, "CUDA tensors only", lambda: tce.context_ell_cuda(
+            idx, val, torch.zeros((1, 4), dtype=torch.uint8),
+            torch.zeros((1, 2, 4), dtype=torch.int8), cw_scale=sc)),
+        (ValueError, "CUDA tensors only", lambda: tsp.spmm_ell_cuda(
+            idx, val, torch.zeros((3, 4), dtype=torch.float8_e4m3fn),
+            torch.ones((1, 4)))),
+        (ValueError, "cw_scale", lambda: tce.context_ell_cuda(
+            idx, val, torch.zeros((1, 4), dtype=torch.uint8),
+            torch.zeros((1, 2, 4), dtype=torch.int8))),
+        (ValueError, "x_scale", lambda: tsp.spmm_ell_cuda(
+            idx, val, torch.zeros((3, 4), dtype=torch.int8))),
+        (TypeError, "assignment of dtype", lambda: tce.context_ell_cuda(
+            idx, val, torch.zeros((1, 4), dtype=torch.int64),
+            torch.zeros((1, 2, 4)))),
+        (ValueError, "k <= 256", lambda: tvu.vq_assign_update_cuda(
+            torch.zeros((1, 4, 4)), torch.zeros((1, 300, 4)), torch.uint8)),
+    ]
+    if torch.cuda.is_available():
+        dev = "cuda"
+        cases += [
+            (ValueError, "ids < 256", lambda: tce.context_ell_cuda(
+                idx.to(dev), val.to(dev),
+                torch.zeros((1, 4), dtype=torch.uint8, device=dev),
+                torch.zeros((1, 300, 4), dtype=torch.int8, device=dev),
+                cw_scale=sc.to(dev))),
+            (ValueError, "ids < 16", lambda: tce.context_ell_cuda(
+                idx.to(dev), val.to(dev), tq.PackedAssignment(
+                    torch.zeros((1, 2), dtype=torch.uint8, device=dev), 4),
+                torch.zeros((1, 17, 4), device=dev)))]
+    for exc, match, call in cases:
+        with pytest.raises(exc, match=match):
+            call()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

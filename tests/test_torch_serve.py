@@ -22,6 +22,7 @@ import jax                                                   # noqa: E402
 import jax.numpy as jnp                                      # noqa: E402
 
 from repro.core.codebook import CodebookConfig as JCodebookConfig  # noqa
+from repro.distributed import quantization as jq             # noqa: E402
 from repro.graph import batching as jb                       # noqa: E402
 from repro.graph.datasets import synthetic_arxiv as j_arxiv  # noqa: E402
 from repro.models import gnn as jgnn                         # noqa: E402
@@ -29,6 +30,7 @@ from repro.nn import gnn_layers as jlayers                   # noqa: E402
 from repro_torch import convert                              # noqa: E402
 from repro_torch.core import codebook as tcb                 # noqa: E402
 from repro_torch.core.codebook import CodebookConfig         # noqa: E402
+from repro_torch.distributed import quantization as tq       # noqa: E402
 from repro_torch.graph import batching as tb                 # noqa: E402
 from repro_torch.graph.datasets import synthetic_arxiv as t_arxiv  # noqa
 from repro_torch.models import gnn as tgnn                   # noqa: E402
@@ -355,8 +357,7 @@ def test_paper_config_matches_reference(graphs):
 def test_unported_options_raise(gcn, graphs):
     from repro_torch.launch import serve_gnn
     w = gcn
-    for argv, match in [(["--precision", "int8"], "precision-tier"),
-                        (["--mesh", "2"], "multi-device"),
+    for argv, match in [(["--mesh", "2"], "multi-device"),
                         (["--shard-graph"], "multi-device"),
                         (["--backbone", "gat"], "GAT/Transformer"),
                         (["--backbone", "transformer"], "GAT/Transformer")]:
@@ -365,12 +366,157 @@ def test_unported_options_raise(gcn, graphs):
     with pytest.raises(NotImplementedError, match="link-task"):
         tgnn.vq_train_step(w.tparams, w.tvq, None, None, None, None, None,
                            w.tcfg._replace(task="link"), None)
-    # quantized reference states are refused by the bridge
-    jq = jgnn.quantize_vq_states(w.jvq, w.jcfg, precision="int8")
-    with pytest.raises(NotImplementedError, match="precision-tier"):
-        convert.vq_states_from_numpy(jq, CPU)
-    with pytest.raises(NotImplementedError, match="precision-tier"):
-        convert.vq_states_from_numpy([jq[0]._replace(qcw=None)], CPU)
+
+
+# ---------------------------------------------------------------------------
+# the precision tiers in serving
+# ---------------------------------------------------------------------------
+
+TIERS = ["int8", "fp8", "int8+a4", "fp8+a4"]
+
+
+@pytest.fixture(scope="module")
+def gcn16(graphs):
+    """A GCN world at k = 16, where every tier (the '+a4' ones too)
+    applies."""
+    w = _World.__new__(_World)
+    jg, tg = graphs
+    kw = dict(backbone="gcn", f_in=128, hidden=32, n_out=40, n_layers=2)
+    w.jcfg = jgnn.GNNConfig(codebook=JCodebookConfig(k=16, f_prod=4), **kw)
+    w.tcfg = tgnn.GNNConfig(codebook=CodebookConfig(k=16, f_prod=4), **kw)
+    w.jg, w.tg = jg, tg
+    w.jops = jb.full_operands(jg)
+    w.jplan = jb.build_epoch_plan(jg, full_ops=w.jops)
+    w.tops = tb.full_operands(tg, device=CPU)
+    w.tplan = tb.build_epoch_plan(tg, full_ops=w.tops)
+    w.jx = jnp.asarray(jg.features)
+    w.tx = torch.from_numpy(tg.features)
+    w.jparams = jgnn.init_gnn(jax.random.PRNGKey(0), w.jcfg)
+    w.jvq = jgnn.init_vq_states(jax.random.PRNGKey(1), w.jcfg, jg.n)
+    w.tparams = convert.params_from_numpy(_np_params(w.jparams), CPU)
+    w.tvq = convert.vq_states_from_numpy(w.jvq, CPU)
+    return w
+
+
+def _table(a):
+    """A table of either package as an int32 numpy array."""
+    if isinstance(a, (tq.PackedAssignment, jq.PackedAssignment)):
+        a = a.unpack()
+    return np.asarray(a).astype(np.int32)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_serving_rows_under_each_tier(gcn16, tier):
+    """A tier's serving state (``quantize_vq_states``), refreshed by both
+    servers: the same tables in the tier's storage, and served rows
+    within the multi-layer tolerance of the reference's -- with duplicate
+    ids in the batch and the padded tail of a request.  ``vq_state_bytes``
+    counts what the reference's report counts."""
+    from repro.launch.serve_gnn import GNNServer as JServer
+    from repro_torch.launch.serve_gnn import GNNServer, vq_state_bytes
+    w = gcn16
+    jvq = jgnn.quantize_vq_states(w.jvq, w.jcfg, precision=tier)
+    tvq = tgnn.quantize_vq_states(w.tvq, w.tcfg, precision=tier)
+    jserver = JServer(w.jg, w.jcfg, w.jparams, jvq, batch=128)
+    server = GNNServer(w.tg, w.tcfg, w.tparams, tvq, batch=128, device=CPU)
+    jserver.refresh()
+    server.refresh()
+    for a, b in zip(server.vq, jserver.vq):
+        assert isinstance(a.assignment, tq.PackedAssignment) \
+            == isinstance(b.assignment, jq.PackedAssignment)
+        assert np.array_equal(_table(a.assignment), _table(b.assignment))
+        assert np.array_equal(a.counts.numpy(), np.asarray(b.counts))
+        for qa, qb in ((a.qcw.feat, b.qcw.feat), (a.qcw.grad, b.qcw.grad)):
+            assert np.array_equal(qa.q.view(torch.uint8).numpy(),
+                                  np.asarray(qb.q).view(np.uint8))
+    req = np.concatenate([np.arange(64) % 40,
+                          np.random.default_rng(1).integers(0, w.jg.n, 90)])
+    assert_allclose(server.serve(req), jserver.serve(req), **MULTI)
+    want = sum(jq.tree_bytes((s.assignment,) if s.qcw is None
+                             else (s.assignment, s.qcw)) for s in jserver.vq)
+    assert vq_state_bytes(server.vq) == want
+
+
+def test_tier_inference_agrees_with_fp32(gcn16):
+    """Codeword inference under each tier against the fp32 inference of
+    the same codebooks and weights: argmax agreement >= 0.95 (the
+    reference's own gate), and the '+a4' tiers give the rows of their
+    unpacked tiers bit for bit (packing changes storage only)."""
+    from repro_torch.train.gnn_trainer import vq_inference
+    w = gcn16
+    y32 = vq_inference(w.tparams, w.tvq, w.tg, w.tcfg, 100)
+    rows = {}
+    for tier in TIERS:
+        rows[tier] = vq_inference(
+            w.tparams, tgnn.quantize_vq_states(w.tvq, w.tcfg, precision=tier),
+            w.tg, w.tcfg, 100)
+        agree = (np.argmax(rows[tier], -1) == np.argmax(y32, -1)).mean()
+        assert agree >= 0.95, (tier, agree)
+    assert np.array_equal(rows["int8+a4"], rows["int8"])
+    assert np.array_equal(rows["fp8+a4"], rows["fp8"])
+
+
+@pytest.mark.parametrize("tier,k", [("int8", 32), ("fp8", 32),
+                                    ("int8+a4", 16), ("fp8+a4", 16)])
+def test_serve_main_under_each_tier(tier, k, capsys):
+    """``--precision`` runs: the states are built, trained and served in
+    the tier's storage, and the tier setting does not outlive the
+    build."""
+    from repro_torch.kernels import ops as tops
+    from repro_torch.launch import serve_gnn
+    server, rep = serve_gnn.run(serve_gnn.parser().parse_args([
+        "--n", "300", "--hidden", "16", "--k", str(k), "--batch", "64",
+        "--requests", "8", "--train-epochs", "1", "--precision", tier,
+        "--device", "cpu"]))
+    assert rep["precision"] == tier and rep["nodes_per_s"] > 0
+    assert tops.kernel_precision() == "fp32"
+    for st in server.vq:
+        assert isinstance(st.assignment, tq.PackedAssignment) \
+            == tier.endswith("+a4")
+        assert st.qcw.feat.q.dtype == (torch.float8_e4m3fn
+                                       if tier.startswith("fp8")
+                                       else torch.int8)
+    assert rep["vq_state_bytes"] == serve_gnn.vq_state_bytes(server.vq)
+    out = serve_gnn.main(["--n", "300", "--hidden", "16", "--k", str(k),
+                          "--batch", "64", "--requests", "4",
+                          "--precision", tier, "--device", "cpu"])
+    assert out["vq_state_bytes"] < 300 * 2 * 8 * 4    # under int32 tables
+    assert f"precision={tier}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("tier", ["fp32"] + TIERS)
+def test_convert_carries_quantized_states(gcn16, tier):
+    """``convert.vq_states_from_numpy`` takes the reference's states in
+    every tier -- uint8 and nibble-packed tables, int8 and fp8 snapshots
+    (fp8 crossing as its bytes) -- and ``to_device`` moves them."""
+    w = gcn16
+    jq_states = jgnn.quantize_vq_states(w.jvq, w.jcfg, precision=tier)
+    got = convert.vq_states_from_numpy(jq_states, CPU)
+    for a, b in zip(got, jq_states):
+        if isinstance(b.assignment, jq.PackedAssignment):
+            assert isinstance(a.assignment, tq.PackedAssignment)
+            assert a.assignment.n == b.assignment.n
+            assert np.array_equal(a.assignment.packed.numpy(),
+                                  np.asarray(b.assignment.packed))
+        else:
+            assert np.array_equal(a.assignment.numpy(),
+                                  np.asarray(b.assignment))
+            assert str(a.assignment.dtype) == "torch." + str(
+                np.asarray(b.assignment).dtype)
+        if b.qcw is None:
+            assert a.qcw is None
+            continue
+        for qa, qb in ((a.qcw.feat, b.qcw.feat), (a.qcw.grad, b.qcw.grad)):
+            assert str(qa.q.dtype) == "torch." + np.asarray(qb.q).dtype.name
+            assert np.array_equal(qa.q.view(torch.uint8).numpy(),
+                                  np.asarray(qb.q).view(np.uint8))
+            assert np.array_equal(qa.scale.numpy(), np.asarray(qb.scale))
+    moved = convert.to_device(got, CPU)
+    assert type(moved[0].assignment) is type(got[0].assignment)
+    with pytest.raises(TypeError, match="int64"):
+        convert.vq_states_from_numpy(
+            [jq_states[0]._replace(assignment=np.zeros((2, 3), np.int64))],
+            CPU)
 
 
 def test_cuda_request_without_card_raises():

@@ -494,6 +494,115 @@ def test_train_vq_full_width_first_steps_track_reference(monkeypatch, n):
     assert shares["ref"][-1][-1] == 1.0 and shares["port"][-1][-1] == 1.0
 
 
+# ---------------------------------------------------------------------------
+# training under the precision tiers
+# ---------------------------------------------------------------------------
+
+def _assert_snapshots_close(tst, jst):
+    """Quantize-on-update snapshots of codebooks that agree to f32
+    rounding: scales within ``rtol=1e-4``, and every value within one
+    quantum of the reference's (a codeword on a rounding boundary may
+    round either way): 1 for int8, 2^-3 of the value (2^-9 near zero)
+    for fp8 e4m3."""
+    for a, b in zip(tst, jst):
+        for qa, qb in ((a.qcw.feat, b.qcw.feat), (a.qcw.grad, b.qcw.grad)):
+            assert str(qa.q.dtype) == "torch." + np.asarray(qb.q).dtype.name
+            assert_allclose(qa.scale.numpy(), np.asarray(qb.scale),
+                            rtol=1e-4)
+            va = qa.q.float().numpy()
+            vb = np.asarray(qb.q).astype(np.float32)
+            quantum = 1.0 if qa.q.dtype == torch.int8 \
+                else np.maximum(np.abs(va), np.abs(vb)) / 8 + 2.0 ** -9
+            assert np.all(np.abs(va - vb) <= quantum * 1.0001)
+            assert (va != vb).mean() < 0.01
+
+
+def _train_both_under_tier(monkeypatch, jg, tg, jcfg, tcfg, tier, epochs, b):
+    """``train_vq`` in both packages under ``tier`` from the reference's
+    initial state (built under the tier, carried across); returns the
+    port's result, the reference's and its per-step losses."""
+    from repro.kernels import ops as jops
+    from repro.train import gnn_trainer as jtrain
+    from repro_torch.kernels import ops as tops
+    losses = []
+
+    def recorded(*a, **k):
+        out = jgnn.vq_train_epoch(*a, **k)
+        losses.append(np.asarray(out[3]))
+        return out
+    jops.configure_kernel_precision(tier)
+    tops.configure_kernel_precision(tier)
+    try:
+        jparams = jgnn.init_gnn(jax.random.PRNGKey(0), jcfg)
+        jvq = jgnn.init_vq_states(jax.random.PRNGKey(1), jcfg, jg.n)
+        tparams = convert.params_from_numpy(_np_tree(jparams), CPU)
+        tvq = convert.vq_states_from_numpy(jvq, CPU)
+        monkeypatch.setattr(jtrain, "vq_train_epoch", recorded)
+        monkeypatch.setattr(jtrain, "init_gnn", lambda *a, **k: jparams)
+        monkeypatch.setattr(jtrain, "init_vq_states", lambda *a, **k: jvq)
+        monkeypatch.setattr(ttrain, "init_gnn", lambda *a, **k: tparams)
+        monkeypatch.setattr(ttrain, "init_vq_states", lambda *a, **k: tvq)
+        jr = jtrain.train_vq(jg, jcfg, epochs=epochs, batch_size=b,
+                             eval_every=epochs)
+        tr = ttrain.train_vq(tg, tcfg, epochs=epochs, batch_size=b,
+                             eval_every=epochs, device=CPU)
+    finally:
+        jops.configure_kernel_precision(reset=True)
+        tops.configure_kernel_precision(reset=True)
+    return tr, jr, np.concatenate(losses)
+
+
+@pytest.mark.parametrize("tier,k", [("int8", 32), ("fp8", 16),
+                                    ("fp8+a4", 16)])
+def test_train_vq_under_tier_tracks_reference(monkeypatch, tier, k):
+    """The reference's tier training smoke (n 300, hidden 16, 2 layers,
+    batch 100, 2 epochs) in both packages from the same state: per-step
+    losses within ``rtol=1e-3``, the states ending in the tier's storage
+    (uint8 or packed tables, int8 / fp8 snapshots requantized every step),
+    tables agreeing but for near-tie flips, snapshots within a quantum,
+    and the tier's memory accounting."""
+    jg, tg = j_arxiv(n=300, seed=0), t_arxiv(n=300, seed=0)
+    kw = dict(backbone="gcn", f_in=jg.f, hidden=16, n_out=jg.num_classes,
+              n_layers=2)
+    jcfg = jgnn.GNNConfig(codebook=JCodebookConfig(k=k, f_prod=4), **kw)
+    tcfg = tgnn.GNNConfig(codebook=CodebookConfig(k=k, f_prod=4), **kw)
+    tr, jr, jlosses = _train_both_under_tier(monkeypatch, jg, tg, jcfg, tcfg,
+                                             tier, 2, 100)
+    assert_allclose(tr["step_losses"], jlosses, rtol=1e-3)
+    assert np.isfinite(tr["final"]["val"])
+    assert abs(tr["final"]["val"] - jr["final"]["val"]) <= 0.05
+    assert tr["mem_bytes"] == jr["mem_bytes"]
+    for a, b in zip(tr["vq_states"], jr["vq_states"]):
+        packed = hasattr(b.assignment, "packed")
+        assert hasattr(a.assignment, "packed") == packed == \
+            tier.endswith("+a4")
+        ta = a.assignment.unpack() if packed else a.assignment
+        ja = b.assignment.unpack() if packed else b.assignment
+        assert ta.dtype == torch.uint8
+        assert (ta.numpy() == np.asarray(ja)).mean() > 0.99
+    _assert_snapshots_close(tr["vq_states"], jr["vq_states"])
+
+
+def test_train_vq_int8_full_width_first_steps_track_reference(monkeypatch):
+    """The tier at the paper's full width with k = 256 (GCN, hidden 128, 3
+    layers, f_prod 4, batch n/4) on 800 nodes: the first 8 per-step
+    losses under int8 follow the reference's within ``rtol=1e-2`` (the
+    full-width fp32 test's tolerance)."""
+    from repro.configs import vq_gnn_paper as jpaper
+    from repro_torch.configs import vq_gnn_paper as tpaper
+    jg, tg = j_arxiv(n=800, seed=0), t_arxiv(n=800, seed=0)
+    jcfg = jpaper.paper_config(jg, full_scale=True)
+    jcfg = jcfg._replace(codebook=jcfg.codebook._replace(k=256))
+    tcfg = tpaper.paper_config(tg, full_scale=True)
+    tcfg = tcfg._replace(codebook=tcfg.codebook._replace(k=256))
+    b = tpaper.paper_batch_size(tg)
+    tr, jr, jlosses = _train_both_under_tier(monkeypatch, jg, tg, jcfg, tcfg,
+                                             "int8", 2, b)
+    assert tr["step_losses"].shape == (8,)
+    assert_allclose(tr["step_losses"], jlosses, rtol=1e-2)
+    assert all(st.assignment.dtype == torch.uint8 for st in tr["vq_states"])
+
+
 def test_vq_inference_matches_reference(graphs):
     from repro.train import gnn_trainer as jtrain
     w = _World(*graphs, "gcn")
