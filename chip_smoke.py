@@ -62,7 +62,27 @@ Phases (each prints its own lines; any failure exits non-zero):
    and timed: context_ell and its w_t form with int8 / fp8 codewords over
    uint8, packed and int32 tables at the serving and the training batch,
    spmm_ell's int8 / fp8 source, vq_update's uint8 emit;
-13. a ``{"kernels": [...]}`` line (the quantized forms under each
+13. lm-serve, the LM decode path: ``repro_torch.launch.serve``'s
+   functions at the full width of llama3.2-3b (28 layers, d 3072, bf16,
+   random weights from a seeded generator on the card), batch 4: 192
+   greedy steps with VQ-Attention (k 128, window 64: evictions from
+   position 64 on fill the codebook), then 64 with the exact cache at
+   context 1024; finite logits, ``vq_attention`` launched exactly 28
+   times per VQ step and never on the exact path, every head's codebook
+   mass equal to its evictions; tok/s, step p50/p99 and cache bytes on a
+   ``{"lm_serve": ...}`` line, and a torch.profiler window over 4 VQ
+   steps;
+14. lm-parity: the same width at 2 layers in f32, the weights copied to
+   the CPU, 96 teacher-forced VQ steps (32 evictions) on the card and on
+   the CPU plain path: logits ``rtol=1e-4, atol=1e-4`` and codebook
+   counts equal at every step, TF32 off;
+15. lm-kernels: ``vq_attention`` at the path's shape on the path's own
+   cache (bf16 and f32) and at the config defaults (n 1024, k 1024, w
+   512), ``flash_attention`` at llama3.2-3b's ``[1, 24, 4096, 128]``
+   causal and ``[1, 24, 1024, 128]`` non-causal (bf16); bf16 outputs
+   within 2 bf16 ulps of the plain version, f32 ``rtol=1e-5,
+   atol=1e-6``; timed with SDPA as the library call;
+16. a ``{"kernels": [...]}`` line (the quantized forms under each
    kernel's ``also``, each with its launches on the main paths), each
    phase's seconds, then the ``{"ok": true, ...}`` line.
 
@@ -107,6 +127,15 @@ TIER_K = 256                  # the paper's alternative codebook size, the
 A4_K = 16                     # the '+a4' tiers pack tables only for k <= 16
 TIER_AGREEMENT = 0.95         # argmax agreement with fp32 serving
 TIER_INFER_BATCH = 42335      # vq_inference batch of the agreement check
+BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 dense tensor-core peak
+LM_ARCH = "llama3.2-3b"
+LM_BATCH = 4
+LM_CONTEXT = 1024
+LM_VQ_TOKENS = 192            # evictions from position 64 on fill k = 128
+LM_EXACT_TOKENS = 64
+LM_PARITY_LAYERS = 2
+LM_PARITY_STEPS = 96          # 32 evictions past the 64-token window
+LM_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def log(msg: str) -> None:
@@ -151,8 +180,9 @@ def cuda_ms(fn, reps: int, inner: int = 20) -> tuple[float, float]:
     return float(np.median(dev)), float(np.median(call))
 
 
-def bound(bytes_: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = bytes_ / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+def bound(bytes_: float, flops: float,
+          flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    t_b, t_f = bytes_ / HBM_BYTES_PER_S * 1e3, flops / flop_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -954,8 +984,11 @@ def phase_kernels(server) -> list[dict]:
 
 def _counters() -> dict:
     """Kernel name -> (wrapper module, counter attribute)."""
-    from repro_torch.kernels import context_ell, spmm_ell, vq_assign, vq_update
-    return {"vq_assign": (vq_assign, "launches"),
+    from repro_torch.kernels import (context_ell, flash_attention, spmm_ell,
+                                     vq_assign, vq_attention, vq_update)
+    return {"vq_attention": (vq_attention, "launches"),
+            "flash_attention": (flash_attention, "launches"),
+            "vq_assign": (vq_assign, "launches"),
             "vq_update": (vq_update, "launches"),
             "vq_update_u8": (vq_update, "launches_u8"),
             "spmm_ell": (spmm_ell, "launches"),
@@ -1405,6 +1438,304 @@ def phase_tier_kernels(m: Model, params, vq, servers: dict) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the LM decode path
+# ---------------------------------------------------------------------------
+
+def _bf16_close(name: str, got, want, ulps: int = 2) -> float:
+    """bf16 results within ``ulps`` bf16 units in the last place of the
+    plain version's (an ulp taken at no less than 2^-10, below which the
+    f32 sums' own rounding dominates)."""
+    g = got.detach().float().cpu().numpy()
+    w = want.detach().float().cpu().numpy()
+    if g.shape != w.shape or not np.all(np.isfinite(g)):
+        raise SystemExit(f"{name}: bad output shape {g.shape} vs {w.shape} "
+                         f"or non-finite values")
+    mag = np.maximum(np.abs(w), 2.0 ** -10)
+    tol = ulps * 2.0 ** (np.floor(np.log2(mag)) - 7)
+    err = float(np.abs(g - w).max())
+    if (np.abs(g - w) > tol).any():
+        raise SystemExit(f"{name}: kernel beyond {ulps} bf16 ulps of its "
+                         f"plain version (max abs err {err})")
+    return err
+
+
+def _lm_cfg(vq: bool):
+    from repro_torch.launch import serve as lm_serve
+    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--context",
+            str(LM_CONTEXT)] + (["--vq"] if vq else [])
+    return lm_serve.config(lm_serve.parser().parse_args(argv))
+
+
+def phase_lm_serve() -> tuple[dict, dict, object, object]:
+    """Full-width llama3.2-3b decode through the launcher's functions: VQ
+    for LM_VQ_TOKENS steps, then exact for LM_EXACT_TOKENS; launch counts
+    exact.  Returns the report, the VQ path's counts, its cache and its
+    config."""
+    import torch
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import lm
+    cfg_vq, cfg_x = _lm_cfg(True), _lm_cfg(False)
+    t0 = time.time()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = lm.init_lm(cfg_x, gen, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    blocks = params["blocks"]
+    leaves = [params["embed"], params["ln_f"], params["head"], blocks["ln1"],
+              blocks["ln2"], *blocks["attn"], *blocks["mlp"]]
+    n_params = sum(t.numel() for t in leaves)
+    p_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    # bytes one step must read: every weight but the embedding table
+    step_bytes = p_bytes - params["embed"].numel() * 2
+    log(f"lm init: {cfg_x.name} {n_params} parameters ({p_bytes} bytes, "
+        f"param_count {cfg_x.param_count()} + the qk norms) in {init_s:.2f} s")
+
+    reset_counts()
+    logits, cache, vq_rep = lm_serve.decode(
+        params, cfg_vq, batch=LM_BATCH, context=LM_CONTEXT,
+        tokens=LM_VQ_TOKENS, device=DEVICE)
+    torch.cuda.synchronize()
+    vq_counts = read_counts()
+    steps = LM_VQ_TOKENS + 1                       # the warm-up step too
+    expect_counts("lm-serve vq", vq_counts,
+                  {"vq_attention": cfg_vq.n_layers * steps})
+    if tuple(logits.shape) != (LM_BATCH, cfg_vq.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"lm-serve vq: logits {tuple(logits.shape)} not "
+                         f"finite or of the wrong shape")
+    kv = cache["kv"]
+    evictions = steps - cfg_vq.vq_window
+    mass = kv.count.sum(-1)
+    if not bool((mass == evictions).all()) or int(kv.pos[0]) != steps:
+        raise SystemExit(f"lm-serve vq: codebook mass {mass.unique()} "
+                         f"(want {evictions} per head), pos {kv.pos[0]}")
+    live = (kv.count > 0).sum(-1)
+    vq_rep.update(
+        live_codewords_min=int(live.min()), live_codewords_max=int(live.max()),
+        largest_cluster=float(kv.count.max()),
+        cache_bytes_per_layer=vq_rep["cache_bytes"] // cfg_vq.n_layers)
+    log(f"lm-serve vq: {steps} steps, {evictions} evictions per head, live "
+        f"codewords {vq_rep['live_codewords_min']}-"
+        f"{vq_rep['live_codewords_max']} of {cfg_vq.vq_k}, "
+        f"{vq_rep['tok_per_s']:.1f} tok/s, step p50 "
+        f"{vq_rep['step_p50_ms']:.3f} ms p99 {vq_rep['step_p99_ms']:.3f} ms, "
+        f"cache {vq_rep['cache_bytes']} bytes")
+
+    # a profile of 4 VQ steps past the window (every layer evicting)
+    tok = torch.zeros((LM_BATCH, 1), dtype=torch.long, device=DEVICE)
+    cache_p = lm.init_serve_cache(cfg_vq, LM_BATCH, LM_CONTEXT,
+                                  device=DEVICE)
+    for _ in range(cfg_vq.vq_window + 2):
+        lm.serve_step(params, tok, cache_p, cfg_vq)
+    _profile("lm-serve vq decode step", list(range(4)),
+             lambda _: lm.serve_step(params, tok, cache_p, cfg_vq))
+    del cache_p
+
+    reset_counts()
+    logits, _, x_rep = lm_serve.decode(
+        params, cfg_x, batch=LM_BATCH, context=LM_CONTEXT,
+        tokens=LM_EXACT_TOKENS, device=DEVICE)
+    torch.cuda.synchronize()
+    expect_counts("lm-serve exact", read_counts(), {})
+    if not bool(torch.isfinite(logits).all()):
+        raise SystemExit("lm-serve exact: non-finite logits")
+    x_rep["cache_bytes_per_layer"] = x_rep["cache_bytes"] // cfg_x.n_layers
+    log(f"lm-serve exact: {LM_EXACT_TOKENS + 1} steps, "
+        f"{x_rep['tok_per_s']:.1f} tok/s, step p50 "
+        f"{x_rep['step_p50_ms']:.3f} ms p99 {x_rep['step_p99_ms']:.3f} ms, "
+        f"cache {x_rep['cache_bytes']} bytes")
+    bms = step_bytes / HBM_BYTES_PER_S * 1e3
+    rep = {"arch": cfg_x.name, "batch": LM_BATCH, "params": n_params,
+           "param_bytes": p_bytes, "init_s": init_s,
+           "step_weight_bytes": step_bytes, "step_bound_ms": bms,
+           "vq": vq_rep, "exact": x_rep}
+    del params
+    torch.cuda.empty_cache()
+    return rep, vq_counts, kv, cfg_vq
+
+
+def phase_lm_parity() -> dict:
+    """2 layers at full width in f32: LM_PARITY_STEPS teacher-forced VQ
+    steps on the card and on the CPU from the same weights."""
+    import dataclasses
+
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(_lm_cfg(True), n_layers=LM_PARITY_LAYERS,
+                              dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    params = lm.init_lm(cfg, gen, device=DEVICE)
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("lm-parity: TF32 is on")
+    cpu_params = convert.to_device(params, "cpu")
+    caches = [lm.init_serve_cache(cfg, LM_BATCH, LM_CONTEXT, device=d)
+              for d in (DEVICE, "cpu")]
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (LM_PARITY_STEPS, LM_BATCH, 1)))
+    worst, t_card, t_cpu = 0.0, 0.0, 0.0
+    for s in range(LM_PARITY_STEPS):
+        t0 = time.time()
+        got, caches[0] = lm.serve_step(params, tokens[s].to(DEVICE),
+                                       caches[0], cfg)
+        got = got.cpu()
+        t_card += time.time() - t0
+        t0 = time.time()
+        want, caches[1] = lm.serve_step(cpu_params, tokens[s], caches[1], cfg)
+        t_cpu += time.time() - t0
+        worst = max(worst, check_close(f"lm-parity step {s}", got, want,
+                                       LM_TOL))
+        if not torch.equal(caches[0]["kv"].count.cpu(), caches[1]["kv"].count):
+            raise SystemExit(f"lm-parity step {s}: codebook counts differ")
+    count = caches[1]["kv"].count
+    rep = {"layers": cfg.n_layers, "steps": LM_PARITY_STEPS,
+           "evictions": LM_PARITY_STEPS - cfg.vq_window,
+           "max_abs_err": worst, "card_s": t_card, "cpu_s": t_cpu,
+           "live_codewords_max": int((count > 0).sum(-1).max())}
+    log(f"lm-parity: {LM_PARITY_STEPS} teacher-forced VQ steps of "
+        f"{cfg.name} at {cfg.n_layers} layers f32, logits agree (max abs err "
+        f"{worst:.3g}, rtol 1e-4 atol 1e-4), counts equal at every step; "
+        f"card {t_card:.2f} s, CPU {t_cpu:.2f} s")
+    return rep
+
+
+def _vq_attn_row(args, at: str) -> dict:
+    """vq_attention against its plain version (and SDPA with the log-mass
+    bias as its float mask over the concatenated keys) on one set of
+    operands."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.vq_attention import vq_attention_decode_cuda
+    q, cbk, cbv, mass, wk, wv, wm = args
+    got = vq_attention_decode_cuda(*args)
+    want = ref.vq_attention_decode(*args)
+    if q.dtype == torch.bfloat16:
+        err = _bf16_close(f"vq_attention {at}", got, want)
+    else:
+        err = check_close(f"vq_attention {at}", got, want, TOL)
+    n, g, d = q.shape
+    kcb, w = cbk.shape[1], wk.shape[1]
+    es = q.element_size()
+    byt = es * (2 * n * g * d + 2 * n * kcb * d + 2 * n * w * d) \
+        + 4 * n * (kcb + w)
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    bms, by = bound(byt, 4.0 * n * g * (kcb + w) * d, peak)
+    big = byt > 1e8
+    ms, call_ms = cuda_ms(lambda: vq_attention_decode_cuda(*args),
+                          5 if big else 10)
+    plain_ms = cuda_ms(lambda: ref.vq_attention_decode(*args), 3,
+                       inner=2 if big else 20)[0]
+    keys = torch.cat([cbk, wk], 1)
+    vals = torch.cat([cbv, wv], 1)
+    bias = torch.cat([
+        torch.log(torch.clamp_min(mass, 1e-9)).masked_fill(mass <= 0,
+                                                           -float("inf")),
+        torch.zeros_like(wm).masked_fill(wm <= 0, -float("inf"))],
+        1)[:, None, :].to(q.dtype)
+
+    def lib():
+        return F.scaled_dot_product_attention(q, keys, vals, attn_mask=bias)
+    lib_err = float((lib().float() - want.float()).abs().max())
+    lib_ms = cuda_ms(lib, 5 if big else 10)[0]
+    row = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, library_ms=lib_ms,
+               library_max_abs_err=lib_err,
+               at=f"n={n} g={g} d={d} k={kcb} w={w} {q.dtype} {at}")
+    log(f"vq_attention {row['at']}: max_abs_err {err:.3g}  kernel {ms:.5f} ms "
+        f"(one call {call_ms:.5f} ms)  plain {plain_ms:.5f} ms  sdpa "
+        f"{lib_ms:.5f} ms (max abs err {lib_err:.3g})  bound {bms:.6f} ms "
+        f"({by})")
+    return row
+
+
+def _flash_row(shape, causal: bool) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    b, h, s, d = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + s)
+    q, k, v = (torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16) for _ in "qkv")
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    err = _bf16_close(f"flash_attention {shape}", got, want)
+    del want
+    pairs = s * (s + 1) // 2 if causal else s * s
+    bms, by = bound(4 * 2 * b * h * s * d, 4.0 * b * h * pairs * d,
+                    BF16_FLOP_PER_S)
+    ms, call_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v,
+                                                       causal=causal), 3,
+                          inner=2)
+    plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, causal=causal),
+                       3, inner=1)[0]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal), 5, inner=10)[0]
+    row = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, library_ms=lib_ms,
+               at=f"[{b}, {h}, {s}, {d}] bf16 {'causal' if causal else
+                                                 'non-causal'}")
+    log(f"flash_attention {row['at']}: max_abs_err {err:.3g}  kernel "
+        f"{ms:.4f} ms (one call {call_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
+        f"sdpa {lib_ms:.4f} ms  bound {bms:.5f} ms ({by})")
+    return row
+
+
+def phase_lm_kernels(kv, cfg) -> list[dict]:
+    """The two LM kernels against their plain versions, timed: vq_attention
+    on layer 0 of the served VQ cache (the path's shape) in bf16 and f32
+    and at the config defaults; flash_attention at llama3.2-3b's shapes."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.nn.vq_attention import _centroids
+    b, hkv, kcb, d = kv.sum_k.shape[1:]
+    w = kv.win_k.shape[2]
+    g = cfg.n_heads // cfg.n_kv_heads
+    n = b * hkv
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    cent_k, cent_v = _centroids(kv.sum_k[0], kv.sum_v[0], kv.count[0])
+    path = [torch.randn((n, g, d), generator=gen, device=DEVICE),
+            cent_k.reshape(n, kcb, d), cent_v.reshape(n, kcb, d),
+            kv.count[0].reshape(n, kcb),
+            kv.win_k[0].transpose(1, 2).reshape(n, w, d).float(),
+            kv.win_v[0].transpose(1, 2).reshape(n, w, d).float(),
+            torch.ones((n, w), device=DEVICE)]
+    bf = [t.to(torch.bfloat16) if i in (0, 1, 2, 4, 5) else t
+          for i, t in enumerate(path)]
+    rows = [_vq_attn_row(bf, "(decode path, layer 0 of the served cache)"),
+            _vq_attn_row(path, "(decode path, f32)")]
+    defaults = get_arch(LM_ARCH)                 # vq_k 1024, vq_window 512
+    n2, k2, w2 = 1024, defaults.vq_k, defaults.vq_window
+    big = [torch.randn(s, generator=gen, device=DEVICE).to(torch.bfloat16)
+           for s in ((n2, g, d), (n2, k2, d), (n2, k2, d))]
+    mass = torch.rand((n2, k2), generator=gen, device=DEVICE) * 64
+    mass[:, ::7] = 0.0
+    big += [mass] + [torch.randn((n2, w2, d), generator=gen, device=DEVICE)
+                     .to(torch.bfloat16) for _ in "kv"]
+    big.append(torch.ones((n2, w2), device=DEVICE))
+    rows.append(_vq_attn_row(big, "(config defaults k 1024, w 512 at "
+                                  "decode_32k's batch 128)"))
+    vq_row = dict(name="vq_attention", route="cuda",
+                  source="src/repro_torch/kernels/csrc/vq_attention.cu",
+                  replaces="src/repro/kernels/vq_attention.py:61",
+                  **{k: v for k, v in rows[0].items() if k != "max_abs_err"},
+                  max_abs_err=max(r["max_abs_err"] for r in rows),
+                  also=rows[1:])
+    fl = [_flash_row((1, cfg.n_heads, 4096, d), True),
+          _flash_row((1, cfg.n_heads, 1024, d), False)]
+    fl_row = dict(name="flash_attention", route="cuda",
+                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                  replaces="src/repro/kernels/flash_attention.py:70",
+                  **{k: v for k, v in fl[0].items() if k != "max_abs_err"},
+                  max_abs_err=max(r["max_abs_err"] for r in fl),
+                  main_path="none: no model path of the reference calls it",
+                  also=fl[1:])
+    return [vq_row, fl_row]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1482,9 +1813,16 @@ def main() -> int:
                              "int8+a4": a4_servers["int8+a4"],
                              "fp8+a4": a4_servers["fp8+a4"]})
 
+    # --- the LM decode path: full-width serving, card vs CPU, kernels ---
+    lm_rep, lm_counts, lm_kv, lm_cfg = timed("lm-serve", phase_lm_serve)
+    lm_rep["parity"] = timed("lm-parity", phase_lm_parity)
+    lm_rows = timed("lm-kernels", phase_lm_kernels, lm_kv, lm_cfg)
+    del lm_kv
+
     # --- launches on the main paths, and the kernels line ---
     launches = train_counts
-    for c in (serve_counts, tier_train_counts, tier_serve_counts, a4_counts):
+    for c in (serve_counts, tier_train_counts, tier_serve_counts, a4_counts,
+              lm_counts):
         launches = add_counts(launches, c)
     entries = launches["entries"]
     by_name = {row["name"]: row for row in serve_rows + train_rows}
@@ -1494,7 +1832,7 @@ def main() -> int:
     for name, extra in tier_rows.items():
         by_name[name]["also"] += extra
     kernels = [by_name[n] for n in ("vq_assign", "spmm_ell", "spmm_ell_t",
-                                    "context_ell", "vq_update")]
+                                    "context_ell", "vq_update")] + lm_rows
     # each row and form with its own count: the top rows are the f32 /
     # int32-emit forms, the quantized forms sit under ``also``
     form_launches = {
@@ -1502,10 +1840,14 @@ def main() -> int:
         "spmm_ell": launches["spmm_ell"] - launches["spmm_ell_q"],
         "spmm_ell_t": launches["spmm_ell_t"],
         "context_ell": entries.get("repro_context_ell_f32_i32", 0),
-        "vq_update": launches["vq_update"] - launches["vq_update_u8"]}
+        "vq_update": launches["vq_update"] - launches["vq_update_u8"],
+        "vq_attention": launches["vq_attention"],
+        "flash_attention": launches["flash_attention"]}
     for row in kernels:
         row["launches"] = form_launches[row["name"]]
-        if row["launches"] < 1:
+        # flash_attention is on no main path (the reference's models call
+        # gqa_attend): held against its plain version only
+        if row["launches"] < 1 and "main_path" not in row:
             raise SystemExit(f"{row['name']} never launched on the main path")
         for c in row.get("also", []):
             form = c.get("form", "")
@@ -1552,6 +1894,7 @@ def main() -> int:
         f"{t} k={A4_K}": {k: v for k, v in x.items()
                           if k in keep + ("vq_state_bytes",)}
         for t, x in a4_reps.items()}}))
+    log(json.dumps({"lm_serve": lm_rep}))
     seconds["total"] = time.time() - T_START
     log(json.dumps({"seconds": seconds}))
     log(f"chip_smoke: {seconds['total']:.1f} s from start to the "

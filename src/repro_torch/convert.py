@@ -12,6 +12,14 @@ fp8 values cross as their bytes).  ``opt_state_from_numpy`` takes
 an optimizer state with ``step``, ``mu`` and ``nu`` (moments in the
 params' layout).  ``to_device`` moves the port's own params, states and
 optimizer states between devices.
+
+The LM side: ``lm_params_from_numpy`` takes the reference's
+``models.lm.init_lm`` tree (``embed``, ``ln_f``, ``head`` and ``blocks``
+whose ``attn`` / ``mlp`` leaves are NamedTuples with the fields of
+``AttnParams`` / ``MLPParams``, stacked [L, ...]) and
+``serve_cache_from_numpy`` its ``init_serve_cache`` tree (``{"kv": ...}``
+with the fields of ``KVCache`` or ``VQKVCache``, stacked over layers);
+bf16 arrays cross as their bytes, like fp8.
 """
 from __future__ import annotations
 
@@ -23,6 +31,9 @@ import torch
 from repro_torch.core.codebook import CodebookState
 from repro_torch.core.conv import LayerVQState, QuantizedCodewords
 from repro_torch.distributed.quantization import PackedAssignment, QTensor
+from repro_torch.nn.attention import AttnParams, KVCache
+from repro_torch.nn.ffn import MLPParams
+from repro_torch.nn.vq_attention import VQKVCache
 from repro_torch.runtime import resolve_device
 from repro_torch.train.optimizer import OptState
 
@@ -37,6 +48,9 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
         # read: carry the bytes and reinterpret them
         return torch.from_numpy(a.view(np.uint8)).to(dev).view(
             torch.float8_e4m3fn)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).to(dev).view(
+            torch.bfloat16)
     return torch.from_numpy(a).to(dev)
 
 
@@ -91,6 +105,37 @@ def vq_states_from_numpy(states: Sequence[Any],
             _tensor(getattr(s.codebook, f), dev) for f in _CODEBOOK_FIELDS))
         out.append(LayerVQState(cb, a, _tensor(s.counts, dev), qcw))
     return out
+
+
+_LM_TUPLES = {cls._fields: cls for cls in (AttnParams, MLPParams, KVCache,
+                                           VQKVCache)}
+
+
+def _lm_tree(x, dev: torch.device):
+    if isinstance(x, Mapping):
+        return {k: _lm_tree(v, dev) for k, v in x.items()}
+    fields = getattr(x, "_fields", None)
+    if fields is not None:
+        cls = _LM_TUPLES.get(tuple(fields))
+        if cls is None:
+            raise TypeError(f"unknown LM leaf {type(x).__name__} with "
+                            f"fields {fields}")
+        return cls(*(_tensor(getattr(x, f), dev) for f in fields))
+    return _tensor(x, dev)
+
+
+def lm_params_from_numpy(params: Mapping[str, Any],
+                         device: str | torch.device = "cuda") -> dict:
+    """The port's LM parameters from the reference's ``init_lm`` tree
+    (numpy-convertible leaves; module docstring)."""
+    return _lm_tree(params, resolve_device(device))
+
+
+def serve_cache_from_numpy(cache: Mapping[str, Any],
+                           device: str | torch.device = "cuda") -> dict:
+    """The port's decode cache from the reference's ``init_serve_cache``
+    tree: ``{"kv": KVCache | VQKVCache}`` stacked over layers."""
+    return _lm_tree(cache, resolve_device(device))
 
 
 def to_device(tree, device: str | torch.device):

@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIB_NAME = "librepro_torch_kernels.so"
 
 _vp, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_flt = ctypes.c_float
 # name -> argtypes of every exported function (restype: cudaError_t as int)
 SIGNATURES = {
     "repro_vq_assign_f32": [_vp, _ll, _ll, _vp, _vp, _int, _int, _int, _int,
@@ -42,6 +43,11 @@ SIGNATURES = {
     "repro_vq_update_generic_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
                                     _int, _int, _vp],
 }
+for _dt in ("f32", "bf16"):
+    SIGNATURES[f"repro_vq_attention_{_dt}"] = [_vp] * 8 + [_int] * 5 \
+        + [_flt, _vp]
+    SIGNATURES[f"repro_flash_attention_{_dt}"] = [_vp] * 4 + [_int] * 5 \
+        + [_flt, _vp]
 for _cw in ("i8", "f8"):
     SIGNATURES[f"repro_spmm_ell_q_{_cw}"] = [_vp] * 5 + [_int] * 4 + [_vp]
 for _cw in ("f32", "i8", "f8"):
@@ -73,8 +79,9 @@ def _nvcc() -> str:
 
 
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+    for p in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

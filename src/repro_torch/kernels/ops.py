@@ -5,7 +5,11 @@ CUDA tensor goes to the hand-written kernel, whose wrapper validates it and
 launches or raises.  There is no environment knob and no fallback: a CUDA
 tensor that the kernel refuses is an error, never a silent plain-PyTorch
 run.  ``spmm_ell`` is differentiable in ``x``: its backward is the
-transposed kernel ``spmm_ell_t`` (dispatched the same way).
+transposed kernel ``spmm_ell_t`` (dispatched the same way).  The LM side's
+``vq_attention_decode`` and ``flash_attention`` follow the same rule: the
+reference also sends ``flash_attention`` shapes with ``sq % 128 != 0`` to
+its oracle, but here every CUDA tensor goes to the kernel, which handles
+ragged tails itself.
 
 The precision tiers are data-driven here as in the reference: quantized
 codewords arrive as a ``QTensor``, narrow tables as uint8 tensors or a
@@ -25,8 +29,10 @@ import torch
 from repro_torch.distributed.quantization import PackedAssignment, QTensor
 from repro_torch.kernels import ref
 from repro_torch.kernels.context_ell import context_ell_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.spmm_ell import spmm_ell_cuda, spmm_ell_t_cuda
 from repro_torch.kernels.vq_assign import vq_assign_cuda
+from repro_torch.kernels.vq_attention import vq_attention_decode_cuda
 from repro_torch.kernels.vq_update import check_emit, vq_assign_update_cuda
 
 # ---------------------------------------------------------------------------
@@ -179,3 +185,26 @@ def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,
                                 cw_scale)
     return ref.context_ell(out_ids, out_vals, assignment, codewords, w_t,
                            cw_scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Softmax attention: q [b, h, sq, d], k/v [b, h, skv, d] ->
+    [b, h, sq, d]; causal masks keys past ``i + (skv - sq)``."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal)
+    return ref.flash_attention(q, k, v, causal=causal)
+
+
+def vq_attention_decode(q: torch.Tensor, cb_k: torch.Tensor,
+                        cb_v: torch.Tensor, mass: torch.Tensor,
+                        win_k: torch.Tensor, win_v: torch.Tensor,
+                        win_mask: torch.Tensor) -> torch.Tensor:
+    """One VQ-Attention decode step for n GQA groups: q [n, g, d],
+    codewords [n, k, d] with masses [n, k], window [n, w, d] with its mask
+    [n, w] -> [n, g, d]."""
+    if q.is_cuda:
+        return vq_attention_decode_cuda(q, cb_k, cb_v, mass, win_k, win_v,
+                                        win_mask)
+    return ref.vq_attention_decode(q, cb_k, cb_v, mass, win_k, win_v,
+                                   win_mask)

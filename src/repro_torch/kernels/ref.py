@@ -21,8 +21,17 @@ exactly, and the scale multiplies once, after the last slot (before the
 The exceptions are the scatter-adds (the
 ``vq_assign_update`` cluster sums and ``spmm_ell_t``): their kernels add
 with atomics in no fixed order, so they agree to a stated tolerance.
+
+The LM side's two attention functions (``vq_attention_decode``,
+``flash_attention``) are the reference oracles' plain softmax: their
+kernels stream the keys with an online softmax, so they agree to a stated
+tolerance (f32 ``rtol=1e-5, atol=1e-6``, bf16 two units in the last
+place), not bit for bit.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
@@ -193,3 +202,55 @@ def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,
     for c in range(nb * f_blk):
         out = out + acc[:, c, None] * wt[c]
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM attention (the reference's ``ref.flash_attention`` and the vmapped
+# ``ref.vq_attention_decode`` of ``kernels/ops.py``)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Plain softmax attention.  q: [b, h, sq, d], k/v: [b, h, skv, d] ->
+    [b, h, sq, d].  The causal mask lets query i see keys j <= i + (skv -
+    sq) (the queries are the last sq positions); a query that sees no key
+    gets NaN, as the reference's softmax over -inf does."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum('bhqd,bhkd->bhqk', q.float(), k.float()) * sm_scale
+    if causal:
+        sq, skv = q.shape[2], k.shape[2]
+        qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        ki = torch.arange(skv, device=q.device)[None, :]
+        s = s.masked_fill(~(ki <= qi), float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum('bhqk,bhkd->bhqd', p, v.float()).to(q.dtype)
+
+
+def vq_attention_decode(q: torch.Tensor, cb_k: torch.Tensor,
+                        cb_v: torch.Tensor, mass: torch.Tensor,
+                        win_k: torch.Tensor, win_v: torch.Tensor,
+                        win_mask: torch.Tensor, *,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
+    """One VQ-Attention decode step for n GQA groups at once (paper Eq. 6
+    on the token graph): one softmax over k codeword keys, each scored
+    ``q.k~ + log m`` (a cluster of mass m counts m times, App. E) and
+    masked where m <= 0, and w exact window keys masked where
+    ``win_mask`` <= 0.
+
+    q [n, g, d], cb_k/cb_v [n, k, d], mass [n, k] f32, win_k/win_v
+    [n, w, d], win_mask [n, w] -> [n, g, d] in q's dtype."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    kcb = cb_k.shape[1]
+    q32 = q.float() * sm_scale
+    s_cb = q32 @ cb_k.float().transpose(1, 2) \
+        + torch.log(torch.clamp_min(mass, 1e-9))[:, None, :]   # [n, g, k]
+    s_cb = s_cb.masked_fill(~(mass[:, None, :] > 0), float("-inf"))
+    s_w = q32 @ win_k.float().transpose(1, 2)                  # [n, g, w]
+    s_w = s_w.masked_fill(~(win_mask[:, None, :] > 0), float("-inf"))
+    p = torch.softmax(torch.cat([s_cb, s_w], dim=2), dim=-1)
+    out = p[..., :kcb] @ cb_v.float() + p[..., kcb:] @ win_v.float()
+    return out.to(q.dtype)

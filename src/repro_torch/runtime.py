@@ -8,6 +8,7 @@ import torch
 BACKBONE_SLICE = "the GAT/Transformer slice"
 MESH_SLICE = "the multi-device slice"
 LINK_SLICE = "the link-task slice"
+LM_FAMILIES_SLICE = "the LM families slice"
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -13,6 +13,13 @@ cluster sums, ``spmm_ell_t``) use atomics in no fixed order: a sum of
 ``c`` terms may move by ``c * 2^-24 * sum |term|``, which
 :func:`assert_scatter_close` allows.  One ``vq_train_step`` on the card
 is held against the same step on the CPU at ``rtol=1e-4, atol=1e-5``.
+
+The LM side's attention kernels stream their keys with an online softmax,
+so they agree with the plain two-pass softmax to ``rtol=1e-5, atol=1e-6``
+in f32 and to two bf16 units in the last place in bf16 (both round the
+same f32 result, which differs in its last bits).  LM decode on the card
+is held against the CPU at ``rtol=1e-4, atol=1e-4`` with equal codebook
+counts.
 """
 import numpy as np
 import pytest
@@ -29,6 +36,7 @@ from repro_torch.kernels import vq_update as tvu             # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 STEP = dict(rtol=1e-4, atol=1e-5)
+LM_STEP = dict(rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture
@@ -522,3 +530,143 @@ def test_vq_train_step_under_tier_cuda_vs_cpu(cuda, tier):
             quantum = 1.0 if qa.q.dtype == torch.int8 \
                 else np.maximum(np.abs(va), np.abs(vb)) / 8 + 2.0 ** -9
             assert np.all(np.abs(va - vb) <= quantum * 1.0001)
+
+
+# ---------------------------------------------------------------------------
+# the LM decode slice's kernels
+# ---------------------------------------------------------------------------
+
+def assert_bf16_close(got, want, ulps: int = 2):
+    """bf16 results within ``ulps`` units in the last place of the plain
+    version's value (an ulp taken at no less than 2^-10: below that the
+    f32 sums' own rounding, ~1e-7 of the unit-scale terms, dominates)."""
+    g = got.float().cpu().numpy()
+    w = want.float().cpu().numpy()
+    mag = np.maximum(np.abs(w), 2.0 ** -10)
+    tol = ulps * 2.0 ** (np.floor(np.log2(mag)) - 7)
+    bad = ~(np.abs(g - w) <= tol)
+    assert not bad.any(), (f"{bad.sum()} elements beyond {ulps} bf16 ulps "
+                           f"(max abs err {np.nanmax(np.abs(g - w))})")
+
+
+def _vq_attn_operands(n, g, d, kcb, w, seed, dtype):
+    gen = torch.Generator().manual_seed(seed)
+    q, cbk, cbv = (torch.randn(s, generator=gen) for s in
+                   ((n, g, d), (n, kcb, d), (n, kcb, d)))
+    wk, wv = (torch.randn((n, w, d), generator=gen) for _ in "kv")
+    mass = torch.rand((n, kcb), generator=gen) * 20
+    mass[:, ::3] = 0.0                           # empty codewords
+    wm = (torch.rand((n, w), generator=gen) < 0.7).float()
+    wm[:, 0] = 1.0
+    wm[0] = 0.0
+    wm[0, w - 1] = 1.0                           # a single valid slot
+    cast = [t.to(dtype) for t in (q, cbk, cbv)]
+    return cast[0], cast[1], cast[2], mass, wk.to(dtype), wv.to(dtype), wm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,g,d,kcb,w", [(32, 3, 128, 128, 64),
+                                         (5, 2, 64, 16, 8), (1, 1, 8, 4, 4),
+                                         (3, 16, 256, 70, 130),
+                                         (2, 4, 100, 3, 1), (4, 8, 128, 0, 9)])
+def test_vq_attention_kernel_vs_plain(cuda, dtype, n, g, d, kcb, w):
+    from repro_torch.kernels import vq_attention as tvatt
+    args = _vq_attn_operands(n, g, d, kcb, w, n + kcb + w, dtype)
+    before = tvatt.launches
+    got = tvatt.vq_attention_decode_cuda(*(t.to(cuda) for t in args))
+    torch.cuda.synchronize()
+    assert tvatt.launches == before + 1 and got.dtype == dtype
+    want = tref.vq_attention_decode(*args)
+    if dtype == torch.float32:
+        assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+    else:
+        assert_bf16_close(got, want)
+    assert torch.equal(ops.vq_attention_decode(*(t.to(cuda) for t in args)),
+                       got)
+
+
+@pytest.mark.gpu
+def test_vq_attention_kernel_row_without_keys_is_nan_like_plain(cuda):
+    from repro_torch.kernels import vq_attention as tvatt
+    args = list(_vq_attn_operands(2, 3, 16, 4, 4, 0, torch.float32))
+    args[3][1] = 0.0
+    args[6][1] = 0.0                             # group 1 sees no key
+    got = tvatt.vq_attention_decode_cuda(*(t.to(cuda) for t in args)).cpu()
+    want = tref.vq_attention_decode(*args)
+    assert torch.isnan(want[1]).all() and torch.isnan(got[1]).all()
+    assert_allclose(got[0].numpy(), want[0].numpy(), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,sq,skv,d", [(1, 2, 64, 64, 64),
+                                          (2, 3, 100, 100, 128),
+                                          (1, 2, 37, 130, 16),
+                                          (1, 1, 1, 33, 8),
+                                          (2, 2, 70, 70, 256),
+                                          (1, 2, 5, 5, 3)])
+def test_flash_attention_kernel_vs_plain(cuda, dtype, causal, b, h, sq, skv,
+                                         d):
+    from repro_torch.kernels import flash_attention as tfa
+    gen = torch.Generator().manual_seed(b + h + sq + skv + d)
+    q = torch.randn((b, h, sq, d), generator=gen).to(dtype)
+    k, v = (torch.randn((b, h, skv, d), generator=gen).to(dtype)
+            for _ in "kv")
+    before = tfa.launches
+    got = tfa.flash_attention_cuda(q.to(cuda), k.to(cuda), v.to(cuda),
+                                   causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1 and got.dtype == dtype
+    want = tref.flash_attention(q, k, v, causal=causal)
+    if dtype == torch.float32:
+        assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+    else:
+        assert_bf16_close(got, want)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_rows_without_keys_are_nan_like_plain(cuda):
+    """Causal with sq > skv: the first sq - skv queries see no key."""
+    from repro_torch.kernels import flash_attention as tfa
+    gen = torch.Generator().manual_seed(1)
+    q = torch.randn((1, 2, 80, 16), generator=gen)
+    k, v = (torch.randn((1, 2, 30, 16), generator=gen) for _ in "kv")
+    got = tfa.flash_attention_cuda(q.to(cuda), k.to(cuda), v.to(cuda)).cpu()
+    want = tref.flash_attention(q, k, v)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(want[:, :, :50]).all()
+    assert_allclose(got[:, :, 50:].numpy(), want[:, :, 50:].numpy(), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vq", [False, True])
+def test_lm_decode_cuda_vs_cpu(cuda, vq):
+    """24 teacher-forced decode steps of the llama3.2-3b smoke (f32) on the
+    card and on the CPU from the same weights: logits ``rtol=1e-4,
+    atol=1e-4``, codebook counts equal, ``vq_attention`` launched once per
+    layer and step."""
+    from repro_torch import convert
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.kernels import vq_attention as tvatt
+    from repro_torch.models import lm
+    cfg = get_smoke("llama3.2-3b")
+    if vq:
+        cfg = cfg.with_vq(k=4, window=8)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu_params = convert.to_device(params, cuda)
+    caches = [lm.init_serve_cache(cfg, 3, 32, device=d) for d in ("cpu",
+                                                                 cuda)]
+    tokens = torch.randint(0, cfg.vocab, (24, 3, 1),
+                           generator=torch.Generator().manual_seed(1))
+    before = tvatt.launches
+    for s in range(24):
+        want, caches[0] = lm.serve_step(params, tokens[s], caches[0], cfg)
+        got, caches[1] = lm.serve_step(gpu_params, tokens[s].to(cuda),
+                                       caches[1], cfg)
+        assert_allclose(got.cpu().numpy(), want.numpy(), **LM_STEP)
+        if vq:
+            assert torch.equal(caches[1]["kv"].count.cpu(),
+                               caches[0]["kv"].count)
+    assert tvatt.launches - before == (24 * cfg.n_layers if vq else 0)
