@@ -44,16 +44,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    if not (1 <= d <= MAX_D and b * h <= MAX_BH):
-        raise ValueError(f"flash_attention: d={d} (1..{MAX_D}) or b*h="
-                         f"{b * h} (<= {MAX_BH}) outside what the kernel "
-                         f"takes")
+    if not (1 <= d <= MAX_D and 1 <= b * h <= MAX_BH and sq >= 1
+            and skv >= 1):
+        raise ValueError(f"flash_attention: d={d} (1..{MAX_D}), b*h="
+                         f"{b * h} (1..{MAX_BH}), sq={sq} or skv={skv} "
+                         f"(>= 1) outside what the kernel takes")
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    if skv == 0:
-        # no key at all: the plain version's empty weighted sum is 0
-        return out.zero_()
     err = getattr(_build.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq,
         skv, d, int(causal), 1.0 / math.sqrt(d),

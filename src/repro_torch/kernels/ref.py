@@ -31,7 +31,6 @@ place), not bit for bit.
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 
@@ -211,14 +210,12 @@ def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True) -> torch.Tensor:
     """Plain softmax attention.  q: [b, h, sq, d], k/v: [b, h, skv, d] ->
     [b, h, sq, d].  The causal mask lets query i see keys j <= i + (skv -
     sq) (the queries are the last sq positions); a query that sees no key
     gets NaN, as the reference's softmax over -inf does."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    sm_scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum('bhqd,bhkd->bhqk', q.float(), k.float()) * sm_scale
     if causal:
         sq, skv = q.shape[2], k.shape[2]
@@ -232,8 +229,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def vq_attention_decode(q: torch.Tensor, cb_k: torch.Tensor,
                         cb_v: torch.Tensor, mass: torch.Tensor,
                         win_k: torch.Tensor, win_v: torch.Tensor,
-                        win_mask: torch.Tensor, *,
-                        sm_scale: Optional[float] = None) -> torch.Tensor:
+                        win_mask: torch.Tensor) -> torch.Tensor:
     """One VQ-Attention decode step for n GQA groups at once (paper Eq. 6
     on the token graph): one softmax over k codeword keys, each scored
     ``q.k~ + log m`` (a cluster of mass m counts m times, App. E) and
@@ -242,8 +238,7 @@ def vq_attention_decode(q: torch.Tensor, cb_k: torch.Tensor,
 
     q [n, g, d], cb_k/cb_v [n, k, d], mass [n, k] f32, win_k/win_v
     [n, w, d], win_mask [n, w] -> [n, g, d] in q's dtype."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    sm_scale = 1.0 / math.sqrt(q.shape[-1])
     kcb = cb_k.shape[1]
     q32 = q.float() * sm_scale
     s_cb = q32 @ cb_k.float().transpose(1, 2) \

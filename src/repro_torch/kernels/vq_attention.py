@@ -57,13 +57,12 @@ def vq_attention_decode_cuda(q: torch.Tensor, cb_k: torch.Tensor,
             f"{tuple(cb_k.shape)}, cb_v {tuple(cb_v.shape)}, mass "
             f"{tuple(mass.shape)}, win_k {tuple(win_k.shape)}, win_v "
             f"{tuple(win_v.shape)}, win_mask {tuple(win_mask.shape)}")
-    if not (1 <= d <= MAX_D and 1 <= g <= MAX_G and kcb + w >= 1):
+    if not (1 <= d <= MAX_D and 1 <= g <= MAX_G and n >= 1
+            and kcb + w >= 1):
         raise ValueError(f"vq_attention: d={d} (1..{MAX_D}), g={g} "
-                         f"(1..{MAX_G}) or k + w = {kcb + w} (>= 1) outside "
-                         f"what the kernel takes")
+                         f"(1..{MAX_G}), n={n} (>= 1) or k + w = {kcb + w} "
+                         f"(>= 1) outside what the kernel takes")
     out = torch.empty_like(q)
-    if n == 0:
-        return out
     err = getattr(_build.library(), entry)(
         q.data_ptr(), cb_k.data_ptr(), cb_v.data_ptr(), mass.data_ptr(),
         win_k.data_ptr(), win_v.data_ptr(), win_mask.data_ptr(),
