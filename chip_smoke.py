@@ -25,8 +25,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    so that fp32 sums are exact in any order), the w_t form of
    context_ell and spmm_ell_t on that batch's reverse-edge and
    intra-batch operands, spmm_ell on that batch's intra-batch operands
-   and on the full graph (the evaluation's SpMM, whose 86.7 MB source
-   the reference sends to its HBM-staged kernel), the plain form of
+   and, forced, on the full graph (the evaluation's SpMM, whose 86.7 MB
+   source the dispatch sends to the staged kernel, phase 12), the plain
+   form of
    context_ell on that batch's forward operands, and the serving shapes
    of vq_assign, spmm_ell and context_ell; timing kernel, plain version
    and -- where one PyTorch call computes the same function -- that
@@ -41,7 +42,37 @@ Phases (each prints its own lines; any failure exits non-zero):
    the plain versions there; the served rows must agree;
 8. a torch.profiler window over 20 serve steps: the device's busy share
    of the wall time and the kernels that take it;
-9. tier-train, the third main path: the same model with k = 256 (the
+9. sampler-train, the sampling baselines: ``train_scenario`` with
+   ``ns_sage``, ``labor``, ``cluster`` and ``saint`` on the same graph and
+   model (Adam 1e-3, the reference's scenario defaults: seed batches of
+   42,335, fanout 5 a layer, walk length 3, 32 parts with 4 a batch), 2
+   epochs each and one full-graph evaluation; every SpMM of the sampled
+   subgraphs runs the staged kernel (spmm_ell_hbm: NS-SAGE and LABOR at
+   262,144 padded rows, GraphSAINT at 131,072) except Cluster-GCN's
+   (32,768 rows, the resident spmm_ell), the counts exact; the losses
+   must be finite and the last epoch's mean loss under the first's; the
+   host's sampling seconds apart from the device steps';
+10. hybrid-train, the VQ/sampling hybrid: ``train_scenario`` with
+   ``hybrid`` (42,335 seeds plus 42,335 LABOR-sampled context slots a
+   batch, whose 43.3 MB intra-batch source stays resident) for 2 epochs,
+   counts exact, losses finite and the last epoch's mean under the
+   first's (the collapse gate needs phase 3's 70 epochs); then one
+   hybrid step (4,096 seeds, 4,096 context slots) card vs CPU as in
+   phase 5, and every step kernel against its plain version on one
+   hybrid batch of 84,670 rows, and spmm_ell_t (and Cluster-GCN's
+   resident spmm_ell) on the first NS-SAGE, GraphSAINT and Cluster-GCN
+   subgraphs;
+11. sampler-parity: one NS-SAGE step at n 20,000 on the card, the staged
+   kernel forced by a 1 MiB budget, and on the CPU plain path from the
+   same params: loss, params and Adam moments ``rtol=1e-4, atol=1e-5``;
+12. staged-kernel: spmm_ell_hbm at the full graph (169,343 x 128) and at
+   the first NS-SAGE (262,144 rows) and GraphSAINT (131,072 rows)
+   subgraphs, f32, and with int8 and fp8 sources at the full graph: bit
+   for bit against its plain version, timed beside the resident kernel
+   forced onto the same operands and ``torch.sparse.mm``, with the mean
+   stripes a tile stages and the bytes staged against the bytes the
+   function needs;
+13. tier-train, the third main path: the same model with k = 256 (the
    paper's alternative codebook size, the largest a uint8 table holds)
    trained by ``train_vq`` under the int8 tier for the same 70 epochs --
    uint8 tables, int8 codeword snapshots requantized after every update,
@@ -50,19 +81,19 @@ Phases (each prints its own lines; any failure exits non-zero):
    states ending in the tier's storage -- and one step at batch 4,096
    card vs CPU under int8 and under fp8 (the state converted by
    ``quantize_vq_states``), the requantized snapshots within two quanta;
-10. tier-serve: the tier-trained state served as trained (int8) and
+14. tier-serve: the tier-trained state served as trained (int8) and
    converted to fp8, each with refresh, the 200 requests (counts exact),
    CPU parity and ``vq_inference`` over every node agreeing with the
    fp32 inference of the same state on >= 95 % of the argmaxes;
-11. a4-serve: k = 16 from the seed's initial state (no training) under
+15. a4-serve: k = 16 from the seed's initial state (no training) under
    int8, int8+a4 and fp8+a4, each with refresh, the requests (counts
    exact) and CPU parity; the packed tables must be the int8 tables
    packed and the int8+a4 rows bit-equal to the int8 rows;
-12. every quantized kernel form against its plain version, bit for bit,
+16. every quantized kernel form against its plain version, bit for bit,
    and timed: context_ell and its w_t form with int8 / fp8 codewords over
    uint8, packed and int32 tables at the serving and the training batch,
    spmm_ell's int8 / fp8 source, vq_update's uint8 emit;
-13. lm-serve, the LM decode path: ``repro_torch.launch.serve``'s
+17. lm-serve, the LM decode path: ``repro_torch.launch.serve``'s
    functions at the full width of llama3.2-3b (28 layers, d 3072, bf16,
    random weights from a seeded generator on the card), batch 4: 192
    greedy steps with VQ-Attention (k 128, window 64: evictions from
@@ -72,17 +103,17 @@ Phases (each prints its own lines; any failure exits non-zero):
    mass equal to its evictions; tok/s, step p50/p99 and cache bytes on a
    ``{"lm_serve": ...}`` line, and a torch.profiler window over 4 VQ
    steps;
-14. lm-parity: the same width at 2 layers in f32, the weights copied to
+18. lm-parity: the same width at 2 layers in f32, the weights copied to
    the CPU, 96 teacher-forced VQ steps (32 evictions) on the card and on
    the CPU plain path: logits ``rtol=1e-4, atol=1e-4`` and codebook
    counts equal at every step, TF32 off;
-15. lm-kernels: ``vq_attention`` at the path's shape on the path's own
+19. lm-kernels: ``vq_attention`` at the path's shape on the path's own
    cache (bf16 and f32) and at the config defaults (n 1024, k 1024, w
    512), ``flash_attention`` at llama3.2-3b's ``[1, 24, 4096, 128]``
    causal and ``[1, 24, 1024, 128]`` non-causal (bf16); bf16 outputs
    within 2 bf16 ulps of the plain version, f32 ``rtol=1e-5,
    atol=1e-6``; timed with SDPA as the library call;
-16. a ``{"kernels": [...]}`` line (the quantized forms under each
+20. a ``{"kernels": [...]}`` line (the quantized forms under each
    kernel's ``also``, each with its launches on the main paths), each
    phase's seconds, then the ``{"ok": true, ...}`` line.
 
@@ -93,6 +124,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -136,6 +168,11 @@ LM_EXACT_TOKENS = 64
 LM_PARITY_LAYERS = 2
 LM_PARITY_STEPS = 96          # 32 evictions past the 64-token window
 LM_TOL = dict(rtol=1e-4, atol=1e-4)
+SAMPLER_METHODS = ("ns_sage", "labor", "cluster", "saint")
+SAMPLER_EPOCHS = 2
+HYBRID_EPOCHS = 2
+SAMPLER_PARITY_N = 20000
+SAMPLER_PARITY_BUDGET_MB = 1.0    # below the 16 MiB source: staged
 
 
 def log(msg: str) -> None:
@@ -282,14 +319,21 @@ class Model:
         mask[g.train_idx] = 1.0
         self.train_mask = torch.from_numpy(mask).to(dev)
 
-    def batch_inputs(self, bids_np: np.ndarray):
-        """(pack, x_b, labels_b, loss mask) of one batch of node ids."""
+    def batch_inputs(self, bids_np: np.ndarray,
+                     smask_np: np.ndarray | None = None):
+        """(pack, x_b, labels_b, loss mask) of one batch of node ids, as
+        ``vq_train_epoch`` builds them; ``smask_np`` is the batch's slot
+        mask (the hybrid's: 0 on its context slots)."""
         import torch
         from repro_torch.graph.batching import plan_batch
         bids = torch.from_numpy(bids_np.astype(np.int32)).to(self.dev)
         i = bids.long()
-        return (plan_batch(self.plan, bids), self.x[i], self.labels[i],
-                self.train_mask[i])
+        if smask_np is None:
+            return (plan_batch(self.plan, bids), self.x[i], self.labels[i],
+                    self.train_mask[i])
+        smask = torch.from_numpy(smask_np).to(self.dev)
+        return (plan_batch(self.plan, bids, smask), self.x[i],
+                self.labels[i], self.train_mask[i] * smask)
 
 
 def largest_cluster_share(vq_states) -> list[float]:
@@ -328,21 +372,26 @@ def check_tier_storage(what: str, vq_states, precision: str) -> None:
                              f"tier's storage")
 
 
-def phase_train(g, cfg, batch: int, tier: str | None = None
+def phase_train(g, cfg, batch: int, tier: str | None = None,
+                method: str = "vq", epochs: int = TRAIN_EPOCHS
                 ) -> tuple[dict, dict]:
     """A training main path: ``train_vq`` at the paper's batch size for
-    TRAIN_EPOCHS epochs, paper-faithful (Eq. 7 injection on), with the
+    ``epochs`` epochs, paper-faithful (Eq. 7 injection on), with the
     launch counts of every step and of the full-graph evaluations checked
     exactly and every step's loss and VQ error printed (each epoch's under
-    a tier).  Under ``tier`` the run is ``train_vq`` with that tier
-    configured: uint8 tables, int8 snapshots requantized every step, the
-    quantized forms of context_ell in place of the f32 ones.
+    a tier or for the hybrid).  Under ``tier`` the run is ``train_vq`` with
+    that tier configured: uint8 tables, int8 snapshots requantized every
+    step, the quantized forms of context_ell in place of the f32 ones.
+    With ``method="hybrid"`` it is ``train_scenario``'s hybrid: each batch
+    widened by as many LABOR-sampled context nodes, the same kernels a
+    step.
 
     Gates: every loss and VQ error finite; the mean loss of the last 5
-    epochs under that of the first 5; no layer's codebook collapsed at
-    the end (at most MAX_CLUSTER_SHARE of the nodes on one codeword); a
-    tier's states end in its storage.  The run is long enough for the
-    falling loss and the uncollapsed codebooks: while the injection reads
+    epochs under that of the first 5 (of the last epoch under the first's
+    in a run of fewer than 10); a tier's states end in its storage; and
+    in a run of TRAIN_EPOCHS, no layer's codebook collapsed at the end (at
+    most MAX_CLUSTER_SHARE of the nodes on one codeword).  That run is
+    long enough for the uncollapsed codebooks: while the injection reads
     the random initial gradient codewords the loss rises and the last
     layer's codebook collapses -- the reference does the same
     (tests/test_torch_train.py) -- until the codewords nobody picks have
@@ -350,17 +399,24 @@ def phase_train(g, cfg, batch: int, tier: str | None = None
     are re-seeded from the worst-quantized rows."""
     import torch
     from repro_torch.kernels import ops as kops
-    from repro_torch.train.gnn_trainer import train_vq
+    from repro_torch.train.gnn_trainer import train_scenario, train_vq
     tag = "train" if tier is None else f"tier-train {tier}"
+    if method == "hybrid":
+        tag = "hybrid-train"
     n_layers = cfg.n_layers
-    steps = TRAIN_EPOCHS * -(-g.n // batch)
+    steps = epochs * -(-g.n // batch)
     inject = n_layers - 1 if cfg.grad_inject else 0
     reset_counts()
     t0 = time.time()
     kops.configure_kernel_precision(tier or "fp32")
     try:
-        r = train_vq(g, cfg, epochs=TRAIN_EPOCHS, batch_size=batch,
-                     seed=SEED, eval_every=EVAL_EVERY, device=DEVICE)
+        if method == "hybrid":
+            r = train_scenario(g, cfg, "hybrid", epochs=epochs,
+                               batch_size=batch, seed=SEED,
+                               eval_every=EVAL_EVERY, device=DEVICE)
+        else:
+            r = train_vq(g, cfg, epochs=epochs, batch_size=batch,
+                         seed=SEED, eval_every=EVAL_EVERY, device=DEVICE)
     finally:
         kops.configure_kernel_precision(reset=True)
     torch.cuda.synchronize()
@@ -371,12 +427,15 @@ def phase_train(g, cfg, batch: int, tier: str | None = None
     # (whose input needs no gradient) runs spmm_ell_t and, with the Eq. 7
     # injection, the w_t form of context_ell -- each context_ell launch in
     # its quantized form under a tier.  Each full-graph evaluation runs
-    # spmm_ell once per layer.
-    evals = -(-TRAIN_EPOCHS // EVAL_EVERY)
+    # the staged spmm_ell_hbm once per layer: its 86.7 MB source is above
+    # the 50 MiB L2 budget of the dispatch (until the staged kernel was
+    # ported, the resident spmm_ell ran it); the training batch's source
+    # (21.7 MB; the hybrid's 43.3 MB) stays resident.
+    evals = -(-epochs // EVAL_EVERY)
     q = tier is not None
     expect_counts(tag, counts, {
         "vq_assign": 0, "vq_update": n_layers * steps,
-        "spmm_ell": n_layers * steps + n_layers * evals,
+        "spmm_ell": n_layers * steps, "spmm_ell_hbm": n_layers * evals,
         "spmm_ell_t": (n_layers - 1) * steps,
         "context_ell": (n_layers + inject) * steps,
         "context_ell_wt": inject * steps,
@@ -386,7 +445,7 @@ def phase_train(g, cfg, batch: int, tier: str | None = None
     if losses.shape != (steps,) or errs.shape != (steps, n_layers):
         raise SystemExit(f"{tag}: {losses.shape} losses, {errs.shape} VQ "
                          f"errors for {steps} steps")
-    if tier is None:
+    if tier is None and method == "vq":
         for i, (loss, e) in enumerate(zip(losses, errs)):
             log(f"train step {i}: loss {loss:.6f} vq_err "
                 f"{' '.join(f'{v:.4f}' for v in e)}")
@@ -394,10 +453,10 @@ def phase_train(g, cfg, batch: int, tier: str | None = None
         log(f"{tag} epoch {h['epoch']}: {r['epoch_s'][h['epoch'] - 1]:.3f} "
             f"s, val {h['val']:.4f} test {h['test']:.4f} vq_err "
             f"{h['vq_err']:.4f}")
-    epoch_loss = losses.reshape(TRAIN_EPOCHS, -1).mean(1)
+    epoch_loss = losses.reshape(epochs, -1).mean(1)
     share = largest_cluster_share(r["vq_states"])
     r.update(wall_s=wall, epoch_loss=epoch_loss.tolist(),
-             epoch_vq_err=errs.reshape(TRAIN_EPOCHS, -1).mean(1).tolist(),
+             epoch_vq_err=errs.reshape(epochs, -1).mean(1).tolist(),
              largest_cluster_share=share)
     log(f"{tag}: {steps} steps of {batch} nodes in {wall:.3f} s (incl. "
         f"{evals} full-graph evaluations); mean loss per epoch "
@@ -405,11 +464,12 @@ def phase_train(g, cfg, batch: int, tier: str | None = None
         f"per layer at the end {[round(v, 4) for v in share]}")
     if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(errs))):
         raise SystemExit(f"{tag}: non-finite loss or VQ error")
-    first, last = float(epoch_loss[:5].mean()), float(epoch_loss[-5:].mean())
+    w = min(5, epochs // 2)
+    first, last = float(epoch_loss[:w].mean()), float(epoch_loss[-w:].mean())
     if not last < first:
-        raise SystemExit(f"{tag}: mean loss of the last 5 epochs {last} not "
-                         f"under that of the first 5 {first}")
-    if max(share) > MAX_CLUSTER_SHARE:
+        raise SystemExit(f"{tag}: mean loss of the last {w} epochs {last} "
+                         f"not under that of the first {w} {first}")
+    if epochs == TRAIN_EPOCHS and max(share) > MAX_CLUSTER_SHARE:
         raise SystemExit(f"{tag}: a codebook collapsed, largest cluster "
                          f"share per layer {share} (cap "
                          f"{MAX_CLUSTER_SHARE})")
@@ -480,11 +540,13 @@ def _vq_update_row(name, vw, cw, generic: bool = False) -> dict:
                         want[2][..., None])
     # The bound above grows with a codeword's row count and is loose on a
     # codeword thousands of rows share.  On rows rounded to multiples of
-    # 2^-6 within [-4, 4], every partial sum of at most 2^16 rows is a
-    # multiple of 2^-6 under 2^18, 24 significant bits: exact in fp32 in any
-    # order, so there the sums must equal the float64 sums bit for bit.
-    assert b <= 1 << 16
-    vq_ = ((vw * 64).round().clamp(-256, 256) / 64).contiguous()
+    # 2^-s within [-4, 4], every partial sum of at most b rows is a
+    # multiple of 2^-s under 4b; with 4b * 2^s <= 2^24 that is at most 24
+    # significant bits, exact in fp32 in any order, so there the sums must
+    # equal the float64 sums bit for bit (s = 6 up to b = 2^16, 5 at the
+    # hybrid's 84,670 rows).
+    q = 2.0 ** min(6, 24 - math.ceil(math.log2(4 * b)))
+    vq_ = ((vw * q).round().clamp(-4 * q, 4 * q) / q).contiguous()
     gq = vq_assign_update_cuda(vq_, cw)
     wq = ref.vq_assign_update(vq_, cw)
     flat_q = (gq[0].long() + k * torch.arange(nb, device=vw.device)[:, None]
@@ -521,62 +583,93 @@ def _vq_update_row(name, vw, cw, generic: bool = False) -> dict:
     return row
 
 
-def phase_train_kernels(m: Model, params, vq) -> tuple[list[dict], dict]:
-    """Every kernel of the training path against its plain version at the
-    shapes training gives it, on one training batch of the trained model:
-    vq_update (also on the untrained model's rows -- early training, the
-    atomic hot spot of rows crowding few codewords), the w_t form of
-    context_ell and spmm_ell_t, and the forward kernels at the training
-    batch (spmm_ell's intra-batch term, context_ell's plain form) and on
-    the full graph (the evaluation's spmm_ell).  Returns the vq_update and
-    spmm_ell_t rows and, by kernel name, the rows that go under the
-    spmm_ell and context_ell rows' ``also``."""
+def _vq_update_rows(m: Model, params, vq, inputs, tag: str,
+                    hot: bool = False) -> list[dict]:
+    """vq_update on layers 0 and L-1 with the whitened (X || G) rows of one
+    batch; with ``hot`` also the generic-width build and the hot spot."""
+    from repro_torch.core import codebook as cbm
+    from repro_torch.models.gnn import vq_loss_and_grads
+    cfg = m.cfg
+    cb = cfg.layer_codebook_cfg()
+    pack, x_b, y_b, lm = inputs
+    _, _, acts, _, gprobes = vq_loss_and_grads(
+        params, vq, pack, x_b, y_b, m.ops.degrees, cfg, lm)
+    rows = []
+    for layer in (0, cfg.n_layers - 1):
+        st = vq[layer].codebook
+        vw = cbm.whitened_rows(st, acts[layer], gprobes[layer], cb)[0]
+        cw = st.codewords_w.contiguous()
+        row = _vq_update_row(f"vq_update layer {layer} {tag}", vw, cw,
+                             generic=hot)
+        row["at"] += f" layer {layer} {tag}"
+        rows.append(row)
+        if hot:
+            # the hot spot: every row of a branch on one codeword, as in a
+            # collapsed codebook (each branch's first row repeated)
+            hot_vw = vw[:, :1].expand_as(vw).contiguous()
+            row = _vq_update_row(f"vq_update layer {layer} hot spot", hot_vw,
+                                 cw)
+            row["at"] += f" layer {layer} hot spot (rows all alike)"
+            rows.append(row)
+    return rows
+
+
+def _spmm_t_row(idx, val, gr, n_src: int, at: str) -> dict:
+    """spmm_ell_t (the SpMM's backward in x) against its plain version and
+    ``torch.sparse.mm`` on one set of operands: idx/val [b, D], the output
+    gradient gr [b, f], an ``n_src``-row source."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spmm_ell import spmm_ell_t_cuda
+    b, deg = idx.shape
+    f = gr.shape[1]
+    got = spmm_ell_t_cuda(idx, val, gr, n_src)
+    want = ref.spmm_ell_t(idx, val, gr, n_src)
+    err = check_scatter(f"spmm_ell_t {at}", got, want,
+                        ref.spmm_ell_t(idx, val.abs(), gr.abs(), n_src),
+                        ref.spmm_ell_t(idx, (val != 0).float(),
+                                       torch.ones_like(gr), n_src))
+    nz = val != 0
+    nnz = int(nz.sum())
+    bms, by = bound(8 * b * deg + 4 * b * f + 4 * n_src * f, 2 * nnz * f)
+    rows_i = torch.arange(b, device=idx.device)[:, None].expand(b, deg)
+    coo_t = torch.sparse_coo_tensor(
+        torch.stack([idx.long()[nz], rows_i[nz]]), val[nz], (n_src, b),
+        check_invariants=True).coalesce()
+    check_close(f"spmm_ell_t library call {at}", torch.sparse.mm(coo_t, gr),
+                want, SERVE_TOL)
+    ms, call_ms = cuda_ms(lambda: spmm_ell_t_cuda(idx, val, gr, n_src), 10)
+    row = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+               plain_ms=cuda_ms(lambda: ref.spmm_ell_t(idx, val, gr, n_src),
+                                5, inner=2)[0],
+               bound_ms=bms, bound_by=by,
+               library_ms=cuda_ms(lambda: torch.sparse.mm(coo_t, gr), 10)[0],
+               at=f"b={b} D={deg} f={f} nnz={nnz} n_src={n_src} {at}")
+    log(f"spmm_ell_t {row['at']}: max_abs_err {err:.3g}  kernel {ms:.5f} ms "
+        f"(one call {call_ms:.5f} ms)  plain {row['plain_ms']:.5f} ms  "
+        f"sparse.mm {row['library_ms']:.5f} ms  bound {bms:.6f} ms ({by})")
+    return row
+
+
+def _step_rows(m: Model, params, vq, inputs, tag: str,
+               hot: bool = False) -> dict[str, list[dict]]:
+    """Every kernel of one VQ training step against its plain version on
+    one batch (``inputs`` from ``Model.batch_inputs``), by kernel name:
+    vq_update (layers 0 and L-1; ``hot`` as in ``_vq_update_rows``), the
+    w_t form of context_ell (the Eq. 7 backward of layers 1..L-1) and its
+    plain form (layers 0 and L-1), spmm_ell's intra-batch term and its
+    backward spmm_ell_t."""
     import torch
     from repro_torch.core import codebook as cbm
     from repro_torch.core.conv import fixed_conv_operands
     from repro_torch.kernels import ref
     from repro_torch.kernels.context_ell import context_ell_cuda
-    from repro_torch.kernels.spmm_ell import spmm_ell_t_cuda
-    from repro_torch.models.gnn import (init_gnn, init_vq_states,
-                                        vq_loss_and_grads)
     cfg, dev = m.cfg, m.dev
     cb = cfg.layer_codebook_cfg()
-    last = cfg.n_layers - 1
-    rng = np.random.default_rng(SEED + 5)
-    pack, x_b, y_b, lm = m.batch_inputs(rng.permutation(m.g.n)[:m.batch])
+    pack, x_b = inputs[:2]
     ops_, _ = fixed_conv_operands("gcn", pack, m.ops.degrees)
-    b, deg = ops_.in_pos.shape
-
-    # --- vq_update: each layer's whitened (X || G) rows ---
-    upd = []
-    init = (init_gnn(cfg, torch.Generator().manual_seed(SEED), device=dev),
-            init_vq_states(cfg, m.g.n, torch.Generator().manual_seed(
-                SEED + 1), device=dev))
-    for tag, (p, v) in (("trained", (params, vq)), ("untrained", init)):
-        _, _, acts, _, gprobes = vq_loss_and_grads(
-            p, v, pack, x_b, y_b, m.ops.degrees, cfg, lm)
-        for layer in (0, last):
-            st = v[layer].codebook
-            vw = cbm.whitened_rows(st, acts[layer], gprobes[layer], cb)[0]
-            cw = st.codewords_w.contiguous()
-            row = _vq_update_row(f"vq_update layer {layer} {tag}", vw, cw,
-                                 generic=tag == "trained")
-            row["at"] += f" layer {layer} {tag}"
-            upd.append(row)
-            if tag == "trained":
-                # the hot spot: every row of a branch on one codeword, as
-                # in a collapsed codebook (each branch's first row repeated)
-                hot = vw[:, :1].expand_as(vw).contiguous()
-                row = _vq_update_row(f"vq_update layer {layer} hot spot",
-                                     hot, cw)
-                row["at"] += f" layer {layer} hot spot (rows all alike)"
-                upd.append(row)
-    rows = [dict(name="vq_update", route="cuda",
-                 source="src/repro_torch/kernels/csrc/vq_update.cu",
-                 replaces="src/repro/kernels/vq_update.py:106",
-                 **{k: upd[0][k] for k in upd[0] if k != "max_abs_err"},
-                 max_abs_err=max(c["max_abs_err"] for c in upd),
-                 library_ms=None, also=upd[1:])]
+    b = ops_.in_pos.shape[0]
+    out = {"vq_update": _vq_update_rows(m, params, vq, inputs, tag, hot)}
 
     # --- context_ell w_t: the Eq. 7 backward of layers 1..L-1 ---
     wt = []
@@ -589,7 +682,8 @@ def phase_train_kernels(m: Model, params, vq) -> tuple[list[dict], dict]:
         a = vq[layer].assignment
         got = context_ell_cuda(ids, vals, a, gcw, w_t)
         want = ref.context_ell(ids, vals, a, gcw, w_t)
-        err = check_close(f"context_ell w_t layer {layer}", got, want, TOL)
+        err = check_close(f"context_ell w_t layer {layer} {tag}", got, want,
+                          TOL)
         nb, k, gb = gcw.shape
         f_out = w_t.shape[1]
         uid = torch.unique(ids.long())
@@ -606,71 +700,78 @@ def phase_train_kernels(m: Model, params, vq) -> tuple[list[dict], dict]:
             plain_ms=cuda_ms(lambda: ref.context_ell(ids, vals, a, gcw, w_t),
                              3, inner=2)[0],
             at=f"b={b} Dr={dr} n={a.shape[1]} nb={nb} k={k} fb={gb} "
-               f"f_out={f_out} (layer {layer} backward)"))
+               f"f_out={f_out} (layer {layer} backward, {tag})"))
         c = wt[-1]
         log(f"context_ell w_t {c['at']}: max_abs_err {err:.3g}  kernel "
             f"{ms:.5f} ms (one call {call_ms:.5f} ms)  plain "
             f"{c['plain_ms']:.5f} ms  bound {bms:.6f} ms ({by})  "
             f"library none")
 
-    # --- spmm_ell_t: the intra-batch SpMM's backward ---
+    # --- spmm_ell's intra-batch term and its backward spmm_ell_t ---
     idx = torch.clamp(ops_.in_pos, min=0).contiguous()
     val = ops_.in_vals.contiguous()
-    f = cfg.hidden
-    gr = torch.randn((b, f), generator=torch.Generator(device=dev)
+    gr = torch.randn((b, cfg.hidden), generator=torch.Generator(device=dev)
                      .manual_seed(SEED), device=dev)
-    got = spmm_ell_t_cuda(idx, val, gr, b)
-    want = ref.spmm_ell_t(idx, val, gr, b)
-    err = check_scatter("spmm_ell_t", got, want,
-                        ref.spmm_ell_t(idx, val.abs(), gr.abs(), b),
-                        ref.spmm_ell_t(idx, (val != 0).float(),
-                                       torch.ones_like(gr), b))
-    nz = val != 0
-    nnz = int(nz.sum())
-    byt = 8 * b * deg + 4 * b * f + 4 * b * f
-    bms, by = bound(byt, 2 * nnz * f)
-    rows_i = torch.arange(b, device=dev)[:, None].expand(b, deg)
-    coo_t = torch.sparse_coo_tensor(
-        torch.stack([idx.long()[nz], rows_i[nz]]), val[nz], (b, b),
-        check_invariants=True).coalesce()
-    lib = torch.sparse.mm(coo_t, gr)
-    check_close("spmm_ell_t library call", lib, want, SERVE_TOL)
-    ms, call_ms = cuda_ms(lambda: spmm_ell_t_cuda(idx, val, gr, b), 10)
-    row = dict(name="spmm_ell_t", route="cuda",
-               source="src/repro_torch/kernels/csrc/spmm_ell.cu",
-               replaces="src/repro/kernels/spmm_ell.py:56 (backward in x; "
-                        "JAX autodiff, no Pallas kernel)",
-               max_abs_err=err, ms=ms, call_ms=call_ms,
-               plain_ms=cuda_ms(lambda: ref.spmm_ell_t(idx, val, gr, b), 5,
-                                inner=2)[0],
-               bound_ms=bms, bound_by=by,
-               library_ms=cuda_ms(lambda: torch.sparse.mm(coo_t, gr), 10)[0],
-               at=f"b={b} D={deg} f={f} nnz={nnz} n_src={b}")
-    rows.append(row)
-    log(f"spmm_ell_t {row['at']}: max_abs_err {err:.3g}  kernel {ms:.5f} ms "
-        f"(one call {call_ms:.5f} ms)  plain {row['plain_ms']:.5f} ms  "
-        f"sparse.mm {row['library_ms']:.5f} ms  bound {bms:.6f} ms ({by})")
-
-    # --- spmm_ell and context_ell's plain form at the training shapes ---
-    from repro_torch.nn.gnn_layers import _gcn_edge_vals
-    spmm = [_spmm_row(idx, val, x_b.contiguous(),
-                      "(training forward, intra-batch)"),
-            _spmm_row(m.ops.nbr_ids.contiguous(),
-                      _gcn_edge_vals(m.ops)[0].contiguous(), m.x,
-                      "(full-graph evaluation)")]
-    for row in spmm:       # both sources exceed the reference's VMEM budget
-        row["replaces"] = ("src/repro/kernels/spmm_ell_hbm.py:168 (the "
-                           "reference's dispatch, src/repro/kernels/ops.py:"
-                           "241, sends a source above 8 MB there)")
+    out["spmm_ell_t"] = [_spmm_t_row(idx, val, gr, b, f"({tag})")]
+    out["spmm_ell"] = [_spmm_row(idx, val, x_b.contiguous(),
+                                 f"({tag} forward, intra-batch)")]
     ctx = []
-    for layer in (0, last):
+    for layer in (0, cfg.n_layers - 1):
         fi = cfg.layer_dims()[layer][0]
         ctx.append(_context_row(
             ops_.out_ids.contiguous(), ops_.out_vals.contiguous(),
             vq[layer].assignment,
             cbm.feature_codewords(vq[layer].codebook, fi, cb),
-            f"(training forward, layer {layer})"))
-    return rows, {"spmm_ell": spmm, "context_ell": wt + ctx}
+            f"({tag} forward, layer {layer})"))
+    out["context_ell"] = wt + ctx
+    return out
+
+
+def phase_train_kernels(m: Model, params, vq) -> tuple[list[dict], dict]:
+    """Every kernel of the training path against its plain version at the
+    shapes training gives it, on one training batch of the trained model
+    (``_step_rows``, with vq_update also on the untrained model's rows --
+    early training, the atomic hot spot of rows crowding few codewords),
+    and spmm_ell on the full graph (the evaluation's source, which the
+    main path stages: ``spmm_ell_hbm``).  Returns the vq_update and
+    spmm_ell_t rows and, by kernel name, the rows that go under the
+    spmm_ell and context_ell rows' ``also``."""
+    import torch
+    from repro_torch.models.gnn import init_gnn, init_vq_states
+    from repro_torch.nn.gnn_layers import _gcn_edge_vals
+    cfg, dev = m.cfg, m.dev
+    rng = np.random.default_rng(SEED + 5)
+    inputs = m.batch_inputs(rng.permutation(m.g.n)[:m.batch])
+    step = _step_rows(m, params, vq, inputs, "training batch", hot=True)
+    init = (init_gnn(cfg, torch.Generator().manual_seed(SEED), device=dev),
+            init_vq_states(cfg, m.g.n, torch.Generator().manual_seed(
+                SEED + 1), device=dev))
+    upd = step["vq_update"] + _vq_update_rows(m, *init, inputs, "untrained")
+    rows = [dict(name="vq_update", route="cuda",
+                 source="src/repro_torch/kernels/csrc/vq_update.cu",
+                 replaces="src/repro/kernels/vq_update.py:106",
+                 **{k: upd[0][k] for k in upd[0] if k != "max_abs_err"},
+                 max_abs_err=max(c["max_abs_err"] for c in upd),
+                 library_ms=None, also=upd[1:]),
+            dict(name="spmm_ell_t", route="cuda",
+                 source="src/repro_torch/kernels/csrc/spmm_ell.cu",
+                 replaces="src/repro/kernels/spmm_ell.py:56 (backward in x; "
+                          "JAX autodiff, no Pallas kernel)",
+                 **step["spmm_ell_t"][0], also=[])]
+    spmm = step["spmm_ell"] + [_spmm_row(
+        m.ops.nbr_ids.contiguous(), _gcn_edge_vals(m.ops)[0].contiguous(),
+        m.x, "(full-graph evaluation)")]
+    # both sources exceed the reference's 8 MB VMEM budget, which sends
+    # them to its HBM kernel (src/repro/kernels/ops.py:241); the port's
+    # 50 MiB L2 budget keeps the batch's 21.7 MB resident and stages the
+    # full graph's 86.7 MB (spmm_ell_hbm, phase 12): here the resident
+    # kernel is forced onto both
+    spmm[0]["replaces"] = ("src/repro/kernels/spmm_ell.py:56 (the "
+                           "reference's dispatch sends this source to "
+                           "spmm_ell_hbm.py:168)")
+    spmm[1]["replaces"] = ("src/repro/kernels/spmm_ell.py:56 (forced; the "
+                           "main path stages this source: spmm_ell_hbm)")
+    return rows, {"spmm_ell": spmm, "context_ell": step["context_ell"]}
 
 
 def _dense_table(a):
@@ -720,9 +821,12 @@ def _check_snapshots(tag: str, a, b, agree_cw) -> None:
 
 
 def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
-                       tag: str = "train parity") -> dict:
+                       tag: str = "train parity",
+                       hybrid: bool = False) -> dict:
     """One training step at batch PARITY_BATCH on the card and on the CPU
-    plain path from the same (trained) state.  Loss, output, params,
+    plain path from the same (trained) state; with ``hybrid`` the batch is
+    the hybrid's, PARITY_BATCH seeds widened by as many LABOR-sampled
+    context slots (loss-masked).  Loss, output, params,
     optimizer state, VQ errors and whitening moments agree within
     STEP_TOL; the refreshed assignments agree on >= 99.9 % of the batch's
     entries and every mismatch is a near-tie; codeword statistics agree
@@ -735,13 +839,19 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
     from repro_torch.train.optimizer import rmsprop
     from repro_torch.configs.vq_gnn_paper import PAPER_LR
     opt = rmsprop(PAPER_LR)
-    bids = np.random.default_rng(SEED + 3).choice(
-        m.g.n, PARITY_BATCH, replace=False)
+    rng = np.random.default_rng(SEED + 3)
+    bids, smask = rng.choice(m.g.n, PARITY_BATCH, replace=False), None
+    if hybrid:
+        from repro_torch.graph.sampling import hybrid_epoch_batches
+        ids, sm = hybrid_epoch_batches(m.g, PARITY_BATCH,
+                                       [5] * m.cfg.n_layers, rng,
+                                       n_ctx=PARITY_BATCH, idx_pool=bids)
+        bids, smask = ids[0], sm[0]
     state_c = to_device((params, vq, ost), "cpu")
     res = {}
     for side, mm, (p, v, o) in (("cuda", m, (params, vq, ost)),
                                 ("cpu", cpu, state_c)):
-        pack, x_b, y_b, lm = mm.batch_inputs(bids)
+        pack, x_b, y_b, lm = mm.batch_inputs(bids, smask)
         t0 = time.time()
         out = vq_train_step(p, v, o, pack, x_b, y_b, mm.ops.degrees, m.cfg,
                             opt, loss_mask=lm)
@@ -780,7 +890,7 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
                              f"the batch changed")
         if bool(flip.any()):
             if vw_c is None:     # the CPU step's own whitened rows
-                pack, x_b, y_b, lm = cpu.batch_inputs(bids)
+                pack, x_b, y_b, lm = cpu.batch_inputs(bids, smask)
                 _, _, acts, _, gpr = vq_loss_and_grads(
                     state_c[0], state_c[1], pack, x_b, y_b,
                     cpu.ops.degrees, m.cfg, lm)
@@ -827,7 +937,7 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
             f"({int(flip.sum())} near-tie flips), {int(bad.sum())} of "
             f"{bad.numel()} codewords differ (flipped or revived rows), "
             f"{int(revived.sum())} revived")
-    log(f"{tag}: one step at batch {PARITY_BATCH}, card vs CPU plain "
+    log(f"{tag}: one step at batch {len(bids)}, card vs CPU plain "
         f"path: loss {float(lg):.6f} vs {float(lc):.6f}, max abs err "
         f"{worst:.3g} (rtol 1e-4, atol 1e-5); card {t_gpu:.3f} s, CPU "
         f"{t_cpu:.3f} s")
@@ -985,7 +1095,8 @@ def phase_kernels(server) -> list[dict]:
 def _counters() -> dict:
     """Kernel name -> (wrapper module, counter attribute)."""
     from repro_torch.kernels import (context_ell, flash_attention, spmm_ell,
-                                     vq_assign, vq_attention, vq_update)
+                                     spmm_ell_hbm, vq_assign, vq_attention,
+                                     vq_update)
     return {"vq_attention": (vq_attention, "launches"),
             "flash_attention": (flash_attention, "launches"),
             "vq_assign": (vq_assign, "launches"),
@@ -994,6 +1105,8 @@ def _counters() -> dict:
             "spmm_ell": (spmm_ell, "launches"),
             "spmm_ell_q": (spmm_ell, "launches_q"),
             "spmm_ell_t": (spmm_ell, "launches_t"),
+            "spmm_ell_hbm": (spmm_ell_hbm, "launches"),
+            "spmm_ell_hbm_q": (spmm_ell_hbm, "launches_q"),
             "context_ell": (context_ell, "launches"),
             "context_ell_wt": (context_ell, "launches_wt"),
             "context_ell_q": (context_ell, "launches_q"),
@@ -1152,6 +1265,311 @@ def phase_train_profile(m: Model, params, vq, ost) -> None:
                       opt, loss_mask=lm)
     step(batches[0])                      # warm: allocator, first launches
     _profile("train", batches, step)
+
+
+# ---------------------------------------------------------------------------
+# the sampling baselines, the hybrid and the staged SpMM
+# ---------------------------------------------------------------------------
+
+def _spmm_split(cfg, rows: int, steps: int) -> tuple[int, int]:
+    """(staged, resident) SpMM launches of ``steps`` exact-message-passing
+    steps over an ``rows``-row source: one a layer, on the kernel
+    ``spmm_ell_variant`` picks for the layer's input width."""
+    from repro_torch.kernels import ops as kops
+    staged = sum(kops.spmm_ell_variant(rows, fi, 4) == "hbm"
+                 for fi, _ in cfg.layer_dims())
+    return staged * steps, (cfg.n_layers - staged) * steps
+
+
+def phase_sampler_train(g, cfg, batch: int) -> tuple[dict, dict]:
+    """The sampling baselines' main path: ``train_scenario`` for each of
+    SAMPLER_METHODS, SAMPLER_EPOCHS epochs at the reference's scenario
+    defaults, then one full-graph evaluation.  Per step every layer runs
+    the SpMM over the padded subgraph (the staged kernel above the L2
+    budget) and every layer but the first its backward spmm_ell_t; the
+    evaluation stages the full graph's SpMM once a layer.  The counts are
+    checked exactly, and NS-SAGE, LABOR and GraphSAINT must stage every
+    step's SpMMs, Cluster-GCN none.  Gates: finite losses, the last
+    epoch's mean loss under the first's."""
+    import torch
+    from repro_torch.train.gnn_trainer import train_scenario
+    reps, total = {}, None
+    for method in SAMPLER_METHODS:
+        reset_counts()
+        t0 = time.time()
+        r = train_scenario(g, cfg, method, epochs=SAMPLER_EPOCHS,
+                           batch_size=batch, seed=SEED, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        per_epoch = [len(ls) for ls in r["losses"]]
+        staged = resident = 0
+        for s, rows in zip(per_epoch, r["subgraph_rows"]):
+            st, re_ = _spmm_split(cfg, rows, s)
+            staged, resident = staged + st, resident + re_
+        if (resident if method != "cluster" else staged) != 0:
+            raise SystemExit(f"sampler-train {method}: {staged} staged and "
+                             f"{resident} resident SpMMs over "
+                             f"{r['subgraph_rows']} rows")
+        evals = len(r["history"])
+        ev_staged, ev_resident = _spmm_split(cfg, g.n, evals)
+        steps = sum(per_epoch)
+        expect_counts(f"sampler-train {method}", counts, {
+            "spmm_ell_hbm": staged + ev_staged,
+            "spmm_ell": resident + ev_resident,
+            "spmm_ell_t": (cfg.n_layers - 1) * steps})
+        total = counts if total is None else add_counts(total, counts)
+        losses = np.concatenate(r["losses"])
+        epoch_loss = [float(np.mean(ls)) for ls in r["losses"]]
+        if not np.all(np.isfinite(losses)):
+            raise SystemExit(f"sampler-train {method}: non-finite loss")
+        if not epoch_loss[-1] < epoch_loss[0]:
+            raise SystemExit(f"sampler-train {method}: mean loss of the "
+                             f"last epoch {epoch_loss[-1]} not under the "
+                             f"first's {epoch_loss[0]}")
+        rep = dict(steps=steps, subgraph_rows=r["subgraph_rows"],
+                   wall_s=wall, sample_s=r["sample_s"], pack_s=r["pack_s"],
+                   train_s=r["train_s"], epoch_loss=epoch_loss,
+                   step_loss=losses.tolist(), final=r["final"],
+                   mem_bytes=r["mem_bytes"], messages=r["messages"])
+        reps[method] = rep
+        log(f"sampler-train {method}: {steps} steps over "
+            f"{r['subgraph_rows']} padded rows in {wall:.3f} s -- host "
+            f"sampling {sum(r['sample_s']):.3f} s, packing "
+            f"{sum(r['pack_s']):.3f} s, device steps "
+            f"{sum(r['train_s']):.3f} s; mean loss per epoch "
+            f"{[round(v, 4) for v in epoch_loss]}; val "
+            f"{r['final']['val']:.4f} test {r['final']['test']:.4f}")
+    return reps, total
+
+
+def phase_sampler_parity() -> dict:
+    """One NS-SAGE step at n SAMPLER_PARITY_N on the card, the staged
+    kernel forced by a budget under its source, and on the CPU plain path
+    from the same params: loss, params and Adam moments within
+    STEP_TOL, and the card's SpMMs all staged."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs.vq_gnn_paper import (paper_batch_size,
+                                                  paper_config)
+    from repro_torch.graph.batching import pack_sampler_epoch
+    from repro_torch.graph.datasets import synthetic_arxiv
+    from repro_torch.graph.sampling import ns_sage_batches
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.gnn import init_gnn, sampler_train_epoch
+    from repro_torch.train.optimizer import adam
+    g = synthetic_arxiv(n=SAMPLER_PARITY_N, seed=SEED)
+    cfg = paper_config(g, full_scale=True)
+    batch = next(ns_sage_batches(g, paper_batch_size(g),
+                                 [5] * cfg.n_layers,
+                                 np.random.default_rng(SEED), g.train_idx))
+    params = init_gnn(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    opt = adam(1e-3)
+    out, secs = {}, {}
+    kops.configure_spmm_dispatch(l2_budget_mb=SAMPLER_PARITY_BUDGET_MB,
+                                 reset=True)
+    try:
+        for dev in (DEVICE, "cpu"):
+            p = convert.to_device(params, dev)
+            splan = pack_sampler_epoch([batch], g.max_degree(), device=dev)
+            x = torch.from_numpy(g.features).to(dev)
+            y = torch.from_numpy(g.labels).to(dev)
+            reset_counts()
+            t0 = time.time()
+            out[dev] = sampler_train_epoch(p, opt.init(p), splan, x, y, cfg,
+                                           opt)
+            secs[dev] = time.time() - t0
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+                expect_counts("sampler-parity", read_counts(), {
+                    "spmm_ell_hbm": cfg.n_layers,
+                    "spmm_ell_t": cfg.n_layers - 1})
+    finally:
+        kops.configure_spmm_dispatch(reset=True)
+    (pg, og, lg), (pc, oc, lc) = out[DEVICE], out["cpu"]
+    worst = check_close("sampler-parity loss", lg, lc, STEP_TOL)
+    for tree_g, tree_c, what in ((pg, pc, "params"), (og.mu, oc.mu, "mu"),
+                                 (og.nu, oc.nu, "nu")):
+        for lg_, lc_ in zip(tree_g, tree_c):
+            for k in lg_:
+                worst = max(worst, check_close(
+                    f"sampler-parity {what} {k}", lg_[k], lc_[k], STEP_TOL))
+    log(f"sampler-parity: one NS-SAGE step over {splan.p} padded rows at "
+        f"n {g.n}, card (staged SpMM) vs CPU plain path: loss "
+        f"{float(lg[0]):.6f} vs {float(lc[0]):.6f}, max abs err "
+        f"{worst:.3g} (rtol 1e-4, atol 1e-5); card {secs[DEVICE]:.3f} s, "
+        f"CPU {secs['cpu']:.3f} s")
+    return {"n": g.n, "rows": splan.p, "loss": float(lg[0]),
+            "max_abs_err": worst}
+
+
+def _staged_row(idx, val, x, sc, at: str) -> dict:
+    """spmm_ell_hbm on one set of operands, at the card's default tiles
+    and with the index the main path builds on the device: bit-equal to
+    its plain version, timed beside the resident kernel forced onto the
+    same operands and (f32) ``torch.sparse.mm``."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spmm_ell import spmm_ell_cuda
+    from repro_torch.kernels.spmm_ell_hbm import (default_tiles,
+                                                  spmm_ell_hbm_cuda,
+                                                  stripe_index_torch)
+    b, deg = idx.shape
+    n_src, f = x.shape
+    item = x.element_size()
+    bb, stripe = default_tiles(f, item)
+    si = stripe_index_torch(idx, val, n_src, bb=bb, stripe=stripe)
+    got = spmm_ell_hbm_cuda(idx, val, x, si, sc)
+    want = ref.spmm_ell_hbm(idx, val, x, si, sc)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise SystemExit(f"spmm_ell_hbm {at}: not bit-equal to its plain "
+                         f"version (max abs err "
+                         f"{float((got - want).abs().max())})")
+    if not torch.allclose(got, spmm_ell_cuda(idx, val, x, sc), **TOL):
+        raise SystemExit(f"spmm_ell_hbm {at}: disagrees with spmm_ell")
+    # the bound counts what the function needs, as spmm_ell's row does on
+    # the same operands: idx and val, the distinct source rows, the output
+    # (and the scale); not the stripe index, whose columns past counts[t]
+    # the kernel never reads
+    n_rows = int(torch.unique(idx).numel())
+    width = si.ids.shape[1]
+    listed = torch.arange(width, device=x.device)[None, :] \
+        < si.counts[:, None]
+    s_ids = si.ids[listed].long()
+    staged_rows = int(torch.clamp(n_src - s_ids * stripe, max=stripe).sum())
+    needed = 8 * b * deg + item * n_rows * f + 4 * b * f \
+        + (4 * f if sc is not None else 0)
+    bms, by = bound(needed, 2 * b * deg * f
+                    + (b * f if sc is not None else 0))
+    ms, call_ms = cuda_ms(lambda: spmm_ell_hbm_cuda(idx, val, x, si, sc), 3,
+                          inner=3)
+    index_ms = cuda_ms(lambda: stripe_index_torch(idx, val, n_src, bb=bb,
+                                                  stripe=stripe), 3,
+                       inner=3)[0]
+    resident_ms = cuda_ms(lambda: spmm_ell_cuda(idx, val, x, sc), 5)[0]
+    plain_ms = cuda_ms(lambda: ref.spmm_ell_hbm(idx, val, x, si, sc), 2,
+                       inner=1)[0]
+    library_ms = None
+    if sc is None:
+        coo = torch.sparse_coo_tensor(
+            torch.stack([torch.arange(b, device=x.device)
+                         .repeat_interleave(deg), idx.reshape(-1).long()]),
+            val.reshape(-1), (b, n_src), check_invariants=True).coalesce()
+        check_close(f"spmm_ell_hbm library call {at}",
+                    torch.sparse.mm(coo, x), want, SERVE_TOL)
+        library_ms = cuda_ms(lambda: torch.sparse.mm(coo, x), 5)[0]
+    counts = si.counts.float()
+    row = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, library_ms=library_ms,
+               resident_ms=resident_ms, index_ms=index_ms, bb=bb,
+               stripe=stripe, tiles=int(si.counts.numel()),
+               mean_counts=float(counts.mean()),
+               max_counts=int(si.counts.max()),
+               staged_bytes=staged_rows * f * item, needed_bytes=needed,
+               at=f"b={b} D={deg} f={f} n_src={n_src} "
+                  f"({item * n_src * f / 1e6:.1f} MB {x.dtype} source) "
+                  f"{at}")
+    log(f"spmm_ell_hbm {row['at']}: bit-equal  kernel {ms:.5f} ms (one "
+        f"call {call_ms:.5f} ms, index build {index_ms:.5f} ms)  resident "
+        f"spmm_ell {resident_ms:.5f} ms  plain {plain_ms:.5f} ms  "
+        f"sparse.mm {library_ms}  bound {bms:.6f} ms ({by}); tiles of "
+        f"{bb} rows stage {row['mean_counts']:.1f} stripes of {stripe} "
+        f"rows on average (max {row['max_counts']}): "
+        f"{row['staged_bytes'] / 1e9:.3f} GB staged against "
+        f"{needed / 1e6:.1f} MB needed")
+    return row
+
+
+def first_subgraphs(m: Model, batch: int) -> list[tuple]:
+    """(name, operands, layer-0 source) of the first subgraph that the
+    NS-SAGE, GraphSAINT and Cluster-GCN steps of sampler-train draw (the
+    same rng stream, the reference's scenario defaults), padded as their
+    plans pad it: 262,144, 131,072 and 32,768 rows."""
+    from repro_torch.graph.batching import (FullGraphOperands,
+                                            pack_sampler_epoch)
+    from repro_torch.graph.sampling import (cluster_gcn_batches,
+                                            graphsaint_rw_batches,
+                                            ns_sage_batches, partition_graph)
+    g = m.g
+    rng = np.random.default_rng(SEED)
+    part = partition_graph(g, 32, rng)
+    subs = []
+    for name, it in (("NS-SAGE", ns_sage_batches(
+                          g, batch, [5] * m.cfg.n_layers,
+                          np.random.default_rng(SEED), g.train_idx)),
+                     ("GraphSAINT", graphsaint_rw_batches(
+                          g, batch, 3, np.random.default_rng(SEED),
+                          g.train_idx)),
+                     ("Cluster-GCN", cluster_gcn_batches(g, part, 4, rng))):
+        splan = pack_sampler_epoch([next(it)], g.max_degree(), device=m.dev)
+        subs.append((name, FullGraphOperands(
+            splan.nbr_ids[0], splan.nbr_mask[0], splan.degrees[0]),
+            m.x[splan.node_ids[0].long()].contiguous()))
+    return subs
+
+
+def phase_path_kernels(m: Model, hybrid: dict, subs: list
+                       ) -> dict[str, list[dict]]:
+    """The kernels at the further shapes that the hybrid and the samplers
+    give them, against their plain versions, by kernel name (rows that go
+    under the kernels line's ``also``): every step kernel on one hybrid
+    batch (84,670 rows: 42,335 seeds and as many LABOR context nodes) with
+    the hybrid-train phase's trained state; spmm_ell_t on the first
+    NS-SAGE, GraphSAINT and Cluster-GCN subgraphs, and the resident
+    spmm_ell on the Cluster-GCN one (the others' forward is staged:
+    phase_staged_kernel)."""
+    import torch
+    from repro_torch.graph.sampling import hybrid_epoch_batches
+    from repro_torch.nn.gnn_layers import _gcn_edge_vals
+    ids, smask = hybrid_epoch_batches(m.g, m.batch, [5] * m.cfg.n_layers,
+                                      np.random.default_rng(SEED),
+                                      n_ctx=m.batch)
+    out = _step_rows(m, hybrid["params"], hybrid["vq_states"],
+                     m.batch_inputs(ids[0], smask[0]), "hybrid batch")
+    gen = torch.Generator(device=m.dev).manual_seed(SEED)
+    for name, ops_, x_sub in subs:
+        idx = ops_.nbr_ids.contiguous()
+        val = _gcn_edge_vals(ops_)[0].contiguous()
+        at = f"(first {name} subgraph)"
+        if name == "Cluster-GCN":
+            out["spmm_ell"].append(_spmm_row(idx, val, x_sub, at))
+        p = idx.shape[0]
+        gr = torch.randn((p, m.cfg.hidden), generator=gen, device=m.dev)
+        out["spmm_ell_t"].append(_spmm_t_row(idx, val, gr, p, at))
+    return out
+
+
+def phase_staged_kernel(m: Model, subs: list) -> dict:
+    """spmm_ell_hbm against its plain version and timed at the main paths'
+    staged shapes: the full-graph evaluation's first layer, and the first
+    layer of the first NS-SAGE and GraphSAINT subgraphs (f32), and the
+    full graph with int8 and fp8 sources.  Returns the kernels line's row
+    (the other shapes and forms under ``also``)."""
+    import torch
+    from repro_torch.distributed.quantization import quantize_codewords
+    from repro_torch.nn.gnn_layers import _gcn_edge_vals
+    rows = [_staged_row(m.ops.nbr_ids.contiguous(),
+                        _gcn_edge_vals(m.ops)[0].contiguous(), m.x, None,
+                        "(full-graph evaluation)")]
+    for name, ops_, x_sub in subs:
+        if name != "Cluster-GCN":        # its 16 MiB source stays resident
+            rows.append(_staged_row(
+                ops_.nbr_ids.contiguous(),
+                _gcn_edge_vals(ops_)[0].contiguous(), x_sub, None,
+                f"(first {name} subgraph)"))
+    for name, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        qx = quantize_codewords(m.x[None], dtype=dt)
+        rows.append(_staged_row(
+            m.ops.nbr_ids.contiguous(), _gcn_edge_vals(m.ops)[0].contiguous(),
+            qx.q[0].contiguous(), qx.scale[0].contiguous(),
+            f"(full graph, {name} source)"))
+        rows[-1]["form"] = f"{name} source"
+    top = rows[0]
+    return dict(name="spmm_ell_hbm", route="cuda",
+                source="src/repro_torch/kernels/csrc/spmm_ell_hbm.cu",
+                replaces="src/repro/kernels/spmm_ell_hbm.py:168",
+                **top, also=rows[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -1787,6 +2205,20 @@ def main() -> int:
     timed("serve cpu parity", phase_cpu_parity, server, requests)
     timed("serve profile", phase_profile, server, requests)
 
+    # --- the sampling baselines, the hybrid, the staged SpMM ---
+    sampler_reps, sampler_counts = timed("sampler-train",
+                                         phase_sampler_train, g, cfg, batch)
+    rh, hybrid_counts = timed("hybrid-train", phase_train, g, cfg, batch,
+                              None, "hybrid", HYBRID_EPOCHS)
+    hybrid_parity = timed("hybrid-train parity", phase_train_parity, m,
+                          rh["params"], rh["vq_states"], rh["opt_state"],
+                          cpu, "hybrid-train parity", True)
+    sampler_parity = timed("sampler-parity", phase_sampler_parity)
+    subs = first_subgraphs(m, batch)
+    path_also = timed("path kernels", phase_path_kernels, m, rh, subs)
+    staged_row = timed("staged-kernel", phase_staged_kernel, m, subs)
+    del subs
+
     # --- the precision tiers: int8 training at k = TIER_K, its serving
     # under int8 and fp8, and the '+a4' tiers at k = A4_K ---
     cfg_t = cfg._replace(codebook=cfg.codebook._replace(k=TIER_K))
@@ -1821,23 +2253,30 @@ def main() -> int:
 
     # --- launches on the main paths, and the kernels line ---
     launches = train_counts
-    for c in (serve_counts, tier_train_counts, tier_serve_counts, a4_counts,
-              lm_counts):
+    for c in (serve_counts, sampler_counts, hybrid_counts, tier_train_counts,
+              tier_serve_counts, a4_counts, lm_counts):
         launches = add_counts(launches, c)
     entries = launches["entries"]
     by_name = {row["name"]: row for row in serve_rows + train_rows}
     by_name["spmm_ell"].setdefault("also", [])
-    for name, extra in train_also.items():
-        by_name[name]["also"] += extra
+    for also in (train_also, path_also):
+        for name, extra in also.items():
+            by_name[name]["also"] += extra
     for name, extra in tier_rows.items():
         by_name[name]["also"] += extra
-    kernels = [by_name[n] for n in ("vq_assign", "spmm_ell", "spmm_ell_t",
-                                    "context_ell", "vq_update")] + lm_rows
+    by_name["spmm_ell_hbm"] = staged_row
+    for c in staged_row["also"]:
+        if "form" in c:          # the quantized forms: no main-path caller
+            c["launches"] = launches["spmm_ell_hbm_q"]
+    kernels = [by_name[n] for n in ("vq_assign", "spmm_ell", "spmm_ell_hbm",
+                                    "spmm_ell_t", "context_ell",
+                                    "vq_update")] + lm_rows
     # each row and form with its own count: the top rows are the f32 /
     # int32-emit forms, the quantized forms sit under ``also``
     form_launches = {
         "vq_assign": launches["vq_assign"],
         "spmm_ell": launches["spmm_ell"] - launches["spmm_ell_q"],
+        "spmm_ell_hbm": launches["spmm_ell_hbm"] - launches["spmm_ell_hbm_q"],
         "spmm_ell_t": launches["spmm_ell_t"],
         "context_ell": entries.get("repro_context_ell_f32_i32", 0),
         "vq_update": launches["vq_update"] - launches["vq_update_u8"],
@@ -1851,6 +2290,8 @@ def main() -> int:
             raise SystemExit(f"{row['name']} never launched on the main path")
         for c in row.get("also", []):
             form = c.get("form", "")
+            if row["name"] == "spmm_ell_hbm":
+                continue
             if "entry" in c:
                 c["launches"] = entries.get(c["entry"], 0)
             elif form == "w_t":
@@ -1875,6 +2316,15 @@ def main() -> int:
         "history": r["history"], "final": r["final"], **{k: timing[k] for k in (
             "step_p50_ms", "step_p99_ms", "step_ms")},
         "parity": parity}}))
+    log(json.dumps({"sampler_train": sampler_reps,
+                    "sampler_parity": sampler_parity}))
+    log(json.dumps({"hybrid_train": {
+        "steps": int(rh["step_losses"].shape[0]), "wall_s": rh["wall_s"],
+        "epoch_s": rh["epoch_s"], "epoch_loss": rh["epoch_loss"],
+        "epoch_vq_err": rh["epoch_vq_err"],
+        "largest_cluster_share": rh["largest_cluster_share"],
+        "history": rh["history"], "final": rh["final"],
+        "parity": hybrid_parity}}))
     log(json.dumps({"tier_train": {
         "precision": TIER_PRECISION, "k": TIER_K, "wall_s": rt["wall_s"],
         "epoch_s": rt["epoch_s"], "epoch_loss": rt["epoch_loss"],

@@ -19,6 +19,7 @@ from repro_torch.core.message_passing import ConvOperands
 from repro_torch.distributed.quantization import (PackedAssignment, QTensor,
                                                   last_occurrence)
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.spmm_ell_hbm import StripeIndex
 from repro_torch.runtime import resolve_device
 
 
@@ -28,7 +29,9 @@ class MinibatchPack(NamedTuple):
     ``nbr_*`` are the in-edges (messages into batch nodes), ``rev_*`` the
     out-edges.  Positions are the index inside the batch if the other
     endpoint is also in the batch, else -1.  ``slot_mask`` (optional, [b])
-    is 0 on the wrap-padded slots of a tail batch."""
+    is 0 on the wrap-padded slots of a tail batch.  ``stripe_index``
+    (optional) is the intra-batch term's stripe index for the staged SpMM
+    kernel; ``plan_batch`` leaves it None, as the reference's does."""
     batch_ids: torch.Tensor   # [b]      global node ids, int32
     nbr_ids: torch.Tensor     # [b, D]   in-neighbor global ids (0 on padding)
     nbr_mask: torch.Tensor    # [b, D]   1.0 on real edges
@@ -36,6 +39,7 @@ class MinibatchPack(NamedTuple):
     rev_ids: torch.Tensor     # [b, Dr]  out-edge target global ids
     rev_mask: torch.Tensor    # [b, Dr]
     rev_pos: torch.Tensor     # [b, Dr]
+    stripe_index: Optional[StripeIndex] = None
     slot_mask: Optional[torch.Tensor] = None
 
     @property
@@ -222,5 +226,6 @@ def fixed_conv_operands(kind: str, pack: MinibatchPack, degrees: torch.Tensor
     ops_ = ConvOperands(
         in_pos=pack.nbr_pos, in_vals=in_vals,
         out_ids=pack.nbr_ids, out_vals=out_vals,
-        rev_ids=pack.rev_ids, rev_vals=rev_vals)
+        rev_ids=pack.rev_ids, rev_vals=rev_vals,
+        stripe_index=pack.stripe_index)
     return ops_, self_vals

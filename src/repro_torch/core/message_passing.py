@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.distributed.quantization import PackedAssignment, QTensor
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.spmm_ell_hbm import StripeIndex
 
 Codewords = torch.Tensor | QTensor
 Table = torch.Tensor | PackedAssignment
@@ -108,13 +109,17 @@ def context_messages_reconstruct(out_vals: torch.Tensor,
 
 
 def intra_messages(in_pos: torch.Tensor, in_vals: torch.Tensor,
-                   x_b: torch.Tensor) -> torch.Tensor:
+                   x_b: torch.Tensor,
+                   stripe_index: Optional[StripeIndex] = None
+                   ) -> torch.Tensor:
     """Exact intra-mini-batch messages C_in X_B.
 
     in_pos: [b, D] int32 neighbor position inside the batch (-1 on padding
-    and out-of-batch slots, which carry in_vals == 0); x_b: [b, f]."""
+    and out-of-batch slots, which carry in_vals == 0); x_b: [b, f];
+    ``stripe_index``: the staged SpMM kernel's index, when the batch's
+    source is too large to stay on chip."""
     idx = torch.clamp(in_pos, min=0)
-    return kops.spmm_ell(idx, in_vals, x_b)
+    return kops.spmm_ell(idx, in_vals, x_b, stripe_index)
 
 
 class ConvOperands(NamedTuple):
@@ -125,6 +130,7 @@ class ConvOperands(NamedTuple):
     out_vals: torch.Tensor    # [b, D]   C_out values (0 on padding)
     rev_ids: torch.Tensor     # [b, Dr]  reverse-edge (batch -> out) target ids
     rev_vals: torch.Tensor    # [b, Dr]  C^T_out values (0 on padding)
+    stripe_index: Optional[StripeIndex] = None  # the intra term's index
 
 
 def approx_message_passing(ops_: ConvOperands, x_b: torch.Tensor,
@@ -139,6 +145,7 @@ def approx_message_passing(ops_: ConvOperands, x_b: torch.Tensor,
     if inject:
         x_b = inject_context_grad(x_b, ops_.rev_vals, ops_.rev_ids,
                                   grad_codewords, assignment, w)
-    m = intra_messages(ops_.in_pos, ops_.in_vals, x_b.contiguous())
+    m = intra_messages(ops_.in_pos, ops_.in_vals, x_b.contiguous(),
+                       ops_.stripe_index)
     return m + context_messages_reconstruct(
         ops_.out_vals, ops_.out_ids, feat_codewords, assignment)

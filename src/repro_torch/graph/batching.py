@@ -1,14 +1,15 @@
 """Mini-batch packing: Graph -> padded (ELLPACK) neighbor tables on device.
 
-Torch twin of the serving-path half of ``repro.graph.batching``:
-:func:`_pack_rows` (numpy, vectorized CSR slicing), the whole-graph
-:class:`FullGraphOperands` / :class:`EpochPlan` device tables, the static
-wrap-padded batch slicers, and :func:`plan_batch`, which derives one
-batch's :class:`~repro_torch.core.conv.MinibatchPack` on device (row gather
-plus node->slot scatter) with no host-side packing per batch.
-
-The HBM SpMM stripe index is not ported: the serving path's intra-batch
-source is ``[b, f]`` and never needs it.
+Torch twin of ``repro.graph.batching`` on one device: :func:`_pack_rows`
+(numpy, vectorized CSR slicing), the host-built stripe index of the
+staged SpMM kernel (:func:`make_stripe_index`), the whole-graph and
+sampled-subgraph :class:`FullGraphOperands`, the :class:`EpochPlan`
+device tables, the static wrap-padded batch slicers, :func:`plan_batch`,
+which derives one batch's :class:`~repro_torch.core.conv.MinibatchPack`
+on device (row gather plus node->slot scatter) with no host-side packing
+per batch, and the sampling baselines' stacked epoch
+(:class:`SamplerEpochPlan`, :func:`pack_sampler_epoch`, :func:`pad_bucket`).
+The reference's ``make_pack`` (its per-step host loop) is not ported.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.conv import MinibatchPack
-from repro_torch.graph.structure import CSR, Graph
+from repro_torch.graph.structure import CSR, Graph, csr_from_coo
+from repro_torch.kernels.spmm_ell_hbm import StripeIndex, clamp_tiles
 from repro_torch.runtime import resolve_device
 
 
@@ -47,22 +49,118 @@ def _pack_rows(csr: CSR, ids: np.ndarray, deg_cap: int,
     return nbr, mask, pos
 
 
+def make_stripe_index(nbr_idx: np.ndarray, n_src: int, *,
+                      mask: np.ndarray | None = None, bb: int, stripe: int,
+                      max_stripes: int | None = None,
+                      device: str | torch.device = "cuda") -> StripeIndex:
+    """Host-built tile -> stripes index of the staged SpMM kernel, for a
+    call over ``nbr_idx`` [b, D] into an ``n_src``-row source.
+
+    ``mask`` marks the real (non-padding) slots; padding touches no
+    stripe.  The tiles are clamped as the kernel's (``clamp_tiles``).  The
+    ids width is min(n_stripes, bb * deg), fixed by the shapes, or
+    ``max_stripes``; a tile touching more stripes than that raises rather
+    than dropping some.  ``bb`` / ``stripe`` have no default: the index
+    does not depend on the source's width, but the kernel's two stripe
+    buffers do, so the caller takes them from ``default_tiles(f, itemsize)``
+    at its source (the reference's defaults, 128 / 512, are TPU
+    constants)."""
+    nbr_idx = np.asarray(nbr_idx)
+    b, deg = nbr_idx.shape
+    bb, stripe = clamp_tiles(b, n_src, bb, stripe)
+    bp = (b + bb - 1) // bb * bb
+    nt = bp // bb
+    n_stripes = (n_src + stripe - 1) // stripe
+    sid = np.zeros((bp, deg), np.int64)
+    valid = np.zeros((bp, deg), bool)
+    sid[:b] = np.clip(nbr_idx, 0, None) // stripe
+    valid[:b] = np.ones((b, deg), bool) if mask is None \
+        else np.asarray(mask) != 0
+    sid, valid = sid.reshape(nt, bb * deg), valid.reshape(nt, bb * deg)
+    per_tile = [np.unique(sid[t][valid[t]]) for t in range(nt)]
+    ms = max_stripes if max_stripes is not None \
+        else max(1, min(n_stripes, bb * deg))
+    worst = max((len(u) for u in per_tile), default=0)
+    if worst > ms:
+        raise ValueError(
+            f"a row tile touches {worst} stripes > max_stripes={ms}; "
+            f"raise the cap or the stripe size")
+    ids = np.zeros((nt, ms), np.int32)
+    counts = np.zeros((nt,), np.int32)
+    for t, u in enumerate(per_tile):
+        ids[t, :len(u)] = u
+        counts[t] = len(u)
+    dev = resolve_device(device)
+    return StripeIndex(torch.from_numpy(ids).to(dev),
+                       torch.from_numpy(counts).to(dev),
+                       bb=bb, stripe=stripe, n_src=n_src)
+
+
 class FullGraphOperands(NamedTuple):
-    """Whole-graph ELL operands for exact message passing."""
+    """Whole-(sub)graph ELL operands for exact message passing: the
+    full-graph oracle and evaluation, and the sampling baselines on their
+    sampled subgraphs.  ``stripe_index`` (optional) is the staged SpMM
+    kernel's index for the [n, f] source; without it the kernel builds one
+    on the device."""
     nbr_ids: torch.Tensor    # [n, D] int32
     nbr_mask: torch.Tensor   # [n, D] f32
     degrees: torch.Tensor    # [n]    f32
+    stripe_index: Optional[StripeIndex] = None
 
 
 def full_operands(g: Graph, deg_cap: int | None = None, *,
+                  stripe_index: bool = False, stripe_bb: int | None = None,
+                  stripe: int | None = None,
                   device: str | torch.device = "cuda") -> FullGraphOperands:
+    """Whole-graph operands; with ``stripe_index`` also the host-built
+    index, at the tiles ``stripe_bb`` / ``stripe`` that must then be
+    given (see :func:`make_stripe_index`)."""
+    if stripe_index and (stripe_bb is None or stripe is None):
+        raise ValueError("full_operands(stripe_index=True) needs stripe_bb "
+                         "and stripe: default_tiles(f, itemsize) at the "
+                         "widest source")
     dev = resolve_device(device)
     deg_cap = deg_cap or g.max_degree()
     nbr, mask, _ = _pack_rows(g.in_csr, np.arange(g.n), deg_cap)
+    sidx = make_stripe_index(nbr, g.n, mask=mask, bb=stripe_bb,
+                             stripe=stripe, device=dev) \
+        if stripe_index else None
     return FullGraphOperands(
         nbr_ids=torch.from_numpy(nbr).to(dev),
         nbr_mask=torch.from_numpy(mask).to(dev),
-        degrees=torch.from_numpy(g.degrees()).to(dev))
+        degrees=torch.from_numpy(g.degrees()).to(dev), stripe_index=sidx)
+
+
+def subgraph_operands(src: np.ndarray, dst: np.ndarray, n_sub: int,
+                      deg_cap: int, *, device: str | torch.device = "cuda"
+                      ) -> FullGraphOperands:
+    """The ELL operands of an ``n_sub``-node subgraph given by its local
+    edges ``src -> dst``."""
+    dev = resolve_device(device)
+    csr = csr_from_coo(src.astype(np.int64), dst.astype(np.int64), n_sub)
+    nbr, mask, _ = _pack_rows(csr, np.arange(n_sub), deg_cap)
+    return FullGraphOperands(
+        nbr_ids=torch.from_numpy(nbr).to(dev),
+        nbr_mask=torch.from_numpy(mask).to(dev),
+        degrees=torch.from_numpy(csr.degrees()).to(dev))
+
+
+PAD_BUCKET_CAP = 1 << 22
+
+
+def pad_bucket(n: int, cap: int = PAD_BUCKET_CAP) -> int:
+    """A sampled subgraph's size rounded up to a power-of-two bucket (at
+    least 256) and clamped to ``cap``.  A subgraph above the cap raises:
+    clamping ``n`` itself would drop real nodes."""
+    if n > cap:
+        raise ValueError(
+            f"sampled subgraph has {n} nodes, above the pad-bucket cap "
+            f"{cap}: shrink the sampler batch size / walk length / fanout "
+            f"or raise the cap")
+    b = 256
+    while b < n:
+        b *= 2
+    return min(b, cap)
 
 
 def epoch_slices(perm: np.ndarray,
@@ -157,3 +255,64 @@ def plan_batch(plan: EpochPlan, batch_ids: torch.Tensor,
     return MinibatchPack(
         batch_ids=batch_ids, nbr_ids=nbr, nbr_mask=nmask, nbr_pos=npos,
         rev_ids=rev, rev_mask=rmask, rev_pos=rpos, slot_mask=slot_mask)
+
+
+# ---------------------------------------------------------------------------
+# sampler epoch plans
+# ---------------------------------------------------------------------------
+
+class SamplerEpochPlan(NamedTuple):
+    """An epoch of pre-sampled induced subgraphs, stacked to one static
+    shape [S, P, ...] on the device, for ``models.gnn.sampler_train_epoch``.
+
+    ``nbr_ids`` are local subgraph positions; padding rows have empty
+    neighbour lists, degree 0, node id 0 and loss weight 0, so they feed
+    nothing into real rows and nothing into the masked loss."""
+    node_ids: torch.Tensor   # [S, P]    global node ids (0 on padding), int32
+    nbr_ids: torch.Tensor    # [S, P, D] in-neighbour local positions, int32
+    nbr_mask: torch.Tensor   # [S, P, D] 1.0 on real in-edges
+    degrees: torch.Tensor    # [S, P]    in-degree within the subgraph
+    loss_mask: torch.Tensor  # [S, P]    seed weight (0 on padding/non-seed)
+
+    @property
+    def s(self) -> int:
+        return self.node_ids.shape[0]
+
+    @property
+    def p(self) -> int:
+        return self.node_ids.shape[1]
+
+
+def pack_sampler_epoch(batches: list[tuple], deg_cap: int,
+                       n_pad: Optional[int] = None, *,
+                       device: str | torch.device = "cuda"
+                       ) -> SamplerEpochPlan:
+    """Stack one epoch of sampler 5-tuples ``(src, dst, nodes, seed_pos,
+    seed_weight)`` (``graph.sampling``) into a :class:`SamplerEpochPlan`:
+    every subgraph padded to ``n_pad`` rows, or to the power-of-two bucket
+    of the epoch's largest (:func:`pad_bucket`), and its neighbour lists to
+    ``deg_cap``."""
+    if not batches:
+        raise ValueError("pack_sampler_epoch needs at least one batch")
+    dev = resolve_device(device)
+    sizes = [len(nodes) for _, _, nodes, _, _ in batches]
+    p = n_pad if n_pad is not None else pad_bucket(max(sizes))
+    if max(sizes) > p:
+        raise ValueError(f"subgraph of {max(sizes)} nodes exceeds "
+                         f"n_pad={p}")
+    s = len(batches)
+    node_ids = np.zeros((s, p), np.int32)
+    nbr = np.zeros((s, p, deg_cap), np.int32)
+    mask = np.zeros((s, p, deg_cap), np.float32)
+    degs = np.zeros((s, p), np.float32)
+    loss = np.zeros((s, p), np.float32)
+    for i, (src, dst, nodes, seed_pos, seed_w) in enumerate(batches):
+        csr = csr_from_coo(np.asarray(src, np.int64),
+                           np.asarray(dst, np.int64), p)
+        nbr[i], mask[i], _ = _pack_rows(csr, np.arange(p), deg_cap)
+        degs[i] = csr.degrees()
+        node_ids[i, :len(nodes)] = nodes
+        loss[i, np.asarray(seed_pos)] = np.asarray(seed_w, np.float32)
+    return SamplerEpochPlan(
+        *(torch.from_numpy(a).to(dev)
+          for a in (node_ids, nbr, mask, degs, loss)))

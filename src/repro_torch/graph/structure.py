@@ -106,3 +106,25 @@ def build_graph(src: np.ndarray, dst: np.ndarray, n: int,
         labels=labels,
         train_idx=splits[0], val_idx=splits[1], test_idx=splits[2],
         multilabel=multilabel, name=name, **link_kwargs)
+
+
+def induced_subgraph(g: Graph, nodes: np.ndarray
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Edges of the induced subgraph, relabeled.  Returns (src, dst, nodes).
+
+    The reference walks the nodes one by one; this gathers every node's
+    in-neighbour segment at once, in the same order (node by node, CSR
+    order within a node), so the arrays are equal to the reference's."""
+    nodes = np.unique(nodes)
+    inv = np.full(g.n, -1, np.int64)
+    inv[nodes] = np.arange(len(nodes))
+    csr = g.in_csr
+    starts = csr.indptr[nodes]
+    lens = csr.indptr[nodes + 1] - starts
+    total = int(lens.sum())
+    seg0 = np.cumsum(lens) - lens                   # each segment's offset
+    pos = np.arange(total, dtype=np.int64) - np.repeat(seg0 - starts, lens)
+    loc = inv[csr.indices[pos]]
+    rows = np.repeat(np.arange(len(nodes), dtype=np.int64), lens)
+    sel = loc >= 0
+    return loc[sel], rows[sel], nodes

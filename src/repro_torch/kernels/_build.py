@@ -50,6 +50,8 @@ for _dt in ("f32", "bf16"):
         + [_flt, _vp]
 for _cw in ("i8", "f8"):
     SIGNATURES[f"repro_spmm_ell_q_{_cw}"] = [_vp] * 5 + [_int] * 4 + [_vp]
+for _x in ("f32", "q_i8", "q_f8"):
+    SIGNATURES[f"repro_spmm_ell_hbm_{_x}"] = [_vp] * 7 + [_int] * 7 + [_vp]
 for _cw in ("f32", "i8", "f8"):
     for _tab in ("i32", "u8", "a4"):
         SIGNATURES[f"repro_context_ell_{_cw}_{_tab}"] = \

@@ -5,7 +5,11 @@ CUDA tensor goes to the hand-written kernel, whose wrapper validates it and
 launches or raises.  There is no environment knob and no fallback: a CUDA
 tensor that the kernel refuses is an error, never a silent plain-PyTorch
 run.  ``spmm_ell`` is differentiable in ``x``: its backward is the
-transposed kernel ``spmm_ell_t`` (dispatched the same way).  The LM side's
+transposed kernel ``spmm_ell_t`` (dispatched the same way).  On the card
+``spmm_ell`` has two kernels, as in the reference: the resident one and
+the staged-stripe one for a source too large to stay on chip, picked by
+the reference's precedence (``spmm_ell_variant``: a forced variant, then
+a configured budget, then the default budget, here the H100's 50 MiB L2).  The LM side's
 ``vq_attention_decode`` and ``flash_attention`` follow the same rule: the
 reference also sends ``flash_attention`` shapes with ``sq % 128 != 0`` to
 its oracle, but here every CUDA tensor goes to the kernel, which handles
@@ -31,6 +35,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.context_ell import context_ell_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.spmm_ell import spmm_ell_cuda, spmm_ell_t_cuda
+from repro_torch.kernels.spmm_ell_hbm import StripeIndex, spmm_ell_hbm_cuda
 from repro_torch.kernels.vq_assign import vq_assign_cuda
 from repro_torch.kernels.vq_attention import vq_attention_decode_cuda
 from repro_torch.kernels.vq_update import check_emit, vq_assign_update_cuda
@@ -93,6 +98,79 @@ def precision_packs_assignment(precision: Optional[str] = None) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# spmm_ell variant dispatch: the resident kernel or the staged-stripe one
+# ---------------------------------------------------------------------------
+
+SPMM_VARIANTS = ("auto", "resident", "hbm")
+# The H100's L2 (NVIDIA's data sheet): a source that fits stays there
+# between the resident kernel's gathers; a larger one is staged in stripes.
+_DEFAULT_L2_BUDGET_MB = 50.0
+
+# Programmatic overrides; they take precedence over the environment.
+_dispatch_overrides: dict[str, object] = {}
+
+
+def _l2_budget_mb() -> float:
+    raw = _dispatch_overrides.get(
+        "l2_budget_mb", os.environ.get("REPRO_SPMM_L2_BUDGET_MB",
+                                       _DEFAULT_L2_BUDGET_MB))
+    try:
+        budget = float(raw)  # type: ignore[arg-type]
+    except (TypeError, ValueError):
+        raise ValueError(f"REPRO_SPMM_L2_BUDGET_MB={raw!r}: want a positive "
+                         f"float (MiB)") from None
+    if budget <= 0.0:
+        raise ValueError(f"REPRO_SPMM_L2_BUDGET_MB={raw!r}: want a positive "
+                         f"float (MiB)")
+    return budget
+
+
+def configure_spmm_dispatch(variant: Optional[str] = None,
+                            l2_budget_mb: Optional[float] = None, *,
+                            reset: bool = False) -> None:
+    """Override the ``spmm_ell`` dispatch: ``variant`` in {'auto',
+    'resident', 'hbm'} ('auto' clears a forced variant), ``l2_budget_mb``
+    the source size above which 'auto' stages the source in stripes.
+    None leaves a setting as it is; ``reset=True`` first drops every
+    programmatic override (back to the environment and the defaults).
+
+    The budget is the reference's ``vmem_budget_mb`` /
+    ``REPRO_SPMM_VMEM_BUDGET_MB``, measured against the card's L2 instead
+    of a TPU core's VMEM; its variable is ``REPRO_SPMM_L2_BUDGET_MB``."""
+    if reset:
+        _dispatch_overrides.clear()
+    if variant is not None:
+        if variant not in SPMM_VARIANTS:
+            raise ValueError(f"unknown spmm variant: {variant!r}")
+        _dispatch_overrides["variant"] = variant
+    if l2_budget_mb is not None:
+        _dispatch_overrides["l2_budget_mb"] = float(l2_budget_mb)
+
+
+def spmm_ell_variant(n_src: int, f: int, itemsize: int = 4) -> str:
+    """'resident' or 'hbm' for an [n_src, f] source of ``itemsize``-byte
+    elements.  Precedence: a forced variant (``configure_spmm_dispatch``,
+    else ``REPRO_SPMM_VARIANT``), then the budget (configured, else
+    ``REPRO_SPMM_L2_BUDGET_MB``, else 50 MiB)."""
+    forced = _dispatch_overrides.get(
+        "variant", os.environ.get("REPRO_SPMM_VARIANT", "auto"))
+    if forced not in SPMM_VARIANTS:
+        raise ValueError(
+            f"REPRO_SPMM_VARIANT={forced!r}: want auto, resident or hbm")
+    if forced != "auto":
+        return str(forced)
+    return "hbm" if n_src * f * itemsize > _l2_budget_mb() * 2 ** 20 \
+        else "resident"
+
+
+def _spmm_cuda(nbr_idx, nbr_val, x, stripe_index, x_scale):
+    """The card's SpMM kernel for this source, by ``spmm_ell_variant``."""
+    if spmm_ell_variant(x.shape[0], x.shape[1], x.element_size()) == "hbm":
+        return spmm_ell_hbm_cuda(nbr_idx, nbr_val, x, stripe_index, x_scale)
+    return spmm_ell_cuda(nbr_idx, nbr_val, x, x_scale)
+
+
+# ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
 
@@ -130,25 +208,29 @@ def spmm_ell_t(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
 
 class _SpmmEll(torch.autograd.Function):
     """``spmm_ell`` with its backward in ``x`` (the edge ids and values
-    are constants of the graph and get no gradient)."""
+    are constants of the graph and get no gradient).  The forward runs the
+    variant ``spmm_ell_variant`` picks; ``spmm_ell_t`` is the backward of
+    both (the reference has no backward kernel: JAX autodiff computes
+    it)."""
 
     @staticmethod
-    def forward(ctx, nbr_idx, nbr_val, x):
+    def forward(ctx, nbr_idx, nbr_val, x, stripe_index):
         ctx.save_for_backward(nbr_idx, nbr_val)
         ctx.n_src = x.shape[0]
         if x.is_cuda:
-            return spmm_ell_cuda(nbr_idx, nbr_val, x)
+            return _spmm_cuda(nbr_idx, nbr_val, x, stripe_index, None)
         return ref.spmm_ell(nbr_idx, nbr_val, x)
 
     @staticmethod
     def backward(ctx, g):
         nbr_idx, nbr_val = ctx.saved_tensors
         return None, None, spmm_ell_t(nbr_idx, nbr_val, g.contiguous(),
-                                      ctx.n_src)
+                                      ctx.n_src), None
 
 
 def spmm_ell(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
-             x: torch.Tensor | QTensor, *,
+             x: torch.Tensor | QTensor,
+             stripe_index: Optional[StripeIndex] = None, *,
              x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ELLPACK SpMM: [b, D] ids/values into an [n_src, f] source -> [b, f],
     differentiable in an f32 ``x``.  ``x`` may also be a ``QTensor`` of
@@ -156,17 +238,23 @@ def spmm_ell(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
     a quantized ``x``): a constant source, read in its storage type with
     one scale multiply after the accumulate.  Edge values that require
     grad are refused: on every path they are degree constants of the
-    graph."""
+    graph.
+
+    A CUDA source goes to the kernel ``spmm_ell_variant`` picks;
+    ``stripe_index`` (from ``graph.batching.make_stripe_index``) is read
+    by the staged kernel only, which otherwise builds one on the device.
+    A CPU source goes to the plain ``ref.spmm_ell``, as in the
+    reference."""
     if isinstance(x, QTensor):
         x, x_scale = x.q, x.scale
     if x_scale is not None:
         if x.is_cuda:
-            return spmm_ell_cuda(nbr_idx, nbr_val, x, x_scale)
+            return _spmm_cuda(nbr_idx, nbr_val, x, stripe_index, x_scale)
         return ref.spmm_ell(nbr_idx, nbr_val, x, x_scale)
     if nbr_val.requires_grad and torch.is_grad_enabled():
         raise ValueError("spmm_ell: nbr_val requires grad; the kernel's "
                          "backward covers x only (edge values are constants)")
-    return _SpmmEll.apply(nbr_idx, nbr_val, x)
+    return _SpmmEll.apply(nbr_idx, nbr_val, x, stripe_index)
 
 
 def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,

@@ -6,7 +6,9 @@ its narrow ``emit_dtype``, ``spmm_ell`` with its int8 / fp8 source and
 fp8 codewords with ``cw_scale`` and uint8 or nibble-packed assignment
 tables) plus
 ``spmm_ell_t``, the transposed SpMM that is ``spmm_ell``'s backward in
-``x`` (the reference gets it from JAX autodiff): the numerical ground
+``x`` (the reference gets it from JAX autodiff), and ``spmm_ell_hbm``,
+``spmm_ell`` summed in the staged-stripe kernel's order (the reference's
+own oracle for its HBM kernel is ``spmm_ell``): the numerical ground
 truth each CUDA kernel is held against, and the CPU execution path of
 ``ops.py``.  On a CUDA card nothing on the main path calls them;
 ``chip_smoke.py`` runs them there only to compare with the kernels.
@@ -35,6 +37,7 @@ import math
 import torch
 
 from repro_torch.distributed.quantization import PackedAssignment
+from repro_torch.kernels.spmm_ell_hbm import check_index
 
 # rows per [nb, rows, k] distance block of vq_assign: bounds the plain
 # version's scratch to 256 MiB per temporary at any n (the kernel needs none)
@@ -137,6 +140,51 @@ def spmm_ell(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
     acc = torch.zeros((b, x.shape[1]), dtype=torch.float32, device=x.device)
     for d in range(deg):
         acc = acc + val[:, d, None] * x32[idx[:, d]]
+    if x_scale is not None:
+        acc = acc * x_scale.float().reshape(1, -1)
+    return acc
+
+
+def spmm_ell_hbm(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
+                 x: torch.Tensor, stripe_index,
+                 x_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`spmm_ell` in the staged kernel's order, for a source staged
+    in the stripes of ``stripe_index`` (a ``kernels.spmm_ell_hbm
+    .StripeIndex``).
+
+    Each row's live slots (val != 0, in a stripe its tile lists) are
+    stably sorted by stripe and added one by one, each product and sum
+    rounded on its own, vectorised over the rows; padding slots and slots
+    of unlisted stripes add nothing, and neighbour ids are clamped into
+    ``[0, n_src)``, as in the kernel.  ``x_scale`` multiplies once after
+    the last slot.  An index built for another tiling or source raises
+    the kernel's ``ValueError``."""
+    b, deg = nbr_idx.shape
+    n_src, f = x.shape
+    check_index(stripe_index, b, n_src)
+    bb, stripe = stripe_index.bb, stripe_index.stripe
+    dev = x.device
+    n_stripes = -(-n_src // stripe)
+    idx = nbr_idx.long().clamp(0, n_src - 1)
+    val = nbr_val.float()
+    sid = idx // stripe
+    ids, counts = stripe_index.ids.long(), stripe_index.counts.long()
+    nt = ids.shape[0]
+    listed = torch.zeros((nt, n_stripes + 1), dtype=torch.bool, device=dev)
+    width = ids.shape[1]
+    live_id = torch.arange(width, device=dev)[None, :] < counts[:, None]
+    listed.scatter_(1, torch.where(live_id, ids, n_stripes), True)
+    tile = torch.arange(b, device=dev) // bb
+    live = (val != 0) & listed[tile[:, None], sid]
+    key = torch.where(live, sid, n_stripes)
+    order = torch.sort(key, dim=1, stable=True).indices
+    idx, val, live = (idx.gather(1, order), val.gather(1, order),
+                      live.gather(1, order))
+    x32 = x.float()
+    acc = torch.zeros((b, f), dtype=torch.float32, device=dev)
+    for d in range(deg):
+        acc = torch.where(live[:, d, None],
+                          acc + val[:, d, None] * x32[idx[:, d]], acc)
     if x_scale is not None:
         acc = acc * x_scale.float().reshape(1, -1)
     return acc

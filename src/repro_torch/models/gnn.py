@@ -11,7 +11,9 @@ optimizer, then per layer ``codebook.update``, ``refresh_assignment`` and,
 under a quantized tier, the snapshot's quantize-on-update),
 ``quantize_vq_states`` (the serving conversion into a tier's storage),
 ``vq_eval_batch``, the full-graph oracle (``full_forward``,
-``full_train_step``, ``full_predict``), and inference: ``vq_infer_layer``
+``full_train_step``, ``full_predict``), the sampling baselines' epoch
+over a stacked plan of subgraphs (``sampler_train_epoch``), and
+inference: ``vq_infer_layer``
 / ``vq_infer_epoch`` (layer-locked, optionally inductive) and
 ``vq_serve_batch``.  JAX's ``lax.scan`` over the batches is a Python loop
 here; PyTorch runs eagerly.  Params are lists of ``{name: tensor}`` dicts
@@ -30,7 +32,7 @@ from repro_torch.core.conv import (LayerVQState, MinibatchPack,
                                    refresh_assignment)
 from repro_torch.distributed.quantization import PackedAssignment
 from repro_torch.graph.batching import (EpochPlan, FullGraphOperands,
-                                        plan_batch)
+                                        SamplerEpochPlan, plan_batch)
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.gnn_layers import Params, backbone
 from repro_torch.runtime import LINK_SLICE, resolve_device
@@ -372,6 +374,34 @@ def full_train_step(params, opt_state, x, ops_: FullGraphOperands, labels,
     with torch.no_grad():
         new_params, new_opt = opt.update(grads, opt_state, params)
     return new_params, new_opt, loss.detach()
+
+
+def sampler_train_epoch(params, opt_state, splan: SamplerEpochPlan,
+                        x: torch.Tensor, labels: torch.Tensor,
+                        cfg: GNNConfig, opt: Optimizer):
+    """One sampling-baseline epoch on the device: ``full_train_step`` over
+    the S stacked subgraphs of a :class:`SamplerEpochPlan` (a Python loop
+    where the reference scans), carrying (params, opt_state).
+
+    Each step takes its padded subgraph's operands from the plan, gathers
+    the batch's features and labels from the full [n, ...] tables and
+    weighs the loss by the plan's seed weights.  Padding rows gather node
+    0's row; they feed no messages into real rows and carry no loss.  Node
+    task only.  Returns (params, opt_state, losses [S])."""
+    _node_task(cfg)
+    losses = []
+    for s in range(splan.s):
+        nid = splan.node_ids[s].long()
+        ops_ = FullGraphOperands(nbr_ids=splan.nbr_ids[s],
+                                 nbr_mask=splan.nbr_mask[s],
+                                 degrees=splan.degrees[s])
+        params, opt_state, loss = full_train_step(
+            params, opt_state, x[nid], ops_, labels[nid],
+            splan.loss_mask[s], cfg, opt)
+        losses.append(loss)
+    return (params, opt_state,
+            torch.stack(losses) if losses
+            else torch.zeros(0, device=x.device))
 
 
 @torch.no_grad()

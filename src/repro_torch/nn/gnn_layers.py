@@ -72,7 +72,8 @@ class GCN:
     @staticmethod
     def full_apply(p: Params, x, ops_: FullGraphOperands, act):
         vals, self_vals = _gcn_edge_vals(ops_)
-        m = kops.spmm_ell(ops_.nbr_ids, vals, x) + self_vals[:, None] * x
+        m = kops.spmm_ell(ops_.nbr_ids, vals, x, ops_.stripe_index) \
+            + self_vals[:, None] * x
         return act(m @ p["w"] + p["b"])
 
     @staticmethod
@@ -110,7 +111,7 @@ class SAGE:
     @staticmethod
     def full_apply(p: Params, x, ops_: FullGraphOperands, act):
         vals = ops_.nbr_mask / torch.clamp(ops_.degrees, min=1.0)[:, None]
-        mean_nbr = kops.spmm_ell(ops_.nbr_ids, vals, x)
+        mean_nbr = kops.spmm_ell(ops_.nbr_ids, vals, x, ops_.stripe_index)
         return act(x @ p["w1"] + mean_nbr @ p["w2"] + p["b"])
 
     @staticmethod
@@ -148,7 +149,8 @@ class GIN:
 
     @staticmethod
     def full_apply(p: Params, x, ops_: FullGraphOperands, act):
-        s = kops.spmm_ell(ops_.nbr_ids, ops_.nbr_mask, x)
+        s = kops.spmm_ell(ops_.nbr_ids, ops_.nbr_mask, x,
+                           ops_.stripe_index)
         m = (1.0 + p["eps"]) * x + s
         h = torch.relu(m @ p["w1"] + p["b1"])
         return act(h @ p["w2"] + p["b2"])

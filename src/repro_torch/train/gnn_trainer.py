@@ -1,28 +1,42 @@
-"""GNN training harness on one device: the full-graph oracle, VQ-GNN
-training (Alg. 1) and mini-batched codeword inference.
+"""GNN training harness on one device: the paper's training regimes on
+one API, and mini-batched codeword inference.
 
 Torch twin of the node-task, single-device half of
 ``repro.train.gnn_trainer``:
 
-  train_full   -- the "Full-Graph" oracle rows of Table 4 (Adam);
-  train_vq     -- VQ-GNN, mini-batched, streaming codebooks (RMSprop, lr
-                  3e-3, App. F), one ``vq_train_epoch`` per epoch over the
-                  reference's own batches: the same numpy
-                  ``rng.permutation`` -> ``epoch_slices`` stream, so both
-                  packages see the same batches for a seed;
-  vq_inference -- layer-synchronous codeword inference over static
-                  wrap-padded batches (``vq_infer_epoch``), optionally
-                  inductive.
+  train_full     -- the "Full-Graph" oracle rows of Table 4 (Adam);
+  train_vq       -- VQ-GNN, mini-batched, streaming codebooks (RMSprop, lr
+                    3e-3, App. F), one ``vq_train_epoch`` per epoch over
+                    the reference's own batches: the same numpy
+                    ``rng.permutation`` -> ``epoch_slices`` stream (or the
+                    caller's ``batch_fn``), so both packages see the same
+                    batches for a seed;
+  train_sampler  -- the NS-SAGE / LABOR / Cluster-GCN / GraphSAINT-RW
+                    baselines: each epoch pre-sampled on the host
+                    (``sample_epoch``), stacked (``pack_sampler_epoch``)
+                    and run by ``sampler_train_epoch``;
+                    ``REPRO_SAMPLER_EXECUTOR=0`` steps the batches one by
+                    one from the host instead;
+  train_hybrid   -- the VQ/sampling hybrid: LABOR-widened batches on the
+                    unchanged VQ epoch;
+  train_scenario -- one front for every scale method
+                    (``REPRO_SCALE_METHOD`` picks the default);
+  vq_inference   -- layer-synchronous codeword inference over static
+                    wrap-padded batches (``vq_infer_epoch``), optionally
+                    inductive.
 
 Each trainer returns the reference's result dict (history of val/test
-metrics, params, VQ states, the Table 3 memory model) plus the per-step
-losses and VQ errors and the per-epoch wall seconds.  Every entry point
-runs on the card unless ``device="cpu"`` is passed.
+metrics, params, the Table 3 memory model, ...) plus the per-step losses
+and the per-epoch wall seconds (the sampler's split into host sampling,
+packing and device steps).  Every entry point runs on the card unless
+``device="cpu"`` is passed.  The link task and the GAT / Transformer
+backbones raise, naming the slice of the port that brings them.
 """
 from __future__ import annotations
 
+import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -30,15 +44,19 @@ import torch
 from repro_torch.core import codebook as cbm
 from repro_torch.distributed.quantization import dtype_nbits
 from repro_torch.graph.batching import (build_epoch_plan, epoch_slices,
-                                        full_operands, inference_slices)
+                                        full_operands, inference_slices,
+                                        pack_sampler_epoch, pad_bucket,
+                                        subgraph_operands)
+from repro_torch.graph.sampling import (SAMPLER_METHODS, hybrid_epoch_batches,
+                                        partition_graph, sample_epoch)
 from repro_torch.graph.structure import Graph
 from repro_torch.models.gnn import (GNNConfig, _layer_out_dims, full_predict,
                                     full_train_step, init_gnn, init_vq_states,
-                                    node_metric, vq_infer_epoch,
-                                    vq_train_epoch)
+                                    node_metric, sampler_train_epoch,
+                                    vq_infer_epoch, vq_train_epoch)
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.gnn_layers import backbone
-from repro_torch.runtime import resolve_device
+from repro_torch.runtime import LINK_SLICE, resolve_device
 from repro_torch.train.optimizer import adam, rmsprop
 
 
@@ -56,6 +74,16 @@ def _eval_full(params, g: Graph, cfg: GNNConfig, x: torch.Tensor,
         i = torch.from_numpy(np.asarray(idx)).to(x.device).long()
         res[split] = float(node_metric(out[i], labels[i], cfg.multilabel))
     return res
+
+
+def _evaluate(params, g: Graph, cfg: GNNConfig, x: torch.Tensor,
+              ops) -> dict:
+    """The trainers' evaluation: node task only (the link task's
+    ``_eval_link`` comes with its slice)."""
+    if cfg.task != "node":
+        raise NotImplementedError(f"the {cfg.task!r} task comes with "
+                                  f"{LINK_SLICE}")
+    return _eval_full(params, g, cfg, x, ops)
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +116,11 @@ def vq_batch_bytes(b: int, deg: int, f: int, L: int, k: int,
     return pack + acts + books + recon
 
 
+def subgraph_batch_bytes(n_sub: int, m_sub: int, f: int, L: int) -> int:
+    """Sampler per-batch bytes: subgraph features+acts+edges."""
+    return n_sub * f * 4 * L + m_sub * 2 * 8
+
+
 def messages_per_batch_vq(g: Graph, b: int) -> float:
     """Paper Sec. 4: VQ preserves ALL messages to the batch: b*d of them."""
     return b * float(g.m) / g.n
@@ -116,7 +149,7 @@ def train_full(g: Graph, cfg: GNNConfig, *, epochs: int, lr: float = 1e-2,
         params, ost, _ = full_train_step(params, ost, x, ops, labels, mask,
                                          cfg, opt)
         if (ep + 1) % eval_every == 0 or ep == epochs - 1:
-            m = _eval_full(params, g, cfg, x, ops)
+            m = _evaluate(params, g, cfg, x, ops)
             hist.append({"epoch": ep + 1, "time": time.time() - t0, **m})
     return {"history": hist, "final": hist[-1], "params": params,
             "mem_bytes": g.n * g.f * 4 * cfg.n_layers + g.m * 16}
@@ -125,6 +158,7 @@ def train_full(g: Graph, cfg: GNNConfig, *, epochs: int, lr: float = 1e-2,
 def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
              lr: float = 3e-3, seed: int = 0, eval_every: int = 10,
              deg_cap: Optional[int] = None,
+             batch_fn: Optional[Callable] = None,
              device: str | torch.device = "cuda") -> dict:
     """VQ-GNN training (Alg. 1), node task, one device, in the active
     precision tier (``kops.configure_kernel_precision``): under a
@@ -138,7 +172,11 @@ def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
     come from ``seed``, the VQ states from ``seed + 1``.  Besides the
     reference's keys the result holds ``step_losses`` [epochs * S] and
     ``step_vq_errs`` [epochs * S, L] (numpy) and ``epoch_s``, each epoch's
-    wall seconds up to its losses reaching the host."""
+    wall seconds up to its losses reaching the host.
+
+    ``batch_fn`` (node task) replaces the epoch's batches:
+    ``batch_fn(rng) -> (ids [S, b'], slot_mask [S, b'])`` with distinct ids
+    in each row -- the hook of ``train_hybrid``."""
     dev = resolve_device(device)
     ops = full_operands(g, device=dev)
     x = torch.from_numpy(g.features).to(dev)
@@ -159,8 +197,9 @@ def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
     vq_errs = None
     for ep in range(epochs):
         te = time.time()
-        ids, smask = epoch_slices(rng.permutation(np.arange(g.n)),
-                                  batch_size)
+        ids, smask = (batch_fn(rng) if batch_fn is not None else
+                      epoch_slices(rng.permutation(np.arange(g.n)),
+                                   batch_size))
         params, vq, ost, ls, es = vq_train_epoch(
             params, vq, ost, plan,
             torch.from_numpy(ids.astype(np.int32)).to(dev),
@@ -172,7 +211,7 @@ def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
         if es.shape[0]:
             vq_errs = errs[-1][-1]
         if (ep + 1) % eval_every == 0 or ep == epochs - 1:
-            m = _eval_full(params, g, cfg, x, ops)
+            m = _evaluate(params, g, cfg, x, ops)
             # whitened-space VQ relative error of the last batch, emitted
             # by the fused update kernel (no extra distance computation)
             if vq_errs is not None:
@@ -190,6 +229,182 @@ def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
             "messages": messages_per_batch_vq(g, batch_size),
             "step_losses": np.concatenate(losses),
             "step_vq_errs": np.concatenate(errs), "epoch_s": epoch_s}
+
+
+def train_sampler(g: Graph, cfg: GNNConfig, method: str, *, epochs: int,
+                  batch_size: int, lr: float = 1e-3, seed: int = 0,
+                  eval_every: int = 10, fanout: int = 5,
+                  walk_length: int = 3, n_parts: int = 32,
+                  fanouts: Optional[list] = None,
+                  parts_per_batch: Optional[int] = None,
+                  device: str | torch.device = "cuda") -> dict:
+    """Sampling-baseline training (Adam), node task; ``method`` in
+    ``SAMPLER_METHODS`` (ns-sage / labor / cluster-gcn / graphsaint-rw).
+
+    Every epoch is pre-sampled on the host into one batch list
+    (``sample_epoch``, numpy ``rng`` from ``seed``: the reference's
+    stream), stacked into a padded [S, P, ...] plan on the device
+    (``pack_sampler_epoch``) and run by ``sampler_train_epoch``.
+    ``REPRO_SAMPLER_EXECUTOR=0`` runs the same batches one by one from the
+    host instead, each padded to its own ``pad_bucket``; padding rows are
+    message- and loss-neutral, so both give the same losses.  ``fanouts``
+    overrides the uniform ``fanout``; ``parts_per_batch`` the Cluster-GCN
+    default ``max(1, n_parts // 8)``.
+
+    Besides the reference's keys the result holds ``opt_state`` and, per
+    epoch, ``sample_s`` (host sampling), ``pack_s`` (stacking the epoch and
+    copying it to the device), ``train_s`` (the steps, up to their losses
+    reaching the host) and ``subgraph_rows`` (the padded rows of its
+    largest subgraph: the source rows of its SpMMs)."""
+    if method not in SAMPLER_METHODS:
+        raise ValueError(f"unknown sampler {method!r}; expected one of "
+                         f"{SAMPLER_METHODS}")
+    dev = resolve_device(device)
+    ops = full_operands(g, device=dev)
+    x = torch.from_numpy(g.features).to(dev)
+    labels_np = np.asarray(g.labels)
+    labels = _labels(g, dev)
+    params = init_gnn(cfg, torch.Generator().manual_seed(seed), device=dev)
+    opt = adam(lr)
+    ost = opt.init(params)
+    rng = np.random.default_rng(seed)
+    part = partition_graph(g, n_parts, rng) if method == "cluster-gcn" \
+        else None
+    fanouts = list(fanouts) if fanouts is not None \
+        else [fanout] * cfg.n_layers
+    ppb = parts_per_batch if parts_per_batch is not None \
+        else max(1, n_parts // 8)
+    deg_cap = g.max_degree()
+    use_exec = os.environ.get("REPRO_SAMPLER_EXECUTOR", "1") != "0"
+    hist, t0 = [], time.time()
+    losses_tr: list = []
+    sample_s, pack_s, train_s, rows = [], [], [], []
+    max_sub, max_msg = 0, 0
+    for ep in range(epochs):
+        t = time.time()
+        batches = sample_epoch(g, method, batch_size=batch_size, rng=rng,
+                               fanouts=fanouts, walk_length=walk_length,
+                               partition=part, parts_per_batch=ppb)
+        sample_s.append(time.time() - t)
+        for src, _, nodes, _, _ in batches:
+            max_sub = max(max_sub, len(nodes))
+            max_msg = max(max_msg, len(src))
+        t = time.time()
+        if use_exec:
+            splan = pack_sampler_epoch(batches, deg_cap, device=dev)
+            rows.append(splan.p)
+            pack_s.append(time.time() - t)
+            t = time.time()
+            params, ost, losses = sampler_train_epoch(
+                params, ost, splan, x, labels, cfg, opt)
+            losses_tr.append(losses.cpu().numpy())
+            train_s.append(time.time() - t)
+        else:
+            ep_losses, packing = [], 0.0
+            for src, dst, nodes, seed_pos, seed_w in batches:
+                tp = time.time()
+                n_real = len(nodes)
+                n_pad = pad_bucket(n_real)
+                sub_ops = subgraph_operands(src, dst, n_pad, deg_cap,
+                                            device=dev)
+                xs = torch.zeros((n_pad, g.f), dtype=torch.float32,
+                                 device=dev)
+                xs[:n_real] = x[torch.from_numpy(nodes).to(dev)]
+                lpad = np.zeros((n_pad,) + labels_np.shape[1:],
+                                labels_np.dtype)
+                lpad[:n_real] = labels_np[nodes]
+                mask = np.zeros(n_pad, np.float32)
+                mask[seed_pos] = seed_w
+                packing += time.time() - tp
+                params, ost, loss = full_train_step(
+                    params, ost, xs, sub_ops, torch.from_numpy(lpad).to(dev),
+                    torch.from_numpy(mask).to(dev), cfg, opt)
+                ep_losses.append(float(loss))
+            losses_tr.append(np.asarray(ep_losses, np.float32))
+            rows.append(max(pad_bucket(len(b[2])) for b in batches))
+            pack_s.append(packing)
+            train_s.append(time.time() - t - packing)
+        if (ep + 1) % eval_every == 0 or ep == epochs - 1:
+            m = _evaluate(params, g, cfg, x, ops)
+            hist.append({"epoch": ep + 1, "time": time.time() - t0, **m})
+    return {"history": hist, "final": hist[-1], "params": params,
+            "opt_state": ost, "losses": losses_tr,
+            "mem_bytes": subgraph_batch_bytes(max_sub, max_msg, cfg.hidden,
+                                              cfg.n_layers),
+            "messages": max_msg * cfg.n_layers, "sample_s": sample_s,
+            "pack_s": pack_s, "train_s": train_s, "subgraph_rows": rows}
+
+
+def train_hybrid(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
+                 lr: float = 3e-3, seed: int = 0, eval_every: int = 10,
+                 deg_cap: Optional[int] = None, fanout: int = 5,
+                 fanouts: Optional[list] = None,
+                 n_ctx: Optional[int] = None,
+                 device: str | torch.device = "cuda") -> dict:
+    """VQ/sampling hybrid: ``train_vq`` over LABOR-widened batches.
+
+    Each batch is ``batch_size`` loss-bearing seeds plus up to ``n_ctx``
+    of their sampled neighbours as loss-masked context slots
+    (``hybrid_epoch_batches``); ``vq_apply`` then passes the messages from
+    in-batch neighbours through the exact intra-batch SpMM and only the
+    rest through the codeword context.  ``n_ctx=0`` is plain ``train_vq``
+    bit for bit."""
+    if cfg.task != "node":
+        raise ValueError("train_hybrid is node-task only (the hybrid is a "
+                         "batch-construction strategy for Alg. 1)")
+    fo = list(fanouts) if fanouts is not None else [fanout] * cfg.n_layers
+    return train_vq(
+        g, cfg, epochs=epochs, batch_size=batch_size, lr=lr, seed=seed,
+        eval_every=eval_every, deg_cap=deg_cap, device=device,
+        batch_fn=lambda rng: hybrid_epoch_batches(g, batch_size, fo, rng,
+                                                  n_ctx=n_ctx))
+
+
+SCALE_METHODS = ("full", "vq", "ns_sage", "labor", "cluster", "saint",
+                 "hybrid")
+
+_SAMPLER_OF = {"ns_sage": "ns-sage", "labor": "labor",
+               "cluster": "cluster-gcn", "saint": "graphsaint-rw"}
+
+
+def train_scenario(g: Graph, cfg: GNNConfig, method: Optional[str] = None,
+                   *, epochs: int, batch_size: int, seed: int = 0,
+                   eval_every: int = 10, lr: Optional[float] = None,
+                   device: str | torch.device = "cuda", **knobs) -> dict:
+    """One front for every scale method of the scenario matrix.
+
+    ``method`` is one of ``SCALE_METHODS`` (full / vq / ns_sage / labor /
+    cluster / saint / hybrid); when None it comes from
+    ``REPRO_SCALE_METHOD`` (default "vq").  Knobs not passed are read from
+    ``REPRO_SAMPLER_FANOUT`` (5), ``REPRO_WALK_LENGTH`` (3),
+    ``REPRO_N_PARTS`` (32) and ``REPRO_HYBRID_CTX`` (``batch_size``);
+    other ``knobs`` go to the trainer.  GAT, the Graph Transformer and
+    the link task raise, naming their slice."""
+    method = method or os.environ.get("REPRO_SCALE_METHOD", "vq")
+    if method not in SCALE_METHODS:
+        raise ValueError(f"unknown scale method {method!r}; expected one "
+                         f"of {SCALE_METHODS}")
+
+    def env_int(name, default):
+        return int(os.environ.get(name, default))
+
+    common = dict(epochs=epochs, seed=seed, eval_every=eval_every,
+                  device=device)
+    if method == "full":
+        return train_full(g, cfg, lr=lr or 1e-2, **common, **knobs)
+    if method == "vq":
+        return train_vq(g, cfg, batch_size=batch_size, lr=lr or 3e-3,
+                        **common, **knobs)
+    if method == "hybrid":
+        knobs.setdefault("fanout", env_int("REPRO_SAMPLER_FANOUT", 5))
+        knobs.setdefault("n_ctx", env_int("REPRO_HYBRID_CTX", batch_size))
+        return train_hybrid(g, cfg, batch_size=batch_size, lr=lr or 3e-3,
+                            **common, **knobs)
+    knobs.setdefault("fanout", env_int("REPRO_SAMPLER_FANOUT", 5))
+    knobs.setdefault("walk_length", env_int("REPRO_WALK_LENGTH", 3))
+    knobs.setdefault("n_parts", env_int("REPRO_N_PARTS", 32))
+    return train_sampler(g, cfg, _SAMPLER_OF[method], batch_size=batch_size,
+                         lr=lr or 1e-3, **common, **knobs)
 
 
 def vq_inference(params, vq_states, g: Graph, cfg: GNNConfig,

@@ -670,3 +670,210 @@ def test_lm_decode_cuda_vs_cpu(cuda, vq):
             assert torch.equal(caches[1]["kv"].count.cpu(),
                                caches[0]["kv"].count)
     assert tvatt.launches - before == (24 * cfg.n_layers if vq else 0)
+
+
+# ---------------------------------------------------------------------------
+# the staged-stripe SpMM (spmm_ell_hbm.cu)
+# ---------------------------------------------------------------------------
+
+def _hbm_case(b, deg, n, f, seed, pad=0.3):
+    """ids/values [b, D] with padding slots (value 0) and whole padding
+    rows every 5th row, and an f32 source [n, f]."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, n, (b, deg), generator=g, dtype=torch.int32)
+    val = torch.randn((b, deg), generator=g)
+    padding = torch.rand((b, deg), generator=g) < pad
+    padding[::5] = True
+    val[padding] = 0.0
+    idx[padding] = 0
+    return idx, val, torch.randn((n, f), generator=g)
+
+
+HBM_SHAPES = [(200, 18, 3000, 128, 128, 128), (53, 6, 210, 40, 8, 8),
+              (53, 6, 210, 8, 16, 64), (33, 7, 50, 12, 32, 24),
+              (257, 5, 2000, 200, 128, 64), (7, 3, 20, 1, 128, 512),
+              (600, 18, 20000, 128, 128, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,deg,n,f,bb,stripe", HBM_SHAPES)
+@pytest.mark.parametrize("x_dtype", [torch.float32] + QDTYPES)
+def test_spmm_ell_hbm_kernel_vs_plain(cuda, b, deg, n, f, bb, stripe,
+                                      x_dtype):
+    """Bit-equal to its plain version for f32, int8 and fp8 sources at
+    ragged shapes (tiles with count 0 included), from the host-built and
+    the device-built index alike; close to the resident order's sum."""
+    from repro_torch.distributed.quantization import quantize_codewords
+    from repro_torch.graph.batching import make_stripe_index
+    from repro_torch.kernels import spmm_ell_hbm as thbm
+    idx, val, x = _hbm_case(b, deg, n, f, seed=b + f)
+    if b >= 2 * bb:                       # a tile of padding rows only
+        val[bb:2 * bb] = 0.0
+        idx[bb:2 * bb] = 0
+    sc = None
+    if x_dtype != torch.float32:
+        qt = quantize_codewords(x[None], dtype=x_dtype)
+        x, sc = qt.q[0], qt.scale[0]
+    host = make_stripe_index(idx.numpy(), n, mask=val.numpy() != 0, bb=bb,
+                             stripe=stripe, device=cuda)
+    dev = thbm.stripe_index_torch(idx.to(cuda), val.to(cuda), n, bb=bb,
+                                  stripe=stripe)
+    assert torch.equal(host.counts, dev.counts)
+    if b >= 2 * bb:
+        assert int(dev.counts[1]) == 0
+    want = tref.spmm_ell_hbm(idx, val, x, make_stripe_index(
+        idx.numpy(), n, mask=val.numpy() != 0, bb=bb, stripe=stripe,
+        device="cpu"), sc)
+    args = [idx.to(cuda), val.to(cuda), x.to(cuda)]
+    scc = None if sc is None else sc.to(cuda)
+    before = (thbm.launches, thbm.launches_q)
+    for si in (host, dev):
+        got = thbm.spmm_ell_hbm_cuda(*args, si, scc)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+    quantized = x_dtype != torch.float32
+    assert (thbm.launches, thbm.launches_q) == (before[0] + 2,
+                                                before[1] + 2 * quantized)
+    assert_allclose(want.numpy(), tref.spmm_ell(idx, val, x, sc).numpy(),
+                    **TOL)
+
+
+@pytest.mark.gpu
+def test_spmm_ell_hbm_unaligned_source_and_default_index(cuda):
+    """A source view that is not 16-byte aligned is staged byte by byte;
+    without an index the wrapper builds one at the card's tiles."""
+    from repro_torch.kernels import spmm_ell_hbm as thbm
+    idx, val, _ = _hbm_case(300, 9, 999, 8, seed=11)
+    g = torch.Generator().manual_seed(12)
+    base = torch.randint(-127, 128, (1000, 8), generator=g,
+                         dtype=torch.int8)
+    x = base[1:]                                       # 8 bytes off
+    sc = torch.rand((1, 8), generator=g) + 0.1
+    xc = base.to(cuda)[1:]
+    assert xc.data_ptr() % 16 != 0 and xc.is_contiguous()
+    got = thbm.spmm_ell_hbm_cuda(idx.to(cuda), val.to(cuda), xc, None,
+                                 sc.to(cuda))
+    torch.cuda.synchronize()
+    bb, stripe = thbm.default_tiles(8, 1)
+    si = thbm.stripe_index_torch(idx, val, 999, bb=bb, stripe=stripe)
+    assert torch.equal(got.cpu(), tref.spmm_ell_hbm(idx, val, x, si, sc))
+
+
+@pytest.mark.gpu
+def test_spmm_ell_hbm_rejects_bad_operands(cuda):
+    from repro_torch.graph.batching import make_stripe_index
+    from repro_torch.kernels import spmm_ell_hbm as thbm
+    idx, val, x = _hbm_case(64, 4, 4096, 128, seed=13)
+    idx, val, x = idx.to(cuda), val.to(cuda), x.to(cuda)
+    # two 512-row stripes of 128 f32 columns: 512 KB of shared memory
+    big = make_stripe_index(idx.cpu().numpy(), 4096, bb=64, stripe=512,
+                            device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        thbm.spmm_ell_hbm_cuda(idx, val, x, big)
+    tiles = make_stripe_index(idx[:32].cpu().numpy(), 4096, bb=8,
+                              stripe=64, device=cuda)
+    with pytest.raises(ValueError, match="tiles"):
+        thbm.spmm_ell_hbm_cuda(idx, val, x, tiles)
+    rows = make_stripe_index(idx.cpu().numpy() % 128, 128, bb=8, stripe=64,
+                             device=cuda)
+    with pytest.raises(ValueError, match="n_src"):
+        thbm.spmm_ell_hbm_cuda(idx, val, x, rows)
+    wide, wval, _ = _hbm_case(300, 4, 4096, 8, seed=15)
+    with pytest.raises(ValueError, match="row tile"):       # 256 > 128
+        thbm.spmm_ell_hbm_cuda(wide.to(cuda), wval.to(cuda), x,
+                               make_stripe_index(wide.numpy(), 4096, bb=256,
+                                                 stripe=16, device=cuda))
+    with pytest.raises(ValueError, match="columns"):
+        thbm.spmm_ell_hbm_cuda(idx, val, torch.zeros((4096, 300),
+                                                     device=cuda))
+    with pytest.raises(TypeError):
+        thbm.spmm_ell_hbm_cuda(idx, val, x.half())
+    with pytest.raises(ValueError, match="x_scale"):
+        thbm.spmm_ell_hbm_cuda(idx, val, x.to(torch.int8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        thbm.spmm_ell_hbm_cuda(idx.cpu(), val.cpu(), x.cpu())
+
+
+@pytest.mark.gpu
+def test_dispatch_sends_cuda_tensors_to_each_variant(cuda):
+    """``ops.spmm_ell`` on the card: a forced or budget-picked variant
+    launches that kernel (f32 and QTensor sources), the backward of the
+    staged forward is ``spmm_ell_t``; the results agree."""
+    from repro_torch.distributed.quantization import QTensor
+    from repro_torch.kernels import spmm_ell_hbm as thbm
+    idx, val, x = _hbm_case(300, 9, 5000, 64, seed=14)
+    idx, val = idx.to(cuda), val.to(cuda)
+    sc = torch.rand((1, 64), device=cuda) + 0.5
+    q = QTensor(torch.randint(-127, 128, (5000, 64), device=cuda,
+                              dtype=torch.int8), sc)
+    outs = {}
+    try:
+        # 0.5 MiB: the f32 source (1.28 MB) is staged, the int8 one
+        # (0.32 MB) stays resident
+        for variant, budget in (("resident", None), ("hbm", None),
+                                ("auto", 0.5), ("auto", 50.0)):
+            ops.configure_spmm_dispatch(variant=variant,
+                                        l2_budget_mb=budget, reset=True)
+            picked = ops.spmm_ell_variant(5000, 64, 4)
+            picked_q = ops.spmm_ell_variant(5000, 64, 1)
+            xc = x.to(cuda).requires_grad_(True)
+            before = thbm.launches, tsp.launches, tsp.launches_t
+            out = ops.spmm_ell(idx, val, xc)
+            out.sum().backward()
+            ops.spmm_ell(idx, val, q)
+            torch.cuda.synchronize()
+            staged = (picked == "hbm") + (picked_q == "hbm")
+            assert (thbm.launches - before[0], tsp.launches - before[1],
+                    tsp.launches_t - before[2]) == (staged, 2 - staged, 1), \
+                (variant, budget)
+            outs[picked] = (out.detach(), xc.grad)
+        assert set(outs) == {"resident", "hbm"}
+        for a, b in zip(outs["hbm"], outs["resident"]):
+            assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **TOL)
+    finally:
+        ops.configure_spmm_dispatch(reset=True)
+
+
+@pytest.mark.gpu
+def test_sampler_step_cuda_vs_cpu(cuda):
+    """One NS-SAGE epoch plan through ``sampler_train_epoch`` on the card,
+    the staged kernel forced by a small budget, and on the CPU: losses and
+    params ``rtol=1e-4, atol=1e-5``."""
+    from repro_torch import convert
+    from repro_torch.core.codebook import CodebookConfig
+    from repro_torch.graph.batching import pack_sampler_epoch
+    from repro_torch.graph.datasets import synthetic_arxiv
+    from repro_torch.graph.sampling import sample_epoch
+    from repro_torch.kernels import spmm_ell_hbm as thbm
+    from repro_torch.models.gnn import (GNNConfig, init_gnn,
+                                        sampler_train_epoch)
+    from repro_torch.train.optimizer import adam
+    gr = synthetic_arxiv(n=3000, seed=0)
+    cfg = GNNConfig(backbone="gcn", f_in=gr.f, hidden=32,
+                    n_out=gr.num_classes, n_layers=2,
+                    codebook=CodebookConfig(k=32, f_prod=4))
+    batches = sample_epoch(gr, "ns-sage", batch_size=700,
+                           rng=np.random.default_rng(0), fanouts=[3, 3])
+    opt = adam(1e-3)
+    params = init_gnn(cfg, torch.Generator().manual_seed(0), device="cpu")
+    res = {}
+    try:
+        ops.configure_spmm_dispatch(l2_budget_mb=0.01, reset=True)
+        for dev in ("cpu", cuda):
+            p = convert.to_device(params, dev)
+            splan = pack_sampler_epoch(batches, gr.max_degree(), device=dev)
+            before = thbm.launches
+            res[str(dev)] = sampler_train_epoch(
+                p, opt.init(p), splan,
+                torch.from_numpy(gr.features).to(dev),
+                torch.from_numpy(gr.labels).to(dev), cfg, opt)
+            if dev != "cpu":
+                assert thbm.launches - before == \
+                    splan.s * cfg.n_layers
+    finally:
+        ops.configure_spmm_dispatch(reset=True)
+    (pc, _, lc), (pg, _, lg) = res["cpu"], res[str(cuda)]
+    assert_allclose(lg.cpu().numpy(), lc.numpy(), **STEP)
+    for a, b in zip(pg, pc):
+        for k in a:
+            assert_allclose(a[k].cpu().numpy(), b[k].numpy(), **STEP)

@@ -648,6 +648,208 @@ def test_serve_gnn_train_epochs_on_cpu(capsys):
 
 
 # ---------------------------------------------------------------------------
+# the sampling baselines, the hybrid and the scenario front
+# ---------------------------------------------------------------------------
+
+SAMPLER_KW = {"ns-sage": {}, "labor": {}, "cluster-gcn": {"n_parts": 8},
+              "graphsaint-rw": {}}
+
+
+def _sampler_epoch_batches(jg, method, seed):
+    from repro.graph import sampling as js
+    part = js.partition_graph(jg, 8, np.random.default_rng(seed)) \
+        if method == "cluster-gcn" else None
+    return js.sample_epoch(jg, method, batch_size=150,
+                           rng=np.random.default_rng(seed), fanouts=[3, 3],
+                           partition=part, parts_per_batch=2)
+
+
+@pytest.mark.parametrize("method", ["ns-sage", "labor", "cluster-gcn",
+                                    "graphsaint-rw"])
+def test_sampler_train_epoch_matches_reference(graphs, method):
+    """One epoch plan of each sampler through ``sampler_train_epoch`` in
+    both packages, from a state the reference reached after one epoch of
+    its own (params and Adam moments carried across with ``convert``):
+    per-step losses, params and Adam moments at ``rtol=1e-4, atol=1e-5``."""
+    w = _World(*graphs, "gcn")
+    jo, to = jopt.adam(1e-2), topt.adam(1e-2)
+    deg_cap = w.jg.max_degree()
+    x_j, y_j = jnp.asarray(w.jg.features), jnp.asarray(w.jg.labels)
+    first = jb.pack_sampler_epoch(_sampler_epoch_batches(w.jg, method, 0),
+                                  deg_cap)
+    jp, jos, _ = jgnn.sampler_train_epoch(
+        w.jparams, jo.init(w.jparams), first, x_j, y_j, w.jcfg, jo)
+    tp = convert.params_from_numpy(_np_tree(jp), CPU)
+    tos = convert.opt_state_from_numpy(jos, CPU)
+    batches = _sampler_epoch_batches(w.jg, method, 1)
+    jplan = jb.pack_sampler_epoch(batches, deg_cap)
+    tplan = tb.pack_sampler_epoch(batches, deg_cap, device=CPU)
+    jp2, jos2, jl = jgnn.sampler_train_epoch(jp, jos, jplan, x_j, y_j,
+                                             w.jcfg, jo)
+    tp2, tos2, tl = tgnn.sampler_train_epoch(
+        tp, tos, tplan, torch.from_numpy(w.tg.features),
+        torch.from_numpy(w.tg.labels), w.tcfg, to)
+    assert tl.shape == (jplan.s,)
+    assert_allclose(tl.numpy(), np.asarray(jl), **STEP)
+    _assert_params_close(tp2, jp2, STEP)
+    _assert_params_close(tos2.mu, jos2.mu, STEP)
+    _assert_params_close(tos2.nu, jos2.nu, STEP)
+    assert int(tos2.step) == int(jos2.step)
+
+
+@pytest.mark.parametrize("method", ["ns-sage", "labor", "cluster-gcn",
+                                    "graphsaint-rw"])
+def test_sampler_executor_matches_host_loop(graphs, method, monkeypatch):
+    """The stacked epoch and the ``REPRO_SAMPLER_EXECUTOR=0`` host loop
+    over the same batches (each padded to its own bucket): the same losses
+    and params (the reference's own tolerance for this check)."""
+    _, tg = graphs
+    _, tcfg = _cfgs("gcn")
+    kw = dict(epochs=2, batch_size=150, eval_every=2, seed=5, device=CPU,
+              **SAMPLER_KW[method])
+    monkeypatch.setenv("REPRO_SAMPLER_EXECUTOR", "1")
+    r_exec = ttrain.train_sampler(tg, tcfg, method, **kw)
+    monkeypatch.setenv("REPRO_SAMPLER_EXECUTOR", "0")
+    r_loop = ttrain.train_sampler(tg, tcfg, method, **kw)
+    for le, ll in zip(r_exec["losses"], r_loop["losses"]):
+        assert le.shape == ll.shape
+        assert_allclose(le, ll, rtol=2e-4, atol=1e-6)
+    _assert_params_close(r_exec["params"], [
+        {k: v.numpy() for k, v in p.items()} for p in r_loop["params"]],
+        dict(rtol=2e-4, atol=1e-5))
+    assert len(r_exec["sample_s"]) == len(r_exec["train_s"]) == 2
+
+
+@pytest.mark.parametrize("method", ["labor", "graphsaint-rw"])
+def test_train_sampler_tracks_reference(graphs, method, monkeypatch):
+    """``train_sampler`` end to end in both packages from the reference's
+    initial params (the same numpy sampling stream): per-step losses of
+    two epochs at ``rtol=1e-4, atol=1e-5``, the same accounting, and the
+    final metrics within 0.05."""
+    from repro.train import gnn_trainer as jtrain
+    w = _World(*graphs, "gcn")
+    monkeypatch.setattr(jtrain, "init_gnn", lambda *a, **k: w.jparams)
+    monkeypatch.setattr(ttrain, "init_gnn", lambda *a, **k: w.tparams)
+    kw = dict(epochs=2, batch_size=150, eval_every=1, seed=2,
+              fanouts=[3, 3])
+    jr = jtrain.train_sampler(w.jg, w.jcfg, method, **kw)
+    tr = ttrain.train_sampler(w.tg, w.tcfg, method, device=CPU, **kw)
+    for a, b in zip(tr["losses"], jr["losses"]):
+        assert_allclose(a, np.asarray(b), **STEP)
+    assert (tr["mem_bytes"], tr["messages"]) == \
+        (jr["mem_bytes"], jr["messages"])
+    assert [h["epoch"] for h in tr["history"]] == [1, 2]
+    for split in ("val", "test"):
+        assert abs(tr["final"][split] - jr["final"][split]) <= 0.05
+
+
+def test_train_hybrid_nctx_zero_is_plain_vq(graphs):
+    """``n_ctx=0`` gives plain VQ training bit for bit: the same batches,
+    the same rng draws, the same params."""
+    _, tg = graphs
+    _, tcfg = _cfgs("gcn")
+    kw = dict(epochs=2, batch_size=150, eval_every=2, seed=3, device=CPU)
+    rv = ttrain.train_vq(tg, tcfg, **kw)
+    rh = ttrain.train_hybrid(tg, tcfg, n_ctx=0, **kw)
+    for a, b in zip(rv["params"], rh["params"]):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert np.array_equal(rv["step_losses"], rh["step_losses"])
+    assert rv["final"] == {**rh["final"], "time": rv["final"]["time"]}
+
+
+def test_train_hybrid_tracks_reference(graphs, monkeypatch):
+    """The hybrid (LABOR-widened batches on ``train_vq``) in both packages
+    from the reference's initial state: the batches are wider than
+    ``batch_size``, and the test accuracy and VQ error agree within 0.05
+    (as ``train_vq``'s own end-to-end check)."""
+    from repro.train import gnn_trainer as jtrain
+    w = _World(*graphs, "gcn")
+    monkeypatch.setattr(jtrain, "init_gnn", lambda *a, **k: w.jparams)
+    monkeypatch.setattr(jtrain, "init_vq_states", lambda *a, **k: w.jvq)
+    monkeypatch.setattr(ttrain, "init_gnn", lambda *a, **k: w.tparams)
+    monkeypatch.setattr(ttrain, "init_vq_states", lambda *a, **k: w.tvq)
+    kw = dict(epochs=4, batch_size=150, eval_every=4, seed=1, n_ctx=100,
+              fanouts=[3, 3])
+    jr = jtrain.train_hybrid(w.jg, w.jcfg, **kw)
+    tr = ttrain.train_hybrid(w.tg, w.tcfg, device=CPU, **kw)
+    assert tr["step_losses"].shape == (16,)       # 4 batches of 250 a epoch
+    assert abs(tr["final"]["test"] - jr["final"]["test"]) <= 0.05
+    assert abs(tr["final"]["vq_err"] - jr["final"]["vq_err"]) <= 0.05
+
+
+@pytest.mark.parametrize("backbone", ["gcn", "sage", "gin"])
+def test_train_scenario_runs_every_scale_method(graphs, backbone):
+    """Every method of ``SCALE_METHODS`` through the front on the CPU plain
+    path, each reaching its trainer."""
+    _, tg = graphs
+    _, tcfg = _cfgs(backbone)
+    for method in ttrain.SCALE_METHODS:
+        knobs = {"n_parts": 8} if method == "cluster" else {}
+        r = ttrain.train_scenario(tg, tcfg, method, epochs=1,
+                                  batch_size=150, eval_every=1, device=CPU,
+                                  **knobs)
+        assert 0.0 <= r["final"]["test"] <= 1.0, method
+        assert ("losses" in r) == (method in ttrain._SAMPLER_OF), method
+        assert ("vq_states" in r) == (method in ("vq", "hybrid")), method
+        if method in ("vq", "hybrid"):            # 4 seed batches of 150
+            assert r["step_losses"].shape == (4,)
+
+
+def test_train_scenario_env_default_and_refusals(graphs, monkeypatch):
+    from repro_torch.runtime import BACKBONE_SLICE, LINK_SLICE
+    _, tg = graphs
+    _, tcfg = _cfgs("gcn")
+    monkeypatch.setenv("REPRO_SCALE_METHOD", "labor")
+    monkeypatch.setenv("REPRO_SAMPLER_FANOUT", "2")
+    r = ttrain.train_scenario(tg, tcfg, epochs=1, batch_size=150,
+                              eval_every=1, device=CPU)
+    assert "losses" in r
+    monkeypatch.setenv("REPRO_SCALE_METHOD", "warp")
+    with pytest.raises(ValueError, match="unknown scale method"):
+        ttrain.train_scenario(tg, tcfg, epochs=1, batch_size=150,
+                              device=CPU)
+    for bk in ("gat", "transformer"):
+        with pytest.raises(NotImplementedError, match=BACKBONE_SLICE):
+            ttrain.train_scenario(tg, tcfg._replace(backbone=bk), "vq",
+                                  epochs=1, batch_size=150, device=CPU)
+    link = tcfg._replace(task="link")
+    for method in ttrain.SCALE_METHODS:
+        if method == "hybrid":        # node-task only, as in the reference
+            with pytest.raises(ValueError, match="node-task only"):
+                ttrain.train_scenario(tg, link, method, epochs=1,
+                                      batch_size=150, device=CPU)
+            continue
+        with pytest.raises(NotImplementedError, match=LINK_SLICE):
+            ttrain.train_scenario(tg, link, method, epochs=1,
+                                  batch_size=150, device=CPU)
+    with pytest.raises(ValueError, match="unknown sampler"):
+        ttrain.train_sampler(tg, tcfg, "metropolis", epochs=1,
+                             batch_size=64, device=CPU)
+
+
+def test_scenario_registry_and_accounting_match_reference():
+    from repro.configs import scenarios as jsc
+    from repro.train import gnn_trainer as jtrain
+    from repro_torch.configs import scenarios as tsc
+    assert tsc.MATRIX_BACKBONES == jsc.MATRIX_BACKBONES
+    assert tsc.MATRIX_TASKS == jsc.MATRIX_TASKS
+    assert tsc.SCENARIO_KNOBS == jsc.SCENARIO_KNOBS
+    assert ttrain.SCALE_METHODS == jtrain.SCALE_METHODS
+    assert ttrain._SAMPLER_OF == jtrain._SAMPLER_OF
+    for tasks in (("node",), ("node", "link")):
+        assert tsc.matrix_cells(tasks) == jsc.matrix_cells(tasks)
+    tsc.assert_gnn_only(["gcn", "gin"])
+    for names, what in ((["gcn", "llama3.2-3b"], "leaked"),
+                        (["gcn", "mlp"], "unknown backbones")):
+        for mod in (jsc, tsc):
+            with pytest.raises(ValueError, match=what):
+                mod.assert_gnn_only(names)
+    for args in [(21090, 150000, 128, 3), (262144, 1, 40, 2)]:
+        assert ttrain.subgraph_batch_bytes(*args) == \
+            jtrain.subgraph_batch_bytes(*args)
+
+
+# ---------------------------------------------------------------------------
 # state conversion and device defaults
 # ---------------------------------------------------------------------------
 
