@@ -29,7 +29,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    source the dispatch sends to the staged kernel, phase 12), the plain
    form of
    context_ell on that batch's forward operands, and the serving shapes
-   of vq_assign, spmm_ell and context_ell; timing kernel, plain version
+   of vq_assign (its ``want_min`` output too), spmm_ell and
+   context_ell; timing kernel, plain version
    and -- where one PyTorch call computes the same function -- that
    call, with CUDA events;
 5. one training step at batch 4,096 on the card and the same step on the
@@ -65,13 +66,14 @@ Phases (each prints its own lines; any failure exits non-zero):
 11. sampler-parity: one NS-SAGE step at n 20,000 on the card, the staged
    kernel forced by a 1 MiB budget, and on the CPU plain path from the
    same params: loss, params and Adam moments ``rtol=1e-4, atol=1e-5``;
-12. staged-kernel: spmm_ell_hbm at the full graph (169,343 x 128) and at
-   the first NS-SAGE (262,144 rows) and GraphSAINT (131,072 rows)
-   subgraphs, f32, and with int8 and fp8 sources at the full graph: bit
-   for bit against its plain version, timed beside the resident kernel
-   forced onto the same operands and ``torch.sparse.mm``, with the mean
-   stripes a tile stages and the bytes staged against the bytes the
-   function needs;
+12. staged-kernel: spmm_ell_hbm at the full graph (169,343 x 128, with
+   the host-built index the main path's operands carry) and at the first
+   NS-SAGE (262,144 rows) and GraphSAINT (131,072 rows) subgraphs (the
+   index built on the device in the call, as their steps build it), f32,
+   and with int8 and fp8 sources at the full graph: bit for bit against
+   its plain version, timed beside the resident kernel forced onto the
+   same operands and ``torch.sparse.mm``, with the index builds' times
+   and the bytes the function needs at the achieved rate;
 13. tier-train, the third main path: the same model with k = 256 (the
    paper's alternative codebook size, the largest a uint8 table holds)
    trained by ``train_vq`` under the int8 tier for the same 70 epochs --
@@ -110,9 +112,10 @@ Phases (each prints its own lines; any failure exits non-zero):
 19. lm-kernels: ``vq_attention`` at the path's shape on the path's own
    cache (bf16 and f32) and at the config defaults (n 1024, k 1024, w
    512), ``flash_attention`` at llama3.2-3b's ``[1, 24, 4096, 128]``
-   causal and ``[1, 24, 1024, 128]`` non-causal (bf16); bf16 outputs
-   within 2 bf16 ulps of the plain version, f32 ``rtol=1e-5,
-   atol=1e-6``; timed with SDPA as the library call;
+   causal and ``[1, 24, 1024, 128]`` non-causal on both routes: bf16 on
+   the tensor-core kernel, f32 on the FMA kernel; bf16 outputs within 2
+   bf16 ulps of the plain version, f32 ``rtol=1e-5, atol=1e-6``; timed
+   with SDPA as the library call;
 20. a ``{"kernels": [...]}`` line (the quantized forms under each
    kernel's ``also``, each with its launches on the main paths), each
    phase's seconds, then the ``{"ok": true, ...}`` line.
@@ -311,7 +314,7 @@ class Model:
         import torch
         from repro_torch.graph.batching import build_epoch_plan, full_operands
         self.g, self.cfg, self.batch, self.dev = g, cfg, batch, dev
-        self.ops = full_operands(g, device=dev)
+        self.ops = full_operands(g, device=dev, stripe_index=True)
         self.plan = build_epoch_plan(g, full_ops=self.ops, device=dev)
         self.x = torch.from_numpy(g.features).to(dev)
         self.labels = torch.from_numpy(g.labels).to(dev)
@@ -428,8 +431,7 @@ def phase_train(g, cfg, batch: int, tier: str | None = None,
     # injection, the w_t form of context_ell -- each context_ell launch in
     # its quantized form under a tier.  Each full-graph evaluation runs
     # the staged spmm_ell_hbm once per layer: its 86.7 MB source is above
-    # the 50 MiB L2 budget of the dispatch (until the staged kernel was
-    # ported, the resident spmm_ell ran it); the training batch's source
+    # the 50 MiB L2 budget of the dispatch; the training batch's source
     # (21.7 MB; the hybrid's 43.3 MB) stays resident.
     evals = -(-epochs // EVAL_EVERY)
     q = tier is not None
@@ -1062,21 +1064,35 @@ def phase_kernels(server) -> list[dict]:
         v = cbm._whiten(v, st.mean[:, :fb], st.var[:, :fb], cfg.eps)
         x = v.transpose(0, 1)
         cw = st.codewords_w[:, :, :fb].contiguous()
-        got, want = vq_assign_cuda(x, cw), ref.vq_assign(x, cw)
+        got, gmin = vq_assign_cuda(x, cw, want_min=True)
+        want, wmin = ref.vq_assign(x, cw, want_min=True)
         torch.cuda.synchronize()
+        if not torch.equal(got, vq_assign_cuda(x, cw)):
+            raise SystemExit("vq_assign: want_min changed the assignment")
         rate, err = assign_agreement(got, want, x, cw)
+        # the same formula in the same order: the minima are bit-equal
+        # wherever the codewords agree, close at the near-ties
+        same = got == want
+        if not torch.equal(gmin[same], wmin[same]):
+            raise SystemExit("vq_assign want_min: not bit-equal to its "
+                             "plain version where the codewords agree")
+        min_err = check_close("vq_assign want_min", gmin, wmin, TOL)
         n, k = x.shape[1], cw.shape[1]
         byt = 4 * nb * n * fb + 4 * nb * k * fb + 4 * nb * n
         bms, by = bound(byt, 2 * nb * n * k * fb)
         ms, call_ms = cuda_ms(lambda: vq_assign_cuda(x, cw), 5, inner=2)
+        min_ms = cuda_ms(lambda: vq_assign_cuda(x, cw, want_min=True), 5,
+                         inner=2)[0]
         asg.append(dict(
             max_abs_err=err, agreement=rate, bound_ms=bms, bound_by=by,
-            ms=ms, call_ms=call_ms,
+            ms=ms, call_ms=call_ms, want_min_ms=min_ms,
+            want_min_max_abs_err=min_err,
             plain_ms=cuda_ms(lambda: ref.vq_assign(x, cw), 3, inner=1)[0],
             at=f"x=[{nb}, {n}, {fb}] cw=[{nb}, {k}, {fb}]"))
         c = asg[-1]
         log(f"vq_assign {c['at']}: agreement {rate:.6f} max_abs_err "
-            f"{err:.3g}  kernel {ms:.4f} ms (one call {call_ms:.4f} ms)  "
+            f"{err:.3g}  kernel {ms:.4f} ms (one call {call_ms:.4f} ms; "
+            f"with want_min {min_ms:.4f} ms, max_abs_err {min_err:.3g})  "
             f"plain {c['plain_ms']:.4f} ms  bound {bms:.4f} ms ({by})  "
             f"library none")
     rows.append(dict(name="vq_assign", route="cuda",
@@ -1084,6 +1100,9 @@ def phase_kernels(server) -> list[dict]:
                      replaces="src/repro/kernels/vq_assign.py:83",
                      max_abs_err=max(c["max_abs_err"] for c in asg),
                      agreement=min(c["agreement"] for c in asg),
+                     want_min_max_abs_err=max(c["want_min_max_abs_err"]
+                                              for c in asg),
+                     want_min_ms=asg[0]["want_min_ms"],
                      ms=asg[0]["ms"], plain_ms=asg[0]["plain_ms"],
                      bound_ms=asg[0]["bound_ms"],
                      bound_by=asg[0]["bound_by"], library_ms=None,
@@ -1099,6 +1118,8 @@ def _counters() -> dict:
                                      vq_update)
     return {"vq_attention": (vq_attention, "launches"),
             "flash_attention": (flash_attention, "launches"),
+            "flash_attention_tc": (flash_attention, "launches_tc"),
+            "flash_attention_fma": (flash_attention, "launches_fma"),
             "vq_assign": (vq_assign, "launches"),
             "vq_update": (vq_update, "launches"),
             "vq_update_u8": (vq_update, "launches_u8"),
@@ -1403,22 +1424,37 @@ def phase_sampler_parity() -> dict:
             "max_abs_err": worst}
 
 
-def _staged_row(idx, val, x, sc, at: str) -> dict:
-    """spmm_ell_hbm on one set of operands, at the card's default tiles
-    and with the index the main path builds on the device: bit-equal to
-    its plain version, timed beside the resident kernel forced onto the
-    same operands and (f32) ``torch.sparse.mm``."""
+def _staged_row(idx, val, x, sc, at: str, si=None) -> dict:
+    """spmm_ell_hbm on one set of operands, bit-equal to its plain version
+    and timed beside the resident kernel forced onto the same operands and
+    (f32) ``torch.sparse.mm``.  ``si``: the host-built index the main path
+    passes (the full graph's); without it the call takes none, as the
+    sampled subgraphs' steps do (every touched stripe listed: the same
+    bits as with the index built on the device).  ``ms`` is the kernel
+    with an index, ``call_ms`` one call as the main path makes it,
+    ``index_ms`` the device build of the index (and ``host_index_s`` the
+    host build where the path has one)."""
     import torch
+    from repro_torch.graph.batching import make_stripe_index
     from repro_torch.kernels import ref
     from repro_torch.kernels.spmm_ell import spmm_ell_cuda
-    from repro_torch.kernels.spmm_ell_hbm import (default_tiles,
-                                                  spmm_ell_hbm_cuda,
+    from repro_torch.kernels.spmm_ell_hbm import (spmm_ell_hbm_cuda,
                                                   stripe_index_torch)
     b, deg = idx.shape
     n_src, f = x.shape
     item = x.element_size()
-    bb, stripe = default_tiles(f, item)
-    si = stripe_index_torch(idx, val, n_src, bb=bb, stripe=stripe)
+    dev_si = stripe_index_torch(idx, val, n_src)
+    host_index_s = None
+    if si is not None:
+        if not torch.equal(si.counts, dev_si.counts):
+            raise SystemExit(f"spmm_ell_hbm {at}: host and device indices "
+                             f"disagree")
+        t = time.perf_counter()
+        make_stripe_index(idx.cpu().numpy(), n_src,
+                          mask=val.cpu().numpy() != 0, device=x.device)
+        host_index_s = time.perf_counter() - t
+    path_si = si
+    si = dev_si if si is None else si
     got = spmm_ell_hbm_cuda(idx, val, x, si, sc)
     want = ref.spmm_ell_hbm(idx, val, x, si, sc)
     torch.cuda.synchronize()
@@ -1430,23 +1466,16 @@ def _staged_row(idx, val, x, sc, at: str) -> dict:
         raise SystemExit(f"spmm_ell_hbm {at}: disagrees with spmm_ell")
     # the bound counts what the function needs, as spmm_ell's row does on
     # the same operands: idx and val, the distinct source rows, the output
-    # (and the scale); not the stripe index, whose columns past counts[t]
-    # the kernel never reads
+    # (and the scale); not the stripe index
     n_rows = int(torch.unique(idx).numel())
-    width = si.ids.shape[1]
-    listed = torch.arange(width, device=x.device)[None, :] \
-        < si.counts[:, None]
-    s_ids = si.ids[listed].long()
-    staged_rows = int(torch.clamp(n_src - s_ids * stripe, max=stripe).sum())
     needed = 8 * b * deg + item * n_rows * f + 4 * b * f \
         + (4 * f if sc is not None else 0)
     bms, by = bound(needed, 2 * b * deg * f
                     + (b * f if sc is not None else 0))
-    ms, call_ms = cuda_ms(lambda: spmm_ell_hbm_cuda(idx, val, x, si, sc), 3,
-                          inner=3)
-    index_ms = cuda_ms(lambda: stripe_index_torch(idx, val, n_src, bb=bb,
-                                                  stripe=stripe), 3,
-                       inner=3)[0]
+    ms = cuda_ms(lambda: spmm_ell_hbm_cuda(idx, val, x, si, sc), 5)[0]
+    call_ms = cuda_ms(lambda: spmm_ell_hbm_cuda(idx, val, x, path_si, sc),
+                      5)[1]
+    index_ms = cuda_ms(lambda: stripe_index_torch(idx, val, n_src), 5)[0]
     resident_ms = cuda_ms(lambda: spmm_ell_cuda(idx, val, x, sc), 5)[0]
     plain_ms = cuda_ms(lambda: ref.spmm_ell_hbm(idx, val, x, si, sc), 2,
                        inner=1)[0]
@@ -1459,25 +1488,25 @@ def _staged_row(idx, val, x, sc, at: str) -> dict:
         check_close(f"spmm_ell_hbm library call {at}",
                     torch.sparse.mm(coo, x), want, SERVE_TOL)
         library_ms = cuda_ms(lambda: torch.sparse.mm(coo, x), 5)[0]
-    counts = si.counts.float()
     row = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                bound_ms=bms, bound_by=by, library_ms=library_ms,
-               resident_ms=resident_ms, index_ms=index_ms, bb=bb,
-               stripe=stripe, tiles=int(si.counts.numel()),
-               mean_counts=float(counts.mean()),
-               max_counts=int(si.counts.max()),
-               staged_bytes=staged_rows * f * item, needed_bytes=needed,
+               resident_ms=resident_ms, index_ms=index_ms,
+               host_index_s=host_index_s,
+               index="host-built" if path_si is not None
+               else "no",
+               bb=si.bb, stripe=si.stripe, tiles=int(si.counts.numel()),
+               needed_bytes=needed, achieved_bytes_per_s=needed / ms * 1e3,
                at=f"b={b} D={deg} f={f} n_src={n_src} "
                   f"({item * n_src * f / 1e6:.1f} MB {x.dtype} source) "
                   f"{at}")
     log(f"spmm_ell_hbm {row['at']}: bit-equal  kernel {ms:.5f} ms (one "
-        f"call {call_ms:.5f} ms, index build {index_ms:.5f} ms)  resident "
-        f"spmm_ell {resident_ms:.5f} ms  plain {plain_ms:.5f} ms  "
-        f"sparse.mm {library_ms}  bound {bms:.6f} ms ({by}); tiles of "
-        f"{bb} rows stage {row['mean_counts']:.1f} stripes of {stripe} "
-        f"rows on average (max {row['max_counts']}): "
-        f"{row['staged_bytes'] / 1e9:.3f} GB staged against "
-        f"{needed / 1e6:.1f} MB needed")
+        f"call {call_ms:.5f} ms, {row['index']} index passed; device "
+        f"index build {index_ms:.5f} ms, host build {host_index_s} s)  "
+        f"resident spmm_ell {resident_ms:.5f} ms  plain {plain_ms:.5f} ms  "
+        f"sparse.mm {library_ms}  bound {bms:.6f} ms ({by}); "
+        f"{needed / 1e6:.1f} MB needed at "
+        f"{row['achieved_bytes_per_s'] / 1e12:.3f} TB/s; tiles of {si.bb} "
+        f"rows, {si.stripe}-row stripes")
     return row
 
 
@@ -1551,7 +1580,7 @@ def phase_staged_kernel(m: Model, subs: list) -> dict:
     from repro_torch.nn.gnn_layers import _gcn_edge_vals
     rows = [_staged_row(m.ops.nbr_ids.contiguous(),
                         _gcn_edge_vals(m.ops)[0].contiguous(), m.x, None,
-                        "(full-graph evaluation)")]
+                        "(full-graph evaluation)", m.ops.stripe_index)]
     for name, ops_, x_sub in subs:
         if name != "Cluster-GCN":        # its 16 MiB source stays resident
             rows.append(_staged_row(
@@ -1563,7 +1592,7 @@ def phase_staged_kernel(m: Model, subs: list) -> dict:
         rows.append(_staged_row(
             m.ops.nbr_ids.contiguous(), _gcn_edge_vals(m.ops)[0].contiguous(),
             qx.q[0].contiguous(), qx.scale[0].contiguous(),
-            f"(full graph, {name} source)"))
+            f"(full graph, {name} source)", m.ops.stripe_index))
         rows[-1]["form"] = f"{name} source"
     top = rows[0]
     return dict(name="spmm_ell_hbm", route="cuda",
@@ -2069,36 +2098,45 @@ def _vq_attn_row(args, at: str) -> dict:
     return row
 
 
-def _flash_row(shape, causal: bool) -> dict:
+def _flash_row(shape, causal: bool, dtype) -> dict:
+    """flash_attention at one shape and dtype, on the route its wrapper
+    picks (bf16: the tensor-core kernel; f32: the FMA kernel), against its
+    plain version, the one-call time and SDPA on the same inputs."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
     b, h, s, d = shape
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + s)
-    q, k, v = (torch.randn(shape, generator=gen, device=DEVICE,
-                           dtype=torch.bfloat16) for _ in "qkv")
-    got = flash_attention_cuda(q, k, v, causal=causal)
+    q, k, v = (torch.randn(shape, generator=gen, device=DEVICE, dtype=dtype)
+               for _ in "qkv")
+    kroute = tfa.route(q, k, v)
+    got = tfa.flash_attention_cuda(q, k, v, causal=causal)
     want = ref.flash_attention(q, k, v, causal=causal)
-    err = _bf16_close(f"flash_attention {shape}", got, want)
+    name = f"flash_attention {shape} {dtype}"
+    err = _bf16_close(name, got, want) if dtype == torch.bfloat16 \
+        else check_close(name, got, want, TOL)
     del want
     pairs = s * (s + 1) // 2 if causal else s * s
-    bms, by = bound(4 * 2 * b * h * s * d, 4.0 * b * h * pairs * d,
-                    BF16_FLOP_PER_S)
-    ms, call_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v,
-                                                       causal=causal), 3,
-                          inner=2)
+    item = torch.finfo(dtype).bits // 8
+    bms, by = bound(4 * item * b * h * s * d, 4.0 * b * h * pairs * d,
+                    BF16_FLOP_PER_S if dtype == torch.bfloat16
+                    else FP32_FLOP_PER_S)
+    ms, call_ms = cuda_ms(lambda: tfa.flash_attention_cuda(
+        q, k, v, causal=causal), 3, inner=2 if kroute == "fma" else 10)
     plain_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, causal=causal),
                        3, inner=1)[0]
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal), 5, inner=10)[0]
     row = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                bound_ms=bms, bound_by=by, library_ms=lib_ms,
-               at=f"[{b}, {h}, {s}, {d}] bf16 {'causal' if causal else
-                                                 'non-causal'}")
-    log(f"flash_attention {row['at']}: max_abs_err {err:.3g}  kernel "
-        f"{ms:.4f} ms (one call {call_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
-        f"sdpa {lib_ms:.4f} ms  bound {bms:.5f} ms ({by})")
+               form=f"{kroute} route",
+               at=f"[{b}, {h}, {s}, {d}] {str(dtype)[6:]} "
+                  f"{'causal' if causal else 'non-causal'}")
+    log(f"flash_attention {row['at']} ({kroute} route): max_abs_err "
+        f"{err:.3g}  kernel {ms:.4f} ms (one call {call_ms:.4f} ms)  plain "
+        f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bms:.5f} ms "
+        f"({by})")
     return row
 
 
@@ -2142,8 +2180,9 @@ def phase_lm_kernels(kv, cfg) -> list[dict]:
                   **{k: v for k, v in rows[0].items() if k != "max_abs_err"},
                   max_abs_err=max(r["max_abs_err"] for r in rows),
                   also=rows[1:])
-    fl = [_flash_row((1, cfg.n_heads, 4096, d), True),
-          _flash_row((1, cfg.n_heads, 1024, d), False)]
+    fl = [_flash_row((1, cfg.n_heads, s, d), causal, dt)
+          for dt in (torch.bfloat16, torch.float32)
+          for s, causal in ((4096, True), (1024, False))]
     fl_row = dict(name="flash_attention", route="cuda",
                   source="src/repro_torch/kernels/csrc/flash_attention.cu",
                   replaces="src/repro/kernels/flash_attention.py:70",
@@ -2281,7 +2320,7 @@ def main() -> int:
         "context_ell": entries.get("repro_context_ell_f32_i32", 0),
         "vq_update": launches["vq_update"] - launches["vq_update_u8"],
         "vq_attention": launches["vq_attention"],
-        "flash_attention": launches["flash_attention"]}
+        "flash_attention": launches["flash_attention_tc"]}
     for row in kernels:
         row["launches"] = form_launches[row["name"]]
         # flash_attention is on no main path (the reference's models call
@@ -2300,6 +2339,9 @@ def main() -> int:
                 c["launches"] = launches["spmm_ell_q"]
             elif form == "uint8 emit":
                 c["launches"] = launches["vq_update_u8"]
+            elif form in ("tc route", "fma route"):
+                route = form.split()[0]
+                c["launches"] = launches[f"flash_attention_{route}"]
     for entry in ("repro_context_ell_wt_f32_i32", "repro_context_ell_i8_u8",
                   "repro_context_ell_wt_i8_u8", "repro_context_ell_f8_u8",
                   "repro_context_ell_i8_a4", "repro_context_ell_f8_a4"):

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.core.conv import MinibatchPack
 from repro_torch.graph.structure import CSR, Graph, csr_from_coo
-from repro_torch.kernels.spmm_ell_hbm import StripeIndex, clamp_tiles
+from repro_torch.kernels.spmm_ell_hbm import (DEFAULT_BB, DEFAULT_STRIPE,
+                                              StripeIndex, clamp_tiles)
 from repro_torch.runtime import resolve_device
 
 
@@ -50,7 +51,8 @@ def _pack_rows(csr: CSR, ids: np.ndarray, deg_cap: int,
 
 
 def make_stripe_index(nbr_idx: np.ndarray, n_src: int, *,
-                      mask: np.ndarray | None = None, bb: int, stripe: int,
+                      mask: np.ndarray | None = None,
+                      bb: int = DEFAULT_BB, stripe: int = DEFAULT_STRIPE,
                       max_stripes: int | None = None,
                       device: str | torch.device = "cuda") -> StripeIndex:
     """Host-built tile -> stripes index of the staged SpMM kernel, for a
@@ -60,11 +62,8 @@ def make_stripe_index(nbr_idx: np.ndarray, n_src: int, *,
     stripe.  The tiles are clamped as the kernel's (``clamp_tiles``).  The
     ids width is min(n_stripes, bb * deg), fixed by the shapes, or
     ``max_stripes``; a tile touching more stripes than that raises rather
-    than dropping some.  ``bb`` / ``stripe`` have no default: the index
-    does not depend on the source's width, but the kernel's two stripe
-    buffers do, so the caller takes them from ``default_tiles(f, itemsize)``
-    at its source (the reference's defaults, 128 / 512, are TPU
-    constants)."""
+    than dropping some.  ``bb`` / ``stripe`` default to the reference's
+    128 / 512."""
     nbr_idx = np.asarray(nbr_idx)
     b, deg = nbr_idx.shape
     bb, stripe = clamp_tiles(b, n_src, bb, stripe)
@@ -109,16 +108,12 @@ class FullGraphOperands(NamedTuple):
 
 
 def full_operands(g: Graph, deg_cap: int | None = None, *,
-                  stripe_index: bool = False, stripe_bb: int | None = None,
-                  stripe: int | None = None,
+                  stripe_index: bool = False, stripe_bb: int = DEFAULT_BB,
+                  stripe: int = DEFAULT_STRIPE,
                   device: str | torch.device = "cuda") -> FullGraphOperands:
     """Whole-graph operands; with ``stripe_index`` also the host-built
-    index, at the tiles ``stripe_bb`` / ``stripe`` that must then be
-    given (see :func:`make_stripe_index`)."""
-    if stripe_index and (stripe_bb is None or stripe is None):
-        raise ValueError("full_operands(stripe_index=True) needs stripe_bb "
-                         "and stripe: default_tiles(f, itemsize) at the "
-                         "widest source")
+    index at the tiles ``stripe_bb`` / ``stripe`` (see
+    :func:`make_stripe_index`)."""
     dev = resolve_device(device)
     deg_cap = deg_cap or g.max_degree()
     nbr, mask, _ = _pack_rows(g.in_csr, np.arange(g.n), deg_cap)

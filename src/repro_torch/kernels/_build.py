@@ -31,8 +31,8 @@ _vp, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _flt = ctypes.c_float
 # name -> argtypes of every exported function (restype: cudaError_t as int)
 SIGNATURES = {
-    "repro_vq_assign_f32": [_vp, _ll, _ll, _vp, _vp, _int, _int, _int, _int,
-                            _vp],
+    "repro_vq_assign_f32": [_vp, _ll, _ll, _vp, _vp, _vp, _int, _int, _int,
+                            _int, _vp],
     "repro_spmm_ell_f32": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
     "repro_spmm_ell_t_f32": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
                              _vp],
@@ -48,6 +48,8 @@ for _dt in ("f32", "bf16"):
         + [_flt, _vp]
     SIGNATURES[f"repro_flash_attention_{_dt}"] = [_vp] * 4 + [_int] * 5 \
         + [_flt, _vp]
+SIGNATURES["repro_flash_attention_tc_bf16"] = \
+    SIGNATURES["repro_flash_attention_bf16"]
 for _cw in ("i8", "f8"):
     SIGNATURES[f"repro_spmm_ell_q_{_cw}"] = [_vp] * 5 + [_int] * 4 + [_vp]
 for _x in ("f32", "q_i8", "q_f8"):

@@ -1,48 +1,48 @@
 // Staged-stripe ELLPACK SpMM: out[i, :] = sum_d val[i, d] * x[idx[i, d], :]
-// for a source x too large to stay on chip, fp32 / int8 / fp8 e4m3.
+// for a source x too large to stay on chip, fp32 / int8 / fp8 e4m3, each
+// row's slots added in (stripe, slot) order.
 //
 // Replaces the TPU kernel src/repro/kernels/spmm_ell_hbm.py:
 // spmm_ell_hbm_pallas (_spmm_ell_hbm_kernel), which keeps x in HBM and
 // DMAs, for each tile of bb output rows, every stripe of `stripe`
 // consecutive source rows that the tile's neighbours touch into a
-// double-buffered VMEM scratch, the copy of stripe j+1 overlapping the
-// gather-accumulate over stripe j.  Which stripes a tile touches comes in
-// a StripeIndex: ids [tiles, max_stripes] (ascending, the first counts[t]
-// of row t are live) and counts [tiles].  The reference's dispatch sends a
-// source there when it exceeds the on-chip budget; the port's dispatch
-// (kernels/ops.py) does the same against the H100's 50 MB L2: the
+// double-buffered VMEM scratch: on a TPU the only way a kernel reaches HBM
+// rows.  Which stripes a tile touches comes in a StripeIndex: ids
+// [tiles, max_stripes] (ascending, the first counts[t] of row t are live)
+// and counts [tiles].  The dispatch (kernels/ops.py) sends a source here
+// when it exceeds the budget, the H100's 50 MB L2 in the port: the
 // full-graph SpMM (169,343 x 128 fp32, 86.7 MB) and the sampled subgraphs
 // of NS-SAGE, LABOR and GraphSAINT.
 //
-// What bounds it on an H100: the bytes it stages.  The function needs each
-// source row once (86.7 MB at the full graph, 0.026 ms at 3.35 TB/s), but
-// a tile stages whole stripes: on a graph whose ids have no locality a
-// 128-row tile of ~18 slots a row touches hundreds of stripes, so one call
-// stages tens of GB.  This kernel is the faithful first port, simple and
-// exact; the staged bytes, not the arithmetic, are what a later redesign
-// has to cut (PERF.md).
+// What bounds it on an H100: bytes.  The function needs each row's ids and
+// values, each source row it names once (86.7 MB at the full graph) and
+// the output: ~0.06 ms at 3.35 TB/s.  Any thread can gather a source row
+// straight from device memory through the L2, so nothing is staged: the
+// first version of this kernel copied whole stripes into shared memory as
+// the TPU kernel does, and on ids without locality a tile touched ~590 of
+// 1,323 stripes, 51 GB copied a call to use 0.2 GB (PERF.md).  Here the
+// stripe is only the sort key of a row's slots and the unit of the index:
+// the memory pattern is the resident spmm_ell.cu's, with the slots taken
+// in the staged order.
 //
-// Design: one block of 8 warps per row tile.  The block first sorts each
-// of its rows' live slots (val != 0; padding slots touch no stripe, as in
-// the index) by (stripe, slot) into shared memory, one thread a row, an
-// insertion sort over the deg slots.  It then walks ids[t, :counts[t]] in
-// ascending order, staging each stripe of x, in x's storage type, into one
-// of two shared-memory buffers with cp.async (16-byte copies when the
-// stripe's bytes are 16-byte aligned; a stripe's last bytes, and every
-// byte of an unaligned stripe, by plain loads), commit_group / wait_group,
-// so stripe j+1's copy is in flight while the block accumulates stripe j.
-// The last stripe is bounded by n_src in the kernel: no padded copy of x
-// is made.  Each warp owns up to 16 rows of the tile (rows warp, warp + 8,
-// ...), each lane up to 8 columns (lane, lane + 32, ...), accumulated in
-// registers across all stripes; a row keeps a cursor into its sorted
-// slots and advances it as the stripes go by (slots of stripes the index
-// does not list are skipped).  Every multiply and add is rounded on its
-// own (__fmul_rn / __fadd_rn) in the order (stripe ascending, slot
-// ascending) -- the plain version's order, so the two agree bit for bit.
+// Design: one block of 8 warps per row tile.  The block loads the tile's
+// ids and values into shared memory, and marks the stripes the tile lists
+// (ids[t, :counts[t]]) in a bitmap of ceil(n_src / stripe) bits.  Then one
+// thread a row keeps the row's live slots -- val != 0, in a listed stripe
+// -- and sorts them in place by stripe, a stable insertion sort.  Without
+// an index (sids and counts null) every stripe a live slot touches counts
+// as listed, which is what an index built from the same ids lists: the
+// wrapper then skips the index build, the bitmap and the lookups.  Then a
+// warp owns a row: each lane holds CPL contiguous columns (one 16-byte
+// load a slot at f 128 fp32, 4 bytes in int8 / fp8) and the warp issues
+// the loads of up to kBatch slots before it adds them, in the sorted
+// order, each multiply and add rounded on its own (__fmul_rn /
+// __fadd_rn) -- the plain version's order, so the two agree bit for bit.
 // An int8 / fp8 value widens to fp32 exactly and the scale multiplies once
-// after the last stripe.  A tile with count 0 writes zeros.  Neighbour ids
-// outside [0, n_src) are clamped, as in the resident kernel.  The buffers
-// are dynamic shared memory (cudaFuncSetAttribute above 48 KB).
+// after the last slot.  A row with no live slot writes zeros.  Neighbour
+// ids outside [0, n_src) are clamped, as in the resident kernel.  Shared
+// memory holds the bitmap and the tile's slot lists (bb * deg * 8 bytes),
+// so the slot count, not the stripe, is what it bounds.
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,51 +51,68 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 16;          // bb <= kWarps * kRowsPerWarp
+constexpr int kMaxBB = 128;               // rows a tile
 constexpr int kMaxCols = 256;             // 8 columns a lane
+constexpr int kBatch = 8;                 // gathers a lane keeps in flight
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(int8_t v) { return (float)v; }
 __device__ __forceinline__ float widen(__nv_fp8_e4m3 v) { return (float)v; }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
+// element e of a lane's chunk, from its raw 32-bit words
+__device__ __forceinline__ float word_elem(const uint32_t* w, int e, float) {
+  return __uint_as_float(w[e]);
+}
+__device__ __forceinline__ float word_elem(const uint32_t* w, int e,
+                                           int8_t) {
+  return (float)(int8_t)(w[e / 4] >> (8 * (e % 4)));
+}
+__device__ __forceinline__ float word_elem(const uint32_t* w, int e,
+                                           __nv_fp8_e4m3) {
+  __nv_fp8_e4m3 t;
+  t.__x = (__nv_fp8_storage_t)(w[e / 4] >> (8 * (e % 4)));
+  return (float)t;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start the copy of stripe s -- rows [s * stripe, min((s + 1) * stripe,
-// n_src)) of x -- into dst, and close this thread's copy group.
-__device__ __forceinline__ void stage(unsigned char* dst,
-                                      const unsigned char* x, int s,
-                                      int stripe, int n_src,
-                                      size_t row_bytes, bool vec) {
-  const long long r0 = (long long)s * stripe;
-  const long long r1 = min(r0 + stripe, (long long)n_src);
-  const size_t nbytes = (size_t)(r1 - r0) * row_bytes;
-  const unsigned char* src = x + (size_t)r0 * row_bytes;
-  size_t body = 0;
-  if (vec) {
-    body = nbytes & ~(size_t)15;
-    for (size_t o = (size_t)threadIdx.x * 16; o < body; o += kThreads * 16)
-      cp_async16(dst + o, src + o);
+// The CPL columns of source row p that start at column c0, widened.
+// vec: the chunk is CPL * sizeof(T) >= 4 bytes, aligned, and whole.
+template <typename T, int CPL>
+__device__ __forceinline__ void gather(const T* __restrict__ p, int c0,
+                                       int f, bool vec, float* o) {
+  constexpr int kBytes = CPL * (int)sizeof(T);
+  if constexpr (kBytes >= 4) {
+    if (vec) {
+      constexpr int NW = kBytes / 4;
+      uint32_t w[NW];
+      const T* src = p + c0;
+      if constexpr (NW >= 4) {
+#pragma unroll
+        for (int i = 0; i < NW / 4; ++i) {
+          const uint4 u = __ldg(reinterpret_cast<const uint4*>(src) + i);
+          w[4 * i] = u.x;
+          w[4 * i + 1] = u.y;
+          w[4 * i + 2] = u.z;
+          w[4 * i + 3] = u.w;
+        }
+      } else if constexpr (NW == 2) {
+        const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+        w[0] = u.x;
+        w[1] = u.y;
+      } else {
+        w[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
+      }
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) o[q] = word_elem(w, q, T());
+      return;
+    }
   }
-  for (size_t o = body + threadIdx.x; o < nbytes; o += kThreads)
-    dst[o] = src[o];
-  cp_async_commit();
+#pragma unroll
+  for (int q = 0; q < CPL; ++q)
+    o[q] = c0 + q < f ? widen(p[c0 + q]) : 0.f;
 }
 
 // scale: nullptr for an fp32 source, else the [f] per-channel scales.
-// CPL: columns per lane, f <= 32 * CPL.
+// CPL: columns a lane, f <= 32 * CPL.
 template <typename T, int CPL>
 __global__ void __launch_bounds__(kThreads)
 spmm_ell_hbm_kernel(const int* __restrict__ idx,
@@ -104,35 +121,48 @@ spmm_ell_hbm_kernel(const int* __restrict__ idx,
                     const int* __restrict__ sids,
                     const int* __restrict__ counts, float* __restrict__ out,
                     int b, int deg, int n_src, int f, int bb, int stripe,
-                    int max_stripes, size_t buf_bytes, int vec) {
+                    int max_stripes, int n_words, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* const buf0 = smem;
-  unsigned char* const buf1 = smem + buf_bytes;
-  int* slot_j = reinterpret_cast<int*>(smem + 2 * buf_bytes);
+  unsigned* listed = reinterpret_cast<unsigned*>(smem);     // [n_words]
+  int* slot_j = reinterpret_cast<int*>(listed + n_words);   // [bb, deg]
   float* slot_v = reinterpret_cast<float*>(slot_j + bb * deg);
-  int* slot_n = reinterpret_cast<int*>(slot_v + bb * deg);
+  int* slot_n = reinterpret_cast<int*>(slot_v + bb * deg);  // [bb]
 
   const long long row0 = (long long)blockIdx.x * bb;
   const int rows = (int)min((long long)bb, (long long)b - row0);
-  const int nst = counts[blockIdx.x];
-  const int* tile_ids = sids + (size_t)blockIdx.x * max_stripes;
-  const size_t row_bytes = (size_t)f * sizeof(T);
-  const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+  const int n_stripes = (n_src + stripe - 1) / stripe;
 
-  if (nst > 0) stage(buf0, xb, tile_ids[0], stripe, n_src, row_bytes, vec);
+  const bool indexed = counts != nullptr;
+  for (int w = threadIdx.x; w < n_words; w += kThreads) listed[w] = 0u;
+  for (int e = threadIdx.x; e < rows * deg; e += kThreads) {
+    slot_j[e] = idx[row0 * deg + e];
+    slot_v[e] = val[row0 * deg + e];
+  }
+  __syncthreads();
+  if (indexed) {
+    const int nst = counts[blockIdx.x];
+    const int* tile_ids = sids + (size_t)blockIdx.x * max_stripes;
+    for (int i = threadIdx.x; i < nst; i += kThreads) {
+      const int s = tile_ids[i];
+      if (s >= 0 && s < n_stripes)
+        atomicOr(listed + s / 32, 1u << (s % 32));
+    }
+    __syncthreads();
+  }
 
-  // each row's live slots in (stripe, slot) order: a stable insertion sort
+  // each row's live slots, in place, stably sorted by stripe: position d
+  // is read before any write reaches it (writes stay below the count)
   for (int r = threadIdx.x; r < rows; r += kThreads) {
-    const int* ir = idx + (row0 + r) * deg;
-    const float* vr = val + (row0 + r) * deg;
     int* jr = slot_j + r * deg;
     float* wr = slot_v + r * deg;
     int n = 0;
     for (int d = 0; d < deg; ++d) {
-      const float v = vr[d];
-      if (v == 0.f) continue;
-      const int j = min(max(ir[d], 0), n_src - 1);
+      const float v = wr[d];
+      const int j = min(max(jr[d], 0), n_src - 1);
       const int key = j / stripe;
+      if (v == 0.f ||
+          (indexed && !((listed[key / 32] >> (key % 32)) & 1u)))
+        continue;
       int p = n;
       while (p > 0 && jr[p - 1] / stripe > key) {
         jr[p] = jr[p - 1];
@@ -145,68 +175,43 @@ spmm_ell_hbm_kernel(const int* __restrict__ idx,
     }
     slot_n[r] = n;
   }
+  __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float acc[kRowsPerWarp][CPL];
-  int cur[kRowsPerWarp];
+  const int c0 = lane * CPL;
+  const bool active = c0 < f;
+  for (int r = warp; r < rows; r += kWarps) {
+    const int n = slot_n[r];
+    const int* jr = slot_j + r * deg;
+    const float* wr = slot_v + r * deg;
+    float acc[CPL];
 #pragma unroll
-  for (int k = 0; k < kRowsPerWarp; ++k) {
-    cur[k] = 0;
+    for (int q = 0; q < CPL; ++q) acc[q] = 0.f;
+    if (active) {
+      for (int s0 = 0; s0 < n; s0 += kBatch) {
+        float xv[kBatch][CPL];
+        float wv[kBatch];
 #pragma unroll
-    for (int q = 0; q < CPL; ++q) acc[k][q] = 0.f;
-  }
-
-  for (int js = 0; js < nst; ++js) {
-    if (js + 1 < nst) {
-      stage((js & 1) ? buf0 : buf1, xb, tile_ids[js + 1], stripe, n_src,
-            row_bytes, vec);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    // this stripe's bytes (and, the first time, the slot lists) visible
-    __syncthreads();
-    const int base = tile_ids[js] * stripe;
-    const T* xs = reinterpret_cast<const T*>((js & 1) ? buf1 : buf0);
-#pragma unroll
-    for (int k = 0; k < kRowsPerWarp; ++k) {
-      const int r = warp + k * kWarps;
-      if (r < rows) {
-        const int n = slot_n[r];
-        const int* jr = slot_j + r * deg;
-        const float* wr = slot_v + r * deg;
-        int c = cur[k];
-        while (c < n && jr[c] < base) ++c;     // a stripe the index omits
-        while (c < n && jr[c] < base + stripe) {
-          const float v = wr[c];
-          const T* xr = xs + (size_t)(jr[c] - base) * f;
-#pragma unroll
-          for (int q = 0; q < CPL; ++q) {
-            const int col = lane + 32 * q;
-            if (col < f)
-              acc[k][q] = __fadd_rn(acc[k][q], __fmul_rn(v, widen(xr[col])));
+        for (int u = 0; u < kBatch; ++u)
+          if (s0 + u < n) {
+            wv[u] = wr[s0 + u];
+            gather<T, CPL>(x + (size_t)jr[s0 + u] * f, c0, f, vec, xv[u]);
           }
-          ++c;
-        }
-        cur[k] = c;
-      }
-    }
-    // every warp is done with this buffer before the next copy reuses it
-    __syncthreads();
-  }
-
 #pragma unroll
-  for (int k = 0; k < kRowsPerWarp; ++k) {
-    const int r = warp + k * kWarps;
-    if (r < rows) {
+        for (int u = 0; u < kBatch; ++u)
+          if (s0 + u < n) {
+#pragma unroll
+            for (int q = 0; q < CPL; ++q)
+              acc[q] = __fadd_rn(acc[q], __fmul_rn(wv[u], xv[u][q]));
+          }
+      }
       float* orow = out + (row0 + r) * f;
 #pragma unroll
-      for (int q = 0; q < CPL; ++q) {
-        const int col = lane + 32 * q;
-        if (col < f)
-          orow[col] = scale == nullptr ? acc[k][q]
-                                       : __fmul_rn(acc[k][q], scale[col]);
-      }
+      for (int q = 0; q < CPL; ++q)
+        if (c0 + q < f)
+          orow[c0 + q] = scale == nullptr
+                             ? acc[q]
+                             : __fmul_rn(acc[q], scale[c0 + q]);
     }
   }
 }
@@ -217,18 +222,20 @@ cudaError_t launch(const int* idx, const float* val, const T* x,
                    float* out, int b, int deg, int n_src, int f, int bb,
                    int stripe, int max_stripes, cudaStream_t stream) {
   if (b < 1 || deg < 0 || n_src < 1 || f < 1 || f > kMaxCols || bb < 1 ||
-      bb > kWarps * kRowsPerWarp || stripe < 1 || max_stripes < 0)
+      bb > kMaxBB || stripe < 1 || max_stripes < 0)
     return cudaErrorInvalidValue;
-  const size_t stripe_bytes = (size_t)stripe * f * sizeof(T);
-  const size_t buf_bytes = (stripe_bytes + 15) / 16 * 16;
-  const size_t smem = 2 * buf_bytes + (size_t)bb * deg * 8 + (size_t)bb * 4;
-  const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                  (stripe_bytes % 16 == 0);
-  const int cpl = (f + 31) / 32;
+  const int n_stripes = (n_src + stripe - 1) / stripe;
+  const int n_words = counts == nullptr ? 0 : (n_stripes + 31) / 32;
+  const size_t smem =
+      (size_t)n_words * 4 + (size_t)bb * deg * 8 + (size_t)bb * 4;
+  const int cpl = f <= 32 ? 1 : f <= 64 ? 2 : f <= 128 ? 4 : 8;
+  const size_t chunk = (size_t)cpl * sizeof(T);
+  const int vec = chunk >= 4 && f % cpl == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % chunk == 0;
   decltype(&spmm_ell_hbm_kernel<T, 1>) kern =
-      cpl <= 1   ? spmm_ell_hbm_kernel<T, 1>
-      : cpl <= 2 ? spmm_ell_hbm_kernel<T, 2>
-      : cpl <= 4 ? spmm_ell_hbm_kernel<T, 4>
+      cpl == 1   ? spmm_ell_hbm_kernel<T, 1>
+      : cpl == 2 ? spmm_ell_hbm_kernel<T, 2>
+      : cpl == 4 ? spmm_ell_hbm_kernel<T, 4>
                  : spmm_ell_hbm_kernel<T, 8>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -236,7 +243,7 @@ cudaError_t launch(const int* idx, const float* val, const T* x,
   const unsigned tiles = (unsigned)((b + bb - 1) / bb);
   kern<<<tiles, kThreads, smem, stream>>>(idx, val, x, scale, sids, counts,
                                           out, b, deg, n_src, f, bb, stripe,
-                                          max_stripes, buf_bytes, vec);
+                                          max_stripes, n_words, vec);
   return cudaGetLastError();
 }
 
@@ -244,7 +251,8 @@ cudaError_t launch(const int* idx, const float* val, const T* x,
 
 // idx/val: [b, deg] contiguous int32/fp32; x: [n_src, f] contiguous fp32;
 // sids: [ceil(b / bb), max_stripes] int32 and counts: [ceil(b / bb)] int32,
-// the StripeIndex; out: [b, f] contiguous fp32.
+// the StripeIndex, or both null (every touched stripe listed); out: [b, f]
+// contiguous fp32.
 extern "C" cudaError_t repro_spmm_ell_hbm_f32(
     const int* idx, const float* val, const float* x, const float* scale,
     const int* sids, const int* counts, float* out, int b, int deg,

@@ -5,7 +5,9 @@
 // over the branches.  For branch b and row i it returns
 //     argmin_c  |cw[b, c]|^2 - 2 x[b, i] . cw[b, c]
 // with the first (lowest) index winning ties, like jnp.argmin and the
-// Pallas kernel's strict-< tile combine.
+// Pallas kernel's strict-< tile combine.  Optionally (the Pallas kernel's
+// want_min) also each row's squared distance to that codeword,
+// max(min + |x|^2, 0), |x|^2 summed over j in order.
 //
 // What bounds it on an H100: arithmetic.  At the served width (n = 169,343
 // nodes, k = 1024, 32 branches of width 4, or 8 of width 16) one call does
@@ -39,7 +41,8 @@ template <int F>
 __global__ void __launch_bounds__(kThreads)
 vq_assign_kernel(const float* __restrict__ x, long long x_stride_branch,
                  long long x_stride_row, const float* __restrict__ cw,
-                 int* __restrict__ out, int n, int k, int f) {
+                 int* __restrict__ out, float* __restrict__ min_out, int n,
+                 int k, int f) {
   constexpr int W = F > 0 ? F : kMaxF;
   const int fd = F > 0 ? F : f;
   extern __shared__ float smem[];
@@ -82,11 +85,20 @@ vq_assign_kernel(const float* __restrict__ x, long long x_stride_branch,
     }
   }
   out[(size_t)br * n + row] = arg;
+  if (min_out != nullptr) {
+    float xn2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if (j < fd) xn2 = __fadd_rn(xn2, __fmul_rn(xv[j], xv[j]));
+    }
+    min_out[(size_t)br * n + row] = fmaxf(__fadd_rn(best, xn2), 0.f);
+  }
 }
 
 template <int F>
 cudaError_t launch(const float* x, long long sb, long long sr, const float* cw,
-                   int* out, int nb, int n, int k, int f, cudaStream_t stream) {
+                   int* out, float* min_out, int nb, int n, int k, int f,
+                   cudaStream_t stream) {
   const size_t smem = ((size_t)k * f + (size_t)k) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       vq_assign_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -94,35 +106,37 @@ cudaError_t launch(const float* x, long long sb, long long sr, const float* cw,
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((n + kThreads - 1) / kThreads), (unsigned)nb);
   vq_assign_kernel<F><<<grid, kThreads, smem, stream>>>(x, sb, sr, cw, out,
-                                                         n, k, f);
+                                                         min_out, n, k, f);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x: [nb, n, f] fp32 with strides (x_stride_branch, x_stride_row, 1) in
-// elements; cw: [nb, k, f] contiguous fp32; out: [nb, n] contiguous int32.
+// elements; cw: [nb, k, f] contiguous fp32; out: [nb, n] contiguous int32;
+// min_out: nullptr, or [nb, n] contiguous fp32 for the squared distances.
 extern "C" cudaError_t repro_vq_assign_f32(const float* x,
                                            long long x_stride_branch,
                                            long long x_stride_row,
-                                           const float* cw, int* out, int nb,
-                                           int n, int k, int f,
+                                           const float* cw, int* out,
+                                           float* min_out, int nb, int n,
+                                           int k, int f,
                                            cudaStream_t stream) {
   if (f < 1 || f > kMaxF || k < 1 || nb < 1 || n < 1)
     return cudaErrorInvalidValue;
   switch (f) {
     case 4:
-      return launch<4>(x, x_stride_branch, x_stride_row, cw, out, nb, n, k, f,
-                       stream);
+      return launch<4>(x, x_stride_branch, x_stride_row, cw, out, min_out,
+                       nb, n, k, f, stream);
     case 8:
-      return launch<8>(x, x_stride_branch, x_stride_row, cw, out, nb, n, k, f,
-                       stream);
+      return launch<8>(x, x_stride_branch, x_stride_row, cw, out, min_out,
+                       nb, n, k, f, stream);
     case 16:
-      return launch<16>(x, x_stride_branch, x_stride_row, cw, out, nb, n, k,
-                        f, stream);
+      return launch<16>(x, x_stride_branch, x_stride_row, cw, out, min_out,
+                        nb, n, k, f, stream);
     default:
-      return launch<0>(x, x_stride_branch, x_stride_row, cw, out, nb, n, k, f,
-                       stream);
+      return launch<0>(x, x_stride_branch, x_stride_row, cw, out, min_out,
+                       nb, n, k, f, stream);
   }
 }
 

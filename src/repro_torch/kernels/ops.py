@@ -15,6 +15,12 @@ reference also sends ``flash_attention`` shapes with ``sq % 128 != 0`` to
 its oracle, but here every CUDA tensor goes to the kernel, which handles
 ragged tails itself.
 
+The reference's context-variant and autotuner variables
+(``REPRO_CONTEXT_VARIANT``, ``REPRO_CONTEXT_VMEM_BUDGET_MB``,
+``REPRO_AUTOTUNE``, ``REPRO_AUTOTUNE_CACHE``) have no machinery here yet
+(ROADMAP.md, modules to port, item 4): a setting that would change what
+the reference runs raises instead of being ignored.
+
 The precision tiers are data-driven here as in the reference: quantized
 codewords arrive as a ``QTensor``, narrow tables as uint8 tensors or a
 ``PackedAssignment``, and each reaches its kernel form in its storage
@@ -98,6 +104,37 @@ def precision_packs_assignment(precision: Optional[str] = None) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# the reference's dispatch variables that the port does not honour yet
+# ---------------------------------------------------------------------------
+
+_ITEM_4 = ("the port has no context-variant dispatch or autotuner yet "
+           "(ROADMAP.md, modules to port, item 4)")
+
+
+def check_unported_env(*, context: bool = False) -> None:
+    """Raise on the reference's autotuner switches (``REPRO_AUTOTUNE=1``,
+    any ``REPRO_AUTOTUNE_CACHE``) and, with ``context``, on its context
+    dispatch (``REPRO_CONTEXT_VARIANT`` other than auto / fused -- the
+    port's one kernel is the fused variant -- and any
+    ``REPRO_CONTEXT_VMEM_BUDGET_MB``), where the reference reads them."""
+    env = os.environ
+    if env.get("REPRO_AUTOTUNE", "0") == "1":
+        raise ValueError(f"REPRO_AUTOTUNE=1: {_ITEM_4}")
+    if "REPRO_AUTOTUNE_CACHE" in env:
+        raise ValueError(f"REPRO_AUTOTUNE_CACHE is set: {_ITEM_4}")
+    if not context:
+        return
+    variant = env.get("REPRO_CONTEXT_VARIANT", "auto")
+    if variant not in ("auto", "fused", "loop"):
+        raise ValueError(f"REPRO_CONTEXT_VARIANT={variant!r}: want auto, "
+                         f"fused or loop")
+    if variant == "loop":
+        raise ValueError(f"REPRO_CONTEXT_VARIANT=loop: {_ITEM_4}")
+    if "REPRO_CONTEXT_VMEM_BUDGET_MB" in env:
+        raise ValueError(f"REPRO_CONTEXT_VMEM_BUDGET_MB is set: {_ITEM_4}")
+
+
+# ---------------------------------------------------------------------------
 # spmm_ell variant dispatch: the resident kernel or the staged-stripe one
 # ---------------------------------------------------------------------------
 
@@ -152,6 +189,7 @@ def spmm_ell_variant(n_src: int, f: int, itemsize: int = 4) -> str:
     elements.  Precedence: a forced variant (``configure_spmm_dispatch``,
     else ``REPRO_SPMM_VARIANT``), then the budget (configured, else
     ``REPRO_SPMM_L2_BUDGET_MB``, else 50 MiB)."""
+    check_unported_env()
     forced = _dispatch_overrides.get(
         "variant", os.environ.get("REPRO_SPMM_VARIANT", "auto"))
     if forced not in SPMM_VARIANTS:
@@ -193,6 +231,7 @@ def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor, *,
     assignment in a narrow tier's table type; an emit dtype that cannot
     index k raises, on either device."""
     check_emit(emit_dtype, codewords.shape[1])
+    check_unported_env()
     if x.is_cuda:
         return vq_assign_update_cuda(x, codewords, emit_dtype)
     return ref.vq_assign_update(x, codewords, emit_dtype)
@@ -265,6 +304,7 @@ def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,
     fused into the same kernel -> [b, f_out].  ``codewords`` f32 or a
     ``QTensor`` (int8 / fp8 + [nb, 1, f_blk] scales); ``assignment`` int32,
     uint8 or a ``PackedAssignment`` -- one launch in every case."""
+    check_unported_env(context=True)
     cw_scale = None
     if isinstance(codewords, QTensor):
         codewords, cw_scale = codewords.q, codewords.scale

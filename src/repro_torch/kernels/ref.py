@@ -70,17 +70,26 @@ def _min_dist_blocks(x: torch.Tensor, c32: torch.Tensor):
         yield slice(s, s + rows), arg, dist.gather(2, arg[..., None])[..., 0]
 
 
-def vq_assign(x: torch.Tensor, codewords: torch.Tensor) -> torch.Tensor:
+def vq_assign(x: torch.Tensor, codewords: torch.Tensor,
+              want_min: bool = False):
     """Nearest codeword by squared L2, every branch at once.
 
     x: [nb, b, f] (any strides), codewords: [nb, k, f] -> [nb, b] int32.
     The distance is ``|c|^2 - 2 x.c`` (``|x|^2`` is constant per row); ties
-    keep the lowest index, as ``jnp.argmin`` does."""
+    keep the lowest index, as ``jnp.argmin`` does.  ``want_min`` also
+    returns each row's squared distance to its codeword, [nb, b] f32:
+    ``max(min + |x|^2, 0)``, the winning ``|c|^2 - 2 x.c`` completed as
+    the reference's ``vq_assign_pallas(want_min=True)`` completes it (not
+    a direct ``|x - c|^2``, which rounds differently)."""
     nb, b, _ = x.shape
     out = torch.empty((nb, b), dtype=torch.int32, device=x.device)
-    for rows, arg, _ in _min_dist_blocks(x, codewords.float()):
+    mind = torch.empty((nb, b), dtype=torch.float32, device=x.device)
+    for rows, arg, m in _min_dist_blocks(x, codewords.float()):
         out[:, rows] = arg.to(torch.int32)
-    return out
+        mind[:, rows] = m
+    if not want_min:
+        return out
+    return out, torch.clamp(mind + _sq_norms(x.float()), min=0.0)
 
 
 def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor,
@@ -104,13 +113,8 @@ def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor,
     nb, b, f = x.shape
     k = codewords.shape[1]
     dev = x.device
-    idx = torch.empty((nb, b), dtype=torch.int32, device=dev)
-    mind = torch.empty((nb, b), dtype=torch.float32, device=dev)
-    for rows, arg, m in _min_dist_blocks(x, codewords.float()):
-        idx[:, rows] = arg.to(torch.int32)
-        mind[:, rows] = m
+    idx, qerr = vq_assign(x, codewords, want_min=True)
     x32 = x.float()
-    qerr = torch.clamp(mind + _sq_norms(x32), min=0.0)
     flat = (idx.long() + k * torch.arange(nb, device=dev)[:, None]
             ).reshape(-1)
     counts = torch.zeros(nb * k, dtype=torch.float32, device=dev).index_add_(

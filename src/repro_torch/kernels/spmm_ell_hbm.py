@@ -2,22 +2,20 @@
 index and its checked wrapper.
 
 Counterpart of ``repro.kernels.spmm_ell_hbm``: the SpMM of ``spmm_ell``
-for a source ``x`` too large to stay on chip.  The source stays in device
-memory and each block copies, for its tile of ``bb`` output rows, only
-the ``stripe``-row stripes of ``x`` that the tile's neighbours touch into
-shared memory, two buffers deep, so one stripe's copy overlaps the
-accumulate over the previous one.  Which stripes a tile touches is a
+for a source ``x`` too large to stay on chip, each row's slots summed in
+(stripe, slot) order.  The TPU kernel stages, for each tile of ``bb``
+output rows, the ``stripe``-row stripes of ``x`` that the tile touches
+into VMEM; on the card every warp gathers its rows' source rows straight
+from device memory through the L2, and the stripe is only the sort key of
+a row's slots and the unit of the index.  Which stripes a tile lists is a
 :class:`StripeIndex`: built on the host at pack time
 (``repro_torch.graph.batching.make_stripe_index``) or on the call's device
 by :func:`stripe_index_torch` (the twin of the reference's in-jit
-``stripe_index_jnp``).
-
-The reference's default tiles (128 rows, 512-row stripes) are TPU
-constants: at f 128 in f32 one 512-row stripe is 256 KB, above the 227 KB
-of shared memory an H100 block may use.  :func:`default_tiles` picks the
-card's instead: 128-row tiles and the longest power-of-two stripe (at
-most 512 rows) whose two buffers take at most 128 KB at the call's width
-and element size -- 128 rows at f 128 in f32, 512 in int8.
+``stripe_index_jnp``), at the reference's tiles by default (128 rows,
+512-row stripes).  A call without an index needs none: the stripes an
+index built from its own ids lists are every stripe a live slot touches,
+so the kernel sorts by stripe and drops nothing, as the reference's
+in-jit index would have it.
 
 ``launches`` counts every launch in this process, ``launches_q`` the
 int8 / fp8 ones among them.
@@ -32,8 +30,9 @@ launches = 0
 launches_q = 0
 
 SMEM_LIMIT = 232448           # dynamic shared memory one H100 block may use
-STAGE_BYTES = 128 * 1024      # what default_tiles gives the two buffers
-MAX_BB = 128                  # 8 warps x 16 rows held in registers
+DEFAULT_BB = 128              # the reference's row tile ...
+DEFAULT_STRIPE = 512          # ... and stripe (repro/graph/batching.py)
+MAX_BB = 128                  # rows a block's 8 warps take in turn
 MAX_F = 256                   # 8 columns a lane
 
 _ENTRY = {torch.float32: "repro_spmm_ell_hbm_f32",
@@ -74,18 +73,9 @@ def clamp_tiles(b: int, n_src: int, bb: int, stripe: int) -> tuple[int, int]:
     return min(bb, max(8, b)), min(stripe, _rup(n_src, 8))
 
 
-def default_tiles(f: int, itemsize: int) -> tuple[int, int]:
-    """The card's (bb, stripe): 128-row tiles, and the longest
-    power-of-two stripe of at most 512 rows (at least 8) whose two
-    buffers of ``f`` columns of ``itemsize`` bytes fit ``STAGE_BYTES``."""
-    stripe = 512
-    while stripe > 8 and 2 * stripe * f * itemsize > STAGE_BYTES:
-        stripe //= 2
-    return MAX_BB, stripe
-
-
 def stripe_index_torch(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
-                       n_src: int, *, bb: int, stripe: int) -> StripeIndex:
+                       n_src: int, *, bb: int = DEFAULT_BB,
+                       stripe: int = DEFAULT_STRIPE) -> StripeIndex:
     """The stripe index on the call's device (twin of the reference's
     ``stripe_index_jnp``).  Slots with ``val == 0`` (padding) touch no
     stripe: they are parked in an overflow column that is cut away.
@@ -111,10 +101,14 @@ def stripe_index_torch(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
     return StripeIndex(ids, counts, bb=bb, stripe=stripe, n_src=n_src)
 
 
-def smem_bytes(bb: int, stripe: int, deg: int, f: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block: two stripe buffers (16-byte
-    aligned), then each row's live slots (id, value) and its slot count."""
-    return 2 * _rup(stripe * f * itemsize, 16) + bb * deg * 8 + bb * 4
+def smem_bytes(bb: int, stripe: int, deg: int, n_src: int,
+               indexed: bool = True) -> int:
+    """Dynamic shared memory of one block: the bitmap of the listed
+    stripes (with an index), then each row's live slots (id, value) and
+    its slot count."""
+    n_stripes = -(-n_src // stripe)
+    words = -(-n_stripes // 32) if indexed else 0
+    return 4 * words + bb * deg * 8 + bb * 4
 
 
 def check_index(stripe_index: StripeIndex, b: int, n_src: int) -> None:
@@ -139,8 +133,10 @@ def spmm_ell_hbm_cuda(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
     int8 / float8_e4m3fn with ``x_scale`` [1, f] f32 -- all contiguous
     CUDA tensors -> [b, f] f32 with out[i] = sum over the slots d of
     val[i, d] * x[idx[i, d]] (then * x_scale), each row's slots taken in
-    (stripe, slot) order.  Without ``stripe_index`` one is built on the
-    device at :func:`default_tiles`."""
+    (stripe, slot) order.  Without ``stripe_index`` the tiles are the
+    reference's (``DEFAULT_BB``, ``DEFAULT_STRIPE``) and every stripe a
+    live slot touches is listed -- the index ``stripe_index_torch`` would
+    build from the same operands, without building it."""
     global launches, launches_q
     quantized = x.dtype != torch.float32
     if x.dtype not in _ENTRY:
@@ -171,37 +167,32 @@ def spmm_ell_hbm_cuda(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
     if f > MAX_F:
         raise ValueError(f"spmm_ell_hbm: f={f} above the kernel's "
                          f"{MAX_F} columns")
-    if stripe_index is None:
-        bb, stripe = default_tiles(f, x.element_size())
-        stripe_index = stripe_index_torch(nbr_idx, nbr_val, n_src, bb=bb,
-                                          stripe=stripe)
-    check_index(stripe_index, b, n_src)
-    _build.check_operands("spmm_ell_hbm", dtypes, x=x,
-                          ids=stripe_index.ids, counts=stripe_index.counts)
-    bb, stripe = stripe_index.bb, stripe_index.stripe
+    indexed = stripe_index is not None
+    if indexed:
+        check_index(stripe_index, b, n_src)
+        _build.check_operands("spmm_ell_hbm", dtypes, x=x,
+                              ids=stripe_index.ids,
+                              counts=stripe_index.counts)
+        bb, stripe = stripe_index.bb, stripe_index.stripe
+    else:
+        bb, stripe = clamp_tiles(b, n_src, DEFAULT_BB, DEFAULT_STRIPE)
     if bb > MAX_BB:
         raise ValueError(f"spmm_ell_hbm: row tile bb={bb} above the "
                          f"kernel's {MAX_BB}")
-    itemsize = x.element_size()
-    if 2 * stripe * f * itemsize > SMEM_LIMIT:
-        raise ValueError(
-            f"spmm_ell_hbm: two stripes of {stripe} rows x {f} columns x "
-            f"{itemsize} bytes ({2 * stripe * f * itemsize} bytes) exceed "
-            f"a block's {SMEM_LIMIT} bytes of shared memory; use a shorter "
-            f"stripe")
-    smem = smem_bytes(bb, stripe, deg, f, itemsize)
+    smem = smem_bytes(bb, stripe, deg, n_src, indexed)
     if smem > SMEM_LIMIT:
         raise ValueError(
-            f"spmm_ell_hbm: the stripes and the {bb} x {deg} slot lists "
-            f"need {smem} bytes of shared memory, above a block's "
-            f"{SMEM_LIMIT}; use a shorter stripe or row tile")
+            f"spmm_ell_hbm: the stripe bitmap and the {bb} x {deg} slot "
+            f"lists need {smem} bytes of shared memory, above a block's "
+            f"{SMEM_LIMIT}; use a shorter row tile or a longer stripe")
     out = torch.empty((b, f), dtype=torch.float32, device=x.device)
     err = getattr(_build.library(), _ENTRY[x.dtype])(
         nbr_idx.data_ptr(), nbr_val.data_ptr(), x.data_ptr(),
         x_scale.data_ptr() if quantized else None,
-        stripe_index.ids.data_ptr(), stripe_index.counts.data_ptr(),
+        stripe_index.ids.data_ptr() if indexed else None,
+        stripe_index.counts.data_ptr() if indexed else None,
         out.data_ptr(), b, deg, n_src, f, bb, stripe,
-        stripe_index.ids.shape[1],
+        stripe_index.ids.shape[1] if indexed else 0,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "spmm_ell_hbm")
     launches += 1

@@ -3,8 +3,9 @@
 
 Counterpart of ``repro.kernels.vq_assign.vq_assign_pallas`` as
 ``core/codebook.py`` uses it: vmapped over the product-VQ branches, which
-here is one launch for all branches.  ``launches`` counts the kernel
-launches of this process.
+here is one launch for all branches, with the reference's optional
+``want_min`` output.  ``launches`` counts the kernel launches of this
+process.
 """
 from __future__ import annotations
 
@@ -18,10 +19,12 @@ MAX_F = 32                    # widest branch the kernel holds in registers
 SMEM_LIMIT = 232448           # dynamic shared memory one H100 block may use
 
 
-def vq_assign_cuda(x: torch.Tensor, codewords: torch.Tensor) -> torch.Tensor:
+def vq_assign_cuda(x: torch.Tensor, codewords: torch.Tensor,
+                   want_min: bool = False):
     """x [nb, n, f] f32 (any row/branch strides, unit element stride),
     codewords [nb, k, f] contiguous f32 -> [nb, n] int32 nearest codeword
-    (lowest index on ties).
+    (lowest index on ties); with ``want_min`` also each row's squared
+    distance to it, [nb, n] f32 (``ref.vq_assign``'s).
 
     The strided ``x`` lets the caller pass the branch view of an [n, nb*f]
     activation table without a transposing copy."""
@@ -46,12 +49,13 @@ def vq_assign_cuda(x: torch.Tensor, codewords: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"vq_assign: k={k} codewords of width {f} do not "
                          f"fit one block's shared memory ({SMEM_LIMIT} B)")
     out = torch.empty((nb, n), dtype=torch.int32, device=x.device)
-    if nb == 0 or n == 0:
-        return out
-    err = _build.library().repro_vq_assign_f32(
-        x.data_ptr(), x.stride(0), x.stride(1), codewords.data_ptr(),
-        out.data_ptr(), nb, n, k, f,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "vq_assign")
-    launches += 1
-    return out
+    mind = torch.empty((nb, n), dtype=torch.float32, device=x.device) \
+        if want_min else None
+    if nb > 0 and n > 0:
+        err = _build.library().repro_vq_assign_f32(
+            x.data_ptr(), x.stride(0), x.stride(1), codewords.data_ptr(),
+            out.data_ptr(), mind.data_ptr() if want_min else None, nb, n, k,
+            f, torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, "vq_assign")
+        launches += 1
+    return (out, mind) if want_min else out

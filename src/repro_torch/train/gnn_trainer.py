@@ -135,7 +135,7 @@ def train_full(g: Graph, cfg: GNNConfig, *, epochs: int, lr: float = 1e-2,
                device: str | torch.device = "cuda") -> dict:
     """Exact message passing over the whole graph, Adam(lr)."""
     dev = resolve_device(device)
-    ops = full_operands(g, device=dev)
+    ops = full_operands(g, device=dev, stripe_index=True)
     x = torch.from_numpy(g.features).to(dev)
     labels = _labels(g, dev)
     params = init_gnn(cfg, torch.Generator().manual_seed(seed), device=dev)
@@ -176,9 +176,16 @@ def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
 
     ``batch_fn`` (node task) replaces the epoch's batches:
     ``batch_fn(rng) -> (ids [S, b'], slot_mask [S, b'])`` with distinct ids
-    in each row -- the hook of ``train_hybrid``."""
+    in each row -- the hook of ``train_hybrid``.
+
+    The reference's ``REPRO_EPOCH_EXECUTOR=0`` (its host-stepped batch
+    loop) raises: that loop comes with the link task."""
+    if os.environ.get("REPRO_EPOCH_EXECUTOR", "1") == "0":
+        raise ValueError(
+            "REPRO_EPOCH_EXECUTOR=0: the port has no host-stepped batch "
+            "loop yet (ROADMAP.md, modules to port, item 2)")
     dev = resolve_device(device)
-    ops = full_operands(g, device=dev)
+    ops = full_operands(g, device=dev, stripe_index=True)
     x = torch.from_numpy(g.features).to(dev)
     labels = _labels(g, dev)
     params = init_gnn(cfg, torch.Generator().manual_seed(seed), device=dev)
@@ -260,7 +267,7 @@ def train_sampler(g: Graph, cfg: GNNConfig, method: str, *, epochs: int,
         raise ValueError(f"unknown sampler {method!r}; expected one of "
                          f"{SAMPLER_METHODS}")
     dev = resolve_device(device)
-    ops = full_operands(g, device=dev)
+    ops = full_operands(g, device=dev, stripe_index=True)
     x = torch.from_numpy(g.features).to(dev)
     labels_np = np.asarray(g.labels)
     labels = _labels(g, dev)
@@ -414,7 +421,13 @@ def vq_inference(params, vq_states, g: Graph, cfg: GNNConfig,
     ``EpochPlan``, the nodes split into static wrap-padded batches
     (``inference_slices``), every layer one sweep of ``vq_infer_epoch``.
     With ``inductive`` each layer first re-assigns every node from the
-    feature half of its codebook (paper Sec. 6).  Returns [n, f_out]."""
+    feature half of its codebook (paper Sec. 6).  Returns [n, f_out].
+    The reference's ``REPRO_INFER_EXECUTOR=0`` (its eager per-batch loop)
+    raises."""
+    if os.environ.get("REPRO_INFER_EXECUTOR", "1") == "0":
+        raise ValueError(
+            "REPRO_INFER_EXECUTOR=0: the port has no eager inference loop "
+            "yet (ROADMAP.md, modules to port, item 3)")
     dev = next(iter(params[0].values())).device
     ops = full_operands(g, device=dev)
     x = torch.from_numpy(g.features).to(dev)

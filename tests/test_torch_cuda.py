@@ -99,6 +99,27 @@ def test_vq_assign_kernel_vs_plain(cuda, nb, n, k, f):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nb,n,k,f", [(32, 5000, 1024, 4), (8, 3000, 1024, 16),
+                                      (1, 7, 3, 5), (1, 130, 33, 12),
+                                      (1, 100, 300, 8)])
+def test_vq_assign_kernel_want_min_vs_plain(cuda, nb, n, k, f):
+    """The kernel's ``want_min`` output, bit-equal to the plain version's
+    wherever the two pick the same codeword (the same formula in the same
+    order), close at the near-ties; the index is the one without it."""
+    g = torch.Generator().manual_seed(n + k + f)
+    x = torch.randn((nb, n, f), generator=g)
+    cw = torch.randn((nb, k, f), generator=g)
+    got, gmin = tva.vq_assign_cuda(x.to(cuda), cw.to(cuda), want_min=True)
+    torch.cuda.synchronize()
+    want, wmin = tref.vq_assign(x, cw, want_min=True)
+    assert torch.equal(got, tva.vq_assign_cuda(x.to(cuda), cw.to(cuda)))
+    assert_assign_equal_but_near_ties(got.cpu(), want, x.numpy(), cw.numpy())
+    same = got.cpu() == want
+    assert torch.equal(gmin.cpu()[same], wmin[same])
+    assert_allclose(gmin.cpu().numpy(), wmin.numpy(), **TOL)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b,deg,n,f", [(256, 18, 256, 128), (33, 7, 50, 12),
                                        (1, 1, 1, 1), (300, 0, 20, 8)])
 def test_spmm_ell_kernel_vs_plain(cuda, b, deg, n, f):
@@ -640,6 +661,80 @@ def test_flash_attention_kernel_rows_without_keys_are_nan_like_plain(cuda):
     assert_allclose(got[:, :, 50:].numpy(), want[:, :, 50:].numpy(), **TOL)
 
 
+def _flash_case(b, h, sq, skv, d, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, h, sq, d), generator=gen).to(dtype)
+    k, v = (torch.randn((b, h, skv, d), generator=gen).to(dtype)
+            for _ in "kv")
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv", [(1, 1), (63, 63), (65, 65), (100, 100),
+                                    (130, 130), (1, 65), (63, 130),
+                                    (100, 65), (130, 1), (65, 300),
+                                    (300, 257)])
+def test_flash_attention_tc_route_vs_plain(cuda, d, causal, sq, skv):
+    """The tensor-core kernel (bf16, d 64 / 128) at sequence lengths that
+    are not multiples of its 64-row query and 64-key tiles, causal with
+    skv > sq and sq > skv (rows that see no key are NaN on both sides):
+    within 2 bf16 ulps of the plain version, one tensor-core launch."""
+    from repro_torch.kernels import flash_attention as tfa
+    q, k, v = _flash_case(2, 3, sq, skv, d, torch.bfloat16, sq + skv + d)
+    args = [t.to(cuda) for t in (q, k, v)]
+    assert tfa.route(*args) == "tc"
+    before = (tfa.launches, tfa.launches_tc, tfa.launches_fma)
+    got = tfa.flash_attention_cuda(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.launches_tc, tfa.launches_fma) == (
+        before[0] + 1, before[1] + 1, before[2])
+    want = tref.flash_attention(q, k, v, causal=causal)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got.cpu()), nan)
+    assert bool(nan.any()) == (causal and sq > skv)
+    assert_bf16_close(got.cpu()[~nan], want[~nan])
+    assert torch.allclose(ops.flash_attention(*args, causal=causal), got,
+                          rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 3),
+                                     (torch.bfloat16, 8),
+                                     (torch.bfloat16, 16),
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 64),
+                                     (torch.float32, 128)])
+def test_flash_attention_fma_route_covers_the_rest(cuda, dtype, d):
+    """f32 operands and the head widths the tensor-core kernel does not
+    take stay on the FMA kernel, as does a bf16 view that is not 16-byte
+    aligned."""
+    from repro_torch.kernels import flash_attention as tfa
+    for causal in (True, False):
+        q, k, v = _flash_case(1, 2, 70, 90, d, dtype, d)
+        args = [t.to(cuda) for t in (q, k, v)]
+        assert tfa.route(*args) == "fma"
+        before = (tfa.launches_tc, tfa.launches_fma)
+        got = tfa.flash_attention_cuda(*args, causal=causal)
+        torch.cuda.synchronize()
+        assert (tfa.launches_tc, tfa.launches_fma) == (before[0],
+                                                       before[1] + 1)
+        want = tref.flash_attention(q, k, v, causal=causal)
+        if dtype == torch.float32:
+            assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+        else:
+            assert_bf16_close(got, want)
+    q, k, v = _flash_case(1, 2, 40, 40, 64, torch.bfloat16, 5)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    qu = flat[1:].view(q.shape)
+    qu.copy_(q.to(cuda))
+    assert qu.data_ptr() % 16 != 0 and qu.is_contiguous()
+    assert tfa.route(qu, k.to(cuda), v.to(cuda)) == "fma"
+    got = tfa.flash_attention_cuda(qu, k.to(cuda), v.to(cuda))
+    assert_bf16_close(got, tref.flash_attention(q, k, v))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("vq", [False, True])
 def test_lm_decode_cuda_vs_cpu(cuda, vq):
@@ -692,7 +787,10 @@ def _hbm_case(b, deg, n, f, seed, pad=0.3):
 HBM_SHAPES = [(200, 18, 3000, 128, 128, 128), (53, 6, 210, 40, 8, 8),
               (53, 6, 210, 8, 16, 64), (33, 7, 50, 12, 32, 24),
               (257, 5, 2000, 200, 128, 64), (7, 3, 20, 1, 128, 512),
-              (600, 18, 20000, 128, 128, 128)]
+              (600, 18, 20000, 128, 128, 128),
+              # the reference's default tiles, 128 rows and 512-row stripes
+              (700, 18, 20000, 128, 128, 512), (300, 9, 1500, 40, 128, 512),
+              (130, 4, 100, 256, 128, 512)]
 
 
 @pytest.mark.gpu
@@ -727,21 +825,25 @@ def test_spmm_ell_hbm_kernel_vs_plain(cuda, b, deg, n, f, bb, stripe,
     args = [idx.to(cuda), val.to(cuda), x.to(cuda)]
     scc = None if sc is None else sc.to(cuda)
     before = (thbm.launches, thbm.launches_q)
-    for si in (host, dev):
+    # at the reference's tiles a call without an index gives the same bits
+    indices = (host, dev) + ((None,) if (bb, stripe) == (128, 512) else ())
+    for si in indices:
         got = thbm.spmm_ell_hbm_cuda(*args, si, scc)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
     quantized = x_dtype != torch.float32
-    assert (thbm.launches, thbm.launches_q) == (before[0] + 2,
-                                                before[1] + 2 * quantized)
+    n = len(indices)
+    assert (thbm.launches, thbm.launches_q) == (before[0] + n,
+                                                before[1] + n * quantized)
     assert_allclose(want.numpy(), tref.spmm_ell(idx, val, x, sc).numpy(),
                     **TOL)
 
 
 @pytest.mark.gpu
 def test_spmm_ell_hbm_unaligned_source_and_default_index(cuda):
-    """A source view that is not 16-byte aligned is staged byte by byte;
-    without an index the wrapper builds one at the card's tiles."""
+    """A source view that is not 16-byte aligned is gathered element by
+    element; without an index the call takes the reference's tiles and
+    every touched stripe, as the index built on the device lists them."""
     from repro_torch.kernels import spmm_ell_hbm as thbm
     idx, val, _ = _hbm_case(300, 9, 999, 8, seed=11)
     g = torch.Generator().manual_seed(12)
@@ -754,8 +856,8 @@ def test_spmm_ell_hbm_unaligned_source_and_default_index(cuda):
     got = thbm.spmm_ell_hbm_cuda(idx.to(cuda), val.to(cuda), xc, None,
                                  sc.to(cuda))
     torch.cuda.synchronize()
-    bb, stripe = thbm.default_tiles(8, 1)
-    si = thbm.stripe_index_torch(idx, val, 999, bb=bb, stripe=stripe)
+    si = thbm.stripe_index_torch(idx, val, 999)
+    assert (si.bb, si.stripe) == (128, 512)
     assert torch.equal(got.cpu(), tref.spmm_ell_hbm(idx, val, x, si, sc))
 
 
@@ -764,12 +866,18 @@ def test_spmm_ell_hbm_rejects_bad_operands(cuda):
     from repro_torch.graph.batching import make_stripe_index
     from repro_torch.kernels import spmm_ell_hbm as thbm
     idx, val, x = _hbm_case(64, 4, 4096, 128, seed=13)
+    want = tref.spmm_ell_hbm(idx, val, x, make_stripe_index(
+        idx.numpy(), 4096, mask=val.numpy() != 0, bb=64, stripe=512,
+        device="cpu"))
     idx, val, x = idx.to(cuda), val.to(cuda), x.to(cuda)
-    # two 512-row stripes of 128 f32 columns: 512 KB of shared memory
-    big = make_stripe_index(idx.cpu().numpy(), 4096, bb=64, stripe=512,
+    # a 512-row stripe of 128 f32 columns (256 KB, more than a block's
+    # shared memory) is taken: nothing is staged any more
+    big = make_stripe_index(idx.cpu().numpy(), 4096,
+                            mask=val.cpu().numpy() != 0, bb=64, stripe=512,
                             device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        thbm.spmm_ell_hbm_cuda(idx, val, x, big)
+    got = thbm.spmm_ell_hbm_cuda(idx, val, x, big)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
     tiles = make_stripe_index(idx[:32].cpu().numpy(), 4096, bb=8,
                               stripe=64, device=cuda)
     with pytest.raises(ValueError, match="tiles"):
@@ -792,6 +900,38 @@ def test_spmm_ell_hbm_rejects_bad_operands(cuda):
         thbm.spmm_ell_hbm_cuda(idx, val, x.to(torch.int8))
     with pytest.raises(ValueError, match="CUDA tensors"):
         thbm.spmm_ell_hbm_cuda(idx.cpu(), val.cpu(), x.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.float32] + QDTYPES)
+def test_spmm_ell_hbm_deg_up_to_its_shared_memory_limit(cuda, x_dtype):
+    """Shared memory holds the tile's slot lists, so it bounds the slots a
+    row: the widest deg that fits is taken and bit-equal to the plain
+    version, one more slot is refused."""
+    from repro_torch.distributed.quantization import quantize_codewords
+    from repro_torch.kernels import spmm_ell_hbm as thbm
+    n, f = 4096, 128
+    deg = 1
+    while thbm.smem_bytes(128, 512, deg + 1, n,
+                          indexed=False) <= thbm.SMEM_LIMIT:
+        deg += 1
+    idx, val, x = _hbm_case(300, deg, n, f, seed=deg)
+    sc = None
+    if x_dtype != torch.float32:
+        qt = quantize_codewords(x[None], dtype=x_dtype)
+        x, sc = qt.q[0], qt.scale[0]
+    si = thbm.stripe_index_torch(idx, val, n)
+    want = tref.spmm_ell_hbm(idx, val, x, si, sc)
+    scc = None if sc is None else sc.to(cuda)
+    got = thbm.spmm_ell_hbm_cuda(idx.to(cuda), val.to(cuda), x.to(cuda),
+                                 None, scc)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    wide = torch.cat([idx, idx[:, :1]], 1).contiguous()
+    wval = torch.cat([val, val[:, :1]], 1).contiguous()
+    with pytest.raises(ValueError, match="shared memory"):
+        thbm.spmm_ell_hbm_cuda(wide.to(cuda), wval.to(cuda), x.to(cuda),
+                               None, scc)
 
 
 @pytest.mark.gpu

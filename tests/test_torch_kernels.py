@@ -79,6 +79,25 @@ def test_vq_assign_ref_vs_jax(b, k, f, nb):
     assert_assign_equal_but_near_ties(got, pallas, x, cw)
 
 
+@pytest.mark.parametrize("b,k,f", [(7, 3, 5), (130, 33, 12), (100, 300, 8)])
+def test_vq_assign_ref_want_min_vs_pallas(b, k, f):
+    """``want_min``: each row's squared distance to its codeword against
+    ``vq_assign_pallas(want_min=True)`` in interpret mode, at the shapes of
+    the reference's own test; the index is the one without it."""
+    rng = np.random.default_rng(b + k)
+    x = rng.normal(size=(1, b, f)).astype(np.float32)
+    cw = rng.normal(size=(1, k, f)).astype(np.float32)
+    got, mind = tref.vq_assign(torch.from_numpy(x), torch.from_numpy(cw),
+                               want_min=True)
+    assert mind.dtype == torch.float32 and mind.shape == (1, b)
+    assert torch.equal(got, tref.vq_assign(torch.from_numpy(x),
+                                           torch.from_numpy(cw)))
+    p_idx, p_min = vq_assign_pallas(jnp.asarray(x[0]), jnp.asarray(cw[0]),
+                                    interpret=True, want_min=True)
+    assert_assign_equal_but_near_ties(got, np.asarray(p_idx)[None], x, cw)
+    assert_allclose(mind.numpy()[0], np.asarray(p_min), **TOL)
+
+
 def test_vq_assign_ref_ties_keep_lowest_index():
     """Exact ties (duplicate codewords) resolve to the first index, as
     jnp.argmin and the Pallas kernel's strict-< combine do."""

@@ -148,19 +148,43 @@ def test_index_mismatch_raises_like_reference(bad):
 
 
 def test_clamp_and_default_tiles():
+    """The tiles are clamped as the reference clamps them, and default to
+    the reference's (128 rows, 512-row stripes) wherever an index is built;
+    at those tiles a block's shared memory holds the slot lists of the
+    slice's widest rows (D 18) with room to spare."""
+    import inspect
     for args in [(5, 100, 128, 512), (300, 7, 128, 512), (1000, 5000, 64, 96)]:
         assert thbm.clamp_tiles(*args) == jhbm.clamp_tiles(*args)
-    # two stripe buffers within 128 KB at the call's width and dtype
-    assert thbm.default_tiles(128, 4) == (128, 128)
-    assert thbm.default_tiles(128, 1) == (128, 512)
-    assert thbm.default_tiles(40, 4) == (128, 256)
-    assert thbm.default_tiles(256, 4) == (128, 64)
-    for f in (8, 40, 128, 256):
-        for item in (1, 4):
-            bb, stripe = thbm.default_tiles(f, item)
-            assert 2 * stripe * f * item <= thbm.STAGE_BYTES
-            assert thbm.smem_bytes(bb, stripe, 18, f, item) <= \
-                thbm.SMEM_LIMIT
+    ref_kw = inspect.signature(jb.make_stripe_index).parameters
+    assert (thbm.DEFAULT_BB, thbm.DEFAULT_STRIPE) == (
+        ref_kw["bb"].default, ref_kw["stripe"].default) == (128, 512)
+    for fn in (tb.make_stripe_index, thbm.stripe_index_torch):
+        kw = inspect.signature(fn).parameters
+        assert (kw["bb"].default, kw["stripe"].default) == (128, 512)
+    full = inspect.signature(tb.full_operands).parameters
+    ref_full = inspect.signature(jb.full_operands).parameters
+    assert (full["stripe_bb"].default, full["stripe"].default) == (
+        ref_full["stripe_bb"].default, ref_full["stripe"].default)
+    assert 4 * thbm.smem_bytes(128, 512, 18, 169343) <= thbm.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("b,deg,n", [(300, 18, 5000), (90, 5, 700),
+                                     (7, 3, 20), (1000, 9, 169)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_default_tiles_index_matches_reference(b, deg, n, masked):
+    """The index built with every tile argument left at its default, on
+    the host and on the device, is array-equal to the reference's."""
+    idx, val, _ = _case(b, deg, n, seed=8)
+    kw = {"mask": (val != 0).astype(np.float32)} if masked else {}
+    j, t = _host_pair(idx, n, **kw)
+    assert (t.bb, t.stripe) == thbm.clamp_tiles(b, n, 128, 512)
+    _assert_index_equal(t, j)
+    # the reference builds its in-jit index at spmm_ell_hbm_pallas's tiles
+    jd = jhbm.stripe_index_jnp(jnp.asarray(idx), jnp.asarray(val), n,
+                               bb=128, stripe=512)
+    td = thbm.stripe_index_torch(torch.from_numpy(idx),
+                                 torch.from_numpy(val), n)
+    _assert_index_equal(td, jd)
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +207,24 @@ def test_plain_staged_spmm_matches_reference_oracle(b, deg, n, bb, stripe,
     # every row of a tile with no live slot is exactly zero
     dead = np.repeat(t.counts.numpy() == 0, bb)[:b]
     assert not got.numpy()[dead].any()
+
+
+@pytest.mark.parametrize("b,deg,n", [(300, 18, 5000), (257, 5, 2000),
+                                     (7, 3, 20)])
+@pytest.mark.parametrize("f", [8, 128])
+def test_plain_staged_spmm_at_default_tiles_matches_reference_oracle(
+        b, deg, n, f):
+    """The plain version at the reference's default tiles (the index
+    built with no tile argument, as ``spmm_ell_hbm_cuda`` builds it)
+    against the reference's oracle."""
+    idx, val, x = _case(b, deg, n, f, seed=9)
+    t = thbm.stripe_index_torch(torch.from_numpy(idx), torch.from_numpy(val),
+                                n)
+    got = tref.spmm_ell_hbm(torch.from_numpy(idx), torch.from_numpy(val),
+                            torch.from_numpy(x), t)
+    want = np.asarray(jref.spmm_ell(jnp.asarray(idx), jnp.asarray(val),
+                                    jnp.asarray(x)))
+    assert_allclose(got.numpy(), want, **TOL)
 
 
 @pytest.mark.parametrize("qdtype", ["int8", "fp8"])
@@ -237,9 +279,7 @@ def test_spmm_backward_matches_jax_autodiff():
     jg = jax.grad(lambda xx: jnp.sum(jref.spmm_ell(
         jnp.asarray(idx), jnp.asarray(val), xx) * w))(jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_(True)
-    bb, stripe = thbm.default_tiles(16, 4)
-    si = tb.make_stripe_index(idx, 500, mask=val != 0, bb=bb, stripe=stripe,
-                              device=CPU)
+    si = tb.make_stripe_index(idx, 500, mask=val != 0, device=CPU)
     (tops.spmm_ell(torch.from_numpy(idx), torch.from_numpy(val), xt, si)
      * torch.from_numpy(w)).sum().backward()
     assert_allclose(xt.grad.numpy(), np.asarray(jg), **TOL)
@@ -341,8 +381,9 @@ def test_cpu_tensors_take_the_plain_path_whatever_the_variant(
 
 
 def test_full_operands_stripe_index_and_gcn_apply():
-    """``full_operands(stripe_index=True)`` carries the reference's index;
-    GCN's full_apply passes it along and its output is unchanged."""
+    """``full_operands(stripe_index=True)`` carries the reference's index,
+    at given tiles and at the defaults; GCN's full_apply passes it along
+    and its output is unchanged."""
     rng = np.random.default_rng(0)
     n, m = 120, 600
     src = rng.integers(0, n, m).astype(np.int64)
@@ -358,8 +399,9 @@ def test_full_operands_stripe_index_and_gcn_apply():
     assert isinstance(to.stripe_index, thbm.StripeIndex)
     _assert_index_equal(to.stripe_index, jo.stripe_index)
     assert tb.full_operands(tg, device=CPU).stripe_index is None
-    with pytest.raises(ValueError, match="stripe_bb"):
-        tb.full_operands(tg, stripe_index=True, device=CPU)
+    _assert_index_equal(
+        tb.full_operands(tg, stripe_index=True, device=CPU).stripe_index,
+        jb.full_operands(jg, stripe_index=True).stripe_index)
     p = GCN.init(16, 8, generator=torch.Generator().manual_seed(0),
                  device=CPU)
     x = torch.from_numpy(feats)
