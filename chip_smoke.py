@@ -163,6 +163,7 @@ A4_K = 16                     # the '+a4' tiers pack tables only for k <= 16
 TIER_AGREEMENT = 0.95         # argmax agreement with fp32 serving
 TIER_INFER_BATCH = 42335      # vq_inference batch of the agreement check
 BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 dense tensor-core peak
+TF32_FLOP_PER_S = 495e12      # H100 SXM tf32 dense tensor-core peak
 LM_ARCH = "llama3.2-3b"
 LM_BATCH = 4
 LM_CONTEXT = 1024
@@ -562,9 +563,14 @@ def _vq_update_row(name, vw, cw, generic: bool = False) -> dict:
                          f"assignment, counts or sums are not exact")
     byt = 4 * nb * b * f + 4 * nb * k * f + 8 * nb * b + 4 * nb * k * (f + 1)
     bms, by = bound(byt, 2 * nb * b * k * f)
+    # the bounds of the kernel's own units: its 3xTF32 products (f padded
+    # to a multiple of 8) on the tensor cores, and one compare-select a
+    # distance at the fp32 issue rate (half the FMA-counted fp32 peak)
+    tc_ms = 3 * 2 * nb * b * k * 8 * -(-f // 8) / TF32_FLOP_PER_S * 1e3
+    sel_ms = nb * b * k / (FP32_FLOP_PER_S / 2) * 1e3
     ms, call_ms = cuda_ms(lambda: vq_assign_update_cuda(vw, cw), 5, inner=4)
     row = dict(max_abs_err=err, ms=ms, call_ms=call_ms, bound_ms=bms,
-               bound_by=by,
+               bound_by=by, tensor_bound_ms=tc_ms, select_bound_ms=sel_ms,
                plain_ms=cuda_ms(lambda: ref.vq_assign_update(vw, cw), 3,
                                 inner=1)[0],
                hot_share=float(want[2].max()) / b,
@@ -580,7 +586,8 @@ def _vq_update_row(name, vw, cw, generic: bool = False) -> dict:
             f"ms against the fixed-width build's {ms:.4f} ms")
     log(f"{name} {row['at']}: idx/qerr/counts equal, sums max_abs_err "
         f"{err:.3g} (exact on grid rows)  kernel {ms:.4f} ms (one call {call_ms:.4f} ms)  plain "
-        f"{row['plain_ms']:.4f} ms  bound {bms:.4f} ms ({by})  largest "
+        f"{row['plain_ms']:.4f} ms  bound {bms:.4f} ms ({by}; 3xTF32 "
+        f"products {tc_ms:.4f} ms, compare-selects {sel_ms:.4f} ms)  largest "
         f"cluster {row['hot_share']:.4f} of the rows  library none")
     return row
 
@@ -613,6 +620,49 @@ def _vq_update_rows(m: Model, params, vq, inputs, tag: str,
                                  cw)
             row["at"] += f" layer {layer} hot spot (rows all alike)"
             rows.append(row)
+    return rows
+
+
+def _near_tie_rows(m: Model, params, vq, inputs) -> list[dict]:
+    """vq_update on a near-tie codebook at the training shape, layers 0 and
+    L-1, bit-equal to its plain version: the trained codewords with every
+    fourth duplicated (1::4 = 0::4) and the next one ulp above it in its
+    first coordinate (2::4); a third of the batch's whitened rows moved
+    onto a codeword, a third halfway between two.  A scan bound that is
+    too tight shows here first."""
+    import torch
+    from repro_torch.core import codebook as cbm
+    from repro_torch.models.gnn import vq_loss_and_grads
+    cfg = m.cfg
+    cb = cfg.layer_codebook_cfg()
+    pack, x_b, y_b, lm = inputs
+    _, _, acts, _, gprobes = vq_loss_and_grads(
+        params, vq, pack, x_b, y_b, m.ops.degrees, cfg, lm)
+    gen = torch.Generator(device=m.dev).manual_seed(SEED + 23)
+    rows = []
+    for layer in (0, cfg.n_layers - 1):
+        st = vq[layer].codebook
+        vw = cbm.whitened_rows(st, acts[layer], gprobes[layer], cb)[0]
+        nb, b, f = vw.shape
+        c = st.codewords_w.clone()
+        k = c.shape[1]
+        c[:, 1::4] = c[:, 0::4][:, :c[:, 1::4].shape[1]]
+        c2 = c[:, 0::4][:, :c[:, 2::4].shape[1]].clone()
+        c2[..., 0] = torch.nextafter(c2[..., 0],
+                                     torch.full_like(c2[..., 0], math.inf))
+        c[:, 2::4] = c2
+        pick = torch.randint(0, k, (nb, b), generator=gen, device=m.dev)
+        on = torch.gather(c, 1, pick[..., None].expand(nb, b, f))
+        other = torch.gather(c, 1, ((pick + 1) % k)[..., None]
+                             .expand(nb, b, f))
+        x = vw.clone()
+        x[:, 0::3] = on[:, 0::3]
+        x[:, 1::3] = (0.5 * (on + other))[:, 1::3]
+        row = _vq_update_row(f"vq_update layer {layer} near-tie codebook",
+                             x.contiguous(), c.contiguous())
+        row["at"] += (f" layer {layer} near-tie codebook (duplicates, 1-ulp "
+                      f"neighbours, rows on and halfway between codewords)")
+        rows.append(row)
     return rows
 
 
@@ -682,10 +732,13 @@ def _step_rows(m: Model, params, vq, inputs, tag: str,
         gcw = cbm.gradient_codewords(vq[layer].codebook, fi, cb)
         w_t = params[layer]["w"].t().contiguous()
         a = vq[layer].assignment
-        got = context_ell_cuda(ids, vals, a, gcw, w_t)
+        layout, other = _layouts(a, f"w_t layer {layer} {tag}", False)
         want = ref.context_ell(ids, vals, a, gcw, w_t)
-        err = check_close(f"context_ell w_t layer {layer} {tag}", got, want,
-                          TOL)
+        _bit_equal(f"context_ell w_t layer {layer} {tag}",
+                   context_ell_cuda(ids, vals, a, gcw, w_t), want)
+        _bit_equal(f"context_ell w_t layer {layer} {tag} (other layout)",
+                   context_ell_cuda(ids, vals, other, gcw, w_t), want)
+        err = 0.0
         nb, k, gb = gcw.shape
         f_out = w_t.shape[1]
         uid = torch.unique(ids.long())
@@ -698,16 +751,18 @@ def _step_rows(m: Model, params, vq, inputs, tag: str,
                                                        w_t), 5)
         wt.append(dict(
             form="w_t", max_abs_err=err, bound_ms=bms, bound_by=by, ms=ms,
-            call_ms=call_ms, library_ms=None,
+            call_ms=call_ms, library_ms=None, layout=layout,
+            ms_other_layout=cuda_ms(lambda: context_ell_cuda(
+                ids, vals, other, gcw, w_t), 5)[0],
             plain_ms=cuda_ms(lambda: ref.context_ell(ids, vals, a, gcw, w_t),
                              3, inner=2)[0],
             at=f"b={b} Dr={dr} n={a.shape[1]} nb={nb} k={k} fb={gb} "
                f"f_out={f_out} (layer {layer} backward, {tag})"))
         c = wt[-1]
-        log(f"context_ell w_t {c['at']}: max_abs_err {err:.3g}  kernel "
-            f"{ms:.5f} ms (one call {call_ms:.5f} ms)  plain "
-            f"{c['plain_ms']:.5f} ms  bound {bms:.6f} ms ({by})  "
-            f"library none")
+        log(f"context_ell w_t {c['at']}: bit-equal  kernel {ms:.5f} ms (one "
+            f"call {call_ms:.5f} ms; table {layout}, the other layout "
+            f"{c['ms_other_layout']:.5f} ms)  plain {c['plain_ms']:.5f} ms  "
+            f"bound {bms:.6f} ms ({by})  library none")
 
     # --- spmm_ell's intra-batch term and its backward spmm_ell_t ---
     idx = torch.clamp(ops_.in_pos, min=0).contiguous()
@@ -748,9 +803,10 @@ def phase_train_kernels(m: Model, params, vq) -> tuple[list[dict], dict]:
     init = (init_gnn(cfg, torch.Generator().manual_seed(SEED), device=dev),
             init_vq_states(cfg, m.g.n, torch.Generator().manual_seed(
                 SEED + 1), device=dev))
-    upd = step["vq_update"] + _vq_update_rows(m, *init, inputs, "untrained")
+    upd = step["vq_update"] + _vq_update_rows(m, *init, inputs, "untrained") \
+        + _near_tie_rows(m, params, vq, inputs)
     rows = [dict(name="vq_update", route="cuda",
-                 source="src/repro_torch/kernels/csrc/vq_update.cu",
+                 source="src/repro_torch/kernels/csrc/vq_update.cuh",
                  replaces="src/repro/kernels/vq_update.py:106",
                  **{k: upd[0][k] for k in upd[0] if k != "max_abs_err"},
                  max_abs_err=max(c["max_abs_err"] for c in upd),
@@ -980,16 +1036,46 @@ def _spmm_row(idx, val, x, at: str) -> dict:
     return row
 
 
+def _layouts(a, at: str, tier: bool):
+    """The layout the main path holds table ``a`` in -- failing unless it
+    is ``core.conv.hold_table``'s: node-major for a tier state's table on
+    the card, row-major for an fp32 state's -- and the same table in the
+    other layout, to time against it."""
+    from repro_torch.distributed.quantization import PackedAssignment
+    from repro_torch.kernels.context_ell import is_node_major
+    packed = isinstance(a, PackedAssignment)
+    buf = a.packed if packed else a
+    nm = is_node_major(buf)
+    if nm != tier or not (nm or buf.is_contiguous()):
+        raise SystemExit(f"context_ell {at}: the table is not held in "
+                         f"core.conv.hold_table's layout")
+    other = buf.contiguous() if nm else buf.t().contiguous().t()
+    return ("node-major" if nm else "row-major",
+            PackedAssignment(other, a.n) if packed else other)
+
+
+def _bit_equal(name: str, got, want) -> None:
+    import torch
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise SystemExit(f"{name}: not bit-equal to its plain version (max "
+                         f"abs err {float((got - want).abs().max())})")
+
+
 def _context_row(ids, vals, a, cw, at: str) -> dict:
     """The plain form of context_ell against its plain version on one set
-    of operands: ids/vals [b, D], assignment a [nb, n], codewords cw
-    [nb, k, fb]."""
+    of operands, bit for bit: ids/vals [b, D], assignment a [nb, n],
+    codewords cw [nb, k, fb]; timed on the table as the main path holds it
+    (``ms``) and in the other layout (``ms_other_layout``)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.context_ell import context_ell_cuda
-    got, want = context_ell_cuda(ids, vals, a, cw), ref.context_ell(
-        ids, vals, a, cw)
-    err = check_close(f"context_ell {at}", got, want, TOL)
+    layout, other = _layouts(a, at, False)
+    want = ref.context_ell(ids, vals, a, cw)
+    _bit_equal(f"context_ell {at}", context_ell_cuda(ids, vals, a, cw), want)
+    _bit_equal(f"context_ell {at} (other layout)",
+               context_ell_cuda(ids, vals, other, cw), want)
+    err = 0.0
     b, deg = ids.shape
     nb, k, fb = cw.shape
     uid = torch.unique(ids.long())
@@ -1002,12 +1088,15 @@ def _context_row(ids, vals, a, cw, at: str) -> dict:
     ms, call_ms = cuda_ms(lambda: context_ell_cuda(ids, vals, a, cw),
                           5 if big else 10)
     row = dict(max_abs_err=err, bound_ms=bms, bound_by=by, ms=ms,
-               call_ms=call_ms, library_ms=None,
+               call_ms=call_ms, library_ms=None, layout=layout,
+               ms_other_layout=cuda_ms(lambda: context_ell_cuda(
+                   ids, vals, other, cw), 5 if big else 10)[0],
                plain_ms=cuda_ms(lambda: ref.context_ell(ids, vals, a, cw), 3
                                 if big else 5, inner=2 if big else 20)[0],
                at=f"b={b} D={deg} n={a.shape[1]} nb={nb} k={k} fb={fb} {at}")
-    log(f"context_ell {row['at']}: max_abs_err {err:.3g}  kernel {ms:.5f} ms "
-        f"(one call {call_ms:.5f} ms)  plain {row['plain_ms']:.5f} ms  "
+    log(f"context_ell {row['at']}: bit-equal  kernel {ms:.5f} ms (one call "
+        f"{call_ms:.5f} ms; table {layout}, the other layout "
+        f"{row['ms_other_layout']:.5f} ms)  plain {row['plain_ms']:.5f} ms  "
         f"bound {bms:.6f} ms ({by})  library none")
     return row
 
@@ -1611,9 +1700,12 @@ def tier_agreement(server, tag: str) -> float:
     (the snapshots dropped, the tables widened to int32): the share of
     nodes whose argmax agrees, gated at TIER_AGREEMENT (the reference's
     own gate)."""
+    from repro_torch.core.conv import hold_table
     from repro_torch.train.gnn_trainer import vq_inference
-    dense = [st._replace(assignment=_dense_table(st.assignment).int(),
-                         qcw=None) for st in server.vq]
+    dense = []
+    for st in server.vq:
+        a = _dense_table(st.assignment).int()
+        dense.append(hold_table(st._replace(assignment=a, qcw=None)))
     t0 = time.time()
     yq = vq_inference(server.params, server.vq, server.g, server.cfg,
                       TIER_INFER_BATCH)
@@ -1716,17 +1808,18 @@ def _table_bytes(a) -> float:
 def _ctx_q_row(ids, vals, a, qt, w_t, at: str) -> dict:
     """A quantized form of context_ell against its plain version on one
     set of operands (bit-equal), timed: ids/vals [b, D], table a (int32,
-    uint8 or packed), codewords qt (QTensor), optional w_t."""
+    uint8 or packed), codewords qt (QTensor), optional w_t; timed on the
+    table as the main path holds it (``ms``) and in the other layout
+    (``ms_other_layout``)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.context_ell import context_ell_cuda
-    got = context_ell_cuda(ids, vals, a, qt.q, w_t, qt.scale)
+    layout, other = _layouts(a, at, True)
     want = ref.context_ell(ids, vals, a, qt.q, w_t, qt.scale)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise SystemExit(f"context_ell {at}: not bit-equal to its plain "
-                         f"version (max abs err "
-                         f"{float((got - want).abs().max())})")
+    _bit_equal(f"context_ell {at}", context_ell_cuda(
+        ids, vals, a, qt.q, w_t, qt.scale), want)
+    _bit_equal(f"context_ell {at} (other layout)",
+               context_ell_cuda(ids, vals, other, qt.q, w_t, qt.scale), want)
     b, deg = ids.shape
     nb, k, fb = qt.q.shape
     dense = _dense_table(a)
@@ -1745,16 +1838,21 @@ def _ctx_q_row(ids, vals, a, qt, w_t, at: str) -> dict:
     ms, call_ms = cuda_ms(lambda: context_ell_cuda(ids, vals, a, qt.q, w_t,
                                                    qt.scale),
                           3 if big else 5, inner=4 if big else 20)
+    other_ms = cuda_ms(lambda: context_ell_cuda(ids, vals, other, qt.q, w_t,
+                                                qt.scale),
+                       3 if big else 5, inner=4 if big else 20)[0]
     plain_ms = cuda_ms(lambda: ref.context_ell(ids, vals, a, qt.q, w_t,
                                                qt.scale),
                        2, inner=1 if big else 5)[0]
     row = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                bound_ms=bms, bound_by=by, library_ms=None,
+               layout=layout, ms_other_layout=other_ms,
                at=f"b={b} D={deg} n={dense.shape[1]} nb={nb} k={k} fb={fb}"
                   + ("" if w_t is None else f" f_out={f_out}") + f" {at}")
     log(f"context_ell {row['at']}: bit-equal  kernel {ms:.5f} ms (one call "
-        f"{call_ms:.5f} ms)  plain {plain_ms:.5f} ms  bound {bms:.6f} ms "
-        f"({by})  library none")
+        f"{call_ms:.5f} ms; table {layout}, the other layout {other_ms:.5f} "
+        f"ms)  plain {plain_ms:.5f} ms  bound {bms:.6f} ms ({by})  library "
+        f"none")
     return row
 
 
@@ -1795,7 +1893,7 @@ def phase_tier_kernels(m: Model, params, vq, servers: dict) -> dict:
                 srv = servers[src if tab != "a4" else f"{src}+a4"]
                 st0, st1 = srv.vq[0], srv.vq[1]
                 a0, a1 = st0.assignment, st1.assignment
-                if tab == "i32":
+                if tab == "i32":       # widened, still node-major
                     a0, a1 = a0.int(), a1.int()
                 for form, (ids, vals), a, qt, wt in (
                         ("q", fwd, a0, st0.qcw.feat, None),

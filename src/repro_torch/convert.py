@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.codebook import CodebookState
-from repro_torch.core.conv import LayerVQState, QuantizedCodewords
+from repro_torch.core.conv import (LayerVQState, QuantizedCodewords,
+                                   hold_table)
 from repro_torch.distributed.quantization import PackedAssignment, QTensor
 from repro_torch.nn.attention import AttnParams, KVCache
 from repro_torch.nn.ffn import MLPParams
@@ -103,7 +104,8 @@ def vq_states_from_numpy(states: Sequence[Any],
                                      _qtensor(qcw.grad, dev))
         cb = CodebookState(*(
             _tensor(getattr(s.codebook, f), dev) for f in _CODEBOOK_FIELDS))
-        out.append(LayerVQState(cb, a, _tensor(s.counts, dev), qcw))
+        out.append(hold_table(LayerVQState(cb, a, _tensor(s.counts, dev),
+                                           qcw)))
     return out
 
 
@@ -140,7 +142,8 @@ def serve_cache_from_numpy(cache: Mapping[str, Any],
 
 def to_device(tree, device: str | torch.device):
     """Copy params (list of dicts) or VQ states (NamedTuples, packed
-    tables included) to a device."""
+    tables included) to a device, each layer's table in the layout the
+    device's context kernel reads (``core.conv.hold_table``)."""
     dev = resolve_device(device)
     if isinstance(tree, torch.Tensor):
         return tree.to(dev)
@@ -148,6 +151,8 @@ def to_device(tree, device: str | torch.device):
         return None
     if isinstance(tree, PackedAssignment):
         return tree.to(dev)
+    if isinstance(tree, LayerVQState):
+        return hold_table(LayerVQState(*(to_device(v, dev) for v in tree)))
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):

@@ -19,6 +19,7 @@ from repro_torch.core.message_passing import ConvOperands
 from repro_torch.distributed.quantization import (PackedAssignment, QTensor,
                                                   last_occurrence)
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.context_ell import is_node_major
 from repro_torch.kernels.spmm_ell_hbm import StripeIndex
 from repro_torch.runtime import resolve_device
 
@@ -62,7 +63,9 @@ class LayerVQState(NamedTuple):
     (k <= 16).  ``qcw``, when present, is the int8 / fp8 snapshot of the
     codeword tables the layers feed the context kernel instead of dense
     f32 reads; the codebook update rebuilds it (quantize-on-update, in its
-    own storage dtype) and assignment refreshes keep it."""
+    own storage dtype) and assignment refreshes keep it.  On the card the
+    table of a state with a snapshot is held node-major
+    (:func:`hold_table`)."""
     codebook: CodebookState
     assignment: torch.Tensor | PackedAssignment   # [n_branches, n]
     counts: torch.Tensor       # [n_branches, k] f32 histogram of assignment
@@ -84,6 +87,29 @@ def branch_histogram(ids: torch.Tensor, k: int,
     return hist.index_add_(0, flat, w).reshape(nb, k)
 
 
+def hold_table(state: LayerVQState) -> LayerVQState:
+    """The state with its table in the layout the context kernel reads
+    fastest.  On the card, a state that carries a quantized codeword
+    snapshot (a precision tier) holds its table node-major -- the same
+    [n_branches, n] values (a packed table's bytes) over [n, n_branches]
+    storage, a node's ids in every branch in one memory sector, as the
+    Pallas kernel reads its transposed table: the kernel then stages the
+    1-byte codewords in shared memory and waits on the table's reads,
+    1.6-2.0x faster node-major at the training batch (PERF.md) -- where
+    its offsets fit the kernel's 32 bits.  Every other table is row-major:
+    an fp32 state's codewords are gathered from L2, where the two layouts
+    measured within 1.2x, and nothing reads a table on the CPU in place."""
+    table = state.assignment
+    packed = isinstance(table, PackedAssignment)
+    buf = table.packed if packed else table
+    if buf.is_cuda and state.qcw is not None and buf.numel() < 2 ** 31:
+        buf = buf if is_node_major(buf) else buf.t().contiguous().t()
+    else:
+        buf = buf.contiguous()
+    return state._replace(
+        assignment=PackedAssignment(buf, table.n) if packed else buf)
+
+
 def refresh_assignment(state: LayerVQState, batch_ids: torch.Tensor,
                        new_assign: torch.Tensor) -> LayerVQState:
     """Scatter refreshed batch assignments into the global table (Alg. 1
@@ -92,7 +118,7 @@ def refresh_assignment(state: LayerVQState, batch_ids: torch.Tensor,
     one bincount.  Where an id repeats in ``batch_ids`` its last entry
     wins, as in the reference's sequential scatter, on every device.
     Returns a new state (the old table is left untouched, as in the
-    reference)."""
+    reference) whose table keeps the old one's layout."""
     k = state.counts.shape[-1]
     idx = batch_ids.long()
     table = state.assignment
@@ -108,7 +134,11 @@ def refresh_assignment(state: LayerVQState, batch_ids: torch.Tensor,
         assignment = table.scatter(idx, new)
     else:
         keep = last_occurrence(idx, table.shape[1])
-        assignment = table.index_copy(1, idx[keep], new[:, keep])
+        if is_node_major(table):        # written along its storage rows
+            assignment = table.t().index_copy(0, idx[keep],
+                                              new[:, keep].t()).t()
+        else:
+            assignment = table.index_copy(1, idx[keep], new[:, keep])
     return LayerVQState(state.codebook, assignment, state.counts + delta,
                         state.qcw)
 
@@ -175,7 +205,7 @@ def init_layer_vq_state(n_nodes: int, f_feat: int, f_grad: int,
     cw_dtype = kops.precision_codeword_dtype()
     if cw_dtype is not None:
         state = quantize_layer_state(state, f_feat, cfg, dtype=cw_dtype)
-    return state
+    return hold_table(state)
 
 
 # ---------------------------------------------------------------------------

@@ -57,9 +57,9 @@ for _x in ("f32", "q_i8", "q_f8"):
 for _cw in ("f32", "i8", "f8"):
     for _tab in ("i32", "u8", "a4"):
         SIGNATURES[f"repro_context_ell_{_cw}_{_tab}"] = \
-            [_vp] * 6 + [_int] * 6 + [_vp]
+            [_vp] * 3 + [_ll] * 2 + [_vp] * 3 + [_int] * 6 + [_vp]
         SIGNATURES[f"repro_context_ell_wt_{_cw}_{_tab}"] = \
-            [_vp] * 7 + [_int] * 7 + [_vp]
+            [_vp] * 3 + [_ll] * 2 + [_vp] * 4 + [_int] * 7 + [_vp]
 
 _lib: ctypes.CDLL | None = None
 

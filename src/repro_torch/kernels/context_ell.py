@@ -7,10 +7,14 @@ epilogue of the Eq. 7 backward (``_context_ell_wt_kernel``) and their
 quantized twins (``_context_ell_q_kernel``, ``_context_ell_q_wt_kernel``:
 int8 / fp8 codewords with [nb, 1, f_blk] f32 scales), each over an int32
 or uint8 ``[nb, n]`` assignment table or a nibble-packed
-``PackedAssignment``, every table read in place in its storage type.
-``launches`` counts every launch of the kernel in this process,
-``launches_wt`` those of the ``w_t`` forms, ``launches_q`` those with
-quantized codewords and ``launches_q_wt`` the quantized ``w_t`` ones;
+``PackedAssignment``, every table read in place in its storage type and
+layout: row-major, or node-major (the [nb, n] values over contiguous
+[n, nb] storage, packed [ceil(n / 2), nb]: ``core.conv.hold_table`` holds
+a tier state's table so on the card), which gives a node's id in every
+branch from one memory sector, as the Pallas kernel's transposed table
+does.  ``launches`` counts every launch of the kernel in this
+process, ``launches_wt`` those of the ``w_t`` forms, ``launches_q`` those
+with quantized codewords and ``launches_q_wt`` the quantized ``w_t`` ones;
 ``launches_by_entry`` counts them by the library entry launched
 (``repro_context_ell[_wt]_<f32|i8|f8>_<i32|u8|a4>``).
 """
@@ -21,14 +25,23 @@ import torch
 from repro_torch.distributed.quantization import PackedAssignment
 from repro_torch.kernels import _build
 
+
+def is_node_major(table: torch.Tensor) -> bool:
+    """True for an [nb, n] table held as the transpose of a contiguous
+    [n, nb] one (one branch is row-major either way)."""
+    return table.dim() == 2 and not table.is_contiguous() \
+        and table.t().is_contiguous()
+
 launches = 0
 launches_wt = 0
 launches_q = 0
 launches_q_wt = 0
 launches_by_entry: dict[str, int] = {}
 
-WT_ROWS = 8                   # output rows per block of the w_t kernel
-SMEM_LIMIT = 232448           # dynamic shared memory one H100 block may use
+# dynamic shared memory one H100 block may use; the w_t form holds at least
+# 8 rows of the [b, nb * f_blk] context in it (32 where they fit)
+SMEM_LIMIT = 232448
+WT_ROWS = 8
 # codeword storage dtype -> entry name part; table kind -> (part, largest k)
 _CW = {torch.float32: "f32", torch.int8: "i8", torch.float8_e4m3fn: "f8"}
 _TABLE_K = {"i32": None, "u8": 256, "a4": 16}
@@ -42,8 +55,9 @@ def context_ell_cuda(out_ids: torch.Tensor, out_vals: torch.Tensor,
     """out_ids [b, D] int32, out_vals [b, D] f32, assignment [nb, n] int32
     or uint8 (k <= 256) or a ``PackedAssignment`` (k <= 16), codewords
     [nb, k, f_blk] f32 -- or int8 / float8_e4m3fn with ``cw_scale``
-    [nb, 1, f_blk] f32 -- all contiguous CUDA tensors -> [b, nb * f_blk]
-    f32 (branch-concatenated codeword context), or, with ``w_t``
+    [nb, 1, f_blk] f32 -- all contiguous CUDA tensors, the table (a packed
+    table's bytes) row-major or node-major -> [b, nb * f_blk] f32
+    (branch-concatenated codeword context), or, with ``w_t``
     [nb * f_blk, f_out] contiguous f32, that context ``@ w_t``:
     [b, f_out]."""
     global launches, launches_wt, launches_q, launches_q_wt
@@ -74,7 +88,7 @@ def context_ell_cuda(out_ids: torch.Tensor, out_vals: torch.Tensor,
         a_dtype = table.dtype
     _build.check_operands("context_ell", {"out_ids": torch.int32,
                                           "out_vals": torch.float32,
-                                          "assignment": a_dtype,
+                                          "assignment": (a_dtype, "strided"),
                                           "codewords": codewords.dtype,
                                           "cw_scale": torch.float32,
                                           "w_t": torch.float32},
@@ -95,6 +109,15 @@ def context_ell_cuda(out_ids: torch.Tensor, out_vals: torch.Tensor,
     if k_max is not None and k > k_max:
         raise ValueError(f"context_ell: a {'packed' if packed else 'uint8'} "
                          f"assignment table holds ids < {k_max}, got k={k}")
+    node_major = is_node_major(table)
+    if not (node_major or table.is_contiguous()):
+        raise ValueError("context_ell: the assignment table must be "
+                         "row-major or node-major (a contiguous [n, nb] "
+                         "tensor's transpose)")
+    if node_major and table.numel() >= 2 ** 31:
+        # the kernels take a node's offset v * nb in 32 bits
+        raise ValueError(f"context_ell: a node-major table takes fewer than "
+                         f"2^31 entries, got {table.numel()}")
     if quantized and cw_scale.shape != (nb, 1, f_blk):
         raise ValueError(f"context_ell: cw_scale must be [{nb}, 1, {f_blk}], "
                          f"got {tuple(cw_scale.shape)}")
@@ -119,8 +142,9 @@ def context_ell_cuda(out_ids: torch.Tensor, out_vals: torch.Tensor,
     stream = torch.cuda.current_stream(out.device).cuda_stream
     lib = _build.library()
     scale = cw_scale.data_ptr() if quantized else None
+    # the table's strides: element (br, v) at br * s_br + v * s_id
     head = (out_ids.data_ptr(), out_vals.data_ptr(), table.data_ptr(),
-            codewords.data_ptr(), scale)
+            *table.stride(), codewords.data_ptr(), scale)
     if w_t is None:
         entry = f"repro_context_ell_{cw_name}_{tab}"
         err = getattr(lib, entry)(

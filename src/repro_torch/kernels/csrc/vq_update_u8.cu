@@ -1,0 +1,16 @@
+// VQ-Update's uint8 emit.
+// Replaces the TPU kernel src/repro/kernels/vq_update.py:
+// vq_assign_update_pallas with a uint8 / uint4 emit_dtype; the kernel and
+// its notes are in vq_update.cuh.
+#include "vq_update.cuh"
+
+// As repro_vq_update_f32 with idx: [nb, n] uint8 (k <= 256).
+extern "C" cudaError_t repro_vq_update_u8_f32(const float* x, const float* cw,
+                                              uint8_t* idx, float* qerr,
+                                              float* counts, float* sums,
+                                              int nb, int n, int k, int f,
+                                              cudaStream_t stream) {
+  if (k > 256) return cudaErrorInvalidValue;
+  return dispatch<uint8_t>(x, cw, idx, qerr, counts, sums, nb, n, k, f,
+                           stream);
+}

@@ -1,5 +1,5 @@
 """Checked wrapper of the fused VQ assign + cluster-statistics CUDA kernel
-(``csrc/vq_update.cu``).
+(``csrc/vq_update.cuh``, entries in ``vq_update.cu`` and ``vq_update_u8.cu``).
 
 Counterpart of ``repro.kernels.vq_update.vq_assign_update_pallas`` as
 ``core/codebook.py:update`` uses it: vmapped over the product-VQ branches,
@@ -9,6 +9,13 @@ uint4 (k <= 16), which the kernel writes through the same uint8 output --
 the port's uint4 is a uint8 tensor of values < 16, so the wrapper's
 narrowing is that k check.  ``launches`` counts the counted launches of
 this process, ``launches_u8`` those with a narrow emit.
+
+The kernel scans the distances on the tensor cores (TF32 split hi + lo)
+and rescores exactly every codeword within ``2 * candidate_bound`` of a
+row's smallest approximate distance, so the assignment and qerr are the
+plain version's bit for bit; :func:`candidate_bound` is the kernel's bound,
+kept here for the CPU emulation that tests it
+(``tests/test_torch_vq_scan.py``).
 """
 from __future__ import annotations
 
@@ -42,7 +49,24 @@ def check_emit(emit_dtype, k: int) -> str:
     return emit
 
 MAX_F = 32                    # widest branch the kernel holds in registers
-SMEM_LIMIT = 232448           # dynamic shared memory one H100 block may use
+# dynamic shared memory one H100 block may use: the kernel stages a
+# branch's [k, f] codewords and their [k] squared norms, k (f + 1) * 4
+# bytes (k <= 2,641 at f 21), and its warps' rows where they fit beside
+SMEM_LIMIT = 232448
+# the scan's bound: allowance per tensor-core accumulation, relative to the
+# magnitudes it adds, and the floor for products a tensor core may flush
+TC_EPS = 2.0 ** -20
+TINY = 2.0 ** -118
+
+
+def candidate_bound(x_norm, c_max, f: int):
+    """E(x) of ``csrc/vq_update.cuh``: an upper bound on |d~ - d| for every
+    codeword of a branch, d the plain version's fp32 distance, d~ the
+    tensor cores' (3 * ceil(f / 8) mma accumulations), for rows of norm
+    ``x_norm`` against codewords of norm at most ``c_max``."""
+    n_mma = 3 * -(-f // 8)
+    return (n_mma + 6) * TC_EPS * (c_max * c_max + 4 * x_norm * c_max) \
+        + TINY * (1 + x_norm + c_max)
 
 
 def vq_assign_update_cuda(x: torch.Tensor, codewords: torch.Tensor,
@@ -52,6 +76,7 @@ def vq_assign_update_cuda(x: torch.Tensor, codewords: torch.Tensor,
     """x [nb, n, f] and codewords [nb, k, f], contiguous f32 CUDA tensors
     -> (assignment [nb, n] int32 -- uint8 for ``emit_dtype`` uint8 or
     ``"uint4"`` --, qerr [nb, n], counts [nb, k], sums [nb, k, f]).  The
+    assignment and qerr are the plain version's bit for bit.  The
     statistics are added with atomics into buffers zeroed here: counts are
     exact, sums depend on the order of the adds."""
     narrow = check_emit(emit_dtype, codewords.shape[1]) != "int32"

@@ -29,7 +29,7 @@ from repro_torch.core import codebook as cbm
 from repro_torch.core.codebook import CodebookConfig
 from repro_torch.core.conv import (LayerVQState, MinibatchPack,
                                    init_layer_vq_state, quantize_layer_state,
-                                   refresh_assignment)
+                                   hold_table, refresh_assignment)
 from repro_torch.distributed.quantization import PackedAssignment
 from repro_torch.graph.batching import (EpochPlan, FullGraphOperands,
                                         SamplerEpochPlan, plan_batch)
@@ -131,7 +131,8 @@ def quantize_vq_states(vq_states: list[LayerVQState], cfg: GNNConfig,
             if pack:
                 a = PackedAssignment.pack(a)
         st = vq._replace(assignment=a, qcw=None)
-        out.append(quantize_layer_state(st, fi, cb_cfg, dtype=cw_dtype))
+        out.append(hold_table(quantize_layer_state(st, fi, cb_cfg,
+                                                   dtype=cw_dtype)))
     return out
 
 

@@ -1017,3 +1017,309 @@ def test_sampler_step_cuda_vs_cpu(cuda):
     for a, b in zip(pg, pc):
         for k in a:
             assert_allclose(a[k].cpu().numpy(), b[k].numpy(), **STEP)
+
+
+# ---------------------------------------------------------------------------
+# vq_update's tensor-core scan and context_ell's paths, at the inputs that
+# stress them: bit-equal to the plain version computed on the same card
+# ---------------------------------------------------------------------------
+
+def _assert_vq_update_exact(x, cw, emit=torch.int32):
+    """idx and qerr bit-equal to the plain version on the card, counts
+    equal, sums within the scatter bound."""
+    got = tvu.vq_assign_update_cuda(x, cw, emit)
+    want = tref.vq_assign_update(x, cw, emit)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]), \
+        f"{int((got[0] != want[0]).sum())} assignments differ"
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    nb, _, f = x.shape
+    k = cw.shape[1]
+    flat = (want[0].long() + k * torch.arange(nb, device=x.device)[:, None]
+            ).reshape(-1)
+    terms_abs = torch.zeros((nb * k, f), device=x.device).index_add_(
+        0, flat, x.abs().reshape(-1, f)).reshape(nb, k, f)
+    assert_scatter_close(got[3].cpu(), want[3].cpu(), terms_abs.cpu(),
+                         want[2][..., None].cpu().numpy())
+
+
+def _near_tie_codebook(nb, n, k, f, seed, cuda):
+    """Codewords 1::4 duplicate 0::4 (the lowest index must win), 2::4 are
+    0::4 one fp32 ulp up in one coordinate; rows on a codeword, halfway
+    between two (equidistant), and one in seven scaled to |x| ~ 1e3."""
+    g = torch.Generator().manual_seed(seed)
+    cw = torch.randn((nb, k, f), generator=g)
+    cw[:, 1::4] = cw[:, 0::4][:, :cw[:, 1::4].shape[1]]
+    c2 = cw[:, 0::4][:, :cw[:, 2::4].shape[1]].clone()
+    c2[..., 0] = torch.nextafter(c2[..., 0], torch.full_like(c2[..., 0], 9.0))
+    cw[:, 2::4] = c2
+    pick = torch.randint(0, k, (nb, n), generator=g)
+    on = torch.gather(cw, 1, pick[..., None].expand(nb, n, f))
+    other = torch.gather(cw, 1, ((pick + 5) % k)[..., None].expand(nb, n, f))
+    x = torch.randn((nb, n, f), generator=g)
+    x[:, 0::3] = on[:, 0::3]
+    x[:, 1::3] = (0.5 * (on + other))[:, 1::3]
+    x[:, 3::7] *= 1e3
+    return x.contiguous().to(cuda), cw.contiguous().to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [8, 21, 12])
+@pytest.mark.parametrize("n,k", [(5003, 1024), (777, 1001), (130, 37),
+                                 (300, 2641)])
+def test_vq_update_near_ties_bit_equal(cuda, f, n, k):
+    """Duplicated codewords, 1-ulp neighbours, equidistant and large-norm
+    rows -- most rows near ties, rescored through the warps' queues -- n
+    and k not multiples of the kernel's tiles (32 rows a warp, 8
+    codewords), at both training widths and a generic one; k 2641 at f 21
+    leaves no room for the rows beside the codewords (read in place)."""
+    _assert_vq_update_exact(*_near_tie_codebook(3, n, k, f, n + k + f, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [8, 21])
+def test_vq_update_large_rows_next_to_small_codewords(cuda, f):
+    g = torch.Generator().manual_seed(f)
+    x = (torch.randn((4, 3000, f), generator=g) * 1e3).to(cuda)
+    cw = (torch.randn((4, 1024, f), generator=g) * 1e-2).to(cuda)
+    _assert_vq_update_exact(x, cw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,f", [(1024, 8), (1024, 21), (2048, 21)])
+def test_vq_update_every_row_on_one_codeword(cuda, k, f):
+    """The collapsed codebook: every row alike, at k 1024 and at k 2048 /
+    f 21 (its codewords alone take 180 KiB of the block's shared memory):
+    the warp-aggregated statistics stay exact."""
+    g = torch.Generator().manual_seed(k + f)
+    cw = torch.randn((4, k, f), generator=g)
+    x = torch.randn((4, 1, f), generator=g).expand(4, 20000, f).contiguous()
+    got = tvu.vq_assign_update_cuda(x.to(cuda), cw.to(cuda))
+    assert bool((got[2].max(dim=1).values == 20000).all())
+    _assert_vq_update_exact(x.to(cuda), cw.to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emit,k", [(torch.uint8, 256), ("uint4", 16)])
+def test_vq_update_narrow_emit_near_ties(cuda, emit, k):
+    _assert_vq_update_exact(*_near_tie_codebook(8, 3001, k, 8, k, cuda),
+                            emit)
+
+
+# The scan's own tensor-core distances d~ for one branch: the kernel's
+# fragment loads (load_b), 3xTF32 products (tile_dist) and |c|^2 staging,
+# one m16 tile of rows a warp, written out for every (row, codeword).
+_DIST_PROBE = r"""
+#include "vq_update.cuh"
+namespace {
+template <int F>
+__global__ void dist_probe(const float* x, const float* cw, float* dout,
+                           int n, int k) {
+  extern __shared__ float sm[];
+  float* c_s = sm;
+  float* cn2_s = sm + (size_t)k * F;
+  for (int i = threadIdx.x; i < k * F; i += blockDim.x) {
+    const int c = i / F;
+    c_s[cw_off<F>(c, i - c * F, F)] = cw[i];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < k; c += blockDim.x) {
+    float a = 0.f;
+    for (int j = 0; j < F; ++j) {
+      const float v = c_s[cw_off<F>(c, j, F)];
+      a = __fadd_rn(a, __fmul_rn(v, v));
+    }
+    cn2_s[c] = a;
+  }
+  __syncthreads();
+  constexpr int KS = Cfg<F>::KS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int r0 = (blockIdx.x * (blockDim.x / 32) + warp) * 16;
+  if (r0 >= n) return;
+  uint32_t ah[KS][4], al[KS][4];
+  for (int h = 0; h < 2; ++h)
+    for (int ks = 0; ks < KS; ++ks)
+      for (int t = 0; t < 2; ++t) {
+        const int r = r0 + g + 8 * h, j = ks * 8 + q + 4 * t;
+        const float v = (r < n && j < F) ? x[(size_t)r * F + j] : 0.f;
+        split_tf32(-2.f * v, ah[ks][h + 2 * t], al[ks][h + 2 * t]);
+      }
+  for (int nt = 0; nt < k / 8; ++nt) {
+    uint32_t bh[KS][2], bl[KS][2];
+    float cc[2], d[4];
+    load_b<F>(c_s, cn2_s, nt, g, q, k, F, KS, false, bh, bl, cc);
+    tile_dist<F>(d, ah, al, bh, bl, cc, KS);
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + g + 8 * (i >> 1), c = nt * 8 + 2 * q + (i & 1);
+      if (r < n) dout[(size_t)r * k + c] = d[i];
+    }
+  }
+}
+}  // namespace
+extern "C" int probe_dist(const float* x, const float* cw, float* d, int n,
+                          int k, int f) {
+  const size_t smem = (size_t)k * (f + 1) * 4;
+  const int blocks = (n + 127) / 128;
+  auto kern = f == 8 ? dist_probe<8> : dist_probe<21>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kern<<<blocks, 256, smem>>>(x, cw, d, n, k);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [8, 21])
+def test_vq_update_tensor_core_distances_within_the_bound(cuda, f, tmp_path):
+    """The exact answers of ``vq_update`` rest on |d~ - d| <= E for every
+    row and codeword (``vq_update.candidate_bound``; its step (ii) models
+    the tensor cores' accumulation).  The scan's own d~, from a probe
+    built on the kernel's header, against the plain version's fp32 d on
+    the four input families of the derivation -- random, mixed magnitudes
+    (one coordinate 1e6 times the rest, codewords over six decades), large
+    rows next to small codewords, and |c|^2-dominated: the largest error
+    stays under a quarter of E."""
+    import ctypes
+    import subprocess
+    from repro_torch.kernels import _build
+    src = tmp_path / "probe.cu"
+    src.write_text(_DIST_PROBE)
+    lib = tmp_path / "probe.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-shared", "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    probe = ctypes.CDLL(str(lib))
+    probe.probe_dist.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    g = torch.Generator(device=cuda).manual_seed(f)
+    n, k = 8192, 1024
+    x = torch.randn((n, f), generator=g, device=cuda)
+    cw = torch.randn((k, f), generator=g, device=cuda)
+    xm = torch.randn((n, f), generator=g, device=cuda) * 1e-3
+    xm[:, 0] *= 1e6
+    cwm = cw * torch.logspace(-3, 3, f, device=cuda)
+    for xs, cs in ((x, cw), (xm, cwm), (x * 1e3, cw * 1e-2),
+                   (x * 1e-3, cw * 10 + 50)):
+        xs, cs = xs.contiguous(), cs.contiguous()
+        d = torch.empty((n, k), device=cuda)
+        assert probe.probe_dist(xs.data_ptr(), cs.data_ptr(), d.data_ptr(),
+                                n, k, f) == 0
+        dot = torch.zeros((n, k), device=cuda)
+        for j in range(f):
+            dot = dot + xs[:, j, None] * cs[None, :, j]
+        want = tref._sq_norms(cs)[None, :] - 2.0 * dot
+        bound = tvu.candidate_bound(xs.double().norm(dim=1)[:, None],
+                                    float(cs.double().norm(dim=1).max()), f)
+        ratio = float(((d.double() - want.double()).abs() / bound).max())
+        assert ratio < 0.25, ratio
+
+
+def _context_operands(b, deg, n, nb, k, fb, f_out, seed, cuda):
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, n, (b, deg), generator=g, dtype=torch.int32)
+    val = torch.randn((b, deg), generator=g)
+    val[:, -1] = 0.0                                  # a padding slot
+    assign = torch.randint(0, k, (nb, n), generator=g, dtype=torch.int32)
+    cw = torch.randn((nb, k, fb), generator=g)
+    w_t = torch.randn((nb * fb, f_out), generator=g)
+    return [t.to(cuda) for t in (ids, val, assign, cw, w_t)]
+
+
+def _node_major(table):
+    """The table over contiguous [n, nb] storage (a packed table's bytes:
+    [ceil(n / 2), nb]), as ``core.conv.hold_table`` holds a tier state's
+    table on the card."""
+    from repro_torch.distributed.quantization import PackedAssignment
+    if isinstance(table, PackedAssignment):
+        return PackedAssignment(table.packed.t().contiguous().t(), table.n)
+    return table.t().contiguous().t()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cw_dtype", [torch.float32] + QDTYPES)
+@pytest.mark.parametrize("tab", ["i32", "u8", "a4"])
+@pytest.mark.parametrize("b", [31, 4099])
+@pytest.mark.parametrize("deg", [1, 17, 40])
+def test_context_ell_every_form_both_layouts(cuda, cw_dtype, tab, b, deg):
+    """Every codeword type x table kind, the plain and the w_t form, the
+    table row-major and node-major: b not a multiple of the w_t kernel's
+    32 rows (31 takes the small-batch kernels, 4,099 the staged one), deg
+    not a multiple of the 32-slot chunk, f_out 130 not a multiple of the
+    epilogue's 4 x 128 outputs.  Bit-equal."""
+    from repro_torch.distributed.quantization import quantize_codewords
+    ids, val, assign, cw, w_t = _context_operands(b, deg, 3001, 8, 16, 5,
+                                                  130, b + deg, cuda)
+    scale = None
+    if cw_dtype != torch.float32:
+        qt = quantize_codewords(cw, dtype=cw_dtype)
+        cw, scale = qt.q, qt.scale
+    a = _table(assign, tab)
+    for wt in (None, w_t):
+        want = tref.context_ell(ids, val, a, cw, wt, scale)
+        for table in (a, _node_major(a)):
+            got = tce.context_ell_cuda(ids, val, table, cw, wt, scale)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,k,fb", [(32, 1024, 4), (8, 1024, 16),
+                                     (8, 1024, 5)])
+def test_context_ell_staged_groups_bit_equal(cuda, nb, k, fb):
+    """The large-batch kernel stages groups of branches' codewords (at k
+    1024: 8 branches of width 4, 3 of width 16) and the w_t form all of
+    them where they fit (8 x 5): every path bit-equal, both layouts."""
+    ids, val, assign, cw, w_t = _context_operands(5000, 18, 20000, nb, k, fb,
+                                                  128, nb + fb, cuda)
+    for wt in (None, w_t):
+        want = tref.context_ell(ids, val, assign, cw, wt)
+        for table in (assign, _node_major(assign)):
+            got = tce.context_ell_cuda(ids, val, table, cw, wt)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_context_ell_rejects_a_table_in_neither_layout(cuda):
+    ids, val, assign, cw, _ = _context_operands(8, 3, 50, 4, 16, 2, 4, 0,
+                                                cuda)
+    with pytest.raises(ValueError, match="node-major"):
+        tce.context_ell_cuda(ids, val, assign[:, ::2], cw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", [False, True])
+@pytest.mark.parametrize("tab", ["i32", "u8", "a4"])
+def test_table_layout_on_the_card(cuda, tab, tier):
+    """Moved to the card, the table of a state with a quantized codeword
+    snapshot (a tier) is held node-major and an fp32 state's row-major,
+    whatever its type; ``refresh_assignment`` keeps the layout and gives
+    the CPU refresh's table and histogram; moved back, it is row-major."""
+    from repro_torch import convert
+    from repro_torch.core import conv as tconv
+    from repro_torch.distributed.quantization import quantize_codewords
+    g = torch.Generator().manual_seed(3)
+    assign = torch.randint(0, 16, (8, 3001), generator=g, dtype=torch.int32)
+    qcw = None
+    if tier:
+        q = quantize_codewords(torch.randn((8, 16, 4), generator=g))
+        qcw = tconv.QuantizedCodewords(q, q)
+    st = tconv.LayerVQState(None, _table(assign, tab),
+                            tconv.branch_histogram(assign, 16), qcw)
+    dev = convert.to_device(st, cuda)
+
+    def buf(table):
+        return table.packed if tab == "a4" else table
+
+    assert tce.is_node_major(buf(dev.assignment)) == tier
+    assert tier or buf(dev.assignment).is_contiguous()
+    ids = torch.randperm(3001, generator=g)[:500].int()
+    new = torch.randint(0, 16, (8, 500), generator=g, dtype=torch.int32)
+    want = tconv.refresh_assignment(st, ids, new)
+    got = tconv.refresh_assignment(dev, ids.to(cuda), new.to(cuda))
+    assert tce.is_node_major(buf(got.assignment)) == tier
+    assert torch.equal(buf(got.assignment).cpu(), buf(want.assignment))
+    assert torch.equal(got.counts.cpu(), want.counts)
+    assert buf(convert.to_device(got, "cpu").assignment).is_contiguous()

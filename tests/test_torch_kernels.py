@@ -550,8 +550,9 @@ def test_build_is_keyed_on_sources_and_lazy():
     assert len(h) == 16 and h == _build.source_hash()
     assert _build.library_path().parent.name == h
     assert {p.name for p in _build._sources()} == {
-        "vq_assign.cu", "vq_update.cu", "spmm_ell.cu", "spmm_ell_hbm.cu",
-        "context_ell.cu", "vq_attention.cu", "flash_attention.cu"}
+        "vq_assign.cu", "vq_update.cu", "vq_update_u8.cu", "spmm_ell.cu",
+        "spmm_ell_hbm.cu", "context_ell.cu", "vq_attention.cu",
+        "flash_attention.cu"}
     for src in _build._sources():      # each names the TPU kernel it ports
         assert "Replaces the TPU kernel src/repro/kernels/" in src.read_text()
 

@@ -27,6 +27,7 @@ from repro_torch import convert                              # noqa: E402
 from repro_torch.core import conv as tconv                   # noqa: E402
 from repro_torch.core.codebook import CodebookConfig         # noqa: E402
 from repro_torch.distributed import quantization as tq       # noqa: E402
+from repro_torch.kernels import context_ell as tce          # noqa: E402
 from repro_torch.kernels import ops as tops                  # noqa: E402
 from repro_torch.models import gnn as tgnn                   # noqa: E402
 
@@ -346,3 +347,72 @@ def test_refresh_and_requantize_match_reference(tier):
         jq_ = jconv.quantize_layer_state(jm, fi, jcfg.layer_codebook_cfg())
         tq_ = tconv.quantize_layer_state(tm, fi, tcfg.layer_codebook_cfg())
         assert_states_equal([tq_], [jq_])
+
+
+
+def _node_major(table):
+    """A table held as ``core.conv.hold_table`` holds a tier state's table
+    on the card: the same [nb, n] values (a packed table's bytes) over
+    contiguous [n, nb] storage."""
+    if isinstance(table, tq.PackedAssignment):
+        return tq.PackedAssignment(table.packed.t().contiguous().t(), table.n)
+    return table.t().contiguous().t()
+
+
+def _buf(table) -> torch.Tensor:
+    return table.packed if isinstance(table, tq.PackedAssignment) else table
+
+
+@pytest.mark.parametrize("tier", ["fp32"] + TIERS)
+def test_refresh_keeps_a_node_major_table_node_major(tier):
+    """``refresh_assignment`` writes a node-major table (int32, uint8 or
+    packed bytes) along its storage rows: the new table is node-major
+    again, with no second copy, and equals the reference's refresh of the
+    row-major table, histogram included.  On the CPU every table is held
+    row-major (``hold_table`` forms node-major tables on the card only),
+    and ``to_device`` returns a moved table to that layout."""
+    jcfg, tcfg, jvq = _ref_world(16)
+    jst = jvq[0] if tier == "fp32" else \
+        jgnn.quantize_vq_states(jvq, jcfg, precision=tier)[0]
+    tst = convert.vq_states_from_numpy([jst], CPU)[0]
+    assert _buf(tst.assignment).is_contiguous()
+    nm = tst._replace(assignment=_node_major(tst.assignment))
+    assert tce.is_node_major(_buf(nm.assignment))
+    rng = np.random.default_rng(7)
+    bids = rng.permutation(300)[:150].astype(np.int32)
+    new = rng.integers(0, 16, (jst.counts.shape[0], 150)).astype(np.int32)
+    jr = jconv.refresh_assignment(jst, jnp.asarray(bids), jnp.asarray(new))
+    tr = tconv.refresh_assignment(nm, torch.from_numpy(bids),
+                                  torch.from_numpy(new))
+    assert tce.is_node_major(_buf(tr.assignment))
+    assert _buf(tr.assignment).untyped_storage().nbytes() \
+        == _buf(tr.assignment).numel() * _buf(tr.assignment).element_size()
+    assert_states_equal([tr], [jr])
+    moved = convert.to_device(tr, CPU)
+    assert _buf(moved.assignment).is_contiguous()
+    assert_states_equal([moved], [jr])
+    for st in (tr, nm):
+        assert _buf(tconv.hold_table(st).assignment).is_contiguous()
+
+
+@pytest.mark.parametrize("tier", ["fp32"] + TIERS)
+def test_context_ell_reads_either_layout(tier):
+    """The context term (``ops.context_ell``, plain and ``w_t``) of a
+    node-major table equals the row-major table's bit for bit."""
+    jcfg, tcfg, jvq = _ref_world(16)
+    jst = jvq[0] if tier == "fp32" else \
+        jgnn.quantize_vq_states(jvq, jcfg, precision=tier)[0]
+    tst = convert.vq_states_from_numpy([jst], CPU)[0]
+    fi = jcfg.layer_dims()[0][0]
+    fcw, gcw = tconv.layer_codewords(tst, fi, tcfg.layer_codebook_cfg())
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(0, 300, (37, 9)).astype(np.int32))
+    vals = torch.from_numpy(rng.standard_normal((37, 9)).astype(np.float32))
+    nb, _, fb = (fcw.q if isinstance(fcw, tq.QTensor) else fcw).shape
+    w_t = torch.from_numpy(rng.standard_normal((nb * fb, 5))
+                           .astype(np.float32))
+    for wt in (None, w_t):
+        want = tops.context_ell(ids, vals, tst.assignment, fcw, wt)
+        got = tops.context_ell(ids, vals, _node_major(tst.assignment), fcw,
+                               wt)
+        assert torch.equal(got, want)

@@ -437,6 +437,45 @@ def test_serving_rows_under_each_tier(gcn16, tier):
     assert vq_state_bytes(server.vq) == want
 
 
+@pytest.mark.parametrize("tier", ["fp32", "int8", "int8+a4"])
+def test_serve_refresh_keeps_a_node_major_table(gcn16, tier):
+    """The serve refresh writes a node-major table (int32, uint8 or packed
+    bytes: the layout ``hold_table`` holds a tier state's table in on the
+    card) along its storage rows: after it every layer's table is node-major
+    again and equals the row-major server's table, the served rows are
+    bit-equal, and ``vq_state_bytes`` is the same (no second copy)."""
+    from repro_torch.kernels.context_ell import is_node_major
+    from repro_torch.launch.serve_gnn import GNNServer, vq_state_bytes
+    w = gcn16
+    tvq = w.tvq if tier == "fp32" else \
+        tgnn.quantize_vq_states(w.tvq, w.tcfg, precision=tier)
+
+    def node_major(table):
+        if isinstance(table, tq.PackedAssignment):
+            return tq.PackedAssignment(table.packed.t().contiguous().t(),
+                                       table.n)
+        return table.t().contiguous().t()
+
+    def buf(table):
+        return table.packed if isinstance(table, tq.PackedAssignment) \
+            else table
+
+    rows = GNNServer(w.tg, w.tcfg, w.tparams, tvq, batch=128, device=CPU)
+    cols = GNNServer(w.tg, w.tcfg, w.tparams,
+                     [st._replace(assignment=node_major(st.assignment))
+                      for st in tvq], batch=128, device=CPU)
+    rows.refresh()
+    cols.refresh()
+    for r, c in zip(rows.vq, cols.vq):
+        assert buf(r.assignment).is_contiguous()
+        assert is_node_major(buf(c.assignment))
+        assert torch.equal(buf(c.assignment), buf(r.assignment))
+        assert torch.equal(c.counts, r.counts)
+    req = np.arange(0, w.tg.n, 3)
+    assert np.array_equal(cols.serve(req), rows.serve(req))
+    assert vq_state_bytes(cols.vq) == vq_state_bytes(rows.vq)
+
+
 def test_tier_inference_agrees_with_fp32(gcn16):
     """Codeword inference under each tier against the fp32 inference of
     the same codebooks and weights: argmax agreement >= 0.95 (the
