@@ -32,7 +32,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    of vq_assign (its ``want_min`` output too), spmm_ell and
    context_ell; timing kernel, plain version
    and -- where one PyTorch call computes the same function -- that
-   call, with CUDA events;
+   call, with CUDA events; spmm_ell bit for bit at every shape, and
+   timed also with every slot gathered (its padding not skipped);
 5. one training step at batch 4,096 on the card and the same step on the
    CPU plain path from the trained state copied over: loss, params,
    optimizer and codebook state must agree;
@@ -115,7 +116,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    causal and ``[1, 24, 1024, 128]`` non-causal on both routes: bf16 on
    the tensor-core kernel, f32 on the FMA kernel; bf16 outputs within 2
    bf16 ulps of the plain version, f32 ``rtol=1e-5, atol=1e-6``; timed
-   with SDPA as the library call;
+   with SDPA as the library call, vq_attention at the path's shape also
+   at other counts of blocks a group (``splits``);
 20. a ``{"kernels": [...]}`` line (the quantized forms under each
    kernel's ``also``, each with its launches on the main paths), each
    phase's seconds, then the ``{"ok": true, ...}`` line.
@@ -1003,13 +1005,19 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
 
 
 def _spmm_row(idx, val, x, at: str) -> dict:
-    """spmm_ell against its plain version and ``torch.sparse.mm`` on one
-    set of operands: idx/val [b, D], source x [n_src, f]."""
+    """spmm_ell against its plain version (bit for bit: the kernel adds
+    the slots in the plain version's order and leaves out the padding,
+    which adds +-0 to a finite source) and ``torch.sparse.mm`` on one set
+    of operands: idx/val [b, D], source x [n_src, f].  Also timed with
+    every zero value replaced by the smallest subnormal
+    (``ms_padding_loaded``): the same kernel gathering every slot, the
+    other choice for padding."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.spmm_ell import spmm_ell_cuda
     got, want = spmm_ell_cuda(idx, val, x), ref.spmm_ell(idx, val, x)
-    err = check_close(f"spmm_ell {at}", got, want, TOL)
+    _bit_equal(f"spmm_ell {at}", got, want)
+    err = 0.0
     b, deg = idx.shape
     f = x.shape[1]
     n_rows = int(torch.unique(idx).numel())
@@ -1022,7 +1030,12 @@ def _spmm_row(idx, val, x, at: str) -> dict:
                 SERVE_TOL)
     big = b * deg * f > 1e7              # fewer repetitions of the big ones
     ms, call_ms = cuda_ms(lambda: spmm_ell_cuda(idx, val, x), 5 if big else 10)
+    every = torch.where(val == 0, torch.full_like(val, 1e-45), val)
+    ms_padding_loaded = cuda_ms(lambda: spmm_ell_cuda(idx, every, x),
+                                5 if big else 10)[0]
     row = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+               ms_padding_loaded=ms_padding_loaded,
+               padding_share=float((val == 0).float().mean()),
                plain_ms=cuda_ms(lambda: ref.spmm_ell(idx, val, x),
                                 3 if big else 5, inner=1 if big else 20)[0],
                bound_ms=bms, bound_by=by,
@@ -1030,9 +1043,11 @@ def _spmm_row(idx, val, x, at: str) -> dict:
                                   5 if big else 10)[0],
                at=f"b={b} D={deg} f={f} n_src={x.shape[0]} "
                   f"({4 * x.shape[0] * f / 1e6:.1f} MB source) {at}")
-    log(f"spmm_ell {row['at']}: max_abs_err {err:.3g}  kernel {ms:.5f} ms "
-        f"(one call {call_ms:.5f} ms)  plain {row['plain_ms']:.5f} ms  "
-        f"sparse.mm {row['library_ms']:.5f} ms  bound {bms:.6f} ms ({by})")
+    log(f"spmm_ell {row['at']}: bit-equal  kernel {ms:.5f} ms (one call "
+        f"{call_ms:.5f} ms; every slot gathered {ms_padding_loaded:.5f} ms, "
+        f"padding {row['padding_share']:.4f} of the slots)  plain "
+        f"{row['plain_ms']:.5f} ms  sparse.mm {row['library_ms']:.5f} ms  "
+        f"bound {bms:.6f} ms ({by})")
     return row
 
 
@@ -1926,18 +1941,27 @@ def phase_tier_kernels(m: Model, params, vq, servers: dict) -> dict:
         bms, by = bound(8 * b * deg + n_rows * f + 4 * f + 4 * b * f,
                         2 * b * deg * f + b * f)
         ms, call_ms = cuda_ms(lambda: spmm_ell_cuda(idx, val, q, sc), 5)
+        every = torch.where(val == 0, torch.full_like(val, 1e-45), val)
+        ms_padding_loaded = cuda_ms(lambda: spmm_ell_cuda(idx, every, q, sc),
+                                    5)[0]
+        # the same slots gathered from the f32 table: 4x the bytes
+        ms_f32_source = cuda_ms(lambda: spmm_ell_cuda(idx, val, m.x), 5)[0]
         plain_ms = cuda_ms(lambda: ref.spmm_ell(idx, val, q, sc), 2,
                            inner=1)[0]
         row = dict(form=f"q {cw_name}", max_abs_err=0.0, ms=ms,
-                   call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms,
+                   call_ms=call_ms, ms_padding_loaded=ms_padding_loaded,
+                   ms_f32_source=ms_f32_source,
+                   padding_share=float((val == 0).float().mean()),
+                   plain_ms=plain_ms, bound_ms=bms,
                    bound_by=by, library_ms=None,
                    at=f"b={b} D={deg} f={f} n_src={q.shape[0]} "
                       f"({q.shape[0] * f / 1e6:.1f} MB {cw_name} source, "
                       f"training batch)")
         rows["spmm_ell"].append(row)
         log(f"spmm_ell {row['at']}: bit-equal  kernel {ms:.5f} ms (one call "
-            f"{call_ms:.5f} ms)  plain {plain_ms:.5f} ms  bound {bms:.6f} ms "
-            f"({by})  library none")
+            f"{call_ms:.5f} ms; every slot gathered {ms_padding_loaded:.5f} "
+            f"ms; from the f32 table {ms_f32_source:.5f} ms)  plain "
+            f"{plain_ms:.5f} ms  bound {bms:.6f} ms ({by})  library none")
 
     # vq_update's uint8 emit on the tier-trained model's rows
     pack, x_b, y_b, lm = m.batch_inputs(shapes["train"])
@@ -2153,7 +2177,8 @@ def _vq_attn_row(args, at: str) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.vq_attention import vq_attention_decode_cuda
+    from repro_torch.kernels.vq_attention import (MAX_SPLITS, split_count,
+                                                  vq_attention_decode_cuda)
     q, cbk, cbv, mass, wk, wv, wm = args
     got = vq_attention_decode_cuda(*args)
     want = ref.vq_attention_decode(*args)
@@ -2171,6 +2196,13 @@ def _vq_attn_row(args, at: str) -> dict:
     big = byt > 1e8
     ms, call_ms = cuda_ms(lambda: vq_attention_decode_cuda(*args),
                           5 if big else 10)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = split_count(n, kcb, w, sms)
+    # the kernel at other split counts: blocks a group against the work
+    # and the merge each block adds
+    by_splits = {} if n >= sms else {
+        s: cuda_ms(lambda: vq_attention_decode_cuda(*args, splits=s), 10)[0]
+        for s in sorted({1, 2, splits, 2 * splits, 12}) if s <= MAX_SPLITS}
     plain_ms = cuda_ms(lambda: ref.vq_attention_decode(*args), 3,
                        inner=2 if big else 20)[0]
     keys = torch.cat([cbk, wk], 1)
@@ -2187,10 +2219,12 @@ def _vq_attn_row(args, at: str) -> dict:
     lib_ms = cuda_ms(lib, 5 if big else 10)[0]
     row = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                bound_ms=bms, bound_by=by, library_ms=lib_ms,
-               library_max_abs_err=lib_err,
+               library_max_abs_err=lib_err, splits=splits,
+               ms_by_splits=by_splits,
                at=f"n={n} g={g} d={d} k={kcb} w={w} {q.dtype} {at}")
     log(f"vq_attention {row['at']}: max_abs_err {err:.3g}  kernel {ms:.5f} ms "
-        f"(one call {call_ms:.5f} ms)  plain {plain_ms:.5f} ms  sdpa "
+        f"(one call {call_ms:.5f} ms; {splits} blocks a group; by split "
+        f"count {by_splits})  plain {plain_ms:.5f} ms  sdpa "
         f"{lib_ms:.5f} ms (max abs err {lib_err:.3g})  bound {bms:.6f} ms "
         f"({by})")
     return row

@@ -44,7 +44,7 @@ SIGNATURES = {
                                     _int, _int, _vp],
 }
 for _dt in ("f32", "bf16"):
-    SIGNATURES[f"repro_vq_attention_{_dt}"] = [_vp] * 8 + [_int] * 5 \
+    SIGNATURES[f"repro_vq_attention_{_dt}"] = [_vp] * 11 + [_int] * 6 \
         + [_flt, _vp]
     SIGNATURES[f"repro_flash_attention_{_dt}"] = [_vp] * 4 + [_int] * 5 \
         + [_flt, _vp]

@@ -6,27 +6,44 @@
 // picks for a source above its 8 MB VMEM budget and which stages the
 // source from HBM in stripes: the exact intra-batch messages C_in X_B of
 // core/message_passing.py:intra_messages, and the full-graph SpMM of the
-// backbones' full_apply.
+// backbones' full_apply.  The port's dispatch sends a source that fits the
+// H100's 50 MB L2 here and a larger one to spmm_ell_hbm.cu.
 //
 // What bounds it on an H100: memory traffic, and at the serving shape
 // (b = 256 rows, D = 18 slots, f = 128) launch latency.  The work is
 // 2*b*D*f = 1.2 MFLOP against ~0.3 MB (ids, values, the [b, f] source read
 // once and the output): a fraction of a microsecond at 3.35 TB/s, so one
-// launch costs more than the bytes do.
+// launch costs more than the bytes do.  At the training batch (42,335
+// rows) the ids, values, source and output are ~45 MB, 0.013 ms.
 //
-// Design: one block per output row, one thread per output column (column
-// loads of a gathered source row are coalesced across the block).  The
-// loop over the D slots runs in order with an fp32 accumulator, like the
-// Pallas kernel's fori_loop, each multiply and add rounded on its own
-// (no FMA contraction) -- the plain version's order, bit for bit.
-// Padding slots (val == 0) are multiplied, not skipped, exactly as in the
-// reference; an index outside [0, n_src) is clamped, which is also what a
-// JAX gather does.  Gathered rows are read straight from global memory,
-// with no staging: the source fits the 50 MB L2 at the serving shape
-// (128 KiB) and at the training batch (42,335 x 128, 21.7 MB), but not in
-// the full-graph SpMM (169,343 x 128, 86.7 MB), whose gathers partly miss
-// L2 and go to HBM -- the case the TPU's HBM variant exists for; here the
-// same kernel serves it, and chip_smoke.py times it at that shape.
+// Design: a warp per output row, kWarps rows a block.  Each lane holds CPL
+// contiguous columns of the row (one 16-byte load a slot at f 128 fp32, 4
+// bytes for the 1-byte sources: spmm_gather.cuh, shared with
+// spmm_ell_hbm.cu; an unaligned or odd f takes the scalar tail; rows wider
+// than 256 columns take several passes).  The row's ids and values are
+// read once, one slot a lane, and a ballot marks the live slots (val !=
+// 0); the warp then takes the live slots in slot order, issuing the
+// gathers of up to kBatch of them (ids and values broadcast with
+// __shfl_sync) before it adds any, each multiply and add rounded on its
+// own (__fmul_rn / __fadd_rn, no FMA contraction) -- the plain version's
+// order.  An index outside [0, n_src) is clamped, which is also what a JAX
+// gather does.  Gathered rows are read through the L2 with no staging.
+//
+// Padding: core/message_passing.py:intra_messages clamps every
+// out-of-batch slot to row 0 with val 0, and at batch n/4 most slots are
+// such (at the serving batch nearly all).  A slot whose value is 0 (or
+// -0) is not gathered.  For a finite source that is exact, so the kernel
+// is bit-equal to the plain version, which multiplies every slot: the
+// accumulator starts at +0 and, under round-to-nearest, a sum is -0 only
+// when both terms are -0, so it is never -0; adding the padding's +-0
+// product (0 * finite) then leaves it unchanged, bit for bit.  Where the
+// source holds inf or NaN in a row that only padding names, the plain
+// version's 0 * inf = NaN reaches the output and this kernel's does not:
+// the one divergence (ROADMAP.md, queue 3).  It is kept because it is
+// faster on the main path: chip_smoke.py times the other choice beside
+// this one (`ms_padding_loaded`: the same kernel with every zero value
+// replaced by the smallest subnormal, so every slot is gathered), and on
+// an H100 that takes 1.8x as long at the training batch (PERF.md).
 //
 // Second entry point, repro_spmm_ell_t_f32: the transposed product
 //     grad_x[idx[i, d], :] += val[i, d] * g[i, :]
@@ -37,13 +54,13 @@
 // written once take ~0.013 ms at 3.35 TB/s; the scattered adds land in L2.
 // Design: one block per row i of g, one thread per column, a loop over
 // the D slots with one atomicAdd per (slot, column) into an output the
-// wrapper zeroed.  Slots with val == 0 are skipped in this kernel only:
+// wrapper zeroed.  Slots with val == 0 are skipped, as in the forward:
 // core/message_passing.py:intra_messages clamps every out-of-batch and
 // padding slot to row 0 with val 0, and at b = n/4 most slots are such,
 // so adding their 0 * g would serialize the atomics on row 0.  Skipping
-// is exact for finite g (0 * g adds nothing); the forward kernel keeps
-// multiplying its padding.  The adds land in no fixed order, so the
-// result agrees with the plain version to a stated tolerance.
+// is exact for finite g (0 * g adds nothing).
+// The adds land in no fixed order, so the result agrees with the plain
+// version to a stated tolerance.
 //
 // Third and fourth entry points, repro_spmm_ell_q_i8 and repro_spmm_ell_q_f8:
 // the _spmm_ell_q_kernel form of spmm_ell_pallas -- an int8 or fp8 e4m3
@@ -56,30 +73,74 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "spmm_gather.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 256;          // the transposed kernel's blocks
+constexpr int kWarps = 8;                 // rows a block, one warp each
+constexpr int kThreads = kWarps * 32;
+constexpr int kBatch = 8;                 // live slots' gathers in flight
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(int8_t v) { return (float)v; }
-__device__ __forceinline__ float widen(__nv_fp8_e4m3 v) { return (float)v; }
-
-// scale: nullptr for an fp32 source, else the [f] per-channel scales
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+// scale: nullptr for an fp32 source, else the [f] per-channel scales.
+// CPL: columns a lane; a row of f > 32 * CPL columns takes several passes.
+template <typename T, int CPL>
+__global__ void __launch_bounds__(kThreads)
 spmm_ell_kernel(const int* __restrict__ idx, const float* __restrict__ val,
                 const T* __restrict__ x, const float* __restrict__ scale,
-                float* __restrict__ out, int deg, int n_src, int f) {
-  const long long row = blockIdx.x;
+                float* __restrict__ out, int b, int deg, int n_src, int f,
+                int vec) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= b) return;                   // a whole warp: no shuffle waits
   const int* ir = idx + row * deg;
   const float* vr = val + row * deg;
-  for (int c = threadIdx.x; c < f; c += blockDim.x) {
-    float acc = 0.f;
-    for (int d = 0; d < deg; ++d) {
-      const int j = min(max(ir[d], 0), n_src - 1);
-      acc = __fadd_rn(acc, __fmul_rn(vr[d], widen(x[(size_t)j * f + c])));
+  float* orow = out + row * f;
+  for (int cb = 0; cb < f; cb += 32 * CPL) {
+    const int c0 = cb + lane * CPL;
+    const bool active = c0 < f;
+    float acc[CPL];
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) acc[q] = 0.f;
+    for (int d0 = 0; d0 < deg; d0 += 32) {
+      // this chunk's slots, one a lane; lanes past the row's end hold 0
+      int my_j = 0;
+      float my_v = 0.f;
+      if (d0 + lane < deg) {
+        my_j = min(max(ir[d0 + lane], 0), n_src - 1);
+        my_v = vr[d0 + lane];
+      }
+      unsigned live = __ballot_sync(~0u, my_v != 0.f);
+      while (live) {                      // warp-uniform
+        float xv[kBatch][CPL];
+        float wv[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int s = live ? __ffs(live) - 1 : 0;
+          const bool take = live != 0u;
+          live &= live - 1u;
+          const int j = __shfl_sync(~0u, my_j, s);
+          const float v = __shfl_sync(~0u, my_v, s);
+          wv[u] = take ? v : 0.f;
+          if (take && active)
+            gather<T, CPL>(x + (size_t)j * f, c0, f, vec, xv[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (wv[u] != 0.f) {             // a taken slot: live, so nonzero
+#pragma unroll
+            for (int q = 0; q < CPL; ++q)
+              acc[q] = __fadd_rn(acc[q], __fmul_rn(wv[u], xv[u][q]));
+          }
+      }
     }
-    out[row * f + c] = scale == nullptr ? acc : __fmul_rn(acc, scale[c]);
+    if (active) {
+#pragma unroll
+      for (int q = 0; q < CPL; ++q)
+        if (c0 + q < f)
+          orow[c0 + q] = scale == nullptr ? acc[q]
+                                          : __fmul_rn(acc[q], scale[c0 + q]);
+    }
   }
 }
 
@@ -89,10 +150,16 @@ cudaError_t launch(const int* idx, const float* val, const T* x,
                    int f, cudaStream_t stream) {
   if (b < 1 || f < 1 || deg < 0 || (deg > 0 && n_src < 1))
     return cudaErrorInvalidValue;
-  int threads = ((f + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  spmm_ell_kernel<T><<<(unsigned)b, threads, 0, stream>>>(
-      idx, val, x, scale, out, deg, n_src, f);
+  const int cpl = cols_per_lane(f);
+  const int vec = gather_vec(x, f, cpl);
+  decltype(&spmm_ell_kernel<T, 1>) kern =
+      cpl == 1   ? spmm_ell_kernel<T, 1>
+      : cpl == 2 ? spmm_ell_kernel<T, 2>
+      : cpl == 4 ? spmm_ell_kernel<T, 4>
+                 : spmm_ell_kernel<T, 8>;
+  const unsigned blocks = (unsigned)((b + kWarps - 1) / kWarps);
+  kern<<<blocks, kThreads, 0, stream>>>(idx, val, x, scale, out, b, deg,
+                                        n_src, f, vec);
   return cudaGetLastError();
 }
 

@@ -34,7 +34,8 @@
 // as listed, which is what an index built from the same ids lists: the
 // wrapper then skips the index build, the bitmap and the lookups.  Then a
 // warp owns a row: each lane holds CPL contiguous columns (one 16-byte
-// load a slot at f 128 fp32, 4 bytes in int8 / fp8) and the warp issues
+// load a slot at f 128 fp32, 4 bytes in int8 / fp8: the gather of
+// spmm_gather.cuh, shared with spmm_ell.cu) and the warp issues
 // the loads of up to kBatch slots before it adds them, in the sorted
 // order, each multiply and add rounded on its own (__fmul_rn /
 // __fadd_rn) -- the plain version's order, so the two agree bit for bit.
@@ -47,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "spmm_gather.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -54,62 +57,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxBB = 128;               // rows a tile
 constexpr int kMaxCols = 256;             // 8 columns a lane
 constexpr int kBatch = 8;                 // gathers a lane keeps in flight
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(int8_t v) { return (float)v; }
-__device__ __forceinline__ float widen(__nv_fp8_e4m3 v) { return (float)v; }
-
-// element e of a lane's chunk, from its raw 32-bit words
-__device__ __forceinline__ float word_elem(const uint32_t* w, int e, float) {
-  return __uint_as_float(w[e]);
-}
-__device__ __forceinline__ float word_elem(const uint32_t* w, int e,
-                                           int8_t) {
-  return (float)(int8_t)(w[e / 4] >> (8 * (e % 4)));
-}
-__device__ __forceinline__ float word_elem(const uint32_t* w, int e,
-                                           __nv_fp8_e4m3) {
-  __nv_fp8_e4m3 t;
-  t.__x = (__nv_fp8_storage_t)(w[e / 4] >> (8 * (e % 4)));
-  return (float)t;
-}
-
-// The CPL columns of source row p that start at column c0, widened.
-// vec: the chunk is CPL * sizeof(T) >= 4 bytes, aligned, and whole.
-template <typename T, int CPL>
-__device__ __forceinline__ void gather(const T* __restrict__ p, int c0,
-                                       int f, bool vec, float* o) {
-  constexpr int kBytes = CPL * (int)sizeof(T);
-  if constexpr (kBytes >= 4) {
-    if (vec) {
-      constexpr int NW = kBytes / 4;
-      uint32_t w[NW];
-      const T* src = p + c0;
-      if constexpr (NW >= 4) {
-#pragma unroll
-        for (int i = 0; i < NW / 4; ++i) {
-          const uint4 u = __ldg(reinterpret_cast<const uint4*>(src) + i);
-          w[4 * i] = u.x;
-          w[4 * i + 1] = u.y;
-          w[4 * i + 2] = u.z;
-          w[4 * i + 3] = u.w;
-        }
-      } else if constexpr (NW == 2) {
-        const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
-        w[0] = u.x;
-        w[1] = u.y;
-      } else {
-        w[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
-      }
-#pragma unroll
-      for (int q = 0; q < CPL; ++q) o[q] = word_elem(w, q, T());
-      return;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < CPL; ++q)
-    o[q] = c0 + q < f ? widen(p[c0 + q]) : 0.f;
-}
 
 // scale: nullptr for an fp32 source, else the [f] per-channel scales.
 // CPL: columns a lane, f <= 32 * CPL.
@@ -228,10 +175,8 @@ cudaError_t launch(const int* idx, const float* val, const T* x,
   const int n_words = counts == nullptr ? 0 : (n_stripes + 31) / 32;
   const size_t smem =
       (size_t)n_words * 4 + (size_t)bb * deg * 8 + (size_t)bb * 4;
-  const int cpl = f <= 32 ? 1 : f <= 64 ? 2 : f <= 128 ? 4 : 8;
-  const size_t chunk = (size_t)cpl * sizeof(T);
-  const int vec = chunk >= 4 && f % cpl == 0 &&
-                  reinterpret_cast<uintptr_t>(x) % chunk == 0;
+  const int cpl = cols_per_lane(f);
+  const int vec = gather_vec(x, f, cpl);
   decltype(&spmm_ell_hbm_kernel<T, 1>) kern =
       cpl == 1   ? spmm_ell_hbm_kernel<T, 1>
       : cpl == 2 ? spmm_ell_hbm_kernel<T, 2>

@@ -28,7 +28,9 @@ def spmm_ell_cuda(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
     """nbr_idx [b, D] int32, nbr_val [b, D] f32, x [n_src, f] f32 -- or
     int8 / float8_e4m3fn with ``x_scale`` [1, f] f32 -- all contiguous
     CUDA tensors -> [b, f] f32 with
-    out[i] = sum_d val[i, d] * x[idx[i, d]] (then * x_scale)."""
+    out[i] = sum_d val[i, d] * x[idx[i, d]] (then * x_scale), the slots
+    added in order; a slot whose value is 0 is not gathered, which is
+    bit-equal to the plain version's sum for a finite x."""
     global launches, launches_q
     quantized = x.dtype in _Q
     if not quantized and x.dtype != torch.float32:

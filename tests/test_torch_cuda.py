@@ -128,8 +128,8 @@ def test_spmm_ell_kernel_vs_plain(cuda, b, deg, n, f):
     val = torch.randn((b, deg), generator=g)
     x = torch.randn((n, f), generator=g)
     got = tsp.spmm_ell_cuda(idx.to(cuda), val.to(cuda), x.to(cuda))
-    assert_allclose(got.cpu().numpy(), tref.spmm_ell(idx, val, x).numpy(),
-                    **TOL)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tref.spmm_ell(idx, val, x))
 
 
 @pytest.mark.gpu
@@ -445,6 +445,97 @@ def test_spmm_ell_q_kernel_vs_plain(cuda, x_dtype, b, deg, n, f):
     assert torch.equal(got.cpu(), tref.spmm_ell(idx, val, x, sc))
 
 
+def _padded_case(b, deg, n, f, pad, seed):
+    """ids/values [b, D] with a share ``pad`` of the slots padding as
+    ``core/message_passing.py:intra_messages`` writes it (row 0, value
+    0), and an f32 source [n, f]."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, n, (b, deg), generator=g, dtype=torch.int32)
+    val = torch.randn((b, deg), generator=g)
+    padding = torch.rand((b, deg), generator=g) < pad
+    val[padding] = 0.0
+    idx[padding] = 0
+    return idx, val, torch.randn((n, f), generator=g)
+
+
+def _source(x, x_dtype):
+    """x as the kernel takes it: f32, or int8 / fp8 rows and [1, f] scales."""
+    if x_dtype == torch.float32:
+        return x, None
+    from repro_torch.distributed.quantization import quantize_codewords
+    qt = quantize_codewords(x[None], dtype=x_dtype)
+    return qt.q[0], qt.scale[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.float32] + QDTYPES)
+@pytest.mark.parametrize("b,deg,n,f,pad", [
+    (4096, 18, 4096, 128, 0.75),         # a training-like batch
+    (256, 18, 256, 128, 0.97),           # a serving-like batch
+    (300, 18, 500, 12, 0.5), (300, 18, 500, 130, 0.5),   # odd f
+    (77, 40, 300, 64, 0.3), (65, 70, 90, 32, 0.6),       # D past 32
+    (50, 5, 60, 300, 0.2),               # rows past 256 columns
+    (33, 1, 40, 128, 0.5), (33, 0, 40, 128, 0.0),        # D 1 and D 0
+    (40, 18, 50, 128, 1.0)])             # nothing but padding
+def test_spmm_ell_forward_bit_equal(cuda, x_dtype, b, deg, n, f, pad):
+    """The warp-per-row forward, f32 and 1-byte sources, bit-equal to its
+    plain version with padding skipped, at ragged shapes."""
+    idx, val, x = _padded_case(b, deg, n, f, pad, seed=b + deg + f)
+    x, sc = _source(x, x_dtype)
+    before = tsp.launches
+    got = tsp.spmm_ell_cuda(idx.to(cuda), val.to(cuda), x.to(cuda),
+                            None if sc is None else sc.to(cuda))
+    torch.cuda.synchronize()
+    assert tsp.launches == before + 1
+    assert torch.equal(got.cpu(), tref.spmm_ell(idx, val, x, sc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.float32] + QDTYPES)
+@pytest.mark.parametrize("f", [128, 12])
+def test_spmm_ell_forward_unaligned_source(cuda, x_dtype, f):
+    """A source view that starts one element past an aligned address takes
+    the element-by-element gather, with the same bits."""
+    idx, val, x = _padded_case(500, 18, 700, f, 0.5, seed=f)
+    x, sc = _source(x, x_dtype)
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype)
+    flat[1:] = x.reshape(-1)
+    xc = flat.to(cuda)[1:].view(x.shape)
+    assert xc.data_ptr() % 4 != 0 or x_dtype == torch.float32
+    assert xc.data_ptr() % 16 != 0 and xc.is_contiguous()
+    got = tsp.spmm_ell_cuda(idx.to(cuda), val.to(cuda), xc,
+                            None if sc is None else sc.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tref.spmm_ell(idx, val, x, sc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [float("inf"), float("-inf"), float("nan")])
+def test_spmm_ell_forward_skips_padding_of_a_non_finite_row(cuda, bad):
+    """The one divergence (ROADMAP.md, queue 3): a slot with value 0 is not
+    gathered, so a non-finite source row that only padding names leaves
+    the kernel's rows finite where the plain version's 0 * inf = NaN; a
+    live slot that names it makes the kernel's row non-finite too."""
+    idx, val, x = _padded_case(64, 18, 80, 128, 0.75, seed=3)
+    idx[(idx == 0) & (val != 0)] = 1         # only padding names row 0 ...
+    live_row = 5
+    val[live_row, 2], idx[live_row, 2] = 0.5, 0          # ... but here
+    x[0] = bad
+    got = tsp.spmm_ell_cuda(idx.to(cuda), val.to(cuda), x.to(cuda)).cpu()
+    want = tref.spmm_ell(idx, val, x)
+    # the kernel's semantics: padding moved onto a finite row adds +-0
+    skipped = tref.spmm_ell(torch.where(val == 0, 1, idx), val, x)
+    torch.testing.assert_close(got, skipped, rtol=0, atol=0, equal_nan=True)
+    padded = (val == 0).any(1)
+    only_padding = padded.clone()
+    only_padding[live_row] = False
+    assert only_padding.sum() > 10
+    assert torch.isnan(want[only_padding]).all()
+    assert torch.isfinite(got[only_padding]).all()
+    assert not torch.isfinite(got[live_row]).all()
+    assert torch.equal(got[~padded], want[~padded])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("emit,k", [(torch.uint8, 256), (torch.uint8, 40),
                                     ("uint4", 16)])
@@ -617,6 +708,93 @@ def test_vq_attention_kernel_row_without_keys_is_nan_like_plain(cuda):
     want = tref.vq_attention_decode(*args)
     assert torch.isnan(want[1]).all() and torch.isnan(got[1]).all()
     assert_allclose(got[0].numpy(), want[0].numpy(), **TOL)
+
+
+def _check_vq_attn(got, want, dtype):
+    if dtype == torch.float32:
+        assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+    else:
+        assert_bf16_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 64])
+@pytest.mark.parametrize("n,g,d,kcb,w", [(32, 3, 128, 128, 64),
+                                         (3, 5, 96, 37, 20),
+                                         (2, 16, 256, 300, 50),
+                                         (4, 2, 64, 0, 45)])
+def test_vq_attention_split_counts(cuda, dtype, splits, n, g, d, kcb, w):
+    """Every split count -- one block a group, two, several, more blocks
+    than 16-key tiles -- within the stated tolerance of the plain
+    version, at k + w that is not a multiple of the 16-key tile and k 0."""
+    from repro_torch.kernels import vq_attention as tvatt
+    args = _vq_attn_operands(n, g, d, kcb, w, n + g + kcb, dtype)
+    got = tvatt.vq_attention_decode_cuda(*(t.to(cuda) for t in args),
+                                         splits=splits)
+    torch.cuda.synchronize()
+    _check_vq_attn(got, tref.vq_attention_decode(*args), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vq_attention_back_to_back_launches_reset_counters(cuda, dtype):
+    """Launches queued one after another on one stream, on the kept
+    workspace: each is right and gives the same bits (the partials merge
+    in split order, whichever block is last), and the per-group counters
+    are zero after them."""
+    from repro_torch.kernels import vq_attention as tvatt
+    n, g, d, kcb, w = 32, 3, 128, 128, 64
+    args = [t.to(cuda) for t in
+            _vq_attn_operands(n, g, d, kcb, w, 9, dtype)]
+    other = [t.to(cuda) for t in
+             _vq_attn_operands(n, g, d, kcb, w, 10, dtype)]
+    splits = tvatt.split_count(n, kcb, w, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert splits > 1
+    outs = [tvatt.vq_attention_decode_cuda(*(args if i % 2 == 0 else other))
+            for i in range(6)]
+    torch.cuda.synchronize()
+    for i, o in enumerate(outs):
+        assert torch.equal(o, outs[i % 2])
+    _check_vq_attn(outs[0], tref.vq_attention_decode(
+        *(t.cpu() for t in args)), dtype)
+    _check_vq_attn(outs[1], tref.vq_attention_decode(
+        *(t.cpu() for t in other)), dtype)
+    key = (args[0].device, torch.cuda.current_stream(cuda).cuda_stream, n,
+           g, d, splits)
+    assert int(tvatt._workspaces[key][2].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, 5])
+def test_vq_attention_group_without_keys_at_every_split(cuda, dtype, splits):
+    """A group whose every key is masked is NaN, as the plain version's
+    softmax over -inf; its neighbours are unaffected, whichever split
+    holds the valid keys."""
+    from repro_torch.kernels import vq_attention as tvatt
+    args = list(_vq_attn_operands(3, 3, 64, 40, 30, 4, dtype))
+    args[3][1] = 0.0
+    args[6][1] = 0.0                         # group 1 sees no key
+    args[3][2] = 0.0
+    args[6][2] = 0.0
+    args[6][2, 29] = 1.0                     # group 2: the last key only
+    got = tvatt.vq_attention_decode_cuda(*(t.to(cuda) for t in args),
+                                         splits=splits).cpu()
+    want = tref.vq_attention_decode(*args)
+    assert torch.isnan(want[1]).all() and torch.isnan(got[1]).all()
+    _check_vq_attn(got[[0, 2]], want[[0, 2]], dtype)
+
+
+@pytest.mark.gpu
+def test_vq_attention_rejects_bad_splits(cuda):
+    from repro_torch.kernels import vq_attention as tvatt
+    args = [t.to(cuda) for t in
+            _vq_attn_operands(2, 3, 16, 4, 4, 0, torch.float32)]
+    for bad in (0, tvatt.MAX_SPLITS + 1):
+        with pytest.raises(ValueError, match="splits"):
+            tvatt.vq_attention_decode_cuda(*args, splits=bad)
 
 
 @pytest.mark.gpu
