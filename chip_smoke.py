@@ -34,6 +34,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    and -- where one PyTorch call computes the same function -- that
    call, with CUDA events; spmm_ell bit for bit at every shape, and
    timed also with every slot gathered (its padding not skipped);
+   vq_assign's index and ``want_min`` bit for bit (agreement 1.0), with
+   the bounds of its 3xTF32 products and compare-selects; spmm_ell_t
+   within the scatter-order bound, with its operands' live-slot share and
+   largest in-degree, and also checked and timed with half the live
+   slots moved onto one hub row;
 5. one training step at batch 4,096 on the card and the same step on the
    CPU plain path from the trained state copied over: loss, params,
    optimizer and codebook state must agree;
@@ -258,30 +263,6 @@ def check_scatter(name: str, got, want, abs_sum, terms) -> float:
                          f"the scatter-order bound (max abs err "
                          f"{float(err.max())})")
     return float(err.max()) if err.numel() else 0.0
-
-
-def assign_agreement(got, want, x, cw) -> tuple[float, float]:
-    """(agreement rate, max |d(got) - d(want)|); every mismatch must be a
-    near-tie of the plain version's own distances."""
-    import torch
-    agree = (got == want)
-    rate = float(agree.float().mean())
-    c = cw.float()
-    cn2 = (c * c).sum(-1)                                     # [nb, k]
-    g64, w64 = got.long(), want.long()
-    nb = x.shape[0]
-    beta = torch.arange(nb, device=x.device)[:, None]
-
-    def dist(idx):
-        cr = c[beta, idx]                                     # [nb, n, f]
-        return cn2[beta, idx] - 2.0 * (x.float() * cr).sum(-1)
-    dg, dw = dist(g64), dist(w64)
-    err = float((dg - dw).abs().max())
-    bad = (~agree) & ((dg - dw).abs() > 1e-5 * (1 + dw.abs()))
-    if bool(bad.any()) or rate < 0.999:
-        raise SystemExit(f"vq_assign: agreement {rate:.6f}, "
-                         f"{int(bad.sum())} mismatches that are not near-ties")
-    return rate, err
 
 
 def phase_card() -> str:
@@ -668,23 +649,39 @@ def _near_tie_rows(m: Model, params, vq, inputs) -> list[dict]:
     return rows
 
 
+def _spmm_t_check(idx, val, gr, n_src: int, at: str):
+    """spmm_ell_t against its plain version within the scatter-order bound:
+    (kernel result, max abs err, live slots, largest live in-degree)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spmm_ell import spmm_ell_t_cuda
+    got = spmm_ell_t_cuda(idx, val, gr, n_src)
+    want = ref.spmm_ell_t(idx, val, gr, n_src)
+    nz = val != 0
+    in_deg = torch.zeros(n_src, dtype=torch.int64, device=idx.device)
+    in_deg.index_add_(0, idx.long().clamp(0, n_src - 1)[nz],
+                      torch.ones_like(idx, dtype=torch.int64)[nz])
+    err = check_scatter(f"spmm_ell_t {at}", got, want,
+                        ref.spmm_ell_t(idx, val.abs(), gr.abs(), n_src),
+                        in_deg[:, None].float())
+    return want, err, int(nz.sum()), int(in_deg.max())
+
+
 def _spmm_t_row(idx, val, gr, n_src: int, at: str) -> dict:
     """spmm_ell_t (the SpMM's backward in x) against its plain version and
     ``torch.sparse.mm`` on one set of operands: idx/val [b, D], the output
-    gradient gr [b, f], an ``n_src``-row source."""
+    gradient gr [b, f], an ``n_src``-row source.  Also the share of live
+    slots (val != 0), the largest in-degree an output row takes, and the
+    same operands with half the live slots moved onto one hub row, checked
+    and timed beside them (``hub_ms``): the kernel's reductions into one
+    row serialize in the L2."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.spmm_ell import spmm_ell_t_cuda
     b, deg = idx.shape
     f = gr.shape[1]
-    got = spmm_ell_t_cuda(idx, val, gr, n_src)
-    want = ref.spmm_ell_t(idx, val, gr, n_src)
-    err = check_scatter(f"spmm_ell_t {at}", got, want,
-                        ref.spmm_ell_t(idx, val.abs(), gr.abs(), n_src),
-                        ref.spmm_ell_t(idx, (val != 0).float(),
-                                       torch.ones_like(gr), n_src))
+    want, err, nnz, max_in = _spmm_t_check(idx, val, gr, n_src, at)
     nz = val != 0
-    nnz = int(nz.sum())
     bms, by = bound(8 * b * deg + 4 * b * f + 4 * n_src * f, 2 * nnz * f)
     rows_i = torch.arange(b, device=idx.device)[:, None].expand(b, deg)
     coo_t = torch.sparse_coo_tensor(
@@ -693,15 +690,32 @@ def _spmm_t_row(idx, val, gr, n_src: int, at: str) -> dict:
     check_close(f"spmm_ell_t library call {at}", torch.sparse.mm(coo_t, gr),
                 want, SERVE_TOL)
     ms, call_ms = cuda_ms(lambda: spmm_ell_t_cuda(idx, val, gr, n_src), 10)
-    row = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+    hub = idx.clone()
+    live = nz.nonzero(as_tuple=True)
+    half = torch.arange(live[0].numel(), device=idx.device) % 2 == 0
+    hub[live[0][half], live[1][half]] = n_src // 2
+    _, hub_err, _, hub_in = _spmm_t_check(hub, val, gr, n_src,
+                                          f"{at} hub-heavy")
+    hub_ms = cuda_ms(lambda: spmm_ell_t_cuda(hub, val, gr, n_src), 5)[0]
+    # every live slot adds f floats to an output row: 32-byte sectors
+    # reduced in the L2, which the kernel issues 16 bytes a lane at a time
+    sectors = nnz * -(-4 * f // 32)
+    row = dict(max_abs_err=max(err, hub_err), ms=ms, call_ms=call_ms,
                plain_ms=cuda_ms(lambda: ref.spmm_ell_t(idx, val, gr, n_src),
                                 5, inner=2)[0],
                bound_ms=bms, bound_by=by,
                library_ms=cuda_ms(lambda: torch.sparse.mm(coo_t, gr), 10)[0],
+               live_share=nnz / max(1, b * deg), max_in_degree=max_in,
+               reduced_sectors_per_s=sectors / (ms * 1e-3),
+               hub_ms=hub_ms, hub_max_in_degree=hub_in,
                at=f"b={b} D={deg} f={f} nnz={nnz} n_src={n_src} {at}")
     log(f"spmm_ell_t {row['at']}: max_abs_err {err:.3g}  kernel {ms:.5f} ms "
         f"(one call {call_ms:.5f} ms)  plain {row['plain_ms']:.5f} ms  "
-        f"sparse.mm {row['library_ms']:.5f} ms  bound {bms:.6f} ms ({by})")
+        f"sparse.mm {row['library_ms']:.5f} ms  bound {bms:.6f} ms ({by})  "
+        f"live slots {row['live_share']:.4f}, largest in-degree {max_in}, "
+        f"{row['reduced_sectors_per_s']:.4g} reduced 32-byte sectors/s;  "
+        f"hub-heavy (half the live slots on one row, in-degree {hub_in}): "
+        f"{hub_ms:.5f} ms, max_abs_err {hub_err:.3g}")
     return row
 
 
@@ -1123,7 +1137,7 @@ def phase_kernels(server) -> list[dict]:
     from repro_torch.core.conv import fixed_conv_operands
     from repro_torch.graph.batching import plan_batch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.vq_assign import vq_assign_cuda
+    from repro_torch.kernels.vq_assign import kstep, vq_assign_cuda
 
     dev = server.device
     cfg = server.cfg.codebook
@@ -1173,32 +1187,46 @@ def phase_kernels(server) -> list[dict]:
         torch.cuda.synchronize()
         if not torch.equal(got, vq_assign_cuda(x, cw)):
             raise SystemExit("vq_assign: want_min changed the assignment")
-        rate, err = assign_agreement(got, want, x, cw)
-        # the same formula in the same order: the minima are bit-equal
-        # wherever the codewords agree, close at the near-ties
-        same = got == want
-        if not torch.equal(gmin[same], wmin[same]):
-            raise SystemExit("vq_assign want_min: not bit-equal to its "
-                             "plain version where the codewords agree")
-        min_err = check_close("vq_assign want_min", gmin, wmin, TOL)
+        # the scan rescores every codeword that can win in the plain
+        # version's arithmetic: index and minimum are bit-equal everywhere
+        rate = float((got == want).float().mean())
+        if rate != 1.0 or not torch.equal(gmin, wmin):
+            raise SystemExit(
+                f"vq_assign: agreement {rate:.6f}, want_min "
+                f"{int((gmin != wmin).sum())} rows not bit-equal to the "
+                f"plain version")
+        err = float((gmin - wmin).abs().max())
         n, k = x.shape[1], cw.shape[1]
         byt = 4 * nb * n * fb + 4 * nb * k * fb + 4 * nb * n
         bms, by = bound(byt, 2 * nb * n * k * fb)
+        # the bounds of the kernel's own units: its 3xTF32 products (f
+        # padded to the mma's depth, 4 at f 4, else 8) on the tensor cores,
+        # and one compare-select a distance at the fp32 issue rate
+        ks = kstep(fb)
+        tc_ms = 3 * 2 * nb * n * k * ks * -(-fb // ks) / TF32_FLOP_PER_S * 1e3
+        sel_ms = nb * n * k / (FP32_FLOP_PER_S / 2) * 1e3
         ms, call_ms = cuda_ms(lambda: vq_assign_cuda(x, cw), 5, inner=2)
         min_ms = cuda_ms(lambda: vq_assign_cuda(x, cw, want_min=True), 5,
                          inner=2)[0]
+        # the scan's band follows the norms of the codewords that can win;
+        # the branch's largest and the rows' mean norm show the spread
+        cmax = float(cw.norm(dim=2).max())
+        x_norm = float(x.norm(dim=2).mean())
         asg.append(dict(
             max_abs_err=err, agreement=rate, bound_ms=bms, bound_by=by,
+            cmax=cmax, x_norm_mean=x_norm,
+            tensor_bound_ms=tc_ms, select_bound_ms=sel_ms,
             ms=ms, call_ms=call_ms, want_min_ms=min_ms,
-            want_min_max_abs_err=min_err,
+            want_min_max_abs_err=err,
             plain_ms=cuda_ms(lambda: ref.vq_assign(x, cw), 3, inner=1)[0],
             at=f"x=[{nb}, {n}, {fb}] cw=[{nb}, {k}, {fb}]"))
         c = asg[-1]
-        log(f"vq_assign {c['at']}: agreement {rate:.6f} max_abs_err "
-            f"{err:.3g}  kernel {ms:.4f} ms (one call {call_ms:.4f} ms; "
-            f"with want_min {min_ms:.4f} ms, max_abs_err {min_err:.3g})  "
-            f"plain {c['plain_ms']:.4f} ms  bound {bms:.4f} ms ({by})  "
-            f"library none")
+        log(f"vq_assign {c['at']}: idx and want_min bit-equal (agreement "
+            f"{rate:.6f})  kernel {ms:.4f} ms (one call {call_ms:.4f} ms; "
+            f"with want_min {min_ms:.4f} ms)  plain {c['plain_ms']:.4f} ms  "
+            f"bound {bms:.4f} ms ({by}; 3xTF32 products {tc_ms:.4f} ms, "
+            f"compare-selects {sel_ms:.4f} ms)  library none  largest "
+            f"codeword norm {cmax:.4g}, mean row norm {x_norm:.4g}")
     rows.append(dict(name="vq_assign", route="cuda",
                      source="src/repro_torch/kernels/csrc/vq_assign.cu",
                      replaces="src/repro/kernels/vq_assign.py:83",
@@ -1209,7 +1237,10 @@ def phase_kernels(server) -> list[dict]:
                      want_min_ms=asg[0]["want_min_ms"],
                      ms=asg[0]["ms"], plain_ms=asg[0]["plain_ms"],
                      bound_ms=asg[0]["bound_ms"],
-                     bound_by=asg[0]["bound_by"], library_ms=None,
+                     bound_by=asg[0]["bound_by"],
+                     tensor_bound_ms=asg[0]["tensor_bound_ms"],
+                     select_bound_ms=asg[0]["select_bound_ms"],
+                     library_ms=None,
                      call_ms=asg[0]["call_ms"], at=asg[0]["at"],
                      also=asg[1:]))
     return rows

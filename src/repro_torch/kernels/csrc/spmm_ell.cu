@@ -49,18 +49,43 @@
 //     grad_x[idx[i, d], :] += val[i, d] * g[i, :]
 // -- spmm_ell's backward in x, which the training step needs and which
 // the reference gets from JAX autodiff of the same SpMM (it has no Pallas
-// kernel of its own).  What bounds it: at the training shape (b = 42,335
-// rows, D = 18, f = 128) the read of g (21.7 MB) and the [n_src, f] output
-// written once take ~0.013 ms at 3.35 TB/s; the scattered adds land in L2.
-// Design: one block per row i of g, one thread per column, a loop over
-// the D slots with one atomicAdd per (slot, column) into an output the
-// wrapper zeroed.  Slots with val == 0 are skipped, as in the forward:
-// core/message_passing.py:intra_messages clamps every out-of-batch and
-// padding slot to row 0 with val 0, and at b = n/4 most slots are such,
-// so adding their 0 * g would serialize the atomics on row 0.  Skipping
-// is exact for finite g (0 * g adds nothing).
-// The adds land in no fixed order, so the result agrees with the plain
-// version to a stated tolerance.
+// kernel of its own).  What bounds it: the bytes are g (21.7 MB at the
+// training batch, b = 42,335 rows, D = 18, f = 128), the ids and values,
+// and the [n_src, f] output written once: ~0.015 ms at 3.35 TB/s; but
+// every live slot is a read-modify-write of a 512-byte output row in the
+// L2, so the number of reductions and, where the output outgrows the
+// 50 MB L2 (the NS-SAGE subgraph's 134 MB), their misses are what the
+// first version paid for.  That version ran one block a row and one
+// thread a column: every thread walked all D slots, reloading each
+// slot's value and id and testing it on its own, and issued one scalar
+// atomicAdd per (live slot, column).
+// Design: the forward's layout.  A warp per row i of g, kWarps rows a
+// block; each lane loads its CPL contiguous columns of g[i] once (one
+// 16-byte load at f 128: spmm_gather.cuh's mapping), the row's ids and
+// values are read once, one slot a lane, and a ballot marks the live
+// slots (val != 0).  The warp takes them in slot order, the id and value
+// broadcast with __shfl_sync, and each live slot is one vector reduction
+// of 4 floats a lane (atomicAdd on a float4, a red.global.add.v4.f32 on
+// sm_90): at f 128 a slot costs 32 reductions of 16 bytes where the
+// first version issued 128 of 4 bytes, and a padding slot costs none.
+// The reductions return nothing, so a warp issues one slot's after
+// another without waiting.  Each product is __fmul_rn(v, g), uncontracted
+// as in the plain version; the sums land in no fixed order, so the result
+// agrees with the plain version to the scatter-order bound (chip_smoke.py's
+// check_scatter).  An f that is not a multiple of 4, or an output row not
+// 16-byte aligned, takes scalar reductions; a g row not aligned to its
+// lanes' chunks is loaded a column at a time (gather_vec, checked at run
+// time as for the forward).  An id outside [0, n_src) is clamped.
+// Padding: a slot whose value is 0 adds nothing, which is exact for a
+// finite g; where g holds inf or NaN in a row that only padding names,
+// the plain version adds 0 * inf = NaN to output row idx[i, d] (row 0 for
+// the clamped padding of core/message_passing.py) and this kernel adds
+// nothing: the forward's divergence, the other way round (ROADMAP.md,
+// queue 3).
+// The output is zeroed by the wrapper (torch.zeros, one memset at the
+// card's write rate) and should stay there: a scatter cannot zero its own
+// output in the same launch, since any block may add to any row, so a
+// kernel-side zeroing would need a second launch or a grid-wide barrier.
 //
 // Third and fourth entry points, repro_spmm_ell_q_i8 and repro_spmm_ell_q_f8:
 // the _spmm_ell_q_kernel form of spmm_ell_pallas -- an int8 or fp8 e4m3
@@ -77,7 +102,6 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;          // the transposed kernel's blocks
 constexpr int kWarps = 8;                 // rows a block, one warp each
 constexpr int kThreads = kWarps * 32;
 constexpr int kBatch = 8;                 // live slots' gathers in flight
@@ -163,21 +187,66 @@ cudaError_t launch(const int* idx, const float* val, const T* x,
   return cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// out[p + c0 .. c0 + CPL) += v * gv, the lane's columns of one output row:
+// vec (f a multiple of 4, the output 16-byte aligned) takes a float4
+// reduction for each of the chunk's 4-column parts inside the row, else
+// one scalar reduction a column.
+template <int CPL>
+__device__ __forceinline__ void scatter_add(float* __restrict__ p, int c0,
+                                            int f, bool vec, float v,
+                                            const float (&gv)[CPL]) {
+  if constexpr (CPL >= 4) {
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < CPL / 4; ++i)
+        if (c0 + 4 * i < f)
+          atomicAdd(reinterpret_cast<float4*>(p + c0) + i,
+                    make_float4(__fmul_rn(v, gv[4 * i]),
+                                __fmul_rn(v, gv[4 * i + 1]),
+                                __fmul_rn(v, gv[4 * i + 2]),
+                                __fmul_rn(v, gv[4 * i + 3])));
+      return;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < CPL; ++q)
+    if (c0 + q < f) atomicAdd(p + c0 + q, __fmul_rn(v, gv[q]));
+}
+
+// gvec: every lane's chunk of g's rows loads whole (gather_vec); ovec: the
+// output's rows take float4 reductions.
+template <int CPL>
+__global__ void __launch_bounds__(kThreads)
 spmm_ell_t_kernel(const int* __restrict__ idx, const float* __restrict__ val,
-                  const float* __restrict__ g, float* __restrict__ out,
-                  int deg, int n_src, int f) {
-  const long long row = blockIdx.x;
+                  const float* __restrict__ g, float* __restrict__ out, int b,
+                  int deg, int n_src, int f, int gvec, int ovec) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= b) return;                   // a whole warp: no shuffle waits
   const int* ir = idx + row * deg;
   const float* vr = val + row * deg;
   const float* gr = g + row * f;
-  for (int c = threadIdx.x; c < f; c += blockDim.x) {
-    const float gv = gr[c];
-    for (int d = 0; d < deg; ++d) {
-      const float v = vr[d];
-      if (v == 0.f) continue;
-      const int j = min(max(ir[d], 0), n_src - 1);
-      atomicAdd(out + (size_t)j * f + c, __fmul_rn(v, gv));
+  for (int cb = 0; cb < f; cb += 32 * CPL) {
+    const int c0 = cb + lane * CPL;
+    const bool active = c0 < f;
+    float gv[CPL];
+    if (active) gather<float, CPL>(gr, c0, f, gvec, gv);
+    for (int d0 = 0; d0 < deg; d0 += 32) {
+      // this chunk's slots, one a lane; lanes past the row's end hold 0
+      int my_j = 0;
+      float my_v = 0.f;
+      if (d0 + lane < deg) {
+        my_j = min(max(ir[d0 + lane], 0), n_src - 1);
+        my_v = vr[d0 + lane];
+      }
+      unsigned live = __ballot_sync(~0u, my_v != 0.f);
+      while (live) {                      // warp-uniform, slot order
+        const int s = __ffs(live) - 1;
+        live &= live - 1u;
+        const int j = __shfl_sync(~0u, my_j, s);
+        const float v = __shfl_sync(~0u, my_v, s);
+        if (active) scatter_add<CPL>(out + (size_t)j * f, c0, f, ovec, v, gv);
+      }
     }
   }
 }
@@ -219,9 +288,16 @@ extern "C" cudaError_t repro_spmm_ell_t_f32(const int* idx, const float* val,
                                             int deg, int n_src, int f,
                                             cudaStream_t stream) {
   if (b < 1 || f < 1 || deg < 1 || n_src < 1) return cudaErrorInvalidValue;
-  int threads = ((f + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  spmm_ell_t_kernel<<<(unsigned)b, threads, 0, stream>>>(idx, val, g, out,
-                                                         deg, n_src, f);
+  const int cpl = cols_per_lane(f);
+  const int gvec = gather_vec(g, f, cpl);
+  const int ovec = f % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  decltype(&spmm_ell_t_kernel<1>) kern =
+      cpl == 1   ? spmm_ell_t_kernel<1>
+      : cpl == 2 ? spmm_ell_t_kernel<2>
+      : cpl == 4 ? spmm_ell_t_kernel<4>
+                 : spmm_ell_t_kernel<8>;
+  const unsigned blocks = (unsigned)((b + kWarps - 1) / kWarps);
+  kern<<<blocks, kThreads, 0, stream>>>(idx, val, g, out, b, deg, n_src, f,
+                                        gvec, ovec);
   return cudaGetLastError();
 }

@@ -5,112 +5,55 @@
 // over the branches.  For branch b and row i it returns
 //     argmin_c  |cw[b, c]|^2 - 2 x[b, i] . cw[b, c]
 // with the first (lowest) index winning ties, like jnp.argmin and the
-// Pallas kernel's strict-< tile combine.  Optionally (the Pallas kernel's
-// want_min) also each row's squared distance to that codeword,
-// max(min + |x|^2, 0), |x|^2 summed over j in order.
+// Pallas kernel's strict-< tile combine, and optionally (the Pallas
+// kernel's want_min) each row's squared distance to that codeword,
+// max(min + |x|^2, 0), |x|^2 summed over j in order.  Both are the plain
+// version's (ref.vq_assign) bit for bit.
 //
-// What bounds it on an H100: arithmetic.  At the served width (n = 169,343
-// nodes, k = 1024, 32 branches of width 4, or 8 of width 16) one call does
-// 2*n*nb*k*f ~ 44 GFLOP in fp32 against ~90 MB of input: ~0.7 ms at the
-// 67 TFLOP/s non-tensor fp32 peak versus ~0.03 ms for the bytes.
+// What bounds it on an H100.  At the served widths (n = 169,343 nodes,
+// k = 1024, 32 branches of width 4, or 8 of width 16) a call computes
+// nb*n*k = 5.55e9 or 1.39e9 distances: 44 GFLOP of products, ~90 MB of
+// input.  The first version (one thread a row, every codeword scanned on
+// the CUDA cores with each multiply and add rounded on its own, as the
+// plain version rounds) issued ~11 fp32 instructions a distance at f 4 and
+// took 2.93 ms there, 2.34 ms at f 16: issue-bound.  Here the distances
+// run on the tensor cores and what is left is the products (3xTF32: 0.27
+// ms at the 495 TFLOP/s TF32 peak for either served shape; mma.sync, not
+// wgmma, reaches well under that peak) beside the compare-selects that
+// fold the approximate distances and the loads that feed both.
 //
-// Design: grid (row tiles, branches).  Each block copies its branch's
-// [k, f] codewords into shared memory and computes their |c|^2 there once
-// (16 KiB + 4 KiB at f = 4, 64 KiB + 4 KiB at f = 16 -- dynamic shared
-// memory above 48 KiB needs cudaFuncSetAttribute).  One thread owns one
-// row: it keeps the row in registers and scans the k codewords in
-// increasing order; every thread of a warp reads the same codeword, so
-// the shared-memory reads are broadcasts.  The distance is the plain
-// version's formula in its order (sums over j = 0..f-1, each multiply and
-// add rounded on its own: __fmul_rn/__fadd_rn keep nvcc from contracting
-// them into FMAs), so kernel and plain version agree bit for bit.  The
-// tensor cores (a [rows, f] x [f, k] product per tile, then a row argmin)
-// are later work: with f = 4 the product is too thin for wgmma's 16-deep
-// k-step without padding.
-#include <cuda_runtime.h>
-#include <math.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kMaxF = 32;   // widest row the generic instantiation holds
-
-// F > 0: the row width is a compile-time constant (the served widths 4, 8
-// and 16).  F == 0: generic width f <= kMaxF, predicated per element.
-template <int F>
-__global__ void __launch_bounds__(kThreads)
-vq_assign_kernel(const float* __restrict__ x, long long x_stride_branch,
-                 long long x_stride_row, const float* __restrict__ cw,
-                 int* __restrict__ out, float* __restrict__ min_out, int n,
-                 int k, int f) {
-  constexpr int W = F > 0 ? F : kMaxF;
-  const int fd = F > 0 ? F : f;
-  extern __shared__ float smem[];
-  float* c_s = smem;                              // [k, fd]
-  float* cn2_s = smem + (size_t)k * fd;           // [k]
-  const int br = blockIdx.y;
-  const float* cwb = cw + (size_t)br * k * fd;
-  for (int i = threadIdx.x; i < k * fd; i += blockDim.x) c_s[i] = cwb[i];
-  __syncthreads();
-  for (int c = threadIdx.x; c < k; c += blockDim.x) {
-    float s = 0.f;
-    for (int j = 0; j < fd; ++j) {
-      const float v = c_s[c * fd + j];
-      s = __fadd_rn(s, __fmul_rn(v, v));
-    }
-    cn2_s[c] = s;
-  }
-  __syncthreads();
-
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const float* xr = x + br * x_stride_branch + row * x_stride_row;
-  float xv[W];
-#pragma unroll
-  for (int j = 0; j < W; ++j) xv[j] = (j < fd) ? xr[j] : 0.f;
-
-  float best = INFINITY;
-  int arg = 0;
-  for (int c = 0; c < k; ++c) {
-    const float* cr = c_s + c * fd;
-    float dot = 0.f;
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      if (j < fd) dot = __fadd_rn(dot, __fmul_rn(xv[j], cr[j]));
-    }
-    const float d = __fsub_rn(cn2_s[c], __fmul_rn(2.f, dot));
-    if (d < best) {   // strict: the lowest index keeps a tie
-      best = d;
-      arg = c;
-    }
-  }
-  out[(size_t)br * n + row] = arg;
-  if (min_out != nullptr) {
-    float xn2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      if (j < fd) xn2 = __fadd_rn(xn2, __fmul_rn(xv[j], xv[j]));
-    }
-    min_out[(size_t)br * n + row] = fmaxf(__fadd_rn(best, xn2), 0.f);
-  }
-}
-
-template <int F>
-cudaError_t launch(const float* x, long long sb, long long sr, const float* cw,
-                   int* out, float* min_out, int nb, int n, int k, int f,
-                   cudaStream_t stream) {
-  const size_t smem = ((size_t)k * f + (size_t)k) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      vq_assign_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((n + kThreads - 1) / kThreads), (unsigned)nb);
-  vq_assign_kernel<F><<<grid, kThreads, smem, stream>>>(x, sb, sr, cw, out,
-                                                         min_out, n, k, f);
-  return cudaGetLastError();
-}
-
-}  // namespace
+// Design: vq_update's scan (vq_update.cuh, whose header gives the argument
+// for exactness and the bound E) instantiated without the cluster
+// statistics: 3xTF32 mma.sync products accumulated onto |c|^2, the fold of
+// a lane's distances over groups of codewords, rows settled by the bound E
+// (the winning group rescored exactly) or queued per warp and every
+// codeword within 2E rescored exactly in index order with a strict <.  So
+// idx, and the minimum that want_min completes, are the plain version's.
+// What differs from vq_update:
+//   * x is read through its strides: the caller passes the branch view
+//     [nb, n, f] of an [n, nb * f] activation table (core/codebook.py), with
+//     no transposing copy; a warp stages its rows in shared memory;
+//   * no statistics: a row's idx (and min) is written by the lane that
+//     settles or rescores it;
+//   * its own kernel, vq_assign_kernel, two blocks an SM at the served
+//     widths (one block's 8 warps left the latencies exposed);
+//   * the served widths have scans of their own shape (Cfg in
+//     vq_update.cuh), each picked by timing the alternatives on the card.
+//     f 4: 4-deep k-steps, which need no padding (8-deep steps
+//     would be half zeros), the two small products of a step in one
+//     m16n8k8 and hi * hi in an m16n8k4; the codewords' hi / lo parts
+//     staged in shared memory once per branch, one 8-byte read a tile and
+//     lane; groups of 4 tiles, a lane's 8 codewords a row folded at once
+//     (1.5 instructions a distance where pairs of tiles took 2).  f 16:
+//     m16n8k8 over 2 k-steps with pairs of tiles, each pair folded before
+//     the next one's mmas (vq_update's pipelining of the pairs kept more
+//     distances live than 2 blocks' registers hold, and spilled), and its
+//     codewords swizzled against the 4-way bank conflicts of their
+//     fragment loads.  Any other f <= 32 takes the generic instantiation.
+// k is bounded by shared memory alone (vq_assign.py:smem_bytes mirrors
+// smem_base): at f 4 the codewords, their hi / lo pairs and |c|^2 take
+// 52 KiB at k 1024.
+#include "vq_update.cuh"
 
 // x: [nb, n, f] fp32 with strides (x_stride_branch, x_stride_row, 1) in
 // elements; cw: [nb, k, f] contiguous fp32; out: [nb, n] contiguous int32;
@@ -126,17 +69,17 @@ extern "C" cudaError_t repro_vq_assign_f32(const float* x,
     return cudaErrorInvalidValue;
   switch (f) {
     case 4:
-      return launch<4>(x, x_stride_branch, x_stride_row, cw, out, min_out,
-                       nb, n, k, f, stream);
-    case 8:
-      return launch<8>(x, x_stride_branch, x_stride_row, cw, out, min_out,
-                       nb, n, k, f, stream);
+      return launch<4, int, false>(x, x_stride_branch, x_stride_row, cw, out,
+                                   min_out, nullptr, nullptr, nb, n, k, f,
+                                   stream);
     case 16:
-      return launch<16>(x, x_stride_branch, x_stride_row, cw, out, min_out,
-                        nb, n, k, f, stream);
+      return launch<16, int, false>(x, x_stride_branch, x_stride_row, cw,
+                                    out, min_out, nullptr, nullptr, nb, n, k,
+                                    f, stream);
     default:
-      return launch<0>(x, x_stride_branch, x_stride_row, cw, out, min_out,
-                       nb, n, k, f, stream);
+      return launch<0, int, false>(x, x_stride_branch, x_stride_row, cw, out,
+                                   min_out, nullptr, nullptr, nb, n, k, f,
+                                   stream);
   }
 }
 

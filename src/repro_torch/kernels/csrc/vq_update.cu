@@ -24,5 +24,6 @@ extern "C" cudaError_t repro_vq_update_generic_f32(
     float* sums, int nb, int n, int k, int f, cudaStream_t stream) {
   if (f < 1 || f > kMaxF || k < 1 || nb < 1 || n < 1)
     return cudaErrorInvalidValue;
-  return launch<0, int>(x, cw, idx, qerr, counts, sums, nb, n, k, f, stream);
+  return launch<0, int, true>(x, (long long)n * f, f, cw, idx, qerr, counts,
+                             sums, nb, n, k, f, stream);
 }

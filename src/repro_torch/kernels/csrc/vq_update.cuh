@@ -37,40 +37,55 @@
 //      the smallest group minimum, the group's first tile, and the second
 //      smallest group minimum.  The next pair's mmas are issued before a
 //      pair is folded;
-//   3. the 4 lanes of a row merge theirs.  A row is settled when the
-//      runner-up group's minimum exceeds min d~ + 2E (and that is finite):
-//      only the winning group's codewords can then win, and they are
-//      rescored exactly (the plain version's arithmetic) in increasing
-//      index with a strict <.  Any other row joins its warp's queue (its
-//      row and min d~ held in a lane's registers); 32 queued rows, or the
-//      rest at the end of a branch, make a tile whose every codeword with
-//      d~ <= min d~ + 2E is rescored exactly in increasing index (3 % of
-//      the trained model's last-layer rows, 0.6 % of the first layer's).
-// Why this is exact: |d~ - d| <= E for every codeword, with d the plain
-// version's fp32 distance (bound below).  Then U = min d~ + E is at least
-// the smallest d, and a codeword with d~ > min d~ + 2E has d >= d~ - E > U:
-// it is neither the minimum nor tied with it.  So every codeword that can
-// win (ties included) is rescored exactly, in index order.  A NaN d~ is a
-// candidate in the rescoring pass (!(d~ > T)), and a row whose threshold is
-// not finite rescores every codeword, as the first version scanned them.
+//   3. the 4 lanes of a row merge theirs, and the winning group's
+//      codewords are rescored exactly (the plain version's arithmetic) in
+//      increasing index with a strict <, giving u, an exact distance and
+//      so at least the row's smallest d, and the threshold T below.  A row
+//      is settled when the runner-up group's minimum exceeds T (and T is
+//      finite): only the winning group's codewords can then win.  Any
+//      other row joins its warp's queue (its row and T held in a lane's
+//      registers); 32 queued rows, or the rest at the end of a branch,
+//      make a tile whose every codeword with d~ <= T is rescored exactly
+//      in increasing index.
+// Why this is exact.  For every codeword c, |d~_c - d_c| <= E(|x|, |c|),
+// with d the plain version's fp32 distance and E increasing in |c|
+// (below).  A codeword that can win (ties included) has d_c <= min d <= u.
+// Its norm is then at most r(|x|, u): d_c >= (1 - rho)|c|^2 - (2 + 2rho)
+// |x||c| (Cauchy-Schwarz and the plain version's rounding, rho = 2^-17 >=
+// (2f + 3) 2^-24), which exceeds u for every |c| above the positive root
+//     r = ((1 + rho)|x| + sqrt((1 + rho)^2 |x|^2 + (1 - rho) u)) / (1 - rho)
+// (evaluated with margins: b = |x| (1 + 2^-14), the root of
+// max(b^2 + u, 0) + 2^-16 (b^2 + |u|), times 1 + 2^-14).  So it has
+//     d~_c <= u + E(|x|, min(cmax, r)) = T,
+// and a codeword with d~ > T is neither the minimum nor tied with it: every
+// codeword that can win is rescored exactly, in index order.  (Where the
+// runner-up group's minimum does not exceed min d~, the winning group is
+// not rescored; u <= d_a <= min d~ + E(|x|, cmax) for a, the codeword of
+// min d~, stands in for it, a looser T.)  T uses the
+// norms near the row, not the branch's largest: a trained codebook's few
+// far-out codewords (norms 10x the rows') would otherwise widen the band
+// of every row.  A NaN d~ is a candidate in the rescoring pass
+// (!(d~ > T)), and a row whose threshold is not finite rescores every
+// codeword, as the first version scanned them.
 //
-// The bound E (the wrapper's candidate_bound mirrors it; the CPU test
-// tests/test_torch_vq_scan.py checks it on an emulation of this scan).
-// Let X = |x| cmax, cmax = max_c |c|, S = sum_j |x_j c_j| <= X; hi = v
+// The bound E (the wrapper's candidate_bound mirrors it, norm_cap the norm
+// r; the CPU test tests/test_torch_vq_scan.py checks both on an emulation
+// of this scan).  Let X = |x| |c|, S = sum_j |x_j c_j| <= X; hi = v
 // truncated to TF32's 10 mantissa bits, lo = (v - hi) truncated again, so
 // |v - hi - lo| < 2^-20 |v| and |lo| < 2^-10 |v|.
 //   (i)   the split: the terms dropped (lo*lo and the remainders) are
 //         < 3.01 * 2^-20 * |2 x_j c_j| each: 6.02 * 2^-20 S in all;
 //   (ii)  the tensor cores: products of TF32 values are exact; each mma's
 //         accumulation is taken to err by at most eps_tc = 2^-20 times the
-//         sum of the magnitudes it adds (<= cmax^2 + 4.02 X) -- fp32
+//         sum of the magnitudes it adds (<= |c|^2 + 4.02 X) -- fp32
 //         accumulation errs by ~2^-23 of it: a probe of 67 M distances on
 //         the card (random, mixed-magnitude, large-row and |c|^2-dominated
 //         inputs) found at most 0.6 of 2^-20 (cmax^2 + 4X) in all -- with
-//         3 * ceil(f / 8) mmas a distance;
-//   (iii) the plain version's own rounding: <= (2f + 3) 2^-24 (cmax^2 + 2X).
+//         at most 3 * ceil(f / 8) mmas a distance (two at vq_assign's
+//         f 4, whose one 4-deep step takes an m16n8k8 and an m16n8k4);
+//   (iii) the plain version's own rounding: <= (2f + 3) 2^-24 (|c|^2 + 2X).
 // With n_mma = 3 ceil(f / 8) and f <= 32 this sums to less than
-//     E = (n_mma + 6) * 2^-20 * (cmax^2 + 4 |x| cmax) + 2^-118 (1 + |x| + cmax)
+//     E = (n_mma + 6) * 2^-20 * (|c|^2 + 4 |x| |c|) + 2^-118 (1 + |x| + |c|)
 // (the +1 in n_mma + 6 covers the fp32 evaluation of E; the last term,
 // subnormal products a tensor core may flush).  On real rows a gap under
 // ~1e-5 relative is rare, so nearly every row is settled.
@@ -97,6 +112,13 @@
 // written as uint8 (emit_dtype uint8, k <= 256, the int8 / fp8 tiers'
 // table type; and uint4, k <= 16, whose ids the wrapper returns in the
 // same uint8 tensor).  The index type is a template parameter.
+//
+// vq_assign.cu instantiates the same kernel without the statistics (the
+// template flag Stats), on rows read through their strides (the branch
+// view of an [n, nb * f] table), at its served widths 4 and 16 with scans
+// of their own shape (Cfg: f 4 on m16n8k4 with the codewords' hi / lo
+// parts staged, 4 m-tiles a warp; both with groups of 4 tiles).  The
+// widths this file's entries take keep the scan described above.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -110,22 +132,52 @@ constexpr int kMaxF = 32;            // widest row the generic build holds
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEpsBound = 9.5367431640625e-07f;   // 2^-20
 constexpr float kTinyBound = 3.0092655e-36f;        // 2^-118
+constexpr float kNormUp = 1.00006103515625f;        // 1 + 2^-14
+constexpr float kDiscSlack = 1.52587890625e-05f;    // 2^-16
 
+// The scan's shape for a row width F (0: generic, f <= kMaxF at run time).
+// KSTEP: the k-step of the fragments, 8 (m16n8k8), or 4 where f = 4 would
+// leave half of every k8 step zeros (tile_dist); MT: m16 row tiles a warp,
+// each B fragment serving all of them; GT: tiles a fold group (a lane's
+// 2 * GT codewords a row); PIPE: pairs of tiles with the next pair's mmas
+// issued before a pair's fold; SPLIT: the codewords' TF32 hi / lo parts
+// staged once per branch in shared memory, not split again for every tile;
+// MINB:
+// vq_assign's blocks an SM (its __launch_bounds__; vq_update's kernel sets
+// none).  The widths vq_update instantiates (8, 21, generic) keep the shape
+// its scan was measured with; 4 and 16 are vq_assign's served widths
+// (vq_assign.cu), whose shapes were picked by timing the alternatives on an
+// H100.
 template <int F>
 struct Cfg {
-  static constexpr int KS = F > 0 ? (F + 7) / 8 : kMaxF / 8;   // k-steps
+  static constexpr int KSTEP = F == 4 ? 4 : 8;
+  static constexpr int KS =
+      F > 0 ? (F + KSTEP - 1) / KSTEP : kMaxF / KSTEP;  // k-steps
   static constexpr int MT = 2;                   // m16 row tiles per warp
+  static constexpr int GT = F == 4 ? 4 : 2;
+  static constexpr bool PIPE = GT == 2 && F != 16;
+  static constexpr bool SPLIT = F == 4;
+  static constexpr int MINB = F == 4 || F == 16 ? 2 : 1;
   static constexpr int R = 16 * MT;              // rows per warp tile
   static constexpr int W = F > 0 ? F : kMaxF;    // register row width
 };
 
-// Element (c, j) of the staged codewords.  f = 8: the two halves of a row
-// swap for c & 4, so the 8 codewords x 4 lanes of a B fragment load hit
-// 32 distinct banks.
+// Element (c, j) of the staged codewords, swizzled so that the 8 codewords x
+// 4 lanes of a B fragment load hit 32 distinct banks: f = 8, the two halves
+// of a row swap for c & 4; f = 16, its four quarters permute by bits 1-2 of
+// c (unswizzled, codewords c and c + 2 share banks: 4-way conflicts).
 template <int F>
 __device__ __forceinline__ int cw_off(int c, int j, int fd) {
   if (F == 8) return c * 8 + (j ^ (c & 4));
+  if (F == 16) return c * 16 + (j ^ (((c >> 1) & 3) << 2));
   return c * fd + j;
+}
+
+// The staged hi / lo pair of codeword c at k-step ks, k-row u (Cfg::SPLIT):
+// the 8 codewords x 4 lanes of a B fragment read 32 consecutive pairs.
+template <int F>
+__device__ __forceinline__ int split_off(int c, int ks, int u) {
+  return (c * Cfg<F>::KS + ks) * Cfg<F>::KSTEP + u;
 }
 
 // v = hi + lo + r with hi, lo TF32 (low 13 bits zero), |r| < 2^-20 |v|.
@@ -146,6 +198,18 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
         "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
 }
 
+// d = A B + c on the tensor cores (m16n8k4, TF32 in, fp32 accumulate): A's
+// registers are rows g and g + 8 at k-column q, B's k-row q at column g.
+__device__ __forceinline__ void mma_tf32_k4(float (&d)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t b0,
+                                            const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%7,%8,%9,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0), "f"(c[0]), "f"(c[1]), "f"(c[2]),
+        "f"(c[3]));
+}
+
 // The plain version's distance |c|^2 - 2 x.c of one row (staged in shared
 // memory, or global) and one staged codeword, each multiply and add rounded
 // on its own.
@@ -162,9 +226,11 @@ __device__ __forceinline__ float exact_dist(const float* xr,
   return __fsub_rn(cn2_s[c], __fmul_rn(2.f, dot));
 }
 
-// The B fragments (codewords nt*8 + g at k-rows q, q + 4 of every k-step,
-// split hi / lo) and the C pair (|c|^2 of columns 2q, 2q + 1).  tail: the
-// last tile of a k that is not a multiple of 8 (zeros and +inf past k).
+// The B fragments (codewords nt*8 + g at k-rows q, q + 4 of every k8 step,
+// or q of every k4 step, split hi / lo) and the C pair (|c|^2 of columns 2q,
+// 2q + 1).  tail: the last tile of a k that is not a multiple of 8 (zeros
+// and +inf past k).  c_s: the staged codewords, or with Cfg::SPLIT their
+// staged hi / lo pairs (split_off), zeros past k.
 template <int F>
 __device__ __forceinline__ void load_b(const float* c_s, const float* cn2_s,
                                        int nt, int g, int q, int k, int fd,
@@ -172,15 +238,23 @@ __device__ __forceinline__ void load_b(const float* c_s, const float* cn2_s,
                                        uint32_t (&bh)[Cfg<F>::KS][2],
                                        uint32_t (&bl)[Cfg<F>::KS][2],
                                        float (&cc)[2]) {
+  using C = Cfg<F>;
   const int c = nt * 8 + g;
 #pragma unroll
-  for (int ks = 0; ks < Cfg<F>::KS; ++ks) {
+  for (int ks = 0; ks < C::KS; ++ks) {
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int j = ks * 8 + q + 4 * t;
-      const float v = (ks < ks_n && j < fd && (!tail || c < k))
-                          ? c_s[cw_off<F>(c, j, fd)] : 0.f;
-      split_tf32(v, bh[ks][t], bl[ks][t]);
+    for (int t = 0; t < C::KSTEP / 4; ++t) {
+      if constexpr (C::SPLIT) {
+        const float2 v = reinterpret_cast<const float2*>(c_s)[split_off<F>(
+            c, ks, q + 4 * t)];
+        bh[ks][t] = __float_as_uint(v.x);
+        bl[ks][t] = __float_as_uint(v.y);
+      } else {
+        const int j = ks * C::KSTEP + q + 4 * t;
+        const float v = (ks < ks_n && j < fd && (!tail || c < k))
+                            ? c_s[cw_off<F>(c, j, fd)] : 0.f;
+        split_tf32(v, bh[ks][t], bl[ks][t]);
+      }
     }
   }
   const int c0 = nt * 8 + 2 * q;
@@ -195,25 +269,42 @@ __device__ __forceinline__ void load_b(const float* c_s, const float* cn2_s,
 }
 
 // d~ of this lane's 2 rows x 2 codewords of one m-tile (fragment order):
-// the small products first, onto |c|^2 (the C operand), then hi * hi.
+// the small products first, onto |c|^2 (the C operand), then hi * hi.  With
+// KSTEP 4 the two small products of a k-step go into one m16n8k8, lo * hi in
+// its k-columns 0-3 and hi * lo in 4-7, and hi * hi into an m16n8k4: two
+// mmas a tile, which timed faster than three m16n8k4.
 template <int F>
 __device__ __forceinline__ void tile_dist(
     float (&d)[4], const uint32_t (&ah)[Cfg<F>::KS][4],
     const uint32_t (&al)[Cfg<F>::KS][4], const uint32_t (&bh)[Cfg<F>::KS][2],
     const uint32_t (&bl)[Cfg<F>::KS][2], const float (&cc)[2], int ks_n) {
   const float c4[4] = {cc[0], cc[1], cc[0], cc[1]};
-  mma_tf32(d, al[0], bh[0][0], bh[0][1], c4);
-  mma_tf32(d, ah[0], bl[0][0], bl[0][1], d);
+  if constexpr (Cfg<F>::KSTEP == 4) {
 #pragma unroll
-  for (int ks = 1; ks < Cfg<F>::KS; ++ks) {
-    if (ks < ks_n) {
-      mma_tf32(d, al[ks], bh[ks][0], bh[ks][1], d);
-      mma_tf32(d, ah[ks], bl[ks][0], bl[ks][1], d);
+    for (int ks = 0; ks < Cfg<F>::KS; ++ks) {
+      const uint32_t a8[4] = {al[ks][0], al[ks][1], ah[ks][0], ah[ks][1]};
+      if (ks == 0)
+        mma_tf32(d, a8, bh[ks][0], bl[ks][0], c4);
+      else
+        mma_tf32(d, a8, bh[ks][0], bl[ks][0], d);
     }
-  }
 #pragma unroll
-  for (int ks = 0; ks < Cfg<F>::KS; ++ks)
-    if (ks < ks_n) mma_tf32(d, ah[ks], bh[ks][0], bh[ks][1], d);
+    for (int ks = 0; ks < Cfg<F>::KS; ++ks)
+      mma_tf32_k4(d, ah[ks][0], ah[ks][1], bh[ks][0], d);
+  } else {
+    mma_tf32(d, al[0], bh[0][0], bh[0][1], c4);
+    mma_tf32(d, ah[0], bl[0][0], bl[0][1], d);
+#pragma unroll
+    for (int ks = 1; ks < Cfg<F>::KS; ++ks) {
+      if (ks < ks_n) {
+        mma_tf32(d, al[ks], bh[ks][0], bh[ks][1], d);
+        mma_tf32(d, ah[ks], bl[ks][0], bl[ks][1], d);
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < Cfg<F>::KS; ++ks)
+      if (ks < ks_n) mma_tf32(d, ah[ks], bh[ks][0], bh[ks][1], d);
+  }
 }
 
 // d~ of 8 codewords (tile nt) for the warp tile's MT m-tiles.
@@ -233,10 +324,12 @@ __device__ __forceinline__ void tile_all(
 
 // A tile of queued near-tie rows: every candidate (d~ <= thr) of a row
 // marked fb is rescored exactly, strict < in increasing index per lane;
-// xr: this lane's rows (mt, h).
+// xr: this lane's rows (mt, h); scan_s: load_b's source, c_s: the staged
+// codewords.
 template <int F>
 __device__ __forceinline__ void rescore_tile(
-    int nt, bool tail, const float* c_s, const float* cn2_s,
+    int nt, bool tail, const float* scan_s, const float* c_s,
+    const float* cn2_s,
     const float* const (&xr)[Cfg<F>::MT][2], int g, int q, int k, int fd,
     int ks_n,
     const uint32_t (&ah)[Cfg<F>::MT][Cfg<F>::KS][4],
@@ -246,9 +339,9 @@ __device__ __forceinline__ void rescore_tile(
   constexpr int MT = Cfg<F>::MT;
   float d[MT][4];
   if (tail)
-    tile_all<F, true>(d, nt, c_s, cn2_s, g, q, k, fd, ks_n, ah, al);
+    tile_all<F, true>(d, nt, scan_s, cn2_s, g, q, k, fd, ks_n, ah, al);
   else
-    tile_all<F>(d, nt, c_s, cn2_s, g, q, k, fd, ks_n, ah, al);
+    tile_all<F>(d, nt, scan_s, cn2_s, g, q, k, fd, ks_n, ah, al);
   bool any = false;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -272,23 +365,33 @@ __device__ __forceinline__ void rescore_tile(
   }
 }
 
-template <int F, typename Idx>
-__global__ void __launch_bounds__(kThreads)
-vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
-                 Idx* __restrict__ idx, float* __restrict__ qerr,
-                 float* __restrict__ counts, float* __restrict__ sums, int nb,
-                 int n, int k, int f, long long per_block, int stage_x) {
+// The kernels' body.  Stats: vq_update (idx, qerr and the cluster
+// statistics); without it vq_assign's (idx, and qerr -- its want_min --
+// unless nullptr).  x: [nb, n, f] with strides (sb, sr, 1).
+template <int F, typename Idx, bool Stats>
+__device__ __forceinline__ void vq_scan(
+    const float* __restrict__ x, long long sb, long long sr,
+    const float* __restrict__ cw, Idx* __restrict__ idx,
+    float* __restrict__ qerr, float* __restrict__ counts,
+    float* __restrict__ sums, int nb, int n, int k, int f,
+    long long per_block, int stage_x) {
   using C = Cfg<F>;
-  constexpr int KS = C::KS, MT = C::MT, R = C::R, W = C::W;
+  constexpr int KS = C::KS, MT = C::MT, R = C::R, W = C::W, GT = C::GT;
+  static_assert(R >= 32, "a warp's near-tie queue (32 rows) drains as one "
+                         "warp tile");
   const int fd = F > 0 ? F : f;
   const int ks_n = F > 0 ? KS : (f + 7) / 8;
   const int nt_full = k / 8;                     // tiles with no codeword past k
   const int nt_n = (k + 7) / 8;
   const float e_coef = (float)(3 * ks_n + 6) * kEpsBound;
   extern __shared__ float smem[];
-  float* cn2_s = smem;                                 // [k]
-  float* c_s = smem + k;                               // [k, fd]
+  // [nt_n * 8, KS * KSTEP] hi / lo pairs first (8-byte aligned), if staged
+  float2* b_s = reinterpret_cast<float2*>(smem);
+  float* cn2_s = smem + (C::SPLIT ? 2 * nt_n * 8 * KS * C::KSTEP : 0);  // [k]
+  float* c_s = cn2_s + k;                              // [k, fd]
   float* x_s = c_s + (size_t)k * fd;                  // [warps, R, fd]
+  // what the scan's B fragments are loaded from (load_b)
+  const float* scan_s = C::SPLIT ? reinterpret_cast<const float*>(b_s) : c_s;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
 
@@ -301,7 +404,7 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
     const long long e = hi < br_end ? hi : br_end;
     const int row0 = (int)(s - (long long)br * n);
     const int rows = (int)(e - s);
-    const float* xb = x + (size_t)br * n * fd;
+    const float* xb = x + br * sb;
 
     // ---- stage this branch's codewords and |c|^2 ----
     __syncthreads();                 // the previous branch is done
@@ -319,6 +422,14 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
       }
       cn2_s[c] = acc;
     }
+    if constexpr (C::SPLIT) {
+      for (int i = threadIdx.x; i < nt_n * 8 * KS * C::KSTEP; i += kThreads) {
+        const int c = i / (KS * C::KSTEP), j = i - c * (KS * C::KSTEP);
+        uint32_t h, l;
+        split_tf32(c < k && j < fd ? c_s[cw_off<F>(c, j, fd)] : 0.f, h, l);
+        b_s[i] = make_float2(__uint_as_float(h), __uint_as_float(l));
+      }
+    }
     __syncthreads();
     float cm2 = 0.f;                 // max |c|^2 (fmaxf: a NaN codeword is
     for (int c = lane; c < k; c += 32) cm2 = fmaxf(cm2, cn2_s[c]);   // only
@@ -329,7 +440,7 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
     // ---- warp tiles of R rows; near-tie rows queue up per warp ----
     float* xw = x_s + (size_t)warp * R * fd;   // this warp's rows (stage_x)
     int qn = 0, qrow = 0;                      // lane l holds queue entry l:
-    float qm1 = 0.f;                           // its row and its min d~
+    float qthr = 0.f;                          // its row and its threshold
     uint32_t ah[MT][KS][4], al[MT][KS][4];
     float xn[MT][2];
     // A fragments of -2x (rows g, g + 8 of each m-tile; k-cols q, q + 4)
@@ -345,8 +456,8 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
 #pragma unroll
           for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
-            for (int t = 0; t < 2; ++t) {
-              const int j = ks * 8 + q + 4 * t;
+            for (int t = 0; t < C::KSTEP / 4; ++t) {
+              const int j = ks * C::KSTEP + q + 4 * t;
               const float v = (r < valid && ks < ks_n && j < fd) ? xr[j] : 0.f;
               s2 = fmaf(v, v, s2);
               split_tf32(-2.f * v, ah[mt][ks][h + 2 * t], al[mt][ks][h + 2 * t]);
@@ -358,16 +469,39 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
         }
       }
     };
-    auto bound2 = [&](float xr) {   // 2E for a row of norm xr
-      return 2.f * (e_coef * (cm2 + 4.f * xr * cmax)
-                    + kTinyBound * (1.f + xr + cmax));
+    // The threshold T of a row of norm xr whose exactly rescored winning
+    // group gave u >= its smallest d: a codeword with d <= u has norm at
+    // most r (the header's bound), so its d~ <= u + E(min(cmax, r)).
+    auto threshold = [&](float u, float xr) {
+      const float b = xr * kNormUp;
+      const float bb = b * b;
+      const float r =
+          (b + sqrtf(fmaxf(bb + u, 0.f) + kDiscSlack * (bb + fabsf(u)))) *
+          kNormUp;
+      const float cm = fminf(cmax, r);
+      return u + e_coef * (cm * cm + 4.f * xr * cm)
+             + kTinyBound * (1.f + xr + cm);
     };
     // One lane's row: idx and qerr (ok), and the warp's statistics (every
     // lane calls it): the lanes that chose the same codeword are combined
     // (__match_any_sync, then a shuffle tree over the peers) and one adds
-    // the group's count and sums.
+    // the group's count and sums.  Without Stats: idx, and qerr if asked.
     auto finish = [&](bool ok, int row, const float* xr, float best,
                       int arg) {
+      const size_t out = (size_t)br * n + row;
+      if constexpr (!Stats) {
+        if (ok) {
+          idx[out] = (Idx)arg;
+          if (qerr != nullptr) {
+            float xn2 = 0.f;
+#pragma unroll
+            for (int j = 0; j < W; ++j)
+              if (j < fd) xn2 = __fadd_rn(xn2, __fmul_rn(xr[j], xr[j]));
+            qerr[out] = fmaxf(__fadd_rn(best, xn2), 0.f);
+          }
+        }
+        return;
+      }
       float xv[W];
       float xn2 = 0.f;
 #pragma unroll
@@ -376,7 +510,6 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
         if (j < fd) xn2 = __fadd_rn(xn2, __fmul_rn(xv[j], xv[j]));
       }
       if (ok) {
-        const size_t out = (size_t)br * n + row;
         idx[out] = (Idx)arg;
         qerr[out] = fmaxf(__fadd_rn(best, xn2), 0.f);
       }
@@ -413,12 +546,12 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
         __syncwarp();
         if (lane < valid)
           for (int j = 0; j < fd; ++j)
-            xw[lane * fd + j] = xb[(size_t)qrow * fd + j];
+            xw[lane * fd + j] = xb[qrow * sr + j];
         __syncwarp();
       }
       auto rowp = [&](int r) -> const float* {
         const int qr = __shfl_sync(kFull, qrow, r);
-        return stage_x ? xw + r * fd : xb + (size_t)qr * fd;
+        return stage_x ? xw + r * fd : xb + qr * sr;
       };
       build(rowp, valid);
       const float* xr[MT][2];
@@ -431,15 +564,16 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
         for (int h = 0; h < 2; ++h) {
           const int r = mt * 16 + g + 8 * h;
           xr[mt][h] = rowp(r < valid ? r : 0);
-          thr[mt][h] = __shfl_sync(kFull, qm1, r) + bound2(xn[mt][h]);
+          const float t = __shfl_sync(kFull, qthr, r);
+          thr[mt][h] = isfinite(t) ? t : INFINITY;
           fb[mt][h] = r < valid;
           bd[mt][h] = INFINITY;
           bi[mt][h] = 0;
         }
       }
       for (int nt = 0; nt < nt_n; ++nt)
-        rescore_tile<F>(nt, nt == nt_full, c_s, cn2_s, xr, g, q, k, fd, ks_n,
-                        ah, al, thr, fb, bd, bi);
+        rescore_tile<F>(nt, nt == nt_full, scan_s, c_s, cn2_s, xr, g, q, k,
+                        fd, ks_n, ah, al, thr, fb, bd, bi);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -495,7 +629,7 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
         const float mv = __shfl_sync(kFull, m, src);
         if (mine) {
           qrow = rr;
-          qm1 = mv;
+          qthr = mv;
         }
         qn += take;
         done += take;
@@ -508,22 +642,31 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
       const int valid = rows - t0 < R ? rows - t0 : R;
       const int rbase = row0 + t0;
       // the tile's rows, [valid, fd]: staged in this warp's shared memory
-      // where it fits, else read in place
-      const float* xt = xb + (size_t)rbase * fd;
+      // where it fits, else read in place (row stride xs)
+      const float* xt = xb + rbase * sr;
+      long long xs = sr;
       if (stage_x) {
         __syncwarp();
-        for (int i = lane; i < valid * fd; i += 32) xw[i] = xt[i];
+        if (sr == fd) {
+          for (int i = lane; i < valid * fd; i += 32) xw[i] = xt[i];
+        } else {
+          for (int i = lane; i < valid * fd; i += 32) {
+            const int r = i / fd;
+            xw[i] = xt[r * sr + (i - r * fd)];
+          }
+        }
         __syncwarp();
         xt = xw;
+        xs = fd;
       }
-      build([&](int r) { return xt + r * fd; }, valid);
+      build([&](int r) { return xt + r * xs; }, valid);
 
       // The scan.  A lane sees 2 codewords (columns 2q, 2q + 1) of every
-      // tile; tiles pair up (0, 1), (2, 3), ... into groups of 4 codewords
-      // a lane (an odd last tile and the tail tile stand alone).  Per row
-      // and lane: m1, the smallest group minimum, n1 the first tile of
-      // that group, and m2 the second smallest group minimum.  The next
-      // pair's mmas are issued before a pair is folded in.
+      // tile; GT consecutive tiles make a group of 2 * GT codewords a lane
+      // (tiles past the last whole group and the tail tile stand alone).
+      // Per row and lane: m1, the smallest group minimum, n1 the first tile
+      // of that group, and m2 the second smallest group minimum.  With GT
+      // = 2 the next pair's mmas are issued before a pair is folded in.
       float m1[MT][2], m2[MT][2];
       int n1[MT][2];
 #pragma unroll
@@ -560,46 +703,73 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
                  nt);
       };
       {
-        float da[MT][4], db[MT][4], dc[MT][4], dd[MT][4];
-        const int pairs_end = nt_full & ~1;      // tiles 0 .. pairs_end - 1
+        float da[MT][4];
         auto tile = [&](float (&d)[MT][4], int nt) {
-          tile_all<F>(d, nt, c_s, cn2_s, g, q, k, fd, ks_n, ah, al);
+          tile_all<F>(d, nt, scan_s, cn2_s, g, q, k, fd, ks_n, ah, al);
         };
-        if (pairs_end > 0) {
-          tile(da, 0);
-          tile(db, 1);
-        }
-        for (int nt = 0; nt < pairs_end; nt += 4) {
-          if (nt + 2 < pairs_end) {
-            tile(dc, nt + 2);
-            tile(dd, nt + 3);
+        if constexpr (!C::PIPE) {
+          // groups of GT tiles, a lane's 2 GT codewords a row folded at
+          // once, each group's mmas issued together before its fold
+          const int groups_end = nt_full / GT * GT;
+          for (int nt = 0; nt < groups_end; nt += GT) {
+            float dg[GT][MT][4];
+#pragma unroll
+            for (int u = 0; u < GT; ++u) tile(dg[u], nt + u);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                float lo[GT];
+#pragma unroll
+                for (int u = 0; u < GT; ++u)
+                  lo[u] = fminf(dg[u][mt][2 * h], dg[u][mt][2 * h + 1]);
+#pragma unroll
+                for (int w = GT / 2; w > 0; w >>= 1)
+#pragma unroll
+                  for (int u = 0; u < w; ++u) lo[u] = fminf(lo[u], lo[u + w]);
+                fold(mt, h, lo[0], nt);
+              }
           }
-          fold2(da, db, nt);
-          if (nt + 2 >= pairs_end) break;
-          if (nt + 4 < pairs_end) {
-            tile(da, nt + 4);
-            tile(db, nt + 5);
+          for (int nt = groups_end; nt < nt_full; ++nt) {   // lone tiles
+            tile(da, nt);
+            fold1(da, nt);
           }
-          fold2(dc, dd, nt + 2);
-        }
-        if (pairs_end < nt_full) {
-          tile(da, pairs_end);
-          fold1(da, pairs_end);
+        } else {
+          float db[MT][4], dc[MT][4], dd[MT][4];
+          const int pairs_end = nt_full & ~1;    // tiles 0 .. pairs_end - 1
+          if (pairs_end > 0) {
+            tile(da, 0);
+            tile(db, 1);
+          }
+          for (int nt = 0; nt < pairs_end; nt += 4) {
+            if (nt + 2 < pairs_end) {
+              tile(dc, nt + 2);
+              tile(dd, nt + 3);
+            }
+            fold2(da, db, nt);
+            if (nt + 2 >= pairs_end) break;
+            if (nt + 4 < pairs_end) {
+              tile(da, nt + 4);
+              tile(db, nt + 5);
+            }
+            fold2(dc, dd, nt + 2);
+          }
+          if (pairs_end < nt_full) {
+            tile(da, pairs_end);
+            fold1(da, pairs_end);
+          }
         }
         if (nt_full * 8 < k) {
-          tile_all<F, true>(da, nt_full, c_s, cn2_s, g, q, k, fd, ks_n, ah,
+          tile_all<F, true>(da, nt_full, scan_s, cn2_s, g, q, k, fd, ks_n, ah,
                             al);
           fold1(da, nt_full);
         }
       }
       // The 4 lanes of a row merge (min, runner-up, winning group's first
       // column).  Every group other than the winning one has a minimum of
-      // at least the runner-up; so when that exceeds min d~ + 2E (a finite
-      // bound) only the winning group's codewords can win: the row is
-      // settled.  The others queue up.
-      float a1v[MT][2];
+      // at least the runner-up.
+      float a1v[MT][2], a2v[MT][2];
       int cw0[MT][2];
-      bool settled[MT][2];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -617,45 +787,49 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
               ac = bc;
             }
           }
-          const float thr = a1 + bound2(xn[mt][h]);
           a1v[mt][h] = a1;
+          a2v[mt][h] = a2;
           cw0[mt][h] = ac;
-          settled[mt][h] = isfinite(thr) && a2 > thr;
         }
       }
-      // per row (lane q of a quad takes quad row q + 4 * round): a settled
-      // row's two candidates rescored exactly, its outputs and statistics;
-      // then the unsettled rows join the queue
+      // Per row (lane q of a quad takes quad row q + 4 * round): the
+      // winning group's codewords rescored exactly give u and the row's
+      // threshold T.  When the runner-up exceeds a finite T only the
+      // winning group's codewords can win: the row is settled, with its
+      // outputs and statistics.  The other rows queue up with T.  A
+      // runner-up that does not exceed the minimum d~ itself (T is never
+      // below it) cannot settle: such a row skips the rescoring and queues
+      // with the T of u's bound min d~ + E(|x|, cmax).
       constexpr int kRounds = (2 * MT + 3) / 4;
       bool need[kRounds];
       int qrow_r[kRounds];
-      float qm1_r[kRounds];
+      float qthr_r[kRounds];
 #pragma unroll
       for (int rd = 0; rd < kRounds; ++rd) {
         const int qi = q + 4 * rd;
-        float best = INFINITY, m = 0.f;
+        float best = INFINITY, a1 = 0.f, a2 = 0.f, xrn = 0.f;
         int arg = 0, r = R;
-        bool done = false;
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
             if (qi == 2 * mt + h) {
-              done = settled[mt][h];
+              a1 = a1v[mt][h];
+              a2 = a2v[mt][h];
               arg = cw0[mt][h];
-              m = a1v[mt][h];
+              xrn = xn[mt][h];
               r = mt * 16 + g + 8 * h;
             }
         const bool ok = r < valid;
-        const float* xr = xt + (ok ? r : 0) * fd;
-        if (ok && done) {
-          // the winning group's codewords (columns 2q, 2q + 1 of its tile
-          // and the next; a lone tile's neighbour only adds candidates),
-          // rescored exactly in increasing index, strict <
+        const bool tie = !(a2 > a1);
+        const float* xr = xt + (ok ? r : 0) * xs;
+        if (ok && !tie) {
+          // the winning group's codewords (columns 2q, 2q + 1 of its GT
+          // tiles; a lone tile's neighbours only add candidates), rescored
+          // exactly in increasing index, strict <
           const int c0 = arg;
-          arg = c0;
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
+          for (int u = 0; u < 2 * GT; ++u) {
             const int c = c0 + (u & 1) + 8 * (u >> 1);
             if (c < k) {
               const float e = exact_dist<F>(xr, c_s, cn2_s, c, fd);
@@ -666,26 +840,66 @@ vq_update_kernel(const float* __restrict__ x, const float* __restrict__ cw,
             }
           }
         }
-        finish(ok && done, rbase + r, xr, best, arg);
+        const float t = threshold(
+            tie ? a1 + e_coef * (cm2 + 4.f * xrn * cmax)
+                      + kTinyBound * (1.f + xrn + cmax)
+                : best,
+            xrn);
+        const bool done = ok && !tie && isfinite(t) && a2 > t;
+        finish(done, rbase + r, xr, best, arg);
         need[rd] = ok && !done;
         qrow_r[rd] = rbase + r;
-        qm1_r[rd] = m;
+        qthr_r[rd] = t;
       }
 #pragma unroll
-      for (int rd = 0; rd < kRounds; ++rd) enqueue(need[rd], qrow_r[rd], qm1_r[rd]);
+      for (int rd = 0; rd < kRounds; ++rd)
+        enqueue(need[rd], qrow_r[rd], qthr_r[rd]);
     }
     if (qn > 0) drain();
     s = e;
   }
 }
 
-// Shared memory: |c|^2 and the codewords, k (f + 1) floats (the first
-// version's footprint, so every shape it took still runs), then, where
-// they fit, the warps' row tiles.  One wave of blocks, each an equal share
-// of the nb * n rows.
 template <int F, typename Idx>
-cudaError_t launch(const float* x, const float* cw, Idx* idx, float* qerr,
-                   float* counts, float* sums, int nb, int n, int k, int f,
+__global__ void __launch_bounds__(kThreads)
+vq_update_kernel(const float* __restrict__ x, long long sb, long long sr,
+                 const float* __restrict__ cw, Idx* __restrict__ idx,
+                 float* __restrict__ qerr, float* __restrict__ counts,
+                 float* __restrict__ sums, int nb, int n, int k, int f,
+                 long long per_block, int stage_x) {
+  vq_scan<F, Idx, true>(x, sb, sr, cw, idx, qerr, counts, sums, nb, n, k, f,
+                        per_block, stage_x);
+}
+
+// vq_assign's kernel: Cfg::MINB blocks an SM (2 at the served widths, where
+// a block's 8 warps alone left the scan's latencies exposed).
+template <int F>
+__global__ void __launch_bounds__(kThreads, Cfg<F>::MINB)
+vq_assign_kernel(const float* __restrict__ x, long long sb, long long sr,
+                 const float* __restrict__ cw, int* __restrict__ idx,
+                 float* __restrict__ qerr, int nb, int n, int k, int f,
+                 long long per_block, int stage_x) {
+  vq_scan<F, int, false>(x, sb, sr, cw, idx, qerr, nullptr, nullptr, nb, n,
+                         k, f, per_block, stage_x);
+}
+
+// Shared memory: with Cfg::SPLIT the codewords' hi / lo pairs (k rounded up
+// to a tile, 8 bytes a coordinate), then |c|^2 and the codewords, k (f + 1)
+// floats (the first version's footprint, so every shape it took still
+// runs), then, where they fit, the warps' row tiles.  One wave of blocks,
+// each an equal share of the nb * n rows.
+template <int F>
+size_t smem_base(int k, int f) {
+  using C = Cfg<F>;
+  const size_t split =
+      C::SPLIT ? (size_t)((k + 7) / 8) * 8 * C::KS * C::KSTEP * 8 : 0;
+  return split + ((size_t)k * f + (size_t)k) * sizeof(float);
+}
+
+template <int F, typename Idx, bool Stats>
+cudaError_t launch(const float* x, long long sb, long long sr,
+                   const float* cw, Idx* idx, float* qerr, float* counts,
+                   float* sums, int nb, int n, int k, int f,
                    cudaStream_t stream) {
   int dev = 0, limit = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -697,12 +911,15 @@ cudaError_t launch(const float* x, const float* cw, Idx* idx, float* qerr,
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return err;
-  const size_t base = ((size_t)k * f + (size_t)k) * sizeof(float);
+  const size_t base = smem_base<F>(k, f);
   const size_t xtile = (size_t)kWarps * Cfg<F>::R * f * sizeof(float);
   if (base > (size_t)limit) return cudaErrorInvalidValue;
   const int stage_x = base + xtile <= (size_t)limit;
   const size_t smem = base + (stage_x ? xtile : 0);
-  auto kern = vq_update_kernel<F, Idx>;
+  auto kern = [] {
+    if constexpr (Stats) return vq_update_kernel<F, Idx>;
+    else return vq_assign_kernel<F>;
+  }();
   if ((err = cudaFuncSetAttribute(
            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
       cudaSuccess)
@@ -717,24 +934,34 @@ cudaError_t launch(const float* x, const float* cw, Idx* idx, float* qerr,
   if (grid > tiles) grid = tiles;
   const long long per_block = (total + grid - 1) / grid;
   grid = (total + per_block - 1) / per_block;
-  kern<<<(unsigned)grid, kThreads, smem, stream>>>(
-      x, cw, idx, qerr, counts, sums, nb, n, k, f, per_block, stage_x);
+  if constexpr (Stats)
+    kern<<<(unsigned)grid, kThreads, smem, stream>>>(
+        x, sb, sr, cw, idx, qerr, counts, sums, nb, n, k, f, per_block,
+        stage_x);
+  else
+    kern<<<(unsigned)grid, kThreads, smem, stream>>>(
+        x, sb, sr, cw, idx, qerr, nb, n, k, f, per_block, stage_x);
   return cudaGetLastError();
 }
 
+// vq_update's widths: x [nb, n, f] contiguous.
 template <typename Idx>
 cudaError_t dispatch(const float* x, const float* cw, Idx* idx, float* qerr,
                      float* counts, float* sums, int nb, int n, int k, int f,
                      cudaStream_t stream) {
   if (f < 1 || f > kMaxF || k < 1 || nb < 1 || n < 1)
     return cudaErrorInvalidValue;
+  const long long sb = (long long)n * f, sr = f;
   switch (f) {
     case 8:
-      return launch<8>(x, cw, idx, qerr, counts, sums, nb, n, k, f, stream);
+      return launch<8, Idx, true>(x, sb, sr, cw, idx, qerr, counts, sums, nb,
+                                  n, k, f, stream);
     case 21:
-      return launch<21>(x, cw, idx, qerr, counts, sums, nb, n, k, f, stream);
+      return launch<21, Idx, true>(x, sb, sr, cw, idx, qerr, counts, sums,
+                                   nb, n, k, f, stream);
     default:
-      return launch<0>(x, cw, idx, qerr, counts, sums, nb, n, k, f, stream);
+      return launch<0, Idx, true>(x, sb, sr, cw, idx, qerr, counts, sums, nb,
+                                  n, k, f, stream);
   }
 }
 

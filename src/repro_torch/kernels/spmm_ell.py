@@ -81,7 +81,13 @@ def spmm_ell_t_cuda(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
                     g: torch.Tensor, n_src: int) -> torch.Tensor:
     """nbr_idx [b, D] int32, nbr_val [b, D] f32, g [b, f] f32, all
     contiguous CUDA tensors -> [n_src, f] f32 with
-    out[idx[i, d]] += val[i, d] * g[i] (slots with val == 0 add nothing)."""
+    out[idx[i, d]] += val[i, d] * g[i] (slots with val == 0 add nothing).
+
+    The output is zeroed here and the kernel adds into it with atomics, a
+    warp per row of g: 16-byte reductions where f is a multiple of 4,
+    scalar ones otherwise; a g whose storage offset leaves its rows
+    unaligned is read a column at a time (the kernel checks alignment at
+    run time).  The sums land in no fixed order."""
     global launches_t
     _build.check_operands("spmm_ell_t", {"nbr_idx": torch.int32,
                                          "nbr_val": torch.float32,
@@ -96,6 +102,9 @@ def spmm_ell_t_cuda(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
     f = g.shape[1]
     if deg > 0 and n_src < 1:
         raise ValueError("spmm_ell_t: neighbor slots into an empty source")
+    if n_src >= 2 ** 31:
+        raise ValueError(f"spmm_ell_t: n_src={n_src} rows exceed the "
+                         f"kernel's int32 row ids")
     out = torch.zeros((n_src, f), dtype=torch.float32, device=g.device)
     if b == 0 or f == 0 or deg == 0:
         return out

@@ -1,11 +1,15 @@
 """Checked wrapper of the multi-branch VQ-assign CUDA kernel
-(``csrc/vq_assign.cu``).
+(``csrc/vq_assign.cu``, on ``vq_update``'s tensor-core scan in
+``csrc/vq_update.cuh``).
 
 Counterpart of ``repro.kernels.vq_assign.vq_assign_pallas`` as
 ``core/codebook.py`` uses it: vmapped over the product-VQ branches, which
 here is one launch for all branches, with the reference's optional
-``want_min`` output.  ``launches`` counts the kernel launches of this
-process.
+``want_min`` output.  Both outputs are the plain version's bit for bit:
+the scan rescores exactly every codeword that its bound
+(``vq_update.candidate_bound`` and ``vq_update.norm_cap``) cannot rule
+out.
+``launches`` counts the kernel launches of this process.
 """
 from __future__ import annotations
 
@@ -17,6 +21,22 @@ launches = 0
 
 MAX_F = 32                    # widest branch the kernel holds in registers
 SMEM_LIMIT = 232448           # dynamic shared memory one H100 block may use
+
+
+def kstep(f: int) -> int:
+    """The depth of the scan's k-steps at width f (``Cfg::KSTEP``: 4 at
+    f 4, else 8); the products' work is 3 * 2 * kstep * ceil(f / kstep)
+    flops a distance."""
+    return 4 if f == 4 else 8
+
+
+def smem_bytes(k: int, f: int) -> int:
+    """Shared memory a block needs for one branch (``smem_base`` in
+    ``vq_update.cuh``): the codewords and their |c|^2, k (f + 1) floats,
+    and at f 4 the codewords' hi / lo pairs.  The rows it stages beside
+    them are optional."""
+    split = -(-k // 8) * 8 * 4 * 8 if f == 4 else 0
+    return split + 4 * k * (f + 1)
 
 
 def vq_assign_cuda(x: torch.Tensor, codewords: torch.Tensor,
@@ -45,7 +65,7 @@ def vq_assign_cuda(x: torch.Tensor, codewords: torch.Tensor,
     if not 1 <= f <= MAX_F:
         raise ValueError(f"vq_assign: branch width f={f} outside the "
                          f"kernel's 1..{MAX_F}")
-    if k < 1 or (k * (f + 1) * 4) > SMEM_LIMIT:
+    if k < 1 or smem_bytes(k, f) > SMEM_LIMIT:
         raise ValueError(f"vq_assign: k={k} codewords of width {f} do not "
                          f"fit one block's shared memory ({SMEM_LIMIT} B)")
     out = torch.empty((nb, n), dtype=torch.int32, device=x.device)

@@ -10,12 +10,13 @@ the port's uint4 is a uint8 tensor of values < 16, so the wrapper's
 narrowing is that k check.  ``launches`` counts the counted launches of
 this process, ``launches_u8`` those with a narrow emit.
 
-The kernel scans the distances on the tensor cores (TF32 split hi + lo)
-and rescores exactly every codeword within ``2 * candidate_bound`` of a
-row's smallest approximate distance, so the assignment and qerr are the
-plain version's bit for bit; :func:`candidate_bound` is the kernel's bound,
-kept here for the CPU emulation that tests it
-(``tests/test_torch_vq_scan.py``).
+The kernel scans the distances on the tensor cores (TF32 split hi + lo),
+rescores the winning group of codewords exactly (u, an exact distance),
+and then every codeword whose approximate distance is at most
+``u + candidate_bound(|x|, min(c_max, norm_cap(|x|, u)))``, so the
+assignment and qerr are the plain version's bit for bit;
+:func:`candidate_bound` and :func:`norm_cap` are the kernel's bounds, kept
+here for the CPU emulation that tests them (``tests/test_torch_vq_scan.py``).
 """
 from __future__ import annotations
 
@@ -57,16 +58,30 @@ SMEM_LIMIT = 232448
 # magnitudes it adds, and the floor for products a tensor core may flush
 TC_EPS = 2.0 ** -20
 TINY = 2.0 ** -118
+# the margins of norm_cap's fp32 evaluation in the kernel
+NORM_UP = 1.0 + 2.0 ** -14
+DISC_SLACK = 2.0 ** -16
 
 
 def candidate_bound(x_norm, c_max, f: int):
     """E(x) of ``csrc/vq_update.cuh``: an upper bound on |d~ - d| for every
     codeword of a branch, d the plain version's fp32 distance, d~ the
-    tensor cores' (3 * ceil(f / 8) mma accumulations), for rows of norm
-    ``x_norm`` against codewords of norm at most ``c_max``."""
+    tensor cores' (at most 3 * ceil(f / 8) mma accumulations; ``vq_assign``'s
+    f 4 scan takes two), for rows of norm ``x_norm`` against codewords of
+    norm at most ``c_max``."""
     n_mma = 3 * -(-f // 8)
     return (n_mma + 6) * TC_EPS * (c_max * c_max + 4 * x_norm * c_max) \
         + TINY * (1 + x_norm + c_max)
+
+
+def norm_cap(x_norm: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """r of ``csrc/vq_update.cuh``: no codeword of norm above it has a plain
+    fp32 distance of at most ``u`` to a row of norm ``x_norm``, with the
+    kernel's margins."""
+    b = x_norm * NORM_UP
+    bb = b * b
+    return (b + torch.sqrt(torch.clamp(bb + u, min=0.0)
+                           + DISC_SLACK * (bb + u.abs()))) * NORM_UP
 
 
 def vq_assign_update_cuda(x: torch.Tensor, codewords: torch.Tensor,

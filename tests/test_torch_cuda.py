@@ -83,6 +83,8 @@ def assert_scatter_close(got, want, terms_abs, terms):
                                       (3, 130, 33, 12), (1, 1, 1, 1),
                                       (2, 700, 64, 8)])
 def test_vq_assign_kernel_vs_plain(cuda, nb, n, k, f):
+    """The index bit-equal to the plain version's on the same card, read
+    through the branch view of an [n, nb * f] table."""
     g = torch.Generator().manual_seed(n + k)
     table = torch.randn((n, nb * f), generator=g)
     cw = torch.randn((nb, k, f), generator=g)
@@ -92,10 +94,8 @@ def test_vq_assign_kernel_vs_plain(cuda, nb, n, k, f):
     torch.cuda.synchronize()
     assert tva.launches == before + 1
     want = tref.vq_assign(table.reshape(n, nb, f).transpose(0, 1), cw)
-    rate = assert_assign_equal_but_near_ties(
-        got.cpu(), want, table.reshape(n, nb, f).transpose(0, 1).numpy(),
-        cw.numpy())
-    assert rate <= 1e-3
+    assert torch.equal(got.cpu(), want), \
+        f"{int((got.cpu() != want).sum())} assignments differ"
 
 
 @pytest.mark.gpu
@@ -103,9 +103,8 @@ def test_vq_assign_kernel_vs_plain(cuda, nb, n, k, f):
                                       (1, 7, 3, 5), (1, 130, 33, 12),
                                       (1, 100, 300, 8)])
 def test_vq_assign_kernel_want_min_vs_plain(cuda, nb, n, k, f):
-    """The kernel's ``want_min`` output, bit-equal to the plain version's
-    wherever the two pick the same codeword (the same formula in the same
-    order), close at the near-ties; the index is the one without it."""
+    """The kernel's ``want_min`` output and its index, both bit-equal to
+    the plain version's; the index is the one without it."""
     g = torch.Generator().manual_seed(n + k + f)
     x = torch.randn((nb, n, f), generator=g)
     cw = torch.randn((nb, k, f), generator=g)
@@ -113,10 +112,51 @@ def test_vq_assign_kernel_want_min_vs_plain(cuda, nb, n, k, f):
     torch.cuda.synchronize()
     want, wmin = tref.vq_assign(x, cw, want_min=True)
     assert torch.equal(got, tva.vq_assign_cuda(x.to(cuda), cw.to(cuda)))
-    assert_assign_equal_but_near_ties(got.cpu(), want, x.numpy(), cw.numpy())
-    same = got.cpu() == want
-    assert torch.equal(gmin.cpu()[same], wmin[same])
-    assert_allclose(gmin.cpu().numpy(), wmin.numpy(), **TOL)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(gmin.cpu(), wmin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [4, 16, 8, 12])
+@pytest.mark.parametrize("n,k", [(5003, 1024), (777, 1001), (130, 37),
+                                 (300, 256), (64, 16)])
+def test_vq_assign_near_ties_bit_equal(cuda, f, n, k):
+    """Duplicated codewords (the lowest index must win), 1-ulp neighbours,
+    rows on a codeword, rows equidistant from two, large-norm rows, read
+    through the branch view of an [n, nb * f] table: index and want_min
+    bit-equal to the plain version at the served widths and two generic
+    ones, n and k off the kernel's tiles."""
+    x, cw = _near_tie_codebook(3, n, k, f, n + k + f, cuda)
+    table = x.transpose(0, 1).reshape(n, 3 * f).contiguous()
+    xv = table.reshape(n, 3, f).transpose(0, 1)
+    got, gmin = tva.vq_assign_cuda(xv, cw, want_min=True)
+    want, wmin = tref.vq_assign(xv, cw, want_min=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), \
+        f"{int((got != want).sum())} assignments differ"
+    assert torch.equal(gmin, wmin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [4, 16])
+def test_vq_assign_every_row_equidistant_or_alike(cuda, f):
+    """Every codeword twice and every row exactly halfway between two
+    codewords, or every row alike: all rows queue for rescoring."""
+    g = torch.Generator().manual_seed(f)
+    cw = torch.randn((2, 512, f), generator=g)
+    cw[:, 1::2] = cw[:, 0::2]
+    a = torch.randint(0, 512, (2, 4000), generator=g)
+    b = torch.randint(0, 512, (2, 4000), generator=g)
+    x = 0.5 * (torch.gather(cw, 1, a[..., None].expand(2, 4000, f))
+               + torch.gather(cw, 1, b[..., None].expand(2, 4000, f)))
+    x[:, 2000:] = x[:, :1]
+    for xs in (x, x[:, :, :].contiguous() * 1e3):
+        got, gmin = tva.vq_assign_cuda(xs.to(cuda), cw.to(cuda),
+                                       want_min=True)
+        want, wmin = tref.vq_assign(xs, cw, want_min=True)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(gmin.cpu(), wmin)
+        assert not bool((want % 2).any())        # a duplicate never wins
 
 
 @pytest.mark.gpu
@@ -269,6 +309,62 @@ def test_spmm_ell_t_kernel_vs_plain(cuda, b, deg, n_src, f):
     assert_scatter_close(got.cpu(), want,
                          tref.spmm_ell_t(idx, val.abs(), gr.abs(), n_src),
                          terms)
+
+
+def _spmm_t_case(b, deg, n_src, f, form, seed):
+    """idx / val / g for spmm_ell_t: half the slots padding (val 0 at row
+    0); ``hub``: half the live slots name one row; ``padding_rows``: every
+    other row of g all padding, with inf / NaN in g there."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, n_src, (b, deg), generator=g, dtype=torch.int32)
+    val = torch.randn((b, deg), generator=g)
+    pad = torch.rand((b, deg), generator=g) < 0.5
+    idx[pad], val[pad] = 0, 0.0
+    gr = torch.randn((b, f), generator=g)
+    if form == "hub":
+        live = (val != 0).nonzero(as_tuple=True)
+        pick = torch.arange(live[0].numel()) % 2 == 0
+        idx[live[0][pick], live[1][pick]] = n_src // 2
+    if form == "padding_rows":
+        idx[0::2], val[0::2] = 0, 0.0
+        gr[0::4] = float("inf")
+        gr[2::4] = float("nan")
+    return idx, val, gr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["random", "hub", "unaligned",
+                                  "padding_rows"])
+@pytest.mark.parametrize("f", [1, 12, 40, 128, 130])
+def test_spmm_ell_t_forms_and_widths(cuda, form, f):
+    """The warp-per-row scatter at every column mapping (1, 2, 4 and 8
+    columns a lane; f 130 in two passes, f 1 / 130 scalar reductions), with
+    a hub row taking half the live slots, a g whose storage offset leaves
+    its rows unaligned, and rows of padding only, whose non-finite g the
+    kernel never reads (the plain version's 0 * inf is NaN there, so those
+    rows are held out of its g)."""
+    b, deg, n_src = 700, 18, 500
+    idx, val, gr = _spmm_t_case(b, deg, n_src, f, form, f)
+    g_dev = gr.to(cuda)
+    if form == "unaligned":
+        buf = torch.empty(gr.numel() + 1, device=cuda)
+        g_dev = buf[1:].view(b, f)
+        g_dev.copy_(gr)
+        assert g_dev.is_contiguous() and g_dev.data_ptr() % 16 != 0
+    before = tsp.launches_t
+    got = tsp.spmm_ell_t_cuda(idx.to(cuda), val.to(cuda), g_dev, n_src)
+    torch.cuda.synchronize()
+    assert tsp.launches_t == before + 1
+    g_plain = torch.where(torch.isfinite(gr), gr, torch.zeros_like(gr))
+    want = tref.spmm_ell_t(idx, val, g_plain, n_src)
+    terms = tref.spmm_ell_t(idx, (val != 0).float(), torch.ones_like(gr),
+                            n_src)
+    assert bool(torch.isfinite(got).all())
+    assert_scatter_close(got.cpu(), want,
+                         tref.spmm_ell_t(idx, val.abs(), g_plain.abs(),
+                                         n_src), terms)
+    if form == "hub":
+        assert int(terms[n_src // 2, 0]) >= int((val != 0).sum()) // 2
 
 
 @pytest.mark.gpu
@@ -1256,6 +1352,34 @@ def test_vq_update_near_ties_bit_equal(cuda, f, n, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("f", [8, 21, 4, 16])
+def test_scan_next_to_far_out_codewords_bit_equal(cuda, f):
+    """Codewords in tight clusters with rows inside them and one in 32
+    scaled 15x out, as trained codebooks hold them: the rows' thresholds
+    use the norms that can win, and both kernels on the scan stay
+    bit-equal (vq_update at its widths, vq_assign at its served ones, read
+    through a branch view)."""
+    g = torch.Generator().manual_seed(f)
+    nb, n, k = 3, 4000, 1024
+    centres = torch.randn((nb, k // 8, f), generator=g)
+    cw = centres.repeat_interleave(8, dim=1) \
+        + 0.05 * torch.randn((nb, k, f), generator=g)
+    cw[:, 7::32] *= 15.0
+    pick = torch.randint(0, k // 8, (nb, n), generator=g)
+    x = torch.gather(centres, 1, pick[..., None].expand(nb, n, f)) \
+        + 0.05 * torch.randn((nb, n, f), generator=g)
+    if f in (8, 21):
+        _assert_vq_update_exact(x.contiguous().to(cuda), cw.to(cuda))
+        return
+    table = x.transpose(0, 1).reshape(n, nb * f).contiguous().to(cuda)
+    xv = table.reshape(n, nb, f).transpose(0, 1)
+    got, gmin = tva.vq_assign_cuda(xv, cw.to(cuda), want_min=True)
+    want, wmin = tref.vq_assign(xv, cw.to(cuda), want_min=True)
+    assert torch.equal(got, want)
+    assert torch.equal(gmin, wmin)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("f", [8, 21])
 def test_vq_update_large_rows_next_to_small_codewords(cuda, f):
     g = torch.Generator().manual_seed(f)
@@ -1365,6 +1489,124 @@ def test_vq_update_tensor_core_distances_within_the_bound(cuda, f, tmp_path):
     from repro_torch.kernels import _build
     src = tmp_path / "probe.cu"
     src.write_text(_DIST_PROBE)
+    lib = tmp_path / "probe.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-shared", "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    probe = ctypes.CDLL(str(lib))
+    probe.probe_dist.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    g = torch.Generator(device=cuda).manual_seed(f)
+    n, k = 8192, 1024
+    x = torch.randn((n, f), generator=g, device=cuda)
+    cw = torch.randn((k, f), generator=g, device=cuda)
+    xm = torch.randn((n, f), generator=g, device=cuda) * 1e-3
+    xm[:, 0] *= 1e6
+    cwm = cw * torch.logspace(-3, 3, f, device=cuda)
+    for xs, cs in ((x, cw), (xm, cwm), (x * 1e3, cw * 1e-2),
+                   (x * 1e-3, cw * 10 + 50)):
+        xs, cs = xs.contiguous(), cs.contiguous()
+        d = torch.empty((n, k), device=cuda)
+        assert probe.probe_dist(xs.data_ptr(), cs.data_ptr(), d.data_ptr(),
+                                n, k, f) == 0
+        dot = torch.zeros((n, k), device=cuda)
+        for j in range(f):
+            dot = dot + xs[:, j, None] * cs[None, :, j]
+        want = tref._sq_norms(cs)[None, :] - 2.0 * dot
+        bound = tvu.candidate_bound(xs.double().norm(dim=1)[:, None],
+                                    float(cs.double().norm(dim=1).max()), f)
+        ratio = float(((d.double() - want.double()).abs() / bound).max())
+        assert ratio < 0.25, ratio
+
+
+# vq_assign's scan distances d~ for one branch at its served widths: the
+# shared memory staged as the kernel stages it (with its codewords' hi / lo
+# pairs at f 4), the kernel's load_b and tile_dist, one m16 tile of rows a
+# warp, written out for every (row, codeword).
+_ASSIGN_PROBE = r"""
+#include "vq_update.cuh"
+namespace {
+template <int F>
+__global__ void assign_probe(const float* x, const float* cw, float* dout,
+                             int n, int k) {
+  using C = Cfg<F>;
+  extern __shared__ float sm[];
+  const int npair = (k + 7) / 8 * 8 * C::KS * C::KSTEP;
+  float2* b_s = reinterpret_cast<float2*>(sm);
+  float* cn2_s = sm + (C::SPLIT ? 2 * npair : 0);
+  float* c_s = cn2_s + k;
+  for (int i = threadIdx.x; i < k * F; i += blockDim.x)
+    c_s[cw_off<F>(i / F, i % F, F)] = cw[i];
+  __syncthreads();
+  for (int c = threadIdx.x; c < k; c += blockDim.x) {
+    float a = 0.f;
+    for (int j = 0; j < F; ++j) {
+      const float v = c_s[cw_off<F>(c, j, F)];
+      a = __fadd_rn(a, __fmul_rn(v, v));
+    }
+    cn2_s[c] = a;
+  }
+  if (C::SPLIT)
+    for (int i = threadIdx.x; i < npair; i += blockDim.x) {
+      const int c = i / (C::KS * C::KSTEP), j = i % (C::KS * C::KSTEP);
+      uint32_t h, l;
+      split_tf32(c < k && j < F ? c_s[cw_off<F>(c, j, F)] : 0.f, h, l);
+      b_s[i] = make_float2(__uint_as_float(h), __uint_as_float(l));
+    }
+  __syncthreads();
+  const float* scan_s = C::SPLIT ? reinterpret_cast<const float*>(b_s) : c_s;
+  constexpr int KS = C::KS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int r0 = (blockIdx.x * (blockDim.x / 32) + warp) * 16;
+  if (r0 >= n) return;
+  uint32_t ah[KS][4] = {}, al[KS][4] = {};
+  for (int h = 0; h < 2; ++h)
+    for (int ks = 0; ks < KS; ++ks)
+      for (int t = 0; t < C::KSTEP / 4; ++t) {
+        const int r = r0 + g + 8 * h, j = ks * C::KSTEP + q + 4 * t;
+        const float v = (r < n && j < F) ? x[(size_t)r * F + j] : 0.f;
+        split_tf32(-2.f * v, ah[ks][h + 2 * t], al[ks][h + 2 * t]);
+      }
+  for (int nt = 0; nt < k / 8; ++nt) {
+    uint32_t bh[KS][2], bl[KS][2];
+    float cc[2], d[4];
+    load_b<F>(scan_s, cn2_s, nt, g, q, k, F, KS, false, bh, bl, cc);
+    tile_dist<F>(d, ah, al, bh, bl, cc, KS);
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + g + 8 * (i >> 1), c = nt * 8 + 2 * q + (i & 1);
+      if (r < n) dout[(size_t)r * k + c] = d[i];
+    }
+  }
+}
+}  // namespace
+extern "C" int probe_dist(const float* x, const float* cw, float* d, int n,
+                          int k, int f) {
+  const size_t smem = smem_base<4>(k, 4) > smem_base<16>(k, 16)
+                          ? smem_base<4>(k, 4) : smem_base<16>(k, 16);
+  const int blocks = (n + 127) / 128;
+  auto kern = f == 4 ? assign_probe<4> : assign_probe<16>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kern<<<blocks, 256, smem>>>(x, cw, d, n, k);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [4, 16])
+def test_vq_assign_tensor_core_distances_within_the_bound(cuda, f,
+                                                          tmp_path):
+    """``vq_assign``'s scan at its served widths -- m16n8k4 products from
+    the staged hi / lo pairs at f 4, m16n8k8 at f 16 -- against the plain
+    version's fp32 d, on the four input families of the bound's
+    derivation: the largest |d~ - d| stays under a quarter of the bound
+    its rescoring uses (``vq_update.candidate_bound``)."""
+    import ctypes
+    import subprocess
+    from repro_torch.kernels import _build
+    src = tmp_path / "probe.cu"
+    src.write_text(_ASSIGN_PROBE)
     lib = tmp_path / "probe.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
                     str(_build.CSRC), "-shared", "-o", str(lib), str(src)],

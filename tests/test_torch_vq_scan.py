@@ -1,14 +1,20 @@
-"""The rescoring rule of the ``vq_update`` CUDA kernel, on the CPU.
+"""The rescoring rule of the ``vq_update`` and ``vq_assign`` CUDA kernels,
+on the CPU.
 
-The kernel (``src/repro_torch/kernels/csrc/vq_update.cuh``) scans the
-distances ``|c|^2 - 2 x.c`` on the tensor cores: the operands split into
-TF32 hi + lo parts, three products accumulated onto ``|c|^2``.  It folds the
-approximate distances over groups of codewords; a row whose runner-up
-group lies more than ``2 * candidate_bound`` above its smallest distance is
-settled by rescoring the winning group's codewords exactly; any other row
-rescores every codeword within that band.  The claim is that the
-assignment and qerr are then the plain version's (``ref.vq_assign_update``)
-bit for bit.  The card cannot run here, so this file emulates the scan in
+The kernels share one scan (``src/repro_torch/kernels/csrc/vq_update.cuh``)
+of the distances ``|c|^2 - 2 x.c`` on the tensor cores: the operands split
+into TF32 hi + lo parts, three products accumulated onto ``|c|^2`` (m16n8k8
+steps; at ``vq_assign``'s f 4 one 4-deep step of an m16n8k8 and an
+m16n8k4).  It folds the approximate
+distances over groups of codewords (a lane's columns of 2 tiles, or of 4 at
+``vq_assign``'s f 4) and rescores the winning group's codewords exactly,
+which gives u, an exact distance; no codeword of norm above ``norm_cap(|x|,
+u)`` can then win, so the row's threshold is ``T = u + candidate_bound(|x|,
+min(c_max, norm_cap))``.  A row whose runner-up group lies above T is
+settled; any other row rescores every codeword with an approximate distance
+of at most T.  The claim is that the assignment and qerr / want_min are
+then the plain version's (``ref.vq_assign_update``, ``ref.vq_assign``) bit
+for bit.  The card cannot run here, so this file emulates the scan in
 plain torch -- the same split (fp32 mantissas masked to TF32's 10 bits), the
 products summed in float64, and the tensor cores' accumulation error set
 adversarially to the full allowance of the bound's model (the plain
@@ -16,6 +22,8 @@ version's winner pushed up, every other codeword down) -- with the same
 bound and exact rescoring in index order, and holds it against the plain
 version on hypothesis-generated and hand-built near-tie inputs.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
@@ -23,8 +31,17 @@ from hypothesis import given, settings, strategies as st
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref as tref                   # noqa: E402
+from repro_torch.kernels import vq_assign as tva              # noqa: E402
 from repro_torch.kernels.vq_update import (TC_EPS,            # noqa: E402
-                                           candidate_bound)
+                                           candidate_bound, norm_cap)
+
+HEADER = Path(tva.__file__).resolve().parent / "csrc" / "vq_update.cuh"
+
+
+def assign_scan(f: int) -> dict:
+    """The shape of ``vq_assign``'s scan at width f (``Cfg`` in the header):
+    the tiles a fold group."""
+    return dict(group=4 if f == 4 else 2)
 
 
 def _tf32(v: torch.Tensor) -> torch.Tensor:
@@ -37,9 +54,10 @@ def _split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, _tf32(v - hi)          # v - hi is exact in fp32
 
 
-def emulate_scan(x: torch.Tensor, cw: torch.Tensor):
-    """The kernel's two-stage scan: -> (idx [nb, n] int32, qerr [nb, n],
-    candidates per row [nb, n], the largest |d~ - d| / E)."""
+def emulate_scan(x: torch.Tensor, cw: torch.Tensor, group: int = 2):
+    """The kernel's two-stage scan with fold groups of ``group`` tiles: ->
+    (idx [nb, n] int32, qerr [nb, n], candidates per row [nb, n], the
+    largest |d~ - d| / E)."""
     nb, n, f = x.shape
     n_mma = 3 * -(-f // 8)
     cn2 = tref._sq_norms(cw)                                   # [nb, k] f32
@@ -64,39 +82,47 @@ def emulate_scan(x: torch.Tensor, cw: torch.Tensor):
     sign.scatter_(2, win, 1.0)
     dt = (exact_sum + sign * allowance).float()                # d~
     # the kernel's rule.  A lane sees codewords 2q, 2q + 1 of every tile of
-    # 8; tiles pair up (0, 1), (2, 3), ... (an odd last full tile and the
-    # tail tile stand alone), giving groups of a lane's codewords.  A row
-    # is settled when its second smallest group minimum lies beyond
-    # min d~ + 2E: then the winning group's tile and the next one are
-    # rescored at the lane's two columns; a near-tie row rescores every
-    # candidate d~ <= min d~ + 2E
+    # 8; ``group`` consecutive tiles make a group (tiles past the last
+    # whole group and the tail tile stand alone), giving groups of a lane's
+    # codewords.  The winning group's codewords (the lane's two columns of
+    # its tiles) are rescored exactly: u, and the threshold T = u +
+    # E(min(c_max, r(u))).  A row is settled when its second smallest group
+    # minimum lies beyond T; a near-tie row rescores every candidate d~ <= T
     x_norm = torch.sqrt((x.double() ** 2).sum(-1)).float()     # [nb, n]
-    c_max = torch.sqrt(cn2.max(dim=1).values)[:, None]         # [nb, 1]
-    e = candidate_bound(x_norm, c_max, f)
+    c_norm = torch.sqrt(cn2)                                   # [nb, k]
+    c_max = c_norm.max(dim=1).values[:, None]                  # [nb, 1]
     k = dt.shape[2]
     c = torch.arange(k)
     tile, lane = c // 8, (c % 8) // 2
-    pairs_end = (k // 8) & ~1
-    first = torch.where(tile < pairs_end, tile - tile % 2, tile)
+    groups_end = (k // 8) // group * group
+    first = torch.where(tile < groups_end, tile - tile % group, tile)
     key = first * 8 + 2 * lane                   # the group's first column
-    keys, group = torch.unique(key, sorted=True, return_inverse=True)
+    keys, member = torch.unique(key, sorted=True, return_inverse=True)
     gmin = torch.full((*dt.shape[:2], len(keys)), float("inf")) \
-        .scatter_reduce(2, group.expand_as(dt), dt, reduce="amin")
+        .scatter_reduce(2, member.expand_as(dt), dt, reduce="amin")
     top2 = torch.topk(gmin, min(2, gmin.shape[2]), dim=2,
                       largest=False).values
-    m1 = top2[..., 0]
     runner_up = top2[..., 1] if gmin.shape[2] > 1 else torch.full_like(
-        m1, float("inf"))
-    thr = m1 + 2.0 * e
-    settled = torch.isfinite(thr) & (runner_up > thr)
+        top2[..., 0], float("inf"))
     c0 = keys[torch.argmin(gmin, dim=2)]        # lowest first column on ties
-    win = (c[None, None, :] == c0[..., None]) \
-        | (c[None, None, :] == c0[..., None] + 1) \
-        | (c[None, None, :] == c0[..., None] + 8) \
-        | (c[None, None, :] == c0[..., None] + 9)
+    off = c[None, None, :] - c0[..., None]
+    win = (off >= 0) & (off < 8 * group) & (off % 8 < 2)
+    u = torch.where(win, d, torch.full_like(d, float("inf"))).min(-1).values
+    # a runner-up that ties the minimum d~ cannot settle: such a row takes
+    # u's bound min d~ + E(c_max) instead of the rescored group
+    m1 = top2[..., 0]
+    tie = ~(runner_up > m1)
+    u = torch.where(tie, m1 + candidate_bound(x_norm, c_max, f), u)
+    cm = torch.minimum(c_max, norm_cap(x_norm, u))
+    e = candidate_bound(x_norm, cm, f)
+    thr = u + e
+    settled = ~tie & torch.isfinite(thr) & (runner_up > thr)
     cand = torch.where(settled[..., None], win, ~(dt > thr[..., None]))
-    ratio = float(((dt.double() - d.double()).abs() / e[..., None].double())
-                  .max())
+    # the model's claim: every codeword of norm <= cm (so every one that
+    # can win) has |d~ - d| <= E(cm)
+    near = c_norm[:, None, :] <= cm[..., None]
+    gap = (dt.double() - d.double()).abs() / e[..., None].double()
+    ratio = float(torch.where(near, gap, torch.zeros_like(gap)).max())
     # exact rescoring of the candidates, lowest index on ties
     rescored = torch.where(cand, d, torch.full_like(d, float("inf")))
     idx = torch.argmin(rescored, dim=2)
@@ -115,6 +141,28 @@ def assert_scan_exact(x, cw):
     assert torch.equal(qerr, want[1])
     assert bool((cands >= 1).all())
     return cands
+
+
+def assert_assign_scan_exact(x, cw):
+    """``vq_assign``'s scan at x's width: idx and want_min bit-equal to
+    ``ref.vq_assign``; x may be any strided view."""
+    f = x.shape[2]
+    idx, qerr, cands, ratio = emulate_scan(x, cw, **assign_scan(f))
+    want, wmin = tref.vq_assign(x, cw, want_min=True)
+    assert ratio <= 1.0, f"|d~ - d| reached {ratio} x the bound"
+    assert torch.equal(idx, want)
+    assert torch.equal(qerr, wmin)
+    assert bool((cands >= 1).all())
+    return cands
+
+
+def _branch_view(x):
+    """[nb, n, f] -> the same values as the branch view of an [n, nb * f]
+    table, as core/codebook.py hands them to vq_assign."""
+    nb, n, f = x.shape
+    table = torch.as_tensor(np.ascontiguousarray(
+        np.asarray(x, np.float32).transpose(1, 0, 2).reshape(n, nb * f)))
+    return table.reshape(n, nb, f).transpose(0, 1)
 
 
 def _near_tie_case(nb, n, k, f, seed, scale=1.0):
@@ -205,3 +253,118 @@ def test_plain_tie_rule_matches_the_reference():
     got = tref.vq_assign_update(torch.as_tensor(x), torch.as_tensor(cw))[0]
     assert np.array_equal(got[0].numpy(), want)
     assert not np.any(want % 2)                  # a duplicate never wins
+
+
+# ---------------------------------------------------------------------------
+# vq_assign's scan: f 4 with its codewords' hi / lo parts staged, 4-deep
+# k-steps and groups of 4 tiles, f 16 on m16n8k8 with groups of 2 tiles;
+# rows read through the branch view of an [n, nb * f] table; idx and
+# want_min against ref.vq_assign
+# ---------------------------------------------------------------------------
+
+def test_assign_scan_shapes_mirror_the_kernel():
+    """The emulation's shapes are the header's: ``Cfg`` picks 4-deep
+    k-steps and groups of 4 tiles at f 4 only, and the wrapper's kstep
+    mirrors the depth."""
+    src = HEADER.read_text()
+    assert "static constexpr int KSTEP = F == 4 ? 4 : 8;" in src
+    assert "static constexpr int GT = F == 4 ? 4 : 2;" in src
+    assert [tva.kstep(f) for f in (4, 8, 16, 21)] == [4, 8, 8, 8]
+
+
+@pytest.mark.parametrize("f", [4, 16])
+@pytest.mark.parametrize("k", [16, 256, 1024])
+def test_assign_scan_exact_on_near_ties(f, k):
+    x, cw = _near_tie_case(2, 150, k, f, seed=3 * f + k)
+    assert_assign_scan_exact(_branch_view(x), torch.as_tensor(cw))
+
+
+@pytest.mark.parametrize("f", [4, 16])
+def test_assign_scan_exact_with_small_codewords_and_large_rows(f):
+    x, cw = _near_tie_case(2, 120, 256, f, seed=f, scale=1e-3)
+    assert_assign_scan_exact(_branch_view(x * 1e3), torch.as_tensor(cw))
+
+
+@pytest.mark.parametrize("f", [4, 16])
+def test_assign_scan_exact_when_every_row_is_alike(f):
+    x, cw = _near_tie_case(3, 1, 1024, f, seed=11 + f)
+    assert_assign_scan_exact(_branch_view(np.repeat(x, 200, axis=1)),
+                             torch.as_tensor(cw))
+
+
+@pytest.mark.parametrize("k", [16, 1001])
+def test_assign_scan_exact_with_duplicated_codewords_and_equidistant_rows(k):
+    """Every codeword twice (the lower index must win) and rows exactly
+    halfway between two codewords, at f 4 where such ties are common."""
+    rng = np.random.default_rng(k)
+    cw = rng.standard_normal((2, k, 4)).astype(np.float32)
+    cw[:, 1::2] = cw[:, 0::2][:, :cw[:, 1::2].shape[1]]
+    a, b = rng.integers(0, k, (2, 2, 300))
+    pa = np.take_along_axis(cw, a[..., None], 1)
+    pb = np.take_along_axis(cw, b[..., None], 1)
+    x = (0.5 * (pa + pb)).astype(np.float32)
+    assert_assign_scan_exact(_branch_view(x), torch.as_tensor(cw))
+
+
+def test_assign_scan_prunes_on_random_rows():
+    """Random rows are settled with the winning group's 8 (f 4) or 4 (f
+    16) codewords rescored: the rescoring stays a small share of the
+    scan."""
+    rng = np.random.default_rng(1)
+    for f in (4, 16):
+        x = rng.standard_normal((2, 500, f)).astype(np.float32)
+        cw = rng.standard_normal((2, 1024, f)).astype(np.float32)
+        cands = assert_assign_scan_exact(_branch_view(x),
+                                         torch.as_tensor(cw))
+        assert float(cands.float().mean()) < 8.2
+
+
+@settings(max_examples=40, deadline=None)
+@given(f=st.sampled_from([4, 16]), k=st.sampled_from([16, 256, 1024]),
+       n=st.integers(1, 24), seed=st.integers(0, 2 ** 31 - 1),
+       exp=st.integers(-12, 12), dup=st.booleans(), data=st.data())
+def test_assign_scan_exact_hypothesis(f, k, n, seed, exp, dup, data):
+    rng = np.random.default_rng(seed)
+    cw = rng.standard_normal((1, k, f)).astype(np.float32) * np.float32(
+        2.0 ** exp)
+    if dup:
+        cw[0, k - 1] = cw[0, 0]                       # the lowest must win
+        cw[0, k // 2] = cw[0, 1]
+    row = data.draw(st.lists(_floats, min_size=f, max_size=f))
+    x = np.empty((1, n, f), np.float32)
+    x[0, 0] = row
+    x[0, 1:] = cw[0, rng.integers(0, k, n - 1)] \
+        + rng.standard_normal((n - 1, f)).astype(np.float32) * np.float32(
+            2.0 ** (exp - 20))
+    assert_assign_scan_exact(_branch_view(x), torch.as_tensor(cw))
+
+
+def _clustered_case(nb, n, k, f, seed):
+    """Codewords in tight clusters of 8 with rows inside them, as trained
+    codebooks hold them, and one in 32 scaled 15x out, far from every row."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((nb, k // 8, f)).astype(np.float32)
+    cw = np.repeat(centres, 8, axis=1) + 0.05 * rng.standard_normal(
+        (nb, k, f)).astype(np.float32)
+    cw[:, 7::32] *= 15.0
+    pick = rng.integers(0, k // 8, (nb, n))
+    x = np.take_along_axis(centres, pick[..., None], 1) + 0.05 * \
+        rng.standard_normal((nb, n, f)).astype(np.float32)
+    return x.astype(np.float32), cw.astype(np.float32)
+
+
+@pytest.mark.parametrize("f", [8, 21, 4, 16])
+def test_scan_exact_and_pruned_next_to_far_out_codewords(f):
+    """The few far-out codewords of a trained codebook must not widen every
+    row's band: the threshold uses the norms that can win (``norm_cap``),
+    so most rows stay settled -- a settled row rescores only its winning
+    group -- and the answer stays exact."""
+    x, cw = _clustered_case(2, 300, 256, f, seed=5 * f)
+    if f in (4, 16):
+        cands = assert_assign_scan_exact(_branch_view(x),
+                                         torch.as_tensor(cw))
+        group = assign_scan(f)["group"]
+    else:
+        cands = assert_scan_exact(x, cw)
+        group = 2
+    assert float((cands <= 2 * group).float().mean()) > 0.9
