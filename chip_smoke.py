@@ -123,9 +123,52 @@ Phases (each prints its own lines; any failure exits non-zero):
    bf16 ulps of the plain version, f32 ``rtol=1e-5, atol=1e-6``; timed
    with SDPA as the library call, vq_attention at the path's shape also
    at other counts of blocks a group (``splits``);
-20. a ``{"kernels": [...]}`` line (the quantized forms under each
-   kernel's ``also``, each with its launches on the main paths), each
-   phase's seconds, then the ``{"ok": true, ...}`` line.
+20. gat-train: GAT (heads 4) at the same width on the same graph,
+   ``train_vq`` for 10 epochs of 5 batches of 42,335 from seed 0 with the
+   Eq. 7 injection on and one full-graph evaluation: every codebook
+   update on the wide build of vq_update (branches of 65 and 43), no
+   spmm_ell, context_ell or spmm_ell_hbm launch, counts exact; losses
+   finite (with the injection on the loss rises over these epochs in the
+   reference too, tests/test_torch_backbones.py); then the same run with
+   the injection off, whose last epoch's mean loss must be under the
+   first's and whose val accuracy must beat chance; 8 timed steps and a
+   torch.profiler window over 2;
+21. gat-parity: one GAT step (Eq. 7 on) at batch 4,096 card vs CPU as in
+   phase 5, from the state trained with Eq. 7 off (with it on the logits
+   grow to ~1e4, in the reference too, and a near-zero logit's rounding
+   then exceeds any elementwise tolerance);
+22. gat-serve: that trained GAT served: refresh (vq_assign at [4, n, 32]
+   a layer), warm-up and the 200 requests with counts exact (no counted
+   kernel while serving), then CPU parity as in phase 7;
+23. transformer-train: the Graph Transformer (heads 4, a full-width
+   codebook: branches of 256 and 168) on a 20,000-node graph -- reduced
+   from 169,343: its full-graph evaluation builds [H, n, n] scores, 6.4
+   GB a tensor here and 459 GB at 169,343 -- batch 5,000, 10 epochs,
+   one full-graph evaluation, the counts of phase 20, Eq. 7 on and off
+   (finite losses: at depth 3 the reference learns in neither), then at
+   depth 1 with Eq. 7 on (branch 168), where the reference learns: its
+   last epoch's mean loss must be under the first's and its val accuracy
+   must beat chance; 8 timed steps and a profile of 2; from the depth-3
+   Eq. 7-off state one step at batch 1,024 card vs CPU (the cluster
+   sums' tolerance in this step and in phase 21 widened by what the
+   order of a codeword's adds may move it), refresh (vq_assign's wide
+   build at [1, n, 128]) and 200 requests with counts exact, then CPU
+   parity;
+24. wide-kernels: the wide build of vq_update and vq_assign against their
+   plain versions (idx, qerr and want_min bit for bit, counts equal,
+   sums within the scatter bound) and timed beside their bounds, on the
+   trained states' operands: vq_update at GAT's [4, 42335, 65] and [4,
+   42335, 43] and the Transformer's [1, 5000, 256] and [1, 5000, 168],
+   at [1, 42335, 256] on rows near the Transformer's codewords, the
+   uint8 emit at [4, 42335, 65] with 256 codewords, near-tie codebooks
+   at f 65 and f 256; vq_assign at [1, 20000, 128] and [1, 169343, 128];
+   each with the share of rows the kernel queues for its second pass,
+   estimated from the plain distances;
+25. a ``{"kernels": [...]}`` line (the quantized and wide forms under
+   each kernel's ``also``, each with its launches on the main paths --
+   a wide form's at its operand shape, as the wrapper counts them, every
+   wide shape's under ``wide_launches_by_shape``), each phase's seconds,
+   then the ``{"ok": true, ...}`` line.
 
 The script needs a CUDA card: without one (or outside a checkout of the
 repository) it exits non-zero and prints no result.
@@ -184,6 +227,13 @@ SAMPLER_EPOCHS = 2
 HYBRID_EPOCHS = 2
 SAMPLER_PARITY_N = 20000
 SAMPLER_PARITY_BUDGET_MB = 1.0    # below the 16 MiB source: staged
+ATTN_EPOCHS = 10              # gat-train and transformer-train
+ATTN_HEADS = 4
+# the Graph Transformer's full_apply builds [H, n, n] scores: 6.4 GB a
+# tensor at n 20,000, 459 GB at 169,343
+TRANSFORMER_N = 20000
+TRANSFORMER_PARITY_BATCH = 1024
+CHANCE = 1.0 / 40             # val accuracy of a uniform guess, 40 classes
 
 
 def log(msg: str) -> None:
@@ -497,16 +547,19 @@ def phase_step_timing(m: Model, params, vq, ost) -> dict:
     return rep
 
 
-def _vq_update_row(name, vw, cw, generic: bool = False) -> dict:
+def _vq_update_row(name, vw, cw, generic: bool = False,
+                   emit=None) -> dict:
     """vq_update against its plain version on one layer's rows; with
     ``generic`` also the kernel's generic-width instantiation, which must
-    give the same result, timed beside the fixed-width build."""
+    give the same result, timed beside the fixed-width build; ``emit``
+    (uint8) checks and times that emit of the assignment."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.vq_update import (vq_assign_update_cuda,
                                                vq_assign_update_generic_cuda)
-    got = vq_assign_update_cuda(vw, cw)
-    want = ref.vq_assign_update(vw, cw)
+    emit = torch.int32 if emit is None else emit
+    got = vq_assign_update_cuda(vw, cw, emit)
+    want = ref.vq_assign_update(vw, cw, emit)
     torch.cuda.synchronize()
     nb, b, f = vw.shape
     k = cw.shape[1]
@@ -551,11 +604,12 @@ def _vq_update_row(name, vw, cw, generic: bool = False) -> dict:
     # distance at the fp32 issue rate (half the FMA-counted fp32 peak)
     tc_ms = 3 * 2 * nb * b * k * 8 * -(-f // 8) / TF32_FLOP_PER_S * 1e3
     sel_ms = nb * b * k / (FP32_FLOP_PER_S / 2) * 1e3
-    ms, call_ms = cuda_ms(lambda: vq_assign_update_cuda(vw, cw), 5, inner=4)
+    ms, call_ms = cuda_ms(lambda: vq_assign_update_cuda(vw, cw, emit), 5,
+                          inner=4)
     row = dict(max_abs_err=err, ms=ms, call_ms=call_ms, bound_ms=bms,
                bound_by=by, tensor_bound_ms=tc_ms, select_bound_ms=sel_ms,
-               plain_ms=cuda_ms(lambda: ref.vq_assign_update(vw, cw), 3,
-                                inner=1)[0],
+               plain_ms=cuda_ms(lambda: ref.vq_assign_update(vw, cw, emit),
+                                3, inner=1)[0],
                hot_share=float(want[2].max()) / b,
                at=f"x=[{nb}, {b}, {f}] cw=[{nb}, {k}, {f}]")
     if generic:
@@ -855,15 +909,24 @@ def _dense_table(a):
     return a.unpack() if isinstance(a, PackedAssignment) else a
 
 
-def _codeword_mismatch(a, b) -> "torch.Tensor":
+def _codeword_mismatch(a, b, slack=None) -> "torch.Tensor":
     """[nb, k] mask of codewords whose state differs between two layer
-    states beyond STEP_TOL."""
+    states beyond STEP_TOL; with ``slack`` (sums, codewords: [nb, k, f]
+    each, what adding the batch's rows in another order, rows that
+    themselves differ by STEP_TOL, may move them) the cluster sums and
+    codewords beyond STEP_TOL plus that slack."""
     import torch
     cb_a, cb_b = a.codebook, b.codebook
     bad = torch.zeros(cb_a.cluster_size.shape, dtype=torch.bool)
-    for fa, fb in ((cb_a.codewords_w, cb_b.codewords_w),
-                   (cb_a.cluster_sum, cb_b.cluster_sum)):
-        bad |= ~torch.isclose(fa, fb, **STEP_TOL).all(-1)
+    if slack is None:
+        for fa, fb in ((cb_a.codewords_w, cb_b.codewords_w),
+                       (cb_a.cluster_sum, cb_b.cluster_sum)):
+            bad |= ~torch.isclose(fa, fb, **STEP_TOL).all(-1)
+    else:
+        for fa, fb, sl in ((cb_a.codewords_w, cb_b.codewords_w, slack[1]),
+                           (cb_a.cluster_sum, cb_b.cluster_sum, slack[0])):
+            tol = STEP_TOL["atol"] + STEP_TOL["rtol"] * fb.abs() + sl
+            bad |= ((fa - fb).abs() > tol).any(-1)
     for fa, fb in ((cb_a.cluster_size, cb_b.cluster_size),
                    (a.counts, b.counts)):
         bad |= ~torch.isclose(fa, fb, **STEP_TOL)
@@ -896,7 +959,9 @@ def _check_snapshots(tag: str, a, b, agree_cw) -> None:
 
 def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
                        tag: str = "train parity",
-                       hybrid: bool = False) -> dict:
+                       hybrid: bool = False,
+                       batch: int = PARITY_BATCH,
+                       sum_slack: bool = False) -> dict:
     """One training step at batch PARITY_BATCH on the card and on the CPU
     plain path from the same (trained) state; with ``hybrid`` the batch is
     the hybrid's, PARITY_BATCH seeds widened by as many LABOR-sampled
@@ -905,7 +970,12 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
     STEP_TOL; the refreshed assignments agree on >= 99.9 % of the batch's
     entries and every mismatch is a near-tie; codeword statistics agree
     except on codewords a flipped row touched or that were revived; under
-    a tier the requantized snapshots agree within two quanta."""
+    a tier the requantized snapshots agree within two quanta.
+
+    ``sum_slack`` (the attention backbones' parity only) widens the cluster
+    sums' and codewords' tolerance by what the order of a codeword's adds
+    may move them where its rows cancel; every other caller holds them to
+    STEP_TOL alone."""
     import torch
     from repro_torch.convert import to_device
     from repro_torch.core import codebook as cbm
@@ -914,7 +984,7 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
     from repro_torch.configs.vq_gnn_paper import PAPER_LR
     opt = rmsprop(PAPER_LR)
     rng = np.random.default_rng(SEED + 3)
-    bids, smask = rng.choice(m.g.n, PARITY_BATCH, replace=False), None
+    bids, smask = rng.choice(m.g.n, batch, replace=False), None
     if hybrid:
         from repro_torch.graph.sampling import hybrid_epoch_batches
         ids, sm = hybrid_epoch_batches(m.g, PARITY_BATCH,
@@ -947,6 +1017,16 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
     bids_t = torch.from_numpy(bids).long()
     outside = ~torch.isin(torch.arange(m.g.n), bids_t)
     vw_c = None
+    if sum_slack:
+        # the card step's own whitened rows, for the cluster sums' slack:
+        # each side adds a codeword's rows in its own order, and the rows
+        # differ by STEP_TOL, so a sum of c rows may move by
+        # (rtol + 2 c 2^-24) sum |row| + c atol (times 1 - gamma through
+        # the EMA; over the cluster size for the codeword) -- beyond
+        # STEP_TOL of the sum where the rows cancel
+        pack, x_b, y_b, lm = m.batch_inputs(bids, smask)
+        _, _, acts_g, _, gpr_g = vq_loss_and_grads(
+            params, vq, pack, x_b, y_b, m.ops.degrees, m.cfg, lm)
     summary = []
     for l, (a, b) in enumerate(zip(vg, vc)):
         for name in ("mean", "var"):
@@ -993,7 +1073,22 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
         touched[rows_b[flip], ac[flip].long()] = True
         revived = (a.codebook.cluster_size == 1.0) | \
             (b.codebook.cluster_size == 1.0)
-        bad = _codeword_mismatch(a, b)
+        slack = None
+        if sum_slack:
+            vw_g = cbm.whitened_rows(vq[l].codebook, acts_g[l], gpr_g[l],
+                                     cb)[0].cpu()
+            nb_, _, f_ = vw_g.shape
+            flat = (ag.long() + k * torch.arange(nb_)[:, None]).reshape(-1)
+            abs_sum = torch.zeros((nb_ * k, f_)).index_add_(
+                0, flat, vw_g.abs().reshape(-1, f_)).reshape(nb_, -1, f_)
+            rows_in = torch.bincount(flat, minlength=nb_ * k
+                                     ).reshape(nb_, -1, 1)
+            sl_sum = (1 - cb.gamma) * (
+                (STEP_TOL["rtol"] + 2 * rows_in * U32) * abs_sum
+                + rows_in * STEP_TOL["atol"])
+            slack = (sl_sum, sl_sum / torch.clamp(
+                b.codebook.cluster_size, min=cb.eps)[..., None])
+        bad = _codeword_mismatch(a, b, slack)
         if bool((bad & ~(touched | revived)).any()):
             raise SystemExit(f"{tag} layer {l}: "
                              f"{int((bad & ~(touched | revived)).sum())} "
@@ -1256,8 +1351,10 @@ def _counters() -> dict:
             "flash_attention_tc": (flash_attention, "launches_tc"),
             "flash_attention_fma": (flash_attention, "launches_fma"),
             "vq_assign": (vq_assign, "launches"),
+            "vq_assign_wide": (vq_assign, "launches_wide"),
             "vq_update": (vq_update, "launches"),
             "vq_update_u8": (vq_update, "launches_u8"),
+            "vq_update_wide": (vq_update, "launches_wide"),
             "spmm_ell": (spmm_ell, "launches"),
             "spmm_ell_q": (spmm_ell, "launches_q"),
             "spmm_ell_t": (spmm_ell, "launches_t"),
@@ -1269,36 +1366,65 @@ def _counters() -> dict:
             "context_ell_q_wt": (context_ell, "launches_q_wt")}
 
 
+# the keyed counters read_counts adds beside the plain ones
+KEYED = ("entries", "shapes")
+
+
+def shape_key(kernel: str, nb: int, n: int, k: int, f: int,
+              emit: str | None = None) -> str:
+    """The name of one wide-build operand shape in ``read_counts()
+    ["shapes"]``, as its wrapper keys it."""
+    return f"{kernel} x=[{nb}, {n}, {f}] k={k}" + \
+        ("" if emit is None else f" {emit}")
+
+
 def reset_counts() -> None:
-    from repro_torch.kernels import context_ell
+    from repro_torch.kernels import context_ell, vq_assign, vq_update
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
     context_ell.launches_by_entry.clear()
+    vq_update.launches_wide_by_shape.clear()
+    vq_assign.launches_wide_by_shape.clear()
 
 
 def read_counts() -> dict:
-    """The counters, and context_ell's launches by library entry under
-    ``"entries"``."""
-    from repro_torch.kernels import context_ell
+    """The counters, context_ell's launches by library entry under
+    ``"entries"``, and the wide build's launches by operand shape (as the
+    vq_update and vq_assign wrappers count them) under ``"shapes"``."""
+    from repro_torch.kernels import context_ell, vq_assign, vq_update
     got = {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
     got["entries"] = dict(context_ell.launches_by_entry)
+    got["shapes"] = {
+        **{shape_key("vq_update", *key): v
+           for key, v in vq_update.launches_wide_by_shape.items()},
+        **{shape_key("vq_assign", *key): v
+           for key, v in vq_assign.launches_wide_by_shape.items()}}
     return got
 
 
 def add_counts(a: dict, b: dict) -> dict:
-    out = {k: a[k] + b[k] for k in a if k != "entries"}
-    out["entries"] = {e: a["entries"].get(e, 0) + b["entries"].get(e, 0)
-                      for e in {**a["entries"], **b["entries"]}}
+    out = {k: a[k] + b[k] for k in a if k not in KEYED}
+    for key in KEYED:
+        out[key] = {e: a[key].get(e, 0) + b[key].get(e, 0)
+                    for e in {**a[key], **b[key]}}
     return out
 
 
 def expect_counts(what: str, got: dict, want: dict) -> None:
     """The counters against ``want`` (a counter it does not name must be
-    0); the per-entry counts are printed."""
-    want = {k: want.get(k, 0) for k in got if k != "entries"}
+    0); the keyed counts are printed, and the wide build's by shape must
+    add up to its total of each kernel."""
+    want = {k: want.get(k, 0) for k in got if k not in KEYED}
     log(f"{what} launches: {got}")
-    if {k: v for k, v in got.items() if k != "entries"} != want:
+    if {k: v for k, v in got.items() if k not in KEYED} != want:
         raise SystemExit(f"{what}: launch counts {got}, expected {want}")
+    for kernel in ("vq_update", "vq_assign"):
+        by_shape = sum(v for key, v in got["shapes"].items()
+                       if key.startswith(kernel + " "))
+        if by_shape != got[f"{kernel}_wide"]:
+            raise SystemExit(f"{what}: {kernel}'s wide launches by shape "
+                             f"add to {by_shape}, not "
+                             f"{got[f'{kernel}_wide']}")
 
 
 def phase_main_path(server, requests, tag: str = "serve"
@@ -1407,7 +1533,7 @@ def phase_profile(server, requests) -> None:
 
 def phase_train_profile(m: Model, params, vq, ost) -> None:
     """The profile of 2 training steps from the trained state (their
-    results are dropped)."""
+    results are dropped), of ``m.cfg``'s backbone."""
     from repro_torch.configs.vq_gnn_paper import PAPER_LR
     from repro_torch.models.gnn import vq_train_step
     from repro_torch.train.optimizer import rmsprop
@@ -1420,7 +1546,7 @@ def phase_train_profile(m: Model, params, vq, ost) -> None:
         vq_train_step(params, vq, ost, pack, x_b, y_b, m.ops.degrees, m.cfg,
                       opt, loss_mask=lm)
     step(batches[0])                      # warm: allocator, first launches
-    _profile("train", batches, step)
+    _profile(f"train {m.cfg.backbone}", batches, step)
 
 
 # ---------------------------------------------------------------------------
@@ -2356,6 +2482,292 @@ def phase_lm_kernels(kv, cfg) -> list[dict]:
     return [vq_row, fl_row]
 
 
+# ---------------------------------------------------------------------------
+# the learnable and dense backbones: GAT and the Graph Transformer, their
+# codebooks on the wide build of the vq_update / vq_assign scan
+# ---------------------------------------------------------------------------
+
+def phase_attention_train(g, cfg, batch: int, tag: str,
+                          learn: bool = False) -> tuple[dict, dict]:
+    """``train_vq`` of a GAT or Graph Transformer for ATTN_EPOCHS epochs at
+    ``batch`` with one full-graph evaluation at the end, the launch counts
+    checked exactly: every codebook update on the wide build of vq_update
+    (the branches are 43-256 wide), no other counted kernel (the layers
+    read dense codewords and gather, score and attend in plain PyTorch).
+
+    Gates: finite losses and VQ errors; with ``learn`` also the last
+    epoch's mean loss under the first's and a val accuracy above chance.
+    The ``learn`` runs are the settings in which the reference learns at
+    this width (tests/test_torch_backbones.py::
+    test_full_width_reference_curves, n 2,000, 10 epochs): GAT with Eq. 7
+    off (mean epoch loss 3.56 -> 0.70, val 0.81) and the Transformer at
+    depth 1 (2.44 -> 0.0018, val 1.0).  The 3-layer runs with Eq. 7 on,
+    and the Transformer's with it off, gate on finite values only: the
+    reference's curves there (GAT 5.55 -> 104.02, the Transformer 5.09 ->
+    42759.67 with Eq. 7 on, 3.82 -> 4.86 with it off) are recorded, not
+    a gate."""
+    import torch
+    from repro_torch.train.gnn_trainer import train_vq
+    epochs, n_layers = ATTN_EPOCHS, cfg.n_layers
+    steps = epochs * -(-g.n // batch)
+    reset_counts()
+    t0 = time.time()
+    r = train_vq(g, cfg, epochs=epochs, batch_size=batch, seed=SEED,
+                 eval_every=epochs, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    expect_counts(tag, counts, {"vq_update": n_layers * steps,
+                                "vq_update_wide": n_layers * steps})
+    losses, errs = r["step_losses"], r["step_vq_errs"]
+    if losses.shape != (steps,) or errs.shape != (steps, n_layers):
+        raise SystemExit(f"{tag}: {losses.shape} losses, {errs.shape} VQ "
+                         f"errors for {steps} steps")
+    for i, (loss, e) in enumerate(zip(losses, errs)):
+        log(f"{tag} step {i}: loss {loss:.6f} vq_err "
+            f"{' '.join(f'{v:.4f}' for v in e)}")
+    epoch_loss = losses.reshape(epochs, -1).mean(1)
+    h = r["history"][-1]
+    r.update(wall_s=wall, epoch_loss=epoch_loss.tolist(),
+             epoch_vq_err=errs.reshape(epochs, -1).mean(1).tolist(),
+             largest_cluster_share=largest_cluster_share(r["vq_states"]))
+    log(f"{tag}: {steps} steps of {batch} nodes in {wall:.3f} s (epochs "
+        f"{[round(v, 3) for v in r['epoch_s']]} s, the last with the "
+        f"full-graph evaluation); mean loss per epoch "
+        f"{[round(v, 4) for v in r['epoch_loss']]}; val {h['val']:.4f} "
+        f"test {h['test']:.4f} vq_err {h['vq_err']:.4f}; largest cluster "
+        f"share per layer {[round(v, 4) for v in r['largest_cluster_share']]}")
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(errs))):
+        raise SystemExit(f"{tag}: non-finite loss or VQ error")
+    if learn and not (epoch_loss[-1] < epoch_loss[0] and h["val"] > CHANCE):
+        raise SystemExit(f"{tag}: last epoch's mean loss {epoch_loss[-1]} "
+                         f"not under the first's {epoch_loss[0]}, or val "
+                         f"{h['val']} not above chance {CHANCE}")
+    return r, counts
+
+
+def phase_attention_serve(server, requests, tag: str) -> tuple[dict, dict]:
+    """Serving a GAT or Graph Transformer: the refresh launches vq_assign
+    once a layer (the wide build where the feature half is wider than 32:
+    the Transformer's 128), warm-up and the requests launch no counted
+    kernel; counts checked exactly."""
+    from repro_torch.kernels.vq_assign import uses_wide
+    from repro_torch.launch.serve_gnn import drain_requests
+    from repro_torch.models.gnn import _layer_out_dims
+    n_layers = server.cfg.n_layers
+    wide = sum(uses_wide(st.codebook.k, fi // st.codebook.n_branches)
+               for st, (fi, _) in zip(server.vq,
+                                      _layer_out_dims(server.cfg)))
+    reset_counts()
+    t_refresh = server.refresh()
+    refresh_counts = read_counts()
+    expect_counts(f"{tag} refresh", refresh_counts,
+                  {"vq_assign": n_layers, "vq_assign_wide": wide})
+    reset_counts()
+    t_warm = server.warmup()
+    rep = drain_requests(server, requests)
+    serve_counts = read_counts()
+    expect_counts(tag, serve_counts, {})
+    rep.update(refresh_s=t_refresh, warmup_s=t_warm)
+    log(f"{tag}: refresh {t_refresh:.3f} s; {rep['nodes']} nodes / "
+        f"{rep['requests']} requests in {rep['steps']} steps, "
+        f"{rep['wall_s']:.4f} s -> {rep['nodes_per_s']:.1f} nodes/s; step "
+        f"p50 {rep['step_p50_ms']:.4f} ms p99 {rep['step_p99_ms']:.4f} ms; "
+        f"request p50 {rep['request_p50_ms']:.4f} ms p99 "
+        f"{rep['request_p99_ms']:.4f} ms")
+    return rep, add_counts(refresh_counts, serve_counts)
+
+
+def _queued_share_est(vw, cw) -> float:
+    """The share of rows the wide build queues for a second pass, estimated
+    with its rule on the plain distances (float64; the tensor cores' d~
+    differ by at most E): a row settles when its runner-up lies above
+    u + E(|x|, min(cmax, r(u))).  An estimate: the kernel does not report
+    the rows it queues."""
+    import torch
+    from repro_torch.kernels.vq_update import candidate_bound, norm_cap
+    nb, b, f = vw.shape
+    c = cw.double()
+    cn2 = (c * c).sum(-1)
+    cmax = cn2.max(dim=1).values.sqrt()
+    queued = 0
+    for s in range(0, b, 4096):
+        x = vw[:, s:s + 4096].double()
+        d = cn2[:, None, :] - 2 * torch.einsum("bnf,bkf->bnk", x, c)
+        top = torch.topk(d, min(2, d.shape[2]), dim=2, largest=False).values
+        u = top[..., 0]
+        xn = x.norm(dim=2)
+        cm = torch.minimum(cmax[:, None], norm_cap(xn, u, wide=True))
+        thr = u + candidate_bound(xn, cm, f, wide=True)
+        if top.shape[2] > 1:
+            queued += int((~(top[..., 1] > thr)).sum())
+    return queued / (nb * b)
+
+
+def _wide_update_row(name: str, vw, cw, emit=None) -> dict:
+    """A vq_update row of the wide build: ``_vq_update_row``'s checks and
+    times, the estimated share of rows queued for the second pass, and
+    its operand shape's key in ``read_counts()["shapes"]``, by which the
+    kernels line gives it the launches the main paths made at that
+    shape."""
+    import torch
+    row = _vq_update_row(name, vw.contiguous(), cw.contiguous(), emit=emit)
+    nb, n, f = vw.shape
+    row.update(form="wide" if emit is None else "wide uint8 emit",
+               queued_share_est=_queued_share_est(vw, cw),
+               shape=shape_key("vq_update", nb, n, cw.shape[1], f,
+                               "uint8" if emit == torch.uint8 else "int32"))
+    log(f"{name}: {row['queued_share_est']:.4f} of the rows queued for the "
+        f"second pass (estimated from the plain distances)")
+    return row
+
+
+def _wide_assign_row(name: str, x, cw) -> dict:
+    """vq_assign's wide build against its plain version (index and
+    want_min bit for bit), timed, with its bounds, estimated queued share
+    and operand shape's key in ``read_counts()["shapes"]``."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.vq_assign import vq_assign_cuda
+    got, gmin = vq_assign_cuda(x, cw, want_min=True)
+    want, wmin = ref.vq_assign(x, cw, want_min=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(gmin, wmin)
+            and torch.equal(vq_assign_cuda(x, cw), got)):
+        raise SystemExit(f"{name}: index or want_min not bit-equal to the "
+                         f"plain version ({int((got != want).sum())} rows)")
+    nb, n, f = x.shape
+    k = cw.shape[1]
+    bms, by = bound(4 * nb * n * f + 4 * nb * k * f + 8 * nb * n,
+                    2 * nb * n * k * f)
+    tc_ms = 3 * 2 * nb * n * k * 8 * -(-f // 8) / TF32_FLOP_PER_S * 1e3
+    ms, call_ms = cuda_ms(lambda: vq_assign_cuda(x, cw, want_min=True), 5,
+                          inner=2)
+    row = dict(form="wide", max_abs_err=0.0, agreement=1.0, ms=ms,
+               call_ms=call_ms, bound_ms=bms, bound_by=by,
+               tensor_bound_ms=tc_ms,
+               plain_ms=cuda_ms(lambda: ref.vq_assign(x, cw, want_min=True),
+                                3, inner=1)[0],
+               library_ms=None, queued_share_est=_queued_share_est(x, cw),
+               shape=shape_key("vq_assign", nb, n, k, f),
+               at=f"x=[{nb}, {n}, {f}] cw=[{nb}, {k}, {f}] {name}")
+    log(f"vq_assign wide {row['at']}: idx and want_min bit-equal  kernel "
+        f"{ms:.4f} ms (one call {call_ms:.4f} ms)  plain "
+        f"{row['plain_ms']:.4f} ms  bound {bms:.4f} ms ({by}; 3xTF32 "
+        f"products {tc_ms:.4f} ms)  library none  "
+        f"{row['queued_share_est']:.4f} of the rows queued (estimated)")
+    return row
+
+
+def _whitened_batch(m: Model, params, vq, bids):
+    """Each layer's whitened (X || G) rows of one batch, as the codebook
+    update sees them."""
+    from repro_torch.core import codebook as cbm
+    from repro_torch.models.gnn import vq_loss_and_grads
+    pack, x_b, y_b, lm = m.batch_inputs(bids)
+    _, _, acts, _, gprobes = vq_loss_and_grads(
+        params, vq, pack, x_b, y_b, m.ops.degrees, m.cfg, lm)
+    cb = m.cfg.layer_codebook_cfg()
+    return [cbm.whitened_rows(st.codebook, acts[l], gprobes[l], cb)[0]
+            for l, st in enumerate(vq)]
+
+
+def _near_tie(vw, cw, gen):
+    """A near-tie codebook from trained codewords (1::4 duplicates 0::4,
+    2::4 one ulp above in the first coordinate) and rows a third on a
+    codeword, a third halfway between two."""
+    import torch
+    nb, b, f = vw.shape
+    c = cw.clone()
+    k = c.shape[1]
+    c[:, 1::4] = c[:, 0::4][:, :c[:, 1::4].shape[1]]
+    c2 = c[:, 0::4][:, :c[:, 2::4].shape[1]].clone()
+    c2[..., 0] = torch.nextafter(c2[..., 0],
+                                 torch.full_like(c2[..., 0], math.inf))
+    c[:, 2::4] = c2
+    pick = torch.randint(0, k, (nb, b), generator=gen, device=vw.device)
+    on = torch.gather(c, 1, pick[..., None].expand(nb, b, f))
+    other = torch.gather(c, 1, ((pick + 1) % k)[..., None].expand(nb, b, f))
+    x = vw.clone()
+    x[:, 0::3] = on[:, 0::3]
+    x[:, 1::3] = (0.5 * (on + other))[:, 1::3]
+    return x.contiguous(), c.contiguous()
+
+
+def _near_codewords(cw, rows: int, gen, scale: float = 0.1):
+    """``rows`` rows drawn near the codewords: a random codeword each, plus
+    Gaussian noise of ``scale`` a coordinate."""
+    import torch
+    nb, k, f = cw.shape
+    pick = torch.randint(0, k, (nb, rows), generator=gen, device=cw.device)
+    x = torch.gather(cw, 1, pick[..., None].expand(nb, rows, f))
+    noise = torch.randn((nb, rows, f), generator=gen, device=cw.device)
+    return (x + scale * noise).contiguous()
+
+
+def phase_wide_kernels(gat: tuple, tr: tuple, tr_server) -> dict:
+    """The wide build of vq_update and vq_assign against their plain
+    versions, on operands from the trained GAT and Graph Transformer, and
+    timed: vq_update at GAT's [4, 42335, 65] and [4, 42335, 43] (k 1024)
+    and the Transformer's [1, 5000, 256] and [1, 5000, 168] (the training
+    batches' whitened rows), at [1, 42335, 256] on rows near the trained
+    codewords, its uint8 emit at [4, 42335, 65] with the first 256
+    codewords, on near-tie codebooks at f 65 and f 256; vq_assign with
+    want_min at the Transformer's refresh shape [1, 20000, 128] and at
+    [1, 169343, 128] on rows near its codewords.  Returns the ``also`` rows
+    of vq_update and vq_assign."""
+    import torch
+    from repro_torch.core import codebook as cbm
+    m_g, params_g, vq_g = gat
+    m_r, params_r, vq_r = tr
+    gen = torch.Generator(device=m_g.dev).manual_seed(SEED + 29)
+    rng = np.random.default_rng(SEED + 31)
+    upd, asg = [], []
+    vw_g = _whitened_batch(m_g, params_g, vq_g,
+                           rng.permutation(m_g.g.n)[:m_g.batch])
+    for l in (0, len(vq_g) - 1):
+        cw = vq_g[l].codebook.codewords_w
+        upd.append(_wide_update_row(
+            f"vq_update wide gat layer {l}", vw_g[l], cw))
+        upd[-1]["at"] += f" gat-train layer {l}"
+    cw0 = vq_g[0].codebook.codewords_w
+    upd.append(_wide_update_row("vq_update wide uint8 emit gat layer 0",
+                                vw_g[0], cw0[:, :256], torch.uint8))
+    upd[-1]["at"] += " gat layer 0, the first 256 codewords"
+    x, c = _near_tie(vw_g[0], cw0, gen)
+    upd.append(_wide_update_row("vq_update wide near-tie f 65", x, c))
+    upd[-1]["at"] += " near-tie codebook from gat layer 0"
+    del vw_g, x, c
+    vw_r = _whitened_batch(m_r, params_r, vq_r,
+                           rng.permutation(m_r.g.n)[:m_r.batch])
+    for l in (0, len(vq_r) - 1):
+        cw = vq_r[l].codebook.codewords_w
+        upd.append(_wide_update_row(
+            f"vq_update wide transformer layer {l}", vw_r[l], cw))
+        upd[-1]["at"] += f" transformer-train layer {l}"
+    cw0 = vq_r[0].codebook.codewords_w
+    x, c = _near_tie(vw_r[0], cw0, gen)
+    upd.append(_wide_update_row("vq_update wide near-tie f 256", x, c))
+    upd[-1]["at"] += " near-tie codebook from transformer layer 0"
+    x = _near_codewords(cw0, m_g.batch, gen)
+    upd.append(_wide_update_row("vq_update wide arxiv-scale batch", x, cw0))
+    upd[-1]["at"] += " rows near the transformer's layer-0 codewords"
+    del vw_r, x, c
+    # vq_assign: the Transformer's refresh, and a full arxiv-size table
+    st = tr_server.vq[0].codebook
+    cfg = tr_server.cfg.layer_codebook_cfg()
+    fb = tr_server.x.shape[1]
+    v = cbm._whiten(tr_server.x.reshape(tr_server.g.n, 1, fb),
+                    st.mean[:, :fb], st.var[:, :fb], cfg.eps)
+    cwf = st.codewords_w[:, :, :fb].contiguous()
+    asg.append(_wide_assign_row("transformer refresh layer 0",
+                                v.transpose(0, 1), cwf))
+    x = _near_codewords(cwf, N_NODES, gen)
+    asg.append(_wide_assign_row("rows near the transformer's codewords", x,
+                                cwf))
+    return {"vq_update": upd, "vq_assign": asg}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2452,11 +2864,84 @@ def main() -> int:
     lm_rep["parity"] = timed("lm-parity", phase_lm_parity)
     lm_rows = timed("lm-kernels", phase_lm_kernels, lm_kv, lm_cfg)
     del lm_kv
+    torch.cuda.empty_cache()
+
+    # --- GAT and the Graph Transformer, their codebooks on the wide build
+    # of the vq_update / vq_assign scan ---
+    cfg_g = cfg._replace(backbone="gat", heads=ATTN_HEADS)
+    m_g, cpu_g = copy.copy(m), copy.copy(cpu)
+    m_g.cfg = cpu_g.cfg = cfg_g
+    rg, gat_train_counts = timed("gat-train", phase_attention_train, g,
+                                 cfg_g, batch, "gat-train")
+    params_g, vq_g, ost_g = rg["params"], rg["vq_states"], rg["opt_state"]
+    rg0, gat_train_counts0 = timed(
+        "gat-train", phase_attention_train, g,
+        cfg_g._replace(grad_inject=False), batch, "gat-train without Eq. 7",
+        True)
+    gat_timing = timed("gat-train", phase_step_timing, m_g, params_g, vq_g,
+                       ost_g)
+    timed("gat-train profile", phase_train_profile, m_g, params_g, vq_g,
+          ost_g)
+    # the card-vs-CPU step and serving from the state trained with Eq. 7
+    # off: with it on the logits grow to ~1e4 (the reference's too), and a
+    # near-zero logit's rounding then exceeds any elementwise tolerance
+    gat_parity = timed("gat-parity", phase_train_parity, m_g, rg0["params"],
+                       rg0["vq_states"], rg0["opt_state"], cpu_g,
+                       "gat-parity", False, PARITY_BATCH, True)
+    server_g = serve_gnn.GNNServer(g, cfg_g, rg0["params"],
+                                   rg0["vq_states"], BATCH, device=DEVICE)
+    gat_rep, gat_serve_counts = timed("gat-serve", phase_attention_serve,
+                                      server_g, requests, "gat-serve")
+    timed("gat-serve", phase_cpu_parity, server_g, requests,
+          "gat-serve cpu parity")
+    del server_g
+    t = time.time()
+    g_r = synthetic_arxiv(n=TRANSFORMER_N, seed=SEED)
+    cfg_r = paper_config(g_r, full_scale=True)._replace(
+        backbone="transformer", heads=ATTN_HEADS)
+    batch_r = paper_batch_size(g_r)
+    m_r = Model(g_r, cfg_r, batch_r, torch.device(DEVICE))
+    cpu_r = Model(g_r, cfg_r, TRANSFORMER_PARITY_BATCH, "cpu")
+    seconds["transformer setup"] = time.time() - t
+    rr, tr_train_counts = timed("transformer-train", phase_attention_train,
+                                g_r, cfg_r, batch_r, "transformer-train")
+    params_r, vq_r, ost_r = rr["params"], rr["vq_states"], rr["opt_state"]
+    rr0, tr_train_counts0 = timed(
+        "transformer-train", phase_attention_train, g_r,
+        cfg_r._replace(grad_inject=False), batch_r,
+        "transformer-train without Eq. 7")
+    # the learning gate: at depth 1 the reference's Transformer learns
+    rr1, tr_train_counts1 = timed(
+        "transformer-train", phase_attention_train, g_r,
+        cfg_r._replace(n_layers=1), batch_r, "transformer-train depth 1",
+        True)
+    tr_timing = timed("transformer-train", phase_step_timing, m_r,
+                      params_r, vq_r, ost_r)
+    timed("transformer-train profile", phase_train_profile, m_r, params_r,
+          vq_r, ost_r)
+    tr_parity = timed("transformer-train parity", phase_train_parity, m_r,
+                      rr0["params"], rr0["vq_states"], rr0["opt_state"],
+                      cpu_r, "transformer-train parity", False,
+                      TRANSFORMER_PARITY_BATCH, True)
+    server_r = serve_gnn.GNNServer(g_r, cfg_r, rr0["params"],
+                                   rr0["vq_states"], BATCH, device=DEVICE)
+    requests_r = serve_gnn.make_requests(g_r.n, REQUESTS, MAX_REQUEST, SEED)
+    tr_rep, tr_serve_counts = timed("transformer-serve",
+                                    phase_attention_serve, server_r,
+                                    requests_r, "transformer-serve")
+    timed("transformer-serve", phase_cpu_parity, server_r, requests_r,
+          "transformer-serve cpu parity")
+    wide_also = timed("wide-kernels", phase_wide_kernels,
+                      (m_g, params_g, vq_g), (m_r, params_r, vq_r),
+                      server_r)
+    del server_r
 
     # --- launches on the main paths, and the kernels line ---
     launches = train_counts
     for c in (serve_counts, sampler_counts, hybrid_counts, tier_train_counts,
-              tier_serve_counts, a4_counts, lm_counts):
+              tier_serve_counts, a4_counts, lm_counts, gat_train_counts,
+              gat_train_counts0, gat_serve_counts, tr_train_counts,
+              tr_train_counts0, tr_train_counts1, tr_serve_counts):
         launches = add_counts(launches, c)
     entries = launches["entries"]
     by_name = {row["name"]: row for row in serve_rows + train_rows}
@@ -2465,6 +2950,8 @@ def main() -> int:
         for name, extra in also.items():
             by_name[name]["also"] += extra
     for name, extra in tier_rows.items():
+        by_name[name]["also"] += extra
+    for name, extra in wide_also.items():
         by_name[name]["also"] += extra
     by_name["spmm_ell_hbm"] = staged_row
     for c in staged_row["also"]:
@@ -2476,12 +2963,13 @@ def main() -> int:
     # each row and form with its own count: the top rows are the f32 /
     # int32-emit forms, the quantized forms sit under ``also``
     form_launches = {
-        "vq_assign": launches["vq_assign"],
+        "vq_assign": launches["vq_assign"] - launches["vq_assign_wide"],
         "spmm_ell": launches["spmm_ell"] - launches["spmm_ell_q"],
         "spmm_ell_hbm": launches["spmm_ell_hbm"] - launches["spmm_ell_hbm_q"],
         "spmm_ell_t": launches["spmm_ell_t"],
         "context_ell": entries.get("repro_context_ell_f32_i32", 0),
-        "vq_update": launches["vq_update"] - launches["vq_update_u8"],
+        "vq_update": launches["vq_update"] - launches["vq_update_u8"]
+        - launches["vq_update_wide"],
         "vq_attention": launches["vq_attention"],
         "flash_attention": launches["flash_attention_tc"]}
     for row in kernels:
@@ -2490,11 +2978,18 @@ def main() -> int:
         # gqa_attend): held against its plain version only
         if row["launches"] < 1 and "main_path" not in row:
             raise SystemExit(f"{row['name']} never launched on the main path")
+        if row["name"] in ("vq_update", "vq_assign"):
+            # every wide-build launch of the main paths, by operand shape
+            row["wide_launches_by_shape"] = {
+                key: v for key, v in sorted(launches["shapes"].items())
+                if key.startswith(row["name"] + " ")}
         for c in row.get("also", []):
             form = c.get("form", "")
             if row["name"] == "spmm_ell_hbm":
                 continue
-            if "entry" in c:
+            if "shape" in c:     # a wide form: the launches at its shape
+                c["launches"] = launches["shapes"].get(c["shape"], 0)
+            elif "entry" in c:
                 c["launches"] = entries.get(c["entry"], 0)
             elif form == "w_t":
                 c["launches"] = entries.get("repro_context_ell_wt_f32_i32", 0)
@@ -2550,6 +3045,21 @@ def main() -> int:
                           if k in keep + ("vq_state_bytes",)}
         for t, x in a4_reps.items()}}))
     log(json.dumps({"lm_serve": lm_rep}))
+    for tag, r_, r0_, r1_, tim, par, srv in (
+            ("gat", rg, rg0, None, gat_timing, gat_parity, gat_rep),
+            ("transformer", rr, rr0, rr1, tr_timing, tr_parity, tr_rep)):
+        depth_1 = {} if r1_ is None else {"depth_1": {
+            "epoch_loss": r1_["epoch_loss"], "final": r1_["final"]}}
+        log(json.dumps({f"{tag}_train": {
+            "steps": int(r_["step_losses"].shape[0]), "wall_s": r_["wall_s"],
+            "epoch_s": r_["epoch_s"], "epoch_loss": r_["epoch_loss"],
+            "epoch_vq_err": r_["epoch_vq_err"],
+            "largest_cluster_share": r_["largest_cluster_share"],
+            "history": r_["history"], "final": r_["final"],
+            "without_eq7": {"epoch_loss": r0_["epoch_loss"],
+                            "final": r0_["final"]}, **depth_1,
+            **{k: tim[k] for k in ("step_p50_ms", "step_p99_ms")},
+            "parity": par}, f"{tag}_serve": {k: srv[k] for k in keep}}))
     seconds["total"] = time.time() - T_START
     log(json.dumps({"seconds": seconds}))
     log(f"chip_smoke: {seconds['total']:.1f} s from start to the "

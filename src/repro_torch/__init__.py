@@ -13,7 +13,7 @@ hand-written CUDA C++ for ``sm_90a`` under ``kernels/csrc/``, built with
 Slice coverage: serving and node-task training on one device (Alg. 1,
 the Alg. 2 codebook update, the Eq. 7 injection, RMSprop / Adam) in every
 precision tier (fp32; int8 / fp8 codeword snapshots with uint8 or
-nibble-packed assignment tables), GCN/SAGE/GIN backbones.  GAT/Transformer,
-the link task and meshes raise a clear error that names the later slice
-(see ROADMAP.md).
+nibble-packed assignment tables), all five backbones (GCN, SAGE, GIN, GAT,
+the Graph Transformer).  The link task and meshes raise a clear error
+that names the later slice (see ROADMAP.md).
 """

@@ -1,11 +1,12 @@
 """Generalized graph convolution operand builders (paper Sec. 2, Eq. 1-2).
 
-Torch twin of the fixed-convolution half of ``repro.core.conv``: the
-mini-batch pack, the per-layer VQ state in every precision tier, the
-assignment histogram and refresh, the tier's storage choices and
-quantized snapshot, the codeword reads a layer feeds the context kernel,
-and the fixed-convolution edge values (paper Table 1) that turn a pack
-into :class:`~repro_torch.core.message_passing.ConvOperands`.
+Torch twin of ``repro.core.conv``: the mini-batch pack, the per-layer VQ
+state in every precision tier, the assignment histogram and refresh, the
+tier's storage choices and quantized snapshot, the codeword reads a layer
+feeds the context kernel (or, for the learnable and dense convolutions,
+dense f32 tables), the fixed-convolution edge values (paper Table 1) that
+turn a pack into :class:`~repro_torch.core.message_passing.ConvOperands`,
+and the out-of-batch cluster masses of a dense convolution (Table 5).
 """
 from __future__ import annotations
 
@@ -173,11 +174,14 @@ def quantize_layer_state(state: LayerVQState, f_feat: int,
     return state._replace(qcw=QuantizedCodewords(qf, qg))
 
 
-def layer_codewords(vq: LayerVQState, f_feat: int, cfg: CodebookConfig):
+def layer_codewords(vq: LayerVQState, f_feat: int, cfg: CodebookConfig, *,
+                    dense: bool = False):
     """The (feature, gradient) codeword operands a layer feeds the context
     kernel: the int8 / fp8 QTensor snapshot when one is attached, else
-    dense f32 reads of the codebook."""
-    if vq.qcw is not None:
+    dense f32 reads of the codebook.  ``dense=True`` always reads the f32
+    tables: GAT and the Graph Transformer mix the branches through per-head
+    weight maps, so their math needs real tables."""
+    if vq.qcw is not None and not dense:
         return vq.qcw.feat, vq.qcw.grad
     return (cbm.feature_codewords(vq.codebook, f_feat, cfg),
             cbm.gradient_codewords(vq.codebook, f_feat, cfg))
@@ -259,3 +263,22 @@ def fixed_conv_operands(kind: str, pack: MinibatchPack, degrees: torch.Tensor
         rev_ids=pack.rev_ids, rev_vals=rev_vals,
         stripe_index=pack.stripe_index)
     return ops_, self_vals
+
+
+# ---------------------------------------------------------------------------
+# dense / global convolution sketch masses (Graph Transformer; Table 5)
+# ---------------------------------------------------------------------------
+
+def out_of_batch_cluster_mass(state: LayerVQState,
+                              batch_ids: torch.Tensor) -> torch.Tensor:
+    """The cluster sizes outside the batch, [n_branches, k] f32: for a
+    dense convolution the fixed mask is all ones, so the sketch C_out R
+    reduces per row to the global histogram minus the batch members'
+    clusters -- O(k), not O(n).  Any table storage (int32, uint8 or
+    nibble-packed)."""
+    k = state.counts.shape[-1]
+    table = state.assignment
+    idx = batch_ids.long()
+    batch = table.gather(idx) if isinstance(table, PackedAssignment) \
+        else table[:, idx]                                    # [nb, b]
+    return torch.clamp(state.counts - branch_histogram(batch, k), min=0.0)

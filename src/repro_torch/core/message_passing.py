@@ -22,6 +22,14 @@ Under the precision tiers the codewords are ``QTensor`` snapshots (int8 /
 fp8 values + f32 scales) and the table may be uint8 or a
 ``PackedAssignment``; both pass through to the kernels in their storage
 types, the backward injection launching the quantized ``w_t`` form.
+
+The learnable and dense convolutions (GAT, the Graph Transformer) mix the
+branches through per-head weight maps, which the context kernel cannot
+express: they rebuild out-of-batch rows with :func:`reconstruct` and
+inject Eq. 7 with :func:`inject_context_grad_materialized` (an explicit
+``[b, Dr, f]`` gradient tensor) or :func:`inject_context_grad_table` (a
+``[m, f]`` table shared by every row), whose backward passes are plain
+``einsum`` / ``@``, as the reference computes them outside any kernel.
 """
 from __future__ import annotations
 
@@ -89,6 +97,69 @@ def inject_context_grad(x_b: torch.Tensor, rev_vals: torch.Tensor,
         assignment.packed if packed else assignment,
         assignment.n if packed else None,
         None if w is None else w.detach())
+
+
+class InjectContextGradDense(torch.autograd.Function):
+    """Eq. 7 from an explicit gradient residual, for the convolutions that
+    mix branches: identity on ``x_b`` in the forward pass; the backward
+    adds the phantom term (``@ W^T`` when ``w`` is given) --
+    ``einsum('bd,bdf->bf', rev_vals, grad)`` for a per-row ``[b, Dr, f]``
+    residual (GAT: the reconstructed gradient codewords pass through the
+    per-head value map before the edge weighting), ``rev_vals [b, m] @
+    grad [m, f]`` for a table every row shares (the Graph Transformer:
+    the receiving "neighbors" are the k clusters, so the residual is the
+    table, not its [b, m, f] broadcast).  The saved operands get no
+    gradient (the reference's custom_vjps return zeros for them)."""
+
+    @staticmethod
+    def forward(ctx, x_b, rev_vals, grad, w):
+        ctx.save_for_backward(rev_vals, grad, w)
+        return x_b.view_as(x_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        rev_vals, grad, w = ctx.saved_tensors
+        rev, res = rev_vals.float(), grad.float()
+        phantom = torch.einsum('bd,bdf->bf', rev, res) if res.dim() == 3 \
+            else rev @ res
+        if w is not None:
+            phantom = phantom @ w.float().t()
+        return g + phantom.to(g.dtype), None, None, None
+
+
+def inject_context_grad_materialized(x_b: torch.Tensor,
+                                     rev_vals: torch.Tensor,
+                                     grad: torch.Tensor,
+                                     w: Optional[torch.Tensor]
+                                     ) -> torch.Tensor:
+    """Identity on ``x_b``; the backward adds the phantom term of
+    :class:`InjectContextGradDense` from a per-row ``[b, Dr, f]`` residual
+    or a shared ``[m, f]`` table (``inject_context_grad_table``, the
+    reference's name for the latter).  The other operands enter
+    detached."""
+    return InjectContextGradDense.apply(
+        x_b, rev_vals.detach(), grad.detach(),
+        None if w is None else w.detach())
+
+
+inject_context_grad_table = inject_context_grad_materialized
+
+
+def reconstruct(codewords: torch.Tensor, assignment: Table,
+                node_ids: torch.Tensor) -> torch.Tensor:
+    """Full-width rows of arbitrary nodes from product-VQ state:
+    codewords [n_branches, k, f_blk] (feature or gradient codewords),
+    assignment [n_branches, n] (int32, uint8 or packed), node_ids [...]
+    -> [..., n_branches * f_blk], branch beta's codeword in columns
+    beta * f_blk ..."""
+    nb, _, fb = codewords.shape
+    ids = assignment.gather(node_ids) \
+        if isinstance(assignment, PackedAssignment) \
+        else assignment[:, node_ids.long()]                   # [nb, ...]
+    flat = ids.reshape(nb, -1).long()
+    rows = torch.gather(codewords, 1,
+                        flat[..., None].expand(nb, flat.shape[1], fb))
+    return rows.transpose(0, 1).reshape(*node_ids.shape, nb * fb)
 
 
 def context_messages_reconstruct(out_vals: torch.Tensor,

@@ -24,7 +24,7 @@ def main(argv: Sequence[str] | None = None) -> dict:
     ap.add_argument("--n", type=int, default=2000)
     ap.add_argument("--epochs", type=int, default=60)
     ap.add_argument("--backbone", default="gcn",
-                    choices=["gcn", "sage", "gin"])
+                    choices=["gcn", "sage", "gat", "gin", "transformer"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the CUDA kernels; cpu their plain "
                     "PyTorch versions")

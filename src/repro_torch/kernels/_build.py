@@ -42,7 +42,11 @@ SIGNATURES = {
                                _int, _int, _vp],
     "repro_vq_update_generic_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
                                     _int, _int, _vp],
+    "repro_vq_assign_wide_f32": [_vp, _ll, _ll] + [_vp] * 4 + [_int] * 4
+    + [_vp],
 }
+for _e in ("f32", "u8_f32"):
+    SIGNATURES[f"repro_vq_update_wide_{_e}"] = [_vp] * 7 + [_int] * 4 + [_vp]
 for _dt in ("f32", "bf16"):
     SIGNATURES[f"repro_vq_attention_{_dt}"] = [_vp] * 11 + [_int] * 6 \
         + [_flt, _vp]

@@ -83,6 +83,19 @@ extern "C" cudaError_t repro_vq_assign_f32(const float* x,
   }
 }
 
+// The wide build (vq_update.cuh: f > 32, or a codebook larger than one
+// block's shared memory; any f <= kWideMaxF and any k), the same contract
+// as repro_vq_assign_f32; cn2: [nb, k] fp32 scratch that the launch fills
+// with the codewords' |c|^2.
+extern "C" cudaError_t repro_vq_assign_wide_f32(
+    const float* x, long long x_stride_branch, long long x_stride_row,
+    const float* cw, float* cn2, int* out, float* min_out, int nb, int n,
+    int k, int f, cudaStream_t stream) {
+  return launch_wide<int, false>(x, x_stride_branch, x_stride_row, cw, cn2,
+                                 out, min_out, nullptr, nullptr, nb, n, k, f,
+                                 stream);
+}
+
 extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -27,3 +27,14 @@ extern "C" cudaError_t repro_vq_update_generic_f32(
   return launch<0, int, true>(x, (long long)n * f, f, cw, idx, qerr, counts,
                              sums, nb, n, k, f, stream);
 }
+
+// The wide build (vq_update.cuh): any f <= kWideMaxF and any k, the same
+// contract as repro_vq_update_f32; cn2: [nb, k] fp32 scratch that the
+// launch fills with the codewords' |c|^2.
+extern "C" cudaError_t repro_vq_update_wide_f32(
+    const float* x, const float* cw, float* cn2, int* idx, float* qerr,
+    float* counts, float* sums, int nb, int n, int k, int f,
+    cudaStream_t stream) {
+  return launch_wide<int, true>(x, (long long)n * f, f, cw, cn2, idx, qerr,
+                                counts, sums, nb, n, k, f, stream);
+}

@@ -119,6 +119,10 @@
 // of their own shape (Cfg: f 4 on m16n8k4 with the codewords' hi / lo
 // parts staged, 4 m-tiles a warp; both with groups of 4 tiles).  The
 // widths this file's entries take keep the scan described above.
+//
+// The wide build (vq_wide_kernel, at the end of this file) takes what this
+// scan cannot hold: branches wider than 32 or codebooks beyond one block's
+// shared memory; its own header note says how it differs.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -963,6 +967,529 @@ cudaError_t dispatch(const float* x, const float* cw, Idx* idx, float* qerr,
       return launch<0, Idx, true>(x, sb, sr, cw, idx, qerr, counts, sums, nb,
                                   n, k, f, stream);
   }
+}
+
+// ===========================================================================
+// The wide build: branches wider than the narrow build's registers hold
+// (f > 32: GAT's 43 / 65, the Graph Transformer's 128 / 168 / 256), or
+// codebooks larger than one block's shared memory, any f <= kWideMaxF and
+// any k.  The same function and the same exactness argument as above; what
+// changes is where the operands live.
+//
+// A tiled GEMM with an argmin epilogue, as the Pallas kernel's (b / bb,
+// k / kb) grid is.  A persistent grid walks tiles of kWideBM = 64 rows of
+// one branch.  A block stages its tile's rows in shared memory (read
+// through their strides), then streams the branch's codewords through
+// shared memory in tiles of BN (64, or 32 where 64 would not fit beside the
+// rows), double-buffered with cp.async -- in 16-byte chunks where f is a
+// multiple of 4, else float by float (a row of odd f is not 16-byte
+// aligned) -- with their |c|^2 from a first kernel that sums them in the
+// plain version's order.  Warp w takes m-tile w & 3 (16 rows) and half
+// w >> 2 of each codeword tile; per 8-deep k-step it splits its -2x A
+// fragment and each B fragment into TF32 hi + lo and accumulates lo*hi,
+// hi*lo and hi*hi (mma.sync m16n8k8) onto |c|^2: 3 ceil(f / 8) mmas a
+// distance, as in the narrow build.  Each lane folds its columns, in
+// increasing index, into the row's smallest d~ (m1), its codeword (i1) and
+// the second smallest d~ over all other codewords (m2); the quad's lanes
+// and the two halves merge them.  Then per row: u = the exact distance of
+// i1 (its codeword read from L2), T = u + E(|x|, min(cmax, r)) as above,
+// and the row is settled when T is finite and m2 > T: every other codeword
+// has d~ > T, so none can win.  The other rows join the block's queue (row
+// and T); 64 queued rows, or the rest at the end of a branch, make a tile
+// that streams the codewords again and rescores exactly every codeword with
+// !(d~ > T), in increasing index per lane with a strict <, the lanes and
+// halves merged by (d, index).
+//
+// The bound at these widths.  (i) and (ii) above hold for any f; (iii),
+// the plain version's own rounding, (2f + 3) 2^-24 (|c|^2 + 2X), outgrows
+// the narrow build's allowance past f 32, so the wide build's E adds
+// ceil((2f + 3) / 16) to n_mma + 6 (vq_update.py:candidate_bound(wide=
+// True)); the norm cap r takes rho = (2f + 3) 2^-24 <= 2^-14 (f <= 440)
+// inside margins of 2^-12 (kWideUp).  E grows with f -- 135 x 2^-20 at
+// f 256 -- so more rows queue than at f 8; chip_smoke.py prints how many.
+//
+// Statistics: the cluster sums are [k, f] per branch, 1 MB at k 1024 and
+// f 256, which no block can privatize in shared memory.  A finished tile's
+// rows that chose the same codeword are chained in shared memory (each
+// row's next row with the same codeword); the first row of each chain adds
+// the chain's count and, column by column with consecutive threads on
+// consecutive columns, its summed row to global memory with atomics: one
+// add per codeword, column and tile, and a collapsed codebook costs f adds
+// a tile, not f a row.
+//
+// What bounds it on an H100: the 3xTF32 products, 6 nb n k f_pad flops
+// (0.151 ms at [4, 42335, 65], f_pad 72, and k 1024 at the 495 TFLOP/s
+// TF32 peak), on mma.sync, whose operands come from shared memory a
+// fragment at a time, split again by every warp that reads them: 1.27 ms
+// there on an H100 80GB HBM3 at 700 W (PERF.md).  wgmma and TMA are for a
+// later version.
+constexpr int kWideBM = 64;                  // rows a tile
+constexpr int kWideQ = 2 * kWideBM;          // the queue's capacity
+constexpr int kWideMaxF = 440;               // rho <= 2^-14 (header above)
+constexpr float kWideUp = 1.000244140625f;   // 1 + 2^-12
+
+__host__ __device__ constexpr int wide_fp(int f) { return (f + 7) / 8 * 8; }
+// the row stride of staged rows and codewords: 4 mod 8 floats, so the 8
+// rows x 4 k-columns of a fragment load hit 32 distinct banks
+__host__ __device__ constexpr int wide_stride(int f) { return wide_fp(f) + 4; }
+
+// A block's bookkeeping, after its row and codeword tiles.
+struct WideMisc {
+  float m1[2][kWideBM], m2[2][kWideBM];   // per half: min d~, runner-up
+  int i1[2][kWideBM];                     // per half: the min's codeword
+  float xn2[kWideBM];                     // exact |x|^2 of the staged rows
+  float thr[kWideBM];                     // a rescoring tile's thresholds
+  float best[kWideBM];                    // a finished row's exact distance
+  int arg[kWideBM];                       // its codeword; -1: not finished
+  int row[kWideBM];                       // the staged rows (in the branch)
+  int next[kWideBM];                      // next staged row, same codeword
+  int lead[kWideBM];                      // first staged row of its codeword
+  int q_row[kWideQ];
+  float q_thr[kWideQ];
+  float red[kWarps];
+  int q_n;
+  float cmax;
+};
+// vq_update.py:WIDE_MISC_BYTES mirrors this size
+static_assert(sizeof(WideMisc) == 4392, "WideMisc changed: update "
+                                        "vq_update.py:WIDE_MISC_BYTES");
+
+__host__ __device__ constexpr size_t wide_smem(int f, int bn) {
+  return (size_t)(kWideBM + 2 * bn) * wide_stride(f) * sizeof(float)
+         + 2 * (size_t)bn * sizeof(float) + sizeof(WideMisc);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The plain version's distance of a row and a codeword of f floats.
+__device__ __forceinline__ float wide_exact(const float* xr, const float* cr,
+                                            float cn2, int f) {
+  float dot = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < f; ++j) dot = __fadd_rn(dot, __fmul_rn(xr[j], cr[j]));
+  return __fsub_rn(cn2, __fmul_rn(2.f, dot));
+}
+
+// |c|^2 of every codeword, in the plain version's order.
+__global__ void wide_norms_kernel(const float* __restrict__ cw,
+                                  float* __restrict__ cn2, long long count,
+                                  int f) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= count) return;
+  const float* p = cw + c * f;
+  float acc = 0.f;
+  for (int j = 0; j < f; ++j) acc = __fadd_rn(acc, __fmul_rn(p[j], p[j]));
+  cn2[c] = acc;
+}
+
+template <int BN, typename Idx, bool Stats, bool Vec>
+__global__ void __launch_bounds__(kThreads)
+vq_wide_kernel(const float* __restrict__ x, long long sb, long long sr,
+               const float* __restrict__ cw, const float* __restrict__ cn2,
+               Idx* __restrict__ idx, float* __restrict__ qerr,
+               float* __restrict__ counts, float* __restrict__ sums, int nb,
+               int n, int k, int f, long long per_block) {
+  constexpr int BM = kWideBM;
+  constexpr int NT = BN / 16;                 // n8 tiles a warp a tile
+  const int fp = wide_fp(f), s = wide_stride(f), ks_n = fp / 8;
+  const float e_coef =
+      (float)(3 * ks_n + 6 + (2 * f + 3 + 15) / 16) * kEpsBound;
+  extern __shared__ float smem[];
+  float* x_s = smem;                                   // [BM, s]
+  float* c_s = x_s + BM * s;                           // [2][BN, s]
+  float* cn_s = c_s + 2 * BN * s;                      // [2][BN]
+  WideMisc& ms = *reinterpret_cast<WideMisc*>(cn_s + 2 * BN);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int mt = warp & 3, half = warp >> 2;
+  const int nt_n = (k + BN - 1) / BN;                  // codeword tiles
+  const int tpb = (n + BM - 1) / BM;                   // row tiles a branch
+  const long long total = (long long)nb * tpb;
+  const long long t_lo = (long long)blockIdx.x * per_block;
+  const long long t_hi = t_lo + per_block < total ? t_lo + per_block : total;
+
+  // Vec (f a multiple of 4 on an aligned table): codewords copied in
+  // 16-byte chunks and rows read, a warp a row; else float by float over
+  // the whole tile (a warp a row timed 3-9 % slower at f 43 and 65, and
+  // the same test at run time cost the other path 1-3 %, on an H100 80GB
+  // HBM3 at 700 W).
+
+  // Stage rows ms.row[r] (-1: a zero row) of branch br, and their exact
+  // |x|^2.
+  auto stage = [&](int br) {
+    const float* xb = x + br * sb;
+    if constexpr (Vec) {
+      for (int r = warp; r < BM; r += kWarps) {
+        const int row = ms.row[r];
+        for (int j = lane; j < fp; j += 32)
+          x_s[r * s + j] = (row >= 0 && j < f) ? xb[row * sr + j] : 0.f;
+      }
+    } else {
+      for (int i = tid; i < BM * fp; i += kThreads) {
+        const int r = i / fp, j = i - r * fp;
+        const int row = ms.row[r];
+        x_s[r * s + j] = (row >= 0 && j < f) ? xb[row * sr + j] : 0.f;
+      }
+    }
+    __syncthreads();
+    if (tid < BM) {
+      const float* xr = x_s + tid * s;
+      float a = 0.f;
+      for (int j = 0; j < f; ++j) a = __fadd_rn(a, __fmul_rn(xr[j], xr[j]));
+      ms.xn2[tid] = a;
+    }
+  };
+
+  // One pass over the branch's codewords for the staged rows.  Without
+  // Rescore: every lane folds (m1, i1, m2) of its two rows and the quad's
+  // lanes merge them into ms (per half).  With Rescore: every codeword with
+  // !(d~ > thr) of a row r < rows is rescored exactly; the lanes' (best,
+  // index) merge into ms.m1 / ms.i1.
+  auto pass = [&](int br, bool rescore, int rows) {
+    const float* cwb = cw + (size_t)br * k * f;
+    const float* cnb = cn2 + (size_t)br * k;
+    auto load = [&](int t, int buf) {
+      const int c0 = t * BN;
+      if constexpr (Vec) {
+        for (int c = warp; c < BN; c += kWarps) {
+          float* dst = c_s + (buf * BN + c) * s;
+          const bool live = c0 + c < k;
+          const float* src = cwb + (size_t)(c0 + c) * f;
+          for (int j = 4 * lane; j < fp; j += 128) {
+            const bool v = live && j < f;
+            cp_async16(dst + j, v ? src + j : cwb, v);
+          }
+        }
+      } else {
+        for (int i = tid; i < BN * fp; i += kThreads) {
+          const int c = i / fp, j = i - c * fp;
+          const bool v = c0 + c < k && j < f;
+          cp_async4(c_s + (buf * BN + c) * s + j,
+                    v ? cwb + (size_t)(c0 + c) * f + j : cwb, v);
+        }
+      }
+      for (int c = tid; c < BN; c += kThreads)
+        cp_async4(cn_s + buf * BN + c, c0 + c < k ? cnb + c0 + c : cnb,
+                  c0 + c < k);
+      cp_async_commit();
+    };
+    const int r0 = mt * 16 + g;                 // this lane's rows r0, r0 + 8
+    float m1[2] = {INFINITY, INFINITY}, m2[2] = {INFINITY, INFINITY};
+    int i1[2] = {0, 0};
+    float thr[2] = {0.f, 0.f};
+    bool fb[2] = {false, false};
+    if (rescore) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float t = ms.thr[r0 + 8 * h];
+        thr[h] = isfinite(t) ? t : INFINITY;
+        fb[h] = r0 + 8 * h < rows;
+      }
+    }
+    load(0, 0);
+    for (int t = 0; t < nt_n; ++t) {
+      const int buf = t & 1;
+      if (t + 1 < nt_n) {
+        load(t + 1, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* cb = c_s + buf * BN * s;
+      const float* cnt = cn_s + buf * BN;
+      const int c0 = t * BN + half * (BN / 2);  // this warp's first column
+      const int l0 = half * (BN / 2);           // ... in the tile
+      float acc[NT][4];
+#pragma unroll
+      for (int u = 0; u < NT; ++u) {
+        const int cl = l0 + u * 8 + 2 * q;
+        const float a = c0 + u * 8 + 2 * q < k ? cnt[cl] : INFINITY;
+        const float b = c0 + u * 8 + 2 * q + 1 < k ? cnt[cl + 1] : INFINITY;
+        acc[u][0] = a;
+        acc[u][1] = b;
+        acc[u][2] = a;
+        acc[u][3] = b;
+      }
+      for (int ks = 0; ks < ks_n; ++ks) {
+        const int j = ks * 8 + q;
+        uint32_t ah[4], al[4];
+        split_tf32(-2.f * x_s[r0 * s + j], ah[0], al[0]);
+        split_tf32(-2.f * x_s[(r0 + 8) * s + j], ah[1], al[1]);
+        split_tf32(-2.f * x_s[r0 * s + j + 4], ah[2], al[2]);
+        split_tf32(-2.f * x_s[(r0 + 8) * s + j + 4], ah[3], al[3]);
+#pragma unroll
+        for (int u = 0; u < NT; ++u) {
+          const float* cr = cb + (l0 + u * 8 + g) * s + j;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(cr[0], bh0, bl0);
+          split_tf32(cr[4], bh1, bl1);
+          mma_tf32(acc[u], al, bh0, bh1, acc[u]);
+          mma_tf32(acc[u], ah, bl0, bl1, acc[u]);
+          mma_tf32(acc[u], ah, bh0, bh1, acc[u]);
+        }
+      }
+      if (!rescore) {
+#pragma unroll
+        for (int u = 0; u < NT; ++u) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int h = i >> 1, c = c0 + u * 8 + 2 * q + (i & 1);
+            const float d = acc[u][i];
+            m2[h] = fminf(m2[h], fmaxf(m1[h], d));
+            i1[h] = d < m1[h] ? c : i1[h];
+            m1[h] = fminf(m1[h], d);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < NT; ++u) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int h = i >> 1, c = c0 + u * 8 + 2 * q + (i & 1);
+            if (fb[h] && !(acc[u][i] > thr[h]) && c < k) {
+              const int cl = l0 + u * 8 + 2 * q + (i & 1);
+              const float e = wide_exact(x_s + (r0 + 8 * h) * s, cb + cl * s,
+                                         cnt[cl], f);
+              if (e < m1[h]) {         // strict: the lowest index keeps ties
+                m1[h] = e;
+                i1[h] = c;
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();                 // the buffer is free for tile t + 2
+    }
+    // the quad's lanes hold the same rows: merge, lane q = 0 writes
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float b1 = __shfl_xor_sync(kFull, m1[h], o);
+        const float b2 = __shfl_xor_sync(kFull, m2[h], o);
+        const int bi = __shfl_xor_sync(kFull, i1[h], o);
+        m2[h] = fminf(fmaxf(m1[h], b1), fminf(m2[h], b2));
+        if (b1 < m1[h] || (b1 == m1[h] && bi < i1[h])) {
+          m1[h] = b1;
+          i1[h] = bi;
+        }
+      }
+      if (q == 0) {
+        ms.m1[half][r0 + 8 * h] = m1[h];
+        ms.m2[half][r0 + 8 * h] = m2[h];
+        ms.i1[half][r0 + 8 * h] = i1[h];
+      }
+    }
+    __syncthreads();
+  };
+
+  // Merge the two halves of row r: (min, its codeword, runner-up).
+  auto merged = [&](int r, float& a1, int& ai, float& a2) {
+    a1 = ms.m1[0][r];
+    ai = ms.i1[0][r];
+    a2 = ms.m2[0][r];
+    const float b1 = ms.m1[1][r], b2 = ms.m2[1][r];
+    const int bi = ms.i1[1][r];
+    a2 = fminf(fmaxf(a1, b1), fminf(a2, b2));
+    if (b1 < a1 || (b1 == a1 && bi < ai)) {
+      a1 = b1;
+      ai = bi;
+    }
+  };
+
+  // The staged rows with ms.arg[r] >= 0 are finished: their outputs, and
+  // with Stats the cluster statistics, one chain of rows a codeword.
+  auto finish = [&](int br) {
+    if (tid < BM && ms.arg[tid] >= 0) {
+      const size_t out = (size_t)br * n + ms.row[tid];
+      idx[out] = (Idx)ms.arg[tid];
+      if (qerr != nullptr)
+        qerr[out] = fmaxf(__fadd_rn(ms.best[tid], ms.xn2[tid]), 0.f);
+    }
+    if constexpr (Stats) {
+      if (tid < BM) {
+        const int a = ms.arg[tid];
+        int nx = -1, first = a >= 0;
+        if (a >= 0) {
+          for (int r = 0; r < tid; ++r) first &= ms.arg[r] != a;
+          for (int r = BM - 1; r > tid; --r) nx = ms.arg[r] == a ? r : nx;
+        }
+        ms.next[tid] = nx;
+        ms.lead[tid] = first;
+      }
+      __syncthreads();
+      if (tid < BM && ms.lead[tid]) {
+        int len = 0;
+        for (int r = tid; r >= 0; r = ms.next[r]) ++len;
+        atomicAdd(counts + (size_t)br * k + ms.arg[tid], (float)len);
+      }
+      for (int p = tid; p < BM * f; p += kThreads) {
+        const int r = p / f, j = p - r * f;
+        if (ms.lead[r]) {
+          float acc = 0.f;
+          for (int rr = r; rr >= 0; rr = ms.next[rr]) acc += x_s[rr * s + j];
+          atomicAdd(sums + ((size_t)br * k + ms.arg[r]) * f + j, acc);
+        }
+      }
+    }
+    __syncthreads();
+  };
+
+  // Rescore the first cnt queued rows as one tile.
+  auto drain = [&](int br, int cnt) {
+    if (tid < BM) {
+      ms.row[tid] = tid < cnt ? ms.q_row[tid] : -1;
+      ms.thr[tid] = tid < cnt ? ms.q_thr[tid] : 0.f;
+    }
+    __syncthreads();
+    const int rest = ms.q_n - cnt;
+    for (int i = tid; i < rest; i += kThreads) {     // [cnt, q_n) -> [0, rest)
+      ms.q_row[i] = ms.q_row[cnt + i];               // rest <= cnt: no overlap
+      ms.q_thr[i] = ms.q_thr[cnt + i];
+    }
+    __syncthreads();
+    if (tid == 0) ms.q_n = rest;
+    stage(br);
+    pass(br, true, cnt);
+    if (tid < BM) {
+      float a1, a2;
+      int ai;
+      // the halves' (best, index): the same merge, the runner-up unused
+      merged(tid, a1, ai, a2);
+      ms.arg[tid] = tid < cnt ? ai : -1;
+      ms.best[tid] = a1;
+    }
+    __syncthreads();
+    finish(br);
+  };
+
+  int cur = -1;
+  if (tid == 0) ms.q_n = 0;
+  for (long long t = t_lo; t < t_hi; ++t) {
+    const int br = (int)(t / tpb);
+    const int row0 = (int)(t - (long long)br * tpb) * BM;
+    if (br != cur) {
+      __syncthreads();
+      if (cur >= 0 && ms.q_n > 0) drain(cur, ms.q_n);
+      cur = br;
+      // cmax of the branch (fmaxf: a NaN codeword is only ever a candidate)
+      float m = 0.f;
+      for (int c = tid; c < k; c += kThreads)
+        m = fmaxf(m, cn2[(size_t)br * k + c]);
+#pragma unroll
+      for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+      if (lane == 0) ms.red[warp] = m;
+      __syncthreads();
+      if (tid == 0) {
+        float a = 0.f;
+        for (int w = 0; w < kWarps; ++w) a = fmaxf(a, ms.red[w]);
+        ms.cmax = sqrtf(a);
+      }
+    }
+    if (tid < BM) ms.row[tid] = row0 + tid < n ? row0 + tid : -1;
+    __syncthreads();
+    stage(br);
+    pass(br, false, 0);
+    if (tid < BM) {
+      float a1, a2;
+      int ai;
+      merged(tid, a1, ai, a2);
+      ms.arg[tid] = -1;
+      if (ms.row[tid] >= 0) {
+        const float u = wide_exact(x_s + tid * s, cw + ((size_t)br * k + ai) * f,
+                                   cn2[(size_t)br * k + ai], f);
+        const float xr = sqrtf(ms.xn2[tid]);
+        const float b = xr * kWideUp, bb = b * b;
+        const float r =
+            (b + sqrtf(fmaxf(bb + u, 0.f) + (kWideUp - 1.f) * (bb + fabsf(u))))
+            * kWideUp;
+        const float cm = fminf(ms.cmax, r);
+        const float thr = u + e_coef * (cm * cm + 4.f * xr * cm)
+                          + kTinyBound * (1.f + xr + cm);
+        if (isfinite(thr) && a2 > thr) {
+          ms.arg[tid] = ai;
+          ms.best[tid] = u;
+        } else {
+          const int slot = atomicAdd(&ms.q_n, 1);
+          ms.q_row[slot] = ms.row[tid];
+          ms.q_thr[slot] = thr;
+        }
+      }
+    }
+    __syncthreads();
+    finish(br);
+    if (ms.q_n >= BM) drain(br, BM);
+  }
+  __syncthreads();
+  if (cur >= 0 && ms.q_n > 0) drain(cur, ms.q_n);
+}
+
+// Launch the wide build: |c|^2 into cn2 (nb * k floats of the caller's
+// scratch), then the scan with the widest codeword tile that fits.
+template <typename Idx, bool Stats>
+cudaError_t launch_wide(const float* x, long long sb, long long sr,
+                        const float* cw, float* cn2, Idx* idx, float* qerr,
+                        float* counts, float* sums, int nb, int n, int k,
+                        int f, cudaStream_t stream) {
+  if (f < 1 || f > kWideMaxF || k < 1 || nb < 1 || n < 1)
+    return cudaErrorInvalidValue;
+  int dev = 0, limit = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(
+           &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const bool bn64 = wide_smem(f, 64) <= (size_t)limit;
+  const size_t smem = wide_smem(f, bn64 ? 64 : 32);
+  if (smem > (size_t)limit) return cudaErrorInvalidValue;
+  const bool vec = f % 4 == 0 && (reinterpret_cast<size_t>(cw) & 15) == 0;
+  auto kern = bn64 ? (vec ? &vq_wide_kernel<64, Idx, Stats, true>
+                          : &vq_wide_kernel<64, Idx, Stats, false>)
+                   : (vec ? &vq_wide_kernel<32, Idx, Stats, true>
+                          : &vq_wide_kernel<32, Idx, Stats, false>);
+  if ((err = cudaFuncSetAttribute(
+           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, kThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long count = (long long)nb * k;
+  wide_norms_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(
+      cw, cn2, count, f);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long tiles = (long long)nb * ((n + kWideBM - 1) / kWideBM);
+  long long grid = (long long)per_sm * sms;
+  if (grid > tiles) grid = tiles;
+  const long long per_block = (tiles + grid - 1) / grid;
+  grid = (tiles + per_block - 1) / per_block;
+  kern<<<(unsigned)grid, kThreads, smem, stream>>>(
+      x, sb, sr, cw, cn2, idx, qerr, counts, sums, nb, n, k, f, per_block);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -9,18 +9,23 @@ here is one launch for all branches, with the reference's optional
 the scan rescores exactly every codeword that its bound
 (``vq_update.candidate_bound`` and ``vq_update.norm_cap``) cannot rule
 out.
-``launches`` counts the kernel launches of this process.
+A branch wider than 32, or a codebook too large for the narrow build's
+shared memory, takes the scan's wide build (``vq_update.uses_wide``), at
+any f up to ``vq_update.WIDE_MAX_F`` and any k.
+``launches`` counts the kernel launches of this process, ``launches_wide``
+those of the wide build, ``launches_wide_by_shape`` the same by operand
+shape, ``(nb, n, k, f)``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, vq_update
+from repro_torch.kernels.vq_update import check_width
 
 launches = 0
-
-MAX_F = 32                    # widest branch the kernel holds in registers
-SMEM_LIMIT = 232448           # dynamic shared memory one H100 block may use
+launches_wide = 0
+launches_wide_by_shape: dict[tuple, int] = {}
 
 
 def kstep(f: int) -> int:
@@ -31,12 +36,18 @@ def kstep(f: int) -> int:
 
 
 def smem_bytes(k: int, f: int) -> int:
-    """Shared memory a block needs for one branch (``smem_base`` in
-    ``vq_update.cuh``): the codewords and their |c|^2, k (f + 1) floats,
-    and at f 4 the codewords' hi / lo pairs.  The rows it stages beside
-    them are optional."""
+    """Shared memory a narrow-build block needs for one branch
+    (``smem_base`` in ``vq_update.cuh``): the codewords and their |c|^2,
+    k (f + 1) floats, and at f 4 the codewords' hi / lo pairs.  The rows it
+    stages beside them are optional."""
     split = -(-k // 8) * 8 * 4 * 8 if f == 4 else 0
     return split + 4 * k * (f + 1)
+
+
+def uses_wide(k: int, f: int) -> bool:
+    """Whether the scan at (k, f) takes the wide build
+    (``vq_update.uses_wide`` with this kernel's :func:`smem_bytes`)."""
+    return vq_update.uses_wide(k, f, smem_bytes)
 
 
 def vq_assign_cuda(x: torch.Tensor, codewords: torch.Tensor,
@@ -48,7 +59,7 @@ def vq_assign_cuda(x: torch.Tensor, codewords: torch.Tensor,
 
     The strided ``x`` lets the caller pass the branch view of an [n, nb*f]
     activation table without a transposing copy."""
-    global launches
+    global launches, launches_wide
     _build.check_operands("vq_assign", {"x": (torch.float32, "strided"),
                                         "codewords": torch.float32},
                           x=x, codewords=codewords)
@@ -62,20 +73,27 @@ def vq_assign_cuda(x: torch.Tensor, codewords: torch.Tensor,
     k = codewords.shape[1]
     if x.stride(2) != 1 and f > 1:
         raise ValueError("vq_assign: x rows must have unit element stride")
-    if not 1 <= f <= MAX_F:
-        raise ValueError(f"vq_assign: branch width f={f} outside the "
-                         f"kernel's 1..{MAX_F}")
-    if k < 1 or smem_bytes(k, f) > SMEM_LIMIT:
-        raise ValueError(f"vq_assign: k={k} codewords of width {f} do not "
-                         f"fit one block's shared memory ({SMEM_LIMIT} B)")
+    check_width("vq_assign", k, f)
+    wide = uses_wide(k, f)
     out = torch.empty((nb, n), dtype=torch.int32, device=x.device)
     mind = torch.empty((nb, n), dtype=torch.float32, device=x.device) \
         if want_min else None
     if nb > 0 and n > 0:
-        err = _build.library().repro_vq_assign_f32(
+        lib = _build.library()
+        # the wide build's scratch: the codewords' |c|^2
+        cn2 = torch.empty((nb, k), dtype=torch.float32, device=x.device) \
+            if wide else None
+        entry, scratch = (lib.repro_vq_assign_wide_f32, (cn2.data_ptr(),)) \
+            if wide else (lib.repro_vq_assign_f32, ())
+        err = entry(
             x.data_ptr(), x.stride(0), x.stride(1), codewords.data_ptr(),
-            out.data_ptr(), mind.data_ptr() if want_min else None, nb, n, k,
-            f, torch.cuda.current_stream(x.device).cuda_stream)
+            *scratch, out.data_ptr(), mind.data_ptr() if want_min else None,
+            nb, n, k, f, torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(err, "vq_assign")
         launches += 1
+        launches_wide += wide
+        if wide:
+            key = (nb, n, k, f)
+            launches_wide_by_shape[key] = \
+                launches_wide_by_shape.get(key, 0) + 1
     return (out, mind) if want_min else out

@@ -17,6 +17,15 @@ and then every codeword whose approximate distance is at most
 assignment and qerr are the plain version's bit for bit;
 :func:`candidate_bound` and :func:`norm_cap` are the kernel's bounds, kept
 here for the CPU emulation that tests them (``tests/test_torch_vq_scan.py``).
+
+Two builds of the scan.  The narrow one holds a row in registers and the
+branch's whole codebook in shared memory (f <= 32, k (f + 1) * 4 bytes);
+the wide one (:func:`uses_wide`: f > 32, or a codebook too large for that)
+streams tiles of codewords past tiles of 64 rows and takes any f up to
+``WIDE_MAX_F`` and any k.  Its bound E adds the plain version's rounding at
+that width (``candidate_bound(wide=True)``).  ``launches_wide`` counts the
+counted launches that took the wide build, ``launches_wide_by_shape`` the
+same launches by operand shape, ``(nb, n, k, f, emit)``.
 """
 from __future__ import annotations
 
@@ -27,6 +36,8 @@ from repro_torch.kernels import _build
 
 launches = 0
 launches_u8 = 0
+launches_wide = 0
+launches_wide_by_shape: dict[tuple, int] = {}
 
 # narrow emit dtypes and the largest k each can index (int32: any k);
 # signed int4 would wrap ids 8..15, so it is absent, as in the reference
@@ -49,11 +60,16 @@ def check_emit(emit_dtype, k: int) -> str:
             + (" or uint8 (k <= 256)" if emit == "uint4" else ""))
     return emit
 
-MAX_F = 32                    # widest branch the kernel holds in registers
-# dynamic shared memory one H100 block may use: the kernel stages a
+MAX_F = 32                    # widest branch the narrow build holds
+# dynamic shared memory one H100 block may use: the narrow build stages a
 # branch's [k, f] codewords and their [k] squared norms, k (f + 1) * 4
 # bytes (k <= 2,641 at f 21), and its warps' rows where they fit beside
 SMEM_LIMIT = 232448
+# the wide build (csrc/vq_update.cuh: kWideMaxF, kWideBM, WideMisc): rows
+# a tile, and a block's bookkeeping beside its row and codeword tiles
+WIDE_MAX_F = 440
+WIDE_BM = 64
+WIDE_MISC_BYTES = 4392
 # the scan's bound: allowance per tensor-core accumulation, relative to the
 # magnitudes it adds, and the floor for products a tensor core may flush
 TC_EPS = 2.0 ** -20
@@ -63,25 +79,64 @@ NORM_UP = 1.0 + 2.0 ** -14
 DISC_SLACK = 2.0 ** -16
 
 
-def candidate_bound(x_norm, c_max, f: int):
+# the wide build's margins of norm_cap (kWideUp): the plain version's
+# rounding rho = (2f + 3) 2^-24 reaches 2^-14.2 at WIDE_MAX_F
+WIDE_UP = 1.0 + 2.0 ** -12
+
+
+def candidate_bound(x_norm, c_max, f: int, wide: bool = False):
     """E(x) of ``csrc/vq_update.cuh``: an upper bound on |d~ - d| for every
     codeword of a branch, d the plain version's fp32 distance, d~ the
-    tensor cores' (at most 3 * ceil(f / 8) mma accumulations; ``vq_assign``'s
-    f 4 scan takes two), for rows of norm ``x_norm`` against codewords of
-    norm at most ``c_max``."""
+    tensor cores' (3 * ceil(f / 8) mma accumulations in both builds;
+    ``vq_assign``'s f 4 scan takes two), for rows of norm ``x_norm`` against
+    codewords of norm at most ``c_max``.  The narrow build's allowance of 6
+    covers the split and the plain version's own rounding up to f 32; the
+    wide build adds ceil((2f + 3) / 16) for that rounding at any f."""
     n_mma = 3 * -(-f // 8)
-    return (n_mma + 6) * TC_EPS * (c_max * c_max + 4 * x_norm * c_max) \
+    coef = n_mma + 6 + (-(-(2 * f + 3) // 16) if wide else 0)
+    return coef * TC_EPS * (c_max * c_max + 4 * x_norm * c_max) \
         + TINY * (1 + x_norm + c_max)
 
 
-def norm_cap(x_norm: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+def norm_cap(x_norm: torch.Tensor, u: torch.Tensor,
+             wide: bool = False) -> torch.Tensor:
     """r of ``csrc/vq_update.cuh``: no codeword of norm above it has a plain
     fp32 distance of at most ``u`` to a row of norm ``x_norm``, with the
-    kernel's margins."""
-    b = x_norm * NORM_UP
+    kernel's margins (the wide build's wider ones with ``wide``)."""
+    up, slack = (WIDE_UP, WIDE_UP - 1.0) if wide else (NORM_UP, DISC_SLACK)
+    b = x_norm * up
     bb = b * b
     return (b + torch.sqrt(torch.clamp(bb + u, min=0.0)
-                           + DISC_SLACK * (bb + u.abs()))) * NORM_UP
+                           + slack * (bb + u.abs()))) * up
+
+
+def wide_smem_bytes(f: int, bn: int) -> int:
+    """Shared memory of a wide-build block (``wide_smem``): 64 staged rows
+    and two tiles of ``bn`` codewords at a stride of f rounded up to 8,
+    plus 4 floats, their tiles' |c|^2 and the bookkeeping."""
+    stride = -(-f // 8) * 8 + 4
+    return (WIDE_BM + 2 * bn) * stride * 4 + 2 * bn * 4 + WIDE_MISC_BYTES
+
+
+def smem_bytes(k: int, f: int) -> int:
+    """Shared memory the narrow build stages for one branch: its [k, f]
+    codewords and their [k] squared norms."""
+    return 4 * k * (f + 1)
+
+
+def uses_wide(k: int, f: int, smem=smem_bytes) -> bool:
+    """Whether the scan at (k, f) takes the wide build: a branch wider than
+    the narrow build's registers, or a codebook beyond its shared memory,
+    ``smem(k, f)`` bytes for the kernel at hand (``vq_assign`` stages
+    more at f 4)."""
+    return f > MAX_F or smem(k, f) > SMEM_LIMIT
+
+
+def check_width(kernel: str, k: int, f: int) -> None:
+    """Raise for a shape that neither build takes."""
+    if not 1 <= f <= WIDE_MAX_F or k < 1:
+        raise ValueError(f"{kernel}: branch width f={f} (k={k}) outside the "
+                         f"kernel's 1..{WIDE_MAX_F} (k >= 1)")
 
 
 def vq_assign_update_cuda(x: torch.Tensor, codewords: torch.Tensor,
@@ -95,21 +150,23 @@ def vq_assign_update_cuda(x: torch.Tensor, codewords: torch.Tensor,
     statistics are added with atomics into buffers zeroed here: counts are
     exact, sums depend on the order of the adds."""
     narrow = check_emit(emit_dtype, codewords.shape[1]) != "int32"
-    return _run("repro_vq_update_u8_f32" if narrow else "repro_vq_update_f32",
-                x, codewords, count=True)
+    wide = uses_wide(codewords.shape[1], codewords.shape[-1])
+    return _run(f"repro_vq_update{'_wide' if wide else ''}"
+                f"{'_u8' if narrow else ''}_f32", x, codewords, count=True)
 
 
 def vq_assign_update_generic_cuda(x: torch.Tensor, codewords: torch.Tensor
                                   ) -> tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor, torch.Tensor]:
-    """The same function through the kernel's generic-width instantiation,
-    whatever f is: for timing it against the fixed-width builds.  No path
-    of the package calls it, and ``launches`` does not count it."""
+    """The same function through the narrow build's generic-width
+    instantiation, whatever f <= 32 is: for timing it against the
+    fixed-width builds.  No path of the package calls it, and ``launches``
+    does not count it."""
     return _run("repro_vq_update_generic_f32", x, codewords, count=False)
 
 
 def _run(entry: str, x: torch.Tensor, codewords: torch.Tensor, count: bool):
-    global launches, launches_u8
+    global launches, launches_u8, launches_wide
     _build.check_operands("vq_update", {"x": torch.float32,
                                         "codewords": torch.float32},
                           x=x, codewords=codewords)
@@ -121,14 +178,15 @@ def _run(entry: str, x: torch.Tensor, codewords: torch.Tensor, count: bool):
                          f"{tuple(codewords.shape)}")
     nb, n, f = x.shape
     k = codewords.shape[1]
-    if not 1 <= f <= MAX_F:
-        raise ValueError(f"vq_update: branch width f={f} outside the "
-                         f"kernel's 1..{MAX_F}")
-    if k < 1 or (k * (f + 1) * 4) > SMEM_LIMIT:
-        raise ValueError(f"vq_update: k={k} codewords of width {f} do not "
-                         f"fit one block's shared memory ({SMEM_LIMIT} B)")
+    wide = "_wide" in entry
+    if wide:
+        check_width("vq_update", k, f)
+    elif not 1 <= f <= MAX_F or k < 1 or uses_wide(k, f):
+        raise ValueError(f"vq_update: the narrow build takes f <= {MAX_F} "
+                         f"and a codebook in one block's shared memory "
+                         f"({SMEM_LIMIT} B); got k={k}, f={f}")
     dev = x.device
-    narrow = entry == "repro_vq_update_u8_f32"
+    narrow = "_u8" in entry
     idx = torch.empty((nb, n), dtype=torch.uint8 if narrow else torch.int32,
                       device=dev)
     qerr = torch.empty((nb, n), dtype=torch.float32, device=dev)
@@ -136,11 +194,19 @@ def _run(entry: str, x: torch.Tensor, codewords: torch.Tensor, count: bool):
     sums = torch.zeros((nb, k, f), dtype=torch.float32, device=dev)
     if nb == 0 or n == 0:
         return idx, qerr, counts, sums
+    # the wide build's scratch: the codewords' |c|^2, filled by the launch
+    cn2 = torch.empty((nb, k), dtype=torch.float32, device=dev) if wide \
+        else None
+    scratch = (cn2.data_ptr(),) if wide else ()
     err = getattr(_build.library(), entry)(
-        x.data_ptr(), codewords.data_ptr(), idx.data_ptr(), qerr.data_ptr(),
-        counts.data_ptr(), sums.data_ptr(), nb, n, k, f,
+        x.data_ptr(), codewords.data_ptr(), *scratch, idx.data_ptr(),
+        qerr.data_ptr(), counts.data_ptr(), sums.data_ptr(), nb, n, k, f,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "vq_update")
     launches += count
     launches_u8 += count and narrow
+    launches_wide += count and wide
+    if count and wide:
+        key = (nb, n, k, f, "uint8" if narrow else "int32")
+        launches_wide_by_shape[key] = launches_wide_by_shape.get(key, 0) + 1
     return idx, qerr, counts, sums

@@ -3,6 +3,7 @@ traffic-shaped service (torch twin of ``repro.launch.serve_gnn``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --n 169343 \
         --hidden 128 --layers 3 --k 1024 --batch 256 --requests 200 \
+        [--backbone {gcn,sage,gat,gin,transformer}] \
         [--precision {fp32,int8,fp8,int8+a4,fp8+a4}] [--device cpu] \
         [--json out.json]
 
@@ -26,9 +27,10 @@ tables (k <= 256), nibble-packed under the '+a4' tiers (k <= 16), and an
 int8 / fp8 codeword snapshot -- and the report's ``vq_state_bytes`` counts
 the tables and snapshots the kernels read.
 
-Not in this slice (each raises, naming the slice that brings it):
-``--mesh`` / ``--shard-graph`` and the ``gat`` / ``transformer``
-backbones.
+Every backbone serves, GAT and the Graph Transformer from dense f32
+codewords (their layers read no quantized snapshot).  Not in this slice
+(it raises, naming the slice that brings it): ``--mesh`` /
+``--shard-graph``.
 """
 from __future__ import annotations
 

@@ -63,23 +63,45 @@ class GNNConfig(NamedTuple):
         return dims
 
     def layer_codebook_cfg(self) -> CodebookConfig:
+        if self.backbone == "transformer":
+            # the dense learnable convolution needs full-width codewords
+            return self.codebook._replace(f_prod=1 << 30)
         return self.codebook
 
 
+_ATTENTION = ("gat", "transformer")
+
+
+def _widen(cfg: GNNConfig, fo: int) -> int:
+    """An attention layer's output widened to a multiple of the heads (a
+    widened last layer emits extra logits, as in the reference)."""
+    return -(-fo // cfg.heads) * cfg.heads if cfg.backbone in _ATTENTION \
+        else fo
+
+
 def _layer_out_dims(cfg: GNNConfig) -> list[tuple[int, int]]:
-    """(f_in, f_out) of every layer (GAT/Transformer head widening is not
-    part of this slice: ``backbone`` rejects those backbones first)."""
+    """(f_in, f_out) of every layer, GAT / Transformer outputs widened to
+    a multiple of the heads and each layer's input the widened output
+    before it."""
     backbone(cfg.backbone)
-    return cfg.layer_dims()
+    dims, f = [], cfg.f_in
+    for _, fo in cfg.layer_dims():
+        dims.append((f, _widen(cfg, fo)))
+        f = dims[-1][1]
+    return dims
 
 
 def init_gnn(cfg: GNNConfig, generator: Optional[torch.Generator] = None,
              *, device: str | torch.device = "cuda") -> list[Params]:
     """Random parameters from ``generator`` (drawn on the CPU, so a seed
-    gives the same weights on every device)."""
+    gives the same weights on every device).  GAT / Transformer outputs
+    are widened to a multiple of the heads; each layer's input stays
+    ``layer_dims``', as in the reference (the two differ only where
+    ``hidden`` is not a multiple of the heads)."""
     dev = resolve_device(device)
     bk = backbone(cfg.backbone)
-    return [bk.init(fi, fo, heads=cfg.heads, generator=generator, device=dev)
+    return [bk.init(fi, _widen(cfg, fo), heads=cfg.heads,
+                    generator=generator, device=dev)
             for fi, fo in cfg.layer_dims()]
 
 

@@ -29,8 +29,9 @@ Each trainer returns the reference's result dict (history of val/test
 metrics, params, the Table 3 memory model, ...) plus the per-step losses
 and the per-epoch wall seconds (the sampler's split into host sampling,
 packing and device steps).  Every entry point runs on the card unless
-``device="cpu"`` is passed.  The link task and the GAT / Transformer
-backbones raise, naming the slice of the port that brings them.
+``device="cpu"`` is passed.  Every backbone of ``BACKBONES`` (GCN, SAGE,
+GIN, GAT, the Graph Transformer) runs through each of them; the link task
+raises, naming the slice of the port that brings it.
 """
 from __future__ import annotations
 
@@ -385,8 +386,8 @@ def train_scenario(g: Graph, cfg: GNNConfig, method: Optional[str] = None,
     ``REPRO_SCALE_METHOD`` (default "vq").  Knobs not passed are read from
     ``REPRO_SAMPLER_FANOUT`` (5), ``REPRO_WALK_LENGTH`` (3),
     ``REPRO_N_PARTS`` (32) and ``REPRO_HYBRID_CTX`` (``batch_size``);
-    other ``knobs`` go to the trainer.  GAT, the Graph Transformer and
-    the link task raise, naming their slice."""
+    other ``knobs`` go to the trainer.  The link task raises, naming its
+    slice."""
     method = method or os.environ.get("REPRO_SCALE_METHOD", "vq")
     if method not in SCALE_METHODS:
         raise ValueError(f"unknown scale method {method!r}; expected one "

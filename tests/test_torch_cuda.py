@@ -198,9 +198,9 @@ def test_kernel_wrappers_reject_bad_operands(cuda):
         tsp.spmm_ell_cuda(idx, val, x)
     with pytest.raises(ValueError, match="contiguous"):
         tsp.spmm_ell_cuda(idx.int(), val, x.t())
-    with pytest.raises(ValueError, match="shared memory"):
-        tva.vq_assign_cuda(torch.zeros((1, 4, 32), device=cuda),
-                           torch.zeros((1, 4096, 32), device=cuda))
+    with pytest.raises(ValueError, match="outside"):
+        tva.vq_assign_cuda(torch.zeros((1, 4, 441), device=cuda),
+                           torch.zeros((1, 16, 441), device=cuda))
 
 
 # ---------------------------------------------------------------------------
@@ -247,11 +247,15 @@ def test_vq_update_kernel_vs_plain(cuda, nb, n, k, f):
 @pytest.mark.gpu
 def test_vq_update_dynamic_shared_memory(cuda):
     """k = 2048 codewords of width 21 take 180 KiB of shared memory per
-    block (the opt-in above 48 KiB); too large a table is refused."""
+    block (the opt-in above 48 KiB); a table too large for that takes the
+    wide build, and a width no build takes is refused."""
     _vq_update_case(cuda, 2, 1000, 2048, 21, seed=5)
-    with pytest.raises(ValueError, match="shared memory"):
-        tvu.vq_assign_update_cuda(torch.zeros((1, 4, 32), device=cuda),
-                                  torch.zeros((1, 4096, 32), device=cuda))
+    before = tvu.launches_wide
+    _vq_update_case(cuda, 1, 300, 4096, 32, seed=6)
+    assert tvu.launches_wide == before + 1
+    with pytest.raises(ValueError, match="outside"):
+        tvu.vq_assign_update_cuda(torch.zeros((1, 4, 441), device=cuda),
+                                  torch.zeros((1, 16, 441), device=cuda))
 
 
 @pytest.mark.gpu
@@ -1300,7 +1304,11 @@ def test_sampler_step_cuda_vs_cpu(cuda):
 
 def _assert_vq_update_exact(x, cw, emit=torch.int32):
     """idx and qerr bit-equal to the plain version on the card, counts
-    equal, sums within the scatter bound."""
+    equal, sums within the scatter bound of the exact (float64) sums: a
+    sum of c terms in any order is within c 2^-24 sum |term| of them,
+    while two fp32 sums in different orders -- the kernel's and the plain
+    version's -- may differ by twice that (the wide build's reached 1.045
+    times it on near-tie codebooks, on an H100 80GB HBM3 at 700 W)."""
     got = tvu.vq_assign_update_cuda(x, cw, emit)
     want = tref.vq_assign_update(x, cw, emit)
     torch.cuda.synchronize()
@@ -1314,7 +1322,10 @@ def _assert_vq_update_exact(x, cw, emit=torch.int32):
             ).reshape(-1)
     terms_abs = torch.zeros((nb * k, f), device=x.device).index_add_(
         0, flat, x.abs().reshape(-1, f)).reshape(nb, k, f)
-    assert_scatter_close(got[3].cpu(), want[3].cpu(), terms_abs.cpu(),
+    exact = torch.zeros((nb * k, f), dtype=torch.float64,
+                        device=x.device).index_add_(
+        0, flat, x.double().reshape(-1, f)).reshape(nb, k, f)
+    assert_scatter_close(got[3].cpu().double(), exact.cpu(), terms_abs.cpu(),
                          want[2][..., None].cpu().numpy())
 
 
@@ -1743,3 +1754,103 @@ def test_table_layout_on_the_card(cuda, tab, tier):
     assert torch.equal(buf(got.assignment).cpu(), buf(want.assignment))
     assert torch.equal(got.counts.cpu(), want.counts)
     assert buf(convert.to_device(got, "cpu").assignment).is_contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the wide build of the scan (f > 32, or a codebook beyond the narrow
+# build's shared memory): odd widths, k across its 64- and 32-codeword
+# tiles, strided rows, near ties
+# ---------------------------------------------------------------------------
+
+WIDE_F = [33, 65, 129, 256, 300]
+WIDE_K = [1, 511, 513, 1024, 2049]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", WIDE_F)
+@pytest.mark.parametrize("k", WIDE_K)
+def test_vq_update_wide_vs_plain(cuda, f, k):
+    """idx and qerr bit-equal, counts equal, sums within the scatter bound,
+    n not a multiple of the 64-row tile; the launch takes the wide build
+    and is counted at its shape."""
+    g = torch.Generator().manual_seed(f * k)
+    x = torch.randn((2, 701, f), generator=g).to(cuda)
+    cw = torch.randn((2, k, f), generator=g).to(cuda)
+    key = (2, 701, k, f, "int32")
+    before = tvu.launches_wide, tvu.launches_wide_by_shape.get(key, 0)
+    _assert_vq_update_exact(x, cw)
+    assert (tvu.launches_wide, tvu.launches_wide_by_shape[key]) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", WIDE_F)
+@pytest.mark.parametrize("k", WIDE_K)
+def test_vq_assign_wide_vs_plain_on_a_branch_view(cuda, f, k):
+    """Index and want_min bit-equal, rows read through the branch view of
+    an [n, nb * f] table."""
+    g = torch.Generator().manual_seed(f + k)
+    nb, n = 3, 517
+    table = torch.randn((n, nb * f), generator=g).to(cuda)
+    xv = table.reshape(n, nb, f).transpose(0, 1)
+    cw = torch.randn((nb, k, f), generator=g).to(cuda)
+    key = (nb, n, k, f)
+    before = tva.launches_wide, tva.launches_wide_by_shape.get(key, 0)
+    got, gmin = tva.vq_assign_cuda(xv, cw, want_min=True)
+    want, wmin = tref.vq_assign(xv, cw, want_min=True)
+    torch.cuda.synchronize()
+    assert (tva.launches_wide, tva.launches_wide_by_shape[key]) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want), \
+        f"{int((got != want).sum())} assignments differ"
+    assert torch.equal(gmin, wmin)
+    assert torch.equal(tva.vq_assign_cuda(xv, cw), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [43, 65, 168, 256])
+@pytest.mark.parametrize("n,k", [(3001, 1024), (130, 37), (700, 2049)])
+def test_wide_near_ties_bit_equal(cuda, f, n, k):
+    """Duplicated codewords, 1-ulp neighbours, equidistant and large-norm
+    rows: most rows queue and are rescored; both kernels bit-equal."""
+    x, cw = _near_tie_codebook(2, n, k, f, n + k + f, cuda)
+    _assert_vq_update_exact(x, cw)
+    table = x.transpose(0, 1).reshape(n, 2 * f).contiguous()
+    xv = table.reshape(n, 2, f).transpose(0, 1)
+    got, gmin = tva.vq_assign_cuda(xv, cw, want_min=True)
+    want, wmin = tref.vq_assign(xv, cw, want_min=True)
+    assert torch.equal(got, want)
+    assert torch.equal(gmin, wmin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [65, 256])
+def test_wide_every_row_on_one_codeword(cuda, f):
+    """The collapsed codebook at the wide widths: one codeword takes every
+    row; the chained statistics stay exact in count."""
+    g = torch.Generator().manual_seed(f)
+    cw = torch.randn((2, 1024, f), generator=g)
+    x = torch.randn((2, 1, f), generator=g).expand(2, 9000, f).contiguous()
+    got = tvu.vq_assign_update_cuda(x.to(cuda), cw.to(cuda))
+    assert bool((got[2].max(dim=1).values == 9000).all())
+    _assert_vq_update_exact(x.to(cuda), cw.to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("emit,k", [(torch.uint8, 256), (torch.uint8, 37),
+                                    ("uint4", 16)])
+def test_vq_update_wide_narrow_emit(cuda, emit, k):
+    """The uint8 emit of the wide build: the int32 build's ids, qerr and
+    counts, counted in ``launches_u8``; near ties bit-equal."""
+    x, cw = _near_tie_codebook(4, 2001, k, 65, k, cuda)
+    before = (tvu.launches_u8, tvu.launches_wide)
+    narrow = tvu.vq_assign_update_cuda(x, cw, emit)
+    wide = tvu.vq_assign_update_cuda(x, cw)
+    torch.cuda.synchronize()
+    assert (tvu.launches_u8, tvu.launches_wide) == (before[0] + 1,
+                                                    before[1] + 2)
+    assert narrow[0].dtype == torch.uint8
+    assert torch.equal(narrow[0].int(), wide[0])
+    assert torch.equal(narrow[1], wide[1]) and torch.equal(narrow[2],
+                                                           wide[2])
+    _assert_vq_update_exact(x, cw, emit)

@@ -358,14 +358,37 @@ def test_unported_options_raise(gcn, graphs):
     from repro_torch.launch import serve_gnn
     w = gcn
     for argv, match in [(["--mesh", "2"], "multi-device"),
-                        (["--shard-graph"], "multi-device"),
-                        (["--backbone", "gat"], "GAT/Transformer"),
-                        (["--backbone", "transformer"], "GAT/Transformer")]:
+                        (["--shard-graph"], "multi-device")]:
         with pytest.raises(NotImplementedError, match=match):
             serve_gnn.main(["--n", "300", "--device", "cpu", *argv])
     with pytest.raises(NotImplementedError, match="link-task"):
         tgnn.vq_train_step(w.tparams, w.tvq, None, None, None, None, None,
                            w.tcfg._replace(task="link"), None)
+
+
+@pytest.mark.parametrize("backbone", ["gat", "transformer"])
+def test_serve_attention_backbones_on_cpu(graphs, backbone):
+    """GAT and the Graph Transformer serve: the refresh and the served rows
+    of the port's server against the reference's, from the same state,
+    then ``serve_gnn --backbone`` end to end on the CPU."""
+    from repro.launch.serve_gnn import GNNServer as JServer
+    from repro_torch.launch import serve_gnn
+    w = _World(*graphs, backbone)
+    jserver = JServer(w.jg, w.jcfg, w.jparams, w.jvq, batch=64)
+    server = serve_gnn.GNNServer(w.tg, w.tcfg, w.tparams, w.tvq, batch=64,
+                                 device=CPU)
+    jserver.refresh()
+    assert server.refresh() > 0
+    for a, b in zip(server.vq, jserver.vq):
+        assert np.array_equal(a.assignment.numpy(), np.asarray(b.assignment))
+    req = np.random.default_rng(2).integers(0, w.jg.n, 90)
+    out = server.serve(req)
+    assert out.shape == (90, w.tcfg.n_out)
+    assert_allclose(out, jserver.serve(req), **MULTI)
+    rep = serve_gnn.main(["--n", "300", "--hidden", "16", "--k", "16",
+                          "--batch", "64", "--requests", "6", "--backbone",
+                          backbone, "--device", "cpu"])
+    assert rep["backbone"] == backbone and rep["requests"] == 6
 
 
 # ---------------------------------------------------------------------------

@@ -796,7 +796,7 @@ def test_train_scenario_runs_every_scale_method(graphs, backbone):
 
 
 def test_train_scenario_env_default_and_refusals(graphs, monkeypatch):
-    from repro_torch.runtime import BACKBONE_SLICE, LINK_SLICE
+    from repro_torch.runtime import LINK_SLICE
     _, tg = graphs
     _, tcfg = _cfgs("gcn")
     monkeypatch.setenv("REPRO_SCALE_METHOD", "labor")
@@ -808,10 +808,6 @@ def test_train_scenario_env_default_and_refusals(graphs, monkeypatch):
     with pytest.raises(ValueError, match="unknown scale method"):
         ttrain.train_scenario(tg, tcfg, epochs=1, batch_size=150,
                               device=CPU)
-    for bk in ("gat", "transformer"):
-        with pytest.raises(NotImplementedError, match=BACKBONE_SLICE):
-            ttrain.train_scenario(tg, tcfg._replace(backbone=bk), "vq",
-                                  epochs=1, batch_size=150, device=CPU)
     link = tcfg._replace(task="link")
     for method in ttrain.SCALE_METHODS:
         if method == "hybrid":        # node-task only, as in the reference
@@ -825,6 +821,19 @@ def test_train_scenario_env_default_and_refusals(graphs, monkeypatch):
     with pytest.raises(ValueError, match="unknown sampler"):
         ttrain.train_sampler(tg, tcfg, "metropolis", epochs=1,
                              batch_size=64, device=CPU)
+
+
+@pytest.mark.parametrize("backbone", ["gat", "transformer"])
+def test_train_scenario_trains_attention_backbones(graphs, backbone):
+    """GAT and the Graph Transformer train one epoch through the front (the
+    VQ trainer), with finite losses and a metric."""
+    _, tg = graphs
+    _, tcfg = _cfgs(backbone)
+    r = ttrain.train_scenario(tg, tcfg._replace(heads=4), "vq", epochs=1,
+                              batch_size=150, eval_every=1, device=CPU)
+    assert r["step_losses"].shape == (4,)
+    assert np.all(np.isfinite(r["step_losses"]))
+    assert 0.0 <= r["final"]["test"] <= 1.0
 
 
 def test_scenario_registry_and_accounting_match_reference():

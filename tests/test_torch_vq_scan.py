@@ -32,6 +32,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref as tref                   # noqa: E402
 from repro_torch.kernels import vq_assign as tva              # noqa: E402
+from repro_torch.kernels import vq_update as tvu              # noqa: E402
 from repro_torch.kernels.vq_update import (TC_EPS,            # noqa: E402
                                            candidate_bound, norm_cap)
 
@@ -368,3 +369,196 @@ def test_scan_exact_and_pruned_next_to_far_out_codewords(f):
         cands = assert_scan_exact(x, cw)
         group = 2
     assert float((cands <= 2 * group).float().mean()) > 0.9
+
+
+# ---------------------------------------------------------------------------
+# the wide build (f > 32, or a codebook beyond the narrow build's shared
+# memory): codewords streamed in tiles, each row's smallest d~, its
+# codeword and the runner-up over every other codeword; the winner
+# rescored exactly gives u, and the wide bound (the plain version's own
+# rounding at width f added) settles the row or queues it for the
+# rescoring of every candidate
+# ---------------------------------------------------------------------------
+
+WIDE_HEADER = HEADER.read_text()
+
+
+def emulate_wide_scan(x: torch.Tensor, cw: torch.Tensor):
+    """The wide build's scan with the tensor cores' error set adversarially
+    (as in :func:`emulate_scan`): -> (idx, qerr, candidates per row, the
+    largest |d~ - d| / E)."""
+    nb, n, f = x.shape
+    n_mma = 3 * -(-f // 8)
+    cn2 = tref._sq_norms(cw)
+    ah, al = _split(-2.0 * x)
+    bh, bl = _split(cw)
+
+    def mm(a, b):
+        return torch.einsum("bnf,bkf->bnk", a.double(), b.double())
+    exact_sum = cn2[:, None, :].double() + mm(al, bh) + mm(ah, bl) \
+        + mm(ah, bh)
+    mag = cn2[:, None, :].double() + 2.0 * mm((2.0 * x).abs(), cw.abs())
+    allowance = n_mma * TC_EPS * mag
+    dot = torch.zeros((nb, n, cw.shape[1]), dtype=torch.float32)
+    for j in range(f):
+        dot = dot + x[:, :, j, None] * cw[:, None, :, j]
+    d = cn2[:, None, :] - 2.0 * dot
+    win = torch.argmin(d, dim=2, keepdim=True)
+    sign = -torch.ones_like(d, dtype=torch.float64)
+    sign.scatter_(2, win, 1.0)
+    dt = (exact_sum + sign * allowance).float()                # d~
+    k = dt.shape[2]
+    # per row: the smallest d~ and its (lowest) codeword, the runner-up
+    top2 = torch.topk(dt, min(2, k), dim=2, largest=False).values
+    m2 = top2[..., 1] if k > 1 else torch.full_like(top2[..., 0],
+                                                    float("inf"))
+    i1 = torch.argmin(dt, dim=2)
+    u = d.gather(2, i1[..., None])[..., 0]
+    x_norm = torch.sqrt(tref._sq_norms(x))
+    c_norm = torch.sqrt(cn2)
+    c_max = c_norm.max(dim=1).values[:, None]
+    cm = torch.minimum(c_max, norm_cap(x_norm, u, wide=True))
+    e = candidate_bound(x_norm, cm, f, wide=True)
+    thr = u + e
+    settled = torch.isfinite(thr) & (m2 > thr)
+    one = torch.zeros_like(d, dtype=torch.bool).scatter_(2, i1[..., None],
+                                                          True)
+    cand = torch.where(settled[..., None], one, ~(dt > thr[..., None]))
+    near = c_norm[:, None, :] <= cm[..., None]
+    gap = (dt.double() - d.double()).abs() / e[..., None].double()
+    ratio = float(torch.where(near, gap, torch.zeros_like(gap)).max())
+    rescored = torch.where(cand, d, torch.full_like(d, float("inf")))
+    idx = torch.argmin(rescored, dim=2)
+    best = rescored.gather(2, idx[..., None])[..., 0]
+    qerr = torch.clamp(best + tref._sq_norms(x), min=0.0)
+    return idx.to(torch.int32), qerr, cand.sum(-1), ratio
+
+
+def assert_wide_scan_exact(x, cw):
+    """idx and qerr bit-equal to ``ref.vq_assign_update``, and idx and
+    want_min to ``ref.vq_assign`` on x's branch view."""
+    x = torch.as_tensor(np.asarray(x, np.float32))
+    cw = torch.as_tensor(np.asarray(cw, np.float32))
+    idx, qerr, cands, ratio = emulate_wide_scan(x, cw)
+    assert ratio <= 1.0, f"|d~ - d| reached {ratio} x the bound"
+    want = tref.vq_assign_update(x, cw)
+    assert torch.equal(idx, want[0])
+    assert torch.equal(qerr, want[1])
+    widx, wmin = tref.vq_assign(_branch_view(x), cw, want_min=True)
+    assert torch.equal(idx, widx) and torch.equal(qerr, wmin)
+    assert bool((cands >= 1).all())
+    return cands
+
+
+def test_wide_build_mirrors_the_header():
+    """The wrapper's bound, margins and shared-memory plan are the
+    header's."""
+    assert "(float)(3 * ks_n + 6 + (2 * f + 3 + 15) / 16) * kEpsBound" \
+        in WIDE_HEADER
+    assert "constexpr float kWideUp = 1.000244140625f;" in WIDE_HEADER
+    assert 1.000244140625 == tvu.WIDE_UP
+    assert f"constexpr int kWideMaxF = {tvu.WIDE_MAX_F};" in WIDE_HEADER
+    assert f"constexpr int kWideBM = {tvu.WIDE_BM};" in WIDE_HEADER
+    assert f"sizeof(WideMisc) == {tvu.WIDE_MISC_BYTES}" in WIDE_HEADER
+    # the widest f fits a 32-codeword tile, one more does not
+    assert tvu.wide_smem_bytes(tvu.WIDE_MAX_F, 32) <= tvu.SMEM_LIMIT \
+        < tvu.wide_smem_bytes(tvu.WIDE_MAX_F + 1, 32)
+    assert tvu.wide_smem_bytes(256, 64) <= tvu.SMEM_LIMIT \
+        < tvu.wide_smem_bytes(300, 64)
+
+
+@pytest.mark.parametrize("k,f,wide", [(1024, 32, False), (1024, 21, False),
+                                      (1024, 33, True), (1024, 65, True),
+                                      (4096, 32, True), (2641, 21, False),
+                                      (2642, 21, True), (1, 440, True)])
+def test_wide_dispatch(k, f, wide):
+    """Both kernels take the wide build past f 32 or where the narrow
+    build's codebook would not fit; no build takes f > 440."""
+    assert tvu.uses_wide(k, f) == wide
+    assert tva.uses_wide(k, f) == (wide or tva.smem_bytes(k, f)
+                                   > tvu.SMEM_LIMIT)
+    tvu.check_width("vq_update", k, f)
+    with pytest.raises(ValueError, match="outside"):
+        tvu.check_width("vq_update", k, tvu.WIDE_MAX_F + 1)
+
+
+@pytest.mark.parametrize("f", [43, 65, 168, 256, 440])
+def test_wide_bound_covers_the_plain_rounding(f):
+    """E at the wide widths: 3 ceil(f / 8) accumulations as in the narrow
+    build, plus ceil((2f + 3) / 16) for the plain version's rounding
+    ((2f + 3) 2^-24 (|c|^2 + 2X), the header's (iii)); the allowance then
+    covers (i) + (ii) + (iii) with room.  The norm cap's margins cover
+    rho = (2f + 3) 2^-24."""
+    n_mma = 3 * -(-f // 8)
+    coef = candidate_bound(0.0, 1.0, f, wide=True) / TC_EPS
+    assert coef == pytest.approx(n_mma + 6 + -(-(2 * f + 3) // 16))
+    assert candidate_bound(0.0, 1.0, f) / TC_EPS == pytest.approx(n_mma + 6)
+    # per unit of 2^-20: |c|^2 terms and X terms, (i) + (ii) + (iii)
+    rounding = (2 * f + 3) / 16
+    assert n_mma + rounding <= coef
+    assert 4.02 * n_mma + 6.02 + 2 * rounding <= 4 * coef
+    rho = (2 * f + 3) * 2.0 ** -24
+    for xn, u in [(1.0, -0.5), (3.0, 2.0), (1e3, -1e6 + 1.0), (0.0, 5.0)]:
+        exact = ((1 + rho) * xn + np.sqrt((1 + rho) ** 2 * xn ** 2
+                                          + (1 - rho) * u)) / (1 - rho)
+        cap = float(norm_cap(torch.tensor(xn, dtype=torch.float32),
+                             torch.tensor(u, dtype=torch.float32),
+                             wide=True))
+        assert cap >= exact
+
+
+@pytest.mark.parametrize("f", [43, 65, 168, 256])
+@pytest.mark.parametrize("k", [37, 1024])
+def test_wide_scan_exact_on_near_ties(f, k):
+    assert_wide_scan_exact(*_near_tie_case(2, 120, k, f, seed=f * k))
+
+
+@pytest.mark.parametrize("f", [65, 256])
+def test_wide_scan_exact_with_small_codewords_and_large_rows(f):
+    x, cw = _near_tie_case(2, 100, 256, f, seed=f, scale=1e-3)
+    assert_wide_scan_exact(x * 1e3, cw)
+
+
+@pytest.mark.parametrize("f", [65, 256])
+def test_wide_scan_exact_when_every_row_is_alike(f):
+    x, cw = _near_tie_case(2, 1, 256, f, seed=3 + f)
+    assert_wide_scan_exact(np.repeat(x, 100, axis=1), cw)
+
+
+@pytest.mark.parametrize("f", [43, 65, 168, 256])
+def test_wide_scan_candidates_stay_in_the_cluster(f):
+    """Rows inside clusters of 8 codewords, with far-out codewords beside
+    (a trained codebook): as f grows E outgrows the gaps inside a cluster
+    and most rows queue, but a queued row's candidates stay inside its
+    cluster -- the norm cap keeps the far-out codewords out -- and the
+    answer stays exact."""
+    x, cw = _clustered_case(2, 200, 256, f, seed=7 * f)
+    cands = assert_wide_scan_exact(x, cw)
+    assert int(cands.max()) <= 8
+
+
+@pytest.mark.parametrize("f", [43, 65, 168, 256])
+def test_wide_scan_settles_random_rows(f):
+    """On rows with no planted ties nearly every row settles with its
+    winner alone rescored: the queue's second pass stays rare."""
+    rng = np.random.default_rng(f)
+    x = rng.standard_normal((2, 300, f)).astype(np.float32)
+    cw = rng.standard_normal((2, 1024, f)).astype(np.float32)
+    cands = assert_wide_scan_exact(x, cw)
+    assert float((cands == 1).float().mean()) > 0.95
+
+
+@settings(max_examples=30, deadline=None)
+@given(f=st.integers(33, 300), k=st.integers(1, 40), n=st.integers(1, 16),
+       seed=st.integers(0, 2 ** 31 - 1), exp=st.integers(-12, 12),
+       dup=st.booleans())
+def test_wide_scan_exact_hypothesis(f, k, n, seed, exp, dup):
+    rng = np.random.default_rng(seed)
+    cw = rng.standard_normal((1, k, f)).astype(np.float32) * np.float32(
+        2.0 ** exp)
+    if dup and k > 1:
+        cw[0, k - 1] = cw[0, 0]                       # the lowest must win
+    x = cw[0, rng.integers(0, k, n)][None] \
+        + rng.standard_normal((1, n, f)).astype(np.float32) * np.float32(
+            2.0 ** (exp - 20))
+    assert_wide_scan_exact(x.astype(np.float32), cw)
