@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--wide-parent DIR]
 
 Phases (each prints its own lines; any failure exits non-zero):
 
@@ -158,12 +158,18 @@ Phases (each prints its own lines; any failure exits non-zero):
    plain versions (idx, qerr and want_min bit for bit, counts equal,
    sums within the scatter bound) and timed beside their bounds, on the
    trained states' operands: vq_update at GAT's [4, 42335, 65] and [4,
-   42335, 43] and the Transformer's [1, 5000, 256] and [1, 5000, 168],
-   at [1, 42335, 256] on rows near the Transformer's codewords, the
-   uint8 emit at [4, 42335, 65] with 256 codewords, near-tie codebooks
-   at f 65 and f 256; vq_assign at [1, 20000, 128] and [1, 169343, 128];
-   each with the share of rows the kernel queues for its second pass,
-   estimated from the plain distances;
+   42335, 43] and the Transformer's [1, 5000, 256] and [1, 5000, 168]
+   (each also with 64- and 128-row tiles), at [1, 42335, 256] on rows
+   near the Transformer's codewords, the uint8 emit at [4, 42335, 65]
+   with 256 codewords, near-tie codebooks at f 65 and f 256; vq_assign at
+   [1, 20000, 128] and [1, 169343, 128]; each with the share of rows the
+   kernel queues for its second pass (its scratch counter, beside the
+   estimate of its rule on the plain distances) and its scratch bytes;
+   with ``--wide-parent DIR`` also an earlier tree's wide kernel (built
+   from DIR) timed beside each, in turns; then a probe of the wgmma
+   accumulation over 67 M distances (the largest error as a share of
+   the bound's allowance); the build phase prints ptxas' registers and
+   spills of the wide kernels;
 25. a ``{"kernels": [...]}`` line (the quantized and wide forms under
    each kernel's ``also``, each with its launches on the main paths --
    a wide form's at its operand shape, as the wrapper counts them, every
@@ -331,6 +337,7 @@ def phase_card() -> str:
 
 
 def phase_build() -> float:
+    import re
     from repro_torch.kernels import _build
     t0 = time.time()
     path = _build.build()
@@ -338,6 +345,17 @@ def phase_build() -> float:
     dt = time.time() - t0
     log(f"build: {path.relative_to(ROOT)} in {dt:.2f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    # ptxas' registers and spills of the wide scan's kernels
+    for src in ("vq_update", "vq_update_u8", "vq_assign"):
+        text = _build.build_log(src)
+        for m in re.finditer(
+                r"Function properties for (\S*(?:vq_wide_kernel|"
+                r"wide_prep_kernel)\S*)\n\s*(\d+) bytes stack frame, (\d+) "
+                r"bytes spill stores, (\d+) bytes spill loads\n.*?Used (\d+) "
+                r"registers", text, re.S):
+            log(f"ptxas {src}.cu {m.group(1)}: {m.group(5)} registers, "
+                f"{m.group(2)} bytes stack, {m.group(3)} / {m.group(4)} "
+                f"bytes spill stores / loads")
     return dt
 
 
@@ -2578,54 +2596,136 @@ def phase_attention_serve(server, requests, tag: str) -> tuple[dict, dict]:
     return rep, add_counts(refresh_counts, serve_counts)
 
 
-def _queued_share_est(vw, cw) -> float:
-    """The share of rows the wide build queues for a second pass, estimated
-    with its rule on the plain distances (float64; the tensor cores' d~
-    differ by at most E): a row settles when its runner-up lies above
-    u + E(|x|, min(cmax, r(u))).  An estimate: the kernel does not report
-    the rows it queues."""
+def _queued(vw, cw, launch) -> dict:
+    """The share of rows the wide build queues for its second pass: counted
+    by the kernel (its scratch counter, read after one more launch and a
+    synchronize) beside the estimate of its rule on the plain distances."""
     import torch
-    from repro_torch.kernels.vq_update import candidate_bound, norm_cap
-    nb, b, f = vw.shape
-    c = cw.double()
-    cn2 = (c * c).sum(-1)
-    cmax = cn2.max(dim=1).values.sqrt()
-    queued = 0
-    for s in range(0, b, 4096):
-        x = vw[:, s:s + 4096].double()
-        d = cn2[:, None, :] - 2 * torch.einsum("bnf,bkf->bnk", x, c)
-        top = torch.topk(d, min(2, d.shape[2]), dim=2, largest=False).values
-        u = top[..., 0]
-        xn = x.norm(dim=2)
-        cm = torch.minimum(cmax[:, None], norm_cap(xn, u, wide=True))
-        thr = u + candidate_bound(xn, cm, f, wide=True)
-        if top.shape[2] > 1:
-            queued += int((~(top[..., 1] > thr)).sum())
-    return queued / (nb * b)
+    from repro_torch.kernels import vq_update as tvu
+    launch()
+    torch.cuda.synchronize()
+    rows = vw.shape[0] * vw.shape[1]
+    return dict(queued_share=tvu.wide_queued_rows() / rows,
+                queued_share_est=tvu.queued_rows_est(vw, cw) / rows,
+                scratch_bytes=4 * tvu.last_wide_scratch.numel())
 
 
-def _wide_update_row(name: str, vw, cw, emit=None) -> dict:
+class _ParentWide:
+    """The parent tree's wide kernel (``--wide-parent DIR``: its sources
+    built into DIR/build by its own ``_build``), called as its wrappers
+    called it, for timing it beside this tree's in the same call."""
+
+    def __init__(self, root: str):
+        import importlib.util
+        path = os.path.join(root, "src", "repro_torch", "kernels",
+                            "_build.py")
+        spec = importlib.util.spec_from_file_location("parent_build", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.time()
+        self.lib = mod.library()
+        log(f"parent's kernels built from {root} in {time.time() - t0:.2f} s")
+
+    def update(self, x, cw, emit=None):
+        import torch
+        nb, n, f = x.shape
+        k = cw.shape[1]
+        u8 = emit == torch.uint8
+        idx = torch.empty((nb, n), dtype=torch.uint8 if u8 else torch.int32,
+                          device=x.device)
+        qerr = torch.empty((nb, n), device=x.device)
+        counts = torch.zeros((nb, k), device=x.device)
+        sums = torch.zeros((nb, k, f), device=x.device)
+        cn2 = torch.empty((nb, k), device=x.device)
+        entry = self.lib.repro_vq_update_wide_u8_f32 if u8 \
+            else self.lib.repro_vq_update_wide_f32
+        err = entry(x.data_ptr(), cw.data_ptr(), cn2.data_ptr(),
+                    idx.data_ptr(), qerr.data_ptr(), counts.data_ptr(),
+                    sums.data_ptr(), nb, n, k, f,
+                    torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"parent's wide vq_update failed: {err}")
+        return idx, qerr, counts, sums
+
+    def assign(self, x, cw):
+        import torch
+        nb, n, f = x.shape
+        k = cw.shape[1]
+        out = torch.empty((nb, n), dtype=torch.int32, device=x.device)
+        mind = torch.empty((nb, n), device=x.device)
+        cn2 = torch.empty((nb, k), device=x.device)
+        err = self.lib.repro_vq_assign_wide_f32(
+            x.data_ptr(), x.stride(0), x.stride(1), cw.data_ptr(),
+            cn2.data_ptr(), out.data_ptr(), mind.data_ptr(), nb, n, k, f,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"parent's wide vq_assign failed: {err}")
+        return out, mind
+
+
+WIDE_PARENT: "_ParentWide | None" = None
+
+
+def _beside_parent(row: dict, name: str, kernel, parent, same) -> None:
+    """Time the parent's kernel beside this one, in turns (parent, kernel,
+    kernel, parent), after checking that both give the same assignment."""
+    import torch
+    if WIDE_PARENT is None:
+        return
+    if not same(kernel(), parent()):
+        raise SystemExit(f"{name}: the parent's wide kernel gives another "
+                         f"assignment")
+    torch.cuda.synchronize()
+    p1 = cuda_ms(parent, 5, inner=4)[0]
+    k1 = cuda_ms(kernel, 5, inner=4)[0]
+    k2 = cuda_ms(kernel, 5, inner=4)[0]
+    p2 = cuda_ms(parent, 5, inner=4)[0]
+    row.update(parent_ms=[p1, p2], ms_beside_parent=[k1, k2])
+    log(f"{name}: parent's kernel {p1:.4f} / {p2:.4f} ms, this one "
+        f"{k1:.4f} / {k2:.4f} ms (parent, kernel, kernel, parent)")
+
+
+def _wide_update_row(name: str, vw, cw, emit=None, tiles: bool = False
+                     ) -> dict:
     """A vq_update row of the wide build: ``_vq_update_row``'s checks and
-    times, the estimated share of rows queued for the second pass, and
-    its operand shape's key in ``read_counts()["shapes"]``, by which the
+    times, the share of rows queued for the second pass (counted and
+    estimated), the scratch bytes, the parent's kernel timed beside it
+    (``--wide-parent``), with ``tiles`` both row tilings timed, and its
+    operand shape's key in ``read_counts()["shapes"]``, by which the
     kernels line gives it the launches the main paths made at that
     shape."""
     import torch
-    row = _vq_update_row(name, vw.contiguous(), cw.contiguous(), emit=emit)
+    from repro_torch.kernels import vq_update as tvu
+    vw, cw = vw.contiguous(), cw.contiguous()
+    row = _vq_update_row(name, vw, cw, emit=emit)
     nb, n, f = vw.shape
+    emit_ = torch.int32 if emit is None else emit
     row.update(form="wide" if emit is None else "wide uint8 emit",
-               queued_share_est=_queued_share_est(vw, cw),
                shape=shape_key("vq_update", nb, n, cw.shape[1], f,
-                               "uint8" if emit == torch.uint8 else "int32"))
-    log(f"{name}: {row['queued_share_est']:.4f} of the rows queued for the "
-        f"second pass (estimated from the plain distances)")
+                               "uint8" if emit == torch.uint8 else "int32"),
+               **_queued(vw, cw,
+                         lambda: tvu.vq_assign_update_cuda(vw, cw, emit_)))
+    if tiles:
+        row["ms_by_row_tile"] = {
+            64 * wgs: cuda_ms(lambda: tvu.vq_assign_update_wide_tiles_cuda(
+                vw, cw, wgs), 5, inner=4)[0] for wgs in (1, 2)}
+        log(f"{name}: 64-row tiles {row['ms_by_row_tile'][64]:.4f} ms, "
+            f"128-row tiles {row['ms_by_row_tile'][128]:.4f} ms")
+    _beside_parent(row, name, lambda: tvu.vq_assign_update_cuda(vw, cw, emit_),
+                   lambda: WIDE_PARENT.update(vw, cw, emit_),
+                   lambda a, b: torch.equal(a[0], b[0])
+                   and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]))
+    log(f"{name}: {row['queued_share']:.4f} of the rows queued for the "
+        f"second pass (counted; {row['queued_share_est']:.4f} estimated "
+        f"from the plain distances), scratch {row['scratch_bytes']} bytes")
     return row
 
 
 def _wide_assign_row(name: str, x, cw) -> dict:
     """vq_assign's wide build against its plain version (index and
-    want_min bit for bit), timed, with its bounds, estimated queued share
-    and operand shape's key in ``read_counts()["shapes"]``."""
+    want_min bit for bit), timed, with its bounds, queued share (counted
+    and estimated), the parent's kernel beside it and operand shape's key
+    in ``read_counts()["shapes"]``."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.vq_assign import vq_assign_cuda
@@ -2648,15 +2748,74 @@ def _wide_assign_row(name: str, x, cw) -> dict:
                tensor_bound_ms=tc_ms,
                plain_ms=cuda_ms(lambda: ref.vq_assign(x, cw, want_min=True),
                                 3, inner=1)[0],
-               library_ms=None, queued_share_est=_queued_share_est(x, cw),
+               library_ms=None,
+               **_queued(x, cw, lambda: vq_assign_cuda(x, cw, want_min=True)),
                shape=shape_key("vq_assign", nb, n, k, f),
                at=f"x=[{nb}, {n}, {f}] cw=[{nb}, {k}, {f}] {name}")
+    _beside_parent(row, f"vq_assign wide {name}",
+                   lambda: vq_assign_cuda(x, cw, want_min=True),
+                   lambda: WIDE_PARENT.assign(x, cw),
+                   lambda a, b: torch.equal(a[0], b[0])
+                   and torch.equal(a[1], b[1]))
     log(f"vq_assign wide {row['at']}: idx and want_min bit-equal  kernel "
         f"{ms:.4f} ms (one call {call_ms:.4f} ms)  plain "
         f"{row['plain_ms']:.4f} ms  bound {bms:.4f} ms ({by}; 3xTF32 "
         f"products {tc_ms:.4f} ms)  library none  "
-        f"{row['queued_share_est']:.4f} of the rows queued (estimated)")
+        f"{row['queued_share']:.4f} of the rows queued (counted; "
+        f"{row['queued_share_est']:.4f} estimated), scratch "
+        f"{row['scratch_bytes']} bytes")
     return row
+
+
+def _wgmma_probe(gen) -> dict:
+    """The tensor cores' accumulation on the wide scan's wgmma path: d~ of
+    4 x 16,384 rows x 1,024 codewords at f 65 (67 M distances: random,
+    mixed-magnitude, large-row and |c|^2-dominated inputs) against the
+    exact (float64) |c|^2 + lo*hi + hi*lo + hi*hi of the same TF32 parts;
+    the largest |d~ - exact| as a share of 2^-20 (cmax^2 + 4 |x| |c|), the
+    header's (ii) allowance for one accumulation."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.vq_assign import wide_probe_cuda
+
+    def split(v):
+        hi = (v.contiguous().view(torch.int32) & -8192).view(torch.float32)
+        return hi, ((v - hi).view(torch.int32) & -8192).view(torch.float32)
+    n, k, f = 16384, 1024, 65
+    worst = {}
+    for kind in ("random", "mixed", "large rows", "|c|^2-dominated"):
+        x = torch.randn((1, n, f), generator=gen, device=DEVICE)
+        cw = torch.randn((1, k, f), generator=gen, device=DEVICE)
+        if kind == "mixed":
+            x = x * torch.exp2(torch.randint(-8, 9, x.shape, generator=gen,
+                                             device=DEVICE).float())
+            cw = cw * torch.exp2(torch.randint(-8, 9, cw.shape, generator=gen,
+                                               device=DEVICE).float())
+        elif kind == "large rows":
+            x = x * 1e3
+        elif kind == "|c|^2-dominated":
+            x, cw = x * 1e-2, cw * 30.0
+        d = wide_probe_cuda(x, cw)[..., :k].double()
+        ah, al = split(-2.0 * x)
+        bh, bl = split(cw)
+        cn2 = ref._sq_norms(cw)
+
+        def mm(a, b):
+            return torch.einsum("bnf,bkf->bnk", a.double(), b.double())
+        exact = cn2[:, None, :].double() + mm(al, bh) + mm(ah, bl) \
+            + mm(ah, bh)
+        xn = x.double().norm(dim=2)[..., None]
+        cn = cn2.double().sqrt()[:, None, :]
+        cmax = cn.max()
+        scale = 2.0 ** -20 * (cmax * cmax + 4 * xn * cn)
+        worst[kind] = float(((d - exact).abs() / scale).max())
+        del d, exact, scale
+    worst["distances"] = 4 * n * k
+    log(f"wgmma accumulation probe ({4 * n * k} distances at f {f}): "
+        f"largest |d~ - exact| / (2^-20 (cmax^2 + 4 |x| |c|)) "
+        + ", ".join(f"{kk} {v:.4f}" for kk, v in worst.items()
+                    if kk != "distances"))
+    return worst
 
 
 def _whitened_batch(m: Model, params, vq, bids):
@@ -2728,7 +2887,7 @@ def phase_wide_kernels(gat: tuple, tr: tuple, tr_server) -> dict:
     for l in (0, len(vq_g) - 1):
         cw = vq_g[l].codebook.codewords_w
         upd.append(_wide_update_row(
-            f"vq_update wide gat layer {l}", vw_g[l], cw))
+            f"vq_update wide gat layer {l}", vw_g[l], cw, tiles=True))
         upd[-1]["at"] += f" gat-train layer {l}"
     cw0 = vq_g[0].codebook.codewords_w
     upd.append(_wide_update_row("vq_update wide uint8 emit gat layer 0",
@@ -2743,7 +2902,8 @@ def phase_wide_kernels(gat: tuple, tr: tuple, tr_server) -> dict:
     for l in (0, len(vq_r) - 1):
         cw = vq_r[l].codebook.codewords_w
         upd.append(_wide_update_row(
-            f"vq_update wide transformer layer {l}", vw_r[l], cw))
+            f"vq_update wide transformer layer {l}", vw_r[l], cw,
+            tiles=True))
         upd[-1]["at"] += f" transformer-train layer {l}"
     cw0 = vq_r[0].codebook.codewords_w
     x, c = _near_tie(vw_r[0], cw0, gen)
@@ -2765,11 +2925,19 @@ def phase_wide_kernels(gat: tuple, tr: tuple, tr_server) -> dict:
     x = _near_codewords(cwf, N_NODES, gen)
     asg.append(_wide_assign_row("rows near the transformer's codewords", x,
                                 cwf))
+    upd[0]["wgmma_probe"] = _wgmma_probe(gen)
     return {"vq_update": upd, "vq_assign": asg}
 
 
 def main() -> int:
+    import argparse
     import torch
+    global WIDE_PARENT
+    ap = argparse.ArgumentParser(description="chip smoke test of the port")
+    ap.add_argument("--wide-parent", default=None, metavar="DIR",
+                    help="a checkout of an earlier tree whose wide VQ scan "
+                         "phase 24 times beside this one")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -2783,6 +2951,8 @@ def main() -> int:
     phase_card()
     build_s = phase_build()
     seconds = {"build": build_s}
+    if args.wide_parent is not None:
+        WIDE_PARENT = _ParentWide(args.wide_parent)
 
     def timed(name, fn, *a):
         t = time.time()

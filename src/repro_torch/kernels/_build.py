@@ -8,6 +8,8 @@ process, all started together, and the objects are linked into one shared
 library.  The library lives under ``build/repro_torch_kernels/<hash>/`` at
 the repository root, keyed on a hash of the sources and flags, so a fresh
 checkout (or an edited source) rebuilds and an unchanged one reuses it.
+Each source's compiler output (ptxas' registers, shared memory and spills
+of every kernel) is kept beside the library as ``<source>.log``.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 LIB_NAME = "librepro_torch_kernels.so"
 
 _vp, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -47,6 +49,9 @@ SIGNATURES = {
 }
 for _e in ("f32", "u8_f32"):
     SIGNATURES[f"repro_vq_update_wide_{_e}"] = [_vp] * 7 + [_int] * 4 + [_vp]
+SIGNATURES["repro_vq_update_wide_tiles_f32"] = [_vp] * 7 + [_int] * 5 + [_vp]
+SIGNATURES["repro_vq_wide_probe_f32"] = [_vp] * 4 + [_int] * 4 + [_vp]
+SIGNATURES["repro_vq_wide_plan"] = [_int, _int, _vp]
 for _dt in ("f32", "bf16"):
     SIGNATURES[f"repro_vq_attention_{_dt}"] = [_vp] * 11 + [_int] * 6 \
         + [_flt, _vp]
@@ -116,8 +121,9 @@ def build() -> Path:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         failed = []
-        for cmd, _, p in procs:
+        for cmd, obj, p in procs:
             log, _ = p.communicate()
+            obj.with_suffix(".log").write_text(log)
             if p.returncode != 0:
                 failed.append(f"$ {' '.join(cmd)}\n{log}")
         if failed:
@@ -131,8 +137,16 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed:\n$ {' '.join(link)}\n"
                                f"{res.stdout}")
         out.parent.mkdir(parents=True, exist_ok=True)
+        for _, obj, _ in procs:
+            os.replace(obj.with_suffix(".log"),
+                       out.parent / (obj.stem + ".log"))
         os.replace(lib_tmp, out)      # atomic: concurrent builders agree
     return out
+
+
+def build_log(stem: str) -> str:
+    """The compiler output of source ``<stem>.cu`` in the current build."""
+    return (library_path().parent / f"{stem}.log").read_text()
 
 
 def library() -> ctypes.CDLL:

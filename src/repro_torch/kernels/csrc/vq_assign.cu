@@ -83,17 +83,35 @@ extern "C" cudaError_t repro_vq_assign_f32(const float* x,
   }
 }
 
-// The wide build (vq_update.cuh: f > 32, or a codebook larger than one
-// block's shared memory; any f <= kWideMaxF and any k), the same contract
-// as repro_vq_assign_f32; cn2: [nb, k] fp32 scratch that the launch fills
-// with the codewords' |c|^2.
+// The wide build (vq_update.cuh: f > 32, or a codebook beyond the narrow
+// build's shared memory; any f <= kWideMaxF and any k), the same contract
+// as repro_vq_assign_f32; scratch: wide_scratch_floats(nb, k, f) fp32 that
+// the launch fills (the queued-row counter, |c|^2, the split codewords).
 extern "C" cudaError_t repro_vq_assign_wide_f32(
     const float* x, long long x_stride_branch, long long x_stride_row,
-    const float* cw, float* cn2, int* out, float* min_out, int nb, int n,
+    const float* cw, float* scratch, int* out, float* min_out, int nb, int n,
     int k, int f, cudaStream_t stream) {
-  return launch_wide<int, false>(x, x_stride_branch, x_stride_row, cw, cn2,
-                                 out, min_out, nullptr, nullptr, nb, n, k, f,
-                                 stream);
+  return launch_wide<int, false>(x, x_stride_branch, x_stride_row, cw,
+                                 scratch, out, min_out, nullptr, nullptr, nb,
+                                 n, k, f, stream);
+}
+
+// The wide scan's approximate distances d~ themselves, for probing the
+// tensor cores' accumulation: x [nb, n, f] and cw [nb, k, f] contiguous,
+// d_out [nb, n, k_pad] fp32 (k_pad = 128 ceil(k / 128)).
+extern "C" cudaError_t repro_vq_wide_probe_f32(
+    const float* x, const float* cw, float* scratch, float* d_out, int nb,
+    int n, int k, int f, cudaStream_t stream) {
+  return launch_wide<int, false, true>(x, (long long)n * f, f, cw, scratch,
+                                       nullptr, nullptr, nullptr, d_out, nb,
+                                       n, k, f, stream);
+}
+
+// The wide launch's plan at width f with wgs warpgroups of 64 rows:
+// out[0..3] = {rows split once (1) or a chunk at a time (0), K chunk,
+// stages, shared memory bytes} (vq_update.py:wide_plan mirrors it).
+extern "C" cudaError_t repro_vq_wide_plan(int f, int wgs, int* out) {
+  return wide_plan_query(f, wgs, out);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -29,12 +29,24 @@ extern "C" cudaError_t repro_vq_update_generic_f32(
 }
 
 // The wide build (vq_update.cuh): any f <= kWideMaxF and any k, the same
-// contract as repro_vq_update_f32; cn2: [nb, k] fp32 scratch that the
-// launch fills with the codewords' |c|^2.
+// contract as repro_vq_update_f32; scratch: wide_scratch_floats(nb, k, f)
+// fp32 that the launch fills (the queued-row counter, |c|^2, the split
+// codewords).
 extern "C" cudaError_t repro_vq_update_wide_f32(
-    const float* x, const float* cw, float* cn2, int* idx, float* qerr,
+    const float* x, const float* cw, float* scratch, int* idx, float* qerr,
     float* counts, float* sums, int nb, int n, int k, int f,
     cudaStream_t stream) {
-  return launch_wide<int, true>(x, (long long)n * f, f, cw, cn2, idx, qerr,
-                                counts, sums, nb, n, k, f, stream);
+  return launch_wide<int, true>(x, (long long)n * f, f, cw, scratch, idx,
+                                qerr, counts, sums, nb, n, k, f, stream);
+}
+
+// The same with the row tile set by the caller: wgs consumer warpgroups of
+// 64 rows a block (1 or 2), for timing the two tilings against each other.
+extern "C" cudaError_t repro_vq_update_wide_tiles_f32(
+    const float* x, const float* cw, float* scratch, int* idx, float* qerr,
+    float* counts, float* sums, int nb, int n, int k, int f, int wgs,
+    cudaStream_t stream) {
+  if (wgs < 1) return cudaErrorInvalidValue;
+  return launch_wide<int, true>(x, (long long)n * f, f, cw, scratch, idx,
+                                qerr, counts, sums, nb, n, k, f, stream, wgs);
 }

@@ -974,310 +974,735 @@ cudaError_t dispatch(const float* x, const float* cw, Idx* idx, float* qerr,
 // (f > 32: GAT's 43 / 65, the Graph Transformer's 128 / 168 / 256), or
 // codebooks larger than one block's shared memory, any f <= kWideMaxF and
 // any k.  The same function and the same exactness argument as above; what
-// changes is where the operands live.
+// changes is where the operands live and which instruction multiplies them.
 //
 // A tiled GEMM with an argmin epilogue, as the Pallas kernel's (b / bb,
-// k / kb) grid is.  A persistent grid walks tiles of kWideBM = 64 rows of
-// one branch.  A block stages its tile's rows in shared memory (read
-// through their strides), then streams the branch's codewords through
-// shared memory in tiles of BN (64, or 32 where 64 would not fit beside the
-// rows), double-buffered with cp.async -- in 16-byte chunks where f is a
-// multiple of 4, else float by float (a row of odd f is not 16-byte
-// aligned) -- with their |c|^2 from a first kernel that sums them in the
-// plain version's order.  Warp w takes m-tile w & 3 (16 rows) and half
-// w >> 2 of each codeword tile; per 8-deep k-step it splits its -2x A
-// fragment and each B fragment into TF32 hi + lo and accumulates lo*hi,
-// hi*lo and hi*hi (mma.sync m16n8k8) onto |c|^2: 3 ceil(f / 8) mmas a
-// distance, as in the narrow build.  Each lane folds its columns, in
-// increasing index, into the row's smallest d~ (m1), its codeword (i1) and
-// the second smallest d~ over all other codewords (m2); the quad's lanes
-// and the two halves merge them.  Then per row: u = the exact distance of
-// i1 (its codeword read from L2), T = u + E(|x|, min(cmax, r)) as above,
-// and the row is settled when T is finite and m2 > T: every other codeword
-// has d~ > T, so none can win.  The other rows join the block's queue (row
-// and T); 64 queued rows, or the rest at the end of a branch, make a tile
-// that streams the codewords again and rescores exactly every codeword with
-// !(d~ > T), in increasing index per lane with a strict <, the lanes and
-// halves merged by (d, index).
+// k / kb) grid is, on Hopper's warpgroup products (wgmma).
+//   * A prologue (wide_prep_kernel) splits every codeword once per call
+//     into its TF32 hi and lo parts, zero-padded to f_pad = 8 ceil(f / 8)
+//     columns and to k_pad = 128 ceil(k / 128) codewords, and writes them
+//     to the caller's scratch in the operand layout of a 128-codeword tile
+//     (wide_split_off: no-swizzle core matrices, 4-column slabs of 16),
+//     beside |c|^2 in the plain version's order (+inf past k).  Splitting
+//     in shared memory instead would cost each block per tile as many
+//     instructions as its argmin fold; pre-split operands double the bytes
+//     read from L2, which PERF.md weighs against the card's L2 rate.
+//   * A persistent grid walks tiles of BM = 64 WGS rows of one branch: WGS
+//     consumer warpgroups of 64 rows each (2, or 1 where 128-row tiles
+//     would leave SMs idle or f has no 128-row plan: 64-row tiles measured
+//     1.8x faster at [1, 5000, 256], 1.4x slower at [4, 42335, 65]) and
+//     one producer warp.  The rows are copied (cp.async) into the idle ring
+//     and the consumers split their -2x into TF32 hi / lo once per row tile,
+//     into shared memory (ARES); where 2 BM f_pad floats and a ring would
+//     not fit (f_pad > 392 at 64 rows), they keep the fp32 rows and split
+//     each K chunk into a small buffer instead.  The producer's idle lanes
+//     prefetch the next row tile's rows into L2.
+//   * The producer streams the branch's pre-split codewords through a ring
+//     of >= 3 stages, each a chunk of KC columns (hi, lo) of a 128-codeword
+//     tile plus its |c|^2, one cp.async.bulk per part against an mbarrier
+//     (no tensor map to encode on the host); the consumers release a
+//     stage once their products have read it.
+//   * Per tile, each consumer warpgroup starts 64 accumulators a thread at
+//     |c|^2 and issues wgmma m64n128k8 .tf32 from shared memory: lo * hi,
+//     hi * lo and hi * hi at every 8-deep k-step, in that order, so a
+//     distance takes n_mma = 3 ceil(f / 8) accumulations as in the narrow
+//     build.  The two warpgroups share every stage; while one folds its
+//     tile the other's products run.
+//   * Each lane folds its 2 rows x 32 codewords, in increasing index, into
+//     the row's smallest d~ (m1), its codeword (i1) and the second smallest
+//     d~ over all other codewords (m2); the quad's lanes merge them.  Then
+//     the epilogue, on every thread of the block: the rows and their i1
+//     codewords are copied into the idle ring (wide_stage_cols), and a
+//     thread a row sums u = the exact distance of i1 and |x|^2 over j in
+//     order; T = u + E(|x|, min(cmax, r)) as above, and the row is settled
+//     when T is finite and m2 > T.  The other rows join the block's queue
+//     (row and T; counted in the scratch's first word); BM queued rows, or
+//     the rest at the end of a branch, make a tile that streams the
+//     codewords again and rescores exactly every codeword with !(d~ > T),
+//     in increasing index per lane with a strict <, merged by (d, index).
 //
-// The bound at these widths.  (i) and (ii) above hold for any f; (iii),
-// the plain version's own rounding, (2f + 3) 2^-24 (|c|^2 + 2X), outgrows
-// the narrow build's allowance past f 32, so the wide build's E adds
-// ceil((2f + 3) / 16) to n_mma + 6 (vq_update.py:candidate_bound(wide=
-// True)); the norm cap r takes rho = (2f + 3) 2^-24 <= 2^-14 (f <= 440)
-// inside margins of 2^-12 (kWideUp).  E grows with f -- 135 x 2^-20 at
-// f 256 -- so more rows queue than at f 8; chip_smoke.py prints how many.
+// The bound at these widths.  (i) holds for any f; (iii), the plain
+// version's own rounding, (2f + 3) 2^-24 (|c|^2 + 2X), outgrows the narrow
+// build's allowance past f 32, so the wide build's E adds ceil((2f + 3) /
+// 16) (vq_update.py:candidate_bound(wide=True)); the norm cap r takes rho
+// = (2f + 3) 2^-24 <= 2^-14 (f <= 440) inside margins of 2^-12 (kWideUp).
+// (ii) on wgmma: a probe of 67 M distances on the card (chip_smoke.py
+// phase 24: random, mixed-magnitude, large-row and |c|^2-dominated inputs)
+// found the accumulation off by up to 1.08 of 2^-20 (cmax^2 + 4X) in all,
+// the |c|^2-dominated inputs worst (mma.sync: 0.6), so the wide E takes 3
+// more accumulations' allowance than n_mma: n_mma + 9 + ceil((2f + 3) /
+// 16) in all, 138 x 2^-20 at f 256 (WIDE_TC_EXTRA).  E grows with f, so
+// more rows queue than at f 8; the scratch counts them.
 //
 // Statistics: the cluster sums are [k, f] per branch, 1 MB at k 1024 and
 // f 256, which no block can privatize in shared memory.  A finished tile's
-// rows that chose the same codeword are chained in shared memory (each
-// row's next row with the same codeword); the first row of each chain adds
-// the chain's count and, column by column with consecutive threads on
-// consecutive columns, its summed row to global memory with atomics: one
-// add per codeword, column and tile, and a collapsed codebook costs f adds
-// a tile, not f a row.
+// rows, still staged in the ring, are summed by codeword: within each
+// 32-row segment onto the segment's first row with that codeword (a thread
+// a segment and column, in row order), then the segments' sums in order,
+// added to global memory with one 16-byte atomic per 4 aligned columns:
+// one add per codeword, column and tile, and a collapsed codebook costs f
+// adds a tile, not f a row.  Counts are exact in any order; the sums'
+// order is not the plain version's (within chip_smoke.py's scatter bound,
+// exact on grid rows).
 //
 // What bounds it on an H100: the 3xTF32 products, 6 nb n k f_pad flops
 // (0.151 ms at [4, 42335, 65], f_pad 72, and k 1024 at the 495 TFLOP/s
-// TF32 peak), on mma.sync, whose operands come from shared memory a
-// fragment at a time, split again by every warp that reads them: 1.27 ms
-// there on an H100 80GB HBM3 at 700 W (PERF.md).  wgmma and TMA are for a
-// later version.
-constexpr int kWideBM = 64;                  // rows a tile
-constexpr int kWideQ = 2 * kWideBM;          // the queue's capacity
+// TF32 peak), and the codeword tiles read from L2 once per row tile (0.78
+// GB at that shape with 128-row tiles: 0.11 ms at the 6.8-7.2 TB/s L2 read
+// rate measured on the card).  The scan (waits, products, fold) takes
+// about half of the time there; the rows' staging, the exact u and the
+// statistics run between row tiles, not overlapped with it (PERF.md
+// splits the time, tools/wide_scan_phases.py).
+constexpr int kWideBN = 128;                 // codewords a tile (wgmma N)
 constexpr int kWideMaxF = 440;               // rho <= 2^-14 (header above)
 constexpr float kWideUp = 1.000244140625f;   // 1 + 2^-12
+constexpr int kWideMinStages = 3;
+constexpr int kWideMaxStages = 6;
+constexpr int kWideMaxKC = 64;               // widest K chunk of a stage
+constexpr int kWidePrepCw = 16;              // codewords a prologue block
 
 __host__ __device__ constexpr int wide_fp(int f) { return (f + 7) / 8 * 8; }
-// the row stride of staged rows and codewords: 4 mod 8 floats, so the 8
-// rows x 4 k-columns of a fragment load hit 32 distinct banks
-__host__ __device__ constexpr int wide_stride(int f) { return wide_fp(f) + 4; }
+__host__ __device__ constexpr int wide_kpad(int k) {
+  return (k + kWideBN - 1) / kWideBN * kWideBN;
+}
+// the fp32 rows' stride where the rows are not split once (!ARES): 4 mod 8
+// floats, so a core matrix's 8 rows x 4 columns hit 32 distinct banks
+__host__ __device__ constexpr int wide_xs(int f) { return wide_fp(f) + 4; }
+// scratch floats: the queued-row counter (4 floats, a uint32 in the first),
+// |c|^2 [nb, k_pad], the split codewords [nb, k_pad / 128, {hi, lo}, 128
+// f_pad] (vq_update.py:wide_scratch_floats mirrors it)
+__host__ __device__ constexpr size_t wide_scratch_floats(int nb, int k,
+                                                         int f) {
+  return 4 + (size_t)nb * wide_kpad(k) * (1 + 2 * (size_t)wide_fp(f));
+}
+// offset of part (c, j) of a branch's split codewords: tile c / 128, then
+// 4-column slabs of 16 core matrices (8 codewords x 4 columns, 128 bytes);
+// lo lies 128 f_pad floats after hi (vq_update.py:wide_split_layout)
+__host__ __device__ constexpr size_t wide_split_off(int c, int j, int fp) {
+  return (size_t)(c / kWideBN) * 2 * kWideBN * fp
+         + (size_t)(((j / 4) * (kWideBN / 8) + (c % kWideBN) / 8) * 32
+                    + (c % 8) * 4 + j % 4);
+}
 
-// A block's bookkeeping, after its row and codeword tiles.
+// A block's bookkeeping, at the start of its shared memory.
+template <int BM>
 struct WideMisc {
-  float m1[2][kWideBM], m2[2][kWideBM];   // per half: min d~, runner-up
-  int i1[2][kWideBM];                     // per half: the min's codeword
-  float xn2[kWideBM];                     // exact |x|^2 of the staged rows
-  float thr[kWideBM];                     // a rescoring tile's thresholds
-  float best[kWideBM];                    // a finished row's exact distance
-  int arg[kWideBM];                       // its codeword; -1: not finished
-  int row[kWideBM];                       // the staged rows (in the branch)
-  int next[kWideBM];                      // next staged row, same codeword
-  int lead[kWideBM];                      // first staged row of its codeword
-  int q_row[kWideQ];
-  float q_thr[kWideQ];
-  float red[kWarps];
+  float m1[BM], m2[BM];         // min d~ (rescoring: min exact d), runner-up
+  int i1[BM];                   // the min's codeword
+  float xn2[BM];                // exact |x|^2 of the tile's rows
+  float thr[BM];                // a rescoring tile's thresholds
+  float best[BM];               // a finished row's exact distance
+  int arg[BM];                  // its codeword; -1: not finished
+  int row[BM];                  // the tile's rows (in the branch), -1: none
+  // the statistics' segments of 32 rows: each row's first row with its
+  // codeword in its segment; a segment's first such row, the next one in
+  // a later segment; whether a row is the tile's first with its codeword
+  int seg_lead[BM], seg_next[BM], lead[BM];
+  int q_row[2 * BM];
+  float q_thr[2 * BM];
+  unsigned long long full[kWideMaxStages], empty[kWideMaxStages];
+  float red[10];
   int q_n;
+  unsigned queued;
   float cmax;
+  int pad;
 };
-// vq_update.py:WIDE_MISC_BYTES mirrors this size
-static_assert(sizeof(WideMisc) == 4392, "WideMisc changed: update "
-                                        "vq_update.py:WIDE_MISC_BYTES");
+// vq_update.py:wide_misc_bytes mirrors these sizes
+static_assert(sizeof(WideMisc<128>) == 7832, "WideMisc changed: update "
+                                             "vq_update.py:wide_misc_bytes");
+static_assert(sizeof(WideMisc<64>) == 3992, "WideMisc changed: update "
+                                            "vq_update.py:wide_misc_bytes");
 
-__host__ __device__ constexpr size_t wide_smem(int f, int bn) {
-  return (size_t)(kWideBM + 2 * bn) * wide_stride(f) * sizeof(float)
-         + 2 * (size_t)bn * sizeof(float) + sizeof(WideMisc);
+__host__ __device__ constexpr size_t wide_misc_round(int bm) {
+  return ((bm == 128 ? sizeof(WideMisc<128>) : sizeof(WideMisc<64>)) + 127)
+         / 128 * 128;
+}
+// the rows' operand: hi / lo of -2x (ARES), or the fp32 rows and a K-chunk
+// buffer of hi / lo for each warpgroup
+__host__ __device__ constexpr size_t wide_a_bytes(int bm, int f, bool ares,
+                                                  int kc) {
+  return ares ? (size_t)bm * wide_fp(f) * 8
+              : (size_t)bm * wide_xs(f) * 4 + (size_t)bm * kc * 8;
+}
+// one ring stage: hi and lo of KC columns of 128 codewords, and |c|^2
+__host__ __device__ constexpr size_t wide_stage_bytes(int kc) {
+  return (size_t)kWideBN * (2 * kc + 1) * 4;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
+// Columns the epilogue stages at a time in the idle ring (x and a
+// codeword, bm rows each, at an odd stride): all f where they fit.
+inline int wide_epilogue_cols(int f, int bm, int kc, int stages) {
+  const int cols = (int)(stages * wide_stage_bytes(kc) / 4) / (2 * bm) - 1;
+  return cols < f ? cols : f;
 }
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
+
+// The launch's shape at width f with WGS consumer warpgroups: the rows
+// split once (ares) where that fits beside a ring of kWideMinStages, else
+// chunk by chunk; the widest K chunk that fits; as many stages as fit, up
+// to kWideMaxStages (vq_update.py:wide_plan mirrors it).
+struct WidePlan {
+  int ares, kc, stages;
+  size_t smem;
+};
+inline bool wide_plan(int f, int wgs, size_t limit, WidePlan& p) {
+  const int bm = 64 * wgs, fp = wide_fp(f);
+  for (int ares = 1; ares >= 0; --ares)
+    for (int kc = fp < kWideMaxKC ? fp : kWideMaxKC; kc >= 8; kc -= 8) {
+      const size_t fixed = wide_misc_round(bm) + wide_a_bytes(bm, f, ares, kc);
+      if (fixed >= limit) continue;
+      size_t s = (limit - fixed) / wide_stage_bytes(kc);
+      if (s > (size_t)kWideMaxStages) s = kWideMaxStages;
+      if (s >= (size_t)kWideMinStages) {
+        p = {ares, kc, (int)s, fixed + s * wide_stage_bytes(kc)};
+        return true;
+      }
+    }
+  return false;
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+
+__device__ __forceinline__ unsigned wide_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void wide_mbar_init(unsigned a, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a),
+               "r"(count));
+}
+__device__ __forceinline__ void wide_mbar_wait(unsigned a, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(a),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void wide_mbar_arrive(unsigned a) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void wide_mbar_expect(unsigned a, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(a), "r"(bytes)
+               : "memory");
+}
+// bytes (a multiple of 16) from global src to shared dst, completing on the
+// mbarrier at bar
+__device__ __forceinline__ void wide_bulk(unsigned dst, const float* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void wide_fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wide_bar(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// wgmma shared-memory descriptor, no swizzle: lbo the byte stride between
+// core matrices along K, sbo along M / N
+__device__ __forceinline__ uint64_t wide_desc(unsigned addr, unsigned lbo,
+                                              unsigned sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+__device__ __forceinline__ void wide_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wide_wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wide_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// The plain version's distance of a row and a codeword of f floats.
+// D[64, 128] += A[64, 8] B[128, 8]^T, fp32 += tf32 x tf32, A and B K-major
+// in shared memory.  d[4 j + e]: row g + 8 (e >> 1) of the warp's 16,
+// column 8 j + 2 q + (e & 1).
+__device__ __forceinline__ void wide_wgmma(float* d, uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The plain version's distance of a row and a codeword of f floats, and
+// the row's |x|^2, each summed over j in order.
 __device__ __forceinline__ float wide_exact(const float* xr, const float* cr,
-                                            float cn2, int f) {
-  float dot = 0.f;
+                                            float cn2, int f, float* xn2) {
+  float dot = 0.f, xx = 0.f;
+  if ((f & 3) == 0 &&
+      ((reinterpret_cast<size_t>(xr) | reinterpret_cast<size_t>(cr)) & 15) ==
+          0) {                                  // 16-byte loads, same order
+    for (int j = 0; j < f; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(xr + j);
+      const float4 c = *reinterpret_cast<const float4*>(cr + j);
+      dot = __fadd_rn(dot, __fmul_rn(v.x, c.x));
+      dot = __fadd_rn(dot, __fmul_rn(v.y, c.y));
+      dot = __fadd_rn(dot, __fmul_rn(v.z, c.z));
+      dot = __fadd_rn(dot, __fmul_rn(v.w, c.w));
+      xx = __fadd_rn(xx, __fmul_rn(v.x, v.x));
+      xx = __fadd_rn(xx, __fmul_rn(v.y, v.y));
+      xx = __fadd_rn(xx, __fmul_rn(v.z, v.z));
+      xx = __fadd_rn(xx, __fmul_rn(v.w, v.w));
+    }
+  } else {
 #pragma unroll 4
-  for (int j = 0; j < f; ++j) dot = __fadd_rn(dot, __fmul_rn(xr[j], cr[j]));
+    for (int j = 0; j < f; ++j) {
+      const float v = xr[j];
+      dot = __fadd_rn(dot, __fmul_rn(v, cr[j]));
+      xx = __fadd_rn(xx, __fmul_rn(v, v));
+    }
+  }
+  if (xn2 != nullptr) *xn2 = xx;
   return __fsub_rn(cn2, __fmul_rn(2.f, dot));
 }
 
-// |c|^2 of every codeword, in the plain version's order.
-__global__ void wide_norms_kernel(const float* __restrict__ cw,
-                                  float* __restrict__ cn2, long long count,
-                                  int f) {
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= count) return;
-  const float* p = cw + c * f;
-  float acc = 0.f;
-  for (int j = 0; j < f; ++j) acc = __fadd_rn(acc, __fmul_rn(p[j], p[j]));
-  cn2[c] = acc;
+// Instrumentation hooks of tools/wide_scan_phases.py (compiled in only
+// with -DREPRO_WIDE_PHASES): clock64() stamps of thread 0 by phase.
+#ifndef REPRO_WIDE_PHASES
+#define WIDE_PH_DECL
+#define WIDE_PH(p)
+#define WIDE_PH_DRAIN(on)
+#define WIDE_PH_FLUSH()
+#endif
+
+// The prologue: |c|^2 of every codeword in the plain version's order (+inf
+// past k), the TF32 hi / lo parts of every codeword (zeros past k and f) at
+// wide_split_off, and the queued-row counter zeroed.  Grid (k_pad / 16,
+// nb), 128 threads.
+__global__ void __launch_bounds__(128)
+wide_prep_kernel(const float* __restrict__ cw, float* __restrict__ scratch,
+                 int nb, int k, int f) {
+  __shared__ float s[kWidePrepCw * (kWideMaxF + 1)];
+  const int fp = wide_fp(f), kpad = wide_kpad(k), sf = f + 1;
+  const int br = blockIdx.y, c0 = blockIdx.x * kWidePrepCw, tid = threadIdx.x;
+  if (blockIdx.x == 0 && br == 0 && tid == 0)
+    reinterpret_cast<unsigned*>(scratch)[0] = 0u;
+  const int live = k - c0;      // codewords of this block below k
+  const float* src = cw + ((size_t)br * k + c0) * f;
+  for (int i = tid; i < kWidePrepCw * f; i += blockDim.x) {
+    const int c = i / f, j = i - c * f;
+    s[c * sf + j] = c < live ? src[i] : 0.f;
+  }
+  __syncthreads();
+  if (tid < kWidePrepCw) {
+    float a = 0.f;
+    for (int j = 0; j < f; ++j)
+      a = __fadd_rn(a, __fmul_rn(s[tid * sf + j], s[tid * sf + j]));
+    scratch[4 + (size_t)br * kpad + c0 + tid] = tid < live ? a : INFINITY;
+  }
+  float* sp = scratch + 4 + (size_t)nb * kpad + (size_t)br * kpad * 2 * fp;
+  for (int i = tid; i < kWidePrepCw * fp; i += blockDim.x) {
+    const int c = i / fp, j = i - c * fp;
+    uint32_t hi, lo;
+    split_tf32(j < f ? s[c * sf + j] : 0.f, hi, lo);
+    const size_t o = wide_split_off(c0 + c, j, fp);
+    sp[o] = __uint_as_float(hi);
+    sp[o + (size_t)kWideBN * fp] = __uint_as_float(lo);
+  }
 }
 
-template <int BN, typename Idx, bool Stats, bool Vec>
-__global__ void __launch_bounds__(kThreads)
-vq_wide_kernel(const float* __restrict__ x, long long sb, long long sr,
-               const float* __restrict__ cw, const float* __restrict__ cn2,
-               Idx* __restrict__ idx, float* __restrict__ qerr,
-               float* __restrict__ counts, float* __restrict__ sums, int nb,
-               int n, int k, int f, long long per_block) {
-  constexpr int BM = kWideBM;
-  constexpr int NT = BN / 16;                 // n8 tiles a warp a tile
-  const int fp = wide_fp(f), s = wide_stride(f), ks_n = fp / 8;
-  const float e_coef =
-      (float)(3 * ks_n + 6 + (2 * f + 3 + 15) / 16) * kEpsBound;
-  extern __shared__ float smem[];
-  float* x_s = smem;                                   // [BM, s]
-  float* c_s = x_s + BM * s;                           // [2][BN, s]
-  float* cn_s = c_s + 2 * BN * s;                      // [2][BN]
-  WideMisc& ms = *reinterpret_cast<WideMisc*>(cn_s + 2 * BN);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int mt = warp & 3, half = warp >> 2;
-  const int nt_n = (k + BN - 1) / BN;                  // codeword tiles
-  const int tpb = (n + BM - 1) / BM;                   // row tiles a branch
-  const long long total = (long long)nb * tpb;
-  const long long t_lo = (long long)blockIdx.x * per_block;
-  const long long t_hi = t_lo + per_block < total ? t_lo + per_block : total;
+__device__ __forceinline__ void wide_cp4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   wide_u32(dst)),
+               "l"(src)
+               : "memory");
+}
 
-  // Vec (f a multiple of 4 on an aligned table): codewords copied in
-  // 16-byte chunks and rows read, a warp a row; else float by float over
-  // the whole tile (a warp a row timed 3-9 % slower at f 43 and 65, and
-  // the same test at run time cost the other path 1-3 %, on an H100 80GB
-  // HBM3 at 700 W).
-
-  // Stage rows ms.row[r] (-1: a zero row) of branch br, and their exact
-  // |x|^2.
-  auto stage = [&](int br) {
-    const float* xb = x + br * sb;
-    if constexpr (Vec) {
-      for (int r = warp; r < BM; r += kWarps) {
-        const int row = ms.row[r];
-        for (int j = lane; j < fp; j += 32)
-          x_s[r * s + j] = (row >= 0 && j < f) ? xb[row * sr + j] : 0.f;
+// Columns [j0, j0 + jc) of the tile's rows (row[r] >= 0) into ex [BM, JS]
+// and, with win (cwb: the branch's codewords), of each row's codeword
+// i1[r] into ec: a warp a row, lanes on consecutive columns, every copy in
+// flight at once (cp.async).  Ends with a block barrier.
+template <int BM, int NT>
+__device__ __forceinline__ void wide_stage_cols(
+    const float* xb, long long sr, const float* cwb, int f, const int* row,
+    const int* i1, bool win, int j0, int jc, float* ex, float* ec, int JS,
+    int warp, int lane) {
+  for (int r = warp; r < BM; r += NT / 32) {
+    const int rw = row[r];
+    if (rw >= 0) {
+      const float* xr = xb + rw * sr + j0;
+      for (int jj = lane; jj < jc; jj += 32)
+        wide_cp4(ex + r * JS + jj, xr + jj);
+      if (win) {
+        const float* cr = cwb + (size_t)i1[r] * f + j0;
+        for (int jj = lane; jj < jc; jj += 32)
+          wide_cp4(ec + r * JS + jj, cr + jj);
       }
-    } else {
-      for (int i = tid; i < BM * fp; i += kThreads) {
-        const int r = i / fp, j = i - r * fp;
-        const int row = ms.row[r];
-        x_s[r * s + j] = (row >= 0 && j < f) ? xb[row * sr + j] : 0.f;
+    }
+  }
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+                   "memory");
+  __syncthreads();
+}
+
+// Thread r < BM: |x|^2 of row r of the tile (xx) and, with win, its dot
+// product with codeword i1[r] (dot), each summed over j in order, from
+// columns staged JC at a time (wide_stage_cols).
+template <int BM, int NT>
+__device__ __forceinline__ void wide_rows_exact(
+    const float* xb, long long sr, const float* cwb, int f, const int* row,
+    const int* i1, bool win, float* ex, float* ec, int JC, int JS, int tid,
+    int warp, int lane, float& dot, float& xx) {
+  dot = 0.f;
+  xx = 0.f;
+  const bool mine = tid < BM && row[tid < BM ? tid : 0] >= 0;
+  for (int j0 = 0; j0 < f; j0 += JC) {
+    const int jc = f - j0 < JC ? f - j0 : JC;
+    wide_stage_cols<BM, NT>(xb, sr, cwb, f, row, i1, win, j0, jc, ex, ec, JS,
+                            warp, lane);
+    if (mine) {
+      const float* xr = ex + tid * JS;
+      const float* cr = ec + tid * JS;
+      for (int jj = 0; jj < jc; ++jj) {
+        const float v = xr[jj];
+        if (win) dot = __fadd_rn(dot, __fmul_rn(v, cr[jj]));
+        xx = __fadd_rn(xx, __fmul_rn(v, v));
       }
     }
     __syncthreads();
-    if (tid < BM) {
-      const float* xr = x_s + tid * s;
-      float a = 0.f;
-      for (int j = 0; j < f; ++j) a = __fadd_rn(a, __fmul_rn(xr[j], xr[j]));
-      ms.xn2[tid] = a;
-    }
+  }
+}
+
+// The scan.  Probe: no argmin; every d~ of the staged rows is written to
+// probe [nb, n, k_pad] (chip_smoke.py's accumulation probe).
+template <int WGS, bool ARES, typename Idx, bool Stats, bool Probe = false>
+__global__ void __launch_bounds__(WGS * 128 + 32, 1)
+vq_wide_kernel(const float* __restrict__ x, long long sb, long long sr,
+               const float* __restrict__ cw, float* __restrict__ scratch,
+               Idx* __restrict__ idx, float* __restrict__ qerr,
+               float* __restrict__ counts, float* __restrict__ sums, int nb,
+               int n, int k, int f, long long per_block, int kc, int stages,
+               int ecols) {
+  constexpr int BM = 64 * WGS;                // rows a tile
+  constexpr int NCT = 128 * WGS;              // consumer threads
+  constexpr int NT = NCT + 32;                // + the producer warp
+  const int fp = wide_fp(f), ks_n = fp / 8, kpad = wide_kpad(k);
+  const int nt_n = kpad / kWideBN;            // codeword tiles
+  const int ch_n = (fp + kc - 1) / kc;        // K chunks a tile
+  const int steps = nt_n * ch_n;              // ring stages a pass
+  const float e_coef =
+      (float)(3 * ks_n + 9 + (2 * f + 3 + 15) / 16) * kEpsBound;
+  const float* cn2 = scratch + 4;
+  const float* cws = cn2 + (size_t)nb * kpad;
+  extern __shared__ __align__(128) unsigned char wsm[];
+  WideMisc<BM>& ms = *reinterpret_cast<WideMisc<BM>*>(wsm);
+  const unsigned s0 = wide_u32(wsm);
+  const unsigned a_s = s0 + (unsigned)wide_misc_round(BM);
+  float* a_p = reinterpret_cast<float*>(wsm + wide_misc_round(BM));
+  const unsigned ring = a_s + (unsigned)wide_a_bytes(BM, f, ARES, kc);
+  const unsigned st_b = (unsigned)wide_stage_bytes(kc);
+  const unsigned lo_off = (unsigned)kWideBN * kc * 4;   // a stage's lo part
+  const int tid = threadIdx.x, lane = tid & 31;
+  // warp and warpgroup broadcast from lane 0, so that the compiler knows
+  // them uniform and keeps the products of a warpgroup in flight together
+  const int warp = __shfl_sync(kFull, tid >> 5, 0);
+  const int wg = warp >> 2, wi = warp & 3, g = lane >> 2, q = lane & 3;
+  const int tpb = (n + BM - 1) / BM;          // row tiles a branch
+  const long long total = (long long)nb * tpb;
+  const long long t_lo = (long long)blockIdx.x * per_block;
+  const long long t_hi = t_lo + per_block < total ? t_lo + per_block : total;
+  // Between passes the ring is idle: the epilogue stages JC columns at a
+  // time of the tile's rows (and their codewords) there, at the odd row
+  // stride JS (wide_epilogue_cols), so that the serial sums over j read
+  // shared memory; and a pass stages its rows there first where they fit
+  // (raw_ok).
+  const int JC = ecols, JS = ecols | 1;
+  float* ex = reinterpret_cast<float*>(wsm + (ring - s0));
+  float* ec = ex + BM * JS;
+  const bool raw_ok = (size_t)BM * wide_xs(f) * 4 <= (size_t)stages * st_b;
+  unsigned seq = 0;                           // ring stages used so far
+  int pf_br = -1, pf_row0 = 0;                // the row tile after this one
+  WIDE_PH_DECL
+
+  auto full = [&](unsigned st) {
+    return wide_u32(&ms.full[0]) + 8 * st;
+  };
+  auto empty = [&](unsigned st) {
+    return wide_u32(&ms.empty[0]) + 8 * st;
   };
 
-  // One pass over the branch's codewords for the staged rows.  Without
-  // Rescore: every lane folds (m1, i1, m2) of its two rows and the quad's
-  // lanes merge them into ms (per half).  With Rescore: every codeword with
-  // !(d~ > thr) of a row r < rows is rescored exactly; the lanes' (best,
-  // index) merge into ms.m1 / ms.i1.
+  // One pass over branch br's codewords for the rows ms.row[0, BM).
+  // Without rescore: every lane folds (m1, i1, m2) of its two rows and the
+  // quad's lanes merge them into ms.  With rescore: every codeword with
+  // !(d~ > ms.thr) of a row r < rows is rescored exactly; the lanes'
+  // (best, index) merge into ms.m1 / ms.i1.  The caller syncs the block.
   auto pass = [&](int br, bool rescore, int rows) {
-    const float* cwb = cw + (size_t)br * k * f;
-    const float* cnb = cn2 + (size_t)br * k;
-    auto load = [&](int t, int buf) {
-      const int c0 = t * BN;
-      if constexpr (Vec) {
-        for (int c = warp; c < BN; c += kWarps) {
-          float* dst = c_s + (buf * BN + c) * s;
-          const bool live = c0 + c < k;
-          const float* src = cwb + (size_t)(c0 + c) * f;
-          for (int j = 4 * lane; j < fp; j += 128) {
-            const bool v = live && j < f;
-            cp_async16(dst + j, v ? src + j : cwb, v);
-          }
-        }
-      } else {
-        for (int i = tid; i < BN * fp; i += kThreads) {
-          const int c = i / fp, j = i - c * fp;
-          const bool v = c0 + c < k && j < f;
-          cp_async4(c_s + (buf * BN + c) * s + j,
-                    v ? cwb + (size_t)(c0 + c) * f + j : cwb, v);
+    const float* xb = x + br * sb;
+    if (ARES && raw_ok) {
+      // the ring is idle until the producer starts: every thread copies
+      // the tile's rows there (fp32 at stride wide_xs(f), all in flight),
+      // then the consumers split them into the rows' operand
+      const int xs = wide_xs(f);
+      for (int r = warp; r < BM; r += NT / 32) {
+        const int row = ms.row[r];
+        if (row >= 0)
+          for (int j = lane; j < f; j += 32)
+            wide_cp4(ex + r * xs + j, xb + row * sr + j);
+      }
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+                       "memory");
+      __syncthreads();
+      if (wg < WGS) {
+        uint32_t* ah = reinterpret_cast<uint32_t*>(a_p);
+        uint32_t* al = ah + (size_t)BM * fp;
+        const int n_cm = (BM / 8) * (fp / 4);
+        for (int cm = warp; cm < n_cm; cm += NCT / 32) {
+          const int j4 = cm / (BM / 8), g8 = cm - j4 * (BM / 8);
+          const int r = g8 * 8 + g, j = j4 * 4 + q;
+          const float v = ms.row[r] >= 0 && j < f ? ex[r * xs + j] : 0.f;
+          split_tf32(-2.f * v, ah[cm * 32 + lane], al[cm * 32 + lane]);
         }
       }
-      for (int c = tid; c < BN; c += kThreads)
-        cp_async4(cn_s + buf * BN + c, c0 + c < k ? cnb + c0 + c : cnb,
-                  c0 + c < k);
-      cp_async_commit();
-    };
-    const int r0 = mt * 16 + g;                 // this lane's rows r0, r0 + 8
+      wide_fence_async();     // the ring's next writes are the async proxy's
+      __syncthreads();
+    }
+    if (wg == WGS) {                          // the producer warp
+      if (lane == 0) {
+        const float* cnb = cn2 + (size_t)br * kpad;
+        const float* cwb = cws + (size_t)br * kpad * 2 * fp;
+        for (int i = 0; i < steps; ++i) {
+          const unsigned sq = seq + i, st = sq % stages;
+          if (sq >= (unsigned)stages)
+            wide_mbar_wait(empty(st), ((sq / stages) + 1) & 1);
+          const int t = i / ch_n, c0 = (i - t * ch_n) * kc;
+          const int w = fp - c0 < kc ? fp - c0 : kc;
+          const unsigned part = (unsigned)w * kWideBN * 4;
+          const float* th = cwb + (size_t)t * 2 * kWideBN * fp;
+          const unsigned dst = ring + st * st_b;
+          wide_mbar_expect(full(st), 2 * part + (c0 == 0 ? kWideBN * 4 : 0));
+          wide_bulk(dst, th + (size_t)c0 * kWideBN, part, full(st));
+          wide_bulk(dst + lo_off, th + (size_t)kWideBN * fp + c0 * kWideBN,
+                    part, full(st));
+          if (c0 == 0)
+            wide_bulk(dst + 2 * lo_off, cnb + t * kWideBN, kWideBN * 4,
+                      full(st));
+        }
+      } else if (pf_br >= 0) {
+        // the other lanes: the next row tile's rows into L2
+        const float* xb = x + pf_br * sb;
+        for (int r = lane - 1; r < BM && pf_row0 + r < n; r += 31) {
+          const char* p0 = reinterpret_cast<const char*>(
+              xb + (pf_row0 + r) * sr);
+          for (int o = 0; o < f * 4; o += 128)
+            asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p0 + o));
+          asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p0 + f * 4 - 4));
+        }
+      }
+      seq += steps;
+      return;
+    }
+    // the rows' operand where the ring could not stage it: -2x split
+    // once (ARES), or the fp32 rows
+    if (!(ARES && raw_ok)) {
+      if constexpr (ARES) {
+        // a warp a core matrix (8 rows x 4 columns, lane (r % 8) * 4 +
+        // j % 4), 16 of them loaded before any is split
+        uint32_t* ah = reinterpret_cast<uint32_t*>(a_p);
+        uint32_t* al = ah + (size_t)BM * fp;
+        constexpr int NW = NCT / 32, NB = 16;
+        const int n_cm = (BM / 8) * (fp / 4);
+        for (int cm0 = warp; cm0 < n_cm; cm0 += NB * NW) {
+          float v[NB];
+#pragma unroll
+          for (int u = 0; u < NB; ++u) {
+            const int cm = cm0 + u * NW;
+            const int j4 = cm / (BM / 8), g8 = cm - j4 * (BM / 8);
+            const int row = cm < n_cm ? ms.row[g8 * 8 + g] : -1;
+            const int j = j4 * 4 + q;
+            v[u] = row >= 0 && j < f ? xb[row * sr + j] : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < NB; ++u) {
+            const int cm = cm0 + u * NW;
+            if (cm < n_cm)
+              split_tf32(-2.f * v[u], ah[cm * 32 + lane],
+                         al[cm * 32 + lane]);
+          }
+        }
+        wide_fence_async();
+      } else {
+        const int xs = wide_xs(f);
+        for (int r = warp; r < BM; r += NCT / 32) {
+          const int row = ms.row[r];
+          for (int j = lane; j < fp; j += 32)
+            a_p[r * xs + j] = row >= 0 && j < f ? xb[row * sr + j] : 0.f;
+        }
+      }
+      wide_bar(1, NCT);
+    }
+    WIDE_PH(1);
+    const int r0 = 64 * wg + 16 * wi + g;     // this lane's rows r0, r0 + 8
     float m1[2] = {INFINITY, INFINITY}, m2[2] = {INFINITY, INFINITY};
     int i1[2] = {0, 0};
     float thr[2] = {0.f, 0.f};
     bool fb[2] = {false, false};
+    const float* xr[2] = {xb, xb};
     if (rescore) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float t = ms.thr[r0 + 8 * h];
         thr[h] = isfinite(t) ? t : INFINITY;
         fb[h] = r0 + 8 * h < rows;
+        if (fb[h]) xr[h] = xb + ms.row[r0 + 8 * h] * sr;
       }
     }
-    load(0, 0);
+    // A: the warpgroup's 64 rows; 4-column slabs of BM / 8 (ARES) or 8
+    // (the chunk buffer) core matrices
+    const unsigned a_lbo = ARES ? BM * 16 : 1024;
+    const unsigned a_base =
+        ARES ? a_s + 1024 * wg
+             : a_s + (unsigned)(BM * wide_xs(f) * 4) + wg * 64 * kc * 8;
+    const unsigned a_lo = ARES ? (unsigned)BM * fp * 4 : 64 * kc * 4;
+    float acc[64];
+    // chunk c of the tile in ring stage st: (!ARES: the rows' chunk split
+    // into the buffer first) the products lo * hi, hi * lo, hi * hi of
+    // each 8-deep k-step, committed as one group
+    auto issue = [&](unsigned st, int c) {
+      const int c0 = c * kc, w = fp - c0 < kc ? fp - c0 : kc;
+      if constexpr (!ARES) {
+        uint32_t* bh = reinterpret_cast<uint32_t*>(
+            a_p + BM * wide_xs(f) + wg * 64 * kc * 2);
+        uint32_t* bl = bh + 64 * kc;
+        const int xs = wide_xs(f);
+        for (int cm = wi; cm < 8 * (w / 4); cm += 4) {
+          const int j4 = cm >> 3, g8 = cm & 7;
+          const float v = a_p[(64 * wg + g8 * 8 + g) * xs + c0 + j4 * 4 + q];
+          split_tf32(-2.f * v, bh[cm * 32 + lane], bl[cm * 32 + lane]);
+        }
+        wide_fence_async();
+        wide_bar(2 + wg, 128);
+      }
+      wide_mbar_wait(full(st), (seq / stages) & 1);
+      WIDE_PH(2);
+      const unsigned b_hi = ring + st * st_b;
+      const unsigned a0 =
+          a_base + (ARES ? (unsigned)(c0 / 8) * 2 * a_lbo : 0u);
+      wide_wgmma_fence();
+#pragma unroll 1
+      for (int s = 0; s < w / 8; ++s) {
+        const unsigned ah = a0 + s * 2 * a_lbo, bh = b_hi + s * 4096;
+        const uint64_t dah = wide_desc(ah, a_lbo, 128);
+        const uint64_t dbh = wide_desc(bh, 2048, 128);
+        wide_wgmma(acc, wide_desc(ah + a_lo, a_lbo, 128), dbh);
+        wide_wgmma(acc, dah, wide_desc(bh + lo_off, 2048, 128));
+        wide_wgmma(acc, dah, dbh);
+      }
+      wide_wgmma_commit();
+    };
     for (int t = 0; t < nt_n; ++t) {
-      const int buf = t & 1;
-      if (t + 1 < nt_n) {
-        load(t + 1, buf ^ 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const float* cb = c_s + buf * BN * s;
-      const float* cnt = cn_s + buf * BN;
-      const int c0 = t * BN + half * (BN / 2);  // this warp's first column
-      const int l0 = half * (BN / 2);           // ... in the tile
-      float acc[NT][4];
+      // chunk 0 brings the tile's |c|^2, the accumulators' start
+      {
+        const unsigned st = seq % stages;
+        wide_mbar_wait(full(st), (seq / stages) & 1);
+        const float* cn = reinterpret_cast<const float*>(
+            wsm + (ring - s0) + st * st_b + 2 * lo_off);
 #pragma unroll
-      for (int u = 0; u < NT; ++u) {
-        const int cl = l0 + u * 8 + 2 * q;
-        const float a = c0 + u * 8 + 2 * q < k ? cnt[cl] : INFINITY;
-        const float b = c0 + u * 8 + 2 * q + 1 < k ? cnt[cl + 1] : INFINITY;
-        acc[u][0] = a;
-        acc[u][1] = b;
-        acc[u][2] = a;
-        acc[u][3] = b;
+        for (int j = 0; j < 16; ++j) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(cn + 8 * j + 2 * q);
+          acc[4 * j] = v.x;
+          acc[4 * j + 1] = v.y;
+          acc[4 * j + 2] = v.x;
+          acc[4 * j + 3] = v.y;
+        }
+        issue(st, 0);
       }
-      for (int ks = 0; ks < ks_n; ++ks) {
-        const int j = ks * 8 + q;
-        uint32_t ah[4], al[4];
-        split_tf32(-2.f * x_s[r0 * s + j], ah[0], al[0]);
-        split_tf32(-2.f * x_s[(r0 + 8) * s + j], ah[1], al[1]);
-        split_tf32(-2.f * x_s[r0 * s + j + 4], ah[2], al[2]);
-        split_tf32(-2.f * x_s[(r0 + 8) * s + j + 4], ah[3], al[3]);
-#pragma unroll
-        for (int u = 0; u < NT; ++u) {
-          const float* cr = cb + (l0 + u * 8 + g) * s + j;
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(cr[0], bh0, bl0);
-          split_tf32(cr[4], bh1, bl1);
-          mma_tf32(acc[u], al, bh0, bh1, acc[u]);
-          mma_tf32(acc[u], ah, bl0, bl1, acc[u]);
-          mma_tf32(acc[u], ah, bh0, bh1, acc[u]);
+      for (int c = 1; c < ch_n; ++c) {
+        if constexpr (!ARES) {   // the chunk buffer is free after chunk c - 1
+          wide_wgmma_wait<0>();
+          wide_mbar_arrive(empty(seq % stages));
+          ++seq;
+          issue(seq % stages, c);
+        } else {
+          ++seq;
+          issue(seq % stages, c);
+          wide_wgmma_wait<1>();            // chunk c - 1's stage is read
+          wide_mbar_arrive(empty((seq - 1) % stages));
         }
       }
-      if (!rescore) {
+      wide_wgmma_wait<0>();
+      wide_mbar_arrive(empty(seq % stages));
+      ++seq;
+      WIDE_PH(3);
+      if constexpr (Probe) {
 #pragma unroll
-        for (int u = 0; u < NT; ++u) {
+        for (int j = 0; j < 16; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int h = i >> 1, c = c0 + u * 8 + 2 * q + (i & 1);
-            const float d = acc[u][i];
+          for (int e = 0; e < 4; ++e) {
+            const int row = ms.row[r0 + 8 * (e >> 1)];
+            if (row >= 0)
+              sums[((size_t)br * n + row) * kpad + t * kWideBN + 8 * j +
+                   2 * q + (e & 1)] = acc[4 * j + e];
+          }
+      } else if (!rescore) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1, cc = t * kWideBN + 8 * j + 2 * q + (e & 1);
+            const float d = acc[4 * j + e];
             m2[h] = fminf(m2[h], fmaxf(m1[h], d));
-            i1[h] = d < m1[h] ? c : i1[h];
+            i1[h] = d < m1[h] ? cc : i1[h];
             m1[h] = fminf(m1[h], d);
           }
-        }
       } else {
+        // the candidates (!(d~ > T)) as bits in increasing codeword order,
+        // then each rescored exactly
+        uint32_t cand[2] = {0u, 0u};
 #pragma unroll
-        for (int u = 0; u < NT; ++u) {
+        for (int j = 0; j < 16; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int h = i >> 1, c = c0 + u * 8 + 2 * q + (i & 1);
-            if (fb[h] && !(acc[u][i] > thr[h]) && c < k) {
-              const int cl = l0 + u * 8 + 2 * q + (i & 1);
-              const float e = wide_exact(x_s + (r0 + 8 * h) * s, cb + cl * s,
-                                         cnt[cl], f);
-              if (e < m1[h]) {         // strict: the lowest index keeps ties
-                m1[h] = e;
-                i1[h] = c;
-              }
+          for (int e = 0; e < 4; ++e)
+            if (!(acc[4 * j + e] > thr[e >> 1]))
+              cand[e >> 1] |= 1u << (2 * j + (e & 1));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t m = fb[h] ? cand[h] : 0u;
+          while (m != 0u) {
+            const int bit = __ffs(m) - 1;
+            m &= m - 1u;
+            const int cc = t * kWideBN + 8 * (bit >> 1) + 2 * q + (bit & 1);
+            if (cc >= k) break;
+            const float dx =
+                wide_exact(xr[h], cw + ((size_t)br * k + cc) * f,
+                           cn2[(size_t)br * kpad + cc], f, nullptr);
+            if (dx < m1[h]) {          // strict: the lowest index keeps ties
+              m1[h] = dx;
+              i1[h] = cc;
             }
           }
         }
       }
-      __syncthreads();                 // the buffer is free for tile t + 2
+      WIDE_PH(4);
     }
     // the quad's lanes hold the same rows: merge, lane q = 0 writes
 #pragma unroll
@@ -1294,163 +1719,236 @@ vq_wide_kernel(const float* __restrict__ x, long long sb, long long sr,
         }
       }
       if (q == 0) {
-        ms.m1[half][r0 + 8 * h] = m1[h];
-        ms.m2[half][r0 + 8 * h] = m2[h];
-        ms.i1[half][r0 + 8 * h] = i1[h];
+        ms.m1[r0 + 8 * h] = m1[h];
+        ms.m2[r0 + 8 * h] = m2[h];
+        ms.i1[r0 + 8 * h] = i1[h];
       }
     }
-    __syncthreads();
   };
 
-  // Merge the two halves of row r: (min, its codeword, runner-up).
-  auto merged = [&](int r, float& a1, int& ai, float& a2) {
-    a1 = ms.m1[0][r];
-    ai = ms.i1[0][r];
-    a2 = ms.m2[0][r];
-    const float b1 = ms.m1[1][r], b2 = ms.m2[1][r];
-    const int bi = ms.i1[1][r];
-    a2 = fminf(fmaxf(a1, b1), fminf(a2, b2));
-    if (b1 < a1 || (b1 == a1 && bi < ai)) {
-      a1 = b1;
-      ai = bi;
-    }
-  };
-
-  // The staged rows with ms.arg[r] >= 0 are finished: their outputs, and
+  // The tile's rows with ms.arg[r] >= 0 are finished: their outputs, and
   // with Stats the cluster statistics, one chain of rows a codeword.
   auto finish = [&](int br) {
-    if (tid < BM && ms.arg[tid] >= 0) {
-      const size_t out = (size_t)br * n + ms.row[tid];
-      idx[out] = (Idx)ms.arg[tid];
-      if (qerr != nullptr)
-        qerr[out] = fmaxf(__fadd_rn(ms.best[tid], ms.xn2[tid]), 0.f);
-    }
+    for (int r = tid; r < BM; r += NT)
+      if (ms.arg[r] >= 0) {
+        const size_t out = (size_t)br * n + ms.row[r];
+        idx[out] = (Idx)ms.arg[r];
+        if (qerr != nullptr)
+          qerr[out] = fmaxf(__fadd_rn(ms.best[r], ms.xn2[r]), 0.f);
+      }
     if constexpr (Stats) {
-      if (tid < BM) {
-        const int a = ms.arg[tid];
-        int nx = -1, first = a >= 0;
-        if (a >= 0) {
-          for (int r = 0; r < tid; ++r) first &= ms.arg[r] != a;
-          for (int r = BM - 1; r > tid; --r) nx = ms.arg[r] == a ? r : nx;
-        }
-        ms.next[tid] = nx;
-        ms.lead[tid] = first;
+      // rows by codeword: the tile's first (it adds the count), the first
+      // in each 32-row segment, and from there the first in a later one
+      constexpr int SEG = 32;
+      bool chained = false;                    // a segment holds a chain
+      for (int r = tid; r < BM; r += NT) {
+        const int a = ms.arg[r], s0 = r / SEG * SEG;
+        int len = 0, first = BM, sl = r, sn = -1;
+        if (a >= 0)
+          for (int rr = 0; rr < BM; ++rr) {
+            const bool m = ms.arg[rr] == a;
+            len += m;
+            first = m && rr < first ? rr : first;
+            sl = m && rr >= s0 && rr < sl ? rr : sl;
+            sn = m && sn < 0 && rr >= s0 + SEG ? rr : sn;
+          }
+        ms.seg_lead[r] = sl;
+        ms.seg_next[r] = sn;
+        ms.lead[r] = a >= 0 && first == r;
+        chained |= sl != r;
+        if (a >= 0 && first == r)
+          atomicAdd(counts + (size_t)br * k + a, (float)len);
       }
-      __syncthreads();
-      if (tid < BM && ms.lead[tid]) {
-        int len = 0;
-        for (int r = tid; r >= 0; r = ms.next[r]) ++len;
-        atomicAdd(counts + (size_t)br * k + ms.arg[tid], (float)len);
-      }
-      for (int p = tid; p < BM * f; p += kThreads) {
-        const int r = p / f, j = p - r * f;
-        if (ms.lead[r]) {
-          float acc = 0.f;
-          for (int rr = r; rr >= 0; rr = ms.next[rr]) acc += x_s[rr * s + j];
-          atomicAdd(sums + ((size_t)br * k + ms.arg[r]) * f + j, acc);
+      chained = __syncthreads_or(chained);
+      for (int j0 = 0; j0 < f; j0 += JC) {
+        const int jc = f - j0 < JC ? f - j0 : JC;
+        // one chunk holds the width: the rows are still staged from u
+        if (JC < f)
+          wide_stage_cols<BM, NT>(x + br * sb, sr, cw, f, ms.row, ms.i1,
+                                  false, j0, jc, ex, ec, JS, warp, lane);
+        // each segment's rows of a codeword summed onto its first row there,
+        // in row order, a thread a (segment, column)
+        if (chained) {
+          for (int e = tid; e < (BM / SEG) * jc; e += NT) {
+            const int s = e / jc, jj = e - s * jc;
+            for (int r = s * SEG; r < s * SEG + SEG; ++r) {
+              const int l = ms.seg_lead[r];
+              if (ms.arg[r] >= 0 && l != r)
+                ex[l * JS + jj] += ex[r * JS + jj];
+            }
+          }
+          __syncthreads();
         }
+        for (int r = warp; r < BM; r += NT / 32) {
+          if (!ms.lead[r]) continue;
+          // the segments' sums in order; columns by 16-byte groups where
+          // aligned, the ends one by one
+          const size_t g0 = ((size_t)br * k + ms.arg[r]) * f + j0;
+          float* s_ = sums + g0;
+          const int hd = min((int)((4 - (g0 & 3)) & 3), jc);
+          const int nv = (jc - hd) >> 2, tl = hd + 4 * nv;
+          for (int e = lane; e < hd + jc - tl; e += 32) {
+            const int jj = e < hd ? e : tl + e - hd;
+            float a = 0.f;
+            for (int rr = r; rr >= 0; rr = ms.seg_next[rr])
+              a += ex[rr * JS + jj];
+            atomicAdd(s_ + jj, a);
+          }
+          for (int v = lane; v < nv; v += 32) {
+            const int jj = hd + 4 * v;
+            float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+            for (int rr = r; rr >= 0; rr = ms.seg_next[rr]) {
+              const float* e_ = ex + rr * JS + jj;
+              a.x += e_[0];
+              a.y += e_[1];
+              a.z += e_[2];
+              a.w += e_[3];
+            }
+            atomicAdd(reinterpret_cast<float4*>(s_ + jj), a);
+          }
+        }
+        __syncthreads();
       }
     }
+    wide_fence_async();      // the ring's next writes are the async proxy's
     __syncthreads();
   };
 
   // Rescore the first cnt queued rows as one tile.
   auto drain = [&](int br, int cnt) {
-    if (tid < BM) {
-      ms.row[tid] = tid < cnt ? ms.q_row[tid] : -1;
-      ms.thr[tid] = tid < cnt ? ms.q_thr[tid] : 0.f;
+    WIDE_PH_DRAIN(1);
+    for (int r = tid; r < BM; r += NT) {
+      ms.row[r] = r < cnt ? ms.q_row[r] : -1;
+      ms.thr[r] = r < cnt ? ms.q_thr[r] : 0.f;
     }
     __syncthreads();
     const int rest = ms.q_n - cnt;
-    for (int i = tid; i < rest; i += kThreads) {     // [cnt, q_n) -> [0, rest)
-      ms.q_row[i] = ms.q_row[cnt + i];               // rest <= cnt: no overlap
+    for (int i = tid; i < rest; i += NT) {          // [cnt, q_n) -> [0, rest)
+      ms.q_row[i] = ms.q_row[cnt + i];              // rest <= cnt: no overlap
       ms.q_thr[i] = ms.q_thr[cnt + i];
     }
     __syncthreads();
     if (tid == 0) ms.q_n = rest;
-    stage(br);
     pass(br, true, cnt);
-    if (tid < BM) {
-      float a1, a2;
-      int ai;
-      // the halves' (best, index): the same merge, the runner-up unused
-      merged(tid, a1, ai, a2);
-      ms.arg[tid] = tid < cnt ? ai : -1;
-      ms.best[tid] = a1;
+    __syncthreads();
+    float dot, xx;
+    wide_rows_exact<BM, NT>(x + br * sb, sr, cw + (size_t)br * k * f, f,
+                            ms.row, ms.i1, false, ex, ec, JC, JS, tid, warp,
+                            lane, dot, xx);
+    for (int r = tid; r < BM; r += NT) {
+      ms.arg[r] = r < cnt ? ms.i1[r] : -1;
+      ms.best[r] = ms.m1[r];
+      if (r < cnt) ms.xn2[r] = xx;          // thread r holds row r's |x|^2
     }
     __syncthreads();
     finish(br);
+    WIDE_PH(7);
+    WIDE_PH_DRAIN(0);
   };
 
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      wide_mbar_init(full(s), 1);
+      wide_mbar_init(empty(s), NCT);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    ms.q_n = 0;
+    ms.queued = 0;
+  }
+  __syncthreads();
   int cur = -1;
-  if (tid == 0) ms.q_n = 0;
   for (long long t = t_lo; t < t_hi; ++t) {
     const int br = (int)(t / tpb);
     const int row0 = (int)(t - (long long)br * tpb) * BM;
     if (br != cur) {
       __syncthreads();
-      if (cur >= 0 && ms.q_n > 0) drain(cur, ms.q_n);
+      if (!Probe && cur >= 0 && ms.q_n > 0) drain(cur, ms.q_n);
       cur = br;
       // cmax of the branch (fmaxf: a NaN codeword is only ever a candidate)
       float m = 0.f;
-      for (int c = tid; c < k; c += kThreads)
-        m = fmaxf(m, cn2[(size_t)br * k + c]);
+      for (int c = tid; c < k; c += NT)
+        m = fmaxf(m, cn2[(size_t)br * kpad + c]);
 #pragma unroll
       for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
       if (lane == 0) ms.red[warp] = m;
       __syncthreads();
       if (tid == 0) {
         float a = 0.f;
-        for (int w = 0; w < kWarps; ++w) a = fmaxf(a, ms.red[w]);
+        for (int w = 0; w < NT / 32; ++w) a = fmaxf(a, ms.red[w]);
         ms.cmax = sqrtf(a);
       }
     }
-    if (tid < BM) ms.row[tid] = row0 + tid < n ? row0 + tid : -1;
+    for (int r = tid; r < BM; r += NT)
+      ms.row[r] = row0 + r < n ? row0 + r : -1;
     __syncthreads();
-    stage(br);
+    WIDE_PH(0);
+    if (t + 1 < t_hi) {
+      pf_br = (int)((t + 1) / tpb);
+      pf_row0 = (int)(t + 1 - (long long)pf_br * tpb) * BM;
+    }
     pass(br, false, 0);
-    if (tid < BM) {
-      float a1, a2;
-      int ai;
-      merged(tid, a1, ai, a2);
-      ms.arg[tid] = -1;
-      if (ms.row[tid] >= 0) {
-        const float u = wide_exact(x_s + tid * s, cw + ((size_t)br * k + ai) * f,
-                                   cn2[(size_t)br * k + ai], f);
-        const float xr = sqrtf(ms.xn2[tid]);
-        const float b = xr * kWideUp, bb = b * b;
-        const float r =
-            (b + sqrtf(fmaxf(bb + u, 0.f) + (kWideUp - 1.f) * (bb + fabsf(u))))
-            * kWideUp;
-        const float cm = fminf(ms.cmax, r);
-        const float thr = u + e_coef * (cm * cm + 4.f * xr * cm)
-                          + kTinyBound * (1.f + xr + cm);
-        if (isfinite(thr) && a2 > thr) {
-          ms.arg[tid] = ai;
-          ms.best[tid] = u;
-        } else {
-          const int slot = atomicAdd(&ms.q_n, 1);
-          ms.q_row[slot] = ms.row[tid];
-          ms.q_thr[slot] = thr;
-        }
+    pf_br = -1;
+    __syncthreads();
+    WIDE_PH(4);
+    if constexpr (Probe) continue;
+    float dot, xx;
+    wide_rows_exact<BM, NT>(x + br * sb, sr, cw + (size_t)br * k * f, f,
+                            ms.row, ms.i1, true, ex, ec, JC, JS, tid, warp,
+                            lane, dot, xx);
+
+    for (int r = tid; r < BM; r += NT) {     // r = tid: its sums above
+      ms.arg[r] = -1;
+      const int row = ms.row[r];
+      if (row < 0) continue;
+      const int ai = ms.i1[r];
+      const float a2 = ms.m2[r];
+      const float u =
+          __fsub_rn(cn2[(size_t)br * kpad + ai], __fmul_rn(2.f, dot));
+      ms.xn2[r] = xx;
+      const float xn = sqrtf(xx);
+      const float b = xn * kWideUp, bb = b * b;
+      const float rr =
+          (b + sqrtf(fmaxf(bb + u, 0.f) + (kWideUp - 1.f) * (bb + fabsf(u))))
+          * kWideUp;
+      const float cm = fminf(ms.cmax, rr);
+      const float thr = u + e_coef * (cm * cm + 4.f * xn * cm)
+                        + kTinyBound * (1.f + xn + cm);
+      if (isfinite(thr) && a2 > thr) {
+        ms.arg[r] = ai;
+        ms.best[r] = u;
+      } else {
+        const int slot = atomicAdd(&ms.q_n, 1);
+        ms.q_row[slot] = row;
+        ms.q_thr[slot] = thr;
+        atomicAdd(&ms.queued, 1u);
       }
     }
     __syncthreads();
+    WIDE_PH(5);
     finish(br);
+    WIDE_PH(6);
     if (ms.q_n >= BM) drain(br, BM);
   }
   __syncthreads();
-  if (cur >= 0 && ms.q_n > 0) drain(cur, ms.q_n);
+  if (!Probe && cur >= 0 && ms.q_n > 0) drain(cur, ms.q_n);
+  if (tid == 0 && ms.queued > 0)
+    atomicAdd(reinterpret_cast<unsigned*>(scratch), ms.queued);
+  WIDE_PH(0);
+  WIDE_PH_FLUSH();
 }
 
-// Launch the wide build: |c|^2 into cn2 (nb * k floats of the caller's
-// scratch), then the scan with the widest codeword tile that fits.
-template <typename Idx, bool Stats>
+// Launch the wide build: the prologue into the caller's scratch
+// (wide_scratch_floats(nb, k, f) floats), then the scan.  wgs: consumer
+// warpgroups a block (0: 2, or 1 where 128-row tiles are fewer than the
+// SMs or f has no 128-row plan -- PERF.md times both).
+template <typename Idx, bool Stats, bool Probe = false>
 cudaError_t launch_wide(const float* x, long long sb, long long sr,
-                        const float* cw, float* cn2, Idx* idx, float* qerr,
-                        float* counts, float* sums, int nb, int n, int k,
-                        int f, cudaStream_t stream) {
-  if (f < 1 || f > kWideMaxF || k < 1 || nb < 1 || n < 1)
+                        const float* cw, float* scratch, Idx* idx,
+                        float* qerr, float* counts, float* sums, int nb,
+                        int n, int k, int f, cudaStream_t stream,
+                        int wgs = 0) {
+  if (f < 1 || f > kWideMaxF || k < 1 || nb < 1 || n < 1 || wgs < 0 ||
+      wgs > 2)
     return cudaErrorInvalidValue;
   int dev = 0, limit = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1462,34 +1960,61 @@ cudaError_t launch_wide(const float* x, long long sb, long long sr,
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return err;
-  const bool bn64 = wide_smem(f, 64) <= (size_t)limit;
-  const size_t smem = wide_smem(f, bn64 ? 64 : 32);
-  if (smem > (size_t)limit) return cudaErrorInvalidValue;
-  const bool vec = f % 4 == 0 && (reinterpret_cast<size_t>(cw) & 15) == 0;
-  auto kern = bn64 ? (vec ? &vq_wide_kernel<64, Idx, Stats, true>
-                          : &vq_wide_kernel<64, Idx, Stats, false>)
-                   : (vec ? &vq_wide_kernel<32, Idx, Stats, true>
-                          : &vq_wide_kernel<32, Idx, Stats, false>);
+  WidePlan p;
+  if (wgs == 0)            // 128-row tiles where they fill the SMs
+    wgs = (long long)nb * ((n + 127) / 128) >= sms &&
+                  wide_plan(f, 2, (size_t)limit, p)
+              ? 2 : 1;
+  if (!wide_plan(f, wgs, (size_t)limit, p)) return cudaErrorInvalidValue;
+  auto kern = wgs == 2
+      ? (p.ares ? &vq_wide_kernel<2, true, Idx, Stats, Probe>
+                : &vq_wide_kernel<2, false, Idx, Stats, Probe>)
+      : (p.ares ? &vq_wide_kernel<1, true, Idx, Stats, Probe>
+                : &vq_wide_kernel<1, false, Idx, Stats, Probe>);
+  const int threads = 128 * wgs + 32;
   if ((err = cudaFuncSetAttribute(
-           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem)) !=
       cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kern, kThreads, smem)) != cudaSuccess)
+           &per_sm, kern, threads, p.smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long count = (long long)nb * k;
-  wide_norms_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(
-      cw, cn2, count, f);
+  wide_prep_kernel<<<dim3((unsigned)(wide_kpad(k) / kWidePrepCw),
+                          (unsigned)nb), 128, 0, stream>>>(cw, scratch, nb, k,
+                                                           f);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long tiles = (long long)nb * ((n + kWideBM - 1) / kWideBM);
+  const int bm = 64 * wgs;
+  const long long tiles = (long long)nb * ((n + bm - 1) / bm);
   long long grid = (long long)per_sm * sms;
   if (grid > tiles) grid = tiles;
   const long long per_block = (tiles + grid - 1) / grid;
   grid = (tiles + per_block - 1) / per_block;
-  kern<<<(unsigned)grid, kThreads, smem, stream>>>(
-      x, sb, sr, cw, cn2, idx, qerr, counts, sums, nb, n, k, f, per_block);
+  kern<<<(unsigned)grid, threads, p.smem, stream>>>(
+      x, sb, sr, cw, scratch, idx, qerr, counts, sums, nb, n, k, f, per_block,
+      p.kc, p.stages, wide_epilogue_cols(f, bm, p.kc, p.stages));
   return cudaGetLastError();
+}
+
+// The plan the launch takes at width f with wgs warpgroups, for the
+// wrappers' tests: {ares, kc, stages, smem bytes}; cudaErrorInvalidValue
+// where no plan fits.
+inline cudaError_t wide_plan_query(int f, int wgs, int* out) {
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(
+           &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return err;
+  WidePlan p;
+  if (f < 1 || f > kWideMaxF || !wide_plan(f, wgs, (size_t)limit, p))
+    return cudaErrorInvalidValue;
+  out[0] = p.ares;
+  out[1] = p.kc;
+  out[2] = p.stages;
+  out[3] = (int)p.smem;
+  return cudaSuccess;
 }
 
 }  // namespace

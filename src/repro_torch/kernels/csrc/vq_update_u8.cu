@@ -17,10 +17,10 @@ extern "C" cudaError_t repro_vq_update_u8_f32(const float* x, const float* cw,
 
 // As repro_vq_update_wide_f32 with idx: [nb, n] uint8 (k <= 256).
 extern "C" cudaError_t repro_vq_update_wide_u8_f32(
-    const float* x, const float* cw, float* cn2, uint8_t* idx, float* qerr,
+    const float* x, const float* cw, float* scratch, uint8_t* idx, float* qerr,
     float* counts, float* sums, int nb, int n, int k, int f,
     cudaStream_t stream) {
   if (k > 256) return cudaErrorInvalidValue;
-  return launch_wide<uint8_t, true>(x, (long long)n * f, f, cw, cn2, idx,
+  return launch_wide<uint8_t, true>(x, (long long)n * f, f, cw, scratch, idx,
                                     qerr, counts, sums, nb, n, k, f, stream);
 }

@@ -11,7 +11,9 @@ the scan rescores exactly every codeword that its bound
 out.
 A branch wider than 32, or a codebook too large for the narrow build's
 shared memory, takes the scan's wide build (``vq_update.uses_wide``), at
-any f up to ``vq_update.WIDE_MAX_F`` and any k.
+any f up to ``vq_update.WIDE_MAX_F`` and any k, with the scratch
+``vq_update.wide_scratch`` allocates (``vq_update.wide_queued_rows`` reads
+its queue counter).
 ``launches`` counts the kernel launches of this process, ``launches_wide``
 those of the wide build, ``launches_wide_by_shape`` the same by operand
 shape, ``(nb, n, k, f)``.
@@ -80,10 +82,10 @@ def vq_assign_cuda(x: torch.Tensor, codewords: torch.Tensor,
         if want_min else None
     if nb > 0 and n > 0:
         lib = _build.library()
-        # the wide build's scratch: the codewords' |c|^2
-        cn2 = torch.empty((nb, k), dtype=torch.float32, device=x.device) \
-            if wide else None
-        entry, scratch = (lib.repro_vq_assign_wide_f32, (cn2.data_ptr(),)) \
+        # the wide build's scratch, filled by its prologue
+        entry, scratch = (
+            lib.repro_vq_assign_wide_f32,
+            (vq_update.wide_scratch(nb, k, f, x.device).data_ptr(),)) \
             if wide else (lib.repro_vq_assign_f32, ())
         err = entry(
             x.data_ptr(), x.stride(0), x.stride(1), codewords.data_ptr(),
@@ -97,3 +99,36 @@ def vq_assign_cuda(x: torch.Tensor, codewords: torch.Tensor,
             launches_wide_by_shape[key] = \
                 launches_wide_by_shape.get(key, 0) + 1
     return (out, mind) if want_min else out
+
+
+def wide_probe_cuda(x: torch.Tensor, codewords: torch.Tensor) -> torch.Tensor:
+    """The wide scan's approximate distances themselves: x [nb, n, f] and
+    codewords [nb, k, f] contiguous f32 CUDA tensors -> d~ [nb, n, k_pad]
+    (``vq_update.wide_kpad``; the columns past k are +inf or NaN), each
+    |c|^2 plus the 3 ceil(f / 8) TF32 products, for probing the tensor
+    cores' accumulation error.  Not counted, and no path calls it."""
+    _build.check_operands("vq_wide_probe", {"x": torch.float32,
+                                            "codewords": torch.float32},
+                          x=x, codewords=codewords)
+    nb, n, f = x.shape
+    k = codewords.shape[1]
+    check_width("vq_wide_probe", k, f)
+    d = torch.empty((nb, n, vq_update.wide_kpad(k)), dtype=torch.float32,
+                    device=x.device)
+    scratch = vq_update.wide_scratch(nb, k, f, x.device)
+    err = _build.library().repro_vq_wide_probe_f32(
+        x.data_ptr(), codewords.data_ptr(), scratch.data_ptr(), d.data_ptr(),
+        nb, n, k, f, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "vq_wide_probe")
+    return d
+
+
+def wide_plan_card(f: int, wgs: int) -> tuple:
+    """The plan the card's launch takes at width f with ``wgs`` warpgroups
+    (``repro_vq_wide_plan``): (ares, kc, stages, smem), to hold
+    ``vq_update.wide_plan`` against it."""
+    import ctypes
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().repro_vq_wide_plan(f, wgs, out),
+                 "vq_wide_plan")
+    return bool(out[0]), out[1], out[2], out[3]

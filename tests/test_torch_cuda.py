@@ -1327,6 +1327,7 @@ def _assert_vq_update_exact(x, cw, emit=torch.int32):
         0, flat, x.double().reshape(-1, f)).reshape(nb, k, f)
     assert_scatter_close(got[3].cpu().double(), exact.cpu(), terms_abs.cpu(),
                          want[2][..., None].cpu().numpy())
+    return got
 
 
 def _near_tie_codebook(nb, n, k, f, seed, cuda):
@@ -1758,12 +1759,13 @@ def test_table_layout_on_the_card(cuda, tab, tier):
 
 # ---------------------------------------------------------------------------
 # the wide build of the scan (f > 32, or a codebook beyond the narrow
-# build's shared memory): odd widths, k across its 64- and 32-codeword
-# tiles, strided rows, near ties
+# build's shared memory): odd widths, k across its 128-codeword tiles, n
+# across its 64- and 128-row tiles, strided rows, near ties, the queue
+# counter, the prologue's split codewords and the launch plan
 # ---------------------------------------------------------------------------
 
-WIDE_F = [33, 65, 129, 256, 300]
-WIDE_K = [1, 511, 513, 1024, 2049]
+WIDE_F = [33, 43, 65, 72, 128, 129, 168, 256, 300, 440]
+WIDE_K = [1, 63, 511, 513, 1024, 2049, 4096]
 
 
 @pytest.mark.gpu
@@ -1771,7 +1773,7 @@ WIDE_K = [1, 511, 513, 1024, 2049]
 @pytest.mark.parametrize("k", WIDE_K)
 def test_vq_update_wide_vs_plain(cuda, f, k):
     """idx and qerr bit-equal, counts equal, sums within the scatter bound,
-    n not a multiple of the 64-row tile; the launch takes the wide build
+    n not a multiple of the row tile; the launch takes the wide build
     and is counted at its shape."""
     g = torch.Generator().manual_seed(f * k)
     x = torch.randn((2, 701, f), generator=g).to(cuda)
@@ -1808,7 +1810,26 @@ def test_vq_assign_wide_vs_plain_on_a_branch_view(cuda, f, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("f", [43, 65, 168, 256])
+@pytest.mark.parametrize("f", [43, 65, 256])
+@pytest.mark.parametrize("nb,n", [(1, 1), (1, 37), (2, 64), (1, 127),
+                                  (3, 129), (1, 5000), (4, 42335)])
+def test_vq_update_wide_row_tiles(cuda, f, nb, n):
+    """n smaller than one tile, one row past a tile, a grid with fewer
+    128-row tiles than SMs (the launch then takes 64-row tiles) and the
+    training batch: both row tilings bit-equal to each other and to the
+    plain version."""
+    g = torch.Generator().manual_seed(nb * n + f)
+    x = torch.randn((nb, n, f), generator=g).to(cuda)
+    cw = torch.randn((nb, 1024, f), generator=g).to(cuda)
+    got = _assert_vq_update_exact(x, cw)
+    for wgs in (1, 2):
+        other = tvu.vq_assign_update_wide_tiles_cuda(x, cw, wgs)
+        assert torch.equal(other[0], got[0]) and torch.equal(other[1], got[1])
+        assert torch.equal(other[2], got[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [43, 65, 72, 168, 256, 440])
 @pytest.mark.parametrize("n,k", [(3001, 1024), (130, 37), (700, 2049)])
 def test_wide_near_ties_bit_equal(cuda, f, n, k):
     """Duplicated codewords, 1-ulp neighbours, equidistant and large-norm
@@ -1824,7 +1845,7 @@ def test_wide_near_ties_bit_equal(cuda, f, n, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("f", [65, 256])
+@pytest.mark.parametrize("f", [43, 65, 128, 256, 440])
 def test_wide_every_row_on_one_codeword(cuda, f):
     """The collapsed codebook at the wide widths: one codeword takes every
     row; the chained statistics stay exact in count."""
@@ -1837,12 +1858,13 @@ def test_wide_every_row_on_one_codeword(cuda, f):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("f", [43, 65, 256])
 @pytest.mark.parametrize("emit,k", [(torch.uint8, 256), (torch.uint8, 37),
                                     ("uint4", 16)])
-def test_vq_update_wide_narrow_emit(cuda, emit, k):
+def test_vq_update_wide_narrow_emit(cuda, emit, k, f):
     """The uint8 emit of the wide build: the int32 build's ids, qerr and
     counts, counted in ``launches_u8``; near ties bit-equal."""
-    x, cw = _near_tie_codebook(4, 2001, k, 65, k, cuda)
+    x, cw = _near_tie_codebook(4, 2001, k, f, k + f, cuda)
     before = (tvu.launches_u8, tvu.launches_wide)
     narrow = tvu.vq_assign_update_cuda(x, cw, emit)
     wide = tvu.vq_assign_update_cuda(x, cw)
@@ -1854,3 +1876,66 @@ def test_vq_update_wide_narrow_emit(cuda, emit, k):
     assert torch.equal(narrow[1], wide[1]) and torch.equal(narrow[2],
                                                            wide[2])
     _assert_vq_update_exact(x, cw, emit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [43, 65, 128])
+@pytest.mark.parametrize("ties", [False, True])
+def test_wide_queue_counter(cuda, f, ties):
+    """The kernel's count of rows queued for its second pass.  On integer
+    rows and codewords in [-2, 2] every TF32 part and every sum is exact,
+    so d~ = d and the count is the one ``queued_rows_est``'s rule gives
+    (here E < 1: exactly the rows whose two smallest distances tie); with
+    codeword 1 a copy of codeword 0 and every row on it, every row ties and
+    queues."""
+    g = torch.Generator().manual_seed(f + ties)
+    nb, n, k = 2, 3001, 1024
+    cw = torch.randint(-2, 3, (nb, k, f), generator=g).float()
+    if ties:
+        cw[:, 1] = cw[:, 0]
+        x = cw[:, :1].expand(nb, n, f).contiguous()
+    else:
+        x = torch.randint(-2, 3, (nb, n, f), generator=g).float()
+    x, cw = x.to(cuda), cw.to(cuda)
+    _assert_vq_update_exact(x, cw)
+    torch.cuda.synchronize()
+    got = tvu.wide_queued_rows()
+    want = tvu.queued_rows_est(x, cw)
+    assert got == want
+    if ties:
+        assert got == nb * n
+    tva.vq_assign_cuda(x, cw)
+    assert tvu.wide_queued_rows() == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,k,f", [(2, 1000, 65), (1, 37, 440),
+                                    (3, 1024, 43), (1, 129, 256)])
+def test_wide_prologue_writes_the_split_layout(cuda, nb, k, f):
+    """The scratch the prologue writes: |c|^2 in the plain version's order
+    (+inf past k) and the codewords' TF32 hi / lo parts in the tile layout,
+    bit for bit as ``wide_split_layout`` computes them in plain torch."""
+    g = torch.Generator().manual_seed(k + f)
+    cw = torch.randn((nb, k, f), generator=g).to(cuda)
+    x = torch.randn((nb, 65, f), generator=g).to(cuda)
+    tvu.vq_assign_update_cuda(x, cw)
+    torch.cuda.synchronize()
+    got = tvu.last_wide_scratch
+    assert got.numel() == tvu.wide_scratch_floats(nb, k, f)
+    want = tvu.wide_split_layout(cw)
+    assert torch.equal(got[4:].view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [1, 32, 33, 43, 65, 72, 128, 168, 192, 193,
+                               256, 300, 360, 368, 392, 400, 440])
+@pytest.mark.parametrize("wgs", [1, 2])
+def test_wide_plan_matches_the_card(cuda, f, wgs):
+    """The launch's plan on the card (rows split once or a chunk at a time,
+    K chunk, stages, shared memory) is ``vq_update.wide_plan``'s."""
+    want = tvu.wide_plan(f, wgs)
+    if want is None:
+        with pytest.raises(RuntimeError, match="vq_wide_plan"):
+            tva.wide_plan_card(f, wgs)
+    else:
+        assert tva.wide_plan_card(f, wgs) == want

@@ -398,7 +398,8 @@ def emulate_wide_scan(x: torch.Tensor, cw: torch.Tensor):
     exact_sum = cn2[:, None, :].double() + mm(al, bh) + mm(ah, bl) \
         + mm(ah, bh)
     mag = cn2[:, None, :].double() + 2.0 * mm((2.0 * x).abs(), cw.abs())
-    allowance = n_mma * TC_EPS * mag
+    # the wgmma accumulation's allowance: n_mma + WIDE_TC_EXTRA units
+    allowance = (n_mma + tvu.WIDE_TC_EXTRA) * TC_EPS * mag
     dot = torch.zeros((nb, n, cw.shape[1]), dtype=torch.float32)
     for j in range(f):
         dot = dot + x[:, :, j, None] * cw[:, None, :, j]
@@ -451,20 +452,107 @@ def assert_wide_scan_exact(x, cw):
 
 
 def test_wide_build_mirrors_the_header():
-    """The wrapper's bound, margins and shared-memory plan are the
+    """The wrapper's bound, margins, scratch and shared-memory plan are the
     header's."""
-    assert "(float)(3 * ks_n + 6 + (2 * f + 3 + 15) / 16) * kEpsBound" \
+    assert "(float)(3 * ks_n + 9 + (2 * f + 3 + 15) / 16) * kEpsBound" \
         in WIDE_HEADER
+    assert 6 + tvu.WIDE_TC_EXTRA == 9
     assert "constexpr float kWideUp = 1.000244140625f;" in WIDE_HEADER
     assert 1.000244140625 == tvu.WIDE_UP
     assert f"constexpr int kWideMaxF = {tvu.WIDE_MAX_F};" in WIDE_HEADER
-    assert f"constexpr int kWideBM = {tvu.WIDE_BM};" in WIDE_HEADER
-    assert f"sizeof(WideMisc) == {tvu.WIDE_MISC_BYTES}" in WIDE_HEADER
-    # the widest f fits a 32-codeword tile, one more does not
-    assert tvu.wide_smem_bytes(tvu.WIDE_MAX_F, 32) <= tvu.SMEM_LIMIT \
-        < tvu.wide_smem_bytes(tvu.WIDE_MAX_F + 1, 32)
-    assert tvu.wide_smem_bytes(256, 64) <= tvu.SMEM_LIMIT \
-        < tvu.wide_smem_bytes(300, 64)
+    assert f"constexpr int kWideBN = {tvu.WIDE_BN};" in WIDE_HEADER
+    assert f"constexpr int kWideMinStages = {tvu.WIDE_MIN_STAGES};" \
+        in WIDE_HEADER
+    assert f"constexpr int kWideMaxStages = {tvu.WIDE_MAX_STAGES};" \
+        in WIDE_HEADER
+    assert f"constexpr int kWideMaxKC = {tvu.WIDE_MAX_KC};" in WIDE_HEADER
+    for bm in (64, 128):
+        assert f"sizeof(WideMisc<{bm}>) == {tvu.wide_misc_bytes(bm)}" \
+            in WIDE_HEADER
+    # every width the wide build takes has a plan at 64-row tiles, the
+    # widest with its rows a chunk at a time; the rows split once up to
+    # f 392 at 64-row tiles and f 192 at 128; 128-row tiles reach f 360
+    for f in range(1, tvu.WIDE_MAX_F + 1):
+        for wgs in (1, 2):
+            plan = tvu.wide_plan(f, wgs)
+            if plan is None:
+                assert wgs == 2 and f > 360
+                continue
+            ares, kc, stages, smem = plan
+            assert smem <= tvu.SMEM_LIMIT and stages >= tvu.WIDE_MIN_STAGES
+            assert kc % 8 == 0 and 8 <= kc <= min(tvu.wide_fp(f),
+                                                 tvu.WIDE_MAX_KC)
+            assert ares == (f <= (392 if wgs == 1 else 192))
+    # the widest plan of each kind fits, one more column does not
+    assert tvu.wide_smem_bytes(392, 1, True, 8, 3) <= tvu.SMEM_LIMIT \
+        < tvu.wide_smem_bytes(400, 1, True, 8, 3)
+    assert tvu.wide_smem_bytes(440, 1, False, 8, 3) <= tvu.SMEM_LIMIT
+    assert tvu.wide_plan(65, 2) == (True, 48, 3, 230656)
+    assert tvu.wide_plan(256, 1) == (True, 24, 3, 210432)
+
+
+@pytest.mark.parametrize("nb,k,f", [(4, 1024, 65), (1, 1, 33), (2, 129, 440),
+                                    (3, 37, 43), (1, 1000, 256)])
+def test_wide_scratch_size_and_padding(nb, k, f):
+    """The scratch a wide launch needs: the counter, |c|^2 of k_pad
+    codewords (+inf past k) and their hi / lo parts over f_pad columns
+    (zeros past k and f), every tile and K chunk 16-byte aligned."""
+    kp, fp = tvu.wide_kpad(k), tvu.wide_fp(f)
+    assert kp % tvu.WIDE_BN == 0 and k <= kp < k + tvu.WIDE_BN
+    assert fp % 8 == 0 and f <= fp < f + 8
+    assert tvu.wide_scratch_floats(nb, k, f) == 4 + nb * kp * (1 + 2 * fp)
+    rng = np.random.default_rng(nb + k + f)
+    cw = torch.as_tensor(rng.standard_normal((nb, k, f)).astype(np.float32))
+    lay = tvu.wide_split_layout(cw)
+    assert lay.numel() + 4 == tvu.wide_scratch_floats(nb, k, f)
+    cn2 = lay[:nb * kp].reshape(nb, kp)
+    assert torch.equal(cn2[:, :k], tref._sq_norms(cw))
+    assert bool(torch.isinf(cn2[:, k:]).all())
+    parts = lay[nb * kp:].reshape(nb, kp // tvu.WIDE_BN, 2, tvu.WIDE_BN, fp)
+    # a tile's parts and each 4-column slab start on 16 bytes
+    assert (4 + nb * kp) % 4 == 0 and (tvu.WIDE_BN * fp) % 4 == 0
+    dense = _from_layout(parts)
+    assert bool((dense[:, :, k:] == 0).all())
+    assert bool((dense[..., f:] == 0).all())
+
+
+def _from_layout(parts: torch.Tensor) -> torch.Tensor:
+    """[nb, tiles, 2, 128, f_pad] in the kernel's slab order -> [nb, 2,
+    k_pad, f_pad] by codeword and column (``wide_split_off`` inverted)."""
+    nb, tiles, _, bn, fp = parts.shape
+    v = parts.reshape(nb, tiles, 2, fp // 4, bn // 8, 8, 4)
+    v = v.permute(0, 2, 1, 4, 5, 3, 6)             # nb, 2, tile, g, c8, j4
+    return v.reshape(nb, 2, tiles * bn, fp)
+
+
+@pytest.mark.parametrize("f", [33, 43, 65, 168, 256])
+def test_wide_split_layout_is_the_emulations_split(f):
+    """The prologue's hi / lo parts are the emulation's ``_split`` of the
+    codewords (TF32 truncation, lo of the exact remainder), laid out at
+    the header's ``wide_split_off``: codeword c, column j of branch b at
+    tile c / 128, slab j / 4, core matrix (c % 128) / 8, lane (c % 8) * 4 +
+    j % 4."""
+    nb, k = 2, 300
+    rng = np.random.default_rng(f)
+    cw = torch.as_tensor((rng.standard_normal((nb, k, f)) * np.exp(
+        rng.uniform(-8, 8, (nb, k, 1)))).astype(np.float32))
+    kp, fp = tvu.wide_kpad(k), tvu.wide_fp(f)
+    lay = tvu.wide_split_layout(cw)
+    parts = lay[nb * kp:].reshape(nb, -1)
+    hi, lo = _split(cw)
+    for b, c, j in [(0, 0, 0), (1, 299, f - 1), (0, 130, 5), (1, 7, f // 2),
+                    (0, 255, 3), (1, 128, 4)]:
+        off = (c // 128) * 2 * 128 * fp \
+            + ((j // 4) * 16 + (c % 128) // 8) * 32 + (c % 8) * 4 + j % 4
+        assert parts[b, off].view(torch.int32) == hi[b, c, j].view(
+            torch.int32)
+        assert parts[b, off + 128 * fp].view(torch.int32) == lo[b, c, j].view(
+            torch.int32)
+    dense = _from_layout(lay[nb * kp:].reshape(nb, kp // 128, 2, 128, fp))
+    assert torch.equal(dense[:, 0, :k, :f].view(torch.int32),
+                       hi.view(torch.int32))
+    assert torch.equal(dense[:, 1, :k, :f].view(torch.int32),
+                       lo.view(torch.int32))
 
 
 @pytest.mark.parametrize("k,f,wide", [(1024, 32, False), (1024, 21, False),
@@ -485,18 +573,20 @@ def test_wide_dispatch(k, f, wide):
 @pytest.mark.parametrize("f", [43, 65, 168, 256, 440])
 def test_wide_bound_covers_the_plain_rounding(f):
     """E at the wide widths: 3 ceil(f / 8) accumulations as in the narrow
-    build, plus ceil((2f + 3) / 16) for the plain version's rounding
-    ((2f + 3) 2^-24 (|c|^2 + 2X), the header's (iii)); the allowance then
-    covers (i) + (ii) + (iii) with room.  The norm cap's margins cover
-    rho = (2f + 3) 2^-24."""
+    build and ``WIDE_TC_EXTRA`` more for wgmma's accumulation, plus
+    ceil((2f + 3) / 16) for the plain version's rounding ((2f + 3) 2^-24
+    (|c|^2 + 2X), the header's (iii)); the allowance then covers (i) + (ii)
+    + (iii) with room.  The norm cap's margins cover rho = (2f + 3)
+    2^-24."""
     n_mma = 3 * -(-f // 8)
+    tc = n_mma + tvu.WIDE_TC_EXTRA
     coef = candidate_bound(0.0, 1.0, f, wide=True) / TC_EPS
-    assert coef == pytest.approx(n_mma + 6 + -(-(2 * f + 3) // 16))
+    assert coef == pytest.approx(tc + 6 + -(-(2 * f + 3) // 16))
     assert candidate_bound(0.0, 1.0, f) / TC_EPS == pytest.approx(n_mma + 6)
     # per unit of 2^-20: |c|^2 terms and X terms, (i) + (ii) + (iii)
     rounding = (2 * f + 3) / 16
-    assert n_mma + rounding <= coef
-    assert 4.02 * n_mma + 6.02 + 2 * rounding <= 4 * coef
+    assert tc + rounding <= coef
+    assert 4.02 * tc + 6.02 + 2 * rounding <= 4 * coef
     rho = (2 * f + 3) * 2.0 ** -24
     for xn, u in [(1.0, -0.5), (3.0, 2.0), (1e3, -1e6 + 1.0), (0.0, 5.0)]:
         exact = ((1 + rho) * xn + np.sqrt((1 + rho) ** 2 * xn ** 2
