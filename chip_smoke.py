@@ -170,11 +170,42 @@ Phases (each prints its own lines; any failure exits non-zero):
    accumulation over 67 M distances (the largest error as a share of
    the bound's allowance); the build phase prints ptxas' registers and
    spills of the wide kernels;
-25. a ``{"kernels": [...]}`` line (the quantized and wide forms under
-   each kernel's ``also``, each with its launches on the main paths --
-   a wide form's at its operand shape, as the wrapper counts them, every
-   wide shape's under ``wide_launches_by_shape``), each phase's seconds,
-   then the ``{"ok": true, ...}`` line.
+25. link-train, the link task's main path: an ogbl-collab look-alike at
+   ogbl-collab's 235,868 nodes (``synthetic_collab``, seed 4) with SAGE
+   at the paper's width (hidden 128, 3 layers, k 1024, f_prod 4: 32
+   branches of 8 a layer), ``train_vq`` -- its host-stepped loop, each
+   batch packed and its positive pairs mined on the host -- for 10 epochs
+   of 4 batches of 58,967 nodes from seed 0 and one Hits@50 evaluation,
+   counts exact; finite losses, the last epoch's mean loss under the
+   first's and val Hits@50 above 10x chance (the reference learns at
+   this width, ``PERF.md`` §6); then 8 host-loop iterations timed (host
+   packing and pair mining apart from the step) and a profile of 2 (the
+   device's busy share of the loop);
+26. link-full: ``train_full`` on the link task, 5 epochs (one step over
+   every message edge each) and a Hits@50 evaluation, the full graph's
+   SpMMs staged, counts exact, finite losses;
+27. link-sampler: ``train_scenario``'s Cluster-GCN on the link task, 1
+   epoch (the host loop, pairs capped at 4,096 a subgraph), counts exact,
+   finite losses;
+28. link-parity: one link step at batch 4,096 from the link-train state,
+   card vs CPU with the same pairs, held as phase 5 holds its step;
+29. link-kernels: every kernel of the link path against its plain
+   version at the link batch's operands (vq_update at [32, 58967, 8],
+   SAGE's spmm_ell, spmm_ell_t and both context_ell forms) and
+   spmm_ell_hbm at the full graph's SAGE operands, timed beside their
+   bounds;
+30. host-loop: on phase 3's graph and model, one epoch of ``train_vq``
+   with ``REPRO_EPOCH_EXECUTOR=0`` (each batch packed on the host)
+   against one on the executor from the same seed (counts exact, step
+   losses within STEP_TOL), then ``vq_inference`` with
+   ``REPRO_INFER_EXECUTOR=0`` (the eager loop) against the executor
+   (rows within SERVE_TOL);
+31. a ``{"kernels": [...]}`` line (the quantized and wide forms and the
+   link shapes under each kernel's ``also``, each with its launches on
+   the main paths -- a wide form's at its operand shape, as the wrapper
+   counts them, every wide shape's under ``wide_launches_by_shape``, a
+   link shape's form on the link paths under ``launches_link_paths``),
+   each phase's seconds, then the ``{"ok": true, ...}`` line.
 
 The script needs a CUDA card: without one (or outside a checkout of the
 repository) it exits non-zero and prints no result.
@@ -240,6 +271,17 @@ ATTN_HEADS = 4
 TRANSFORMER_N = 20000
 TRANSFORMER_PARITY_BATCH = 1024
 CHANCE = 1.0 / 40             # val accuracy of a uniform guess, 40 classes
+# the link task: an ogbl-collab look-alike at ogbl-collab's node count
+LINK_N = 235868
+LINK_SEED = 4                 # synthetic_collab's default seed
+LINK_EPOCHS = 10              # 40 steps of 58,967 nodes
+LINK_FULL_EPOCHS = 5
+LINK_SAMPLER_EPOCHS = 1
+LINK_HITS_K = 50              # Hits@50, the paper's ogbl-collab metric
+LINK_CHANCE_FACTOR = 10       # val Hits@50 must beat 10x a random scorer's
+# the edge values and the context kernels' weight of the fixed
+# convolutions the main paths train
+FIXED_CONV = {"gcn": ("gcn", "w"), "sage": ("mean", "w2")}
 
 
 def log(msg: str) -> None:
@@ -378,17 +420,40 @@ class Model:
                      smask_np: np.ndarray | None = None):
         """(pack, x_b, labels_b, loss mask) of one batch of node ids, as
         ``vq_train_epoch`` builds them; ``smask_np`` is the batch's slot
-        mask (the hybrid's: 0 on its context slots)."""
+        mask (the hybrid's: 0 on its context slots).  For the link task a
+        fifth item: the batch's pairs (``pos_pairs`` / ``neg_pairs``, as
+        ``train_vq``'s host loop mines them, the negatives drawn from a
+        fixed seed, so every device gets the same)."""
         import torch
         from repro_torch.graph.batching import plan_batch
         bids = torch.from_numpy(bids_np.astype(np.int32)).to(self.dev)
         i = bids.long()
         if smask_np is None:
-            return (plan_batch(self.plan, bids), self.x[i], self.labels[i],
-                    self.train_mask[i])
-        smask = torch.from_numpy(smask_np).to(self.dev)
-        return (plan_batch(self.plan, bids, smask), self.x[i],
-                self.labels[i], self.train_mask[i] * smask)
+            out = (plan_batch(self.plan, bids), self.x[i], self.labels[i],
+                   self.train_mask[i])
+        else:
+            smask = torch.from_numpy(smask_np).to(self.dev)
+            out = (plan_batch(self.plan, bids, smask), self.x[i],
+                   self.labels[i], self.train_mask[i] * smask)
+        if self.cfg.task != "link":
+            return out
+        from repro_torch.train.gnn_trainer import _batch_pairs
+        pos, neg = _batch_pairs(
+            self.g, bids_np, np.ones(len(bids_np), np.float32)
+            if smask_np is None else smask_np,
+            np.random.default_rng(SEED + 17))
+        return out + ({"pos_pairs": torch.from_numpy(pos).to(self.dev),
+                       "neg_pairs": torch.from_numpy(neg).to(self.dev)},)
+
+
+def _loss_grads(m: Model, params, vq, inputs):
+    """``vq_loss_and_grads`` of one batch of ``Model.batch_inputs``, with
+    its pairs on the link task."""
+    from repro_torch.models.gnn import vq_loss_and_grads
+    pack, x_b, y_b, lm = inputs[:4]
+    return vq_loss_and_grads(params, vq, pack, x_b, y_b, m.ops.degrees,
+                             m.cfg, lm, **(inputs[4] if len(inputs) > 4
+                                           else {}))
 
 
 def largest_cluster_share(vq_states) -> list[float]:
@@ -652,12 +717,9 @@ def _vq_update_rows(m: Model, params, vq, inputs, tag: str,
     """vq_update on layers 0 and L-1 with the whitened (X || G) rows of one
     batch; with ``hot`` also the generic-width build and the hot spot."""
     from repro_torch.core import codebook as cbm
-    from repro_torch.models.gnn import vq_loss_and_grads
     cfg = m.cfg
     cb = cfg.layer_codebook_cfg()
-    pack, x_b, y_b, lm = inputs
-    _, _, acts, _, gprobes = vq_loss_and_grads(
-        params, vq, pack, x_b, y_b, m.ops.degrees, cfg, lm)
+    _, _, acts, _, gprobes = _loss_grads(m, params, vq, inputs)
     rows = []
     for layer in (0, cfg.n_layers - 1):
         st = vq[layer].codebook
@@ -687,12 +749,9 @@ def _near_tie_rows(m: Model, params, vq, inputs) -> list[dict]:
     too tight shows here first."""
     import torch
     from repro_torch.core import codebook as cbm
-    from repro_torch.models.gnn import vq_loss_and_grads
     cfg = m.cfg
     cb = cfg.layer_codebook_cfg()
-    pack, x_b, y_b, lm = inputs
-    _, _, acts, _, gprobes = vq_loss_and_grads(
-        params, vq, pack, x_b, y_b, m.ops.degrees, cfg, lm)
+    _, _, acts, _, gprobes = _loss_grads(m, params, vq, inputs)
     gen = torch.Generator(device=m.dev).manual_seed(SEED + 23)
     rows = []
     for layer in (0, cfg.n_layers - 1):
@@ -798,7 +857,8 @@ def _step_rows(m: Model, params, vq, inputs, tag: str,
     vq_update (layers 0 and L-1; ``hot`` as in ``_vq_update_rows``), the
     w_t form of context_ell (the Eq. 7 backward of layers 1..L-1) and its
     plain form (layers 0 and L-1), spmm_ell's intra-batch term and its
-    backward spmm_ell_t."""
+    backward spmm_ell_t -- on the operands of the model's fixed
+    convolution (GCN's, or SAGE's mean aggregator)."""
     import torch
     from repro_torch.core import codebook as cbm
     from repro_torch.core.conv import fixed_conv_operands
@@ -807,7 +867,8 @@ def _step_rows(m: Model, params, vq, inputs, tag: str,
     cfg, dev = m.cfg, m.dev
     cb = cfg.layer_codebook_cfg()
     pack, x_b = inputs[:2]
-    ops_, _ = fixed_conv_operands("gcn", pack, m.ops.degrees)
+    kind, w_key = FIXED_CONV[cfg.backbone]
+    ops_, _ = fixed_conv_operands(kind, pack, m.ops.degrees)
     b = ops_.in_pos.shape[0]
     out = {"vq_update": _vq_update_rows(m, params, vq, inputs, tag, hot)}
 
@@ -818,7 +879,7 @@ def _step_rows(m: Model, params, vq, inputs, tag: str,
     for layer in range(1, cfg.n_layers):
         fi = cfg.layer_dims()[layer][0]
         gcw = cbm.gradient_codewords(vq[layer].codebook, fi, cb)
-        w_t = params[layer]["w"].t().contiguous()
+        w_t = params[layer][w_key].t().contiguous()
         a = vq[layer].assignment
         layout, other = _layouts(a, f"w_t layer {layer} {tag}", False)
         want = ref.context_ell(ids, vals, a, gcw, w_t)
@@ -997,7 +1058,7 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
     import torch
     from repro_torch.convert import to_device
     from repro_torch.core import codebook as cbm
-    from repro_torch.models.gnn import vq_loss_and_grads, vq_train_step
+    from repro_torch.models.gnn import vq_train_step
     from repro_torch.train.optimizer import rmsprop
     from repro_torch.configs.vq_gnn_paper import PAPER_LR
     opt = rmsprop(PAPER_LR)
@@ -1013,10 +1074,10 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
     res = {}
     for side, mm, (p, v, o) in (("cuda", m, (params, vq, ost)),
                                 ("cpu", cpu, state_c)):
-        pack, x_b, y_b, lm = mm.batch_inputs(bids, smask)
+        pack, x_b, y_b, lm, *pairs = mm.batch_inputs(bids, smask)
         t0 = time.time()
         out = vq_train_step(p, v, o, pack, x_b, y_b, mm.ops.degrees, m.cfg,
-                            opt, loss_mask=lm)
+                            opt, loss_mask=lm, **(pairs[0] if pairs else {}))
         out = to_device(out, "cpu")
         res[side] = (out, time.time() - t0)
     (pg, vg, og, lg, yg, eg), t_gpu = res["cuda"]
@@ -1042,9 +1103,8 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
         # (rtol + 2 c 2^-24) sum |row| + c atol (times 1 - gamma through
         # the EMA; over the cluster size for the codeword) -- beyond
         # STEP_TOL of the sum where the rows cancel
-        pack, x_b, y_b, lm = m.batch_inputs(bids, smask)
-        _, _, acts_g, _, gpr_g = vq_loss_and_grads(
-            params, vq, pack, x_b, y_b, m.ops.degrees, m.cfg, lm)
+        _, _, acts_g, _, gpr_g = _loss_grads(m, params, vq,
+                                             m.batch_inputs(bids, smask))
     summary = []
     for l, (a, b) in enumerate(zip(vg, vc)):
         for name in ("mean", "var"):
@@ -1062,10 +1122,9 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
                              f"the batch changed")
         if bool(flip.any()):
             if vw_c is None:     # the CPU step's own whitened rows
-                pack, x_b, y_b, lm = cpu.batch_inputs(bids, smask)
-                _, _, acts, _, gpr = vq_loss_and_grads(
-                    state_c[0], state_c[1], pack, x_b, y_b,
-                    cpu.ops.degrees, m.cfg, lm)
+                _, _, acts, _, gpr = _loss_grads(
+                    cpu, state_c[0], state_c[1],
+                    cpu.batch_inputs(bids, smask))
                 vw_c = [cbm.whitened_rows(state_c[1][i].codebook, acts[i],
                                           gpr[i], cb)[0]
                         for i in range(len(acts))]
@@ -1509,7 +1568,7 @@ def phase_cpu_parity(server, requests, tag: str = "cpu parity") -> None:
         f"the CPU plain path, max abs err {worst:.3g} (rtol 1e-4, atol 1e-5)")
 
 
-def _profile(what: str, steps: list, run) -> None:
+def _profile(what: str, steps: list, run) -> dict:
     """Device busy share and kernel time by name over ``run(s)`` for each
     of ``steps`` (only device-side events count: an aten op's row repeats
     its kernels')."""
@@ -1531,13 +1590,14 @@ def _profile(what: str, steps: list, run) -> None:
         raise SystemExit(f"{what}: profiler recorded no device time")
     dev_us = sum(e.self_device_time_total for e in evs)
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
-    log(json.dumps({"profile": {
-        "what": what, "steps": len(steps), "wall_ms": wall * 1e3,
-        "device_ms": dev_us / 1e3, "device_busy_share": dev_us / 1e3 /
-        (wall * 1e3), "kernels_per_step": sum(e.count for e in evs) /
-        len(steps), "top": [[e.key[:60], e.count,
-                             e.self_device_time_total / 1e3]
-                            for e in top]}}))
+    rep = {"what": what, "steps": len(steps), "wall_ms": wall * 1e3,
+           "device_ms": dev_us / 1e3,
+           "device_busy_share": dev_us / 1e3 / (wall * 1e3),
+           "kernels_per_step": sum(e.count for e in evs) / len(steps),
+           "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                   for e in top]}
+    log(json.dumps({"profile": rep}))
+    return rep
 
 
 def phase_profile(server, requests) -> None:
@@ -2929,6 +2989,307 @@ def phase_wide_kernels(gat: tuple, tr: tuple, tr_server) -> dict:
     return {"vq_update": upd, "vq_assign": asg}
 
 
+# ---------------------------------------------------------------------------
+# the link task (ogbl-collab look-alike, Hits@50) and the host-stepped loops
+# ---------------------------------------------------------------------------
+
+def _step_counts(cfg, batch: int, steps: int, n_eval: int,
+                 evals: int) -> dict:
+    """The launches of ``steps`` VQ steps at ``batch`` rows of a fixed
+    convolution and ``evals`` full-graph evaluations over ``n_eval``
+    nodes: per step every layer's forward runs spmm_ell (the intra-batch
+    term, on the kernel ``spmm_ell_variant`` picks for its source) and
+    context_ell and its codebook update vq_update; the backward of every
+    layer but the first runs spmm_ell_t and, with Eq. 7, context_ell's w_t
+    form.  Each evaluation runs one SpMM a layer over the whole graph."""
+    inject = cfg.n_layers - 1 if cfg.grad_inject else 0
+    intra_staged, intra_resident = _spmm_split(cfg, batch, steps)
+    ev_staged, ev_resident = _spmm_split(cfg, n_eval, evals)
+    return {"vq_update": cfg.n_layers * steps,
+            "spmm_ell": intra_resident + ev_resident,
+            "spmm_ell_hbm": intra_staged + ev_staged,
+            "spmm_ell_t": (cfg.n_layers - 1) * steps,
+            "context_ell": (cfg.n_layers + inject) * steps,
+            "context_ell_wt": inject * steps}
+
+
+def phase_link_train(m: Model) -> tuple[dict, dict]:
+    """The link task's main path: ``train_vq`` (its host loop: each batch
+    packed on the host and its positive pairs mined there) for
+    LINK_EPOCHS epochs at ``paper_batch_size``, one Hits@50 evaluation at
+    the end, counts exact.  Gates: finite losses and VQ errors, the last
+    epoch's mean loss under the first's, and val Hits@50 above
+    LINK_CHANCE_FACTOR times chance (50 / the val negatives).  The
+    reference learns at this width (SAGE, hidden 128, 3 layers, k 1024)
+    on the CPU at n 4,000 over 10 epochs with Eq. 7 on and off
+    (``PERF.md`` §6)."""
+    import torch
+    from repro_torch.train.gnn_trainer import train_vq
+    g, cfg, batch = m.g, m.cfg, m.batch
+    per_epoch = -(-g.n // batch)
+    steps = LINK_EPOCHS * per_epoch
+    reset_counts()
+    t0 = time.time()
+    r = train_vq(g, cfg, epochs=LINK_EPOCHS, batch_size=batch, seed=SEED,
+                 eval_every=LINK_EPOCHS, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    expect_counts("link-train", counts,
+                  _step_counts(cfg, batch, steps, g.n, len(r["history"])))
+    losses, errs = r["step_losses"], r["step_vq_errs"]
+    if losses.shape != (steps,) or errs.shape != (steps, cfg.n_layers):
+        raise SystemExit(f"link-train: {losses.shape} losses, {errs.shape} "
+                         f"VQ errors for {steps} steps")
+    epoch_loss = losses.reshape(LINK_EPOCHS, -1).mean(1)
+    chance = LINK_HITS_K / len(g.val_neg_edges)
+    h = r["history"][-1]
+    r.update(wall_s=wall, epoch_loss=epoch_loss.tolist(),
+             epoch_vq_err=errs.reshape(LINK_EPOCHS, -1).mean(1).tolist(),
+             chance=chance,
+             largest_cluster_share=largest_cluster_share(r["vq_states"]))
+    log(f"link-train: {steps} steps of {batch} nodes and one full-graph "
+        f"evaluation in {wall:.3f} s (epochs "
+        f"{[round(v, 3) for v in r['epoch_s']]} s, of which host packing "
+        f"and pair mining {[round(v, 3) for v in r['pack_s']]} s); mean "
+        f"loss per epoch "
+        f"{[round(v, 4) for v in r['epoch_loss']]}; val Hits@50 "
+        f"{h['val']:.4f} test {h['test']:.4f} (chance {chance:.6f}) vq_err "
+        f"{h['vq_err']:.4f}; largest cluster share per layer "
+        f"{[round(v, 4) for v in r['largest_cluster_share']]}")
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(errs))):
+        raise SystemExit("link-train: non-finite loss or VQ error")
+    if not (epoch_loss[-1] < epoch_loss[0]
+            and h["val"] > LINK_CHANCE_FACTOR * chance):
+        raise SystemExit(f"link-train: last epoch's mean loss "
+                         f"{epoch_loss[-1]} not under the first's "
+                         f"{epoch_loss[0]}, or val Hits@50 {h['val']} not "
+                         f"above {LINK_CHANCE_FACTOR} x chance {chance}")
+    return r, counts
+
+
+def phase_link_timing(m: Model, params, vq, ost) -> dict:
+    """The link host loop's iterations from the trained state (outside
+    the counted main path; their states are dropped): TIMED_STEPS of them,
+    each the host's packing and pair mining, then the step, synchronised;
+    then a torch.profiler window over 2, whose device busy share is the
+    device's share of the loop."""
+    import torch
+    from repro_torch.configs.vq_gnn_paper import PAPER_LR
+    from repro_torch.graph.batching import epoch_slices, make_pack
+    from repro_torch.models.gnn import vq_train_step
+    from repro_torch.train.gnn_trainer import _batch_pairs
+    from repro_torch.train.optimizer import rmsprop
+    opt = rmsprop(PAPER_LR)
+    rng = np.random.default_rng(SEED + 11)
+    ids = np.concatenate([epoch_slices(rng.permutation(m.g.n), m.batch)[0]
+                          for _ in range(-(-TIMED_STEPS * m.batch // m.g.n)
+                                         + 1)])[:TIMED_STEPS]
+    ones = np.ones(m.batch, np.float32)
+
+    def host(bids):
+        pack = make_pack(m.g, bids, device=m.dev)
+        pos, neg = _batch_pairs(m.g, bids, ones, rng)
+        return pack, {"pos_pairs": torch.from_numpy(pos).to(m.dev),
+                      "neg_pairs": torch.from_numpy(neg).to(m.dev)}
+
+    def step(pack, pairs):
+        i = pack.batch_ids.long()
+        return vq_train_step(params, vq, ost, pack, m.x[i], m.labels[i],
+                             m.ops.degrees, m.cfg, opt, **pairs)[3]
+
+    pack_ms, step_ms = [], []
+    for bids in ids:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inputs = host(bids)
+        t1 = time.perf_counter()
+        float(step(*inputs))                     # synchronises
+        pack_ms.append((t1 - t0) * 1e3)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    it = np.asarray(pack_ms) + np.asarray(step_ms)
+    rep = {"steps": len(it), "iter_p50_ms": float(np.percentile(it, 50)),
+           "iter_p99_ms": float(np.percentile(it, 99)),
+           "pack_p50_ms": float(np.percentile(pack_ms, 50)),
+           "step_p50_ms": float(np.percentile(step_ms, 50)),
+           "step_p99_ms": float(np.percentile(step_ms, 99)),
+           "pack_ms": pack_ms, "step_ms": step_ms}
+    prof = _profile("link-train host loop", list(ids[:2]),
+                    lambda bids: step(*host(bids)))
+    rep["device_busy_share"] = prof["device_busy_share"]
+    log(f"link-train timing: {len(it)} host-loop iterations of {m.batch} "
+        f"nodes, p50 {rep['iter_p50_ms']:.3f} ms p99 "
+        f"{rep['iter_p99_ms']:.3f} ms: host packing and pair mining p50 "
+        f"{rep['pack_p50_ms']:.3f} ms, the step p50 "
+        f"{rep['step_p50_ms']:.3f} ms p99 {rep['step_p99_ms']:.3f} ms; "
+        f"device busy {rep['device_busy_share']:.3f} of the loop's wall "
+        f"time")
+    return rep
+
+
+def phase_link_full(m: Model) -> tuple[dict, dict]:
+    """``train_full`` on the link task for LINK_FULL_EPOCHS epochs (each
+    one step over every message edge and as many uniform negatives) and
+    one Hits@50 evaluation, counts exact: every layer's SpMM over the
+    full graph stages its source (spmm_ell_hbm), every layer's but the
+    first backward runs spmm_ell_t.  Gate: finite losses."""
+    import torch
+    from repro_torch.train.gnn_trainer import train_full
+    g, cfg = m.g, m.cfg
+    reset_counts()
+    t0 = time.time()
+    r = train_full(g, cfg, epochs=LINK_FULL_EPOCHS, seed=SEED,
+                   eval_every=LINK_FULL_EPOCHS, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    staged, resident = _spmm_split(cfg, g.n,
+                                   LINK_FULL_EPOCHS + len(r["history"]))
+    expect_counts("link-full", counts, {
+        "spmm_ell_hbm": staged, "spmm_ell": resident,
+        "spmm_ell_t": (cfg.n_layers - 1) * LINK_FULL_EPOCHS})
+    losses = r["step_losses"]
+    h = r["final"]
+    r["wall_s"] = wall
+    log(f"link-full: {LINK_FULL_EPOCHS} full-graph steps over "
+        f"{len(g.train_edges)} positive pairs in {wall:.3f} s; losses "
+        f"{[round(float(v), 4) for v in losses]}; val Hits@50 "
+        f"{h['val']:.4f} test {h['test']:.4f}")
+    if losses.shape != (LINK_FULL_EPOCHS,) or \
+            not np.all(np.isfinite(losses)):
+        raise SystemExit(f"link-full: losses {losses}")
+    return r, counts
+
+
+def phase_link_sampler(m: Model) -> tuple[dict, dict]:
+    """``train_scenario``'s Cluster-GCN on the link task for
+    LINK_SAMPLER_EPOCHS epoch (the host loop: each subgraph's pairs mined
+    on the host, at most 4,096, a subgraph with fewer than two skipped)
+    and one Hits@50 evaluation, counts exact: the subgraphs' SpMMs stay
+    resident, the evaluation stages the full graph's.  Gate: finite
+    losses."""
+    import torch
+    from repro_torch.train.gnn_trainer import train_scenario
+    from repro_torch.kernels import ops as kops
+    g, cfg = m.g, m.cfg
+    reset_counts()
+    t0 = time.time()
+    r = train_scenario(g, cfg, "cluster", epochs=LINK_SAMPLER_EPOCHS,
+                       batch_size=m.batch, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    steps = sum(len(ls) for ls in r["losses"])
+    rows = max(r["subgraph_rows"])
+    if any(kops.spmm_ell_variant(rows, fi, 4) != "resident"
+           for fi, _ in cfg.layer_dims()):
+        raise SystemExit(f"link-sampler: {rows}-row subgraphs are staged; "
+                         f"the count check assumes resident SpMMs")
+    ev_staged, ev_resident = _spmm_split(cfg, g.n, len(r["history"]))
+    expect_counts("link-sampler", counts, {
+        "spmm_ell": cfg.n_layers * steps + ev_resident,
+        "spmm_ell_hbm": ev_staged,
+        "spmm_ell_t": (cfg.n_layers - 1) * steps})
+    losses = np.concatenate(r["losses"])
+    h = r["final"]
+    r["wall_s"] = wall
+    log(f"link-sampler: Cluster-GCN, {steps} steps over subgraphs of up to "
+        f"{rows} padded rows in {wall:.3f} s -- host sampling "
+        f"{sum(r['sample_s']):.3f} s, packing and pair mining "
+        f"{sum(r['pack_s']):.3f} s, device steps {sum(r['train_s']):.3f} "
+        f"s; losses {[round(float(v), 4) for v in losses]}; val Hits@50 "
+        f"{h['val']:.4f} test {h['test']:.4f}")
+    if steps < 1 or not np.all(np.isfinite(losses)):
+        raise SystemExit(f"link-sampler: {steps} steps, losses {losses}")
+    return r, counts
+
+
+def phase_link_kernels(m: Model, params, vq) -> dict[str, list[dict]]:
+    """Every kernel of the link path against its plain version at the
+    link batch's own operands (``_step_rows`` on one batch of the trained
+    model: vq_update at [32, b, 8], SAGE's spmm_ell, spmm_ell_t and both
+    context_ell forms) and spmm_ell_hbm at the full graph's SAGE operands,
+    timed beside their bounds.  Returns the rows by kernel name (under
+    each kernel's ``also``)."""
+    import torch
+    rng = np.random.default_rng(SEED + 5)
+    out = _step_rows(m, params, vq,
+                     m.batch_inputs(rng.permutation(m.g.n)[:m.batch]),
+                     "link batch")
+    # SAGE's full-graph SpMM: the mean over each node's in-edges
+    vals = m.ops.nbr_mask / torch.clamp(m.ops.degrees, min=1.0)[:, None]
+    out["spmm_ell_hbm"] = [_staged_row(
+        m.ops.nbr_ids.contiguous(), vals.contiguous(), m.x, None,
+        "(link full-graph evaluation)", m.ops.stripe_index)]
+    for rows in out.values():
+        for row in rows:
+            row["path"] = "link"
+    return out
+
+
+def phase_host_loop(m: Model) -> tuple[dict, dict]:
+    """The host-stepped loops on the arxiv graph and model of phase 3: one
+    epoch of ``train_vq`` with ``REPRO_EPOCH_EXECUTOR=0`` (each batch
+    packed on the host) against one on the epoch executor, from the same
+    seed -- counts exact and equal, step losses within STEP_TOL -- then
+    ``vq_inference`` with ``REPRO_INFER_EXECUTOR=0`` (the eager per-batch
+    loop) against the executor on the host-trained state: rows within
+    SERVE_TOL, the same launches."""
+    import torch
+    from repro_torch.train.gnn_trainer import train_vq, vq_inference
+    g, cfg, batch = m.g, m.cfg, m.batch
+    steps = -(-g.n // batch)
+    runs, counts = {}, {}
+    try:
+        for name, value in (("executor", "1"), ("host loop", "0")):
+            os.environ["REPRO_EPOCH_EXECUTOR"] = value
+            reset_counts()
+            t0 = time.time()
+            runs[name] = train_vq(g, cfg, epochs=1, batch_size=batch,
+                                  seed=SEED, device=DEVICE)
+            torch.cuda.synchronize()
+            runs[name]["wall_s"] = time.time() - t0
+            counts[name] = read_counts()
+            expect_counts(f"host-loop train {name}", counts[name],
+                          _step_counts(cfg, batch, steps, g.n, 1))
+        os.environ.pop("REPRO_EPOCH_EXECUTOR")
+        ex, host = runs["executor"], runs["host loop"]
+        err = check_close("host-loop step losses",
+                          torch.from_numpy(host["step_losses"]),
+                          torch.from_numpy(ex["step_losses"]), STEP_TOL)
+        acts = {}
+        for name, value in (("executor", "1"), ("eager", "0")):
+            os.environ["REPRO_INFER_EXECUTOR"] = value
+            reset_counts()
+            t0 = time.time()
+            acts[name] = vq_inference(host["params"], host["vq_states"], g,
+                                      cfg, batch)
+            counts[f"infer {name}"] = read_counts()
+            log(f"host-loop inference {name}: {time.time() - t0:.3f} s")
+            expect_counts(f"host-loop inference {name}",
+                          counts[f"infer {name}"], {
+                              "spmm_ell": cfg.n_layers * steps,
+                              "context_ell": cfg.n_layers * steps})
+    finally:
+        os.environ.pop("REPRO_EPOCH_EXECUTOR", None)
+        os.environ.pop("REPRO_INFER_EXECUTOR", None)
+    rows_err = check_close("host-loop inference rows",
+                           torch.from_numpy(acts["eager"]),
+                           torch.from_numpy(acts["executor"]), SERVE_TOL)
+    rep = {"steps": steps, "max_abs_err": err,
+           "inference_max_abs_err": rows_err,
+           "pack_s": host["pack_s"], "epoch_s": {
+               "executor": ex["epoch_s"][0], "host loop": host["epoch_s"][0]},
+           "step_losses": host["step_losses"].tolist()}
+    log(f"host-loop: one epoch of {steps} steps, host loop vs executor: "
+        f"step losses max abs err {err:.3g} (rtol 1e-4, atol 1e-5); epoch "
+        f"{host['epoch_s'][0]:.3f} s (host packing {host['pack_s'][0]:.3f} "
+        f"s) vs {ex['epoch_s'][0]:.3f} s; eager inference vs executor: "
+        f"rows max abs err {rows_err:.3g} (rtol 1e-4, atol 1e-5)")
+    total = add_counts(counts["host loop"], counts["infer eager"])
+    return rep, total
+
+
 def main() -> int:
     import argparse
     import torch
@@ -2944,7 +3305,7 @@ def main() -> int:
         return 2
     from repro_torch.configs.vq_gnn_paper import (paper_batch_size,
                                                   paper_config)
-    from repro_torch.graph.datasets import synthetic_arxiv
+    from repro_torch.graph.datasets import synthetic_arxiv, synthetic_collab
     from repro_torch.launch import serve_gnn
     from repro_torch.models.gnn import quantize_vq_states
 
@@ -3106,12 +3467,42 @@ def main() -> int:
                       server_r)
     del server_r
 
+    # --- the link task on an ogbl-collab look-alike (SAGE at the paper's
+    # width), then the host-stepped loops on the arxiv model ---
+    t = time.time()
+    g_l = synthetic_collab(n=LINK_N, seed=LINK_SEED)
+    cfg_l = paper_config(g_l, "sage", full_scale=True)
+    batch_l = paper_batch_size(g_l)
+    m_l = Model(g_l, cfg_l, batch_l, torch.device(DEVICE))
+    cpu_l = Model(g_l, cfg_l, PARITY_BATCH, "cpu")
+    seconds["link setup"] = time.time() - t
+    log(f"link setup: {g_l.n} nodes, {g_l.m} message edges "
+        f"({len(g_l.train_edges)} positive pairs), {len(g_l.val_edges)} val "
+        f"/ {len(g_l.test_edges)} test positives and as many negatives, "
+        f"deg_cap {m_l.plan.nbr_ids.shape[1]}, config {cfg_l}, training "
+        f"batch {batch_l} in {seconds['link setup']:.2f} s")
+    rl, link_train_counts = timed("link-train", phase_link_train, m_l)
+    link_timing = timed("link-train", phase_link_timing, m_l, rl["params"],
+                        rl["vq_states"], rl["opt_state"])
+    rlf, link_full_counts = timed("link-full", phase_link_full, m_l)
+    rls, link_sampler_counts = timed("link-sampler", phase_link_sampler, m_l)
+    link_parity = timed("link-parity", phase_train_parity, m_l,
+                        rl["params"], rl["vq_states"], rl["opt_state"],
+                        cpu_l, "link-parity")
+    link_also = timed("link-kernels", phase_link_kernels, m_l, rl["params"],
+                      rl["vq_states"])
+    del m_l, cpu_l
+    host_rep, host_counts = timed("host-loop", phase_host_loop, m)
+
     # --- launches on the main paths, and the kernels line ---
     launches = train_counts
+    link_counts = add_counts(add_counts(link_train_counts, link_full_counts),
+                             link_sampler_counts)
     for c in (serve_counts, sampler_counts, hybrid_counts, tier_train_counts,
               tier_serve_counts, a4_counts, lm_counts, gat_train_counts,
               gat_train_counts0, gat_serve_counts, tr_train_counts,
-              tr_train_counts0, tr_train_counts1, tr_serve_counts):
+              tr_train_counts0, tr_train_counts1, tr_serve_counts,
+              link_counts, host_counts):
         launches = add_counts(launches, c)
     entries = launches["entries"]
     by_name = {row["name"]: row for row in serve_rows + train_rows}
@@ -3127,6 +3518,18 @@ def main() -> int:
     for c in staged_row["also"]:
         if "form" in c:          # the quantized forms: no main-path caller
             c["launches"] = launches["spmm_ell_hbm_q"]
+    # the link paths' shapes, each with its form's launches on those paths
+    link_form = {"vq_update": link_counts["vq_update"],
+                 "spmm_ell": link_counts["spmm_ell"],
+                 "spmm_ell_t": link_counts["spmm_ell_t"],
+                 "spmm_ell_hbm": link_counts["spmm_ell_hbm"]}
+    for name, extra in link_also.items():
+        for c in extra:
+            c["launches_link_paths"] = link_form.get(name) \
+                if name != "context_ell" else link_counts["entries"].get(
+                    "repro_context_ell_wt_f32_i32" if c.get("form") == "w_t"
+                    else "repro_context_ell_f32_i32", 0)
+        by_name[name]["also"] += extra
     kernels = [by_name[n] for n in ("vq_assign", "spmm_ell", "spmm_ell_hbm",
                                     "spmm_ell_t", "context_ell",
                                     "vq_update")] + lm_rows
@@ -3230,6 +3633,25 @@ def main() -> int:
                             "final": r0_["final"]}, **depth_1,
             **{k: tim[k] for k in ("step_p50_ms", "step_p99_ms")},
             "parity": par}, f"{tag}_serve": {k: srv[k] for k in keep}}))
+    log(json.dumps({"link_train": {
+        "steps": int(rl["step_losses"].shape[0]), "batch": batch_l,
+        "wall_s": rl["wall_s"], "epoch_s": rl["epoch_s"],
+        "pack_s": rl["pack_s"], "epoch_loss": rl["epoch_loss"],
+        "epoch_vq_err": rl["epoch_vq_err"], "chance": rl["chance"],
+        "largest_cluster_share": rl["largest_cluster_share"],
+        "history": rl["history"], "final": rl["final"],
+        **{k: link_timing[k] for k in (
+            "iter_p50_ms", "iter_p99_ms", "pack_p50_ms", "step_p50_ms",
+            "step_p99_ms", "device_busy_share")},
+        "parity": link_parity},
+        "link_full": {"wall_s": rlf["wall_s"],
+                      "losses": rlf["step_losses"].tolist(),
+                      "final": rlf["final"]},
+        "link_sampler": {"wall_s": rls["wall_s"], "losses": [
+            ls.tolist() for ls in rls["losses"]], "sample_s": rls["sample_s"],
+            "pack_s": rls["pack_s"], "train_s": rls["train_s"],
+            "subgraph_rows": rls["subgraph_rows"], "final": rls["final"]},
+        "host_loop": host_rep}))
     seconds["total"] = time.time() - T_START
     log(json.dumps({"seconds": seconds}))
     log(f"chip_smoke: {seconds['total']:.1f} s from start to the "

@@ -10,10 +10,11 @@ with its ``w_t`` epilogue and its quantized forms) are
 hand-written CUDA C++ for ``sm_90a`` under ``kernels/csrc/``, built with
 ``nvcc`` on first use.
 
-Slice coverage: serving and node-task training on one device (Alg. 1,
-the Alg. 2 codebook update, the Eq. 7 injection, RMSprop / Adam) in every
-precision tier (fp32; int8 / fp8 codeword snapshots with uint8 or
-nibble-packed assignment tables), all five backbones (GCN, SAGE, GIN, GAT,
-the Graph Transformer).  The link task and meshes raise a clear error
-that names the later slice (see ROADMAP.md).
+Slice coverage: serving, and training for node classification and link
+prediction (Hits@50), on one device (Alg. 1, the Alg. 2 codebook update,
+the Eq. 7 injection, RMSprop / Adam) in every precision tier (fp32; int8 /
+fp8 codeword snapshots with uint8 or nibble-packed assignment tables),
+all five backbones (GCN, SAGE, GIN, GAT, the Graph Transformer), on every
+dataset look-alike of the reference.  Meshes raise a clear error that
+names the later slice (see ROADMAP.md).
 """

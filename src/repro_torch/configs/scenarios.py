@@ -3,14 +3,12 @@ of ``repro.configs.scenarios``).
 
 The matrix is backbone x scale method x task:
 
-  backbones      the paper's Table 2 convolution types (``nn.gnn_layers``;
-                 GAT and the Graph Transformer raise until their slice of
-                 the port lands)
+  backbones      the paper's Table 2 convolution types (``nn.gnn_layers``)
   scale methods  the full-graph oracle, VQ-GNN (Alg. 1), the four sampling
                  baselines and the VQ/sampling hybrid
                  (``train.gnn_trainer.train_scenario``)
-  tasks          node classification / link prediction (the link task
-                 raises until its slice lands)
+  tasks          node classification / link prediction (the hybrid is
+                 node-task only, as in the reference)
 
 Kept apart from ``configs.registry``, the LM/speech/vision architectures,
 which must never leak into the matrix.

@@ -2,24 +2,27 @@
 
 Torch twin of ``repro.graph.batching`` on one device: :func:`_pack_rows`
 (numpy, vectorized CSR slicing), the host-built stripe index of the
-staged SpMM kernel (:func:`make_stripe_index`), the whole-graph and
-sampled-subgraph :class:`FullGraphOperands`, the :class:`EpochPlan`
-device tables, the static wrap-padded batch slicers, :func:`plan_batch`,
-which derives one batch's :class:`~repro_torch.core.conv.MinibatchPack`
-on device (row gather plus node->slot scatter) with no host-side packing
-per batch, and the sampling baselines' stacked epoch
-(:class:`SamplerEpochPlan`, :func:`pack_sampler_epoch`, :func:`pad_bucket`).
-The reference's ``make_pack`` (its per-step host loop) is not ported.
+staged SpMM kernel (:func:`make_stripe_index`), the host packer of one
+batch (:func:`make_pack`, behind the host-stepped batch loops and
+:func:`minibatch_stream`), the whole-graph and sampled-subgraph
+:class:`FullGraphOperands`, the inductive training view
+(:func:`inductive_view`), the :class:`EpochPlan` device tables, the
+static wrap-padded batch slicers, :func:`plan_batch`, which derives one
+batch's :class:`~repro_torch.core.conv.MinibatchPack` on device (row
+gather plus node->slot scatter, equal to :func:`make_pack` on the same
+ids) with no host-side packing per batch, and the sampling baselines'
+stacked epoch (:class:`SamplerEpochPlan`, :func:`pack_sampler_epoch`,
+:func:`pad_bucket`).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.conv import MinibatchPack
-from repro_torch.graph.structure import CSR, Graph, csr_from_coo
+from repro_torch.graph.structure import CSR, Graph, build_graph, csr_from_coo
 from repro_torch.kernels.spmm_ell_hbm import (DEFAULT_BB, DEFAULT_STRIPE,
                                               StripeIndex, clamp_tiles)
 from repro_torch.runtime import resolve_device
@@ -95,6 +98,42 @@ def make_stripe_index(nbr_idx: np.ndarray, n_src: int, *,
                        bb=bb, stripe=stripe, n_src=n_src)
 
 
+def make_pack(g: Graph, batch_ids: np.ndarray, deg_cap: int | None = None,
+              *, stripe_index: bool = False, stripe_bb: int = DEFAULT_BB,
+              stripe: int = DEFAULT_STRIPE,
+              slot_mask: np.ndarray | None = None,
+              device: str | torch.device = "cuda") -> MinibatchPack:
+    """Pack one mini-batch on the host (``_pack_rows`` of both edge
+    directions, positions through a node -> slot map) and copy it to
+    ``device``.  With ``stripe_index=True`` the pack also carries the
+    staged SpMM kernel's index for the intra-batch term (source rows =
+    batch positions, live only where the neighbour is in the batch).
+    ``slot_mask`` (optional, [b]) is 0 on the wrap-padded slots of a tail
+    batch (:func:`epoch_slices`).  On the same distinct ids the fields
+    equal :func:`plan_batch`'s."""
+    dev = resolve_device(device)
+    batch_ids = np.asarray(batch_ids)
+    deg_cap = deg_cap or g.max_degree()
+    inv = np.full(g.n, -1, np.int32)
+    inv[batch_ids] = np.arange(len(batch_ids), dtype=np.int32)
+    nbr, nmask, npos = _pack_rows(g.in_csr, batch_ids, deg_cap, inv)
+    rev, rmask, rpos = _pack_rows(g.out_csr, batch_ids, deg_cap, inv)
+    sidx = None
+    if stripe_index:
+        sidx = make_stripe_index(np.maximum(npos, 0), len(batch_ids),
+                                 mask=(npos >= 0) & (nmask != 0),
+                                 bb=stripe_bb, stripe=stripe, device=dev)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+    return MinibatchPack(
+        batch_ids=put(batch_ids.astype(np.int32)), nbr_ids=put(nbr),
+        nbr_mask=put(nmask), nbr_pos=put(npos), rev_ids=put(rev),
+        rev_mask=put(rmask), rev_pos=put(rpos), stripe_index=sidx,
+        slot_mask=None if slot_mask is None
+        else put(np.asarray(slot_mask, np.float32)))
+
+
 class FullGraphOperands(NamedTuple):
     """Whole-(sub)graph ELL operands for exact message passing: the
     full-graph oracle and evaluation, and the sampling baselines on their
@@ -138,6 +177,22 @@ def subgraph_operands(src: np.ndarray, dst: np.ndarray, n_sub: int,
         nbr_ids=torch.from_numpy(nbr).to(dev),
         nbr_mask=torch.from_numpy(mask).to(dev),
         degrees=torch.from_numpy(csr.degrees()).to(dev))
+
+
+def inductive_view(g: Graph) -> Graph:
+    """Training view for the inductive setting (PPI): val/test nodes and
+    all their edges are invisible during training (paper Sec. 6).  The
+    reference walks the visible nodes one by one; this keeps the in-edges
+    whose both ends are visible in one mask over the CSR, in the same
+    order (node by node, CSR order within a node)."""
+    visible = np.zeros(g.n, bool)
+    visible[g.train_idx] = True
+    csr = g.in_csr
+    dst = np.repeat(np.arange(g.n, dtype=np.int64), np.diff(csr.indptr))
+    keep = visible[dst] & visible[csr.indices]
+    return build_graph(csr.indices[keep], dst[keep], g.n, g.features,
+                       g.labels, (g.train_idx, g.val_idx, g.test_idx),
+                       multilabel=g.multilabel, name=g.name + "-inductive")
 
 
 PAD_BUCKET_CAP = 1 << 22
@@ -184,6 +239,23 @@ def inference_slices(n: int,
     """Static-shape inference batches: :func:`epoch_slices` over the
     identity permutation."""
     return epoch_slices(np.arange(n), batch_size)
+
+
+def minibatch_stream(g: Graph, batch_size: int, rng: np.random.Generator,
+                     idx_pool: np.ndarray | None = None,
+                     deg_cap: int | None = None, *,
+                     device: str | torch.device = "cuda"
+                     ) -> Iterator[MinibatchPack]:
+    """Random-node mini-batches covering the pool once per epoch, packed
+    on the host (:func:`make_pack`): one ``rng.permutation`` of the pool
+    split by :func:`epoch_slices`, the tail batch wrap-padded with
+    loss-masked slots, so every node of the pool is traversed every
+    epoch."""
+    pool = idx_pool if idx_pool is not None else np.arange(g.n)
+    ids, slot_mask = epoch_slices(rng.permutation(pool), batch_size)
+    for s in range(ids.shape[0]):
+        yield make_pack(g, ids[s], deg_cap, slot_mask=slot_mask[s],
+                        device=device)
 
 
 class EpochPlan(NamedTuple):

@@ -1,19 +1,20 @@
 """Full GNN model: assembly, losses, train steps, VQ mini-batch inference
 and the serving step.
 
-Torch twin of the node-task, single-device half of ``repro.models.gnn``:
+Torch twin of the single-device half of ``repro.models.gnn``:
 ``GNNConfig``, ``init_gnn``, ``init_vq_states``, ``probe_shapes``,
 ``vq_forward`` (with or without probe taps), the node losses and metric,
-the VQ train step of Alg. 1 (``_vq_step_body`` behind ``vq_train_step``
-and ``vq_train_epoch``: forward with probes, one ``torch.autograd.grad``
-for the params and the probes -- the probe gradients are G^(l+1) -- the
-optimizer, then per layer ``codebook.update``, ``refresh_assignment`` and,
-under a quantized tier, the snapshot's quantize-on-update),
-``quantize_vq_states`` (the serving conversion into a tier's storage),
-``vq_eval_batch``, the full-graph oracle (``full_forward``,
-``full_train_step``, ``full_predict``), the sampling baselines' epoch
-over a stacked plan of subgraphs (``sampler_train_epoch``), and
-inference: ``vq_infer_layer``
+the link task's ``link_loss`` and ``hits_at_k`` (Hits@K on the host),
+the VQ train step of Alg. 1 for either task (``_vq_step_body`` behind
+``vq_train_step`` and ``vq_train_epoch``: forward with probes, one
+``torch.autograd.grad`` for the params and the probes -- the probe
+gradients are G^(l+1) -- the optimizer, then per layer
+``codebook.update``, ``refresh_assignment`` and, under a quantized tier,
+the snapshot's quantize-on-update), ``quantize_vq_states`` (the serving
+conversion into a tier's storage), ``vq_eval_batch``, the full-graph
+oracle (``full_forward``, ``full_train_step``, ``full_predict``; either
+task), the sampling baselines' epoch over a stacked plan of subgraphs
+(``sampler_train_epoch``, node task), and inference: ``vq_infer_layer``
 / ``vq_infer_epoch`` (layer-locked, optionally inductive) and
 ``vq_serve_batch``.  JAX's ``lax.scan`` over the batches is a Python loop
 here; PyTorch runs eagerly.  Params are lists of ``{name: tensor}`` dicts
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import codebook as cbm
@@ -35,7 +37,7 @@ from repro_torch.graph.batching import (EpochPlan, FullGraphOperands,
                                         SamplerEpochPlan, plan_batch)
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.gnn_layers import Params, backbone
-from repro_torch.runtime import LINK_SLICE, resolve_device
+from repro_torch.runtime import resolve_device
 from repro_torch.train.optimizer import OptState, Optimizer
 
 
@@ -246,6 +248,40 @@ def node_metric(logits: torch.Tensor, labels: torch.Tensor,
     return (torch.argmax(logits, -1) == labels).float().mean()
 
 
+def link_loss(emb: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
+              pair_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Binary cross-entropy of the dot-product scores of positive and
+    negative pairs: pos / neg [e, 2] index rows of ``emb``.  ``pair_mask``
+    [e] weighs the pairs of lists padded to a static size.  Stable through
+    ``softplus`` (log(1 + e^z) overflows at init).  The rows are gathered
+    with ``index_select``, whose backward adds with ``index_add_`` where
+    advanced indexing's sorts the indices first."""
+    def score(pairs):
+        p = pairs.long()
+        return torch.sum(emb.index_select(0, p[:, 0])
+                         * emb.index_select(0, p[:, 1]), dim=-1)
+    lp = torch.nn.functional.softplus(-score(pos))
+    ln = torch.nn.functional.softplus(score(neg))
+    if pair_mask is None:
+        return lp.mean() + ln.mean()
+    m = torch.clamp(pair_mask.sum(), min=1.0)
+    return torch.sum(lp * pair_mask) / m + torch.sum(ln * pair_mask) / m
+
+
+def hits_at_k(pos_scores: np.ndarray, neg_scores: np.ndarray,
+              k: int = 50) -> float:
+    """Hits@K (numpy): the share of positive scores strictly above the
+    k-th largest negative score -- the smallest negative when there are
+    fewer than k, and 0.0 when there are no positives."""
+    if len(pos_scores) == 0:
+        return 0.0
+    if len(neg_scores) < k:
+        thresh = neg_scores.min() if len(neg_scores) else -np.inf
+    else:
+        thresh = np.sort(neg_scores)[-k]
+    return float((pos_scores > thresh).mean())
+
+
 # ---------------------------------------------------------------------------
 # train steps
 # ---------------------------------------------------------------------------
@@ -268,28 +304,26 @@ def _grads(loss: torch.Tensor, params: list[Params],
     return [{k: next(it) for k in p} for p in params], got[len(flat):]
 
 
-def _node_task(cfg: GNNConfig) -> None:
-    if cfg.task != "node":
-        raise NotImplementedError(f"the {cfg.task!r} task comes with "
-                                  f"{LINK_SLICE}")
-
-
 def vq_loss_and_grads(params: list[Params], vq_states: list[LayerVQState],
                       pack: MinibatchPack, x_b: torch.Tensor,
                       labels_b: torch.Tensor, degrees: torch.Tensor,
                       cfg: GNNConfig,
-                      loss_mask: Optional[torch.Tensor] = None):
-    """The differentiation half of an Alg. 1 step (node task): forward with
-    zero probes at every layer's pre-activation, then one
-    ``torch.autograd.grad`` of the masked-mean loss for the params AND the
-    probes -- the probe gradients are G^(l+1) = d loss / d Z^(l+1).
-    Returns (loss, output, per-layer input activations, param grads,
-    probe grads), all detached."""
-    _node_task(cfg)
+                      loss_mask: Optional[torch.Tensor] = None,
+                      neg_pairs: Optional[torch.Tensor] = None,
+                      pos_pairs: Optional[torch.Tensor] = None):
+    """The differentiation half of an Alg. 1 step: forward with zero probes
+    at every layer's pre-activation, then one ``torch.autograd.grad`` of
+    the loss for the params AND the probes -- the probe gradients are
+    G^(l+1) = d loss / d Z^(l+1).  The node task's loss is the masked mean
+    over ``loss_mask``; the link task's is ``link_loss`` over the batch
+    positions ``pos_pairs`` / ``neg_pairs`` [e, 2].  Returns (loss,
+    output, per-layer input activations, param grads, probe grads), all
+    detached."""
     dev = x_b.device
-    lmask = loss_mask if loss_mask is not None \
-        else torch.ones(pack.b, dtype=torch.float32, device=dev)
-    den = torch.clamp(lmask.sum(), min=1.0)
+    if cfg.task == "node":
+        lmask = loss_mask if loss_mask is not None \
+            else torch.ones(pack.b, dtype=torch.float32, device=dev)
+        den = torch.clamp(lmask.sum(), min=1.0)
     leaves = _grad_leaves(params)
     probes = [torch.zeros(s, dtype=torch.float32, device=dev,
                           requires_grad=True)
@@ -297,8 +331,11 @@ def vq_loss_and_grads(params: list[Params], vq_states: list[LayerVQState],
     with torch.enable_grad():
         out, acts = vq_forward(leaves, x_b, probes, pack, vq_states,
                                degrees, cfg)
-        num, _ = node_loss_terms(out, labels_b, cfg.multilabel, lmask)
-        loss = num / den
+        if cfg.task == "node":
+            num, _ = node_loss_terms(out, labels_b, cfg.multilabel, lmask)
+            loss = num / den
+        else:
+            loss = link_loss(out, pos_pairs, neg_pairs)
         gparams, gprobes = _grads(loss, leaves, probes)
     return (loss.detach(), out.detach(), [a.detach() for a in acts],
             gparams, gprobes)
@@ -308,16 +345,21 @@ def _vq_step_body(params: list[Params], vq_states: list[LayerVQState],
                   opt_state: OptState, pack: MinibatchPack,
                   x_b: torch.Tensor, labels_b: torch.Tensor,
                   degrees: torch.Tensor, cfg: GNNConfig, opt: Optimizer,
-                  loss_mask: Optional[torch.Tensor] = None):
-    """One Alg. 1 step (node task): the one implementation behind
-    ``vq_train_step`` and ``vq_train_epoch``.
+                  loss_mask: Optional[torch.Tensor] = None,
+                  neg_pairs: Optional[torch.Tensor] = None,
+                  pos_pairs: Optional[torch.Tensor] = None):
+    """One Alg. 1 step: the one implementation behind ``vq_train_step``
+    and ``vq_train_epoch``.  The node task weighs its loss by
+    ``loss_mask``; the link task scores ``pos_pairs`` / ``neg_pairs``
+    (batch positions, [e, 2]).
 
     ``vq_loss_and_grads``, the optimizer step, then under ``no_grad`` each
     layer's codebook update from (X^(l) || G^(l+1)) and the refresh of the
     batch's assignments (Alg. 1 lines 15-16).  Returns (params,
     vq_states, opt_state, loss, output, vq_errs [L])."""
     loss, out, acts, gparams, gprobes = vq_loss_and_grads(
-        params, vq_states, pack, x_b, labels_b, degrees, cfg, loss_mask)
+        params, vq_states, pack, x_b, labels_b, degrees, cfg, loss_mask,
+        neg_pairs=neg_pairs, pos_pairs=pos_pairs)
     with torch.no_grad():
         new_params, new_opt = opt.update(gparams, opt_state, params)
         cb_cfg = cfg.layer_codebook_cfg()
@@ -385,14 +427,20 @@ def vq_eval_batch(params, vq_states, pack: MinibatchPack, x_b, degrees,
 
 
 def full_train_step(params, opt_state, x, ops_: FullGraphOperands, labels,
-                    loss_mask, cfg: GNNConfig, opt: Optimizer):
-    """One exact-message-passing step over the whole graph (the oracle);
-    loss_mask [n] weighs the nodes.  Returns (params, opt_state, loss)."""
-    _node_task(cfg)
+                    loss_mask, cfg: GNNConfig, opt: Optimizer,
+                    neg_pairs=None, pos_pairs=None, pair_mask=None):
+    """One exact-message-passing step over a whole (sub)graph (the oracle
+    and the sampling baselines); loss_mask [n] weighs the nodes of the
+    node task, the link task scores ``pos_pairs`` / ``neg_pairs`` [e, 2]
+    (rows of ``x``) weighed by ``pair_mask`` [e] (optional).  Returns
+    (params, opt_state, loss)."""
     leaves = _grad_leaves(params)
     with torch.enable_grad():
         out = full_forward(leaves, x, ops_, cfg)
-        loss = node_loss(out, labels, cfg.multilabel, loss_mask)
+        if cfg.task == "node":
+            loss = node_loss(out, labels, cfg.multilabel, loss_mask)
+        else:
+            loss = link_loss(out, pos_pairs, neg_pairs, pair_mask)
         grads, _ = _grads(loss, leaves, [])
     with torch.no_grad():
         new_params, new_opt = opt.update(grads, opt_state, params)
@@ -410,8 +458,10 @@ def sampler_train_epoch(params, opt_state, splan: SamplerEpochPlan,
     the batch's features and labels from the full [n, ...] tables and
     weighs the loss by the plan's seed weights.  Padding rows gather node
     0's row; they feed no messages into real rows and carry no loss.  Node
-    task only.  Returns (params, opt_state, losses [S])."""
-    _node_task(cfg)
+    task only (the link task's pair mining is host work).  Returns
+    (params, opt_state, losses [S])."""
+    if cfg.task != "node":
+        raise ValueError("sampler epoch executor is node-task only")
     losses = []
     for s in range(splan.s):
         nid = splan.node_ids[s].long()

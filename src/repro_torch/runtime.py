@@ -6,7 +6,6 @@ import torch
 # Later slices of the port; error messages name them so a caller knows
 # where the missing feature lands (ROADMAP.md, queue 1).
 MESH_SLICE = "the multi-device slice"
-LINK_SLICE = "the link-task slice"
 LM_FAMILIES_SLICE = "the LM families slice"
 
 

@@ -12,7 +12,8 @@ near-ties of ``1e-5 * (1 + |d|)``.  The scatter-adds (``vq_update``'s
 cluster sums, ``spmm_ell_t``) use atomics in no fixed order: a sum of
 ``c`` terms may move by ``c * 2^-24 * sum |term|``, which
 :func:`assert_scatter_close` allows.  One ``vq_train_step`` on the card
-is held against the same step on the CPU at ``rtol=1e-4, atol=1e-5``.
+and one link step are held against the same step on the CPU at
+``rtol=1e-4, atol=1e-5``.
 
 The LM side's attention kernels stream their keys with an online softmax,
 so they agree with the plain two-pass softmax to ``rtol=1e-5, atol=1e-6``
@@ -457,6 +458,67 @@ def test_vq_train_step_cuda_vs_cpu(cuda):
                  tsp.launches_t), counts))
             assert got == (2, 3, 1, 2, 1)
     (pc, vc, lc, oc, ec), (pg, vg, lg, og, eg) = outs["cpu"], outs["cuda"]
+    assert_allclose(lg.numpy(), lc.numpy(), **STEP)
+    assert_allclose(og.numpy(), oc.numpy(), **STEP)
+    assert_allclose(eg.numpy(), ec.numpy(), **STEP)
+    for a, b in zip(pg, pc):
+        for name in a:
+            assert_allclose(a[name].numpy(), b[name].numpy(), **STEP)
+    for a, b in zip(vg, vc):
+        agree = (a.assignment == b.assignment).float().mean()
+        assert agree >= 0.99
+        if agree == 1:
+            for fa, fb in zip(a.codebook, b.codebook):
+                assert_allclose(fa.numpy(), fb.numpy(), **STEP)
+            assert torch.equal(a.counts, b.counts)
+
+
+@pytest.mark.gpu
+def test_link_train_step_cuda_vs_cpu(cuda):
+    """One link step (SAGE, the host-packed batch and its mined pairs) on
+    the card against the same step on the CPU, from the same state; the
+    kernels each launch as the step's layer count says."""
+    from repro_torch.convert import to_device
+    from repro_torch.core.codebook import CodebookConfig
+    from repro_torch.graph import batching as tb
+    from repro_torch.graph.datasets import synthetic_collab
+    from repro_torch.models import gnn as tgnn
+    from repro_torch.train.gnn_trainer import _batch_pairs
+    from repro_torch.train.optimizer import rmsprop
+    g = synthetic_collab(n=600, seed=4)
+    cfg = tgnn.GNNConfig(backbone="sage", f_in=g.f, hidden=32, n_out=32,
+                         n_layers=2, task="link",
+                         codebook=CodebookConfig(k=32, f_prod=4))
+    opt = rmsprop(3e-3)
+    rng = np.random.default_rng(0)
+    bids = rng.choice(g.n, 300, replace=False)
+    pos, neg = _batch_pairs(g, bids, np.ones(len(bids), np.float32), rng)
+    assert len(pos) > 2
+    outs = {}
+    for dev in ("cpu", cuda):
+        params = tgnn.init_gnn(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+        vq = tgnn.init_vq_states(cfg, g.n, torch.Generator().manual_seed(1),
+                                 device=dev)
+        pack = tb.make_pack(g, bids, device=dev)
+        counts = (tvu.launches, tce.launches, tce.launches_wt, tsp.launches,
+                  tsp.launches_t)
+        res = tgnn.vq_train_step(
+            params, vq, opt.init(params), pack,
+            torch.from_numpy(g.features[bids]).to(dev),
+            torch.from_numpy(g.labels[bids]).to(dev),
+            torch.from_numpy(g.degrees()).to(dev), cfg, opt,
+            pos_pairs=torch.from_numpy(pos).to(dev),
+            neg_pairs=torch.from_numpy(neg).to(dev))
+        outs[str(dev)] = to_device(list(res[:2]) + list(res[3:]), "cpu")
+        if dev == cuda:
+            torch.cuda.synchronize()
+            got = tuple(a - b for a, b in zip(
+                (tvu.launches, tce.launches, tce.launches_wt, tsp.launches,
+                 tsp.launches_t), counts))
+            assert got == (2, 3, 1, 2, 1)
+    (pc, vc, lc, oc, ec), (pg, vg, lg, og, eg) = outs["cpu"], outs["cuda"]
+    assert np.isfinite(float(lg))
     assert_allclose(lg.numpy(), lc.numpy(), **STEP)
     assert_allclose(og.numpy(), oc.numpy(), **STEP)
     assert_allclose(eg.numpy(), ec.numpy(), **STEP)

@@ -1,9 +1,14 @@
-"""The reference's environment variables that the PyTorch port does not
-honour yet: a value that would change what the reference runs raises a
-``ValueError`` naming the ROADMAP item that brings it, where the reference
-reads the variable; the default values pass.  CPU only."""
+"""The reference's environment variables in the PyTorch port.  The two
+executor switches are honoured: ``REPRO_EPOCH_EXECUTOR=0`` and
+``REPRO_INFER_EXECUTOR=0`` run the host-stepped training loop and the
+eager inference loop, which must give what the executors give.  The four
+the port does not honour yet raise a ``ValueError`` naming the ROADMAP
+item that brings them, where the reference reads them, whenever a value
+would change what the reference runs; the default values pass.  CPU
+only."""
 import numpy as np
 import pytest
+from numpy.testing import assert_allclose
 
 torch = pytest.importorskip("torch")
 
@@ -14,6 +19,8 @@ from repro_torch.kernels import ref                              # noqa: E402
 from repro_torch.models.gnn import GNNConfig                     # noqa: E402
 from repro_torch.train import gnn_trainer                        # noqa: E402
 
+STEP = dict(rtol=1e-4, atol=1e-5)
+SERVE = dict(rtol=1e-5, atol=1e-6)
 VARS = ("REPRO_EPOCH_EXECUTOR", "REPRO_INFER_EXECUTOR",
         "REPRO_CONTEXT_VARIANT", "REPRO_CONTEXT_VMEM_BUDGET_MB",
         "REPRO_AUTOTUNE", "REPRO_AUTOTUNE_CACHE")
@@ -45,28 +52,45 @@ def _context_args():
 
 
 def test_epoch_executor_off_raises_in_train_vq(env):
+    """``REPRO_EPOCH_EXECUTOR=0`` steps the executor's batches from the
+    host, each packed there: the same losses, VQ errors, params and
+    states (a tail-padded epoch of 4 batches, twice)."""
     g = _graph()
-    env.setenv("REPRO_EPOCH_EXECUTOR", "0")
-    with pytest.raises(ValueError, match=r"REPRO_EPOCH_EXECUTOR=0.*item 2"):
-        gnn_trainer.train_vq(g, _cfg(g), epochs=1, batch_size=50,
-                             device="cpu")
-    env.setenv("REPRO_EPOCH_EXECUTOR", "1")
-    out = gnn_trainer.train_vq(g, _cfg(g), epochs=1, batch_size=50,
-                               device="cpu")
-    assert np.isfinite(out["step_losses"]).all()
+    out = {}
+    for value in ("0", "1"):
+        env.setenv("REPRO_EPOCH_EXECUTOR", value)
+        out[value] = gnn_trainer.train_vq(g, _cfg(g), epochs=2,
+                                          batch_size=60, device="cpu")
+    host, epoch = out["0"], out["1"]
+    assert len(host["pack_s"]) == 2 and "pack_s" not in epoch
+    assert host["step_losses"].shape == (8,)
+    assert_allclose(host["step_losses"], epoch["step_losses"], **STEP)
+    assert_allclose(host["step_vq_errs"], epoch["step_vq_errs"], **STEP)
+    for a, b in zip(host["params"], epoch["params"]):
+        for k in a:
+            assert_allclose(a[k].numpy(), b[k].numpy(), **STEP)
+    for a, b in zip(host["vq_states"], epoch["vq_states"]):
+        assert torch.equal(a.assignment, b.assignment)
+        assert torch.equal(a.counts, b.counts)
+    for key in ("val", "test", "vq_err"):
+        assert_allclose(host["final"][key], epoch["final"][key], **STEP)
 
 
 def test_infer_executor_off_raises_in_vq_inference(env):
+    """``REPRO_INFER_EXECUTOR=0`` runs the eager per-batch loop over the
+    executor's wrap-padded batches: the same rows, plain and inductive."""
     g = _graph()
     cfg = _cfg(g)
     out = gnn_trainer.train_vq(g, cfg, epochs=1, batch_size=50, device="cpu")
-    env.setenv("REPRO_INFER_EXECUTOR", "0")
-    with pytest.raises(ValueError, match=r"REPRO_INFER_EXECUTOR=0.*item 3"):
-        gnn_trainer.vq_inference(out["params"], out["vq_states"], g, cfg, 50)
-    env.setenv("REPRO_INFER_EXECUTOR", "1")
-    acts = gnn_trainer.vq_inference(out["params"], out["vq_states"], g, cfg,
-                                    50)
-    assert acts.shape == (g.n, 40)
+    for inductive in (False, True):
+        acts = {}
+        for value in ("0", "1"):
+            env.setenv("REPRO_INFER_EXECUTOR", value)
+            acts[value] = gnn_trainer.vq_inference(
+                out["params"], out["vq_states"], g, cfg, 60,
+                inductive=inductive)
+        assert acts["0"].shape == (g.n, 40)
+        assert_allclose(acts["0"], acts["1"], **SERVE)
 
 
 def test_context_variant_loop_raises_in_context_ell(env):

@@ -354,16 +354,12 @@ def test_paper_config_matches_reference(graphs):
 # what this slice does not carry raises, naming the slice that brings it
 # ---------------------------------------------------------------------------
 
-def test_unported_options_raise(gcn, graphs):
+def test_unported_options_raise():
     from repro_torch.launch import serve_gnn
-    w = gcn
     for argv, match in [(["--mesh", "2"], "multi-device"),
                         (["--shard-graph"], "multi-device")]:
         with pytest.raises(NotImplementedError, match=match):
             serve_gnn.main(["--n", "300", "--device", "cpu", *argv])
-    with pytest.raises(NotImplementedError, match="link-task"):
-        tgnn.vq_train_step(w.tparams, w.tvq, None, None, None, None, None,
-                           w.tcfg._replace(task="link"), None)
 
 
 @pytest.mark.parametrize("backbone", ["gat", "transformer"])

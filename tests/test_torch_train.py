@@ -796,7 +796,7 @@ def test_train_scenario_runs_every_scale_method(graphs, backbone):
 
 
 def test_train_scenario_env_default_and_refusals(graphs, monkeypatch):
-    from repro_torch.runtime import LINK_SLICE
+    from repro_torch.graph.datasets import synthetic_collab
     _, tg = graphs
     _, tcfg = _cfgs("gcn")
     monkeypatch.setenv("REPRO_SCALE_METHOD", "labor")
@@ -808,16 +808,22 @@ def test_train_scenario_env_default_and_refusals(graphs, monkeypatch):
     with pytest.raises(ValueError, match="unknown scale method"):
         ttrain.train_scenario(tg, tcfg, epochs=1, batch_size=150,
                               device=CPU)
+    # the link task runs through every scale method but the hybrid
+    cg = synthetic_collab(n=300, seed=4)
     link = tcfg._replace(task="link")
     for method in ttrain.SCALE_METHODS:
         if method == "hybrid":        # node-task only, as in the reference
             with pytest.raises(ValueError, match="node-task only"):
-                ttrain.train_scenario(tg, link, method, epochs=1,
+                ttrain.train_scenario(cg, link, method, epochs=1,
                                       batch_size=150, device=CPU)
             continue
-        with pytest.raises(NotImplementedError, match=LINK_SLICE):
-            ttrain.train_scenario(tg, link, method, epochs=1,
-                                  batch_size=150, device=CPU)
+        r = ttrain.train_scenario(cg, link, method, epochs=1,
+                                  batch_size=150, eval_every=1, device=CPU,
+                                  **({"n_parts": 4} if method == "cluster"
+                                     else {}))
+        assert 0.0 <= r["final"]["val"] <= 1.0, method
+        for ls in r.get("losses", []) + [r.get("step_losses", [])]:
+            assert np.all(np.isfinite(ls)), method
     with pytest.raises(ValueError, match="unknown sampler"):
         ttrain.train_sampler(tg, tcfg, "metropolis", epochs=1,
                              batch_size=64, device=CPU)
