@@ -2,8 +2,10 @@
 
 Torch twin of ``repro.core.codebook``: the state containers, the
 product-VQ branch layout, initialisation, the implicit whitening helpers,
-the (un-whitened) codeword reads, the feature-half assignment that the
-inductive refresh runs, and :func:`update` -- one streaming VQ update per
+the (un-whitened) codeword reads, the (X || G) assignment and the
+feature-half one that the inductive refresh runs, the batch seeding
+(:func:`kmeanspp_init`), the Theorem 2 epsilon (:func:`relative_error`),
+and :func:`update` -- one streaming VQ update per
 layer and training step, with exactly ONE fused distance pass for all
 branches (``kops.vq_assign_update``, one kernel launch) whose assignment,
 per-row quantization error and per-codeword (counts, sums) feed the EMA,
@@ -174,6 +176,26 @@ def quantized_codewords(state: CodebookState, f_feat: int,
 # assignment
 # ---------------------------------------------------------------------------
 
+def _concat_rows(state: CodebookState, feats: torch.Tensor,
+                 grads: torch.Tensor) -> torch.Tensor:
+    """``V = X || G`` split into branches: [n_branches, b, f_blk]."""
+    n = state.n_branches
+    return torch.cat([_split_branches(feats.float(), n),
+                      _split_branches(grads.float(), n)], dim=-1)
+
+
+def assign(state: CodebookState, feats: torch.Tensor, grads: torch.Tensor,
+           cfg: CodebookConfig) -> torch.Tensor:
+    """Nearest codeword in whitened concat space: feats [b, f_feat], grads
+    [b, f_grad] -> [n_branches, b] int32, ONE ``kops.vq_assign`` call for
+    all branches (the narrow scan at f_blk <= 32, the wide build above)."""
+    v = _concat_rows(state, feats, grads)
+    if cfg.whiten:
+        v = _whiten(v, state.mean[:, None, :], state.var[:, None, :],
+                    cfg.eps)
+    return kops.vq_assign(v, state.codewords_w.contiguous())
+
+
 def assign_features_only(state: CodebookState, feats: torch.Tensor,
                          f_feat: int, cfg: CodebookConfig) -> torch.Tensor:
     """Nearest codeword using only the feature half (inference / inductive
@@ -203,9 +225,7 @@ def whitened_rows(state: CodebookState, feats: torch.Tensor,
     and the rows whitened with them.  Returns (vw [nb, b, f_blk]
     contiguous, new_mean, new_var); without whitening the rows and moments
     pass through."""
-    n = state.n_branches
-    v = torch.cat([_split_branches(feats.float(), n),
-                   _split_branches(grads.float(), n)], dim=-1)
+    v = _concat_rows(state, feats, grads)
     if not cfg.whiten:
         return v, state.mean, state.var
     batch_mean = v.mean(dim=1)                         # [nb, f_blk]
@@ -256,3 +276,60 @@ def update(state: CodebookState, feats: torch.Tensor, grads: torch.Tensor,
                         vnorm2=(vw * vw).sum(-1))
     return CodebookState(new_cw, new_size, new_sum, new_mean, new_var,
                          state.step + 1), stats
+
+
+def _kmeanspp_seed(state: CodebookState, v: torch.Tensor, rows: torch.Tensor,
+                   noise: torch.Tensor, cfg: CodebookConfig) -> CodebookState:
+    """The deterministic part of :func:`kmeanspp_init`: the concat rows
+    ``v`` [nb, b, f_blk] whitened by their own batch moments, codeword j of
+    branch i seeded on row ``rows[i, j]`` plus ``0.01 * noise[i, j]``."""
+    mean = v.mean(dim=1)
+    var = torch.clamp(v.var(dim=1, correction=0), min=0.0)
+    vw = _whiten(v, mean[:, None, :], var[:, None, :], cfg.eps) \
+        if cfg.whiten else v
+    nb, k, f_blk = noise.shape
+    seeds = torch.gather(vw, 1, rows.long()[..., None].expand(nb, k, f_blk))
+    seeds = seeds + 0.01 * noise
+    return CodebookState(
+        codewords_w=seeds,
+        cluster_size=torch.ones_like(state.cluster_size),
+        cluster_sum=seeds.clone(),
+        mean=mean if cfg.whiten else state.mean,
+        var=var if cfg.whiten else state.var,
+        step=state.step)
+
+
+def kmeanspp_init(state: CodebookState, feats: torch.Tensor,
+                  grads: torch.Tensor, cfg: CodebookConfig, *,
+                  generator: torch.Generator) -> CodebookState:
+    """Seed the codewords from a batch: random rows plus jitter, in the
+    space of the batch's own whitening moments (the reference's light
+    stand-in for k-means++ seeding).  The row ids and the jitter are drawn
+    from ``generator``, which lives on the state's device."""
+    v = _concat_rows(state, feats, grads)
+    nb, b, f_blk = v.shape
+    dev = v.device
+    rows = torch.randint(0, b, (nb, state.k), generator=generator,
+                         device=dev)
+    noise = torch.randn((nb, state.k, f_blk), generator=generator,
+                        device=dev)
+    return _kmeanspp_seed(state, v, rows, noise, cfg)
+
+
+def relative_error(state: CodebookState, feats: torch.Tensor,
+                   grads: torch.Tensor, assignment: torch.Tensor,
+                   f_feat: int, cfg: CodebookConfig) -> torch.Tensor:
+    """VQ relative error  eps = ||X - R X~||_F / ||X||_F  on the feature
+    half, the epsilon of Theorem 2 / Corollary 3: an offline check that
+    rebuilds the batch's rows from their assigned un-whitened feature
+    codewords (``assignment`` [n_branches, b]).  ``grads`` is unused, as
+    in the reference; the training loop's monitor is
+    :meth:`UpdateStats.relative_error`."""
+    n = state.n_branches
+    xcw = feature_codewords(state, f_feat, cfg)               # [n, k, fb]
+    xb = _split_branches(feats.float(), n)                    # [n, b, fb]
+    beta = torch.arange(n, device=xcw.device)[:, None]
+    recon = xcw[beta, assignment.long()]                      # [n, b, fb]
+    num = torch.sqrt(torch.sum((xb - recon) ** 2))
+    den = torch.sqrt(torch.sum(xb ** 2)) + 1e-12
+    return num / den

@@ -7,7 +7,9 @@ A mini-batch's messages split into
     (its backward is the transposed ``spmm_ell_t`` kernel);
   * out-of-batch messages C~_out X~ -- from codewords, reconstruction form:
     neighbor j's features are rebuilt as concat_beta X~^beta[R^beta[j]]
-    inside ONE ``context_ell`` launch for any branch count.
+    inside ONE ``context_ell`` launch for any branch count (or, in the
+    sketch form of dense convolutions, C~_out = C_out R times the
+    codewords, :func:`context_messages_sketch`).
 
 Back-propagation uses the transposed approximated weights: the gradient
 codewords G~ stand in for the messages that flow back from out-of-batch
@@ -177,6 +179,19 @@ def context_messages_reconstruct(out_vals: torch.Tensor,
     if isinstance(feat_codewords, torch.Tensor):
         feat_codewords = feat_codewords.detach()
     return kops.context_ell(out_ids, out_vals, assignment, feat_codewords)
+
+
+def context_messages_sketch(c_out_sketch: torch.Tensor,
+                            feat_codewords: torch.Tensor) -> torch.Tensor:
+    """Out-of-batch forward messages, sketch form (dense convolutions):
+    c_out_sketch [n_branches, b, k] (C~_out = C_out R, per branch),
+    feat_codewords [n_branches, k, f_blk] -> [b, n_branches * f_blk].  An
+    einsum outside any kernel, as in the reference; no gradient reaches
+    the codewords."""
+    cw = feat_codewords.detach().float()
+    per_branch = torch.einsum("nbk,nkf->nbf", c_out_sketch.float(), cw)
+    nb, b, fb = per_branch.shape
+    return per_branch.transpose(0, 1).reshape(b, nb * fb)
 
 
 def intra_messages(in_pos: torch.Tensor, in_vals: torch.Tensor,

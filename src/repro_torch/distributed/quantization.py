@@ -8,8 +8,10 @@ quantize-on-update), the nibble-packed assignment machinery
 (``pack_nibbles`` / ``unpack_nibbles`` / ``gather_nibbles`` /
 ``scatter_nibbles`` and :class:`PackedAssignment`) behind the ``+a4`` tiers
 for k <= 16 product branches, ``dtype_nbits`` and ``tree_bytes`` (the
-sub-byte-aware size accounting).  The weight-only LM quantizer
-(``quantize_tensor`` / ``quantize_tree``) belongs to the LM side.
+sub-byte-aware size accounting), and the weight-only quantizer of the
+reference (``quantize_tensor`` / ``dequantize_tensor``, ``quantize_tree`` /
+``dequantize_tree``: per-output-channel int8 or fp8 for every weight of a
+nested dict / list / tuple of tensors).
 
 Torch has no 4-bit tensor the kernels could take, so a uint4 value here
 is a ``torch.uint8`` tensor holding values < 16 (one per byte), and the
@@ -60,6 +62,31 @@ def dtype_nbits(dt) -> int:
     if not isinstance(d, torch.dtype):
         raise KeyError(f"unknown dtype {name!r}")
     return d.itemsize * 8
+
+
+def quantize_tensor(w: torch.Tensor, dtype: torch.dtype = torch.int8
+                    ) -> QTensor:
+    """Per-output-channel (last axis) symmetric int8 or fp8: the amax
+    reduces over every other axis, ``scale = amax / qmax + 1e-12``; int8
+    rounds half to even and clips to +-127, fp8 clips to +-448 and rounds
+    in the cast.  Both dequantize as ``q * scale``."""
+    w32 = w.float()
+    amax = torch.abs(w32)
+    if w.dim() > 1:
+        amax = torch.amax(amax, dim=tuple(range(w.dim() - 1)), keepdim=True)
+    qmax = codeword_qmax(dtype)
+    scale = amax / qmax + 1e-12
+    scaled = w32 / scale
+    if dtype == torch.int8:
+        q = torch.clamp(torch.round(scaled), -127, 127).to(torch.int8)
+    else:
+        q = torch.clamp(scaled, -qmax, qmax).to(dtype)
+    return QTensor(q, scale)
+
+
+def dequantize_tensor(t: QTensor, dtype: torch.dtype = torch.bfloat16
+                      ) -> torch.Tensor:
+    return (t.q.float() * t.scale).to(dtype)
 
 
 # Drift band of quantize-on-update: the previous step's scale is reused
@@ -206,6 +233,42 @@ class PackedAssignment:
 
     def __repr__(self):
         return f"PackedAssignment(shape={self.shape}, packed={self.packed!r})"
+
+
+def _is_weight(leaf) -> bool:
+    """The reference's rule: a tensor of at least 2 dims, f32 or bf16."""
+    return isinstance(leaf, torch.Tensor) and leaf.dim() >= 2 \
+        and leaf.dtype in (torch.float32, torch.bfloat16)
+
+
+def _tree_map(fn, tree: Any) -> Any:
+    """``fn`` on every leaf of nested dicts, lists and tuples (named
+    tuples rebuilt as their type); a ``QTensor`` is one leaf."""
+    if isinstance(tree, QTensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return type(tree)((k, _tree_map(fn, v)) for k, v in tree.items())
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    if isinstance(tree, tuple):
+        items = [_tree_map(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else tuple(items)
+    return fn(tree)
+
+
+def quantize_tree(params: Any, dtype: torch.dtype = torch.int8) -> Any:
+    """``quantize_tensor`` on every weight leaf (:func:`_is_weight`) of a
+    tree; other leaves, ``QTensor`` ones included, stay as they are."""
+    return _tree_map(lambda w: quantize_tensor(w, dtype) if _is_weight(w)
+                     else w, params)
+
+
+def dequantize_tree(qparams: Any, dtype: torch.dtype = torch.bfloat16
+                    ) -> Any:
+    """Every ``QTensor`` leaf of a tree back to a dense ``dtype`` tensor."""
+    return _tree_map(lambda t: dequantize_tensor(t, dtype)
+                     if isinstance(t, QTensor) else t, qparams)
 
 
 def _leaves(tree: Any):

@@ -49,7 +49,9 @@ SIGNATURES = {
 }
 for _e in ("f32", "u8_f32"):
     SIGNATURES[f"repro_vq_update_wide_{_e}"] = [_vp] * 7 + [_int] * 4 + [_vp]
-SIGNATURES["repro_vq_update_wide_tiles_f32"] = [_vp] * 7 + [_int] * 5 + [_vp]
+for _e in ("f32", "u8_f32"):
+    SIGNATURES[f"repro_vq_update_wide_tiles_{_e}"] = [_vp] * 7 + [_int] * 5 \
+        + [_vp]
 SIGNATURES["repro_vq_wide_probe_f32"] = [_vp] * 4 + [_int] * 4 + [_vp]
 SIGNATURES["repro_vq_wide_plan"] = [_int, _int, _vp]
 for _dt in ("f32", "bf16"):

@@ -41,7 +41,7 @@ extern "C" cudaError_t repro_vq_update_wide_f32(
 }
 
 // The same with the row tile set by the caller: wgs consumer warpgroups of
-// 64 rows a block (1 or 2), for timing the two tilings against each other.
+// 64 rows a block (1 or 2), the tuner's knob (kernels/autotune.py).
 extern "C" cudaError_t repro_vq_update_wide_tiles_f32(
     const float* x, const float* cw, float* scratch, int* idx, float* qerr,
     float* counts, float* sums, int nb, int n, int k, int f, int wgs,

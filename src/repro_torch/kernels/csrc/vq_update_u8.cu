@@ -24,3 +24,15 @@ extern "C" cudaError_t repro_vq_update_wide_u8_f32(
   return launch_wide<uint8_t, true>(x, (long long)n * f, f, cw, scratch, idx,
                                     qerr, counts, sums, nb, n, k, f, stream);
 }
+
+// The same with the row tile set by the caller (wgs consumer warpgroups of
+// 64 rows a block, 1 or 2), as repro_vq_update_wide_tiles_f32.
+extern "C" cudaError_t repro_vq_update_wide_tiles_u8_f32(
+    const float* x, const float* cw, float* scratch, uint8_t* idx,
+    float* qerr, float* counts, float* sums, int nb, int n, int k, int f,
+    int wgs, cudaStream_t stream) {
+  if (k > 256 || wgs < 1) return cudaErrorInvalidValue;
+  return launch_wide<uint8_t, true>(x, (long long)n * f, f, cw, scratch, idx,
+                                    qerr, counts, sums, nb, n, k, f, stream,
+                                    wgs);
+}

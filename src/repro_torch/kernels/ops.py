@@ -1,25 +1,40 @@
 """Dispatch between the CUDA kernels and their plain versions.
 
-Decided by the operand's device alone: a CPU tensor goes to ``ref.py``, a
-CUDA tensor goes to the hand-written kernel, whose wrapper validates it and
-launches or raises.  There is no environment knob and no fallback: a CUDA
-tensor that the kernel refuses is an error, never a silent plain-PyTorch
-run.  ``spmm_ell`` is differentiable in ``x``: its backward is the
-transposed kernel ``spmm_ell_t`` (dispatched the same way).  On the card
-``spmm_ell`` has two kernels, as in the reference: the resident one and
-the staged-stripe one for a source too large to stay on chip, picked by
-the reference's precedence (``spmm_ell_variant``: a forced variant, then
-a configured budget, then the default budget, here the H100's 50 MiB L2).  The LM side's
-``vq_attention_decode`` and ``flash_attention`` follow the same rule: the
-reference also sends ``flash_attention`` shapes with ``sq % 128 != 0`` to
-its oracle, but here every CUDA tensor goes to the kernel, which handles
-ragged tails itself.
+Decided by the operand's device first: a CPU tensor goes to ``ref.py``
+whatever the settings below say, a CUDA tensor goes to a hand-written
+kernel, whose wrapper validates it and launches or raises.  There is no
+fallback: a CUDA tensor that the kernel refuses is an error, never a
+silent plain-PyTorch run.  ``spmm_ell`` is differentiable in ``x``: its
+backward is the transposed kernel ``spmm_ell_t`` (dispatched the same
+way).  The LM side's ``vq_attention_decode`` and ``flash_attention``
+follow the same rule: the reference also sends ``flash_attention`` shapes
+with ``sq % 128 != 0`` to its oracle, but here every CUDA tensor goes to
+the kernel, which handles ragged tails itself.
 
-The reference's context-variant and autotuner variables
-(``REPRO_CONTEXT_VARIANT``, ``REPRO_CONTEXT_VMEM_BUDGET_MB``,
-``REPRO_AUTOTUNE``, ``REPRO_AUTOTUNE_CACHE``) have no machinery here yet
-(ROADMAP.md, modules to port, item 4): a setting that would change what
-the reference runs raises instead of being ignored.
+On the card two calls have two kernels each, picked by the reference's
+precedence -- a forced variant, then a configured budget, then the tuner
+(``kernels/autotune.py``, opt-in), then the default budget:
+
+  * ``spmm_ell``: the resident kernel, or the staged-stripe one for a
+    source above the budget (``spmm_ell_variant``; ``REPRO_SPMM_VARIANT``,
+    ``configure_spmm_dispatch`` / ``REPRO_SPMM_L2_BUDGET_MB``);
+  * ``context_ell``: the fused kernel, or the per-branch loop -- the
+    branch ids gathered, one ``spmm_ell`` a branch on its [k, f_blk]
+    codewords, the ``@ w_t`` product a ``torch.matmul`` after the
+    concatenation (``context_ell_variant``; ``REPRO_CONTEXT_VARIANT``,
+    ``configure_context_dispatch`` / ``REPRO_CONTEXT_L2_BUDGET_MB``).
+
+The budgets size what the kernels read through the H100's L2, where the
+reference sizes a TPU core's VMEM, so their variables carry the L2 in
+their names; the reference's ``REPRO_SPMM_VMEM_BUDGET_MB`` and
+``REPRO_CONTEXT_VMEM_BUDGET_MB`` raise a ValueError that names them.  The
+SpMM's default is the L2's 50 MiB; the context's is unbounded ('auto' is
+the fused kernel at every table size, as the card measured it ahead of the
+loop at every table timed; a configured budget still sends larger tables
+to the loop).  With
+``REPRO_AUTOTUNE=1`` the tuner also sets the staged kernel's tiles (unless
+a ``StripeIndex`` pins them) and the wide VQ scan's row tile.  Every
+``REPRO_*`` read goes through ``repro_torch.hostenv``.
 
 The precision tiers are data-driven here as in the reference: quantized
 codewords arrive as a ``QTensor``, narrow tables as uint8 tensors or a
@@ -31,13 +46,13 @@ which storage to make (``core/conv.py``, ``models/gnn.py``,
 """
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import torch
 
+from repro_torch import hostenv
 from repro_torch.distributed.quantization import PackedAssignment, QTensor
-from repro_torch.kernels import ref
+from repro_torch.kernels import autotune, ref
 from repro_torch.kernels.context_ell import context_ell_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.spmm_ell import spmm_ell_cuda, spmm_ell_t_cuda
@@ -82,8 +97,9 @@ def kernel_precision() -> str:
     'fp32'."""
     if _precision_override:
         return _precision_override[0]
-    return _check_precision(os.environ.get("REPRO_KERNEL_PRECISION", "fp32"),
-                            "REPRO_KERNEL_PRECISION")
+    return _check_precision(
+        hostenv.env_knob("REPRO_KERNEL_PRECISION", "fp32"),
+        "REPRO_KERNEL_PRECISION")
 
 
 def precision_codeword_dtype(precision: Optional[str] = None
@@ -104,34 +120,37 @@ def precision_packs_assignment(precision: Optional[str] = None) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the reference's dispatch variables that the port does not honour yet
+# dispatch budgets (the card's L2 in place of the reference's VMEM)
 # ---------------------------------------------------------------------------
 
-_ITEM_4 = ("the port has no context-variant dispatch or autotuner yet "
-           "(ROADMAP.md, modules to port, item 4)")
+# The H100's L2 (NVIDIA's data sheet): a source that fits stays there
+# between the resident kernel's gathers; a larger one is staged in stripes.
+_DEFAULT_L2_BUDGET_MB = 50.0
 
 
-def check_unported_env(*, context: bool = False) -> None:
-    """Raise on the reference's autotuner switches (``REPRO_AUTOTUNE=1``,
-    any ``REPRO_AUTOTUNE_CACHE``) and, with ``context``, on its context
-    dispatch (``REPRO_CONTEXT_VARIANT`` other than auto / fused -- the
-    port's one kernel is the fused variant -- and any
-    ``REPRO_CONTEXT_VMEM_BUDGET_MB``), where the reference reads them."""
-    env = os.environ
-    if env.get("REPRO_AUTOTUNE", "0") == "1":
-        raise ValueError(f"REPRO_AUTOTUNE=1: {_ITEM_4}")
-    if "REPRO_AUTOTUNE_CACHE" in env:
-        raise ValueError(f"REPRO_AUTOTUNE_CACHE is set: {_ITEM_4}")
-    if not context:
-        return
-    variant = env.get("REPRO_CONTEXT_VARIANT", "auto")
-    if variant not in ("auto", "fused", "loop"):
-        raise ValueError(f"REPRO_CONTEXT_VARIANT={variant!r}: want auto, "
-                         f"fused or loop")
-    if variant == "loop":
-        raise ValueError(f"REPRO_CONTEXT_VARIANT=loop: {_ITEM_4}")
-    if "REPRO_CONTEXT_VMEM_BUDGET_MB" in env:
-        raise ValueError(f"REPRO_CONTEXT_VMEM_BUDGET_MB is set: {_ITEM_4}")
+def _l2_budget_mb(overrides: dict, env_name: str, default: float) -> float:
+    """A dispatch budget: the programmatic override, else ``env_name``,
+    else ``default``; a positive float (MiB) or a ValueError."""
+    raw = overrides.get("l2_budget_mb", hostenv.env_knob(env_name, default))
+    try:
+        budget = float(raw)  # type: ignore[arg-type]
+    except (TypeError, ValueError):
+        raise ValueError(f"{env_name}={raw!r}: want a positive float "
+                         f"(MiB)") from None
+    if budget <= 0.0:
+        raise ValueError(f"{env_name}={raw!r}: want a positive float (MiB)")
+    return budget
+
+
+def _budget_forced(overrides: dict, env_name: str, vmem_name: str) -> bool:
+    """True when the budget was configured (the tuner then stands down).
+    The reference's VMEM-named variable raises here, naming ours: it
+    sizes a TPU core's VMEM, not the card's L2."""
+    if hostenv.env_knob_set(vmem_name):
+        raise ValueError(
+            f"{vmem_name} is the reference's TPU VMEM budget; the port's "
+            f"dispatch budget is the card's L2: set {env_name} (MiB)")
+    return "l2_budget_mb" in overrides or hostenv.env_knob_set(env_name)
 
 
 # ---------------------------------------------------------------------------
@@ -139,27 +158,9 @@ def check_unported_env(*, context: bool = False) -> None:
 # ---------------------------------------------------------------------------
 
 SPMM_VARIANTS = ("auto", "resident", "hbm")
-# The H100's L2 (NVIDIA's data sheet): a source that fits stays there
-# between the resident kernel's gathers; a larger one is staged in stripes.
-_DEFAULT_L2_BUDGET_MB = 50.0
 
 # Programmatic overrides; they take precedence over the environment.
 _dispatch_overrides: dict[str, object] = {}
-
-
-def _l2_budget_mb() -> float:
-    raw = _dispatch_overrides.get(
-        "l2_budget_mb", os.environ.get("REPRO_SPMM_L2_BUDGET_MB",
-                                       _DEFAULT_L2_BUDGET_MB))
-    try:
-        budget = float(raw)  # type: ignore[arg-type]
-    except (TypeError, ValueError):
-        raise ValueError(f"REPRO_SPMM_L2_BUDGET_MB={raw!r}: want a positive "
-                         f"float (MiB)") from None
-    if budget <= 0.0:
-        raise ValueError(f"REPRO_SPMM_L2_BUDGET_MB={raw!r}: want a positive "
-                         f"float (MiB)")
-    return budget
 
 
 def configure_spmm_dispatch(variant: Optional[str] = None,
@@ -184,28 +185,132 @@ def configure_spmm_dispatch(variant: Optional[str] = None,
         _dispatch_overrides["l2_budget_mb"] = float(l2_budget_mb)
 
 
-def spmm_ell_variant(n_src: int, f: int, itemsize: int = 4) -> str:
+def spmm_ell_variant(n_src: int, f: int, itemsize: int = 4,
+                     dtype: Optional[torch.dtype] = None) -> str:
     """'resident' or 'hbm' for an [n_src, f] source of ``itemsize``-byte
-    elements.  Precedence: a forced variant (``configure_spmm_dispatch``,
-    else ``REPRO_SPMM_VARIANT``), then the budget (configured, else
-    ``REPRO_SPMM_L2_BUDGET_MB``, else 50 MiB)."""
-    check_unported_env()
+    elements (of storage ``dtype``, which keys the tuner).  Precedence: a
+    forced variant (``configure_spmm_dispatch``, else
+    ``REPRO_SPMM_VARIANT``), then a configured budget, then the tuner
+    (``REPRO_AUTOTUNE=1``), then the default budget, 50 MiB."""
     forced = _dispatch_overrides.get(
-        "variant", os.environ.get("REPRO_SPMM_VARIANT", "auto"))
+        "variant", hostenv.env_knob("REPRO_SPMM_VARIANT", "auto"))
     if forced not in SPMM_VARIANTS:
         raise ValueError(
             f"REPRO_SPMM_VARIANT={forced!r}: want auto, resident or hbm")
     if forced != "auto":
         return str(forced)
-    return "hbm" if n_src * f * itemsize > _l2_budget_mb() * 2 ** 20 \
-        else "resident"
+    if not _budget_forced(_dispatch_overrides, "REPRO_SPMM_L2_BUDGET_MB",
+                          "REPRO_SPMM_VMEM_BUDGET_MB"):
+        tuned = autotune.tuned_spmm(n_src, f, itemsize, dtype)
+        if tuned is not None:
+            return str(tuned["variant"])
+    budget = _l2_budget_mb(_dispatch_overrides, "REPRO_SPMM_L2_BUDGET_MB",
+                           _DEFAULT_L2_BUDGET_MB)
+    return "hbm" if n_src * f * itemsize > budget * 2 ** 20 else "resident"
 
 
 def _spmm_cuda(nbr_idx, nbr_val, x, stripe_index, x_scale):
-    """The card's SpMM kernel for this source, by ``spmm_ell_variant``."""
-    if spmm_ell_variant(x.shape[0], x.shape[1], x.element_size()) == "hbm":
-        return spmm_ell_hbm_cuda(nbr_idx, nbr_val, x, stripe_index, x_scale)
+    """The card's SpMM kernel for this source, by ``spmm_ell_variant``;
+    the staged kernel at the tuner's tiles unless ``stripe_index`` pins
+    its own."""
+    n_src, f = x.shape
+    if spmm_ell_variant(n_src, f, x.element_size(), x.dtype) == "hbm":
+        tiles = {}
+        if stripe_index is None:
+            tuned = autotune.tuned_spmm(n_src, f, x.element_size(), x.dtype)
+            if tuned is not None:
+                tiles = dict(bb=int(tuned["bb"]),
+                             stripe=int(tuned["stripe"]))
+        return spmm_ell_hbm_cuda(nbr_idx, nbr_val, x, stripe_index, x_scale,
+                                 **tiles)
     return spmm_ell_cuda(nbr_idx, nbr_val, x, x_scale)
+
+
+# ---------------------------------------------------------------------------
+# context_ell variant dispatch: the fused kernel or the per-branch loop
+# ---------------------------------------------------------------------------
+
+CONTEXT_VARIANTS = ("auto", "fused", "loop")
+# Unbounded: both variants gather the same b * D * nb table entries
+# wherever the table lives, and the loop adds a launch a branch and an
+# [nb, b, D] id tensor to that; on the H100 the fused kernel beat the loop
+# at every [32, n] int32 table measured, 21.7 to 512 MB (chip_smoke.py's
+# dispatch phase, PERF.md).  A configured budget keeps the reference's
+# rule: a table above it takes the loop.
+_DEFAULT_CONTEXT_L2_BUDGET_MB = float("inf")
+
+_context_overrides: dict[str, object] = {}
+
+
+def configure_context_dispatch(variant: Optional[str] = None,
+                               l2_budget_mb: Optional[float] = None, *,
+                               reset: bool = False) -> None:
+    """Override the ``context_ell`` dispatch: ``variant`` in {'auto',
+    'fused', 'loop'} ('auto' clears a forced variant), ``l2_budget_mb``
+    the table size above which 'auto' takes the per-branch loop.  None
+    leaves a setting as it is; ``reset=True`` first drops every
+    programmatic override.  The budget is the reference's
+    ``vmem_budget_mb`` / ``REPRO_CONTEXT_VMEM_BUDGET_MB`` against the
+    card's L2; its variable is ``REPRO_CONTEXT_L2_BUDGET_MB``."""
+    if reset:
+        _context_overrides.clear()
+    if variant is not None:
+        if variant not in CONTEXT_VARIANTS:
+            raise ValueError(f"unknown context variant: {variant!r}")
+        _context_overrides["variant"] = variant
+    if l2_budget_mb is not None:
+        _context_overrides["l2_budget_mb"] = float(l2_budget_mb)
+
+
+def context_ell_variant(n_nodes: int, n_branches: int,
+                        itemsize: float = 4, dtype=None) -> str:
+    """'fused' or 'loop' for an [n_branches, n_nodes] assignment table of
+    ``itemsize`` bytes an entry -- fractional: 0.5 for a
+    ``PackedAssignment`` -- whose storage ``dtype`` (``"uint4"`` when
+    packed) keys the tuner.  Precedence: a forced variant
+    (``configure_context_dispatch``, else ``REPRO_CONTEXT_VARIANT``), then
+    a configured budget, then the tuner (``REPRO_AUTOTUNE=1``), then the
+    default budget."""
+    forced = _context_overrides.get(
+        "variant", hostenv.env_knob("REPRO_CONTEXT_VARIANT", "auto"))
+    if forced not in CONTEXT_VARIANTS:
+        raise ValueError(
+            f"REPRO_CONTEXT_VARIANT={forced!r}: want auto, fused or loop")
+    if forced != "auto":
+        return str(forced)
+    if not _budget_forced(_context_overrides, "REPRO_CONTEXT_L2_BUDGET_MB",
+                          "REPRO_CONTEXT_VMEM_BUDGET_MB"):
+        tuned = autotune.tuned_context(n_nodes, n_branches, itemsize, dtype)
+        if tuned is not None:
+            return str(tuned["variant"])
+    budget = _l2_budget_mb(_context_overrides, "REPRO_CONTEXT_L2_BUDGET_MB",
+                           _DEFAULT_CONTEXT_L2_BUDGET_MB)
+    return "loop" if n_nodes * n_branches * itemsize > budget * 2 ** 20 \
+        else "fused"
+
+
+def _context_ell_loop(out_ids, out_vals, assignment, codewords, w_t,
+                      cw_scale=None):
+    """The per-branch variant: a packed table unpacked, the branch ids
+    ``assignment[:, out_ids]`` gathered, one resident ``spmm_ell`` kernel
+    a branch on that branch's [k, f_blk] codewords (a quantized branch
+    with its ``cw_scale[i]`` as the source's scale: the dequantize
+    commutes with the accumulate, as in the fused kernel's epilogue), the
+    branches concatenated, then ``@ w_t`` as a ``torch.matmul``.  A
+    branch's source is a few-KB codeword table, so the SpMM dispatch is
+    not consulted; the tuner races this function itself.  On CPU tensors
+    every step is the plain version's."""
+    if isinstance(assignment, PackedAssignment):
+        assignment = assignment.unpack()
+    branch_ids = assignment[:, out_ids.long()].to(torch.int32)  # [nb, b, D]
+    spmm = spmm_ell_cuda if out_vals.is_cuda else ref.spmm_ell
+    out = torch.cat([
+        spmm(branch_ids[i], out_vals, codewords[i],
+             None if cw_scale is None else cw_scale[i])
+        for i in range(codewords.shape[0])], dim=-1)
+    if w_t is not None:
+        out = torch.matmul(out, w_t.float())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -231,9 +336,14 @@ def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor, *,
     assignment in a narrow tier's table type; an emit dtype that cannot
     index k raises, on either device."""
     check_emit(emit_dtype, codewords.shape[1])
-    check_unported_env()
     if x.is_cuda:
-        return vq_assign_update_cuda(x, codewords, emit_dtype)
+        tuned = autotune.tuned_vq_update(
+            x.shape[1], codewords.shape[1], x.shape[-1], x.shape[0],
+            emit_dtype) \
+            if x.dim() == 3 and codewords.dim() == 3 else None
+        return vq_assign_update_cuda(
+            x, codewords, emit_dtype,
+            wgs=None if tuned is None else int(tuned["wgs"]))
     return ref.vq_assign_update(x, codewords, emit_dtype)
 
 
@@ -301,14 +411,22 @@ def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,
                 codewords: torch.Tensor | QTensor,
                 w_t: torch.Tensor | None = None) -> torch.Tensor:
     """Multi-branch codeword context -> [b, nb * f_blk], or ``@ w_t``
-    fused into the same kernel -> [b, f_out].  ``codewords`` f32 or a
-    ``QTensor`` (int8 / fp8 + [nb, 1, f_blk] scales); ``assignment`` int32,
-    uint8 or a ``PackedAssignment`` -- one launch in every case."""
-    check_unported_env(context=True)
+    -> [b, f_out].  ``codewords`` f32 or a ``QTensor`` (int8 / fp8 +
+    [nb, 1, f_blk] scales); ``assignment`` int32, uint8 or a
+    ``PackedAssignment``.  On the card the variant ``context_ell_variant``
+    picks: the fused kernel (one launch in every case, ``w_t`` in its
+    epilogue) or the per-branch loop (:func:`_context_ell_loop`)."""
     cw_scale = None
     if isinstance(codewords, QTensor):
         codewords, cw_scale = codewords.q, codewords.scale
     if out_vals.is_cuda:
+        packed = isinstance(assignment, PackedAssignment)
+        nb, n = assignment.shape
+        itemsize = 0.5 if packed else assignment.element_size()
+        dtype = "uint4" if packed else assignment.dtype
+        if context_ell_variant(n, nb, itemsize, dtype) == "loop":
+            return _context_ell_loop(out_ids, out_vals, assignment,
+                                     codewords, w_t, cw_scale)
         return context_ell_cuda(out_ids, out_vals, assignment, codewords, w_t,
                                 cw_scale)
     return ref.context_ell(out_ids, out_vals, assignment, codewords, w_t,

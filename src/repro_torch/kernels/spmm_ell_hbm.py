@@ -111,6 +111,21 @@ def smem_bytes(bb: int, stripe: int, deg: int, n_src: int,
     return 4 * words + bb * deg * 8 + bb * 4
 
 
+def tiles_error(bb: int, stripe: int, deg: int, n_src: int,
+                indexed: bool) -> str | None:
+    """Why the kernel would refuse a row tile ``bb`` and a ``stripe`` for
+    [b, deg] slots over ``n_src`` source rows, or None: the wrapper's own
+    checks before launch, which the tuner applies to its candidates."""
+    if bb > MAX_BB:
+        return f"row tile bb={bb} above the kernel's {MAX_BB}"
+    smem = smem_bytes(bb, stripe, deg, n_src, indexed)
+    if smem > SMEM_LIMIT:
+        return (f"the stripe bitmap and the {bb} x {deg} slot lists need "
+                f"{smem} bytes of shared memory, above a block's "
+                f"{SMEM_LIMIT}; use a shorter row tile or a longer stripe")
+    return None
+
+
 def check_index(stripe_index: StripeIndex, b: int, n_src: int) -> None:
     """The reference's two checks: the index's tile count and source rows
     against the call's."""
@@ -128,15 +143,19 @@ def check_index(stripe_index: StripeIndex, b: int, n_src: int) -> None:
 def spmm_ell_hbm_cuda(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
                       x: torch.Tensor,
                       stripe_index: StripeIndex | None = None,
-                      x_scale: torch.Tensor | None = None) -> torch.Tensor:
+                      x_scale: torch.Tensor | None = None, *,
+                      bb: int | None = None,
+                      stripe: int | None = None) -> torch.Tensor:
     """nbr_idx [b, D] int32, nbr_val [b, D] f32, x [n_src, f] f32 -- or
     int8 / float8_e4m3fn with ``x_scale`` [1, f] f32 -- all contiguous
     CUDA tensors -> [b, f] f32 with out[i] = sum over the slots d of
     val[i, d] * x[idx[i, d]] (then * x_scale), each row's slots taken in
-    (stripe, slot) order.  Without ``stripe_index`` the tiles are the
-    reference's (``DEFAULT_BB``, ``DEFAULT_STRIPE``) and every stripe a
-    live slot touches is listed -- the index ``stripe_index_torch`` would
-    build from the same operands, without building it."""
+    (stripe, slot) order.  Without ``stripe_index`` the tiles are ``bb``
+    and ``stripe`` (by default the reference's, ``DEFAULT_BB`` and
+    ``DEFAULT_STRIPE``) and every stripe a live slot touches is listed --
+    the index ``stripe_index_torch`` would build from the same operands at
+    those tiles, without building it.  An index pins its own tiles, so it
+    takes no ``bb`` or ``stripe``."""
     global launches, launches_q
     quantized = x.dtype != torch.float32
     if x.dtype not in _ENTRY:
@@ -169,22 +188,20 @@ def spmm_ell_hbm_cuda(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
                          f"{MAX_F} columns")
     indexed = stripe_index is not None
     if indexed:
+        if bb is not None or stripe is not None:
+            raise ValueError("spmm_ell_hbm: a stripe index pins its own "
+                             "tiles; pass no bb / stripe with it")
         check_index(stripe_index, b, n_src)
         _build.check_operands("spmm_ell_hbm", dtypes, x=x,
                               ids=stripe_index.ids,
                               counts=stripe_index.counts)
         bb, stripe = stripe_index.bb, stripe_index.stripe
     else:
-        bb, stripe = clamp_tiles(b, n_src, DEFAULT_BB, DEFAULT_STRIPE)
-    if bb > MAX_BB:
-        raise ValueError(f"spmm_ell_hbm: row tile bb={bb} above the "
-                         f"kernel's {MAX_BB}")
-    smem = smem_bytes(bb, stripe, deg, n_src, indexed)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"spmm_ell_hbm: the stripe bitmap and the {bb} x {deg} slot "
-            f"lists need {smem} bytes of shared memory, above a block's "
-            f"{SMEM_LIMIT}; use a shorter row tile or a longer stripe")
+        bb, stripe = clamp_tiles(b, n_src, bb or DEFAULT_BB,
+                                 stripe or DEFAULT_STRIPE)
+    err = tiles_error(bb, stripe, deg, n_src, indexed)
+    if err is not None:
+        raise ValueError(f"spmm_ell_hbm: {err}")
     out = torch.empty((b, f), dtype=torch.float32, device=x.device)
     err = getattr(_build.library(), _ENTRY[x.dtype])(
         nbr_idx.data_ptr(), nbr_val.data_ptr(), x.data_ptr(),

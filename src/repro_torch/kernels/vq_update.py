@@ -271,7 +271,7 @@ def check_width(kernel: str, k: int, f: int) -> None:
 
 
 def vq_assign_update_cuda(x: torch.Tensor, codewords: torch.Tensor,
-                          emit_dtype=torch.int32
+                          emit_dtype=torch.int32, wgs: int | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor, torch.Tensor]:
     """x [nb, n, f] and codewords [nb, k, f], contiguous f32 CUDA tensors
@@ -279,11 +279,18 @@ def vq_assign_update_cuda(x: torch.Tensor, codewords: torch.Tensor,
     ``"uint4"`` --, qerr [nb, n], counts [nb, k], sums [nb, k, f]).  The
     assignment and qerr are the plain version's bit for bit.  The
     statistics are added with atomics into buffers zeroed here: counts are
-    exact, sums depend on the order of the adds."""
+    exact, sums depend on the order of the adds.  ``wgs`` (1 or 2, the
+    wide build only) sets the wide build's row tile, 64 ``wgs`` rows a
+    block; None leaves the launch its own choice."""
     narrow = check_emit(emit_dtype, codewords.shape[1]) != "int32"
     wide = uses_wide(codewords.shape[1], codewords.shape[-1])
-    return _run(f"repro_vq_update{'_wide' if wide else ''}"
-                f"{'_u8' if narrow else ''}_f32", x, codewords, count=True)
+    if wgs is not None and not wide:
+        raise ValueError("vq_update: wgs sets the wide build's row tile; "
+                         "the narrow build has none")
+    tiles = "_tiles" if wgs is not None else ""
+    return _run(f"repro_vq_update{'_wide' if wide else ''}{tiles}"
+                f"{'_u8' if narrow else ''}_f32", x, codewords, count=True,
+                tiles=() if wgs is None else (wgs,))
 
 
 def vq_assign_update_generic_cuda(x: torch.Tensor, codewords: torch.Tensor
@@ -306,15 +313,26 @@ def wide_scratch(nb: int, k: int, f: int, dev) -> torch.Tensor:
 
 
 def vq_assign_update_wide_tiles_cuda(x: torch.Tensor, codewords: torch.Tensor,
-                                     wgs: int):
+                                     wgs: int, emit_dtype=torch.int32):
     """The wide build with its row tile set: ``wgs`` warpgroups of 64 rows
     a block (1 or 2; the launch's own choice is 2 unless that leaves SMs
-    idle), for timing the two tilings.  No path of the package calls it,
-    and the counters do not count it."""
+    idle), emitting ``emit_dtype``, for timing the two tilings (the
+    tuner's race).  The counters do not count it."""
+    narrow = check_emit(emit_dtype, codewords.shape[1]) != "int32"
+    return _run(f"repro_vq_update_wide_tiles{'_u8' if narrow else ''}_f32",
+                x, codewords, count=False, tiles=(wgs,))
+
+
+def tiles_error(f: int, wgs: int) -> str | None:
+    """Why the wide build would refuse ``wgs`` warpgroups of 64 rows at
+    width f, or None: the wrapper's own check before launch, which the
+    tuner applies to its candidates."""
     if wgs not in (1, 2):
-        raise ValueError(f"vq_update: wgs={wgs}, want 1 or 2")
-    return _run("repro_vq_update_wide_tiles_f32", x, codewords, count=False,
-                tiles=(wgs,))
+        return f"wgs={wgs}, want 1 or 2"
+    if wide_plan(f, wgs) is None:
+        return (f"no shared-memory plan for {64 * wgs}-row tiles at "
+                f"f={f}")
+    return None
 
 
 def _run(entry: str, x: torch.Tensor, codewords: torch.Tensor, count: bool,
@@ -338,6 +356,10 @@ def _run(entry: str, x: torch.Tensor, codewords: torch.Tensor, count: bool,
         raise ValueError(f"vq_update: the narrow build takes f <= {MAX_F} "
                          f"and a codebook in one block's shared memory "
                          f"({SMEM_LIMIT} B); got k={k}, f={f}")
+    if tiles:
+        err = tiles_error(f, tiles[0])
+        if err is not None:
+            raise ValueError(f"vq_update: {err}")
     dev = x.device
     narrow = "_u8" in entry
     idx = torch.empty((nb, n), dtype=torch.uint8 if narrow else torch.int32,

@@ -2001,3 +2001,159 @@ def test_wide_plan_matches_the_card(cuda, f, wgs):
             tva.wide_plan_card(f, wgs)
     else:
         assert tva.wide_plan_card(f, wgs) == want
+
+
+# ---------------------------------------------------------------------------
+# the dispatch layer: the context loop, the tuner's knobs, the tuner
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table", ["int32", "uint8", "packed"])
+@pytest.mark.parametrize("cw_dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("wt", [False, True])
+def test_context_loop_variant_on_the_card(cuda, table, cw_dtype, wt):
+    """``REPRO_CONTEXT_VARIANT=loop``'s path: one spmm_ell a branch, no
+    context_ell launch; the plain form bit-equal to the plain version, the
+    ``w_t`` form (a matmul) within what summing its products in another
+    order may move it."""
+    from repro_torch.distributed.quantization import (PackedAssignment,
+                                                      QTensor,
+                                                      quantize_codewords)
+    k = 16 if table == "packed" else 200
+    ids, val, assign, cw, w_t = _context_operands(300, 7, 999, 6, k, 5, 9,
+                                                  seed=k + wt, cuda=cuda)
+    if table != "int32":
+        assign = assign.to(torch.uint8)
+    a = PackedAssignment.pack(assign) if table == "packed" else assign
+    cws = QTensor(cw, None) if cw_dtype == torch.float32 \
+        else quantize_codewords(cw, dtype=cw_dtype)
+    arg = cw if cw_dtype == torch.float32 else cws
+    w = w_t if wt else None
+    want = tref.context_ell(ids, val, a, cws.q, w, cws.scale)
+    try:
+        ops.configure_context_dispatch(variant="loop")
+        before = tce.launches, tsp.launches
+        got = ops.context_ell(ids, val, a, arg, w)
+        torch.cuda.synchronize()
+        assert (tce.launches - before[0], tsp.launches - before[1]) == (0, 6)
+    finally:
+        ops.configure_context_dispatch(reset=True)
+    if wt:
+        # the loop's product is a matmul: its C = nb * f_blk products
+        # summed in another order than the plain version's
+        ctx = tref.context_ell(ids, val, a, cws.q, None, cws.scale)
+        assert_scatter_close(got.cpu().numpy(), want.cpu().numpy(),
+                             (ctx.abs() @ w_t.abs()).cpu().numpy(),
+                             2 * ctx.shape[1])
+    else:
+        assert torch.equal(got, want)
+    fused = ops.context_ell(ids, val, a, arg, w)
+    torch.cuda.synchronize()
+    assert tce.launches == before[0] + 1
+    if not wt:
+        assert torch.equal(fused, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bb,stripe", [(32, 256), (64, 1024), (128, 512)])
+def test_spmm_ell_hbm_tiles_set_by_the_caller(cuda, bb, stripe):
+    """The staged kernel at the tuner's tiles is the plain version at the
+    index those tiles give; an index pins its own tiles."""
+    from repro_torch.kernels import spmm_ell_hbm as thbm
+    idx, val, x = _hbm_case(300, 9, 5000, 64, seed=bb + stripe)
+    si = thbm.stripe_index_torch(idx, val, 5000, bb=bb, stripe=stripe)
+    want = tref.spmm_ell_hbm(idx, val, x, si)
+    idx, val, x = idx.to(cuda), val.to(cuda), x.to(cuda)
+    got = thbm.spmm_ell_hbm_cuda(idx, val, x, None, bb=bb, stripe=stripe)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="pins its own tiles"):
+        thbm.spmm_ell_hbm_cuda(idx, val, x, thbm.stripe_index_torch(
+            idx, val, 5000), bb=bb)
+    assert thbm.tiles_error(256, 512, 9, 5000, False) is not None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wgs", [1, 2])
+@pytest.mark.parametrize("emit", [torch.int32, torch.uint8])
+def test_vq_update_wide_row_tile_set_by_the_caller(cuda, wgs, emit):
+    """The counted wide launch at the tuner's row tile: idx / qerr / counts
+    the plain version's, counted once; the narrow build has no tile."""
+    g = torch.Generator().manual_seed(wgs)
+    x = torch.randn((2, 700, 65), generator=g).to(cuda)
+    cw = torch.randn((2, 200, 65), generator=g).to(cuda)
+    want = tref.vq_assign_update(x, cw, emit)
+    before = tvu.launches, tvu.launches_wide
+    got = tvu.vq_assign_update_cuda(x, cw, emit, wgs=wgs)
+    torch.cuda.synchronize()
+    assert (tvu.launches, tvu.launches_wide) == (before[0] + 1,
+                                                 before[1] + 1)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="narrow build"):
+        tvu.vq_assign_update_cuda(x[..., :8].contiguous(),
+                                  cw[..., :8].contiguous(), wgs=wgs)
+
+
+@pytest.mark.gpu
+def test_tuner_measures_once_and_steers_the_dispatch(cuda, tmp_path,
+                                                     monkeypatch):
+    """``REPRO_AUTOTUNE=1`` on a fresh cache: each tuner measures its key
+    once (every candidate's time kept), a second query is a hit with no
+    launch, and the tuned calls give the plain versions' results."""
+    from repro_torch.distributed.quantization import PackedAssignment
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import spmm_ell_hbm as thbm
+    monkeypatch.setenv("REPRO_AUTOTUNE", "1")
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    autotune.clear(memory_only=True)
+    try:
+        n0 = len(autotune.measured)
+        sp = autotune.tuned_spmm(5000, 64, 4)
+        assert sp["variant"] in ("resident", "hbm")
+        assert sp["bb"] <= thbm.MAX_BB and sp["stripe"] in (256, 512, 1024)
+        assert "resident" in sp["ms"] and len(sp["ms"]) == 10
+        ctx = autotune.tuned_context(3000, 4, 0.5, "uint4")
+        assert ctx["variant"] in ("fused", "loop") and len(ctx["ms"]) == 2
+        vu = autotune.tuned_vq_update(700, 200, 65, nb=2)
+        assert vu["wgs"] in (1, 2)
+        # the uint8 emit races its own entries under its own key
+        vu8 = autotune.tuned_vq_update(700, 200, 65, nb=2,
+                                       emit_dtype=torch.uint8)
+        assert vu8["wgs"] in (1, 2) and len(vu8["ms"]) == 2
+        assert autotune.tuned_vq_update(700, 200, 8, nb=2) is None
+        assert len(autotune.measured) == n0 + 4
+        before = (tsp.launches, tce.launches, thbm.launches, tvu.launches)
+        assert autotune.tuned_spmm(4097, 64, 4) == sp          # same bucket
+        assert autotune.tuned_context(2049, 4, 0.5, "uint4") == ctx
+        assert autotune.tuned_vq_update(700, 200, 65, nb=2) == vu
+        assert autotune.tuned_vq_update(700, 200, 65, nb=2,
+                                        emit_dtype=torch.uint8) == vu8
+        assert (tsp.launches, tce.launches, thbm.launches,
+                tvu.launches) == before
+        assert len(autotune.measured) == n0 + 4
+        on_disk = autotune.lookup(autotune.cache_key("spmm", (5000, 64, 4),
+                                                     torch.float32))
+        assert on_disk["variant"] == sp["variant"]
+        assert torch.cuda.get_device_name() in autotune.cache_key(
+            "spmm", (1, 1, 1), torch.float32)
+        # the tuned dispatch: the plain versions' results
+        idx, val, x = _hbm_case(300, 9, 5000, 64, seed=3)
+        got = ops.spmm_ell(idx.to(cuda), val.to(cuda), x.to(cuda))
+        assert_allclose(got.cpu().numpy(),
+                        tref.spmm_ell(idx, val, x).numpy(), **TOL)
+        ids, v, a, cw, _ = _context_operands(300, 7, 3000, 4, 16, 5, 9,
+                                             seed=5, cuda=cuda)
+        pa = PackedAssignment.pack(a.to(torch.uint8))
+        assert torch.equal(ops.context_ell(ids, v, pa, cw),
+                           tref.context_ell(ids, v, pa, cw))
+        xg = torch.randn((2, 700, 65), device=cuda)
+        cg = torch.randn((2, 200, 65), device=cuda)
+        for emit in (torch.int32, torch.uint8):
+            got = ops.vq_assign_update(xg, cg, emit_dtype=emit)
+            for a_, b_ in zip(got[:3],
+                              tref.vq_assign_update(xg, cg, emit)[:3]):
+                assert torch.equal(a_, b_)
+        assert len(autotune.measured) == n0 + 4
+    finally:
+        autotune.clear(memory_only=True)

@@ -1,11 +1,12 @@
 """The reference's environment variables in the PyTorch port.  The two
 executor switches are honoured: ``REPRO_EPOCH_EXECUTOR=0`` and
 ``REPRO_INFER_EXECUTOR=0`` run the host-stepped training loop and the
-eager inference loop, which must give what the executors give.  The four
-the port does not honour yet raise a ``ValueError`` naming the ROADMAP
-item that brings them, where the reference reads them, whenever a value
-would change what the reference runs; the default values pass.  CPU
-only."""
+eager inference loop, which must give what the executors give.  So are the
+context variant (``REPRO_CONTEXT_VARIANT``), its budget (under the port's
+name, ``REPRO_CONTEXT_L2_BUDGET_MB``; the reference's VMEM name raises,
+naming it) and the tuner (``REPRO_AUTOTUNE=1``, ``REPRO_AUTOTUNE_CACHE``):
+they steer the card, so on the CPU every call, and ``train_vq`` under
+each of them, is the plain version's.  CPU only."""
 import numpy as np
 import pytest
 from numpy.testing import assert_allclose
@@ -13,6 +14,7 @@ from numpy.testing import assert_allclose
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.codebook import CodebookConfig             # noqa: E402
+from repro_torch.kernels import autotune                         # noqa: E402
 from repro_torch.graph.datasets import synthetic_arxiv          # noqa: E402
 from repro_torch.kernels import ops                              # noqa: E402
 from repro_torch.kernels import ref                              # noqa: E402
@@ -23,13 +25,15 @@ STEP = dict(rtol=1e-4, atol=1e-5)
 SERVE = dict(rtol=1e-5, atol=1e-6)
 VARS = ("REPRO_EPOCH_EXECUTOR", "REPRO_INFER_EXECUTOR",
         "REPRO_CONTEXT_VARIANT", "REPRO_CONTEXT_VMEM_BUDGET_MB",
-        "REPRO_AUTOTUNE", "REPRO_AUTOTUNE_CACHE")
+        "REPRO_CONTEXT_L2_BUDGET_MB", "REPRO_AUTOTUNE",
+        "REPRO_AUTOTUNE_CACHE")
 
 
 @pytest.fixture
 def env(monkeypatch):
     for var in VARS:
         monkeypatch.delenv(var, raising=False)
+    ops.configure_context_dispatch(reset=True)
     return monkeypatch
 
 
@@ -93,37 +97,75 @@ def test_infer_executor_off_raises_in_vq_inference(env):
         assert_allclose(acts["0"], acts["1"], **SERVE)
 
 
-def test_context_variant_loop_raises_in_context_ell(env):
+@pytest.mark.parametrize("variant", ["auto", "fused", "loop"])
+def test_context_variant_honoured_in_context_ell(env, variant):
+    """Every variant is accepted and steers the card's dispatch; a CPU call
+    stays the plain version's; an unknown name raises."""
     args = _context_args()
-    want = ref.context_ell(*args)
-    for ok in ("auto", "fused"):
-        env.setenv("REPRO_CONTEXT_VARIANT", ok)
-        assert torch.equal(ops.context_ell(*args), want)
-    env.setenv("REPRO_CONTEXT_VARIANT", "loop")
-    with pytest.raises(ValueError, match=r"CONTEXT_VARIANT=loop.*item 4"):
-        ops.context_ell(*args)
+    env.setenv("REPRO_CONTEXT_VARIANT", variant)
+    assert torch.equal(ops.context_ell(*args), ref.context_ell(*args))
+    assert ops.context_ell_variant(10, 2) == \
+        ("fused" if variant == "auto" else variant)
     env.setenv("REPRO_CONTEXT_VARIANT", "nope")
     with pytest.raises(ValueError, match="want auto, fused or loop"):
-        ops.context_ell(*args)
+        ops.context_ell_variant(10, 2)
 
 
-def test_context_vmem_budget_raises_in_context_ell(env):
+def test_context_l2_budget_honoured_and_vmem_budget_named(env):
+    env.setenv("REPRO_CONTEXT_L2_BUDGET_MB", "0.0001")
+    assert ops.context_ell_variant(100, 2) == "loop"     # 800 B > 105 B
+    env.setenv("REPRO_CONTEXT_L2_BUDGET_MB", "1")
+    assert ops.context_ell_variant(100, 2) == "fused"
     env.setenv("REPRO_CONTEXT_VMEM_BUDGET_MB", "4")
-    with pytest.raises(ValueError, match=r"CONTEXT_VMEM_BUDGET_MB.*item 4"):
-        ops.context_ell(*_context_args())
+    with pytest.raises(ValueError, match="REPRO_CONTEXT_L2_BUDGET_MB"):
+        ops.context_ell_variant(100, 2)
 
 
 @pytest.mark.parametrize("var,value", [("REPRO_AUTOTUNE", "1"),
                                        ("REPRO_AUTOTUNE_CACHE", "at.json")])
-def test_autotune_raises_where_the_reference_tunes(env, var, value):
-    """The reference's tuners sit behind the SpMM variant, the context
-    variant and the fused update; each of the three refuses."""
-    env.setenv("REPRO_AUTOTUNE", "0")
-    assert ops.spmm_ell_variant(64, 8) == "resident"
+def test_autotune_variables_honoured(env, tmp_path, var, value):
+    """``REPRO_AUTOTUNE=1`` turns the tuner on, ``REPRO_AUTOTUNE_CACHE``
+    moves its file; an entry there steers the dispatch.  The CPU calls of
+    the three tuned kernels stay the plain versions' and measure
+    nothing."""
+    path = tmp_path / "at.json"
+    env.setenv("REPRO_AUTOTUNE_CACHE", str(path))
+    env.setenv("REPRO_AUTOTUNE", "1")
+    env.setenv(var, value if var == "REPRO_AUTOTUNE" else str(path))
+    autotune.clear(memory_only=True)
+    try:
+        assert autotune.enabled() and autotune.cache_path() == str(path)
+        autotune.record(autotune.cache_key("spmm", (64, 8, 4),
+                                           torch.float32),
+                        {"variant": "hbm", "bb": 128, "stripe": 512})
+        assert ops.spmm_ell_variant(64, 8) == "hbm"
+        assert path.exists()
+        n0 = len(autotune.measured)
+        x = torch.randn((1, 4, 3))
+        c = torch.randn((1, 2, 3))
+        for got, want in zip(ops.vq_assign_update(x, c),
+                             ref.vq_assign_update(x, c)):
+            assert torch.equal(got, want)
+        args = _context_args()
+        assert torch.equal(ops.context_ell(*args), ref.context_ell(*args))
+        assert len(autotune.measured) == n0
+        env.setenv("REPRO_AUTOTUNE", "0")
+        assert ops.spmm_ell_variant(64, 8) == "resident"
+    finally:
+        autotune.clear(memory_only=True)
+
+
+@pytest.mark.parametrize("var,value", [("REPRO_CONTEXT_VARIANT", "loop"),
+                                       ("REPRO_AUTOTUNE", "1")])
+def test_train_vq_under_the_dispatch_variables(env, tmp_path, var, value):
+    """``train_vq`` with the loop variant or the tuner on: on the CPU the
+    same losses as without (every kernel call is the plain version's)."""
+    g = _graph()
+    env.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    base = gnn_trainer.train_vq(g, _cfg(g), epochs=1, batch_size=60,
+                                device="cpu")
     env.setenv(var, value)
-    x = torch.zeros((1, 4, 3))
-    for call in (lambda: ops.spmm_ell_variant(64, 8),
-                 lambda: ops.context_ell(*_context_args()),
-                 lambda: ops.vq_assign_update(x, torch.zeros((1, 2, 3)))):
-        with pytest.raises(ValueError, match=rf"{var}.*item 4"):
-            call()
+    got = gnn_trainer.train_vq(g, _cfg(g), epochs=1, batch_size=60,
+                               device="cpu")
+    assert np.array_equal(got["step_losses"], base["step_losses"])
+    assert not (tmp_path / "at.json").exists()

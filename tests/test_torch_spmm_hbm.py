@@ -316,12 +316,17 @@ def test_variant_matches_reference_at_a_configured_budget(clean_dispatch,
 
 
 def test_variant_env_budget_and_forcing_match_reference(clean_dispatch):
+    """Each package under its own budget variable: the reference's VMEM
+    one, the port's L2 one (the port refuses the VMEM name)."""
     mp = clean_dispatch
-    mp.setenv("REPRO_SPMM_VMEM_BUDGET_MB", "4")
-    mp.setenv("REPRO_SPMM_L2_BUDGET_MB", "4")
     for n, f, item in GRID:
-        assert tops.spmm_ell_variant(n, f, item) == \
-            jops.spmm_ell_variant(n, f, item)
+        mp.setenv("REPRO_SPMM_VMEM_BUDGET_MB", "4")
+        want = jops.spmm_ell_variant(n, f, item)
+        mp.delenv("REPRO_SPMM_VMEM_BUDGET_MB")
+        mp.setenv("REPRO_SPMM_L2_BUDGET_MB", "4")
+        assert tops.spmm_ell_variant(n, f, item) == want
+        mp.delenv("REPRO_SPMM_L2_BUDGET_MB")
+    mp.setenv("REPRO_SPMM_L2_BUDGET_MB", "4")
     for forced in ("resident", "hbm"):
         mp.setenv("REPRO_SPMM_VARIANT", forced)
         assert tops.spmm_ell_variant(20000, 64) == forced == \
