@@ -220,14 +220,43 @@ Phases (each prints its own lines; any failure exits non-zero):
    build at GAT's [4, 42335, 65]) bit-equal and timed beside its bound;
    ``relative_error`` per layer and ``kmeanspp_init`` from a CUDA
    generator, card vs CPU within TOL;
-32. a ``{"kernels": [...]}`` line (the quantized and wide forms, the
+32. mesh, the multi-device paths on torch.distributed, on phase 3's
+   graph and model: (a) a one-rank NCCL group in this process, ``train_vq``
+   for 2 epochs without a mesh (twice: the card's steps add in no fixed
+   order, so two runs drift apart), with ``mesh=`` and with ``mesh=,
+   shard_graph=True`` (the same launches in every run, finite losses, the
+   free-running differences printed beside the run-to-run spread), then
+   the same batches in lockstep, each step of the data-parallel and the
+   row-sharded epoch from the plain step's state and within STEP_TOL of
+   it; (b) two ranks on the one card over gloo
+   (``share_device=True``: the machine has one H100), batch 42,336 (21,168
+   a rank): one data-parallel epoch and one row-sharded epoch stepped
+   in lockstep, a batch at a time from the data-parallel state, each step
+   timed with its collectives (the sharded step within STEP_TOL of the
+   data-parallel one, and the data-parallel step within STEP_TOL of a
+   one-process oracle: the two column halves through
+   ``vq_loss_and_grads`` one after the other, gradients summed, the
+   codebook updated on their rows in rank order), then from the
+   data-parallel state the
+   inductive sharded inference at batch 42,335 and the sharded serving of
+   48 ids, array-equal to the unsharded executors run here (which run
+   twice first: a run that is not bit-stable is printed and the check
+   falls back to STEP_TOL), every rank's results equal, launches counted
+   exactly per rank, graph state at most 0.6x the replicated bytes a
+   rank; epoch seconds, step p50, the collectives' share of the step time
+   and the launches of each rank printed; (c) ``serve_gnn --mesh 2
+   --shard-graph --share-device`` against ``serve_gnn --mesh 1`` at the
+   full width and a micro-batch of 1,024, 200 requests: equal
+   ``rows_sha256``, graph state at most 0.6x a rank; a rank that fails or
+   a collective that times out fails the script;
+33. a ``{"kernels": [...]}`` line (the quantized and wide forms, the
    link shapes and the dispatch phase's shapes under each kernel's
    ``also``, each with its launches on the main paths -- a wide form's
    at its operand shape, as the wrapper counts them, every wide shape's
    under ``wide_launches_by_shape``, a link shape's form on the link
    paths under ``launches_link_paths``, a dispatch shape's on the
-   dispatch phase's paths), each phase's seconds, then the ``{"ok":
-   true, ...}`` line.
+   dispatch phase's paths; the mesh paths' launches added), each phase's
+   seconds, then the ``{"ok": true, ...}`` line.
 
 The script needs a CUDA card: without one (or outside a checkout of the
 repository) it exits non-zero and prints no result.
@@ -3756,6 +3785,602 @@ def phase_dispatch(m: Model, params, vq, ost, cpu: Model, server,
     return rep, also
 
 
+# ---------------------------------------------------------------------------
+# mesh: the multi-device paths on torch.distributed
+# ---------------------------------------------------------------------------
+
+MESH_EPOCHS = 2               # (a): train_vq with and without a mesh
+MESH_RANKS = 2                # (b) and (c): ranks sharing the one card
+MESH_BATCH = 42336            # (b): the training batch, divisible by 2 and 4
+MESH_SERVE_IDS = 48           # (b): 40 strided ids and 8 repeats of id 0
+# (c): serve_gnn's micro-batch, also its refresh's batch: 166 sharded
+# batches a layer (at 256, 662 of them took 19.4 s of staged collectives)
+MESH_SERVE_BATCH = 1024
+
+
+def _mesh_close(name: str, got, want, tol: dict | None) -> float:
+    """Max abs difference of two numpy trees' leaves; equal bits when
+    ``tol`` is None, else within it."""
+    err = 0.0
+    for a, b in zip(_np_leaves(got), _np_leaves(want)):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or (a.dtype.kind == "f"
+                                  and not np.all(np.isfinite(a))):
+            raise SystemExit(f"mesh {name}: shape {a.shape} vs {b.shape} "
+                             f"or non-finite values")
+        d = np.abs(a.astype(np.float64) - b.astype(np.float64))
+        err = max(err, float(d.max()) if d.size else 0.0)
+        ok = np.array_equal(a, b) if tol is None else np.allclose(a, b,
+                                                                  **tol)
+        if not ok:
+            raise SystemExit(f"mesh {name}: max abs err {err}, wanted "
+                             f"{'equal bits' if tol is None else tol}")
+    return err
+
+
+def _max_abs_diff(got, want) -> float:
+    """Largest abs difference over two numpy trees' leaves."""
+    return max((float(np.abs(np.asarray(a, np.float64)
+                             - np.asarray(b, np.float64)).max())
+                for a, b in zip(_np_leaves(got), _np_leaves(want))
+                if np.asarray(a).size), default=0.0)
+
+
+def _sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _np_leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _np_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _np_leaves(v)
+    else:
+        yield tree
+
+
+def _digest(tree) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for a in _np_leaves(tree):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _init_state(cfg, n: int, dev):
+    """``train_vq``'s starting state from seed SEED: params, VQ states,
+    the RMSprop state, and the optimizer."""
+    import torch
+    from repro_torch.configs.vq_gnn_paper import PAPER_LR
+    from repro_torch.models.gnn import init_gnn, init_vq_states
+    from repro_torch.train.optimizer import rmsprop
+    opt = rmsprop(PAPER_LR)
+    params = init_gnn(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    vq = init_vq_states(cfg, n, torch.Generator().manual_seed(SEED + 1),
+                        device=dev)
+    return (params, vq, opt.init(params)), opt
+
+
+def _step_diff(got, want) -> dict:
+    """One step of two paths from the same state (``vq_train_epoch``'s
+    returns over one batch): the loss, every param and the optimizer's
+    second moment within STEP_TOL; the refreshed assignment tables equal
+    but for near-tie flips (at most 1e-4 of the entries a layer), and
+    the codebooks of a layer without a flip within STEP_TOL.  Returns the
+    largest abs error, the largest flipped share and whether it passed."""
+    import torch
+    out = {"err": 0.0, "flips": 0.0, "ok": True}
+
+    def close(a, b):
+        a, b = a.double(), b.double()
+        d = (a - b).abs()
+        out["err"] = max(out["err"], float(d.max()) if d.numel() else 0.0)
+        out["ok"] &= bool(torch.all(
+            d <= STEP_TOL["atol"] + STEP_TOL["rtol"] * b.abs()))
+
+    close(got[3], want[3])
+    for pa, pb in ((got[0], want[0]), (got[2].nu, want[2].nu)):
+        for a, b in zip(pa, pb):
+            for k in a:
+                close(a[k], b[k])
+    for sa, sb in zip(got[1], want[1]):
+        flips = float((sa.assignment != sb.assignment).float().mean())
+        out["flips"] = max(out["flips"], flips)
+        if flips > 1e-4:
+            out["ok"] = False
+        elif flips == 0:
+            for f in ("codewords_w", "cluster_size", "cluster_sum", "mean",
+                      "var"):
+                close(getattr(sa.codebook, f), getattr(sb.codebook, f))
+    return out
+
+
+def _require_steps(what: str, diffs: list[dict]) -> dict:
+    bad = [i for i, d in enumerate(diffs) if not d["ok"]]
+    rep = {"steps": len(diffs), "max_abs_err": max(d["err"] for d in diffs),
+           "max_flipped_share": max(d["flips"] for d in diffs)}
+    if bad:
+        raise SystemExit(f"mesh {what}: steps {bad} beyond STEP_TOL "
+                         f"(or more than 1e-4 of a table flipped): {diffs}")
+    return rep
+
+
+def phase_mesh_one_rank(m: Model) -> tuple[dict, dict]:
+    """(a) A one-rank NCCL group in this process, at phase 3's full width.
+    ``train_vq`` for MESH_EPOCHS epochs from seed 0 without a mesh (twice:
+    the card's run-to-run spread, since ``spmm_ell_t`` and the cluster
+    sums add in no fixed order and the steps amplify it), with ``mesh=``
+    and with ``mesh=, shard_graph=True``: the same counted launches in
+    every run, finite losses, the differences printed beside the spread.
+    Then the same batches in lockstep: every step, from the state of the
+    run without a mesh, through ``vq_train_epoch``,
+    ``vq_train_epoch_dp`` and ``vq_train_epoch_sharded``, the two mesh
+    steps held to the plain one within STEP_TOL (``_step_diff``)."""
+    import tempfile
+    import torch
+    from repro_torch.distributed import data_parallel as dp
+    from repro_torch.distributed.parity_jobs import np_params
+    from repro_torch.distributed.ranks import process_group
+    from repro_torch.graph.batching import epoch_slices
+    from repro_torch.models.gnn import vq_train_epoch
+    from repro_torch.train.gnn_trainer import train_vq
+    g, cfg, batch = m.g, m.cfg, m.batch
+    steps = MESH_EPOCHS * -(-g.n // batch)
+    runs, counts = {}, {}
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp, process_group(
+            backend, 1, 0, os.path.join(tmp, "store"), device=DEVICE,
+            timeout_s=300) as mesh:
+        mesh.time_collectives = True
+        for name, kw in (("no mesh", {}), ("no mesh again", {}),
+                         ("mesh", {"mesh": mesh}),
+                         ("mesh sharded", {"mesh": mesh,
+                                           "shard_graph": True})):
+            mesh.collective_s, mesh.collective_calls = 0.0, 0
+            reset_counts()
+            t0 = time.time()
+            r = train_vq(g, cfg, epochs=MESH_EPOCHS, batch_size=batch,
+                         seed=SEED, eval_every=MESH_EPOCHS, device=DEVICE,
+                         **kw)
+            _sync(DEVICE)
+            wall = time.time() - t0
+            counts[name] = read_counts()
+            expect_counts(f"mesh (a) {name}", counts[name],
+                          _step_counts(cfg, batch, steps, g.n, 1))
+            if not np.all(np.isfinite(r["step_losses"])):
+                raise SystemExit(f"mesh (a) {name}: non-finite losses")
+            runs[name] = {
+                "wall_s": wall, "epoch_s": r["epoch_s"],
+                "collective_s": mesh.collective_s,
+                "collective_calls": mesh.collective_calls,
+                "losses": r["step_losses"], "params": np_params(r["params"]),
+                "final": r["final"]}
+            log(f"mesh (a) {name}: {steps} steps of {batch} in {wall:.3f} s "
+                f"(epochs {[round(v, 4) for v in r['epoch_s']]} s, "
+                f"collectives {mesh.collective_calls} calls "
+                f"{mesh.collective_s:.4f} s), val {r['final']['val']:.4f}")
+        # lockstep over the same batches (train_vq's rng stream)
+        mesh.time_collectives = False
+        sstate = dp.ShardedGraphState(mesh, m.plan, m.x, m.ops.degrees,
+                                      labels=m.labels,
+                                      train_mask=m.train_mask)
+        st, opt = _init_state(cfg, g.n, m.dev)
+        rng = np.random.default_rng(SEED)
+        diffs = {"mesh": [], "mesh sharded": []}
+        for _ in range(MESH_EPOCHS):
+            ids, sm = epoch_slices(rng.permutation(np.arange(g.n)), batch)
+            ids = torch.from_numpy(ids.astype(np.int32)).to(m.dev)
+            sm = torch.from_numpy(sm).to(m.dev)
+            for s in range(ids.shape[0]):
+                b_ids, b_sm = ids[s:s + 1], sm[s:s + 1]
+                plain = vq_train_epoch(*st, m.plan, b_ids, b_sm, m.x,
+                                       m.labels, m.train_mask,
+                                       m.ops.degrees, cfg, opt)
+                diffs["mesh"].append(_step_diff(dp.vq_train_epoch_dp(
+                    mesh, *st, m.plan, b_ids, b_sm, m.x, m.labels,
+                    m.train_mask, m.ops.degrees, cfg, opt), plain))
+                diffs["mesh sharded"].append(_step_diff(
+                    dp.vq_train_epoch_sharded(sstate, *st, b_ids, b_sm, cfg,
+                                              opt), plain))
+                st = plain[:3]
+    ref, again = runs["no mesh"], runs["no mesh again"]
+    rep = {"world_size": 1, "backend": backend, "steps": steps,
+           "batch": batch, "no mesh": {"epoch_s": ref["epoch_s"],
+                                       "wall_s": ref["wall_s"]},
+           "run_to_run": {
+               "losses_max_abs_diff": _max_abs_diff(again["losses"],
+                                                    ref["losses"]),
+               "params_max_abs_diff": _max_abs_diff(again["params"],
+                                                    ref["params"])}}
+    for name in ("mesh", "mesh sharded"):
+        r = runs[name]
+        if counts[name] != counts["no mesh"]:
+            raise SystemExit(f"mesh (a) {name}: launches {counts[name]} "
+                             f"differ from the run without a mesh")
+        rep[name] = {
+            "lockstep": _require_steps(f"(a) lockstep {name}",
+                                       diffs[name]),
+            "losses_max_abs_diff": _max_abs_diff(r["losses"],
+                                                 ref["losses"]),
+            "params_max_abs_diff": _max_abs_diff(r["params"],
+                                                 ref["params"]),
+            "epoch_s": r["epoch_s"], "wall_s": r["wall_s"],
+            "collective_calls": r["collective_calls"],
+            "collective_share": r["collective_s"] / sum(r["epoch_s"])}
+    log(f"mesh (a): one {backend} rank, {steps} steps: launches equal to "
+        f"the unsharded runs'; lockstep within STEP_TOL; free-running max "
+        f"abs differences beside the card's run-to-run spread: "
+        f"{json.dumps(rep)}")
+    total = counts["no mesh"]
+    for name in ("no mesh again", "mesh", "mesh sharded"):
+        total = add_counts(total, counts[name])
+    return rep, total
+
+
+def _dp_step_oracle(st, plan, ids, sm, x, labels, tm, degrees, cfg, opt,
+                    ndev: int):
+    """One data-parallel step of ``ndev`` ranks in this process, without a
+    collective or a mesh: the batch's ``ndev`` column blocks (each rank's
+    share) run forward with zero probes one after the other, each lane's
+    loss its masked numerator over the whole batch's denominator (not a
+    rescaled local mean: the Eq. 7 injection adds a gradient that does
+    not scale with the loss), one ``torch.autograd.grad`` a lane for the
+    params and the probes, the param grads summed before the optimizer;
+    each
+    layer's ``codebook.update`` without a mesh on the lanes' rows
+    concatenated in rank order (the whole batch's moments, counts and
+    sums; the revival candidates in rank order), and the refresh of the
+    concatenated ids.  Returns (params, vq_states, opt_state, loss [1]) as
+    ``vq_train_epoch_dp`` over the one batch ``ids`` / ``sm`` [1, b]."""
+    import torch
+    from repro_torch.core import codebook as cbm
+    from repro_torch.core.conv import LayerVQState, refresh_assignment
+    from repro_torch.graph.batching import plan_batch
+    from repro_torch.models.gnn import (node_loss_terms, probe_shapes,
+                                        vq_forward)
+    params, states, ost = st
+    b_loc = ids.shape[1] // ndev
+    lanes = []
+    for r in range(ndev):
+        bids, smask = (a[0, r * b_loc:(r + 1) * b_loc] for a in (ids, sm))
+        ids64 = bids.long()
+        lanes.append((plan_batch(plan, bids, smask), x[ids64],
+                      labels[ids64], tm[ids64] * smask))
+    den = torch.clamp(sum(lane[3].sum() for lane in lanes), min=1.0)
+    loss, gsum = 0.0, None
+    feats = [[] for _ in states]
+    grads = [[] for _ in states]
+    for pack, x_b, labels_b, lmask in lanes:
+        leaves = [{k: v.detach().requires_grad_(True) for k, v in p.items()}
+                  for p in params]
+        probes = [torch.zeros(shape, device=x_b.device, requires_grad=True)
+                  for shape in probe_shapes(cfg, pack.b)]
+        with torch.enable_grad():
+            out, acts = vq_forward(leaves, x_b, probes, pack, states,
+                                   degrees, cfg)
+            num, _ = node_loss_terms(out, labels_b, cfg.multilabel, lmask)
+            l_loss = num / den
+            flat = [v for p in leaves for v in p.values()]
+            got = torch.autograd.grad(l_loss, flat + probes,
+                                      allow_unused=True)
+        got = [torch.zeros_like(t) if d is None else d
+               for t, d in zip(flat + probes, got)]
+        it = iter(got[:len(flat)])
+        g = [{k: next(it) for k in p} for p in leaves]
+        loss = loss + l_loss.detach()
+        gsum = g if gsum is None else [{k: a[k] + d[k] for k in a}
+                                       for a, d in zip(gsum, g)]
+        for l, gp in enumerate(got[len(flat):]):
+            feats[l].append(acts[l].detach().float())
+            grads[l].append(gp.reshape(pack.b, -1).float())
+    with torch.no_grad():
+        new_params, new_ost = opt.update(gsum, ost, params)
+        ids_all = torch.cat([lane[0].batch_ids for lane in lanes])
+        new_states = []
+        for l, vq in enumerate(states):
+            cb, stats = cbm.update(vq.codebook, torch.cat(feats[l]),
+                                   torch.cat(grads[l]),
+                                   cfg.layer_codebook_cfg())
+            new_states.append(refresh_assignment(
+                LayerVQState(cb, vq.assignment, vq.counts, vq.qcw), ids_all,
+                stats.assignment))
+    return new_params, new_states, new_ost, torch.reshape(loss, (1,))
+
+
+def _mesh_rank(mesh, g, train_batch: int, infer_batch: int) -> dict:
+    """(b), one rank's part: from seed 0, one epoch of
+    ``vq_train_epoch_dp`` and one of ``vq_train_epoch_sharded`` in
+    lockstep, a batch at a time, both steps from the data-parallel state
+    (each synchronised and timed, its collectives timed; the sharded step
+    held to the data-parallel one by ``_step_diff``, and the data-parallel
+    step held the same way to ``_dp_step_oracle`` from the same state, run
+    after the timed steps), then from the data-parallel state the
+    inductive
+    ``vq_infer_epoch_sharded`` and ``vq_serve_batch_sharded`` of
+    MESH_SERVE_IDS ids, each part's launches counted.  Rank 0 returns the
+    arrays, every rank their digests."""
+    import torch
+    from repro_torch.configs.vq_gnn_paper import paper_config
+    from repro_torch.distributed import data_parallel as dp
+    from repro_torch.distributed.parity_jobs import np_params, np_states
+    from repro_torch.distributed.sharding import per_device_bytes
+    from repro_torch.graph.batching import (build_epoch_plan, epoch_slices,
+                                            full_operands, inference_slices)
+    dev = mesh.device
+    cfg = paper_config(g, full_scale=True)
+    ops = full_operands(g, device=dev)
+    plan = build_epoch_plan(g, full_ops=ops)
+    x = torch.from_numpy(g.features).to(dev)
+    labels = torch.from_numpy(g.labels).to(dev)
+    tm_np = np.zeros(g.n, np.float32)
+    tm_np[g.train_idx] = 1.0
+    tm = torch.from_numpy(tm_np).to(dev)
+    _, opt = _init_state(cfg, g.n, dev)
+    ids, sm = epoch_slices(np.random.default_rng(SEED).permutation(g.n),
+                           train_batch)
+    ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    sm = torch.from_numpy(sm).to(dev)
+    sstate = dp.ShardedGraphState(mesh, plan, x, ops.degrees, labels=labels,
+                                  train_mask=tm)
+    replicated = per_device_bytes([plan, x, ops.degrees, labels, tm])
+    epochs = {
+        "dp": lambda st, s: dp.vq_train_epoch_dp(
+            mesh, *st, plan, ids[s:s + 1], sm[s:s + 1], x, labels, tm,
+            ops.degrees, cfg, opt),
+        "sharded": lambda st, s: dp.vq_train_epoch_sharded(
+            sstate, *st, ids[s:s + 1], sm[s:s + 1], cfg, opt)}
+    out = {"rank": mesh.rank, "diffs": [], "oracle_diffs": []}
+    for name in epochs:
+        out[name] = {"step_ms": [], "collective_ms": [],
+                     "collective_calls": 0, "counts": None}
+    losses = []
+    st, _ = _init_state(cfg, g.n, dev)
+    mesh.time_collectives = True
+    for s in range(ids.shape[0]):
+        res = {}
+        for name, epoch in epochs.items():
+            o = out[name]
+            mesh.collective_s, mesh.collective_calls = 0.0, 0
+            reset_counts()
+            _sync(dev)
+            t0 = time.perf_counter()
+            res[name] = epoch(st, s)
+            _sync(dev)
+            o["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            o["collective_ms"].append(mesh.collective_s * 1e3)
+            o["collective_calls"] += mesh.collective_calls
+            c = read_counts()
+            o["counts"] = c if o["counts"] is None else add_counts(
+                o["counts"], c)
+        out["diffs"].append(_step_diff(res["sharded"], res["dp"]))
+        out["oracle_diffs"].append(_step_diff(res["dp"], _dp_step_oracle(
+            st, plan, ids[s:s + 1], sm[s:s + 1], x, labels, tm, ops.degrees,
+            cfg, opt, mesh.world_size)))
+        losses.append(float(res["dp"][3][0]))
+        st = res["dp"][:3]
+    mesh.time_collectives = False
+    out["losses"] = losses
+    arrays = {"dp": {"params": np_params(st[0]), "states": np_states(st[1])}}
+    trained = st
+    params, vq = trained[0], trained[1]
+    iids, ism = inference_slices(g.n, infer_batch)
+    reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    acts, states = dp.vq_infer_epoch_sharded(sstate, params, vq, iids, ism,
+                                             cfg, inductive=True)
+    _sync(dev)
+    out["infer"] = {"s": time.perf_counter() - t0, "counts": read_counts()}
+    arrays["infer"] = {"acts": sstate.unshard(acts),
+                       "states": np_states(states)}
+    bids = np.concatenate([(np.arange(MESH_SERVE_IDS - 8) * 7919) % g.n,
+                           np.zeros(8, np.int64)]).astype(np.int32)
+    reset_counts()
+    rows = dp.vq_serve_batch_sharded(sstate, params, vq, bids, cfg)
+    out["serve"] = {"counts": read_counts()}
+    arrays["serve"] = {"ids": bids, "rows": rows.cpu().numpy()}
+    out["bytes"] = {"sharded": sstate.per_device_bytes(),
+                    "replicated": replicated}
+    out["digests"] = {k: _digest(v) for k, v in arrays.items()}
+    if mesh.rank == 0:
+        out["arrays"] = arrays
+    return out
+
+
+def phase_mesh_ranks(g, infer_batch: int, ranks: int = MESH_RANKS,
+                     backend: str = "gloo") -> tuple[dict, dict]:
+    """(b) ``ranks`` ranks sharing the one card over gloo
+    (``share_device=True``; on NCCL, ``tools/mesh_cards.py``, a card a
+    rank): the data-parallel epoch and the row-sharded
+    one at batch MESH_BATCH from seed 0, in lockstep (each sharded step
+    within STEP_TOL of the data-parallel step from the same state: the
+    card's steps are not bit-reproducible, phase (a)), each data-parallel
+    step within STEP_TOL of the one-process oracle ``_dp_step_oracle``
+    from the same state, on every rank, the inductive
+    sharded inference at ``infer_batch``
+    and the sharded serving of MESH_SERVE_IDS ids equal to the unsharded
+    executors run here from the data-parallel state (the unsharded
+    inference twice first: if two runs differ, both are held to
+    STEP_TOL), every rank's results the same, launches counted exactly,
+    per-rank graph state at most 1.2/ranks of the replicated bytes
+    (0.6x at two)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs.vq_gnn_paper import paper_config
+    from repro_torch.distributed.parity_jobs import np_states
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.graph.batching import (build_epoch_plan, full_operands,
+                                            inference_slices)
+    from repro_torch.models.gnn import vq_infer_epoch, vq_serve_batch
+    from repro_torch.distributed.parity_jobs import state_namespace
+    cfg = paper_config(g, full_scale=True)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    share = backend == "gloo" and DEVICE == "cuda"
+    outs = run_ranks(_mesh_rank, ranks, backend, DEVICE, g, MESH_BATCH,
+                     infer_batch, share_device=share, timeout_s=600,
+                     threads=2)
+    wall = time.time() - t0
+    for o in outs[1:]:
+        if o["digests"] != outs[0]["digests"]:
+            raise SystemExit(f"mesh (b): rank {o['rank']}'s results differ "
+                             f"from rank 0's: {o['digests']} vs "
+                             f"{outs[0]['digests']}")
+    arr = outs[0]["arrays"]
+    n_layers = cfg.n_layers
+    b_loc = MESH_BATCH // ranks
+    steps = -(-g.n // MESH_BATCH)
+    s_loc = -(-(-(-g.n // infer_batch)) // ranks)
+    total = None
+    for o in outs:
+        for name in ("dp", "sharded"):
+            expect_counts(f"mesh (b) rank {o['rank']} {name}",
+                          o[name]["counts"],
+                          _step_counts(cfg, b_loc, steps, g.n, 0))
+        expect_counts(f"mesh (b) rank {o['rank']} inference",
+                      o["infer"]["counts"],
+                      {"vq_assign": n_layers, "spmm_ell": n_layers * s_loc,
+                       "context_ell": n_layers * s_loc})
+        expect_counts(f"mesh (b) rank {o['rank']} serve",
+                      o["serve"]["counts"],
+                      {"spmm_ell": n_layers, "context_ell": n_layers})
+        for c in (o["dp"]["counts"], o["sharded"]["counts"],
+                  o["infer"]["counts"], o["serve"]["counts"]):
+            total = c if total is None else add_counts(total, c)
+    lockstep = {o["rank"]: _require_steps(
+        f"(b) rank {o['rank']} lockstep sharded vs dp", o["diffs"])
+        for o in outs}
+    oracle = {o["rank"]: _require_steps(
+        f"(b) rank {o['rank']} dp vs the one-process oracle",
+        o["oracle_diffs"]) for o in outs}
+    # the unsharded executors here, from rank 0's data-parallel state
+    dev = torch.device(DEVICE)
+    params = convert.params_from_numpy(arr["dp"]["params"], dev)
+    vq = convert.vq_states_from_numpy(
+        [state_namespace({f: d[f] for f in d
+                          if f not in ("assignment", "counts")},
+                         d["assignment"], d["counts"])
+         for d in arr["dp"]["states"]], dev)
+    ops = full_operands(g, device=dev)
+    plan = build_epoch_plan(g, full_ops=ops)
+    x = torch.from_numpy(g.features).to(dev)
+    iids, ism = inference_slices(g.n, infer_batch)
+    runs = []
+    for _ in range(2):
+        acts, states = vq_infer_epoch(
+            params, vq, plan, torch.from_numpy(iids.astype(np.int32)).to(dev),
+            torch.from_numpy(ism).to(dev), x, ops.degrees, cfg,
+            inductive=True)
+        runs.append({"acts": acts.cpu().numpy(),
+                     "states": np_states(states)})
+    stable = _digest(runs[0]) == _digest(runs[1])
+    tol = None if stable else STEP_TOL
+    if not stable:
+        log(f"mesh (b): the unsharded inference is not bit-stable from run "
+            f"to run (max abs diff {_max_abs_diff(runs[1], runs[0]):.3g}); "
+            f"the sharded inference is held to STEP_TOL")
+    infer_err = _mesh_close("(b) sharded vs unsharded inference",
+                            arr["infer"], runs[0], tol)
+    rows = vq_serve_batch(params, vq, plan,
+                          torch.from_numpy(arr["serve"]["ids"]).to(dev), x,
+                          ops.degrees, cfg).cpu().numpy()
+    serve_err = _mesh_close("(b) sharded vs unsharded serving",
+                            arr["serve"]["rows"], rows, tol)
+    b = outs[0]["bytes"]
+    ratio = b["sharded"] / b["replicated"]
+    if ratio > 1.2 / ranks:
+        raise SystemExit(f"mesh (b): per-rank graph state {b['sharded']} B "
+                         f"is {ratio:.3f}x the replicated {b['replicated']} "
+                         f"B (cap {1.2 / ranks:.2f}x)")
+    rep = {"world_size": ranks, "backend": backend,
+           "share_device": share, "batch": MESH_BATCH,
+           "steps": steps,
+           "infer_batch": infer_batch, "wall_s": wall,
+           "sharded_vs_dp_lockstep": lockstep,
+           "dp_vs_one_process_oracle": oracle,
+           "dp_losses": outs[0]["losses"],
+           "unsharded_inference_bit_stable": stable,
+           "inference_max_abs_err": infer_err,
+           "serve_max_abs_err": serve_err,
+           "graph_state_bytes": b, "graph_state_ratio": ratio,
+           "ranks": []}
+    for o in outs:
+        r = {"rank": o["rank"], "infer_s": o["infer"]["s"]}
+        for name in ("dp", "sharded"):
+            ms, cms = o[name]["step_ms"], o[name]["collective_ms"]
+            # the first step absorbs the ranks' start-up skew (and NCCL's
+            # set-up) in its first collective: the share is the later ones'
+            r[name] = {"epoch_s": sum(ms) / 1e3,
+                       "step_p50_ms": float(np.percentile(ms, 50)),
+                       "step_ms": ms, "collective_ms": cms,
+                       "collective_calls": o[name]["collective_calls"],
+                       "collective_share": sum(cms[1:]) / sum(ms[1:]),
+                       "launches": {k: v for k, v in o[name][
+                           "counts"].items() if k not in KEYED and v}}
+            log(f"mesh (b) rank {o['rank']} {name}: epoch "
+                f"{r[name]['epoch_s']:.4f} s, step p50 "
+                f"{r[name]['step_p50_ms']:.3f} ms, collectives "
+                f"{r[name]['collective_calls']} calls, "
+                f"{r[name]['collective_share']:.3f} of the step time after "
+                f"the first, "
+                f"launches {r[name]['launches']}")
+        rep["ranks"].append(r)
+    log(f"mesh (b): {ranks} ranks on {DEVICE} over {backend} "
+        f"(share_device={share}), batch {MESH_BATCH} ({b_loc} "
+        f"a rank): "
+        f"sharded vs data-parallel in lockstep {json.dumps(lockstep)}; "
+        f"data-parallel vs the one-process oracle {json.dumps(oracle)}; "
+        f"unsharded inference bit-stable {stable}; sharded "
+        f"inference vs unsharded {infer_err:.3g}, serving {serve_err:.3g}; "
+        f"graph state {b['sharded']} / {b['replicated']} B a rank "
+        f"({ratio:.3f}x); {wall:.2f} s with the spawn")
+    return rep, total
+
+
+def phase_mesh_serve() -> dict:
+    """(c) ``serve_gnn --mesh 2 --shard-graph --share-device`` at the full
+    width against ``serve_gnn --mesh 1`` (one NCCL rank), micro-batch
+    MESH_SERVE_BATCH: 200 requests,
+    the served rows' digests equal, the per-rank graph state at most 0.6x
+    the one rank's."""
+    from repro_torch.launch import serve_gnn
+    base = ["--n", str(N_NODES), "--hidden", "128", "--layers", "3",
+            "--k", "1024", "--batch", str(MESH_SERVE_BATCH), "--requests",
+            str(REQUESTS), "--max-request", str(MAX_REQUEST), "--seed",
+            str(SEED), "--device", DEVICE]
+    reps = {}
+    for name, extra in (("mesh 1", ["--mesh", "1"]),
+                        ("mesh 2 sharded", ["--mesh", str(MESH_RANKS),
+                                            "--shard-graph"]
+                         + (["--share-device"] if DEVICE == "cuda"
+                            else []))):
+        t0 = time.time()
+        reps[name] = serve_gnn.main(base + extra)
+        reps[name]["wall_s"] = time.time() - t0
+    one, two = reps["mesh 1"], reps["mesh 2 sharded"]
+    if one["rows_sha256"] != two["rows_sha256"]:
+        raise SystemExit(f"mesh (c): --mesh {MESH_RANKS} --shard-graph "
+                         f"served other rows than --mesh 1")
+    ratio = two["graph_state_bytes_per_device"] \
+        / one["graph_state_bytes_per_device"]
+    if ratio > 0.6:
+        raise SystemExit(f"mesh (c): graph state a rank {ratio:.3f}x")
+    keep = ("refresh_s", "warmup_s", "nodes", "steps", "step_p50_ms",
+            "step_p99_ms", "nodes_per_s", "graph_state_bytes_per_device",
+            "rows_sha256", "wall_s")
+    rep = {k: {f: r[f] for f in keep} for k, r in reps.items()}
+    log(f"mesh (c): serve_gnn --mesh {MESH_RANKS} --shard-graph "
+        f"--share-device served the rows of --mesh 1 (sha256 "
+        f"{one['rows_sha256'][:16]}...), graph state {ratio:.3f}x a rank: "
+        f"{json.dumps(rep)}")
+    return rep
+
+
 def main() -> int:
     import argparse
     import torch
@@ -3968,6 +4593,20 @@ def main() -> int:
         (m_g, params_g, vq_g))
     del m_l
 
+    # --- the multi-device paths: one NCCL rank here, two gloo ranks on
+    # the one card, the sharded serving CLI ---
+    mesh_rep = {}
+    mesh_rep["one_rank"], mesh_counts_a = timed(
+        "mesh", phase_mesh_one_rank, m)
+    mesh_rep["ranks"], mesh_counts_b = timed("mesh", phase_mesh_ranks, g,
+                                             batch)
+    mesh_rep["serve"] = timed("mesh", phase_mesh_serve)
+    mesh_rep["launches"] = {
+        k: v for k, v in add_counts(mesh_counts_a, mesh_counts_b).items()
+        if k not in KEYED and v}
+    log(f"mesh paths' launches (both ranks of (b) added): "
+        f"{mesh_rep['launches']}")
+
     # --- launches on the main paths, and the kernels line ---
     launches = train_counts
     link_counts = add_counts(add_counts(link_train_counts, link_full_counts),
@@ -3976,7 +4615,7 @@ def main() -> int:
               tier_serve_counts, a4_counts, lm_counts, gat_train_counts,
               gat_train_counts0, gat_serve_counts, tr_train_counts,
               tr_train_counts0, tr_train_counts1, tr_serve_counts,
-              link_counts, host_counts):
+              link_counts, host_counts, mesh_counts_a, mesh_counts_b):
         launches = add_counts(launches, c)
     entries = launches["entries"]
     by_name = {row["name"]: row for row in serve_rows + train_rows}
@@ -4129,6 +4768,7 @@ def main() -> int:
             "subgraph_rows": rls["subgraph_rows"], "final": rls["final"]},
         "host_loop": host_rep}))
     log(json.dumps({"dispatch": dispatch_rep}))
+    log(json.dumps({"mesh": mesh_rep}))
     seconds["total"] = time.time() - T_START
     log(json.dumps({"seconds": seconds}))
     log(f"chip_smoke: {seconds['total']:.1f} s from start to the "

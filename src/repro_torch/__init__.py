@@ -15,6 +15,9 @@ prediction (Hits@50), on one device (Alg. 1, the Alg. 2 codebook update,
 the Eq. 7 injection, RMSprop / Adam) in every precision tier (fp32; int8 /
 fp8 codeword snapshots with uint8 or nibble-packed assignment tables),
 all five backbones (GCN, SAGE, GIN, GAT, the Graph Transformer), on every
-dataset look-alike of the reference.  Meshes raise a clear error that
-names the later slice (see ROADMAP.md).
+dataset look-alike of the reference; and the multi-device GNN on
+``torch.distributed`` (``distributed/``: ranks as processes, the
+data-parallel epoch, row-sharded graph state, sharded inference and
+serving).  The LM's meshes raise a clear error that names the later
+slice (see ROADMAP.md).
 """

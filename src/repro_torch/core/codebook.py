@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.distributed import quantization
+from repro_torch.distributed import collectives, quantization
 from repro_torch.kernels import ops as kops
 from repro_torch.runtime import resolve_device
 
@@ -218,18 +218,31 @@ def assign_features_only(state: CodebookState, feats: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def whitened_rows(state: CodebookState, feats: torch.Tensor,
-                  grads: torch.Tensor, cfg: CodebookConfig
-                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  grads: torch.Tensor, cfg: CodebookConfig, *,
+                  mesh=None) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
     """Alg. 2 lines 2-4 for one batch: the concat rows ``V = X || G`` split
     into branches, the EMA whitening moments moved by the batch moments,
     and the rows whitened with them.  Returns (vw [nb, b, f_blk]
     contiguous, new_mean, new_var); without whitening the rows and moments
-    pass through."""
+    pass through.  With a mesh the batch is this rank's share, and the
+    moments come from the all-reduced row sums, sums of squares and row
+    count (one collective), E[v^2] - E[v]^2 as the reference's
+    ``axis_name`` form, on a mesh of any size."""
     v = _concat_rows(state, feats, grads)
     if not cfg.whiten:
         return v, state.mean, state.var
-    batch_mean = v.mean(dim=1)                         # [nb, f_blk]
-    batch_var = v.var(dim=1, correction=0)             # population, as jnp
+    if mesh is None:
+        batch_mean = v.mean(dim=1)                     # [nb, f_blk]
+        batch_var = v.var(dim=1, correction=0)         # population, as jnp
+    else:
+        nb, b, f_blk = v.shape
+        cnt = torch.full((nb, 1), float(b), device=v.device)
+        sums = collectives.all_reduce(
+            torch.cat([v.sum(dim=1), (v * v).sum(dim=1), cnt], dim=1), mesh)
+        s1, s2, cnt = sums[:, :f_blk], sums[:, f_blk:-1], sums[:, -1:]
+        batch_mean = s1 / cnt
+        batch_var = torch.clamp(s2 / cnt - batch_mean ** 2, min=0.0)
     new_mean = state.mean * cfg.beta + batch_mean * (1.0 - cfg.beta)
     new_var = state.var * cfg.beta + batch_var * (1.0 - cfg.beta)
     vw = _whiten(v, new_mean[:, None, :], new_var[:, None, :], cfg.eps)
@@ -237,7 +250,8 @@ def whitened_rows(state: CodebookState, feats: torch.Tensor,
 
 
 def update(state: CodebookState, feats: torch.Tensor, grads: torch.Tensor,
-           cfg: CodebookConfig) -> tuple[CodebookState, UpdateStats]:
+           cfg: CodebookConfig, *, mesh=None
+           ) -> tuple[CodebookState, UpdateStats]:
     """One streaming VQ update with a mini-batch of (features || gradients):
     feats [b, f_feat], grads [b, f_grad] -> (new state, UpdateStats).
 
@@ -247,10 +261,21 @@ def update(state: CodebookState, feats: torch.Tensor, grads: torch.Tensor,
     codewords whose EMA size fell under ``revive_threshold`` are parked on
     the batch rows with the largest quantization error, ranked by
     ``torch.topk(sorted=True)`` of the kernel's qerr.  Returns a new state;
-    the old one is left untouched, as in the reference."""
-    vw, new_mean, new_var = whitened_rows(state, feats, grads, cfg)
+    the old one is left untouched, as in the reference.
+
+    With ``mesh`` (a :class:`~repro_torch.distributed.sharding.GraphMesh`)
+    the rows are this rank's share of the batch and the ranks learn one
+    codebook: the whitening moments come from all-reduced sums, the
+    kernel's counts and sums are all-reduced after its one launch, and the
+    revival candidates (the whitened rows and their qerr) are all-gathered
+    along the rows in rank order before ``topk``, so every rank writes the
+    same replacement codewords.  The stats stay this rank's."""
+    vw, new_mean, new_var = whitened_rows(state, feats, grads, cfg,
+                                          mesh=mesh)
     assignment, qerr, counts, sums = kops.vq_assign_update(
         vw, state.codewords_w.contiguous())
+    if mesh is not None:
+        counts, sums = collectives.psum_tree((counts, sums), mesh)
     new_size = state.cluster_size * cfg.gamma + counts * (1.0 - cfg.gamma)
     new_sum = state.cluster_sum * cfg.gamma + sums * (1.0 - cfg.gamma)
     new_cw = new_sum / torch.clamp(new_size, min=cfg.eps)[..., None]
@@ -258,10 +283,18 @@ def update(state: CodebookState, feats: torch.Tensor, grads: torch.Tensor,
     new_cw = torch.where(alive, new_cw, state.codewords_w)
 
     if cfg.revive_threshold > 0:
-        nb, b, f_blk = vw.shape
+        vw_rev, qerr_rev = vw, qerr
+        if mesh is not None:
+            # [ndev, nb, b_loc, f_blk + 1] -> [nb, ndev * b_loc, ...]: the
+            # rows in rank order, as jax's all_gather(tiled=True) on axis 1
+            g = collectives.all_gather(torch.cat([vw, qerr[..., None]], -1),
+                                       mesh)
+            g = g.transpose(0, 1).reshape(vw.shape[0], -1, vw.shape[2] + 1)
+            vw_rev, qerr_rev = g[..., :-1], g[..., -1]
+        nb, b, f_blk = vw_rev.shape
         n_rev = min(state.k, b)
-        _, worst = torch.topk(qerr, n_rev, dim=-1, sorted=True)  # [nb, n_rev]
-        worst_rows = torch.gather(vw, 1, worst[..., None].expand(
+        _, worst = torch.topk(qerr_rev, n_rev, dim=-1, sorted=True)
+        worst_rows = torch.gather(vw_rev, 1, worst[..., None].expand(
             nb, n_rev, f_blk))
         dead = new_size < cfg.revive_threshold                 # [nb, k]
         # rank dead codewords so each picks a distinct worst row

@@ -10,9 +10,10 @@ batch (:func:`make_pack`, behind the host-stepped batch loops and
 static wrap-padded batch slicers, :func:`plan_batch`, which derives one
 batch's :class:`~repro_torch.core.conv.MinibatchPack` on device (row
 gather plus node->slot scatter, equal to :func:`make_pack` on the same
-ids) with no host-side packing per batch, and the sampling baselines'
-stacked epoch (:class:`SamplerEpochPlan`, :func:`pack_sampler_epoch`,
-:func:`pad_bucket`).
+ids) with no host-side packing per batch, its row-sharded form
+(:func:`plan_batch_sharded`, positions by :func:`_inbatch_positions`), and
+the sampling baselines' stacked epoch (:class:`SamplerEpochPlan`,
+:func:`pack_sampler_epoch`, :func:`pad_bucket`).
 """
 from __future__ import annotations
 
@@ -319,6 +320,57 @@ def plan_batch(plan: EpochPlan, batch_ids: torch.Tensor,
     minus1 = torch.tensor(-1, dtype=torch.int32, device=dev)
     npos = torch.where(nmask != 0, slot[nbr.long()], minus1)
     rpos = torch.where(rmask != 0, slot[rev.long()], minus1)
+    return MinibatchPack(
+        batch_ids=batch_ids, nbr_ids=nbr, nbr_mask=nmask, nbr_pos=npos,
+        rev_ids=rev, rev_mask=rmask, rev_pos=rpos, slot_mask=slot_mask)
+
+
+def _inbatch_positions(batch_ids: torch.Tensor, ids: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """node id -> in-batch position (-1 when absent or masked) by a stable
+    argsort and a searchsorted over the b batch ids, in place of
+    :func:`plan_batch`'s [n] node->slot scatter: the row-sharded paths
+    use it because an O(n) transient would undo the per-rank memory the
+    row sharding saves.  For distinct batch ids the result equals the
+    scatter's; for a duplicated id (the serving path) it picks the first
+    slot where :func:`plan_batch` keeps the last -- both slots hold the
+    same node's row, so the values gathered downstream are equal."""
+    b = batch_ids.shape[0]
+    batch_ids = batch_ids.long()
+    order = torch.argsort(batch_ids, stable=True)
+    sb = batch_ids[order]
+    ids = ids.long()
+    j = torch.clamp(torch.searchsorted(sb, ids), 0, b - 1)
+    hit = (sb[j] == ids) & (mask != 0)
+    return torch.where(hit, order[j], -1).to(torch.int32)
+
+
+def plan_batch_sharded(plan: EpochPlan, batch_ids: torch.Tensor, mesh,
+                       slot_mask: Optional[torch.Tensor] = None
+                       ) -> MinibatchPack:
+    """:func:`plan_batch` against a ROW-SHARDED EpochPlan: each table is
+    this rank's contiguous [n_local, D] block of the padded global table
+    and the rows come cross-shard through
+    :func:`repro_torch.distributed.collectives.gather_from_shards` on
+    ``mesh``.  The id tables and the mask tables are concatenated to
+    [n_local, D + Dr] first, so a batch costs two cross-shard gathers
+    (one int, one float), not four.  Positions come from
+    :func:`_inbatch_positions` (no O(n) transient).  Equal to
+    ``plan_batch`` on the unsharded plan for the same distinct ids."""
+    from repro_torch.distributed.collectives import gather_from_shards
+
+    d = plan.nbr_ids.shape[1]
+    batch_ids = batch_ids.to(device=plan.nbr_ids.device, dtype=torch.int32)
+    ids_tab = torch.cat([plan.nbr_ids, plan.rev_ids], dim=1)
+    mask_tab = torch.cat([plan.nbr_mask, plan.rev_mask], dim=1)
+    ids_rows = gather_from_shards(ids_tab, batch_ids, mesh)
+    mask_rows = gather_from_shards(mask_tab, batch_ids, mesh)
+    # contiguous halves: the kernels take contiguous operands
+    nbr, rev = ids_rows[:, :d].contiguous(), ids_rows[:, d:].contiguous()
+    nmask = mask_rows[:, :d].contiguous()
+    rmask = mask_rows[:, d:].contiguous()
+    npos = _inbatch_positions(batch_ids, nbr, nmask)
+    rpos = _inbatch_positions(batch_ids, rev, rmask)
     return MinibatchPack(
         batch_ids=batch_ids, nbr_ids=nbr, nbr_mask=nmask, nbr_pos=npos,
         rev_ids=rev, rev_mask=rmask, rev_pos=rpos, slot_mask=slot_mask)

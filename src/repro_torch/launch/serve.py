@@ -10,7 +10,8 @@ Random weights (a generator seeded 0 on the device), the decode cache of
 64-token window (``--vq``, as the reference sets them), one warm-up step,
 then ``--tokens`` steps feeding back each step's argmax.  The printed line
 is the reference's, without its ``strategy=`` field: the sharding
-strategy belongs to the multi-device slice, and one device has none.
+strategy belongs to the multi-device LM slice, and one device has
+none.
 
 Not in this slice (each raises, naming the slice that brings it):
 ``--production-mesh`` and the non-dense families (moe, ssm, hybrid,

@@ -1,12 +1,12 @@
 """Full GNN model: assembly, losses, train steps, VQ mini-batch inference
 and the serving step.
 
-Torch twin of the single-device half of ``repro.models.gnn``:
-``GNNConfig``, ``init_gnn``, ``init_vq_states``, ``probe_shapes``,
-``vq_forward`` (with or without probe taps), the node losses and metric,
-the link task's ``link_loss`` and ``hits_at_k`` (Hits@K on the host),
-the VQ train step of Alg. 1 for either task (``_vq_step_body`` behind
-``vq_train_step`` and ``vq_train_epoch``: forward with probes, one
+Torch twin of ``repro.models.gnn``: ``GNNConfig``, ``init_gnn``,
+``init_vq_states``, ``probe_shapes``, ``vq_forward`` (with or without
+probe taps), the node losses and metric, the link task's ``link_loss`` and
+``hits_at_k`` (Hits@K on the host), the VQ train step of Alg. 1 for either
+task (``_vq_step_body`` behind ``vq_train_step`` and, through
+``_vq_epoch_body``, ``vq_train_epoch``: forward with probes, one
 ``torch.autograd.grad`` for the params and the probes -- the probe
 gradients are G^(l+1) -- the optimizer, then per layer
 ``codebook.update``, ``refresh_assignment`` and, under a quantized tier,
@@ -16,9 +16,19 @@ oracle (``full_forward``, ``full_train_step``, ``full_predict``; either
 task), the sampling baselines' epoch over a stacked plan of subgraphs
 (``sampler_train_epoch``, node task), and inference: ``vq_infer_layer``
 / ``vq_infer_epoch`` (layer-locked, optionally inductive) and
-``vq_serve_batch``.  JAX's ``lax.scan`` over the batches is a Python loop
-here; PyTorch runs eagerly.  Params are lists of ``{name: tensor}`` dicts
-and every step returns new ones, as the reference's pure functions do.
+``vq_serve_batch``.
+
+The multi-device hooks take a
+:class:`~repro_torch.distributed.sharding.GraphMesh` where the reference
+takes ``axis_name``: ``_vq_step_body(mesh=)`` and ``_vq_epoch_body(mesh=,
+sharded_state=, compress=)`` are the per-rank bodies of the data-parallel
+and row-sharded epochs (``distributed/data_parallel.py``), and
+``_vq_infer_layer_sharded`` / ``_vq_serve_body_sharded`` those of the
+row-sharded inference and serving; ``vq_serve_batch_rows`` is the serving
+mesh's throughput mode (a rank's share of each layer's rows).  JAX's
+``lax.scan`` over the batches is a Python loop here; PyTorch runs
+eagerly.  Params are lists of ``{name: tensor}`` dicts and every step
+returns new ones, as the reference's pure functions do.
 """
 from __future__ import annotations
 
@@ -32,9 +42,14 @@ from repro_torch.core.codebook import CodebookConfig
 from repro_torch.core.conv import (LayerVQState, MinibatchPack,
                                    init_layer_vq_state, quantize_layer_state,
                                    hold_table, refresh_assignment)
+from repro_torch.distributed import collectives
+from repro_torch.distributed.collectives import (gather_from_shards,
+                                                 shard_scatter_rows_)
 from repro_torch.distributed.quantization import PackedAssignment
+from repro_torch.distributed.sharding import serve_rows
 from repro_torch.graph.batching import (EpochPlan, FullGraphOperands,
-                                        SamplerEpochPlan, plan_batch)
+                                        SamplerEpochPlan, plan_batch,
+                                        plan_batch_sharded)
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.gnn_layers import Params, backbone
 from repro_torch.runtime import resolve_device
@@ -310,20 +325,25 @@ def vq_loss_and_grads(params: list[Params], vq_states: list[LayerVQState],
                       cfg: GNNConfig,
                       loss_mask: Optional[torch.Tensor] = None,
                       neg_pairs: Optional[torch.Tensor] = None,
-                      pos_pairs: Optional[torch.Tensor] = None):
+                      pos_pairs: Optional[torch.Tensor] = None, mesh=None):
     """The differentiation half of an Alg. 1 step: forward with zero probes
     at every layer's pre-activation, then one ``torch.autograd.grad`` of
     the loss for the params AND the probes -- the probe gradients are
     G^(l+1) = d loss / d Z^(l+1).  The node task's loss is the masked mean
     over ``loss_mask``; the link task's is ``link_loss`` over the batch
-    positions ``pos_pairs`` / ``neg_pairs`` [e, 2].  Returns (loss,
-    output, per-layer input activations, param grads, probe grads), all
-    detached."""
+    positions ``pos_pairs`` / ``neg_pairs`` [e, 2].  With ``mesh`` (node
+    task) the batch is this rank's share and the denominator is the
+    global one, all-reduced, so the ranks' losses and gradients add up to
+    the whole batch's.  Returns (loss, output, per-layer input
+    activations, param grads, probe grads), all detached."""
     dev = x_b.device
     if cfg.task == "node":
         lmask = loss_mask if loss_mask is not None \
             else torch.ones(pack.b, dtype=torch.float32, device=dev)
-        den = torch.clamp(lmask.sum(), min=1.0)
+        den = lmask.sum()
+        if mesh is not None:
+            den = collectives.all_reduce(den, mesh)  # independent of params
+        den = torch.clamp(den, min=1.0)
     leaves = _grad_leaves(params)
     probes = [torch.zeros(s, dtype=torch.float32, device=dev,
                           requires_grad=True)
@@ -347,39 +367,74 @@ def _vq_step_body(params: list[Params], vq_states: list[LayerVQState],
                   degrees: torch.Tensor, cfg: GNNConfig, opt: Optimizer,
                   loss_mask: Optional[torch.Tensor] = None,
                   neg_pairs: Optional[torch.Tensor] = None,
-                  pos_pairs: Optional[torch.Tensor] = None):
-    """One Alg. 1 step: the one implementation behind ``vq_train_step``
-    and ``vq_train_epoch``.  The node task weighs its loss by
-    ``loss_mask``; the link task scores ``pos_pairs`` / ``neg_pairs``
-    (batch positions, [e, 2]).
+                  pos_pairs: Optional[torch.Tensor] = None, mesh=None):
+    """One Alg. 1 step: the one implementation behind ``vq_train_step``,
+    ``vq_train_epoch`` and (with ``mesh``) the data-parallel and
+    row-sharded epochs.  The node task weighs its loss by ``loss_mask``;
+    the link task scores ``pos_pairs`` / ``neg_pairs`` (batch positions,
+    [e, 2]).
 
     ``vq_loss_and_grads``, the optimizer step, then under ``no_grad`` each
     layer's codebook update from (X^(l) || G^(l+1)) and the refresh of the
-    batch's assignments (Alg. 1 lines 15-16).  Returns (params,
-    vq_states, opt_state, loss, output, vq_errs [L])."""
+    batch's assignments (Alg. 1 lines 15-16).
+
+    With ``mesh`` (node task only) ``pack`` / ``x_b`` are this rank's
+    share of the batch and the ranks are glued into one model a step
+    (DESIGN.md section 9, "codebook psum rule"): the loss is the global
+    masked mean, loss and param grads are SUM-all-reduced before the
+    optimizer (one collective; sums, not means: each rank's loss is its
+    numerator over the global denominator), ``codebook.update`` all-reduces
+    the moments, counts and sums and gathers the revival candidates, and
+    the refreshed ids and every layer's assignments are all-gathered in
+    rank order (one collective) into the replicated tables.  Returns
+    (params, vq_states, opt_state, loss, output, vq_errs [L])."""
+    if mesh is not None and cfg.task != "node":
+        raise ValueError("dp epoch executor is node-task only")
     loss, out, acts, gparams, gprobes = vq_loss_and_grads(
         params, vq_states, pack, x_b, labels_b, degrees, cfg, loss_mask,
-        neg_pairs=neg_pairs, pos_pairs=pos_pairs)
+        neg_pairs=neg_pairs, pos_pairs=pos_pairs, mesh=mesh)
     with torch.no_grad():
+        if mesh is not None:
+            loss, gparams = collectives.psum_tree((loss, gparams), mesh)
         new_params, new_opt = opt.update(gparams, opt_state, params)
         cb_cfg = cfg.layer_codebook_cfg()
-        new_states, vq_errs = [], []
+        updates = []
         for l, vq in enumerate(vq_states):
             feats = acts[l].float()
             grads = gprobes[l].reshape(pack.b, -1).float()
             # gradients enter the codebook unscaled: Alg. 2's whitening
             # normalizes every concat dim
-            new_cb, stats = cbm.update(vq.codebook, feats, grads, cb_cfg)
-            vq_errs.append(stats.relative_error())
+            updates.append((feats.shape[-1], *cbm.update(
+                vq.codebook, feats, grads, cb_cfg, mesh=mesh)))
+        refresh_ids = pack.batch_ids
+        assigns = [stats.assignment for _, _, stats in updates]
+        if mesh is None:
+            vq_errs = torch.stack([stats.relative_error()
+                                   for _, _, stats in updates])
+        else:
+            local = torch.cat([pack.batch_ids.to(torch.int32)[None]]
+                              + [a.to(torch.int32) for a in assigns])
+            rows = collectives.all_gather(local, mesh)   # [ndev, R, b_loc]
+            rows = rows.transpose(0, 1).reshape(local.shape[0], -1)
+            refresh_ids = rows[0]
+            assigns = list(torch.split(rows[1:], [a.shape[0]
+                                                  for a in assigns]))
+            sums = collectives.all_reduce(torch.stack([torch.stack(
+                [stats.qerr.sum(), stats.vnorm2.sum()])
+                for _, _, stats in updates]), mesh)
+            vq_errs = torch.sqrt(sums[:, 0] / (sums[:, 1] + 1e-12))
+        new_states = []
+        for vq, (f_feat, new_cb, _), assign in zip(vq_states, updates,
+                                                   assigns):
             st = refresh_assignment(
                 LayerVQState(new_cb, vq.assignment, vq.counts, vq.qcw),
-                pack.batch_ids, stats.assignment)
+                refresh_ids, assign)
             if vq.qcw is not None:
                 # quantize-on-update: the snapshot follows the post-EMA
                 # codebook, keeping its scales inside the drift band
-                st = quantize_layer_state(st, feats.shape[-1], cb_cfg)
+                st = quantize_layer_state(st, f_feat, cb_cfg)
             new_states.append(st)
-    return new_params, new_states, new_opt, loss, out, torch.stack(vq_errs)
+    return new_params, new_states, new_opt, loss, out, vq_errs
 
 
 # the reference jits this entry point around the shared body; eager
@@ -387,35 +442,68 @@ def _vq_step_body(params: list[Params], vq_states: list[LayerVQState],
 vq_train_step = _vq_step_body
 
 
-def vq_train_epoch(params, vq_states, opt_state, plan: EpochPlan,
+def _vq_epoch_body(params, vq_states, opt_state, plan: EpochPlan,
                    perm: torch.Tensor, slot_mask: torch.Tensor,
                    x: torch.Tensor, labels: torch.Tensor,
-                   train_mask: torch.Tensor, degrees: torch.Tensor,
-                   cfg: GNNConfig, opt: Optimizer):
-    """One epoch of Alg. 1 on the device: the step body over the S stacked
-    batches (a Python loop where the reference scans), each batch's pack
-    derived from the pack-once plan on device (``plan_batch``).
+                   train_mask: torch.Tensor, degrees: torch.Tensor, *,
+                   cfg: GNNConfig, opt: Optimizer, mesh=None,
+                   sharded_state: bool = False, compress: bool = False):
+    """The step body over the S stacked batches (node task), each batch's
+    pack derived from the pack-once plan on device: the one loop behind
+    ``vq_train_epoch`` and the data-parallel executors.
 
-    perm [S, b] node ids per batch (``epoch_slices``), slot_mask [S, b] (0
-    on wrap-padded tail slots, which are loss-masked), x / labels /
-    train_mask full [n, ...] device tables.  Returns (params, vq_states,
-    opt_state, losses [S], vq_errs [S, L])."""
+    With ``mesh`` this is one rank's body and ``perm`` / ``slot_mask``
+    are its [S, b/ndev] columns.  With ``sharded_state`` as well, ``plan``
+    / ``x`` / ``labels`` / ``train_mask`` are this rank's contiguous row
+    BLOCK of the padded global node tables: every batch's rows come
+    cross-shard (``plan_batch_sharded`` and ``gather_from_shards``) and
+    the step math is the replicated data-parallel path's.  ``compress``
+    moves the feature rows as int8 (lossy, opt-in).  Returns (params,
+    vq_states, opt_state, losses [S], vq_errs [S, L])."""
     losses, errs = [], []
     for s in range(perm.shape[0]):
         bids, smask = perm[s], slot_mask[s]
-        ids64 = bids.long()
-        pack = plan_batch(plan, bids, smask)
+        if sharded_state:
+            pack = plan_batch_sharded(plan, bids, mesh, smask)
+            x_b = gather_from_shards(x, bids, mesh, compress=compress)
+            labels_b = gather_from_shards(labels, bids, mesh)
+            lmask = gather_from_shards(train_mask, bids, mesh) * smask
+        else:
+            ids64 = bids.long()
+            pack = plan_batch(plan, bids, smask)
+            x_b, labels_b = x[ids64], labels[ids64]
+            lmask = train_mask[ids64] * smask
         params, vq_states, opt_state, loss, _, e = _vq_step_body(
-            params, vq_states, opt_state, pack, x[ids64], labels[ids64],
-            degrees, cfg, opt, loss_mask=train_mask[ids64] * smask)
+            params, vq_states, opt_state, pack, x_b, labels_b, degrees, cfg,
+            opt, loss_mask=lmask, mesh=mesh)
         losses.append(loss)
         errs.append(e)
-    dev = x.device
+    dev = degrees.device
     return (params, vq_states, opt_state,
             torch.stack(losses) if losses
             else torch.zeros(0, device=dev),
             torch.stack(errs) if errs
             else torch.zeros((0, cfg.n_layers), device=dev))
+
+
+def vq_train_epoch(params, vq_states, opt_state, plan: EpochPlan,
+                   perm: torch.Tensor, slot_mask: torch.Tensor,
+                   x: torch.Tensor, labels: torch.Tensor,
+                   train_mask: torch.Tensor, degrees: torch.Tensor,
+                   cfg: GNNConfig, opt: Optimizer):
+    """One epoch of Alg. 1 on the device: ``_vq_epoch_body`` on one device
+    (a Python loop where the reference scans).  Its multi-device forms are
+    ``distributed.data_parallel.vq_train_epoch_dp`` and
+    ``vq_train_epoch_sharded``, the same body with ``mesh=`` (and
+    ``sharded_state=``).
+
+    perm [S, b] node ids per batch (``epoch_slices``), slot_mask [S, b] (0
+    on wrap-padded tail slots, which are loss-masked), x / labels /
+    train_mask full [n, ...] device tables.  Returns (params, vq_states,
+    opt_state, losses [S], vq_errs [S, L])."""
+    return _vq_epoch_body(params, vq_states, opt_state, plan, perm,
+                          slot_mask, x, labels, train_mask, degrees,
+                          cfg=cfg, opt=opt)
 
 
 @torch.no_grad()
@@ -570,4 +658,120 @@ def vq_serve_batch(params: list[Params], vq_states: list[LayerVQState],
     pack = plan_batch(plan, bids)
     out, _ = vq_forward(params, x[bids.long()], None, pack, vq_states,
                         degrees, cfg, inject=False)
+    return out
+
+
+@torch.no_grad()
+def vq_serve_batch_rows(params: list[Params], vq_states: list[LayerVQState],
+                        plan: EpochPlan, bids: torch.Tensor, x: torch.Tensor,
+                        degrees: torch.Tensor, cfg: GNNConfig, *,
+                        mesh) -> torch.Tensor:
+    """Throughput-mode twin of :func:`vq_serve_batch`, one rank's part
+    (the serving mesh without a row-sharded state, the reference's
+    ``serve_batch_spec``): the ids arrive replicated and every rank plans
+    the whole batch, then at every layer computes its b/ndev target rows
+    (``vq_apply(rows=)``) from the whole batch's activations and
+    all-gathers the rows in rank order, so each in-batch neighbour is read
+    as the unsharded step reads it.  Returns the whole [b, f_out] output
+    on every rank: the unsharded step's rows."""
+    pack = plan_batch(plan, bids)
+    rows = serve_rows(pack.b, mesh)
+    bk = backbone(cfg.backbone)
+    cb_cfg = cfg.layer_codebook_cfg()
+    h = x[bids.long()]
+    for l, (p, vq, (fi, fo)) in enumerate(
+            zip(params, vq_states, _layer_out_dims(cfg))):
+        y = bk.vq_apply(p, h, None, pack, vq, degrees, cb_cfg,
+                        _act_for_layer(cfg, l), fi, fo, inject=False,
+                        rows=rows)
+        h = collectives.all_gather_rows(y.contiguous(), mesh)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# row-sharded inference / serving bodies (DESIGN.md section 14)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def _vq_infer_layer_body_sharded(params_l: Params, vq_state: LayerVQState,
+                                 plan: EpochPlan, perm: torch.Tensor,
+                                 slot_mask: torch.Tensor, acts: torch.Tensor,
+                                 degrees: torch.Tensor, *, cfg: GNNConfig,
+                                 layer: int, mesh, n_global: int,
+                                 compress: bool = False) -> torch.Tensor:
+    """Row-sharded twin of :func:`_vq_infer_layer_body`, one rank's part.
+
+    ``plan`` / ``acts`` are this rank's row blocks of the padded global
+    tables and ``perm`` / ``slot_mask`` its slice of the SCAN axis: each
+    rank sweeps S/ndev whole batches, so every batch computes with its
+    full-batch in-batch positions and the result equals the unsharded
+    executor's, while compute and activation storage split ndev ways.
+    Batch outputs scatter cross-shard into this rank's block (written in
+    place, one parked row past its end); wrap-padded and all-masked
+    (scan-padding) slots go to the sacrificial global row ``n_global``,
+    which lives inside the padded table and is never read back.  Every
+    rank must sweep the same number of batches (``_pad_scan_axis``)."""
+    bk = backbone(cfg.backbone)
+    cb_cfg = cfg.layer_codebook_cfg()
+    fi, fo = _layer_out_dims(cfg)[layer]
+    act = _act_for_layer(cfg, layer)
+    out = torch.zeros((acts.shape[0] + 1, fo), dtype=acts.dtype,
+                      device=acts.device)
+    for s in range(perm.shape[0]):
+        bids, smask = perm[s], slot_mask[s]
+        pack = plan_batch_sharded(plan, bids, mesh, smask)
+        x_b = gather_from_shards(acts, bids, mesh, compress=compress)
+        y = bk.vq_apply(params_l, x_b, None, pack, vq_state, degrees,
+                        cb_cfg, act, fi, fo, inject=False)
+        dst = torch.where(smask > 0, bids.long(), n_global)
+        shard_scatter_rows_(out, dst, y, mesh)
+    return out[:-1]
+
+
+@torch.no_grad()
+def _vq_infer_layer_sharded(params_l: Params, vq_state: LayerVQState,
+                            plan: EpochPlan, perm: torch.Tensor,
+                            slot_mask: torch.Tensor, acts: torch.Tensor,
+                            degrees: torch.Tensor, *, cfg: GNNConfig,
+                            layer: int, mesh, n_global: int,
+                            inductive: bool = False, compress: bool = False
+                            ) -> tuple[torch.Tensor, LayerVQState]:
+    """Row-sharded twin of :func:`vq_infer_layer`, one rank's part.  The
+    inductive refresh assigns this rank's LOCAL activation rows
+    (``assign_features_only`` is row-wise: it whitens with the codebook's
+    stored moments; one ``vq_assign`` launch), all-gathers the ranks'
+    assignment stripes in rank order into the replicated global table
+    and drops the pad rows, so every rank derives the same state."""
+    if inductive:
+        fi, _ = _layer_out_dims(cfg)[layer]
+        assign_loc = cbm.assign_features_only(
+            vq_state.codebook, acts, fi, cfg.layer_codebook_cfg())
+        a = collectives.all_gather(assign_loc, mesh)    # [ndev, nb, n_loc]
+        assign = a.transpose(0, 1).reshape(a.shape[1], -1)[:, :n_global]
+        vq_state = refresh_assignment(
+            vq_state, torch.arange(n_global, dtype=torch.int32,
+                                   device=acts.device), assign)
+    out = _vq_infer_layer_body_sharded(
+        params_l, vq_state, plan, perm, slot_mask, acts, degrees, cfg=cfg,
+        layer=layer, mesh=mesh, n_global=n_global, compress=compress)
+    return out, vq_state
+
+
+@torch.no_grad()
+def _vq_serve_body_sharded(params: list[Params],
+                           vq_states: list[LayerVQState], plan: EpochPlan,
+                           bids: torch.Tensor, x: torch.Tensor,
+                           degrees: torch.Tensor, cfg: GNNConfig, *, mesh,
+                           compress: bool = False) -> torch.Tensor:
+    """Row-sharded twin of :func:`vq_serve_batch`, one rank's part: the
+    request ids arrive REPLICATED, the batch's plan rows and feature rows
+    are gathered cross-shard from the ranks' blocks, and every rank runs
+    the same full-batch probe-free forward -- equal to the unsharded
+    serving step, the mesh buying graph-state capacity (the O(b * L)
+    serving compute is replicated)."""
+    bids = bids.to(device=x.device, dtype=torch.int32)
+    pack = plan_batch_sharded(plan, bids, mesh)
+    x_b = gather_from_shards(x, bids, mesh, compress=compress)
+    out, _ = vq_forward(params, x_b, None, pack, vq_states, degrees, cfg,
+                        inject=False)
     return out

@@ -14,7 +14,11 @@ layouts: ``[f_in, f_out]``, GAT's ``w`` and the Transformer's
     ``inject``), with the probe-trick gradient tap whose gradient is
     G^(l+1) for the codebook update (GAT's at the per-head augmented
     message, before the normalization).  ``probe=None`` skips the tap
-    (inference, serving, evaluation).
+    (inference, serving, evaluation).  ``rows`` (a slice of the batch,
+    probe-free and without the injection) computes only those target
+    rows, every in-batch source still read from the whole ``x_b``: each
+    row is what the whole batch's call gives it (the serving mesh's
+    throughput mode, ``models.gnn.vq_serve_batch_rows``).
 
 The fixed convolutions route their messages through the two kernels
 (``spmm_ell`` and ``context_ell``).  GAT and the Transformer read dense
@@ -55,6 +59,27 @@ def _tap(z: torch.Tensor, probe: Optional[torch.Tensor]) -> torch.Tensor:
     return z if probe is None else z + probe
 
 
+def _target_rows(x_b: torch.Tensor, pack: MinibatchPack,
+                 rows: Optional[slice], probe, inject: bool
+                 ) -> tuple[torch.Tensor, MinibatchPack]:
+    """The target rows' activations and pack (``rows`` of the batch; all
+    of it when None): neighbour positions still index the whole batch.
+    A row slice computes a probe-free forward only, on a pack without a
+    stripe index (the staged SpMM's index covers every row)."""
+    if rows is None:
+        return x_b, pack
+    if probe is not None or inject or pack.stripe_index is not None:
+        raise ValueError("vq_apply(rows=) is the probe-free forward without "
+                         "the Eq. 7 injection, on a pack without a stripe "
+                         "index")
+    return x_b[rows], pack._replace(
+        batch_ids=pack.batch_ids[rows], nbr_ids=pack.nbr_ids[rows],
+        nbr_mask=pack.nbr_mask[rows], nbr_pos=pack.nbr_pos[rows],
+        rev_ids=pack.rev_ids[rows], rev_mask=pack.rev_mask[rows],
+        rev_pos=pack.rev_pos[rows],
+        slot_mask=None if pack.slot_mask is None else pack.slot_mask[rows])
+
+
 def _gcn_edge_vals(ops_: FullGraphOperands
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     dt = ops_.degrees + 1.0
@@ -91,12 +116,14 @@ class GCN:
     @staticmethod
     def vq_apply(p: Params, x_b, probe, pack: MinibatchPack,
                  vq: LayerVQState, degrees, cfg: CodebookConfig, act,
-                 f_in: int, f_out: int, inject: bool = True):
+                 f_in: int, f_out: int, inject: bool = True,
+                 rows: Optional[slice] = None):
+        x_t, pack = _target_rows(x_b, pack, rows, probe, inject)
         ops_, self_vals = fixed_conv_operands('gcn', pack, degrees)
         fcw, gcw = layer_codewords(vq, f_in, cfg)
         m = approx_message_passing(ops_, x_b, fcw, gcw, vq.assignment,
                                    p["w"], inject)
-        m = m + self_vals[:, None] * x_b
+        m = m + self_vals[:, None] * x_t
         return act(_tap(m @ p["w"] + p["b"], probe))
 
 
@@ -128,13 +155,15 @@ class SAGE:
 
     @staticmethod
     def vq_apply(p: Params, x_b, probe, pack, vq, degrees, cfg, act,
-                 f_in: int, f_out: int, inject: bool = True):
+                 f_in: int, f_out: int, inject: bool = True,
+                 rows: Optional[slice] = None):
+        x_t, pack = _target_rows(x_b, pack, rows, probe, inject)
         ops_, _ = fixed_conv_operands('mean', pack, degrees)
         fcw, gcw = layer_codewords(vq, f_in, cfg)
         m2 = approx_message_passing(ops_, x_b, fcw, gcw, vq.assignment,
                                     p["w2"], inject)
         # the identity convolution is always intra-batch: exact autograd
-        return act(_tap(x_b @ p["w1"] + m2 @ p["w2"] + p["b"], probe))
+        return act(_tap(x_t @ p["w1"] + m2 @ p["w2"] + p["b"], probe))
 
 
 class GIN:
@@ -169,12 +198,14 @@ class GIN:
 
     @staticmethod
     def vq_apply(p: Params, x_b, probe, pack, vq, degrees, cfg, act,
-                 f_in: int, f_out: int, inject: bool = True):
+                 f_in: int, f_out: int, inject: bool = True,
+                 rows: Optional[slice] = None):
+        x_t, pack = _target_rows(x_b, pack, rows, probe, inject)
         ops_, _ = fixed_conv_operands('adj', pack, degrees)
         fcw, gcw = layer_codewords(vq, f_in, cfg)
         s = approx_message_passing(ops_, x_b, fcw, gcw, vq.assignment,
                                    p["w1"], inject)
-        m = (1.0 + p["eps"]) * x_b + s
+        m = (1.0 + p["eps"]) * x_t + s
         h = torch.relu(_tap(m @ p["w1"] + p["b1"], probe))
         return act(h @ p["w2"] + p["b2"])
 
@@ -257,7 +288,8 @@ class GAT:
     @staticmethod
     def vq_apply(p: Params, x_b, probe, pack: MinibatchPack,
                  vq: LayerVQState, degrees, cfg: CodebookConfig, act,
-                 f_in: int, f_out: int, inject: bool = True):
+                 f_in: int, f_out: int, inject: bool = True,
+                 rows: Optional[slice] = None):
         b = x_b.shape[0]
         heads, fh = p["a_dst"].shape
         # dense f32 reads: GAT mixes the branches through its per-head
@@ -291,13 +323,19 @@ class GAT:
                 ghat_x.reshape(b, dr * heads, f_in), None)
 
         # ---- Eq. 6 forward: exact intra + codeword context, per head ----
-        xw = torch.einsum('bf,fhe->bhe', x_b, p["w"])           # [b, H, fh]
-        s_dst, s_src = _gat_scores(xw, p["a_dst"], p["a_src"])
+        # every in-batch row is a source; the targets are ``rows`` of them
+        xw_src = torch.einsum('bf,fhe->bhe', x_b, p["w"])       # [b, H, fh]
+        s_dst, s_src_b = _gat_scores(xw_src, p["a_dst"], p["a_src"])
+        xw, s_src = xw_src, s_src_b
+        if rows is not None:
+            _, pack = _target_rows(x_b, pack, rows, probe, inject)
+            xw, s_dst, s_src = xw[rows], s_dst[rows], s_src[rows]
+            b = xw.shape[0]
         pos = torch.clamp(pack.nbr_pos, min=0).long()
         in_mask = (pack.nbr_pos >= 0) * pack.nbr_mask
-        w_in = _gat_edge_weight(s_dst[:, None, :], _rows(s_src, pos)) \
+        w_in = _gat_edge_weight(s_dst[:, None, :], _rows(s_src_b, pos)) \
             * in_mask[..., None]                                # [b, D, H]
-        xw_in = _rows(xw, pos)                                  # [b, D, H, fh]
+        xw_in = _rows(xw_src, pos)                              # [b, D, H, fh]
         x_out_hat = reconstruct(fcw, vq.assignment, pack.nbr_ids)
         xw_out = torch.einsum('bdf,fhe->bdhe', x_out_hat, p["w"])
         _, s_src_out = _gat_scores(xw_out, p["a_dst"], p["a_src"])
@@ -368,9 +406,13 @@ class GraphTransformer:
     @staticmethod
     def vq_apply(p: Params, x_b, probe, pack: MinibatchPack,
                  vq: LayerVQState, degrees, cfg: CodebookConfig, act,
-                 f_in: int, f_out: int, inject: bool = True):
+                 f_in: int, f_out: int, inject: bool = True,
+                 rows: Optional[slice] = None):
         b = x_b.shape[0]
         heads, dh = p["wq"].shape[1:]
+        # the queries are the target rows; keys, values and the cluster
+        # masses stay the whole batch's
+        x_q, _ = _target_rows(x_b, pack, rows, probe, inject)
         if vq.codebook.n_branches != 1:
             raise ValueError("GraphTransformer needs a full-width codebook "
                              "(f_prod >= f_in: one branch)")
@@ -409,7 +451,7 @@ class GraphTransformer:
                 x_b, rev_vals, ghat_x.reshape(heads * kk, f_in), None)
 
         # ---- Eq. 6 forward: softmax over (b in-batch + k clusters) ----
-        q = torch.einsum('bf,fhe->hbe', x_b, p["wq"]) / scale
+        q = torch.einsum('bf,fhe->hbe', x_q, p["wq"]) / scale
         k_in = torch.einsum('bf,fhe->hbe', x_b, p["wk"])
         v_in = torch.einsum('bf,fhe->hbe', x_b, p["wv"])
         k_cw = torch.einsum('kf,fhe->hke', fcw, p["wk"])
@@ -424,7 +466,7 @@ class GraphTransformer:
         att = torch.softmax(torch.cat([s_in, s_cw], dim=-1), dim=-1)
         y = torch.einsum('hbu,hue->bhe', att[..., :b], v_in) \
             + torch.einsum('hbk,hke->bhe', att[..., b:], v_cw)
-        y = y.reshape(b, heads * dh)
+        y = y.reshape(x_q.shape[0], heads * dh)
         return act(_tap(y, probe) @ p["wo"] + p["b"])
 
 

@@ -5,7 +5,7 @@ import torch
 
 # Later slices of the port; error messages name them so a caller knows
 # where the missing feature lands (ROADMAP.md, queue 1).
-MESH_SLICE = "the multi-device slice"
+MESH_SLICE = "the multi-device LM slice, ROADMAP queue 1 item 8"
 LM_FAMILIES_SLICE = "the LM families slice"
 
 

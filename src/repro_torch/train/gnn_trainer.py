@@ -1,7 +1,7 @@
-"""GNN training harness on one device: the paper's training regimes on
-one API, and mini-batched codeword inference.
+"""GNN training harness: the paper's training regimes on one API, and
+mini-batched codeword inference.
 
-Torch twin of the single-device half of ``repro.train.gnn_trainer``:
+Torch twin of ``repro.train.gnn_trainer``:
 
   train_full     -- the "Full-Graph" oracle rows of Table 4 (Adam);
   train_vq       -- VQ-GNN, mini-batched, streaming codebooks (RMSprop, lr
@@ -9,11 +9,13 @@ Torch twin of the single-device half of ``repro.train.gnn_trainer``:
                     same numpy ``rng.permutation`` -> ``epoch_slices``
                     stream (or the caller's ``batch_fn``), so both
                     packages see the same batches for a seed.  The node
-                    task runs one ``vq_train_epoch`` per epoch;
-                    ``REPRO_EPOCH_EXECUTOR=0`` and the link task (whose
-                    positive pairs are mined on the host, batch by batch)
-                    step the batches from the host, each packed there
-                    (``make_pack``);
+                    task runs one ``vq_train_epoch`` per epoch (with
+                    ``mesh=``, data-parallel over the ranks of a process
+                    group; with ``shard_graph=`` too, on row-sharded node
+                    tables); ``REPRO_EPOCH_EXECUTOR=0`` and the link task
+                    (whose positive pairs are mined on the host, batch by
+                    batch) step the batches from the host, each packed
+                    there (``make_pack``);
   train_sampler  -- the NS-SAGE / LABOR / Cluster-GCN / GraphSAINT-RW
                     baselines: each epoch pre-sampled on the host
                     (``sample_epoch``), stacked (``pack_sampler_epoch``)
@@ -49,6 +51,9 @@ import torch
 
 from repro_torch.core import codebook as cbm
 from repro_torch.core.conv import MinibatchPack, refresh_assignment
+from repro_torch.distributed.data_parallel import (ShardedGraphState,
+                                                   vq_train_epoch_dp,
+                                                   vq_train_epoch_sharded)
 from repro_torch.distributed.quantization import dtype_nbits
 from repro_torch.graph.batching import (build_epoch_plan, epoch_slices,
                                         full_operands, inference_slices,
@@ -231,7 +236,8 @@ def _batch_pairs(g: Graph, bidx: np.ndarray, slot_mask: np.ndarray,
 
 def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
              lr: float = 3e-3, seed: int = 0, eval_every: int = 10,
-             deg_cap: Optional[int] = None,
+             deg_cap: Optional[int] = None, mesh=None,
+             shard_graph: bool = False,
              batch_fn: Optional[Callable] = None,
              device: str | torch.device = "cuda") -> dict:
     """VQ-GNN training (Alg. 1), one device, in the active precision tier
@@ -257,13 +263,52 @@ def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
 
     ``batch_fn`` (node task) replaces the epoch's batches:
     ``batch_fn(rng) -> (ids [S, b'], slot_mask [S, b'])`` with distinct ids
-    in each row -- the hook of ``train_hybrid``."""
+    in each row -- the hook of ``train_hybrid``.
+
+    ``mesh`` (a :class:`~repro_torch.distributed.sharding.GraphMesh`;
+    every rank of it calls ``train_vq`` with the same arguments, on the
+    mesh's device) runs each epoch data-parallel
+    (``vq_train_epoch_dp``: each rank trains on b/ndev columns of every
+    batch).  ``shard_graph`` (requires ``mesh``) also row-shards every
+    node table (plan, features, labels, train mask) over the ranks,
+    built once a run (``vq_train_epoch_sharded``); it computes what the
+    replicated run at the same mesh size does.  Every rank returns the
+    same params and states."""
     if batch_fn is not None and cfg.task != "node":
         raise ValueError("batch_fn= is a node-task batch-construction "
                          "hook (link pair mining is per-batch host work)")
     use_epoch = (cfg.task == "node"
                  and os.environ.get("REPRO_EPOCH_EXECUTOR", "1") != "0")
-    dev = resolve_device(device)
+    if batch_fn is not None and mesh is not None:
+        # the data-parallel split assumes the fixed epoch_slices batch
+        # width; sampler-widened rows would break its divisibility contract
+        raise ValueError("batch_fn= and mesh= are mutually exclusive")
+    if mesh is not None and not use_epoch:
+        # never fall back to single-device training when the caller asked
+        # for data parallelism
+        raise ValueError(
+            "mesh= (data parallelism over the ranks) requires the epoch "
+            "executor: node task and REPRO_EPOCH_EXECUTOR != 0")
+    if shard_graph and mesh is None:
+        raise ValueError(
+            "shard_graph=True row-shards the node tables over a mesh -- "
+            "pass mesh= (graph_dp_mesh) as well")
+    if mesh is not None:
+        # epoch_slices' pool clamp, reported against the caller's numbers
+        eff_b = min(batch_size, g.n)
+        nd = mesh.world_size
+        if eff_b % nd != 0:
+            raise ValueError(
+                f"effective batch size {eff_b} (batch_size={batch_size} "
+                f"clamped to the {g.n}-node pool) is not divisible by the "
+                f"data mesh size {nd} -- each mesh rank trains on "
+                f"b/{nd} rows of every batch"
+                + (f"; with shard_graph it also owns a contiguous "
+                   f"1/{nd} row block of the node tables (padded to a "
+                   f"multiple of {nd} rows internally), so only the "
+                   f"batch size needs adjusting: pick a multiple of {nd}"
+                   if shard_graph else ""))
+    dev = mesh.device if mesh is not None else resolve_device(device)
     ops = full_operands(g, device=dev, stripe_index=True)
     x = torch.from_numpy(g.features).to(dev)
     labels = _labels(g, dev)
@@ -278,6 +323,10 @@ def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
     tm = torch.from_numpy(train_mask).to(dev)
     plan = build_epoch_plan(g, deg_cap, full_ops=ops, device=dev) \
         if use_epoch else None
+    # built once a run, like the plan: the epochs ship only [S, b] ids;
+    # ops / x stay whole for the full-graph evaluation
+    sstate = ShardedGraphState(mesh, plan, x, ops.degrees, labels=labels,
+                               train_mask=tm) if shard_graph else None
 
     def host_step(pack, bids, **kw):
         nonlocal params, vq, ost
@@ -333,11 +382,19 @@ def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
             ids, smask = (batch_fn(rng) if batch_fn is not None else
                           epoch_slices(rng.permutation(np.arange(g.n)),
                                        batch_size))
-            params, vq, ost, ls, es = vq_train_epoch(
-                params, vq, ost, plan,
-                torch.from_numpy(ids.astype(np.int32)).to(dev),
-                torch.from_numpy(smask).to(dev), x, labels, tm, ops.degrees,
-                cfg, opt)
+            ids_d = torch.from_numpy(ids.astype(np.int32)).to(dev)
+            smask_d = torch.from_numpy(smask).to(dev)
+            if sstate is not None:
+                params, vq, ost, ls, es = vq_train_epoch_sharded(
+                    sstate, params, vq, ost, ids_d, smask_d, cfg, opt)
+            elif mesh is not None:
+                params, vq, ost, ls, es = vq_train_epoch_dp(
+                    mesh, params, vq, ost, plan, ids_d, smask_d, x, labels,
+                    tm, ops.degrees, cfg, opt)
+            else:
+                params, vq, ost, ls, es = vq_train_epoch(
+                    params, vq, ost, plan, ids_d, smask_d, x, labels, tm,
+                    ops.degrees, cfg, opt)
         else:
             ls, es, packing = host_epoch()
             pack_s.append(packing)

@@ -12,6 +12,8 @@ compounded through relu layers).  Assignments are equal except at
 near-ties (``1e-5 * (1 + |d|)``), and counts exactly equal wherever the
 assignments are.
 """
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 from numpy.testing import assert_allclose
@@ -351,15 +353,43 @@ def test_paper_config_matches_reference(graphs):
 
 
 # ---------------------------------------------------------------------------
-# what this slice does not carry raises, naming the slice that brings it
+# --mesh N and --shard-graph
 # ---------------------------------------------------------------------------
 
 def test_unported_options_raise():
+    """``--mesh N`` and ``--shard-graph`` serve (the test keeps the name it
+    had while they raised).  On gloo ranks of the CPU, ``--mesh 2`` (the
+    throughput mode: each rank computes b/2 rows of every layer from the
+    whole batch's activations) and ``--mesh 2 --shard-graph`` serve the
+    rows of ``--mesh 1`` bit for bit (equal ``rows_sha256``; all equal the
+    unsharded server's), the sharded state from at most 0.6x the graph
+    state bytes a rank; ``--shard-graph`` without ``--mesh`` raises."""
     from repro_torch.launch import serve_gnn
-    for argv, match in [(["--mesh", "2"], "multi-device"),
-                        (["--shard-graph"], "multi-device")]:
-        with pytest.raises(NotImplementedError, match=match):
-            serve_gnn.main(["--n", "300", "--device", "cpu", *argv])
+    base = ["--n", "300", "--device", "cpu"]
+    runs = {"1": ["--mesh", "1"], "2": ["--mesh", "2"],
+            "2s": ["--mesh", "2", "--shard-graph"]}
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = {k: pool.submit(serve_gnn.main, base + argv)
+                   for k, argv in runs.items()}
+        reps = {k: f.result() for k, f in futures.items()}
+    args = serve_gnn.parser().parse_args(base)
+    server = serve_gnn.build_server(args)
+    server.refresh()
+    requests = serve_gnn.make_requests(300, args.requests, args.max_request,
+                                       args.seed)
+    whole = []
+    serve_gnn.drain_requests(server, requests, whole)
+    assert reps["1"]["rows_sha256"] == reps["2"]["rows_sha256"] == \
+        reps["2s"]["rows_sha256"] == serve_gnn.rows_digest(whole)
+    for k, rep in reps.items():
+        assert rep["mesh"] == int(k[0]) and rep["shard_graph"] == (k == "2s")
+        assert rep["nodes"] == reps["1"]["nodes"] and rep["batch"] == 256
+    assert reps["2"]["graph_state_bytes_per_device"] == \
+        reps["1"]["graph_state_bytes_per_device"]
+    assert reps["2s"]["graph_state_bytes_per_device"] <= \
+        0.6 * reps["1"]["graph_state_bytes_per_device"]
+    with pytest.raises(ValueError, match="--mesh"):
+        serve_gnn.main(base + ["--shard-graph"])
 
 
 @pytest.mark.parametrize("backbone", ["gat", "transformer"])
