@@ -249,7 +249,40 @@ Phases (each prints its own lines; any failure exits non-zero):
    full width and a micro-batch of 1,024, 200 requests: equal
    ``rows_sha256``, graph state at most 0.6x a rank; a rank that fails or
    a collective that times out fails the script;
-33. a ``{"kernels": [...]}`` line (the quantized and wide forms, the
+33. lm-train, LM training at llama3.2-3b's full published width (28
+   layers, d 3072, 24 heads, 8 kv heads, d_ff 8192, vocab 128,256, bf16,
+   remat on; random weights from a seeded generator on the card) through
+   ``repro_torch.train.loop.make_train_step`` with the launcher's
+   optimizer (Adam, bf16 moments, ``warmup_cosine(3e-4, 10, steps)``,
+   ``clip_norm=1.0``), batches of 4 x 2,049 tokens from the port's token
+   stream: 20 steps with VQ-Attention at the config defaults (k 1024, W
+   512: 4 windows, codewords read from block 2 on), the full state saved
+   with ``train/checkpoint.py`` after step 10 and restored equal (phase
+   36), a profile of 2 more steps, then 8 exact-attention steps
+   (``gqa_attend``, two query chunks of 1,024) from the same weights;
+   finite losses and gradient norms, the mean of the last 5 VQ losses
+   under the first step's, and no hand-written kernel launched (the
+   reference's training path calls none); step p50 / p99 (host clock to
+   the loss), tok/s, peak memory, the model-FLOPs share of the bf16 peak
+   and layer 0's live codewords per head (W of k: queue 3 of
+   ROADMAP.md);
+34. lm-prefill: ``lm.prefill`` at the same width under no_grad, VQ and
+   exact, [4, 2048] tokens: finite [4, 128256] logits, ms a call, tok/s;
+35. lm-train-parity: 2 layers of the same width in f32, TF32 off, the
+   weights copied to the CPU, batch 2 x 192 tokens, VQ-Attention k 64, W
+   64: loss and every gradient from the same state, then 3 steps of
+   ``make_train_step`` (the launcher's optimizer) carried on each device,
+   and one exact step, card vs CPU (loss, gradients, gradient norms
+   ``rtol=1e-4, atol=1e-5``; params within ``rtol=1e-5`` and twice the
+   steps' summed Adam step size, moments within a bf16 ulp);
+36. lm-checkpoint: phase 33's state at step 10 (params and both bf16
+   moments, 43 GB as the reference's f32 npz) saved and restored, every
+   leaf equal, the seconds of each; then ``train``'s failure drill on the
+   card at 2 layers of the example's ``100m`` preset (d 768, vocab
+   32,768): a failure before step 5, between the checkpoints of steps 4
+   and 6, restores step 4, and the run ends at step 6 with the
+   undisturbed run's losses within ``rtol=1e-4, atol=1e-5``;
+37. a ``{"kernels": [...]}`` line (the quantized and wide forms, the
    link shapes and the dispatch phase's shapes under each kernel's
    ``also``, each with its launches on the main paths -- a wide form's
    at its operand shape, as the wrapper counts them, every wide shape's
@@ -264,6 +297,7 @@ repository) it exits non-zero and prints no result.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import os
@@ -310,6 +344,23 @@ LM_EXACT_TOKENS = 64
 LM_PARITY_LAYERS = 2
 LM_PARITY_STEPS = 96          # 32 evictions past the 64-token window
 LM_TOL = dict(rtol=1e-4, atol=1e-4)
+# LM training and prefill at llama3.2-3b's full width
+LM_TRAIN_BATCH = 4
+LM_TRAIN_SEQ = 2048           # 4 windows of the config's W 512
+LM_TRAIN_VQ_STEPS = 20
+LM_TRAIN_EXACT_STEPS = 8
+LM_TRAIN_LR = 3e-4            # the launcher's default
+LM_CKPT_STEP = 10             # the full state saved and restored here
+LM_PREFILL_REPS = 3
+LM_TRAIN_PARITY_LAYERS = 2
+LM_TRAIN_PARITY_BATCH = 2
+LM_TRAIN_PARITY_SEQ = 192     # 3 windows of 64: codewords read at block 2
+LM_TRAIN_PARITY_K = 64
+LM_TRAIN_PARITY_W = 64
+LM_TRAIN_PARITY_STEPS = 3
+LM_TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)
+LM_DRILL_STEPS = 6            # checkpoints at steps 2, 4 and 6
+LM_DRILL_AT = 5               # the failure: restored from step 4
 SAMPLER_METHODS = ("ns_sage", "labor", "cluster", "saint")
 SAMPLER_EPOCHS = 2
 HYBRID_EPOCHS = 2
@@ -1619,16 +1670,33 @@ def phase_cpu_parity(server, requests, tag: str = "cpu parity") -> None:
         f"the CPU plain path, max abs err {worst:.3g} (rtol 1e-4, atol 1e-5)")
 
 
-def _profile(what: str, steps: list, run) -> dict:
+# kernel-name groups of a training step's device time, first match wins
+LM_KERNEL_GROUPS = (
+    ("f32 GEMM", ("sgemm", "f32f32_f32f32")),
+    ("other GEMM (bf16)", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("softmax", ("softmax",)),
+    ("reduction", ("reduce",)),
+    ("index / scatter / gather / cat", ("index", "scatter", "gather",
+                                        "cat")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _profile(what: str, steps: list, run, groups=None,
+             cpu: bool = True) -> dict:
     """Device busy share and kernel time by name over ``run(s)`` for each
     of ``steps`` (only device-side events count: an aten op's row repeats
-    its kernels')."""
+    its kernels'); with ``groups`` also the device ms of each group of
+    kernel names (``(label, substrings)``, first match wins; the rest
+    under "other").  ``cpu=False`` records the device's activity only: a
+    window of ~65 k kernels then takes seconds to summarise, not a
+    minute."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for s in steps:
             run(s)
@@ -1647,6 +1715,14 @@ def _profile(what: str, steps: list, run) -> dict:
            "kernels_per_step": sum(e.count for e in evs) / len(steps),
            "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
                    for e in top]}
+    if groups is not None:
+        by = {label: 0.0 for label, _ in groups} | {"other": 0.0}
+        for e in evs:
+            key = e.key.lower()
+            label = next((lb for lb, subs in groups
+                          if any(x in key for x in subs)), "other")
+            by[label] += e.self_device_time_total / 1e3 / len(steps)
+        rep["device_ms_per_step_by_group"] = by
     log(json.dumps({"profile": rep}))
     return rep
 
@@ -4381,6 +4457,443 @@ def phase_mesh_serve() -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# LM training and prefill
+# ---------------------------------------------------------------------------
+
+def _lm_train_cfg(vq: bool):
+    """The launcher's configuration of llama3.2-3b at full width (bf16,
+    remat on), VQ-Attention at the config defaults (k 1024, W 512) when
+    ``vq``."""
+    from repro_torch.launch import train as tlaunch
+    args = tlaunch.parser().parse_args([
+        "--arch", LM_ARCH, "--batch", str(LM_TRAIN_BATCH), "--seq",
+        str(LM_TRAIN_SEQ)])
+    cfg = tlaunch.config(args)
+    return cfg.with_vq() if vq else cfg
+
+
+def _lm_batches(cfg, batch: int, seq: int, steps: int) -> list:
+    """The port's token stream, seed SEED: ``steps`` batches of [batch,
+    seq + 1] on the host."""
+    import torch
+    from repro_torch.data.tokens import TokenStreamConfig, batch_shard
+    ds = TokenStreamConfig(vocab=cfg.vocab, seq_len=seq + 1,
+                           global_batch=batch, seed=SEED)
+    return [torch.from_numpy(batch_shard(ds, s, 0, 1)) for s in range(steps)]
+
+
+def _lm_model_flops(cfg, tokens: int, n_matmul: int) -> float:
+    """Model FLOPs of one training step (PaLM's count, remat not counted):
+    6 N T for the N matmul parameters (every weight but the embedding
+    table and the norms), plus 12 L Hq dh C T for the attention's two
+    products, C the keys a query scores: S for exact attention, k + 2W
+    for VQ-Attention."""
+    ctx = (cfg.vq_k + 2 * cfg.vq_window) if cfg.vq_attn else LM_TRAIN_SEQ
+    return 6.0 * n_matmul * tokens \
+        + 12.0 * cfg.n_layers * cfg.n_heads * cfg.hd * ctx * tokens
+
+
+def _live_codewords(params, cfg, tokens) -> list:
+    """Live codewords per (batch, kv head) that layer 0's VQ-Attention
+    ends a sequence with: ``vq_attention_train``'s codebook masses on
+    ``tokens`` under ``params``."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.nn.attention import qkv
+    from repro_torch.nn.layers import rmsnorm
+    from repro_torch.nn.vq_attention import VQAttnConfig, train_blocks
+    with torch.no_grad():
+        bp = lm.per_layer(params["blocks"])[0]
+        x = lm.embed_lookup(params["embed"], tokens, cfg.vocab)
+        b, s = tokens.shape
+        pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        q, k, v = qkv(bp["attn"], rmsnorm(x, bp["ln1"], cfg.norm_eps),
+                      cfg.n_heads, cfg.n_kv_heads, cfg.hd, pos,
+                      qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
+        _, count = train_blocks(q, k, v, VQAttnConfig(cfg.vq_k,
+                                                      cfg.vq_window))
+    return (count > 0).sum(-1).flatten().tolist()
+
+
+def _lm_state_bytes(state) -> int:
+    from repro_torch.train.optimizer import tree_leaves
+    return int(sum(t.numel() * t.element_size() for t in tree_leaves(
+        (state.params, state.opt.mu, state.opt.nu))))
+
+
+def phase_lm_checkpoint_full(state) -> dict:
+    """The full training state through the port's ``checkpoint.save``
+    (streamed a leaf at a time) and ``restore`` into a fresh state of
+    expanded 0-d leaves (no memory of their own), every leaf equal."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.train import checkpoint as tckpt
+    from repro_torch.train.optimizer import tree_map
+    n_bytes = sum(t.numel() * (4 if t.dtype == torch.bfloat16
+                               else t.element_size())
+                  for _, t in tckpt._paths(state))
+    root = tempfile.mkdtemp(prefix="lm_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"lm-checkpoint: {n_bytes} bytes to write under {root} "
+            f"({free} bytes free)")
+        if free < 1.1 * n_bytes:
+            raise SystemExit(f"lm-checkpoint: {free} bytes free under "
+                             f"{root}, the checkpoint needs {n_bytes}")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tckpt.save(root, int(state.step), state, {"seed": SEED})
+        save_s = time.time() - t0
+        fresh = tree_map(lambda t: torch.zeros(
+            (), dtype=t.dtype, device=t.device).expand(t.shape), state)
+        t0 = time.time()
+        got, manifest = tckpt.restore(root, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.time() - t0
+        if manifest["step"] != int(state.step):
+            raise SystemExit(f"lm-checkpoint: manifest {manifest}")
+        want = dict(tckpt._paths(state))
+        for key, leaf in tckpt._paths(got):
+            w = want[key]
+            if leaf.dtype != w.dtype or leaf.device != w.device \
+                    or not torch.equal(leaf, w):
+                raise SystemExit(f"lm-checkpoint: {key} not restored equal")
+        del got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rep = {"step": int(state.step), "file_bytes": n_bytes,
+           "leaves": len(want), "save_s": save_s, "restore_s": restore_s}
+    log(f"lm-checkpoint: step {rep['step']}, {len(want)} leaves, "
+        f"{n_bytes} bytes saved in {save_s:.2f} s, restored equal in "
+        f"{restore_s:.2f} s")
+    return rep
+
+
+def phase_lm_train() -> tuple[dict, dict]:
+    """llama3.2-3b at full width through ``make_train_step`` with the
+    launcher's optimizer: LM_TRAIN_VQ_STEPS VQ-Attention steps (the full
+    state checkpointed and restored after step LM_CKPT_STEP), a profile of
+    2 more, then LM_TRAIN_EXACT_STEPS exact steps from the same initial
+    weights; no hand-written kernel launched.  Returns the report and the
+    checkpoint's."""
+    import torch
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import lm
+    from repro_torch.train.loop import TrainState
+    from repro_torch.train.optimizer import tree_leaves
+    cfg_vq, cfg_x = _lm_train_cfg(True), _lm_train_cfg(False)
+    t0 = time.time()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = lm.init_lm(cfg_x, gen, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    blocks = params["blocks"]
+    n_matmul = params["head"].numel() + sum(
+        t.numel() for t in (*blocks["attn"][:4], *blocks["mlp"]))
+    del params, blocks
+    steps_max = max(LM_TRAIN_VQ_STEPS + 2, LM_TRAIN_EXACT_STEPS)
+    batches = _lm_batches(cfg_x, LM_TRAIN_BATCH, LM_TRAIN_SEQ, steps_max)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    rep = {"arch": cfg_x.name, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+           "params": n_params, "matmul_params": n_matmul, "init_s": init_s,
+           "lr": LM_TRAIN_LR, "moment_dtype": "bfloat16"}
+    ckpt_rep = None
+
+    def run(cfg, steps, tag):
+        """``steps`` steps from the seed's weights (drawn again for each
+        run: the generator gives the same weights every time)."""
+        nonlocal ckpt_rep
+        opt = tlaunch.optimizer(LM_TRAIN_LR, steps)
+        step_fn = tlaunch.make_step(cfg, opt, 1)
+        params = lm.init_lm(cfg, torch.Generator(device=DEVICE).manual_seed(
+            SEED), device=DEVICE)
+        state = TrainState(params, opt.init(params),
+                           torch.zeros((), dtype=torch.int32, device=DEVICE))
+        losses, gnorms, ms = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        del params
+        for s in range(steps):
+            tok = batches[s].to(DEVICE)
+            t = time.perf_counter()
+            state, m = step_fn(state, tok)
+            losses.append(float(m["loss"]))           # host clock to the loss
+            ms.append((time.perf_counter() - t) * 1e3)
+            gnorms.append(float(m["grad_norm"]))
+            log(f"lm-train {tag} step {s + 1}: loss {losses[-1]:.5f} grad "
+                f"norm {gnorms[-1]:.5f} {ms[-1]:.1f} ms")
+            if tag == "vq" and s + 1 == LM_CKPT_STEP:
+                ckpt_rep = phase_lm_checkpoint_full(state)
+        counts = read_counts()
+        expect_counts(f"lm-train {tag}", counts, {})
+        peak = torch.cuda.max_memory_allocated()
+        if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(gnorms))):
+            raise SystemExit(f"lm-train {tag}: non-finite loss or gradient "
+                             f"norm: {losses} {gnorms}")
+        warm = np.asarray(ms[1:])          # the first step allocates
+        mf = _lm_model_flops(cfg, tokens, n_matmul)
+        p50 = float(np.percentile(warm, 50))
+        out = {"steps": steps, "losses": losses, "grad_norms": gnorms,
+               "step_ms": ms, "step_p50_ms": p50,
+               "step_p99_ms": float(np.percentile(warm, 99)),
+               "tok_per_s": tokens / (p50 / 1e3),
+               "max_memory_allocated": int(peak),
+               "state_bytes": _lm_state_bytes(state),
+               "model_flops": mf,
+               "model_flops_share_bf16_peak": mf / (p50 / 1e3)
+               / BF16_FLOP_PER_S}
+        log(f"lm-train {tag}: {steps} steps, loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, step p50 {p50:.1f} ms p99 "
+            f"{out['step_p99_ms']:.1f} ms, {out['tok_per_s']:.1f} tok/s, "
+            f"peak {peak} bytes, model-FLOPs share "
+            f"{out['model_flops_share_bf16_peak']:.4f} of the bf16 peak")
+        return state, step_fn, out
+
+    state, step_fn, rep["vq"] = run(cfg_vq, LM_TRAIN_VQ_STEPS, "vq")
+    losses = rep["vq"]["losses"]
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise SystemExit(f"lm-train vq: the last 5 losses' mean "
+                         f"{np.mean(losses[-5:])} is not under the first "
+                         f"step's {losses[0]}")
+    live = _live_codewords(state.params, cfg_vq, batches[0].to(DEVICE)[:, :-1])
+    rep["vq"]["live_codewords_layer0"] = sorted(set(live))
+    log(f"lm-train vq: layer 0's live codewords per (batch, kv head) "
+        f"{sorted(set(live))} of k {cfg_vq.vq_k} (W {cfg_vq.vq_window})")
+    holder = [state]
+
+    def prof_step(s):
+        holder[0] = step_fn(holder[0], batches[LM_TRAIN_VQ_STEPS + s].to(
+            DEVICE))[0]
+    t0 = time.time()
+    rep["vq"]["profile"] = _profile("lm-train vq step", [0, 1], prof_step,
+                                    LM_KERNEL_GROUPS, cpu=False)
+    rep["vq"]["profile"]["seconds"] = time.time() - t0
+    del state, holder, step_fn
+    torch.cuda.empty_cache()
+    _, _, rep["exact"] = run(cfg_x, LM_TRAIN_EXACT_STEPS, "exact")
+    torch.cuda.empty_cache()
+    return rep, ckpt_rep
+
+
+def phase_lm_prefill() -> dict:
+    """``lm.prefill`` at full width under no_grad, VQ and exact, batch
+    LM_TRAIN_BATCH x LM_TRAIN_SEQ: finite [B, vocab] logits, ms a call."""
+    import torch
+    from repro_torch.models import lm
+    cfg_x = _lm_train_cfg(False)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = lm.init_lm(cfg_x, gen, device=DEVICE)
+    tok = _lm_batches(cfg_x, LM_TRAIN_BATCH, LM_TRAIN_SEQ, 1)[0][:, :-1].to(
+        DEVICE)
+    rep = {}
+    reset_counts()
+    for tag, cfg in (("vq", _lm_train_cfg(True)), ("exact", cfg_x)):
+        ms = []
+        with torch.no_grad():
+            for _ in range(LM_PREFILL_REPS + 1):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits = lm.prefill(params, tok, cfg)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+        if tuple(logits.shape) != (LM_TRAIN_BATCH, cfg.vocab) \
+                or not bool(torch.isfinite(logits).all()):
+            raise SystemExit(f"lm-prefill {tag}: logits "
+                             f"{tuple(logits.shape)} not finite or of the "
+                             f"wrong shape")
+        p50 = float(np.median(ms[1:]))
+        rep[tag] = {"ms": ms[1:], "ms_p50": p50, "first_ms": ms[0],
+                    "tok_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / (p50 / 1e3)}
+        log(f"lm-prefill {tag}: [{LM_TRAIN_BATCH}, {LM_TRAIN_SEQ}] in "
+            f"{p50:.2f} ms ({rep[tag]['tok_per_s']:.1f} tok/s)")
+    expect_counts("lm-prefill", read_counts(), {})
+    del params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _tree_close(what: str, got, want, rtol: float, atol: float) -> float:
+    """Every leaf of ``got`` (card) within ``atol + rtol |want|`` of
+    ``want`` (CPU), compared on the card; returns the largest abs error."""
+    import torch
+    from repro_torch.train import checkpoint as tckpt
+    want_d = dict(tckpt._paths(want))
+    worst = 0.0
+    for key, g in tckpt._paths(got):
+        w = want_d[key].to(g.device).float()
+        g = g.float()
+        if not bool(torch.isfinite(g).all()):
+            raise SystemExit(f"{what} {key}: non-finite values")
+        err = (g - w).abs()
+        bad = err > atol + rtol * w.abs()
+        if bool(bad.any()):
+            raise SystemExit(f"{what} {key}: {int(bad.sum())} elements beyond "
+                             f"rtol {rtol} atol {atol} (max abs err "
+                             f"{float(err.max())})")
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    return worst
+
+
+def phase_lm_train_parity() -> dict:
+    """2 layers at full width in f32, TF32 off, the weights copied to the
+    CPU: loss and gradients from the same state, then
+    LM_TRAIN_PARITY_STEPS steps of ``make_train_step`` (VQ-Attention k 64,
+    W 64; the launcher's optimizer) carried on each device, and one exact
+    step; card vs CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch import convert
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import lm
+    from repro_torch.train.loop import TrainState, loss_and_grads
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit("lm-train-parity: TF32 is on")
+    base = dataclasses.replace(_lm_train_cfg(False),
+                               n_layers=LM_TRAIN_PARITY_LAYERS,
+                               dtype="float32")
+    cfg = base.with_vq(k=LM_TRAIN_PARITY_K, window=LM_TRAIN_PARITY_W)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    params = lm.init_lm(cfg, gen, device=DEVICE)
+    batches = _lm_batches(cfg, LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ,
+                          LM_TRAIN_PARITY_STEPS)
+    steps = LM_TRAIN_PARITY_STEPS
+    opt = tlaunch.optimizer(LM_TRAIN_LR, steps)
+    states = [TrainState(p, opt.init(p), torch.zeros(
+        (), dtype=torch.int32, device=p["embed"].device))
+        for p in (params, convert.to_device(params, "cpu"))]
+    t_card = t_cpu = 0.0
+    rep = {"layers": cfg.n_layers, "batch": LM_TRAIN_PARITY_BATCH,
+           "seq": LM_TRAIN_PARITY_SEQ, "k": cfg.vq_k, "window": cfg.vq_window,
+           "cpu_s_by_call": []}
+
+    def both(fn, *args_by_dev):
+        nonlocal t_card, t_cpu
+        t = time.time()
+        a = fn(*args_by_dev[0])
+        torch.cuda.synchronize()
+        t_card += time.time() - t
+        t = time.time()
+        b = fn(*args_by_dev[1])
+        t_cpu += time.time() - t
+        rep["cpu_s_by_call"].append(time.time() - t)
+        return a, b
+
+    (lc, gc), (lh, gh) = both(
+        lambda st, tk: loss_and_grads(st.params, tk, cfg),
+        (states[0], batches[0].to(DEVICE)), (states[1], batches[0]))
+    rep["loss_err"] = check_close("lm-train-parity loss", lc.reshape(1),
+                                  lh.reshape(1), LM_TRAIN_TOL)
+    rep["grad_err"] = _tree_close("lm-train-parity grad", gc, gh,
+                                  **LM_TRAIN_TOL)
+    del gc, gh
+    step_fn = tlaunch.make_step(cfg, opt, 1)
+    lr_sum, rep["steps"] = 0.0, []
+    for s in range(steps):
+        (states[0], mc), (states[1], mh) = both(
+            step_fn, (states[0], batches[s].to(DEVICE)),
+            (states[1], batches[s]))
+        lr_sum += _lm_lr_t(s + 1, steps)
+        row = {"loss": [float(mc["loss"]), float(mh["loss"])],
+               "grad_norm": [float(mc["grad_norm"]), float(mh["grad_norm"])]}
+        for k_ in ("loss", "grad_norm"):
+            check_close(f"lm-train-parity step {s + 1} {k_}",
+                        mc[k_].reshape(1), mh[k_].reshape(1), LM_TRAIN_TOL)
+        # params: Adam moves an element by lr_t m / (sqrt(v) + eps), about
+        # lr_t sign(g) early on, so a gradient within rounding of 0 whose
+        # sign differs between the devices moves it 2 lr_t apart
+        row["param_err"] = _tree_close(
+            f"lm-train-parity step {s + 1} params", states[0].params,
+            states[1].params, rtol=1e-5, atol=2.0 * lr_sum + 1e-6)
+        # moments in bf16: one bf16 ulp (2^-7 relative at most) from f32
+        # moments that agree to LM_TRAIN_TOL
+        row["moment_err"] = max(
+            _tree_close(f"lm-train-parity step {s + 1} {n}",
+                        getattr(states[0].opt, n), getattr(states[1].opt, n),
+                        rtol=2.0 ** -7, atol=at)
+            for n, at in (("mu", 1e-6), ("nu", 1e-10)))
+        rep["steps"].append(row)
+        log(f"lm-train-parity step {s + 1}: loss {row['loss']}, grad norm "
+            f"{row['grad_norm']}, params max abs err {row['param_err']:.3g}, "
+            f"moments {row['moment_err']:.3g}")
+    # one exact-attention step from the initial weights
+    fresh = [TrainState(p, opt.init(p), torch.zeros(
+        (), dtype=torch.int32, device=p["embed"].device))
+        for p in (params, convert.to_device(params, "cpu"))]
+    xstep = tlaunch.make_step(base, opt, 1)
+    (_, mc), (_, mh) = both(xstep, (fresh[0], batches[0].to(DEVICE)),
+                            (fresh[1], batches[0]))
+    rep["exact_loss"] = [float(mc["loss"]), float(mh["loss"])]
+    check_close("lm-train-parity exact loss", mc["loss"].reshape(1),
+                mh["loss"].reshape(1), LM_TRAIN_TOL)
+    check_close("lm-train-parity exact grad norm", mc["grad_norm"].reshape(1),
+                mh["grad_norm"].reshape(1), LM_TRAIN_TOL)
+    rep.update(card_s=t_card, cpu_s=t_cpu)
+    log(f"lm-train-parity: {cfg.name} at {cfg.n_layers} layers f32, loss and "
+        f"gradients within rtol 1e-4 atol 1e-5, {steps} VQ steps and one "
+        f"exact step agree; card {t_card:.2f} s, CPU {t_cpu:.2f} s")
+    del states, fresh, params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _lm_lr_t(step: int, total: int) -> float:
+    """The launcher's Adam step size at ``step``: warmup_cosine(lr, 10,
+    total)(step) * sqrt(1 - b2^t) / (1 - b1^t)."""
+    import torch
+    from repro_torch.train.optimizer import warmup_cosine
+    lr = float(warmup_cosine(LM_TRAIN_LR, 10, total)(torch.tensor(step)))
+    return lr * math.sqrt(1 - 0.999 ** step) / (1 - 0.9 ** step)
+
+
+def phase_lm_drill() -> dict:
+    """``train``'s failure drill on the card: 2 layers of the example's
+    ``100m`` preset (d 768, vocab 32,768: a checkpoint of 0.8 GB), a
+    failure before step 5 between the checkpoints of steps 4 and 6; the
+    same step count as an undisturbed run, its losses from the restored
+    step on within LM_TRAIN_TOL."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.examples.train_lm import PRESETS
+    from repro_torch.train.loop import train
+    cfg = dataclasses.replace(PRESETS["100m"], n_layers=2)
+    kw = dict(steps=LM_DRILL_STEPS, batch=4, seq_len=256, ckpt_every=2,
+              log_every=1, device=DEVICE)
+    root = tempfile.mkdtemp(prefix="lm_drill_")
+    try:
+        t0 = time.time()
+        clean = train(cfg, ckpt_dir=os.path.join(root, "a"), **kw)["history"]
+        drill = train(cfg, ckpt_dir=os.path.join(root, "b"),
+                      inject_failure_at=LM_DRILL_AT, **kw)["history"]
+        dt = time.time() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = {h["step"]: h["loss"] for h in clean}
+    steps = [h["step"] for h in drill]
+    if max(steps) != LM_DRILL_STEPS or steps.count(LM_DRILL_AT) != 2:
+        raise SystemExit(f"lm-checkpoint drill: logged steps {steps}")
+    got = np.asarray([h["loss"] for h in drill])
+    ref = np.asarray([want[s] for s in steps])
+    if not np.allclose(got, ref, **LM_TRAIN_TOL):
+        raise SystemExit(f"lm-checkpoint drill: losses {got.tolist()} vs "
+                         f"the undisturbed run's {ref.tolist()}")
+    rep = {"steps": steps, "losses": got.tolist(),
+           "max_abs_err": float(np.abs(got - ref).max()), "seconds": dt}
+    log(f"lm-checkpoint drill: {cfg.name} at 2 layers, failure at step "
+        f"{LM_DRILL_AT} restored from step {LM_DRILL_AT - 1}, logged steps "
+        f"{steps}, losses within rtol 1e-4 atol 1e-5 of the undisturbed "
+        f"run (max abs err {rep['max_abs_err']:.3g}) in {dt:.2f} s")
+    return rep
+
+
 def main() -> int:
     import argparse
     import torch
@@ -4607,6 +5120,22 @@ def main() -> int:
     log(f"mesh paths' launches (both ranks of (b) added): "
         f"{mesh_rep['launches']}")
 
+    # --- LM training and prefill at llama3.2-3b's full width (no
+    # hand-written kernel on these paths, as in the reference) ---
+    del server, tier_servers, a4_servers, m_t, m_g, m_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm-train: {torch.cuda.memory_allocated()} bytes held on the card "
+        f"by the earlier phases")
+    lm_train_rep, lm_ckpt_rep = timed("lm-train", phase_lm_train)
+    ckpt_s = lm_ckpt_rep["save_s"] + lm_ckpt_rep["restore_s"]
+    seconds["lm-train"] -= ckpt_s
+    seconds["lm-checkpoint"] = ckpt_s
+    log(f"phase lm-train without its checkpoint: {seconds['lm-train']:.2f} s")
+    lm_prefill_rep = timed("lm-prefill", phase_lm_prefill)
+    lm_train_parity = timed("lm-train-parity", phase_lm_train_parity)
+    lm_ckpt_rep["drill"] = timed("lm-checkpoint", phase_lm_drill)
+
     # --- launches on the main paths, and the kernels line ---
     launches = train_counts
     link_counts = add_counts(add_counts(link_train_counts, link_full_counts),
@@ -4769,6 +5298,10 @@ def main() -> int:
         "host_loop": host_rep}))
     log(json.dumps({"dispatch": dispatch_rep}))
     log(json.dumps({"mesh": mesh_rep}))
+    log(json.dumps({"lm_train": lm_train_rep}))
+    log(json.dumps({"lm_prefill": lm_prefill_rep}))
+    log(json.dumps({"lm_train_parity": lm_train_parity}))
+    log(json.dumps({"lm_checkpoint": lm_ckpt_rep}))
     seconds["total"] = time.time() - T_START
     log(json.dumps({"seconds": seconds}))
     log(f"chip_smoke: {seconds['total']:.1f} s from start to the "

@@ -19,7 +19,9 @@ whose ``attn`` / ``mlp`` leaves are NamedTuples with the fields of
 ``AttnParams`` / ``MLPParams``, stacked [L, ...]) and
 ``serve_cache_from_numpy`` its ``init_serve_cache`` tree (``{"kv": ...}``
 with the fields of ``KVCache`` or ``VQKVCache``, stacked over layers);
-bf16 arrays cross as their bytes, like fp8.
+``train_state_from_numpy`` its ``train.loop.TrainState(params,
+OptState(step, mu, nu), step)``, the moments in their own dtype; bf16
+arrays cross as their bytes, like fp8.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch.nn.attention import AttnParams, KVCache
 from repro_torch.nn.ffn import MLPParams
 from repro_torch.nn.vq_attention import VQKVCache
 from repro_torch.runtime import resolve_device
+from repro_torch.train.loop import TrainState
 from repro_torch.train.optimizer import OptState
 
 _CODEBOOK_FIELDS = CodebookState._fields
@@ -138,6 +141,25 @@ def serve_cache_from_numpy(cache: Mapping[str, Any],
     """The port's decode cache from the reference's ``init_serve_cache``
     tree: ``{"kv": KVCache | VQKVCache}`` stacked over layers."""
     return _lm_tree(cache, resolve_device(device))
+
+
+def _int32(x, dev: torch.device) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=dev)
+
+
+def train_state_from_numpy(state: Any, device: str | torch.device = "cuda"
+                           ) -> TrainState:
+    """The port's LM ``TrainState`` from the reference's: ``params`` (the
+    ``init_lm`` tree), ``opt`` with ``step``, ``mu`` and ``nu`` (moments in
+    the params' layout, in whatever dtype they are stored) and ``step``
+    (numpy-convertible leaves)."""
+    dev = resolve_device(device)
+    opt = state.opt
+    return TrainState(
+        params=_lm_tree(state.params, dev),
+        opt=OptState(step=_int32(opt.step, dev), mu=_lm_tree(opt.mu, dev),
+                     nu=_lm_tree(opt.nu, dev)),
+        step=_int32(state.step, dev))
 
 
 def to_device(tree, device: str | torch.device):

@@ -1,21 +1,28 @@
-"""LM backbone: the dense family's decode path (twin of the serving half
-of ``repro.models.lm``).
+"""LM backbone, dense family (twin of ``repro.models.lm``).
 
   dense -- granite-3-8b, llama3-405b, qwen3-32b, llama3.2-3b
 
-Entry points: ``init_lm``, ``init_serve_cache``, ``serve_step``.  Blocks
-stay stacked ``[L, ...]`` as the reference's vmap builds them, so weights
-and caches carry across one to one (``repro_torch.convert``); the layer
-loop is a Python loop over views of the stacks, where the reference scans.
-Exact attention is the published architectures' baseline; ``cfg.vq_attn``
-swaps in VQ-Attention (the paper's technique) behind the same interface:
-an O(k + W) cache per sequence instead of O(context).
+Entry points: ``init_lm``, ``train_loss`` (and ``forward_train`` under
+it), ``prefill``, ``init_serve_cache``, ``serve_step``.  Blocks stay
+stacked ``[L, ...]`` as the reference's vmap builds them, so weights,
+gradients, optimizer moments and caches carry across one to one
+(``repro_torch.convert``, ``train/checkpoint.py``); the layer loop is a
+Python loop over views of the stacks, where the reference scans, and a
+view's gradient lands in its stacked leaf.  ``cfg.remat`` checkpoints
+each layer (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of the scan body); ``cfg.remat_group > 1`` nests it
+as the reference does: a checkpoint per group of layers around a
+checkpoint per layer.  Exact attention is the published architectures'
+baseline (``gqa_attend``: plain PyTorch in query chunks, as the
+reference's is plain XLA; no model path of the reference calls its
+flash kernel); ``cfg.vq_attn`` swaps in VQ-Attention (the paper's
+technique) behind the same interface: sub-quadratic training and
+prefill, an O(k + W) cache per sequence in decode.
 
 The other families (moe, ssm, hybrid, audio, vlm) raise, naming the LM
-families slice; training and prefill (``forward_train``, ``train_loss``,
-``prefill``) come with the LM training slice.  The reference's
-``constrain_tokens`` is the identity on one device (no sharding policy is
-set), so ``_ffn`` has no counterpart for it.
+families slice.  The reference's ``constrain_tokens`` is the identity on
+one device (no sharding policy is set), so the port has no counterpart
+for it.
 
 ``serve_step`` updates the cache in place (the KV / VQ buffers of every
 layer) and returns it with ``pos + 1``: the cache passed in is consumed.
@@ -25,13 +32,16 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.nn.attention import KVCache, decode_attend, init_attn, qkv
+from repro_torch.nn.attention import (KVCache, decode_attend, gqa_attend,
+                                      init_attn, qkv)
 from repro_torch.nn.ffn import apply_mlp, init_mlp
 from repro_torch.nn.layers import dense_init, embed_init, rmsnorm
 from repro_torch.nn.vq_attention import (VQAttnConfig, VQKVCache,
-                                         vq_attention_decode)
+                                         vq_attention_decode,
+                                         vq_attention_train)
 from repro_torch.runtime import LM_FAMILIES_SLICE, resolve_device
 
 Params = dict
@@ -149,6 +159,103 @@ def init_serve_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
         torch.zeros((n, batch, seq_len, hkv, hd), dtype=dt, device=dev),
         torch.zeros((n, batch, seq_len, hkv, hd), dtype=dt, device=dev),
         pos)}
+
+
+# ===========================================================================
+# training forward, loss, prefill
+# ===========================================================================
+
+def _attn_train(bp: dict, x: torch.Tensor, cfg: ArchConfig,
+                positions: torch.Tensor) -> torch.Tensor:
+    b, s, _ = x.shape
+    h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    q, k, v = qkv(bp["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                  positions, qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
+    if cfg.vq_attn:
+        o = vq_attention_train(q, k, v, _vq_cfg(cfg))
+    else:
+        o = gqa_attend(q, k, v, causal=True)
+    return x + o.reshape(b, s, -1) @ bp["attn"].wo
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """Embedding rows of ``tokens`` [B, S] -> [B, S, d].
+
+    From vocab 8192 up the reference multiplies a one-hot by the table in
+    chunks of 512 tokens, only to keep a vocab-sharded table sharded under
+    GSPMD.  A gather gives the same rows bit for bit; gathering from an
+    f32 view of the table adds every token's row of the gradient in f32
+    and rounds it to the table's dtype once, at the cost of an f32 copy of
+    the table, where the one-hot product would spend 2 B x S x V x d
+    operations each way.  The reference's chunked product rounds within
+    and across its chunks (on XLA's CPU it sums in bf16), so the two bf16
+    gradients differ by that rounding (``ROADMAP.md`` queue 3).  Below
+    8192 the reference gathers from the table itself, and so does the
+    port."""
+    tokens = tokens.long()
+    if vocab < 8192:
+        return embed[tokens]
+    return embed.float()[tokens].to(embed.dtype)
+
+
+def forward_train(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+                  aux_embeds: Optional[torch.Tensor] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (final hidden states [B, S, d] after ``ln_f``, the
+    MoE aux loss: 0 for the dense family).  ``aux_embeds`` is the
+    reference's input of the audio / vision families; the dense family
+    ignores it."""
+    check_family(cfg)
+    b, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens, cfg.vocab)
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    layers = per_layer(params["blocks"])
+
+    def body(xc, bp):
+        return _ffn(bp, _attn_train(bp, xc, cfg, positions), cfg)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    gsz = cfg.remat_group
+    if remat and gsz > 1 and cfg.n_layers % gsz == 0:
+        # nested remat: a checkpoint per group around a checkpoint per
+        # layer, so a group's recompute holds one layer's residuals
+        def group_body(xc, group):
+            for bp in group:
+                xc = checkpoint(body, xc, bp, use_reentrant=False)
+            return xc
+        for g0 in range(0, cfg.n_layers, gsz):
+            x = checkpoint(group_body, x, layers[g0:g0 + gsz],
+                           use_reentrant=False)
+    else:
+        for bp in layers:
+            x = checkpoint(body, x, bp, use_reentrant=False) if remat \
+                else body(x, bp)
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def train_loss(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+               aux_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy, the mean over tokens (+ 0.01 x the MoE
+    aux loss).  ``tokens`` [B, S + 1].  The logits are the model-dtype
+    product cast to f32, as in the reference; the target logit is a
+    gather, bit-equal to the reference's one-hot contraction for finite
+    logits, without its [B, S, V] f32 one-hot."""
+    hidden, moe_aux = forward_train(params, tokens[:, :-1], cfg, aux_embeds)
+    targets = tokens[:, 1:].long()
+    logits = (hidden @ params["head"]).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    target_logit = logits.gather(-1, targets[..., None])[..., 0]
+    return torch.mean(lse - target_logit) + 0.01 * moe_aux
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+            aux_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Prefill forward: the last position's logits [B, vocab] in the
+    model's dtype (the head is applied to that position only)."""
+    hidden, _ = forward_train(params, tokens, cfg, aux_embeds)
+    return hidden[:, -1] @ params["head"]
 
 
 # ===========================================================================

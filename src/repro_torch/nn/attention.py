@@ -1,5 +1,5 @@
-"""GQA attention for the LM backbones: prefill-shaped attention and cached
-decode (twin of ``repro.nn.attention``).
+"""GQA attention for the LM backbones: training, prefill and cached decode
+(twin of ``repro.nn.attention``).
 
 Layout conventions (the reference's: batch/seq leading, heads x head_dim
 last):
@@ -20,6 +20,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn.layers import dense_init, rmsnorm, rope
 
@@ -96,17 +97,25 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Sequences longer than ``_Q_CHUNK`` (and a multiple of it) go in query
     chunks of ``_Q_CHUNK`` rows, so the score block never exceeds
-    [_Q_CHUNK, skv], as in the reference.
+    [_Q_CHUNK, skv], as in the reference.  Under autograd each chunk is
+    checkpointed, as the reference's ``jax.checkpoint`` does: its
+    [_Q_CHUNK, skv] scores are recomputed in the backward pass, not
+    stored (8 GiB a layer of f32 scores otherwise at [4, 24, 2048, 2048]).
     """
     b, sq, hq, dh = q.shape
     skv = k.shape[1]
     if sq <= _Q_CHUNK or sq % _Q_CHUNK != 0:
         qoff = (skv - sq) if causal else 0
         return _gqa_attend_block(q, k, v, causal, kv_mask, qoff)
-    return torch.cat([
-        _gqa_attend_block(q[:, c:c + _Q_CHUNK], k, v, causal, kv_mask,
-                          (skv - sq) + c)
-        for c in range(0, sq, _Q_CHUNK)], dim=1)
+    remat = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v))
+
+    def block(c):
+        args = (q[:, c:c + _Q_CHUNK], k, v, causal, kv_mask, (skv - sq) + c)
+        if remat:
+            return checkpoint(_gqa_attend_block, *args, use_reentrant=False)
+        return _gqa_attend_block(*args)
+    return torch.cat([block(c) for c in range(0, sq, _Q_CHUNK)], dim=1)
 
 
 class KVCache(NamedTuple):

@@ -1,5 +1,5 @@
-"""VQ-Attention decode: the paper's approximated message passing on the
-token graph (twin of the decode half of ``repro.nn.vq_attention``).
+"""VQ-Attention: the paper's approximated message passing on the token
+graph (twin of ``repro.nn.vq_attention``).
 
 A causal attention layer is a dense graph convolution over tokens; VQ-GNN's
 Eq. 6 replaces the messages from far-away context with messages from k
@@ -23,14 +23,32 @@ centroids reach the kernel in the queries' dtype, the masses in f32.
 
 The decode step updates the cache's sums, counts and window in place and
 returns them with ``pos + 1`` (the reference returns fresh arrays): the
-caller's cache is consumed.  ``vq_attention_train`` (training and prefill)
-comes with the LM training slice.
+caller's cache is consumed.
+
+Training and prefill (``vq_attention_train``) walk the sequence in blocks
+of W tokens.  Each block's queries softmax over the codewords (masked
+where a count is 0), the previous block (exact) and the block itself
+(causal); then the previous block, now leaving the window, is folded
+into the codebook -- so the codewords are first read at block 2.  The
+codebook is a streaming k-means on keys: while every count of a (batch,
+kv-head) is 0 the fold seeds slots ``(argmin(count) + arange(W)) % k``,
+after that each key goes to its nearest live centroid (dead codewords
+masked with ``0.5 * finfo(f32).max``).  The assignment is stop-gradient
+and the sums stay inside autograd (straight-through), so gradients reach
+past tokens' keys and values through the centroids: an exact VJP of the
+approximation, in place of the GNN's Eq. 7 injection.  Kept from the
+reference: once a head's first fold has seeded ``min(W, k)`` slots, no
+dead codeword is ever chosen again, so with k > W only W codewords of a
+head ever come alive (``ROADMAP.md`` queue 3).  The training path is
+plain PyTorch, as it is plain JAX in the reference: it launches no
+hand-written kernel.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 
@@ -91,6 +109,95 @@ def _assign(keys: torch.Tensor, cent_k: torch.Tensor, count: torch.Tensor
                     0.5 * torch.finfo(torch.float32).max)
     return torch.argmin(d, dim=-1).to(torch.int32)
 
+
+# ---------------------------------------------------------------------------
+# training and prefill: a block loop with a streaming codebook
+# ---------------------------------------------------------------------------
+
+def vq_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       cfg: VQAttnConfig) -> torch.Tensor:
+    """Causal VQ-Attention over a full training sequence (module
+    docstring).  q: [B, S, Hq, dh], k/v: [B, S, Hkv, dh] -> [B, S, Hq, dh]
+    in ``q``'s dtype; S must be a multiple of min(cfg.window, S).  The
+    scores and the codebook are f32; the previous block is carried in the
+    keys' dtype."""
+    return train_blocks(q, k, v, cfg)[0]
+
+
+def train_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cfg: VQAttnConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """``vq_attention_train``'s output and the cluster masses [B, Hkv, k]
+    its codebook ends with (the reference returns the output only)."""
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    w = min(cfg.window, s)
+    if s % w != 0:
+        raise ValueError(f"sequence {s} is not a multiple of the window {w}")
+    kcb, dev, f32 = cfg.k, q.device, torch.float32
+    scale = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=f32, device=dev))
+    qh = q.reshape(b, s, hkv, g, dh).permute(0, 2, 3, 1, 4)  # [B,Hkv,g,S,dh]
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)            # [B,Hkv,S,dh]
+    causal = torch.ones((w, w), dtype=torch.bool, device=dev).tril()
+    neg_inf = float("-inf")
+
+    sum_k = torch.zeros((b, hkv, kcb, dh), dtype=f32, device=dev)
+    sum_v = torch.zeros((b, hkv, kcb, dh), dtype=f32, device=dev)
+    count = torch.zeros((b, hkv, kcb), dtype=f32, device=dev)
+    prev_k = torch.zeros((b, hkv, w, dh), dtype=q.dtype, device=dev)
+    prev_v = torch.zeros((b, hkv, w, dh), dtype=q.dtype, device=dev)
+    outs = []
+    for i in range(s // w):
+        blk = slice(i * w, (i + 1) * w)
+        qi, ki, vi = qh[:, :, :, blk], kh[:, :, blk], vh[:, :, blk]
+        cent_k, cent_v = _centroids(sum_k, sum_v, count)
+        q32 = qi.float() * scale
+        # codeword context (C~_out X~): a cluster of mass m scores q.k~ +
+        # log m
+        live = (count > 0)[:, :, None, None, :]
+        s_cb = torch.einsum('bhgqd,bhkd->bhgqk', q32, cent_k) \
+            + torch.log(torch.clamp_min(count, 1e-9))[:, :, None, None, :]
+        s_cb = s_cb.masked_fill(~live, neg_inf)
+        # the previous block, exact (none before block 1)
+        s_pr = torch.einsum('bhgqd,bhkd->bhgqk', q32, prev_k.float())
+        if i == 0:
+            s_pr = torch.full_like(s_pr, neg_inf)
+        # the block itself, causal (C_in)
+        s_in = torch.einsum('bhgqd,bhkd->bhgqk', q32, ki.float())
+        s_in = s_in.masked_fill(~causal, neg_inf)
+        att = torch.softmax(torch.cat([s_cb, s_pr, s_in], dim=-1), dim=-1)
+        outs.append(
+            torch.einsum('bhgqk,bhkd->bhgqd', att[..., :kcb], cent_v)
+            + torch.einsum('bhgqk,bhkd->bhgqd', att[..., kcb:kcb + w],
+                           prev_v.float())
+            + torch.einsum('bhgqk,bhkd->bhgqd', att[..., kcb + w:],
+                           vi.float()))
+
+        # fold the block leaving the exact window into the clusters: the
+        # assignment is stop-gradient, the sums stay in autograd
+        # (straight-through).  Before block 1 there is nothing to fold.
+        if i > 0:
+            pk = prev_k.float()
+            with torch.no_grad():
+                seed_slot = (torch.argmin(count, dim=-1)[..., None]
+                             + torch.arange(w, device=dev)) % kcb
+                any_live = count.amax(-1, keepdim=True) > 0
+                assign = torch.where(
+                    any_live, _assign(pk, _centroids(sum_k, sum_v, count)[0],
+                                      count).long(), seed_slot)
+                onehot = F.one_hot(assign, kcb).to(f32)      # [B,Hkv,W,k]
+            sum_k = sum_k + torch.einsum('bhwk,bhwd->bhkd', onehot, pk)
+            sum_v = sum_v + torch.einsum('bhwk,bhwd->bhkd', onehot,
+                                         prev_v.float())
+            count = count + onehot.sum(2)
+        prev_k, prev_v = ki, vi
+    o = torch.stack(outs, dim=3).reshape(b, hq, s, dh)      # [B,Hq,S,dh]
+    return o.transpose(1, 2).to(q.dtype), count.detach()
+
+
+# ---------------------------------------------------------------------------
+# decode: O(k + W) per step through the vq_attention kernel
+# ---------------------------------------------------------------------------
 
 def vq_attention_decode(q: torch.Tensor, k_new: torch.Tensor,
                         v_new: torch.Tensor, cache: VQKVCache,

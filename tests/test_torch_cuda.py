@@ -20,7 +20,10 @@ so they agree with the plain two-pass softmax to ``rtol=1e-5, atol=1e-6``
 in f32 and to two bf16 units in the last place in bf16 (both round the
 same f32 result, which differs in its last bits).  LM decode on the card
 is held against the CPU at ``rtol=1e-4, atol=1e-4`` with equal codebook
-counts.
+counts.  LM training launches no hand-written kernel (the reference's
+training path is plain JAX): ``vq_attention_train``, ``train_loss`` and a
+train step run on the card against the CPU, with the tolerances each test
+states.
 """
 import numpy as np
 import pytest
@@ -1105,6 +1108,139 @@ def test_lm_decode_cuda_vs_cpu(cuda, vq):
             assert torch.equal(caches[1]["kv"].count.cpu(),
                                caches[0]["kv"].count)
     assert tvatt.launches - before == (24 * cfg.n_layers if vq else 0)
+
+
+def _all_launches() -> int:
+    from repro_torch.kernels import (context_ell, flash_attention, spmm_ell,
+                                     spmm_ell_hbm, vq_assign, vq_attention,
+                                     vq_update)
+    return sum(m.launches for m in (context_ell, flash_attention, spmm_ell,
+                                    spmm_ell_hbm, vq_assign, vq_attention,
+                                    vq_update))
+
+
+def _rel_err(got, want) -> float:
+    """||got - want|| / ||want||, in f64 on the CPU."""
+    g, w = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kcb,w,nblk", [(4, 8, 4), (16, 4, 3)])
+def test_vq_attention_train_cuda_vs_cpu(cuda, dtype, kcb, w, nblk):
+    """``vq_attention_train``'s output and q / k / v gradients on the card
+    against the CPU (TF32 off), codebook masses equal.  f32: ``rtol=1e-5,
+    atol=1e-5``.  bf16 (the scores and codebook in f32, cast back): the
+    output within 2 bf16 ulps; each gradient sums bf16 casts of several f32
+    paths, so it is held to a relative norm error of 2^-7 (one bf16 ulp)."""
+    from repro_torch.nn import vq_attention as tvq
+    from repro_torch.runtime import resolve_device
+    resolve_device(cuda)
+    gen = torch.Generator().manual_seed(kcb + nblk)
+    b, hq, hkv, dh, s = 2, 4, 2, 16, w * nblk
+    q, k, v = (torch.randn(shape, generator=gen).to(dtype) for shape in
+               ((b, s, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh)))
+    ct = torch.randn((b, s, hq, dh), generator=gen).to(dtype)
+    cfg = tvq.VQAttnConfig(k=kcb, window=w)
+    before = _all_launches()
+    outs = []
+    for dev in ("cpu", cuda):
+        xs = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        o, count = tvq.train_blocks(*xs, cfg)
+        o.backward(ct.to(dev))
+        outs.append((o, count, [x.grad for x in xs]))
+    assert _all_launches() == before
+    (ow, cw, gw), (og, cg, gg) = outs
+    assert og.dtype == dtype and torch.equal(cg.cpu(), cw)
+    if dtype == torch.float32:
+        assert_allclose(og.detach().cpu().numpy(), ow.detach().numpy(),
+                        rtol=1e-5, atol=1e-5)
+        for got, want in zip(gg, gw):
+            assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                            atol=1e-5)
+    else:
+        assert_bf16_close(og.detach(), ow.detach())
+        for got, want in zip(gg, gw):
+            assert got.dtype == dtype and _rel_err(got, want) < 2.0 ** -7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("vq", [False, True])
+def test_train_loss_cuda_vs_cpu(cuda, dtype, vq):
+    """``train_loss`` and its gradient in every parameter of the llama
+    smoke (remat on, 4 VQ windows) on the card against the CPU from the
+    same weights.  f32: loss ``rtol=1e-5``, gradients ``rtol=1e-4,
+    atol=1e-5``.  bf16: every matmul rounds its output to bf16, and the
+    card's and the CPU's products round differently, so the loss is held
+    to ``rtol=1e-2`` and each gradient leaf to a relative norm error of
+    5e-2."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.models import lm
+    from repro_torch.runtime import resolve_device
+    from repro_torch.train.loop import loss_and_grads
+    from repro_torch.train.optimizer import tree_leaves
+    resolve_device(cuda)
+    cfg = dataclasses.replace(get_smoke("llama3.2-3b"), dtype=dtype,
+                              remat=True)
+    if vq:
+        cfg = cfg.with_vq(k=8, window=8)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(2), device="cpu")
+    tok = torch.randint(0, cfg.vocab, (2, 33),
+                        generator=torch.Generator().manual_seed(3))
+    before = _all_launches()
+    lw, gw = loss_and_grads(params, tok, cfg)
+    lg, gg = loss_and_grads(convert.to_device(params, cuda), tok.to(cuda),
+                            cfg)
+    assert _all_launches() == before
+    assert bool(torch.isfinite(lg))
+    if dtype == "float32":
+        assert_allclose(float(lg), float(lw), rtol=1e-5)
+        for got, want in zip(tree_leaves(gg), tree_leaves(gw)):
+            assert_allclose(got.cpu().numpy(), want.numpy(), **STEP)
+    else:
+        assert_allclose(float(lg), float(lw), rtol=1e-2)
+        for got, want in zip(tree_leaves(gg), tree_leaves(gw)):
+            assert got.dtype == torch.bfloat16
+            if float(want.float().norm()) > 0:
+                assert _rel_err(got, want) < 5e-2
+
+
+@pytest.mark.gpu
+def test_lm_train_step_on_the_card_launches_no_kernel(cuda):
+    """Three steps of the launcher's ``make_train_step`` (bf16 moments) on
+    the llama smoke in f32 with VQ-Attention, on the card and on the CPU:
+    no hand-written kernel launched (the reference's training path calls
+    none), losses and gradient norms ``rtol=1e-4, atol=1e-5``."""
+    from repro_torch import convert
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import lm
+    from repro_torch.runtime import resolve_device
+    from repro_torch.train.loop import TrainState
+    resolve_device(cuda)
+    cfg = get_smoke("llama3.2-3b").with_vq(k=8, window=8)
+    opt = tlaunch.optimizer(1e-3, 3)
+    step = tlaunch.make_step(cfg, opt, 2)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(4), device="cpu")
+    states = [TrainState(p, opt.init(p), torch.zeros(
+        (), dtype=torch.int32, device=p["embed"].device))
+        for p in (params, convert.to_device(params, cuda))]
+    gen = torch.Generator().manual_seed(5)
+    before = _all_launches()
+    for _ in range(3):
+        tok = torch.randint(0, cfg.vocab, (4, 25), generator=gen)
+        states[0], mw = step(states[0], tok)
+        states[1], mg = step(states[1], tok.to(cuda))
+        for key in ("loss", "grad_norm"):
+            assert_allclose(float(mg[key]), float(mw[key]), **STEP)
+    assert _all_launches() == before
+    assert states[1].opt.mu["head"].dtype == torch.bfloat16
+    assert int(states[1].step) == 3
 
 
 # ---------------------------------------------------------------------------
