@@ -249,9 +249,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    full width and a micro-batch of 1,024, 200 requests: equal
    ``rows_sha256``, graph state at most 0.6x a rank; a rank that fails or
    a collective that times out fails the script;
-33. lm-train, LM training at llama3.2-3b's full published width (28
-   layers, d 3072, 24 heads, 8 kv heads, d_ff 8192, vocab 128,256, bf16,
-   remat on; random weights from a seeded generator on the card) through
+33. lm-train, LM training at llama3.2-3b's full published width (d 3072,
+   24 heads, 8 kv heads, d_ff 8192, vocab 128,256, bf16, remat on) cut to
+   14 of its 28 layers for the script's time (random weights from a
+   seeded generator on the card) through
    ``repro_torch.train.loop.make_train_step`` with the launcher's
    optimizer (Adam, bf16 moments, ``warmup_cosine(3e-4, 10, steps)``,
    ``clip_norm=1.0``), batches of 4 x 2,049 tokens from the port's token
@@ -266,8 +267,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    the loss), tok/s, peak memory, the model-FLOPs share of the bf16 peak
    and layer 0's live codewords per head (W of k: queue 3 of
    ROADMAP.md);
-34. lm-prefill: ``lm.prefill`` at the same width under no_grad, VQ and
-   exact, [4, 2048] tokens: finite [4, 128256] logits, ms a call, tok/s;
+34. lm-prefill: ``lm.prefill`` at the full width and depth under no_grad,
+   VQ and exact, [4, 2048] tokens: finite [4, 128256] logits, ms a call,
+   tok/s;
 35. lm-train-parity: 2 layers of the same width in f32, TF32 off, the
    weights copied to the CPU, batch 2 x 192 tokens, VQ-Attention k 64, W
    64: loss and every gradient from the same state, then 3 steps of
@@ -276,13 +278,44 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``rtol=1e-4, atol=1e-5``; params within ``rtol=1e-5`` and twice the
    steps' summed Adam step size, moments within a bf16 ulp);
 36. lm-checkpoint: phase 33's state at step 10 (params and both bf16
-   moments, 43 GB as the reference's f32 npz) saved and restored, every
-   leaf equal, the seconds of each; then ``train``'s failure drill on the
+   moments, ~26 GB as the reference's f32 npz at 14 layers) saved and
+   restored, every leaf equal, the seconds of each; then ``train``'s failure drill on the
    card at 2 layers of the example's ``100m`` preset (d 768, vocab
    32,768): a failure before step 5, between the checkpoints of steps 4
    and 6, restores step 4, and the run ends at step 6 with the
    undisturbed run's losses within ``rtol=1e-4, atol=1e-5``;
-37. a ``{"kernels": [...]}`` line (the quantized and wide forms, the
+37. families-serve, the moe, ssm and hybrid LM families through the
+   serve launcher's configurations and ``decode`` at batch 4 (random
+   weights from a seeded generator on the card): qwen3-moe-30b-a3b at full
+   width and depth (48 layers, 128 experts top-8, 60.2 GB in bf16) for 72
+   VQ steps past the 64-token window (k 128: every layer evicting,
+   ``vq_attention`` launched exactly 48 a step, codebook mass =
+   evictions), a profile of 2 VQ steps, 8 exact steps and one prefill of
+   [4, 2048]; the step's weight-bytes bound, the experts' bytes (at
+   capacity 1 every expert runs for the batch's 4 tokens, as in the
+   reference) and the routed experts' most; phi3.5-moe-42b-a6.6b cut to 8
+   of 32 layers (83.75 GB at full depth), 72 VQ steps; xlstm-350m (no
+   attention: no launch) and zamba2-2.7b (VQ in its shared block: 9
+   launches a step, one a group of 6 Mamba2 layers) at full width and
+   depth, 72 steps and one prefill each; tok/s, step p50 / p99, cache
+   bytes, peak memory; ``vq_attention`` against its plain version and
+   timed at each new path shape (n 16 g 8 d 64, n 32 g 4 d 128, n 128 g
+   1 d 80) on the layer-0 cache those decodes left;
+38. families-train: 3 steps of the train launcher's ``make_step`` and
+   optimizer (Adam, bf16 moments, ``clip_norm=1.0``) on the token stream:
+   the MoE at qwen3-moe's full width cut to 4 layers (batch 2 x 1,024),
+   xlstm-350m (16 x 128: the sLSTM steps through time one token at a
+   time) and zamba2-2.7b (2 x 256) at full width and depth; finite losses
+   and gradient norms, no counted kernel, step ms, tok/s, peak memory;
+39. families-parity: each family at full width in f32, TF32 off, the
+   weights copied to the CPU -- the MoE at 2 layers, xLSTM at 2 pairs,
+   zamba2 at one group of 6 Mamba2 layers and its shared block -- 72
+   teacher-forced decode steps card vs CPU (VQ for the MoE and zamba2:
+   logits ``rtol=1e-4, atol=1e-4``, codebook counts equal at every step),
+   then ``loss_and_grads`` on one batch of 1 x 96 and the launcher's
+   Adam update from those gradients on each device (loss and gradients
+   ``rtol=1e-4, atol=1e-5``, params and moments as in phase 35);
+40. a ``{"kernels": [...]}`` line (the quantized and wide forms, the
    link shapes and the dispatch phase's shapes under each kernel's
    ``also``, each with its launches on the main paths -- a wide form's
    at its operand shape, as the wrapper counts them, every wide shape's
@@ -347,6 +380,7 @@ LM_TOL = dict(rtol=1e-4, atol=1e-4)
 # LM training and prefill at llama3.2-3b's full width
 LM_TRAIN_BATCH = 4
 LM_TRAIN_SEQ = 2048           # 4 windows of the config's W 512
+LM_TRAIN_LAYERS = 14          # of 28: the script's time (prefill: all 28)
 LM_TRAIN_VQ_STEPS = 20
 LM_TRAIN_EXACT_STEPS = 8
 LM_TRAIN_LR = 3e-4            # the launcher's default
@@ -361,6 +395,25 @@ LM_TRAIN_PARITY_STEPS = 3
 LM_TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)
 LM_DRILL_STEPS = 6            # checkpoints at steps 2, 4 and 6
 LM_DRILL_AT = 5               # the failure: restored from step 4
+# the moe, ssm and hybrid LM families
+MOE_ARCH = "qwen3-moe-30b-a3b"    # full width and depth: 60.2 GB in bf16
+PHI_ARCH = "phi3.5-moe-42b-a6.6b"
+PHI_LAYERS = 8                # of 32: 83.75 GB at full depth
+SSM_ARCH = "xlstm-350m"
+HYBRID_ARCH = "zamba2-2.7b"
+FAMILY_VQ_TOKENS = 72         # 73 steps with the warm-up: 9 evictions
+FAMILY_EXACT_TOKENS = 8
+FAMILY_TRAIN_STEPS = 3
+MOE_TRAIN_LAYERS = 4          # of 48
+MOE_TRAIN_BATCH = 2
+MOE_TRAIN_SEQ = 1024
+SSM_TRAIN_BATCH = 16          # the sLSTM steps through time one at a
+SSM_TRAIN_SEQ = 128           # time: its cost follows the sequence
+HYBRID_TRAIN_BATCH = 2        # the Mamba2 scan moves 1.31 MB a token a
+HYBRID_TRAIN_SEQ = 256        # layer each level
+FAMILY_PARITY_STEPS = 72      # 8 evictions past the 64-token window
+FAMILY_PARITY_BATCH = 1
+FAMILY_PARITY_SEQ = 96        # a Mamba2 scan chunk of 64 and part of one
 SAMPLER_METHODS = ("ns_sage", "labor", "cluster", "saint")
 SAMPLER_EPOCHS = 2
 HYBRID_EPOCHS = 2
@@ -2391,11 +2444,15 @@ def _bf16_close(name: str, got, want, ulps: int = 2) -> float:
     return err
 
 
-def _lm_cfg(vq: bool):
+def _lm_cfg(vq: bool, arch: str = LM_ARCH, **replace):
+    """The serve launcher's configuration of ``arch`` at full width
+    (VQ-Attention at k 128, W 64 under ``vq``), fields replaced."""
+    import dataclasses
     from repro_torch.launch import serve as lm_serve
-    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--context",
+    argv = ["--arch", arch, "--batch", str(LM_BATCH), "--context",
             str(LM_CONTEXT)] + (["--vq"] if vq else [])
-    return lm_serve.config(lm_serve.parser().parse_args(argv))
+    cfg = lm_serve.config(lm_serve.parser().parse_args(argv))
+    return dataclasses.replace(cfg, **replace)
 
 
 def phase_lm_serve() -> tuple[dict, dict, object, object]:
@@ -2634,25 +2691,34 @@ def _flash_row(shape, causal: bool, dtype) -> dict:
     return row
 
 
+def _vq_path_args(kv, cfg, gen) -> list:
+    """vq_attention's operands as layer 0 of a served VQ cache gives them
+    to the kernel (f32; random queries from ``gen``): q [n, g, d], the
+    centroids and masses, the window and a full window mask."""
+    import torch
+    from repro_torch.nn.vq_attention import _centroids
+    b, hkv, kcb, d = kv.sum_k.shape[1:]
+    w = kv.win_k.shape[2]
+    g = cfg.n_heads // cfg.n_kv_heads
+    n = b * hkv
+    cent_k, cent_v = _centroids(kv.sum_k[0], kv.sum_v[0], kv.count[0])
+    return [torch.randn((n, g, d), generator=gen, device=DEVICE),
+            cent_k.reshape(n, kcb, d), cent_v.reshape(n, kcb, d),
+            kv.count[0].reshape(n, kcb),
+            kv.win_k[0].transpose(1, 2).reshape(n, w, d).float(),
+            kv.win_v[0].transpose(1, 2).reshape(n, w, d).float(),
+            torch.ones((n, w), device=DEVICE)]
+
+
 def phase_lm_kernels(kv, cfg) -> list[dict]:
     """The two LM kernels against their plain versions, timed: vq_attention
     on layer 0 of the served VQ cache (the path's shape) in bf16 and f32
     and at the config defaults; flash_attention at llama3.2-3b's shapes."""
     import torch
     from repro_torch.configs.registry import get_arch
-    from repro_torch.nn.vq_attention import _centroids
-    b, hkv, kcb, d = kv.sum_k.shape[1:]
-    w = kv.win_k.shape[2]
-    g = cfg.n_heads // cfg.n_kv_heads
-    n = b * hkv
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
-    cent_k, cent_v = _centroids(kv.sum_k[0], kv.sum_v[0], kv.count[0])
-    path = [torch.randn((n, g, d), generator=gen, device=DEVICE),
-            cent_k.reshape(n, kcb, d), cent_v.reshape(n, kcb, d),
-            kv.count[0].reshape(n, kcb),
-            kv.win_k[0].transpose(1, 2).reshape(n, w, d).float(),
-            kv.win_v[0].transpose(1, 2).reshape(n, w, d).float(),
-            torch.ones((n, w), device=DEVICE)]
+    path = _vq_path_args(kv, cfg, gen)
+    g, d = path[0].shape[1:]
     bf = [t.to(torch.bfloat16) if i in (0, 1, 2, 4, 5) else t
           for i, t in enumerate(path)]
     rows = [_vq_attn_row(bf, "(decode path, layer 0 of the served cache)"),
@@ -4461,13 +4527,13 @@ def phase_mesh_serve() -> dict:
 # LM training and prefill
 # ---------------------------------------------------------------------------
 
-def _lm_train_cfg(vq: bool):
-    """The launcher's configuration of llama3.2-3b at full width (bf16,
+def _lm_train_cfg(vq: bool, arch: str = LM_ARCH):
+    """The train launcher's configuration of ``arch`` at full width (bf16,
     remat on), VQ-Attention at the config defaults (k 1024, W 512) when
     ``vq``."""
     from repro_torch.launch import train as tlaunch
     args = tlaunch.parser().parse_args([
-        "--arch", LM_ARCH, "--batch", str(LM_TRAIN_BATCH), "--seq",
+        "--arch", arch, "--batch", str(LM_TRAIN_BATCH), "--seq",
         str(LM_TRAIN_SEQ)])
     cfg = tlaunch.config(args)
     return cfg.with_vq() if vq else cfg
@@ -4517,9 +4583,7 @@ def _live_codewords(params, cfg, tokens) -> list:
 
 
 def _lm_state_bytes(state) -> int:
-    from repro_torch.train.optimizer import tree_leaves
-    return int(sum(t.numel() * t.element_size() for t in tree_leaves(
-        (state.params, state.opt.mu, state.opt.nu))))
+    return _tree_bytes((state.params, state.opt.mu, state.opt.nu))[1]
 
 
 def phase_lm_checkpoint_full(state) -> dict:
@@ -4573,18 +4637,22 @@ def phase_lm_checkpoint_full(state) -> dict:
 
 
 def phase_lm_train() -> tuple[dict, dict]:
-    """llama3.2-3b at full width through ``make_train_step`` with the
-    launcher's optimizer: LM_TRAIN_VQ_STEPS VQ-Attention steps (the full
-    state checkpointed and restored after step LM_CKPT_STEP), a profile of
-    2 more, then LM_TRAIN_EXACT_STEPS exact steps from the same initial
-    weights; no hand-written kernel launched.  Returns the report and the
-    checkpoint's."""
+    """llama3.2-3b at full width and LM_TRAIN_LAYERS layers through
+    ``make_train_step`` with the launcher's optimizer: LM_TRAIN_VQ_STEPS
+    VQ-Attention steps (the full state checkpointed and restored after
+    step LM_CKPT_STEP), a profile of 2 more, then LM_TRAIN_EXACT_STEPS
+    exact steps from the same initial weights; no hand-written kernel
+    launched.  Returns the report and the checkpoint's."""
+    import dataclasses
+
     import torch
     from repro_torch.launch import train as tlaunch
     from repro_torch.models import lm
     from repro_torch.train.loop import TrainState
     from repro_torch.train.optimizer import tree_leaves
-    cfg_vq, cfg_x = _lm_train_cfg(True), _lm_train_cfg(False)
+    cfg_vq, cfg_x = (dataclasses.replace(_lm_train_cfg(vq),
+                                         n_layers=LM_TRAIN_LAYERS)
+                     for vq in (True, False))
     t0 = time.time()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     params = lm.init_lm(cfg_x, gen, device=DEVICE)
@@ -4598,7 +4666,8 @@ def phase_lm_train() -> tuple[dict, dict]:
     steps_max = max(LM_TRAIN_VQ_STEPS + 2, LM_TRAIN_EXACT_STEPS)
     batches = _lm_batches(cfg_x, LM_TRAIN_BATCH, LM_TRAIN_SEQ, steps_max)
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
-    rep = {"arch": cfg_x.name, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+    rep = {"arch": cfg_x.name, "layers": LM_TRAIN_LAYERS,
+           "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
            "params": n_params, "matmul_params": n_matmul, "init_s": init_s,
            "lr": LM_TRAIN_LR, "moment_dtype": "bfloat16"}
     ckpt_rep = None
@@ -4894,6 +4963,414 @@ def phase_lm_drill() -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# the moe, ssm and hybrid LM families: their MoE dispatch, xLSTM cells and
+# Mamba2 scan are plain PyTorch (plain XLA in the reference, no Pallas
+# kernel); their attention decodes through vq_attention under VQ
+# ---------------------------------------------------------------------------
+
+def _attn_layers(cfg) -> int:
+    """Attention layers a decode step runs: every layer of the moe
+    family, one a group in the hybrid (its shared block), none in the
+    ssm."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_period
+    return cfg.n_layers
+
+
+def _attn_cache(cfg, cache):
+    return cache["attn" if cfg.family == "hybrid" else "kv"]
+
+
+def _tree_bytes(tree) -> tuple[int, int]:
+    """(elements, bytes) of a tree's tensors."""
+    from repro_torch.train.optimizer import tree_leaves
+    leaves = tree_leaves(tree)
+    return (sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves))
+
+
+def _family_init(cfg, seed: int = SEED):
+    import torch
+    from repro_torch.models import lm
+    torch.cuda.synchronize()
+    t0 = time.time()
+    params = lm.init_lm(cfg, torch.Generator(device=DEVICE).manual_seed(seed),
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    n, byt = _tree_bytes(params)
+    log(f"{cfg.name} init: {cfg.n_layers} layers, {n} parameters ({byt} "
+        f"bytes, param_count {cfg.param_count()}) in {time.time() - t0:.2f}"
+        f" s")
+    return params, {"layers": cfg.n_layers, "params": n, "param_bytes": byt,
+                    "init_s": time.time() - t0}
+
+
+def _family_decode(params, cfg, tokens: int, tag: str
+                   ) -> tuple[dict, dict, object]:
+    """``launch/serve.decode``: a warm-up step and ``tokens`` greedy steps
+    at batch LM_BATCH; finite logits; ``vq_attention`` launched once an
+    attention layer and step under VQ and never else; under VQ every
+    head's codebook mass equals its evictions.  Returns the report (with
+    the peak memory), the counts and the cache."""
+    import torch
+    from repro_torch.launch import serve as lm_serve
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    logits, cache, rep = lm_serve.decode(
+        params, cfg, batch=LM_BATCH, context=LM_CONTEXT, tokens=tokens,
+        device=DEVICE)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    steps = tokens + 1
+    n_attn = _attn_layers(cfg)
+    expect_counts(tag, counts, {"vq_attention": n_attn * steps
+                                if cfg.vq_attn else 0})
+    if tuple(logits.shape) != (LM_BATCH, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"{tag}: logits {tuple(logits.shape)} not finite "
+                         f"or of the wrong shape")
+    rep["max_memory_allocated"] = int(torch.cuda.max_memory_allocated())
+    rep["vq_attention_launches"] = counts["vq_attention"]
+    if cfg.vq_attn and n_attn:
+        kv = _attn_cache(cfg, cache)
+        evictions = steps - cfg.vq_window
+        mass = kv.count.sum(-1)
+        if not bool((mass == evictions).all()) or int(kv.pos[0]) != steps:
+            raise SystemExit(f"{tag}: codebook mass {mass.unique()} (want "
+                             f"{evictions} per head), pos {kv.pos[0]}")
+        rep.update(evictions=evictions,
+                   live_codewords_max=int((kv.count > 0).sum(-1).max()))
+    log(f"{tag}: {steps} steps, {rep['tok_per_s']:.1f} tok/s, step p50 "
+        f"{rep['step_p50_ms']:.3f} ms p99 {rep['step_p99_ms']:.3f} ms, cache "
+        f"{rep['cache_bytes']} bytes, peak {rep['max_memory_allocated']} "
+        f"bytes, vq_attention {counts['vq_attention']}")
+    return rep, counts, cache
+
+
+def _family_prefill(params, cfg, tag: str) -> dict:
+    """``lm.prefill`` of [LM_TRAIN_BATCH, LM_TRAIN_SEQ] tokens under
+    no_grad, once: finite [B, vocab] logits, no counted kernel."""
+    import torch
+    from repro_torch.models import lm
+    tok = _lm_batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, 1)[0][:, :-1].to(
+        DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = lm.prefill(params, tok, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    expect_counts(tag, read_counts(), {})
+    if tuple(logits.shape) != (LM_TRAIN_BATCH, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"{tag}: logits {tuple(logits.shape)} not finite "
+                         f"or of the wrong shape")
+    rep = {"batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "ms": ms,
+           "tok_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / (ms / 1e3),
+           "max_memory_allocated": int(torch.cuda.max_memory_allocated())}
+    log(f"{tag}: [{LM_TRAIN_BATCH}, {LM_TRAIN_SEQ}] in {ms:.2f} ms (one "
+        f"call; {rep['tok_per_s']:.1f} tok/s), peak "
+        f"{rep['max_memory_allocated']} bytes")
+    return rep
+
+
+def _family_train(arch: str, batch: int, seq: int, steps: int, tag: str,
+                  **replace) -> dict:
+    """``steps`` steps of the train launcher's ``make_step`` with its
+    optimizer (Adam, bf16 moments, ``clip_norm=1.0``) on the token
+    stream, from random weights of seed SEED: finite losses and gradient
+    norms, no counted kernel; step ms (host clock to the loss), tok/s,
+    peak memory."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import lm
+    from repro_torch.train.loop import TrainState
+    cfg = dataclasses.replace(_lm_train_cfg(False, arch), **replace)
+    opt = tlaunch.optimizer(LM_TRAIN_LR, steps)
+    step_fn = tlaunch.make_step(cfg, opt, 1)
+    batches = _lm_batches(cfg, batch, seq, steps)
+    params = lm.init_lm(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                        device=DEVICE)
+    n_params = _tree_bytes(params)[0]
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=DEVICE))
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, gnorms, ms = [], [], []
+    for s in range(steps):
+        tok = batches[s].to(DEVICE)
+        t = time.perf_counter()
+        state, m = step_fn(state, tok)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+        log(f"{tag} step {s + 1}: loss {losses[-1]:.5f} grad norm "
+            f"{gnorms[-1]:.5f} {ms[-1]:.1f} ms")
+    expect_counts(tag, read_counts(), {})
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(gnorms))):
+        raise SystemExit(f"{tag}: non-finite loss or gradient norm: "
+                         f"{losses} {gnorms}")
+    p50 = float(np.median(ms[1:]))
+    rep = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
+           "seq": seq, "params": n_params, "losses": losses,
+           "grad_norms": gnorms, "step_ms": ms, "step_p50_ms": p50,
+           "tok_per_s": batch * seq / (p50 / 1e3),
+           "max_memory_allocated": int(torch.cuda.max_memory_allocated()),
+           "state_bytes": _lm_state_bytes(state)}
+    log(f"{tag}: {cfg.name} at {cfg.n_layers} layers, {steps} steps of "
+        f"{batch} x {seq}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, step "
+        f"p50 {p50:.1f} ms ({rep['tok_per_s']:.1f} tok/s), peak "
+        f"{rep['max_memory_allocated']} bytes")
+    del state
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _moe_bytes(cfg) -> dict:
+    """A decode step's expert bytes at batch LM_BATCH: every expert's
+    weights (what the reference's capacity gather reads: each expert runs
+    its C slots), the most the routed experts could need (B x top_k of
+    them a layer), and the f32 copies the expert products make (each
+    bf16 weight read, written as f32 and read again)."""
+    from repro_torch.nn.ffn import moe_capacity
+    per_expert = 3 * cfg.d_model * cfg.d_ff * 2
+    routed = min(cfg.n_experts, LM_BATCH * cfg.top_k)
+    allb = cfg.n_layers * cfg.n_experts * per_expert
+    return {"capacity": moe_capacity(LM_BATCH, cfg.top_k, cfg.n_experts),
+            "expert_bytes": allb,
+            "routed_expert_bytes_max": cfg.n_layers * routed * per_expert,
+            "f32_copy_bytes": allb * 5,
+            "expert_bound_ms": allb / HBM_BYTES_PER_S * 1e3,
+            "routed_bound_ms": cfg.n_layers * routed * per_expert
+            / HBM_BYTES_PER_S * 1e3}
+
+
+def _kernel_shape_row(cache, cfg, tag: str) -> dict:
+    """vq_attention at the decode path's shape of ``cfg`` (bf16, from
+    layer 0 of the cache a VQ decode left, past the window), against its
+    plain version and timed."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    path = _vq_path_args(_attn_cache(cfg, cache), cfg, gen)
+    bf = [t.to(torch.bfloat16) if i in (0, 1, 2, 4, 5) else t
+          for i, t in enumerate(path)]
+    return _vq_attn_row(bf, f"({tag} decode path, layer 0 of a served "
+                            f"cache)")
+
+
+def phase_families_serve() -> tuple[dict, dict, list[dict]]:
+    """Decode and prefill of the moe, ssm and hybrid families through the
+    serve launcher's configurations and ``decode``: qwen3-moe-30b-a3b at
+    full width and depth (FAMILY_VQ_TOKENS VQ steps past the 64-token
+    window, FAMILY_EXACT_TOKENS exact steps, a profile of 2 VQ steps, one
+    prefill), phi3.5-moe-42b-a6.6b cut to PHI_LAYERS layers (a VQ
+    decode), xlstm-350m and zamba2-2.7b at full width and depth (decode,
+    VQ for zamba2's shared block, and prefill); vq_attention at each new
+    path shape.  Returns the report, the VQ paths' counts and the kernel
+    rows."""
+    import torch
+    counts_all = None
+    rep, rows = {}, []
+
+    def add(c):
+        nonlocal counts_all
+        counts_all = c if counts_all is None else add_counts(counts_all, c)
+
+    # qwen3-moe-30b-a3b, full width and depth: 60 GB of bf16 weights
+    cfg_vq, cfg_x = _lm_cfg(True, MOE_ARCH), _lm_cfg(False, MOE_ARCH)
+    params, r = _family_init(cfg_x)
+    emb = params["embed"].numel() * params["embed"].element_size()
+    r["step_weight_bytes"] = r["param_bytes"] - emb
+    r["step_bound_ms"] = r["step_weight_bytes"] / HBM_BYTES_PER_S * 1e3
+    r.update(_moe_bytes(cfg_x))
+    r["vq"], c, cache = _family_decode(params, cfg_vq, FAMILY_VQ_TOKENS,
+                                       f"families-serve {MOE_ARCH} vq")
+    add(c)
+    rows.append(_kernel_shape_row(cache, cfg_vq, MOE_ARCH))
+    del cache
+    tok = torch.zeros((LM_BATCH, 1), dtype=torch.long, device=DEVICE)
+    from repro_torch.models import lm
+    cache = lm.init_serve_cache(cfg_vq, LM_BATCH, LM_CONTEXT, device=DEVICE)
+    for _ in range(cfg_vq.vq_window + 2):
+        lm.serve_step(params, tok, cache, cfg_vq)
+    r["vq"]["profile"] = _profile(
+        f"{MOE_ARCH} vq decode step", [0, 1],
+        lambda _: lm.serve_step(params, tok, cache, cfg_vq),
+        LM_KERNEL_GROUPS, cpu=False)
+    del cache
+    r["exact"], _, _ = _family_decode(params, cfg_x, FAMILY_EXACT_TOKENS,
+                                      f"families-serve {MOE_ARCH} exact")
+    r["prefill"] = _family_prefill(params, cfg_x,
+                                   f"families-prefill {MOE_ARCH}")
+    log(f"families-serve {MOE_ARCH}: step p50 {r['vq']['step_p50_ms']:.3f} "
+        f"ms (VQ) / {r['exact']['step_p50_ms']:.3f} (exact) against the "
+        f"weight-bytes bound {r['step_bound_ms']:.3f} ms; capacity "
+        f"{r['capacity']} a expert at batch {LM_BATCH}: every expert's "
+        f"{r['expert_bytes']} bytes read a step, the routed experts' at "
+        f"most {r['routed_expert_bytes_max']} ({r['routed_bound_ms']:.3f} "
+        f"ms)")
+    rep[MOE_ARCH] = r
+    del params
+    torch.cuda.empty_cache()
+
+    # phi3.5-moe-42b-a6.6b: 83.75 GB at full depth, cut to PHI_LAYERS
+    cfg_vq = _lm_cfg(True, PHI_ARCH, n_layers=PHI_LAYERS)
+    params, r = _family_init(cfg_vq)
+    r["full_layers"] = _lm_cfg(False, PHI_ARCH).n_layers
+    r.update(_moe_bytes(cfg_vq))
+    r["vq"], c, cache = _family_decode(params, cfg_vq, FAMILY_VQ_TOKENS,
+                                       f"families-serve {PHI_ARCH} vq")
+    add(c)
+    rows.append(_kernel_shape_row(cache, cfg_vq, PHI_ARCH))
+    del cache
+    rep[PHI_ARCH] = r
+    del params
+    torch.cuda.empty_cache()
+
+    # xlstm-350m (no attention: --vq has nothing to act on) and zamba2-2.7b
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        cfg = _lm_cfg(arch == HYBRID_ARCH, arch)
+        params, r = _family_init(cfg)
+        r["vq" if cfg.vq_attn else "decode"], c, cache = _family_decode(
+            params, cfg, FAMILY_VQ_TOKENS, f"families-serve {arch}")
+        add(c)
+        if cfg.vq_attn:
+            rows.append(_kernel_shape_row(cache, cfg, arch))
+        del cache
+        r["prefill"] = _family_prefill(
+            params, _lm_cfg(False, arch), f"families-prefill {arch}")
+        rep[arch] = r
+        del params
+        torch.cuda.empty_cache()
+    return rep, counts_all, rows
+
+
+def phase_families_train() -> dict:
+    """Launcher training steps: the MoE at qwen3-moe-30b-a3b's full width
+    cut to MOE_TRAIN_LAYERS layers, xlstm-350m and zamba2-2.7b at full
+    width and depth."""
+    return {MOE_ARCH: _family_train(
+                MOE_ARCH, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, FAMILY_TRAIN_STEPS,
+                f"families-train {MOE_ARCH}", n_layers=MOE_TRAIN_LAYERS),
+            SSM_ARCH: _family_train(
+                SSM_ARCH, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, FAMILY_TRAIN_STEPS,
+                f"families-train {SSM_ARCH}"),
+            HYBRID_ARCH: _family_train(
+                HYBRID_ARCH, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ,
+                FAMILY_TRAIN_STEPS, f"families-train {HYBRID_ARCH}")}
+
+
+def _family_parity(arch: str, layers: int, vq: bool, tag: str) -> dict:
+    """``arch`` at full width and ``layers`` layers in f32, TF32 off, the
+    weights copied to the CPU: FAMILY_PARITY_STEPS teacher-forced decode
+    steps card vs CPU (logits LM_TOL, codebook counts equal at every step
+    under VQ), then ``loss_and_grads`` on one batch of FAMILY_PARITY_BATCH
+    x FAMILY_PARITY_SEQ (exact attention) and the launcher's Adam update
+    from those gradients on each device: loss and gradients LM_TRAIN_TOL,
+    params within ``rtol=1e-5`` and twice the step's Adam step size,
+    moments within a bf16 ulp."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import lm
+    from repro_torch.train.loop import loss_and_grads
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise SystemExit(f"{tag}: TF32 is on")
+    cfg_d = _lm_cfg(vq, arch, n_layers=layers, dtype="float32")
+    cfg_t = _lm_cfg(False, arch, n_layers=layers, dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    params = lm.init_lm(cfg_t, gen, device=DEVICE)
+    cpu_params = convert.to_device(params, "cpu")
+    caches = [lm.init_serve_cache(cfg_d, LM_BATCH, LM_CONTEXT, device=d)
+              for d in (DEVICE, "cpu")]
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg_d.vocab, (FAMILY_PARITY_STEPS, LM_BATCH, 1)))
+    n_attn = _attn_layers(cfg_d) if cfg_d.vq_attn else 0
+    worst, t_card, t_cpu = 0.0, 0.0, 0.0
+    reset_counts()
+    for s in range(FAMILY_PARITY_STEPS):
+        t0 = time.time()
+        got, caches[0] = lm.serve_step(params, tokens[s].to(DEVICE),
+                                       caches[0], cfg_d)
+        got = got.cpu()
+        t_card += time.time() - t0
+        t0 = time.time()
+        want, caches[1] = lm.serve_step(cpu_params, tokens[s], caches[1],
+                                        cfg_d)
+        t_cpu += time.time() - t0
+        worst = max(worst, check_close(f"{tag} step {s}", got, want, LM_TOL))
+        if n_attn and not torch.equal(_attn_cache(cfg_d, caches[0]).count
+                                      .cpu(),
+                                      _attn_cache(cfg_d, caches[1]).count):
+            raise SystemExit(f"{tag} step {s}: codebook counts differ")
+    expect_counts(tag, read_counts(),
+                  {"vq_attention": n_attn * FAMILY_PARITY_STEPS})
+    del caches
+    rep = {"layers": layers, "decode_steps": FAMILY_PARITY_STEPS,
+           "vq": cfg_d.vq_attn, "decode_max_abs_err": worst,
+           "decode_card_s": t_card, "decode_cpu_s": t_cpu}
+    tok = _lm_batches(cfg_t, FAMILY_PARITY_BATCH, FAMILY_PARITY_SEQ, 1)[0]
+    t0 = time.time()
+    lc, gc_ = loss_and_grads(params, tok.to(DEVICE), cfg_t)
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    lh, gh = loss_and_grads(cpu_params, tok, cfg_t)
+    t_cpu = time.time() - t0
+    rep["loss"] = [float(lc), float(lh)]
+    rep["loss_err"] = check_close(f"{tag} loss", lc.reshape(1),
+                                  lh.reshape(1), LM_TRAIN_TOL)
+    rep["grad_err"] = _tree_close(f"{tag} grad", gc_, gh, **LM_TRAIN_TOL)
+    opt = tlaunch.optimizer(LM_TRAIN_LR, 1)
+    new_c, opt_c = opt.update(gc_, opt.init(params), params)
+    new_h, opt_h = opt.update(gh, opt.init(cpu_params), cpu_params)
+    del gc_, gh
+    rep["param_err"] = _tree_close(f"{tag} params", new_c, new_h, rtol=1e-5,
+                                   atol=2.0 * _lm_lr_t(1, 1) + 1e-6)
+    rep["moment_err"] = max(
+        _tree_close(f"{tag} {n}", getattr(opt_c, n), getattr(opt_h, n),
+                    rtol=2.0 ** -7, atol=at)
+        for n, at in (("mu", 1e-6), ("nu", 1e-10)))
+    rep.update(train_card_s=t_card, train_cpu_s=t_cpu)
+    log(f"{tag}: {arch} at {layers} layers f32, {FAMILY_PARITY_STEPS} "
+        f"teacher-forced {'VQ ' if cfg_d.vq_attn else ''}decode steps agree "
+        f"(max abs err {worst:.3g}, rtol 1e-4 atol 1e-4"
+        f"{', counts equal at every step' if n_attn else ''}); one train "
+        f"step: loss {rep['loss']}, gradients max abs err "
+        f"{rep['grad_err']:.3g} (rtol 1e-4 atol 1e-5), params "
+        f"{rep['param_err']:.3g}, moments {rep['moment_err']:.3g}; "
+        f"decode card {rep['decode_card_s']:.2f} s CPU "
+        f"{rep['decode_cpu_s']:.2f} s, train step card {t_card:.2f} s CPU "
+        f"{t_cpu:.2f} s")
+    del params, cpu_params, new_c, new_h, opt_c, opt_h
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_families_parity() -> dict:
+    """Card vs CPU for each new family at full width in f32: the MoE at 2
+    layers (VQ decode), xLSTM at 2 pairs, zamba2 at one group of 6 Mamba2
+    layers and the shared block (VQ decode)."""
+    return {MOE_ARCH: _family_parity(MOE_ARCH, 2, True,
+                                     "families-parity moe"),
+            SSM_ARCH: _family_parity(SSM_ARCH, 4, False,
+                                     "families-parity ssm"),
+            HYBRID_ARCH: _family_parity(HYBRID_ARCH, 6, True,
+                                        "families-parity hybrid")}
+
+
 def main() -> int:
     import argparse
     import torch
@@ -5136,6 +5613,20 @@ def main() -> int:
     lm_train_parity = timed("lm-train-parity", phase_lm_train_parity)
     lm_ckpt_rep["drill"] = timed("lm-checkpoint", phase_lm_drill)
 
+    # --- the moe, ssm and hybrid LM families: serving, prefill, training
+    # and card-vs-CPU parity (their attention on vq_attention) ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam_rep, fam_counts, fam_rows = timed("families-serve",
+                                          phase_families_serve)
+    fam_train = timed("families-train", phase_families_train)
+    fam_parity = timed("families-parity", phase_families_parity)
+    vq_row = lm_rows[0]
+    vq_row["also"] += fam_rows
+    vq_row["max_abs_err"] = max(vq_row["max_abs_err"],
+                                *(r["max_abs_err"] for r in fam_rows))
+    vq_row["launches_lm_families"] = fam_counts["vq_attention"]
+
     # --- launches on the main paths, and the kernels line ---
     launches = train_counts
     link_counts = add_counts(add_counts(link_train_counts, link_full_counts),
@@ -5144,7 +5635,8 @@ def main() -> int:
               tier_serve_counts, a4_counts, lm_counts, gat_train_counts,
               gat_train_counts0, gat_serve_counts, tr_train_counts,
               tr_train_counts0, tr_train_counts1, tr_serve_counts,
-              link_counts, host_counts, mesh_counts_a, mesh_counts_b):
+              link_counts, host_counts, mesh_counts_a, mesh_counts_b,
+              fam_counts):
         launches = add_counts(launches, c)
     entries = launches["entries"]
     by_name = {row["name"]: row for row in serve_rows + train_rows}
@@ -5302,6 +5794,9 @@ def main() -> int:
     log(json.dumps({"lm_prefill": lm_prefill_rep}))
     log(json.dumps({"lm_train_parity": lm_train_parity}))
     log(json.dumps({"lm_checkpoint": lm_ckpt_rep}))
+    log(json.dumps({"lm_families_serve": fam_rep}))
+    log(json.dumps({"lm_families_train": fam_train}))
+    log(json.dumps({"lm_families_parity": fam_parity}))
     seconds["total"] = time.time() - T_START
     log(json.dumps({"seconds": seconds}))
     log(f"chip_smoke: {seconds['total']:.1f} s from start to the "

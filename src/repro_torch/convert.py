@@ -14,14 +14,17 @@ params' layout).  ``to_device`` moves the port's own params, states and
 optimizer states between devices.
 
 The LM side: ``lm_params_from_numpy`` takes the reference's
-``models.lm.init_lm`` tree (``embed``, ``ln_f``, ``head`` and ``blocks``
-whose ``attn`` / ``mlp`` leaves are NamedTuples with the fields of
-``AttnParams`` / ``MLPParams``, stacked [L, ...]) and
-``serve_cache_from_numpy`` its ``init_serve_cache`` tree (``{"kv": ...}``
-with the fields of ``KVCache`` or ``VQKVCache``, stacked over layers);
-``train_state_from_numpy`` its ``train.loop.TrainState(params,
-OptState(step, mu, nu), step)``, the moments in their own dtype; bf16
-arrays cross as their bytes, like fp8.
+``models.lm.init_lm`` tree of any family the port carries (``embed``,
+``ln_f``, ``head`` and the family's stacks -- ``blocks``, ``pairs``, the
+two-deep ``mamba`` and ``shared`` -- whose NamedTuple nodes have the
+fields of ``AttnParams``, ``MLPParams``, ``MoEParams``, ``MLSTMParams``,
+``SLSTMParams`` or ``Mamba2Params``) and ``serve_cache_from_numpy`` its
+``init_serve_cache`` tree (``KVCache`` / ``VQKVCache`` / ``MLSTMState`` /
+``SLSTMState`` / ``Mamba2State`` nodes, stacked as the reference stacks
+them); ``train_state_from_numpy`` its ``train.loop.TrainState(params,
+OptState(step, mu, nu), step)``.  Every leaf keeps its own dtype: the f32
+router and Mamba2 scalars of a bf16 model, bf16 Adam moments of f32
+leaves; bf16 arrays cross as their bytes, like fp8.
 """
 from __future__ import annotations
 
@@ -35,8 +38,11 @@ from repro_torch.core.conv import (LayerVQState, QuantizedCodewords,
                                    hold_table)
 from repro_torch.distributed.quantization import PackedAssignment, QTensor
 from repro_torch.nn.attention import AttnParams, KVCache
-from repro_torch.nn.ffn import MLPParams
+from repro_torch.nn.ffn import MLPParams, MoEParams
+from repro_torch.nn.ssm import Mamba2Params, Mamba2State
 from repro_torch.nn.vq_attention import VQKVCache
+from repro_torch.nn.xlstm import (MLSTMParams, MLSTMState, SLSTMParams,
+                                  SLSTMState)
 from repro_torch.runtime import resolve_device
 from repro_torch.train.loop import TrainState
 from repro_torch.train.optimizer import OptState
@@ -112,8 +118,9 @@ def vq_states_from_numpy(states: Sequence[Any],
     return out
 
 
-_LM_TUPLES = {cls._fields: cls for cls in (AttnParams, MLPParams, KVCache,
-                                           VQKVCache)}
+_LM_TUPLES = {cls._fields: cls for cls in (
+    AttnParams, MLPParams, MoEParams, MLSTMParams, SLSTMParams, Mamba2Params,
+    KVCache, VQKVCache, MLSTMState, SLSTMState, Mamba2State)}
 
 
 def _lm_tree(x, dev: torch.device):
@@ -139,7 +146,7 @@ def lm_params_from_numpy(params: Mapping[str, Any],
 def serve_cache_from_numpy(cache: Mapping[str, Any],
                            device: str | torch.device = "cuda") -> dict:
     """The port's decode cache from the reference's ``init_serve_cache``
-    tree: ``{"kv": KVCache | VQKVCache}`` stacked over layers."""
+    tree (module docstring)."""
     return _lm_tree(cache, resolve_device(device))
 
 

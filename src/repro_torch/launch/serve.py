@@ -8,14 +8,16 @@ VQ-compressed KV cache (torch twin of ``repro.launch.serve``).
 Random weights (a generator seeded 0 on the device), the decode cache of
 ``--context`` slots (exact) or of k = min(vq_k, 128) codewords and a
 64-token window (``--vq``, as the reference sets them), one warm-up step,
-then ``--tokens`` steps feeding back each step's argmax.  The printed line
-is the reference's, without its ``strategy=`` field: the sharding
-strategy belongs to the multi-device LM slice, and one device has
-none.
+then ``--tokens`` steps feeding back each step's argmax.  The dense, moe
+(qwen3-moe-30b-a3b, phi3.5-moe-42b-a6.6b), ssm (xlstm-350m: constant-size
+recurrent states; ``--vq`` has no attention to act on, as in the
+reference) and hybrid (zamba2-2.7b: ``--vq`` applies to its shared
+attention block) families serve.  The printed line is the reference's,
+without its ``strategy=`` field: the sharding strategy belongs to the
+multi-device LM slice, and one device has none.
 
 Not in this slice (each raises, naming the slice that brings it):
-``--production-mesh`` and the non-dense families (moe, ssm, hybrid,
-audio, vlm).
+``--production-mesh`` and the audio and vlm families.
 """
 from __future__ import annotations
 

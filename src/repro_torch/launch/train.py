@@ -14,10 +14,12 @@ synthetic token stream, regenerated from (seed, step).  It prints the
 reference's lines: ``resumed from step N``, ``step N  loss L  R it/s``
 every 10 steps, ``done``.
 
-Fault tolerance: a checkpoint every ``--ckpt-every`` steps (atomic,
-versioned); on start, resume from the latest.  ``--production-mesh`` and
-``--multi-pod`` raise, naming the slice that brings the LM meshes; the
-non-dense families raise, naming theirs.
+The dense, moe (``train_loss`` adds 0.01 x the routers' aux loss), ssm
+and hybrid families train.  Fault tolerance: a checkpoint every
+``--ckpt-every`` steps (atomic, versioned); on start, resume from the
+latest.  ``--production-mesh`` and ``--multi-pod`` raise, naming the
+slice that brings the LM meshes; the audio and vlm families raise,
+naming theirs.
 """
 from __future__ import annotations
 

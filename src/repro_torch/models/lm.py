@@ -1,35 +1,43 @@
-"""LM backbone, dense family (twin of ``repro.models.lm``).
+"""LM backbone (twin of ``repro.models.lm``), four of its six families:
 
-  dense -- granite-3-8b, llama3-405b, qwen3-32b, llama3.2-3b
+  dense   -- granite-3-8b, llama3-405b, qwen3-32b, llama3.2-3b
+  moe     -- qwen3-moe-30b-a3b, phi3.5-moe-42b (top-k routed experts)
+  ssm     -- xlstm-350m (mLSTM / sLSTM pairs, attention-free)
+  hybrid  -- zamba2-2.7b (a Mamba2 stack + one shared attention block)
 
 Entry points: ``init_lm``, ``train_loss`` (and ``forward_train`` under
-it), ``prefill``, ``init_serve_cache``, ``serve_step``.  Blocks stay
-stacked ``[L, ...]`` as the reference's vmap builds them, so weights,
-gradients, optimizer moments and caches carry across one to one
-(``repro_torch.convert``, ``train/checkpoint.py``); the layer loop is a
-Python loop over views of the stacks, where the reference scans, and a
-view's gradient lands in its stacked leaf.  ``cfg.remat`` checkpoints
-each layer (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint`` of the scan body); ``cfg.remat_group > 1`` nests it
-as the reference does: a checkpoint per group of layers around a
-checkpoint per layer.  Exact attention is the published architectures'
-baseline (``gqa_attend``: plain PyTorch in query chunks, as the
-reference's is plain XLA; no model path of the reference calls its
-flash kernel); ``cfg.vq_attn`` swaps in VQ-Attention (the paper's
-technique) behind the same interface: sub-quadratic training and
-prefill, an O(k + W) cache per sequence in decode.
+it), ``prefill``, ``init_serve_cache``, ``serve_step``.  Stacks stay
+stacked as the reference's vmap builds them -- ``blocks`` [L, ...],
+``pairs`` [L / 2, ...], zamba2's ``mamba`` two deep [groups, period, ...]
+-- so weights, gradients, optimizer moments and caches carry across one
+to one (``repro_torch.convert``, ``train/checkpoint.py``); the layer loop
+is a Python loop over views of the stacks, where the reference scans, and
+a view's gradient lands in its stacked leaf.  ``cfg.remat`` checkpoints
+each layer (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+of the scan body): a block, an xLSTM pair, a zamba2 group;
+``cfg.remat_group > 1`` nests it for the dense and moe families as the
+reference does: a checkpoint per group of layers around a checkpoint per
+layer.  Exact attention is the published architectures' baseline
+(``gqa_attend``: plain PyTorch in query chunks, as the reference's is
+plain XLA; no model path of the reference calls its flash kernel);
+``cfg.vq_attn`` swaps in VQ-Attention (the paper's technique) behind the
+same interface -- in zamba2's shared block too; the xLSTM family has no
+attention, so it ignores the flag, as the reference does.
 
-The other families (moe, ssm, hybrid, audio, vlm) raise, naming the LM
-families slice.  The reference's ``constrain_tokens`` is the identity on
-one device (no sharding policy is set), so the port has no counterpart
-for it.
+The MoE aux loss is summed over the layers (``forward_train``'s second
+result) and ``train_loss`` adds 0.01 of it.  The audio and vlm families
+raise, naming the cross-attention slice.  The reference's
+``constrain_tokens`` is the identity on one device (no sharding policy is
+set), so the port has no counterpart for it.
 
-``serve_step`` updates the cache in place (the KV / VQ buffers of every
-layer) and returns it with ``pos + 1``: the cache passed in is consumed.
+``serve_step`` updates the cache in place (the KV / VQ buffers and the
+recurrent states of every layer) and returns it, the attention caches
+with ``pos + 1``: the cache passed in is consumed.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+import math
+from typing import Any, Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -37,14 +45,22 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.attention import (KVCache, decode_attend, gqa_attend,
                                       init_attn, qkv)
-from repro_torch.nn.ffn import apply_mlp, init_mlp
+from repro_torch.nn.ffn import apply_mlp, apply_moe, init_mlp, init_moe
 from repro_torch.nn.layers import dense_init, embed_init, rmsnorm
+from repro_torch.nn.ssm import (apply_mamba2_step, apply_mamba2_train,
+                                init_mamba2, init_mamba2_state)
 from repro_torch.nn.vq_attention import (VQAttnConfig, VQKVCache,
                                          vq_attention_decode,
                                          vq_attention_train)
+from repro_torch.nn.xlstm import (apply_mlstm_step, apply_mlstm_train,
+                                  apply_slstm_step, apply_slstm_train,
+                                  init_mlstm, init_mlstm_state, init_slstm,
+                                  init_slstm_state)
 from repro_torch.runtime import LM_FAMILIES_SLICE, resolve_device
+from repro_torch.train.optimizer import tree_map
 
 Params = dict
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -56,26 +72,33 @@ def _vq_cfg(cfg: ArchConfig) -> VQAttnConfig:
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for a family this slice does not carry."""
-    if cfg.family != "dense":
+    """Raise for a family this slice does not carry (audio, vlm)."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family comes with "
-            f"{LM_FAMILIES_SLICE}; the port serves the dense family")
+            f"{LM_FAMILIES_SLICE}; the port serves the "
+            f"{', '.join(FAMILIES)} families")
 
 
 # ===========================================================================
 # stacked [L, ...] trees
 # ===========================================================================
 
-def _stack(trees: list) -> Any:
-    """Per-layer trees (dicts and NamedTuples of tensors) -> one tree of
-    stacked [L, ...] tensors."""
-    first = trees[0]
-    if isinstance(first, torch.Tensor):
-        return torch.stack(trees)
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return type(first)(*(_stack(list(col)) for col in zip(*trees)))
+def _stacked(make: Callable[[], Any], lead: tuple[int, ...]) -> Any:
+    """``make()`` called prod(``lead``) times in order, its trees stacked
+    into one tree of [*lead, ...] tensors, each written into the stack as
+    it is made: the stack plus one layer at a time, never two copies of
+    the model."""
+    n = math.prod(lead)
+    first = make()
+    out = tree_map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype,
+                                         device=t.device), first)
+    for l in range(n):
+        layer = first if l == 0 else make()
+        tree_map(lambda dst, src: dst[l].copy_(src), out, layer)
+        del layer
+        first = None
+    return tree_map(lambda t: t.reshape(*lead, *t.shape[1:]), out)
 
 
 def per_layer(tree: Any) -> list:
@@ -91,24 +114,61 @@ def per_layer(tree: Any) -> list:
     return [type(tree)(*(c[l] for c in cols)) for l in range(len(cols[0]))]
 
 
+def _write(dst: Any, src: Any) -> None:
+    """Copy a new per-layer state into its views of the stacked cache."""
+    tree_map(lambda d, s: d.copy_(s), dst, src)
+
+
 # ===========================================================================
 # init
 # ===========================================================================
 
+def _ones(cfg: ArchConfig, device: torch.device) -> torch.Tensor:
+    return torch.ones((cfg.d_model,), dtype=_dtype(cfg), device=device)
+
+
 def _init_dense_block(gen: torch.Generator, cfg: ArchConfig,
                       device: torch.device) -> dict:
     dt = _dtype(cfg)
-    return {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=device),
-            "ln2": torch.ones((cfg.d_model,), dtype=dt, device=device),
+    return {"ln1": _ones(cfg, device), "ln2": _ones(cfg, device),
             "attn": init_attn(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                               cfg.hd, dt, device),
             "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)}
 
 
+def _init_moe_block(gen: torch.Generator, cfg: ArchConfig,
+                    device: torch.device) -> dict:
+    dt = _dtype(cfg)
+    return {"ln1": _ones(cfg, device), "ln2": _ones(cfg, device),
+            "attn": init_attn(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.hd, dt, device),
+            "moe": init_moe(gen, cfg.d_model, cfg.n_experts, cfg.d_ff, dt,
+                            device)}
+
+
+def _init_pair(gen: torch.Generator, cfg: ArchConfig,
+               device: torch.device) -> dict:
+    dt = _dtype(cfg)
+    return {"ln1": _ones(cfg, device), "ln2": _ones(cfg, device),
+            "mlstm": init_mlstm(gen, cfg.d_model, cfg.n_heads, dt, device),
+            "slstm": init_slstm(gen, cfg.d_model, dt, device)}
+
+
+def _init_mamba_block(gen: torch.Generator, cfg: ArchConfig,
+                      device: torch.device) -> dict:
+    return {"ln": _ones(cfg, device),
+            "mamba": init_mamba2(gen, cfg.d_model, cfg.ssm_state,
+                                 _dtype(cfg), device)}
+
+
 def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
             *, device: str | torch.device = "cuda") -> Params:
     """Random weights of the reference's distributions: ``embed`` [V, d],
-    ``ln_f`` [d], ``head`` [d, V] and ``blocks`` stacked [L, ...].
+    ``ln_f`` [d], ``head`` [d, V] and the family's stacks: ``blocks`` [L,
+    ...] (dense, moe), ``pairs`` [L / 2, ...] (ssm), or ``mamba``
+    [L / attn_period, attn_period, ...] and one ``shared`` dense block
+    (hybrid).  The MoE router and the Mamba2 scalars are f32 in every
+    model dtype, as in the reference.
 
     Drawn with ``generator`` on its own device and moved to ``device``:
     a CUDA generator draws on the card (seconds for a full-width model), a
@@ -121,30 +181,36 @@ def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     dt = _dtype(cfg)
     params: Params = {
         "embed": embed_init(gen, cfg.vocab, cfg.d_model, dt, dev),
-        "ln_f": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+        "ln_f": _ones(cfg, dev),
         "head": dense_init(gen, cfg.d_model, cfg.vocab, dt, dev),
     }
-    params["blocks"] = _stack([_init_dense_block(gen, cfg, dev)
-                               for _ in range(cfg.n_layers)])
+    if cfg.family in ("dense", "moe"):
+        block = _init_dense_block if cfg.family == "dense" \
+            else _init_moe_block
+        params["blocks"] = _stacked(lambda: block(gen, cfg, dev),
+                                    (cfg.n_layers,))
+    elif cfg.family == "ssm":
+        params["pairs"] = _stacked(lambda: _init_pair(gen, cfg, dev),
+                                   (cfg.n_layers // 2,))
+    else:                                                # hybrid
+        groups = cfg.n_layers // cfg.attn_period
+        params["mamba"] = _stacked(lambda: _init_mamba_block(gen, cfg, dev),
+                                   (groups, cfg.attn_period))
+        params["shared"] = _init_dense_block(gen, cfg, dev)
     return params
 
 
-def init_serve_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
-                     device: str | torch.device = "cuda"
-                     ) -> dict[str, KVCache | VQKVCache]:
-    """Decode state, stacked over layers: ``{"kv": KVCache}`` with
-    [L, B, seq_len, Hkv, dh] keys and values (exact attention) or
-    ``{"kv": VQKVCache}`` with [L, B, Hkv, k, dh] sums, [L, B, Hkv, k]
-    counts and an [L, B, W, Hkv, dh] window (VQ-Attention: O(k + W) state,
-    whatever ``seq_len``); ``pos`` is [L] int32."""
-    dev = resolve_device(device)
-    check_family(cfg)
-    dt, n, f32 = _dtype(cfg), cfg.n_layers, torch.float32
+def _attn_cache(cfg: ArchConfig, n: int, batch: int, seq_len: int,
+                dev: torch.device) -> KVCache | VQKVCache:
+    """``n`` stacked attention caches: exact [n, B, seq_len, Hkv, dh] keys
+    and values, or VQ-Attention's [n, B, Hkv, k, dh] sums, [n, B, Hkv, k]
+    counts and [n, B, W, Hkv, dh] window; ``pos`` [n] int32."""
+    dt, f32 = _dtype(cfg), torch.float32
     hkv, hd = cfg.n_kv_heads, cfg.hd
     pos = torch.zeros((n,), dtype=torch.int32, device=dev)
     if cfg.vq_attn:
         vq = _vq_cfg(cfg)
-        return {"kv": VQKVCache(
+        return VQKVCache(
             sum_k=torch.zeros((n, batch, hkv, vq.k, hd), dtype=f32,
                               device=dev),
             sum_v=torch.zeros((n, batch, hkv, vq.k, hd), dtype=f32,
@@ -154,15 +220,42 @@ def init_serve_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
                               device=dev),
             win_v=torch.zeros((n, batch, vq.window, hkv, hd), dtype=dt,
                               device=dev),
-            pos=pos)}
-    return {"kv": KVCache(
+            pos=pos)
+    return KVCache(
         torch.zeros((n, batch, seq_len, hkv, hd), dtype=dt, device=dev),
         torch.zeros((n, batch, seq_len, hkv, hd), dtype=dt, device=dev),
-        pos)}
+        pos)
+
+
+def init_serve_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
+                     device: str | torch.device = "cuda") -> dict:
+    """Decode state, stacked as the params are.
+
+    dense / moe: ``{"kv": KVCache | VQKVCache}`` over the L layers (exact
+    attention: ``seq_len`` slots; VQ-Attention: O(k + W) state whatever
+    ``seq_len``).  ssm: ``{"mlstm": MLSTMState, "slstm": SLSTMState}``
+    over the L / 2 pairs, f32, constant size.  hybrid: ``{"mamba":
+    Mamba2State}`` [groups, period, ...] and ``{"attn": ...}``, one
+    attention cache a group for the shared block."""
+    dev = resolve_device(device)
+    check_family(cfg)
+    if cfg.family in ("dense", "moe"):
+        return {"kv": _attn_cache(cfg, cfg.n_layers, batch, seq_len, dev)}
+    if cfg.family == "ssm":
+        n = cfg.n_layers // 2
+        return {"mlstm": _stacked(lambda: init_mlstm_state(
+                    batch, cfg.d_model, cfg.n_heads, dev), (n,)),
+                "slstm": _stacked(lambda: init_slstm_state(
+                    batch, cfg.d_model, dev), (n,))}
+    groups = cfg.n_layers // cfg.attn_period
+    return {"mamba": _stacked(lambda: init_mamba2_state(
+                batch, cfg.d_model, cfg.ssm_state, _dtype(cfg), dev),
+                (groups, cfg.attn_period)),
+            "attn": _attn_cache(cfg, groups, batch, seq_len, dev)}
 
 
 # ===========================================================================
-# training forward, loss, prefill
+# blocks
 # ===========================================================================
 
 def _attn_train(bp: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -177,6 +270,44 @@ def _attn_train(bp: dict, x: torch.Tensor, cfg: ArchConfig,
         o = gqa_attend(q, k, v, causal=True)
     return x + o.reshape(b, s, -1) @ bp["attn"].wo
 
+
+def _attn_decode(bp: dict, x: torch.Tensor, cache, cfg: ArchConfig):
+    b = x.shape[0]
+    h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    positions = cache.pos.expand(b, 1)
+    q, k, v = qkv(bp["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                  positions, qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
+    if cfg.vq_attn:
+        o, cache = vq_attention_decode(q, k, v, cache, _vq_cfg(cfg))
+    else:
+        o, cache = decode_attend(q, cache, k, v)
+    return x + o.reshape(b, 1, -1) @ bp["attn"].wo, cache
+
+
+def _ffn(bp: dict, x: torch.Tensor, cfg: ArchConfig
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block's second half -> (x + its output, the MoE aux loss: 0
+    for an MLP block)."""
+    b, s, d = x.shape
+    h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
+    if "moe" in bp:
+        y, aux = apply_moe(bp["moe"], h.reshape(b * s, d), cfg.top_k)
+        return x + y.reshape(b, s, d), aux
+    return x + apply_mlp(bp["mlp"], h), \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _pair_train(bp: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    x = x + apply_mlstm_train(bp["mlstm"], rmsnorm(x, bp["ln1"],
+                                                   cfg.norm_eps),
+                              cfg.n_heads)
+    return x + apply_slstm_train(bp["slstm"], rmsnorm(x, bp["ln2"],
+                                                      cfg.norm_eps))
+
+
+# ===========================================================================
+# training forward, loss, prefill
+# ===========================================================================
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
                  vocab: int) -> torch.Tensor:
@@ -199,46 +330,77 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
     return embed.float()[tokens].to(embed.dtype)
 
 
+def _sum(auxs: list[torch.Tensor]) -> torch.Tensor:
+    return torch.stack(auxs).sum()
+
+
 def forward_train(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
                   aux_embeds: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (final hidden states [B, S, d] after ``ln_f``, the
-    MoE aux loss: 0 for the dense family).  ``aux_embeds`` is the
-    reference's input of the audio / vision families; the dense family
-    ignores it."""
+    MoE aux loss summed over the layers: 0 for the other families).
+    ``aux_embeds`` is the reference's input of the audio / vision
+    families; the families here ignore it."""
     check_family(cfg)
     b, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, cfg.vocab)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    layers = per_layer(params["blocks"])
-
-    def body(xc, bp):
-        return _ffn(bp, _attn_train(bp, xc, cfg, positions), cfg)
-
     remat = cfg.remat and torch.is_grad_enabled()
-    gsz = cfg.remat_group
-    if remat and gsz > 1 and cfg.n_layers % gsz == 0:
-        # nested remat: a checkpoint per group around a checkpoint per
-        # layer, so a group's recompute holds one layer's residuals
-        def group_body(xc, group):
-            for bp in group:
-                xc = checkpoint(body, xc, bp, use_reentrant=False)
-            return xc
-        for g0 in range(0, cfg.n_layers, gsz):
-            x = checkpoint(group_body, x, layers[g0:g0 + gsz],
-                           use_reentrant=False)
-    else:
-        for bp in layers:
-            x = checkpoint(body, x, bp, use_reentrant=False) if remat \
-                else body(x, bp)
+
+    def ckpt(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if remat \
+            else fn(*args)
+
+    moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in ("dense", "moe"):
+        layers = per_layer(params["blocks"])
+
+        def body(xc, bp):
+            return _ffn(bp, _attn_train(bp, xc, cfg, positions), cfg)
+
+        gsz = cfg.remat_group
+        auxs = []
+        if remat and gsz > 1 and cfg.n_layers % gsz == 0:
+            # nested remat: a checkpoint per group around a checkpoint per
+            # layer, so a group's recompute holds one layer's residuals
+            def group_body(xc, group):
+                g_aux = []
+                for bp in group:
+                    xc, a = checkpoint(body, xc, bp, use_reentrant=False)
+                    g_aux.append(a)
+                return xc, _sum(g_aux)
+            for g0 in range(0, cfg.n_layers, gsz):
+                x, a = checkpoint(group_body, x, layers[g0:g0 + gsz],
+                                  use_reentrant=False)
+                auxs.append(a)
+        else:
+            for bp in layers:
+                x, a = ckpt(body, x, bp)
+                auxs.append(a)
+        moe_aux = _sum(auxs)
+    elif cfg.family == "ssm":
+        for bp in per_layer(params["pairs"]):
+            x = ckpt(_pair_train, bp, x, cfg)
+    else:                                                # hybrid
+        shared = params["shared"]
+
+        def group_body(xc, mblocks):
+            for bp in per_layer(mblocks):
+                xc = xc + apply_mamba2_train(
+                    bp["mamba"], rmsnorm(xc, bp["ln"], cfg.norm_eps),
+                    cfg.d_model, cfg.ssm_state)
+            xc = _attn_train(shared, xc, cfg, positions)
+            return _ffn(shared, xc, cfg)[0]
+        for group in per_layer(params["mamba"]):
+            x = ckpt(group_body, x, group)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, moe_aux
 
 
 def train_loss(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
                aux_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Next-token cross entropy, the mean over tokens (+ 0.01 x the MoE
-    aux loss).  ``tokens`` [B, S + 1].  The logits are the model-dtype
+    """Next-token cross entropy, the mean over tokens, + 0.01 x the MoE
+    aux loss.  ``tokens`` [B, S + 1].  The logits are the model-dtype
     product cast to f32, as in the reference; the target logit is a
     gather, bit-equal to the reference's one-hot contraction for finite
     logits, without its [B, S, V] f32 one-hot."""
@@ -262,34 +424,46 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
 # decode
 # ===========================================================================
 
-def _attn_decode(bp: dict, x: torch.Tensor, cache, cfg: ArchConfig):
-    b = x.shape[0]
-    h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
-    positions = cache.pos.expand(b, 1)
-    q, k, v = qkv(bp["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                  positions, qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
-    if cfg.vq_attn:
-        o, cache = vq_attention_decode(q, k, v, cache, _vq_cfg(cfg))
-    else:
-        o, cache = decode_attend(q, cache, k, v)
-    return x + o.reshape(b, 1, -1) @ bp["attn"].wo, cache
-
-
-def _ffn(bp: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
-    return x + apply_mlp(bp["mlp"], h)
-
-
 def serve_step(params: Params, token: torch.Tensor, cache: dict,
                cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
     """One decode step.  token: [B, 1] integer -> (logits [B, vocab] in the
-    model's dtype, the cache updated in place with ``pos + 1``)."""
+    model's dtype, the cache updated in place; its attention caches with
+    ``pos + 1``)."""
     check_family(cfg)
     x = params["embed"][token]                           # [B, 1, d]
-    kv = cache["kv"]
-    for bp, c in zip(per_layer(params["blocks"]), per_layer(kv)):
-        x, _ = _attn_decode(bp, x, c, cfg)
-        x = _ffn(bp, x, cfg)
+    if cfg.family in ("dense", "moe"):
+        kv = cache["kv"]
+        for bp, c in zip(per_layer(params["blocks"]), per_layer(kv)):
+            x, _ = _attn_decode(bp, x, c, cfg)
+            x, _ = _ffn(bp, x, cfg)
+        cache = {"kv": kv._replace(pos=kv.pos + 1)}
+    elif cfg.family == "ssm":
+        for bp, ms, ss in zip(per_layer(params["pairs"]),
+                              per_layer(cache["mlstm"]),
+                              per_layer(cache["slstm"])):
+            o, new = apply_mlstm_step(
+                bp["mlstm"], rmsnorm(x, bp["ln1"], cfg.norm_eps), ms,
+                cfg.n_heads)
+            _write(ms, new)
+            x = x + o
+            o, new = apply_slstm_step(
+                bp["slstm"], rmsnorm(x, bp["ln2"], cfg.norm_eps), ss)
+            _write(ss, new)
+            x = x + o
+    else:                                                # hybrid
+        shared, attn = params["shared"], cache["attn"]
+        for group, states, c in zip(per_layer(params["mamba"]),
+                                    per_layer(cache["mamba"]),
+                                    per_layer(attn)):
+            for bp, st in zip(per_layer(group), per_layer(states)):
+                o, new = apply_mamba2_step(
+                    bp["mamba"], rmsnorm(x, bp["ln"], cfg.norm_eps), st,
+                    cfg.d_model, cfg.ssm_state)
+                _write(st, new)
+                x = x + o
+            x, _ = _attn_decode(shared, x, c, cfg)
+            x, _ = _ffn(shared, x, cfg)
+        cache = {"mamba": cache["mamba"],
+                 "attn": attn._replace(pos=attn.pos + 1)}
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    return x[:, 0] @ params["head"], {"kv": kv._replace(pos=kv.pos + 1)}
-
+    return x[:, 0] @ params["head"], cache

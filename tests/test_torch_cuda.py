@@ -844,6 +844,9 @@ def _vq_attn_operands(n, g, d, kcb, w, seed, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,g,d,kcb,w", [(32, 3, 128, 128, 64),
+                                         (16, 8, 64, 128, 64),
+                                         (128, 1, 80, 128, 64),
+                                         (32, 4, 128, 128, 64),
                                          (5, 2, 64, 16, 8), (1, 1, 8, 4, 4),
                                          (3, 16, 256, 70, 130),
                                          (2, 4, 100, 3, 1), (4, 8, 128, 0, 9)])
@@ -1108,6 +1111,55 @@ def test_lm_decode_cuda_vs_cpu(cuda, vq):
             assert torch.equal(caches[1]["kv"].count.cpu(),
                                caches[0]["kv"].count)
     assert tvatt.launches - before == (24 * cfg.n_layers if vq else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b",
+                                  "xlstm-350m", "zamba2-2.7b"])
+@pytest.mark.parametrize("vq", [False, True])
+def test_lm_families_cuda_vs_cpu(cuda, arch, vq):
+    """The moe, ssm and hybrid smokes (f32): 24 teacher-forced decode steps
+    card vs CPU (logits ``rtol=1e-4, atol=1e-4``, codebook counts equal,
+    ``vq_attention`` once per attention layer and step: every layer of
+    the moe family, one a group in the hybrid, none in the ssm), then
+    ``train_loss`` and its gradients card vs CPU at ``rtol=1e-4,
+    atol=1e-5``."""
+    from repro_torch import convert
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.kernels import vq_attention as tvatt
+    from repro_torch.models import lm
+    from repro_torch.train.loop import loss_and_grads
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = get_smoke(arch)
+    if vq:
+        cfg = cfg.with_vq(k=4, window=8)
+    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu_params = convert.to_device(params, cuda)
+    caches = [lm.init_serve_cache(cfg, 3, 32, device=d)
+              for d in ("cpu", cuda)]
+    tokens = torch.randint(0, cfg.vocab, (24, 3, 1),
+                           generator=torch.Generator().manual_seed(1))
+    before = tvatt.launches
+    for s in range(24):
+        want, caches[0] = lm.serve_step(params, tokens[s], caches[0], cfg)
+        got, caches[1] = lm.serve_step(gpu_params, tokens[s].to(cuda),
+                                       caches[1], cfg)
+        assert_allclose(got.cpu().numpy(), want.numpy(), **LM_STEP)
+        if vq and cfg.family != "ssm":
+            key = "kv" if cfg.family == "moe" else "attn"
+            assert torch.equal(caches[1][key].count.cpu(),
+                               caches[0][key].count)
+    per_step = {"moe": cfg.n_layers, "ssm": 0,
+                "hybrid": cfg.n_layers // max(cfg.attn_period, 1)}
+    assert tvatt.launches - before == (24 * per_step[cfg.family] if vq
+                                       else 0)
+    batch = torch.randint(0, cfg.vocab, (2, 33),
+                          generator=torch.Generator().manual_seed(2))
+    lc, gc = loss_and_grads(gpu_params, batch.to(cuda), cfg)
+    lh, gh = loss_and_grads(params, batch, cfg)
+    assert_allclose(lc.cpu().numpy(), lh.numpy(), rtol=1e-4, atol=1e-5)
+    for a, b in zip(tree_leaves(gc), tree_leaves(gh)):
+        assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
 
 
 def _all_launches() -> int:
