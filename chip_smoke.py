@@ -151,7 +151,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    must beat chance; 8 timed steps and a profile of 2; from the depth-3
    Eq. 7-off state one step at batch 1,024 card vs CPU (the cluster
    sums' tolerance in this step and in phase 21 widened by what the
-   order of a codeword's adds may move it), refresh (vq_assign's wide
+   order of a codeword's adds may move it; the params compared in parts,
+   ``split_step_check``: the step's gradients, each side's RMSprop of the
+   card's gradients, and the params themselves where RMSprop's gain
+   lr / (sqrt(v) + eps) does not carry a gradient difference within
+   STEP_TOL past the param's STEP_TOL -- near v = 0 that gain magnified
+   the card's order of adds across a score clip to 3.4x STEP_TOL in ~1
+   run of 24), refresh (vq_assign's wide
    build at [1, n, 128]) and 200 requests with counts exact, then CPU
    parity;
 24. wide-kernels: the wide build of vq_update and vq_assign against their
@@ -315,7 +321,39 @@ Phases (each prints its own lines; any failure exits non-zero):
    then ``loss_and_grads`` on one batch of 1 x 96 and the launcher's
    Adam update from those gradients on each device (loss and gradients
    ``rtol=1e-4, atol=1e-5``, params and moments as in phase 35);
-40. a ``{"kernels": [...]}`` line (the quantized and wide forms, the
+40. xattn-serve, the cross-attention LM families through the serve
+   launcher's configurations and ``decode`` at batch 4 (random weights
+   from a seeded generator on the card; the fresh caches' cross keys and
+   values zeros, as the launcher serves them): whisper-tiny at full width
+   and depth (4 encoder and 4 decoder layers, d 384, vocab 51,865) and
+   llama-3.2-vision-11b at full width and depth (40 text layers and 8
+   gated cross layers, 23.0 GB in bf16): 72 VQ steps past the 64-token
+   window (``vq_attention`` exactly 4 / 40 a step, codebook mass =
+   evictions), 8 exact steps, one prefill with the stub context (whisper
+   [4, 448] over 1,500 frames, 448 its decoder context; the vision model
+   [4, 2048] over 1,024 patches), a profile of 2 of the vision model's VQ
+   steps; the step's bound from the tree's bytes (the weights a step
+   reads and the cross caches); tok/s, step p50 / p99, cache bytes, peak
+   memory; ``vq_attention`` against its plain version and timed at each
+   path shape (n 24 g 1 d 64, n 32 g 4 d 128) on the layer-0 cache the
+   VQ decode left;
+41. xattn-train: 3 steps of the train launcher's optimizer and
+   ``make_step`` with stub contexts from a seeded generator in the model
+   dtype: whisper-tiny at full width and depth, 8 x 448; the vision model
+   at full width, 2 x 1,024, cut to the deepest whole number of groups
+   whose step fits 70 GB (14 bytes a parameter while Adam holds the old
+   and new params and moments, plus 8 GB of activations): 2 groups, 10
+   text layers; finite losses and gradient norms, no counted kernel, step
+   ms, tok/s, peak memory;
+42. xattn-parity: f32, TF32 off, the weights copied to the CPU,
+   whisper-tiny at full width and depth and the vision model at full
+   width and one group (5 text layers and their cross block), every gate
+   nonzero and the cross caches filled from a seeded generator (both zero
+   at init, which would hide a wrong cross path): 28 teacher-forced VQ
+   decode steps at k 16, W 4 (24 past the window; logits ``rtol=1e-4,
+   atol=1e-4``, counts equal), then ``loss_and_grads`` with a stub context
+   on 1 x 96 and the launcher's Adam update, as in phase 39;
+43. a ``{"kernels": [...]}`` line (the quantized and wide forms, the
    link shapes and the dispatch phase's shapes under each kernel's
    ``also``, each with its launches on the main paths -- a wide form's
    at its operand shape, as the wrapper counts them, every wide shape's
@@ -414,6 +452,17 @@ HYBRID_TRAIN_SEQ = 256        # layer each level
 FAMILY_PARITY_STEPS = 72      # 8 evictions past the 64-token window
 FAMILY_PARITY_BATCH = 1
 FAMILY_PARITY_SEQ = 96        # a Mamba2 scan chunk of 64 and part of one
+AUDIO_ARCH = "whisper-tiny"        # 4 + 4 layers, 1,500 stub frames
+VLM_ARCH = "llama-3.2-vision-11b"  # 40 text + 8 gated cross layers
+WHISPER_DEC_CTX = 448         # whisper's decoder context (arXiv:2212.04356)
+WHISPER_TRAIN_BATCH = 8
+VLM_TRAIN_BATCH = 2
+VLM_TRAIN_SEQ = 1024
+XATTN_TRAIN_BUDGET = 70e9     # bytes the vlm's launcher step may peak at
+XATTN_ACT_BYTES = 8e9         # its activations, logits, embedding copies
+XATTN_PARITY_STEPS = 28       # 24 evictions past the 4-token window
+XATTN_PARITY_K = 16
+XATTN_PARITY_W = 4
 SAMPLER_METHODS = ("ns_sage", "labor", "cluster", "saint")
 SAMPLER_EPOCHS = 2
 HYBRID_EPOCHS = 2
@@ -1191,11 +1240,81 @@ def _check_snapshots(tag: str, a, b, agree_cw) -> None:
                              f"values beyond two quanta")
 
 
+def split_step_check(tag: str, p0, ost0, grads_a, grads_b, upd_a,
+                     params_a, params_b, opt, lr: float,
+                     alpha: float = 0.99, eps: float = 1e-8) -> dict:
+    """An RMSprop step of side a (the card) against side b (the CPU), each
+    part compared where it is well-conditioned, all on the CPU, all within
+    STEP_TOL:
+
+    (a) the step's gradients, ``grads_a`` against ``grads_b``;
+    (b) side a's RMSprop update of its own gradients (``upd_a``: params
+        and ``nu``, from ``p0`` / ``ost0``) against the CPU's RMSprop
+        applied to the same gradients;
+    (c) side a's new params against side b's (``params_a`` /
+        ``params_b``, each from its own whole step) on every element where
+        lr / (sqrt(v^) + eps) -- RMSprop's gain from a gradient to its
+        param, v^ side b's new ``nu`` -- times the gradient's STEP_TOL is
+        within the param's STEP_TOL.  Where v^ nears 0 that gain reaches
+        ~1e2 and a gradient difference inside STEP_TOL (the card's order of
+        adds) becomes a param difference outside it: (a) and (b) hold those
+        elements instead.  The count outside the mask and the worst gain
+        ratio among them are returned and printed.
+
+    The lists are per layer dicts (CPU tensors) as ``vq_loss_and_grads``
+    returns them."""
+    import torch
+    worst = 0.0
+    for l in range(len(grads_b)):
+        for k in grads_b[l]:
+            worst = max(worst, check_close(f"{tag} grad {l}.{k}",
+                                           grads_a[l][k], grads_b[l][k],
+                                           STEP_TOL))
+    ref_p, ref_o = opt.update(grads_a, ost0, p0)
+    for l in range(len(grads_b)):
+        for k in grads_b[l]:
+            worst = max(worst, check_close(
+                f"{tag} rmsprop of its own grads {l}.{k}", upd_a[0][l][k],
+                ref_p[l][k], STEP_TOL))
+            worst = max(worst, check_close(
+                f"{tag} rmsprop nu of its own grads {l}.{k}",
+                upd_a[1].nu[l][k], ref_o.nu[l][k], STEP_TOL))
+    at, rt = STEP_TOL["atol"], STEP_TOL["rtol"]
+    outside, ratio_max, n_all = 0, 0.0, 0
+    for l in range(len(grads_b)):
+        for k in grads_b[l]:
+            g, pb = grads_b[l][k].float(), params_b[l][k].float()
+            v = alpha * ost0.nu[l][k].float() + (1 - alpha) * g * g
+            gain = lr / (torch.sqrt(v) + eps)
+            ratio = gain * (at + rt * g.abs()) / (at + rt * pb.abs())
+            ok = ratio <= 1.0
+            err = (params_a[l][k].float() - pb).abs()
+            bad = ok & (err > at + rt * pb.abs())
+            if bool(bad.any()):
+                raise SystemExit(
+                    f"{tag} param {l}.{k}: {int(bad.sum())} well-conditioned "
+                    f"elements beyond STEP_TOL (max abs err "
+                    f"{float(err[ok].max())})")
+            if bool(ok.any()):
+                worst = max(worst, float(err[ok].max()))
+            outside += int((~ok).sum())
+            n_all += ok.numel()
+            if bool((~ok).any()):
+                ratio_max = max(ratio_max, float(ratio[~ok].max()))
+    log(f"{tag}: gradients and each side's RMSprop of the card's gradients "
+        f"within STEP_TOL; params within STEP_TOL on {n_all - outside} of "
+        f"{n_all} elements, {outside} ill-conditioned (worst gain ratio "
+        f"{ratio_max:.4g}) held by the gradients alone")
+    return {"max_abs_err": worst, "ill_conditioned": outside,
+            "elements": n_all, "worst_gain_ratio": ratio_max}
+
+
 def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
                        tag: str = "train parity",
                        hybrid: bool = False,
                        batch: int = PARITY_BATCH,
-                       sum_slack: bool = False) -> dict:
+                       sum_slack: bool = False,
+                       split_params: bool = False) -> dict:
     """One training step at batch PARITY_BATCH on the card and on the CPU
     plain path from the same (trained) state; with ``hybrid`` the batch is
     the hybrid's, PARITY_BATCH seeds widened by as many LABOR-sampled
@@ -1209,7 +1328,12 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
     ``sum_slack`` (the attention backbones' parity only) widens the cluster
     sums' and codewords' tolerance by what the order of a codeword's adds
     may move them where its rows cancel; every other caller holds them to
-    STEP_TOL alone."""
+    STEP_TOL alone.  ``split_params`` (the Graph Transformer's parity
+    only) compares the params in the parts of ``split_step_check`` (the
+    step's gradients; each side's RMSprop of the card's gradients; the
+    params where RMSprop does not magnify a gradient difference past
+    STEP_TOL); every other caller holds the params to STEP_TOL
+    directly."""
     import torch
     from repro_torch.convert import to_device
     from repro_torch.core import codebook as cbm
@@ -1241,25 +1365,35 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
         raise SystemExit(f"{tag}: non-finite loss")
     worst = 0.0
     for name, a, b in [("loss", lg, lc), ("output", yg, yc),
-                       ("vq_errs", eg, ec)] + [
+                       ("vq_errs", eg, ec)] + ([] if split_params else [
             (f"param {l}.{k}", pg[l][k], pc[l][k])
-            for l in range(len(pg)) for k in pg[l]] + [
+            for l in range(len(pg)) for k in pg[l]]) + [
             (f"rmsprop nu {l}.{k}", og.nu[l][k], oc.nu[l][k])
             for l in range(len(pg)) for k in pg[l]]:
         worst = max(worst, check_close(f"{tag} {name}", a, b, STEP_TOL))
+    split = None
     cb = m.cfg.layer_codebook_cfg()
     bids_t = torch.from_numpy(bids).long()
     outside = ~torch.isin(torch.arange(m.g.n), bids_t)
-    vw_c = None
-    if sum_slack:
+    vw_c, acts = None, None
+    if sum_slack or split_params:
         # the card step's own whitened rows, for the cluster sums' slack:
         # each side adds a codeword's rows in its own order, and the rows
         # differ by STEP_TOL, so a sum of c rows may move by
         # (rtol + 2 c 2^-24) sum |row| + c atol (times 1 - gamma through
         # the EMA; over the cluster size for the codeword) -- beyond
         # STEP_TOL of the sum where the rows cancel
-        _, _, acts_g, _, gpr_g = _loss_grads(m, params, vq,
-                                             m.batch_inputs(bids, smask))
+        _, _, acts_g, grads_g, gpr_g = _loss_grads(
+            m, params, vq, m.batch_inputs(bids, smask))
+    if split_params:
+        upd_g = to_device(opt.update(grads_g, ost, params), "cpu")
+        _, _, acts, grads_c, gpr = _loss_grads(
+            cpu, state_c[0], state_c[1], cpu.batch_inputs(bids, smask))
+        split = split_step_check(f"{tag} split step", state_c[0], state_c[2],
+                                 to_device(grads_g, "cpu"), grads_c, upd_g,
+                                 pg, pc, opt, PAPER_LR)
+        worst = max(worst, split["max_abs_err"])
+        del upd_g, grads_g, grads_c
     summary = []
     for l, (a, b) in enumerate(zip(vg, vc)):
         for name in ("mean", "var"):
@@ -1277,9 +1411,10 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
                              f"the batch changed")
         if bool(flip.any()):
             if vw_c is None:     # the CPU step's own whitened rows
-                _, _, acts, _, gpr = _loss_grads(
-                    cpu, state_c[0], state_c[1],
-                    cpu.batch_inputs(bids, smask))
+                if acts is None:
+                    _, _, acts, _, gpr = _loss_grads(
+                        cpu, state_c[0], state_c[1],
+                        cpu.batch_inputs(bids, smask))
                 vw_c = [cbm.whitened_rows(state_c[1][i].codebook, acts[i],
                                           gpr[i], cb)[0]
                         for i in range(len(acts))]
@@ -1342,7 +1477,10 @@ def phase_train_parity(m: Model, params, vq, ost, cpu: Model,
         f"path: loss {float(lg):.6f} vs {float(lc):.6f}, max abs err "
         f"{worst:.3g} (rtol 1e-4, atol 1e-5); card {t_gpu:.3f} s, CPU "
         f"{t_cpu:.3f} s")
-    return {"layers": summary, "max_abs_err": worst}
+    rep = {"layers": summary, "max_abs_err": worst}
+    if split is not None:
+        rep["split"] = {k: v for k, v in split.items() if k != "max_abs_err"}
+    return rep
 
 
 def _spmm_row(idx, val, x, at: str) -> dict:
@@ -5051,50 +5189,59 @@ def _family_decode(params, cfg, tokens: int, tag: str
     return rep, counts, cache
 
 
-def _family_prefill(params, cfg, tag: str) -> dict:
-    """``lm.prefill`` of [LM_TRAIN_BATCH, LM_TRAIN_SEQ] tokens under
-    no_grad, once: finite [B, vocab] logits, no counted kernel."""
+def _family_prefill(params, cfg, tag: str, batch: int = LM_TRAIN_BATCH,
+                    seq: int = LM_TRAIN_SEQ, aux=None) -> dict:
+    """``lm.prefill`` of [batch, seq] tokens (with the cross-attention
+    families' stub context ``aux``) under no_grad, once: finite [B,
+    vocab] logits, no counted kernel."""
     import torch
     from repro_torch.models import lm
-    tok = _lm_batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, 1)[0][:, :-1].to(
-        DEVICE)
+    tok = _lm_batches(cfg, batch, seq, 1)[0][:, :-1].to(DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with torch.no_grad():
         torch.cuda.synchronize()
         t = time.perf_counter()
-        logits = lm.prefill(params, tok, cfg)
+        logits = lm.prefill(params, tok, cfg, aux)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
     expect_counts(tag, read_counts(), {})
-    if tuple(logits.shape) != (LM_TRAIN_BATCH, cfg.vocab) \
+    if tuple(logits.shape) != (batch, cfg.vocab) \
             or not bool(torch.isfinite(logits).all()):
         raise SystemExit(f"{tag}: logits {tuple(logits.shape)} not finite "
                          f"or of the wrong shape")
-    rep = {"batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "ms": ms,
-           "tok_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / (ms / 1e3),
+    rep = {"batch": batch, "seq": seq, "ms": ms,
+           "tok_per_s": batch * seq / (ms / 1e3),
            "max_memory_allocated": int(torch.cuda.max_memory_allocated())}
-    log(f"{tag}: [{LM_TRAIN_BATCH}, {LM_TRAIN_SEQ}] in {ms:.2f} ms (one "
-        f"call; {rep['tok_per_s']:.1f} tok/s), peak "
+    ctx = ""
+    if aux is not None:
+        rep["context"] = list(aux.shape)
+        ctx = f" over a context of {rep['context']}"
+    log(f"{tag}: [{batch}, {seq}]{ctx} in {ms:.2f} ms (one call; "
+        f"{rep['tok_per_s']:.1f} tok/s), peak "
         f"{rep['max_memory_allocated']} bytes")
     return rep
 
 
 def _family_train(arch: str, batch: int, seq: int, steps: int, tag: str,
-                  **replace) -> dict:
+                  cfg=None, **replace) -> dict:
     """``steps`` steps of the train launcher's ``make_step`` with its
     optimizer (Adam, bf16 moments, ``clip_norm=1.0``) on the token
     stream, from random weights of seed SEED: finite losses and gradient
     norms, no counted kernel; step ms (host clock to the loss), tok/s,
-    peak memory."""
+    peak memory.  ``cfg`` (default: the launcher's configuration of
+    ``arch``) with ``replace``; a cross-attention family's step takes
+    ``aux_embeds`` [batch, context, d] in the model dtype, drawn for each
+    step from a generator seeded SEED + 7 on the card."""
     import dataclasses
 
     import torch
     from repro_torch.launch import train as tlaunch
     from repro_torch.models import lm
     from repro_torch.train.loop import TrainState
-    cfg = dataclasses.replace(_lm_train_cfg(False, arch), **replace)
+    cfg = dataclasses.replace(cfg or _lm_train_cfg(False, arch), **replace)
+    aux_gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
     opt = tlaunch.optimizer(LM_TRAIN_LR, steps)
     step_fn = tlaunch.make_step(cfg, opt, 1)
     batches = _lm_batches(cfg, batch, seq, steps)
@@ -5110,8 +5257,11 @@ def _family_train(arch: str, batch: int, seq: int, steps: int, tag: str,
     losses, gnorms, ms = [], [], []
     for s in range(steps):
         tok = batches[s].to(DEVICE)
+        aux = _stub_context(cfg, batch, aux_gen) \
+            if cfg.family in lm.CROSS_FAMILIES else None
+        torch.cuda.synchronize()
         t = time.perf_counter()
-        state, m = step_fn(state, tok)
+        state, m = step_fn(state, tok, aux)
         losses.append(float(m["loss"]))
         ms.append((time.perf_counter() - t) * 1e3)
         gnorms.append(float(m["grad_norm"]))
@@ -5135,6 +5285,17 @@ def _family_train(arch: str, batch: int, seq: int, steps: int, tag: str,
     del state
     torch.cuda.empty_cache()
     return rep
+
+
+def _stub_context(cfg, batch: int, gen):
+    """The cross-attention families' stub input from ``gen`` (on the
+    card), in the model dtype: [batch, enc_seq, d] frame embeddings
+    (audio) or [batch, n_patches, d] patch embeddings (vlm)."""
+    import torch
+    from repro_torch.models.lm import _dtype
+    f = cfg.enc_seq if cfg.family == "audio" else cfg.n_patches
+    return torch.randn((batch, f, cfg.d_model), generator=gen,
+                       device=DEVICE).to(_dtype(cfg))
 
 
 def _moe_bytes(cfg) -> dict:
@@ -5271,15 +5432,24 @@ def phase_families_train() -> dict:
                 FAMILY_TRAIN_STEPS, f"families-train {HYBRID_ARCH}")}
 
 
-def _family_parity(arch: str, layers: int, vq: bool, tag: str) -> dict:
+def _family_parity(arch: str, layers: int, vq: bool, tag: str,
+                   steps: int = FAMILY_PARITY_STEPS, **vq_replace) -> dict:
     """``arch`` at full width and ``layers`` layers in f32, TF32 off, the
-    weights copied to the CPU: FAMILY_PARITY_STEPS teacher-forced decode
-    steps card vs CPU (logits LM_TOL, codebook counts equal at every step
-    under VQ), then ``loss_and_grads`` on one batch of FAMILY_PARITY_BATCH
-    x FAMILY_PARITY_SEQ (exact attention) and the launcher's Adam update
+    weights copied to the CPU: ``steps`` teacher-forced decode steps card
+    vs CPU (logits LM_TOL, codebook counts equal at every step under VQ,
+    the decode configuration's fields ``vq_replace`` replaced), then
+    ``loss_and_grads`` on one batch of FAMILY_PARITY_BATCH x
+    FAMILY_PARITY_SEQ (exact attention) and the launcher's Adam update
     from those gradients on each device: loss and gradients LM_TRAIN_TOL,
     params within ``rtol=1e-5`` and twice the step's Adam step size,
-    moments within a bf16 ulp."""
+    moments within a bf16 ulp.
+
+    The cross-attention families first get what their init leaves at
+    zero, the same on both devices: every vlm ``gate`` drawn from U[0.4,
+    1.2] (tanh(0) = 0 at init) and the caches' ``cross_k`` / ``cross_v``
+    from a seeded generator (zeros in a fresh cache) -- otherwise the
+    cross output is 0 and a wrong cross path would pass -- and their
+    training step reads a stub context from a seeded generator."""
     import torch
     from repro_torch import convert
     from repro_torch.launch import train as tlaunch
@@ -5288,19 +5458,27 @@ def _family_parity(arch: str, layers: int, vq: bool, tag: str) -> dict:
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.backends.cudnn.allow_tf32:
         raise SystemExit(f"{tag}: TF32 is on")
-    cfg_d = _lm_cfg(vq, arch, n_layers=layers, dtype="float32")
+    cfg_d = _lm_cfg(vq, arch, n_layers=layers, dtype="float32",
+                    **vq_replace)
     cfg_t = _lm_cfg(False, arch, n_layers=layers, dtype="float32")
+    cross = cfg_t.family in lm.CROSS_FAMILIES
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     params = lm.init_lm(cfg_t, gen, device=DEVICE)
+    if cfg_t.family == "vlm":
+        params["cross_blocks"]["gate"].uniform_(0.4, 1.2, generator=gen)
     cpu_params = convert.to_device(params, "cpu")
-    caches = [lm.init_serve_cache(cfg_d, LM_BATCH, LM_CONTEXT, device=d)
-              for d in (DEVICE, "cpu")]
+    card_cache = lm.init_serve_cache(cfg_d, LM_BATCH, LM_CONTEXT,
+                                     device=DEVICE)
+    if cross:
+        for name in ("cross_k", "cross_v"):
+            card_cache[name].normal_(generator=gen)
+    caches = [card_cache, convert.to_device(card_cache, "cpu")]
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg_d.vocab, (FAMILY_PARITY_STEPS, LM_BATCH, 1)))
+        0, cfg_d.vocab, (steps, LM_BATCH, 1)))
     n_attn = _attn_layers(cfg_d) if cfg_d.vq_attn else 0
     worst, t_card, t_cpu = 0.0, 0.0, 0.0
     reset_counts()
-    for s in range(FAMILY_PARITY_STEPS):
+    for s in range(steps):
         t0 = time.time()
         got, caches[0] = lm.serve_step(params, tokens[s].to(DEVICE),
                                        caches[0], cfg_d)
@@ -5315,27 +5493,35 @@ def _family_parity(arch: str, layers: int, vq: bool, tag: str) -> dict:
                                       .cpu(),
                                       _attn_cache(cfg_d, caches[1]).count):
             raise SystemExit(f"{tag} step {s}: codebook counts differ")
-    expect_counts(tag, read_counts(),
-                  {"vq_attention": n_attn * FAMILY_PARITY_STEPS})
-    del caches
-    rep = {"layers": layers, "decode_steps": FAMILY_PARITY_STEPS,
+    expect_counts(tag, read_counts(), {"vq_attention": n_attn * steps})
+    del caches, card_cache
+    rep = {"layers": layers, "decode_steps": steps,
            "vq": cfg_d.vq_attn, "decode_max_abs_err": worst,
            "decode_card_s": t_card, "decode_cpu_s": t_cpu}
+    if cfg_d.vq_attn:
+        rep.update(vq_k=cfg_d.vq_k, vq_window=cfg_d.vq_window)
     tok = _lm_batches(cfg_t, FAMILY_PARITY_BATCH, FAMILY_PARITY_SEQ, 1)[0]
+    aux = _stub_context(cfg_t, FAMILY_PARITY_BATCH, gen) if cross else None
     t0 = time.time()
-    lc, gc_ = loss_and_grads(params, tok.to(DEVICE), cfg_t)
+    lc, gc_ = loss_and_grads(params, tok.to(DEVICE), cfg_t, aux)
     torch.cuda.synchronize()
     t_card = time.time() - t0
     t0 = time.time()
-    lh, gh = loss_and_grads(cpu_params, tok, cfg_t)
+    lh, gh = loss_and_grads(cpu_params, tok, cfg_t,
+                            None if aux is None else aux.cpu())
     t_cpu = time.time() - t0
     rep["loss"] = [float(lc), float(lh)]
     rep["loss_err"] = check_close(f"{tag} loss", lc.reshape(1),
                                   lh.reshape(1), LM_TRAIN_TOL)
     rep["grad_err"] = _tree_close(f"{tag} grad", gc_, gh, **LM_TRAIN_TOL)
     opt = tlaunch.optimizer(LM_TRAIN_LR, 1)
+    t0 = time.time()
     new_c, opt_c = opt.update(gc_, opt.init(params), params)
+    torch.cuda.synchronize()
+    t_adam_card = time.time() - t0
+    t0 = time.time()
     new_h, opt_h = opt.update(gh, opt.init(cpu_params), cpu_params)
+    t_adam_cpu = time.time() - t0
     del gc_, gh
     rep["param_err"] = _tree_close(f"{tag} params", new_c, new_h, rtol=1e-5,
                                    atol=2.0 * _lm_lr_t(1, 1) + 1e-6)
@@ -5343,8 +5529,9 @@ def _family_parity(arch: str, layers: int, vq: bool, tag: str) -> dict:
         _tree_close(f"{tag} {n}", getattr(opt_c, n), getattr(opt_h, n),
                     rtol=2.0 ** -7, atol=at)
         for n, at in (("mu", 1e-6), ("nu", 1e-10)))
-    rep.update(train_card_s=t_card, train_cpu_s=t_cpu)
-    log(f"{tag}: {arch} at {layers} layers f32, {FAMILY_PARITY_STEPS} "
+    rep.update(train_card_s=t_card, train_cpu_s=t_cpu,
+               adam_card_s=t_adam_card, adam_cpu_s=t_adam_cpu)
+    log(f"{tag}: {arch} at {layers} layers f32, {steps} "
         f"teacher-forced {'VQ ' if cfg_d.vq_attn else ''}decode steps agree "
         f"(max abs err {worst:.3g}, rtol 1e-4 atol 1e-4"
         f"{', counts equal at every step' if n_attn else ''}); one train "
@@ -5353,7 +5540,8 @@ def _family_parity(arch: str, layers: int, vq: bool, tag: str) -> dict:
         f"{rep['param_err']:.3g}, moments {rep['moment_err']:.3g}; "
         f"decode card {rep['decode_card_s']:.2f} s CPU "
         f"{rep['decode_cpu_s']:.2f} s, train step card {t_card:.2f} s CPU "
-        f"{t_cpu:.2f} s")
+        f"{t_cpu:.2f} s, Adam card {t_adam_card:.2f} s CPU "
+        f"{t_adam_cpu:.2f} s")
     del params, cpu_params, new_c, new_h, opt_c, opt_h
     torch.cuda.empty_cache()
     return rep
@@ -5369,6 +5557,144 @@ def phase_families_parity() -> dict:
                                      "families-parity ssm"),
             HYBRID_ARCH: _family_parity(HYBRID_ARCH, 6, True,
                                         "families-parity hybrid")}
+
+
+# ---------------------------------------------------------------------------
+# the cross-attention LM families: whisper-tiny's encoder-decoder and
+# llama-3.2-vision-11b's gated image layers (their encoder and cross
+# attention plain PyTorch, plain XLA in the reference); their decoder
+# self-attention decodes through vq_attention under VQ
+# ---------------------------------------------------------------------------
+
+def _xattn_step_bytes(params, cfg) -> dict:
+    """A decode step's bytes at batch LM_BATCH: every weight it reads
+    (the tree's bytes less the embedding table, of which it reads one row
+    a sequence, and whisper's encoder, which no decode step runs) and the
+    cross caches' keys and values, both over the card's HBM rate."""
+    skip = ("embed", "enc_blocks", "enc_ln_f")
+    w = sum(_tree_bytes(v)[1] for k, v in params.items() if k not in skip)
+    n, f = ((cfg.n_layers // cfg.cross_attn_period, cfg.n_patches)
+            if cfg.family == "vlm" else (cfg.n_layers, cfg.enc_seq))
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    cross = 2 * n * LM_BATCH * f * cfg.n_kv_heads * cfg.hd * item
+    return {"step_weight_bytes": w, "cross_cache_bytes": cross,
+            "step_bound_ms": (w + cross) / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_xattn_serve() -> tuple[dict, dict, list[dict]]:
+    """Decode and prefill of the audio and vlm families through the serve
+    launcher's configurations and ``decode`` at batch LM_BATCH, at full
+    width and depth (random weights from a seeded generator on the card,
+    the fresh caches' cross keys and values zeros, as the launcher serves
+    them): FAMILY_VQ_TOKENS VQ steps past the 64-token window
+    (``vq_attention`` once a decoder layer and step), FAMILY_EXACT_TOKENS
+    exact steps, one prefill with the stub context (whisper [4, 448] over
+    1,500 frames, the vision model [4, 2048] over 1,024 patches), a
+    profile of 2 of the vision model's VQ steps, and ``vq_attention`` at
+    each path shape on the layer-0 cache the VQ decode left.  Returns the
+    report, the VQ decodes' counts and the kernel rows."""
+    import torch
+    from repro_torch.models import lm
+    counts_all, rep, rows = None, {}, []
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    for arch, seq in ((AUDIO_ARCH, WHISPER_DEC_CTX),
+                      (VLM_ARCH, LM_TRAIN_SEQ)):
+        cfg_vq, cfg_x = _lm_cfg(True, arch), _lm_cfg(False, arch)
+        params, r = _family_init(cfg_x)
+        r.update(_xattn_step_bytes(params, cfg_x))
+        r["vq"], c, cache = _family_decode(params, cfg_vq, FAMILY_VQ_TOKENS,
+                                           f"xattn-serve {arch} vq")
+        counts_all = c if counts_all is None else add_counts(counts_all, c)
+        rows.append(_kernel_shape_row(cache, cfg_vq, arch))
+        if arch == VLM_ARCH:
+            tok = torch.zeros((LM_BATCH, 1), dtype=torch.long, device=DEVICE)
+            r["vq"]["profile"] = _profile(
+                f"{arch} vq decode step", [0, 1],
+                lambda _: lm.serve_step(params, tok, cache, cfg_vq),
+                LM_KERNEL_GROUPS, cpu=False)
+        del cache
+        r["exact"], _, _ = _family_decode(params, cfg_x, FAMILY_EXACT_TOKENS,
+                                          f"xattn-serve {arch} exact")
+        r["prefill"] = _family_prefill(params, cfg_x, f"xattn-prefill {arch}",
+                                       LM_BATCH, seq,
+                                       _stub_context(cfg_x, LM_BATCH, gen))
+        log(f"xattn-serve {arch}: step p50 {r['vq']['step_p50_ms']:.3f} ms "
+            f"(VQ) / {r['exact']['step_p50_ms']:.3f} (exact) against the "
+            f"bound {r['step_bound_ms']:.3f} ms ({r['step_weight_bytes']} "
+            f"weight bytes and {r['cross_cache_bytes']} cross-cache bytes a "
+            f"step)")
+        rep[arch] = r
+        del params
+        torch.cuda.empty_cache()
+    return rep, counts_all, rows
+
+
+def _vlm_train_groups(cfg) -> dict:
+    """The deepest whole number of the vision model's groups (period text
+    layers and their cross block) whose launcher step fits
+    XATTN_TRAIN_BUDGET: the step holds the bf16 params, their bf16
+    gradients and two bf16 Adam moments, and while Adam writes the new
+    params and moments the old ones too -- 14 bytes a parameter at its
+    peak -- plus XATTN_ACT_BYTES of activations, logits and the embedding
+    table's f32 copy and gradient; at least 2 groups."""
+    d, hd = cfg.d_model, cfg.hd
+    block = 2 * d + d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) \
+        + 2 * hd + 3 * d * cfg.d_ff
+    group = cfg.cross_attn_period * block + block + 1
+    base = 2 * cfg.vocab * d + d
+
+    def peak(g):
+        return 14 * (base + g * group) + XATTN_ACT_BYTES
+    groups = max([2] + [g for g in range(
+        2, cfg.n_layers // cfg.cross_attn_period + 1)
+        if peak(g) <= XATTN_TRAIN_BUDGET])
+    return {"groups": groups, "layers": groups * cfg.cross_attn_period,
+            "full_layers": cfg.n_layers, "params": base + groups * group,
+            "estimated_peak_bytes": peak(groups),
+            "next_group_peak_bytes": peak(groups + 1)}
+
+
+def phase_xattn_train() -> dict:
+    """FAMILY_TRAIN_STEPS steps of the train launcher's optimizer and
+    ``make_step`` with the stub context (the launcher itself refuses
+    these families: it makes no context, as the reference's does not):
+    whisper-tiny at full width and depth, 8 x 448; the vision model at
+    full width, 2 x 1,024, cut to ``_vlm_train_groups`` groups."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    full = get_arch(VLM_ARCH)
+    cut = _vlm_train_groups(full)
+    log(f"xattn-train {VLM_ARCH}: {cut['groups']} groups ({cut['layers']} of "
+        f"{cut['full_layers']} text layers and their cross blocks, "
+        f"{cut['params']} parameters): estimated peak "
+        f"{cut['estimated_peak_bytes']:.4g} bytes; one group more "
+        f"{cut['next_group_peak_bytes']:.4g} against the "
+        f"{XATTN_TRAIN_BUDGET:.4g}-byte budget")
+    rep = {AUDIO_ARCH: _family_train(
+               AUDIO_ARCH, WHISPER_TRAIN_BATCH, WHISPER_DEC_CTX,
+               FAMILY_TRAIN_STEPS, f"xattn-train {AUDIO_ARCH}",
+               cfg=get_arch(AUDIO_ARCH)),
+           VLM_ARCH: _family_train(
+               VLM_ARCH, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, FAMILY_TRAIN_STEPS,
+               f"xattn-train {VLM_ARCH}",
+               cfg=dataclasses.replace(full, n_layers=cut["layers"]))}
+    rep[VLM_ARCH]["cut"] = cut
+    return rep
+
+
+def phase_xattn_parity() -> dict:
+    """Card vs CPU for the audio and vlm families in f32: whisper-tiny at
+    full width and depth, the vision model at full width and one group (5
+    text layers and their gated cross block); every gate nonzero and the
+    cross caches filled (``_family_parity``); XATTN_PARITY_STEPS
+    teacher-forced VQ decode steps at k XATTN_PARITY_K, W XATTN_PARITY_W,
+    then one launcher step's loss, gradients, params and moments."""
+    kw = dict(steps=XATTN_PARITY_STEPS, vq_k=XATTN_PARITY_K,
+              vq_window=XATTN_PARITY_W)
+    return {AUDIO_ARCH: _family_parity(AUDIO_ARCH, 4, True,
+                                       "xattn-parity audio", **kw),
+            VLM_ARCH: _family_parity(VLM_ARCH, 5, True, "xattn-parity vlm",
+                                     **kw)}
 
 
 def main() -> int:
@@ -5534,7 +5860,7 @@ def main() -> int:
     tr_parity = timed("transformer-train parity", phase_train_parity, m_r,
                       rr0["params"], rr0["vq_states"], rr0["opt_state"],
                       cpu_r, "transformer-train parity", False,
-                      TRANSFORMER_PARITY_BATCH, True)
+                      TRANSFORMER_PARITY_BATCH, True, True)
     server_r = serve_gnn.GNNServer(g_r, cfg_r, rr0["params"],
                                    rr0["vq_states"], BATCH, device=DEVICE)
     requests_r = serve_gnn.make_requests(g_r.n, REQUESTS, MAX_REQUEST, SEED)
@@ -5627,6 +5953,21 @@ def main() -> int:
                                 *(r["max_abs_err"] for r in fam_rows))
     vq_row["launches_lm_families"] = fam_counts["vq_attention"]
 
+    # --- the cross-attention LM families: whisper-tiny and
+    # llama-3.2-vision-11b serving, prefill, training and parity ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    xa_rep, xa_counts, xa_rows = timed("xattn-serve", phase_xattn_serve)
+    xa_train = timed("xattn-train", phase_xattn_train)
+    xa_parity = timed("xattn-parity", phase_xattn_parity)
+    xa_s = sum(seconds[k] for k in ("xattn-serve", "xattn-train",
+                                    "xattn-parity"))
+    log(f"the cross-attention families' phases: {xa_s:.2f} s")
+    vq_row["also"] += xa_rows
+    vq_row["max_abs_err"] = max(vq_row["max_abs_err"],
+                                *(r["max_abs_err"] for r in xa_rows))
+    vq_row["launches_lm_xattn"] = xa_counts["vq_attention"]
+
     # --- launches on the main paths, and the kernels line ---
     launches = train_counts
     link_counts = add_counts(add_counts(link_train_counts, link_full_counts),
@@ -5636,7 +5977,7 @@ def main() -> int:
               gat_train_counts0, gat_serve_counts, tr_train_counts,
               tr_train_counts0, tr_train_counts1, tr_serve_counts,
               link_counts, host_counts, mesh_counts_a, mesh_counts_b,
-              fam_counts):
+              fam_counts, xa_counts):
         launches = add_counts(launches, c)
     entries = launches["entries"]
     by_name = {row["name"]: row for row in serve_rows + train_rows}
@@ -5797,6 +6138,9 @@ def main() -> int:
     log(json.dumps({"lm_families_serve": fam_rep}))
     log(json.dumps({"lm_families_train": fam_train}))
     log(json.dumps({"lm_families_parity": fam_parity}))
+    log(json.dumps({"lm_xattn_serve": xa_rep}))
+    log(json.dumps({"lm_xattn_train": xa_train}))
+    log(json.dumps({"lm_xattn_parity": xa_parity}))
     seconds["total"] = time.time() - T_START
     log(json.dumps({"seconds": seconds}))
     log(f"chip_smoke: {seconds['total']:.1f} s from start to the "

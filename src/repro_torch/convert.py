@@ -14,14 +14,16 @@ params' layout).  ``to_device`` moves the port's own params, states and
 optimizer states between devices.
 
 The LM side: ``lm_params_from_numpy`` takes the reference's
-``models.lm.init_lm`` tree of any family the port carries (``embed``,
-``ln_f``, ``head`` and the family's stacks -- ``blocks``, ``pairs``, the
-two-deep ``mamba`` and ``shared`` -- whose NamedTuple nodes have the
-fields of ``AttnParams``, ``MLPParams``, ``MoEParams``, ``MLSTMParams``,
-``SLSTMParams`` or ``Mamba2Params``) and ``serve_cache_from_numpy`` its
-``init_serve_cache`` tree (``KVCache`` / ``VQKVCache`` / ``MLSTMState`` /
-``SLSTMState`` / ``Mamba2State`` nodes, stacked as the reference stacks
-them); ``train_state_from_numpy`` its ``train.loop.TrainState(params,
+``models.lm.init_lm`` tree of any family (``embed``, ``ln_f``, ``head``
+and the family's stacks -- ``blocks``, ``pairs``, the two-deep ``mamba``
+and ``shared``, the vlm's ``cross_blocks`` with their 0-d gates,
+whisper's ``enc_blocks`` and decoder ``cross`` attention -- whose
+NamedTuple nodes have the fields of ``AttnParams``, ``MLPParams``,
+``MoEParams``, ``MLSTMParams``, ``SLSTMParams`` or ``Mamba2Params``) and
+``serve_cache_from_numpy`` its ``init_serve_cache`` tree (``KVCache`` /
+``VQKVCache`` / ``MLSTMState`` / ``SLSTMState`` / ``Mamba2State`` nodes,
+stacked as the reference stacks them, and the plain ``cross_k`` /
+``cross_v`` arrays); ``train_state_from_numpy`` its ``train.loop.TrainState(params,
 OptState(step, mu, nu), step)``.  Every leaf keeps its own dtype: the f32
 router and Mamba2 scalars of a bf16 model, bf16 Adam moments of f32
 leaves; bf16 arrays cross as their bytes, like fp8.

@@ -8,16 +8,20 @@ VQ-compressed KV cache (torch twin of ``repro.launch.serve``).
 Random weights (a generator seeded 0 on the device), the decode cache of
 ``--context`` slots (exact) or of k = min(vq_k, 128) codewords and a
 64-token window (``--vq``, as the reference sets them), one warm-up step,
-then ``--tokens`` steps feeding back each step's argmax.  The dense, moe
-(qwen3-moe-30b-a3b, phi3.5-moe-42b-a6.6b), ssm (xlstm-350m: constant-size
-recurrent states; ``--vq`` has no attention to act on, as in the
-reference) and hybrid (zamba2-2.7b: ``--vq`` applies to its shared
-attention block) families serve.  The printed line is the reference's,
+then ``--tokens`` steps feeding back each step's argmax.  Every family
+serves: dense, moe (qwen3-moe-30b-a3b, phi3.5-moe-42b-a6.6b), ssm
+(xlstm-350m: constant-size recurrent states; ``--vq`` has no attention to
+act on, as in the reference), hybrid (zamba2-2.7b: ``--vq`` applies to
+its shared attention block), audio (whisper-tiny) and vlm
+(llama-3.2-vision-11b).  The last two decode as the reference's launcher
+decodes them: from a fresh cache whose cross-attention keys and values
+are zeros, with no encoder pass and no patch input (``--vq`` applies to
+their decoder self-attention).  The printed line is the reference's,
 without its ``strategy=`` field: the sharding strategy belongs to the
 multi-device LM slice, and one device has none.
 
-Not in this slice (each raises, naming the slice that brings it):
-``--production-mesh`` and the audio and vlm families.
+Not in this slice: ``--production-mesh`` (it raises, naming the slice
+that brings it).
 """
 from __future__ import annotations
 
@@ -64,9 +68,12 @@ def config(args: argparse.Namespace) -> ArchConfig:
 
 def cache_bytes(cache) -> int:
     """Bytes of every tensor of a decode cache (the reference's accounting:
-    the sum over the tree's leaves, ``pos`` included)."""
-    return int(sum(t.numel() * t.element_size()
-                   for c in cache.values() for t in c))
+    the sum over the tree's leaves, ``pos`` included): an entry is a
+    NamedTuple of tensors (the attention and recurrent states) or one
+    tensor (the cross-attention families' ``cross_k`` / ``cross_v``)."""
+    leaves = [t for c in cache.values()
+              for t in ((c,) if isinstance(c, torch.Tensor) else c)]
+    return int(sum(t.numel() * t.element_size() for t in leaves))
 
 
 def _sync(dev: torch.device) -> None:

@@ -18,8 +18,11 @@ The dense, moe (``train_loss`` adds 0.01 x the routers' aux loss), ssm
 and hybrid families train.  Fault tolerance: a checkpoint every
 ``--ckpt-every`` steps (atomic, versioned); on start, resume from the
 latest.  ``--production-mesh`` and ``--multi-pod`` raise, naming the
-slice that brings the LM meshes; the audio and vlm families raise,
-naming theirs.
+slice that brings the LM meshes.  The audio and vlm families raise a
+``ValueError``: their forward needs the stub context (``aux_embeds``),
+which the reference's launcher does not pass either; they train through
+``make_train_step(...)(state, tokens, aux_embeds)``, as the reference's
+dry-run train cells do.
 """
 from __future__ import annotations
 
@@ -68,6 +71,13 @@ def config(args: argparse.Namespace) -> ArchConfig:
             f"--production-mesh / --multi-pod come with {MESH_SLICE}")
     cfg = SMOKES[args.arch]() if args.smoke else ARCHS[args.arch]
     lm.check_family(cfg)
+    if cfg.family in lm.CROSS_FAMILIES:
+        stub = "frame" if cfg.family == "audio" else "patch"
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family's forward needs "
+            f"aux_embeds (its stub {stub} embeddings), which this launcher "
+            f"does not make; train it through "
+            f"make_train_step(...)(state, tokens, aux_embeds)")
     return cfg
 
 

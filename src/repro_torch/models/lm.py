@@ -1,32 +1,48 @@
-"""LM backbone (twin of ``repro.models.lm``), four of its six families:
+"""LM backbone (twin of ``repro.models.lm``), all six of its families:
 
   dense   -- granite-3-8b, llama3-405b, qwen3-32b, llama3.2-3b
   moe     -- qwen3-moe-30b-a3b, phi3.5-moe-42b (top-k routed experts)
   ssm     -- xlstm-350m (mLSTM / sLSTM pairs, attention-free)
   hybrid  -- zamba2-2.7b (a Mamba2 stack + one shared attention block)
+  audio   -- whisper-tiny (encoder-decoder over stub frame embeddings)
+  vlm     -- llama-3.2-vision-11b (gated cross-attention image layers
+             every ``cross_attn_period`` text layers; stub patches)
 
 Entry points: ``init_lm``, ``train_loss`` (and ``forward_train`` under
 it), ``prefill``, ``init_serve_cache``, ``serve_step``.  Stacks stay
 stacked as the reference's vmap builds them -- ``blocks`` [L, ...],
-``pairs`` [L / 2, ...], zamba2's ``mamba`` two deep [groups, period, ...]
--- so weights, gradients, optimizer moments and caches carry across one
-to one (``repro_torch.convert``, ``train/checkpoint.py``); the layer loop
-is a Python loop over views of the stacks, where the reference scans, and
-a view's gradient lands in its stacked leaf.  ``cfg.remat`` checkpoints
-each layer (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
-of the scan body): a block, an xLSTM pair, a zamba2 group;
-``cfg.remat_group > 1`` nests it for the dense and moe families as the
-reference does: a checkpoint per group of layers around a checkpoint per
-layer.  Exact attention is the published architectures' baseline
-(``gqa_attend``: plain PyTorch in query chunks, as the reference's is
-plain XLA; no model path of the reference calls its flash kernel);
-``cfg.vq_attn`` swaps in VQ-Attention (the paper's technique) behind the
-same interface -- in zamba2's shared block too; the xLSTM family has no
-attention, so it ignores the flag, as the reference does.
+``pairs`` [L / 2, ...], zamba2's ``mamba`` two deep [groups, period, ...],
+the vlm's ``cross_blocks`` [L / period, ...], whisper's ``enc_blocks``
+[enc_layers, ...] -- so weights, gradients, optimizer moments and caches
+carry across one to one (``repro_torch.convert``,
+``train/checkpoint.py``); the layer loop is a Python loop over views of
+the stacks, where the reference scans, and a view's gradient lands in its
+stacked leaf.  ``cfg.remat`` checkpoints each layer
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
+scan body): a block, an xLSTM pair, a zamba2 group, a vlm group (its
+text blocks and its cross block), an encoder or decoder layer of
+whisper; ``cfg.remat_group > 1`` nests it for the dense and moe families
+as the reference does: a checkpoint per group of layers around a
+checkpoint per layer.  Exact attention is the published architectures'
+baseline (``gqa_attend``: plain PyTorch in query chunks, as the
+reference's is plain XLA; no model path of the reference calls its flash
+kernel); ``cfg.vq_attn`` swaps in VQ-Attention (the paper's technique)
+behind the same interface -- in zamba2's shared block and in the
+decoder self-attention of the audio and vlm families too; the xLSTM
+family has no attention, so it ignores the flag, as the reference does.
+
+The cross-attention families read ``aux_embeds`` in training and
+prefill: [B, enc_seq, d] frame embeddings (audio) or [B, n_patches, d]
+patch embeddings (vlm), in the model dtype; without them
+``forward_train`` raises.  A cross block's query is ``h @ wq`` (no RoPE,
+no qk-norm), its keys and values the context times ``wk`` / ``wv`` (no
+norm), attended without a mask; the vlm gates the attention output by
+``tanh(gate)`` (0 at init), its FFN ungated.  Decoding reads the context
+from the cache's ``cross_k`` / ``cross_v``, zeros in a fresh cache, as in
+the reference.
 
 The MoE aux loss is summed over the layers (``forward_train``'s second
-result) and ``train_loss`` adds 0.01 of it.  The audio and vlm families
-raise, naming the cross-attention slice.  The reference's
+result) and ``train_loss`` adds 0.01 of it.  The reference's
 ``constrain_tokens`` is the identity on one device (no sharding policy is
 set), so the port has no counterpart for it.
 
@@ -56,11 +72,12 @@ from repro_torch.nn.xlstm import (apply_mlstm_step, apply_mlstm_train,
                                   apply_slstm_step, apply_slstm_train,
                                   init_mlstm, init_mlstm_state, init_slstm,
                                   init_slstm_state)
-from repro_torch.runtime import LM_FAMILIES_SLICE, resolve_device
+from repro_torch.runtime import resolve_device
 from repro_torch.train.optimizer import tree_map
 
 Params = dict
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+CROSS_FAMILIES = ("audio", "vlm")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -72,12 +89,10 @@ def _vq_cfg(cfg: ArchConfig) -> VQAttnConfig:
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for a family this slice does not carry (audio, vlm)."""
+    """Raise for a family that neither package knows."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family comes with "
-            f"{LM_FAMILIES_SLICE}; the port serves the "
-            f"{', '.join(FAMILIES)} families")
+        raise ValueError(f"{cfg.name}: unknown LM family {cfg.family!r}; "
+                         f"want one of {', '.join(FAMILIES)}")
 
 
 # ===========================================================================
@@ -161,14 +176,38 @@ def _init_mamba_block(gen: torch.Generator, cfg: ArchConfig,
                                  _dtype(cfg), device)}
 
 
+def _init_cross_block(gen: torch.Generator, cfg: ArchConfig,
+                      device: torch.device) -> dict:
+    """The vlm's image layer: a dense block whose attention is cross
+    attention, and a 0-d ``gate``, 0 at init (tanh(0) = 0: the layer's
+    attention adds nothing until the gate moves)."""
+    blk = _init_dense_block(gen, cfg, device)
+    blk["gate"] = torch.zeros((), dtype=_dtype(cfg), device=device)
+    return blk
+
+
+def _init_dec_block(gen: torch.Generator, cfg: ArchConfig,
+                    device: torch.device) -> dict:
+    """whisper's decoder layer: a dense block plus ``ln_x`` and the
+    ``cross`` attention to the encoder."""
+    blk = _init_dense_block(gen, cfg, device)
+    blk["ln_x"] = _ones(cfg, device)
+    blk["cross"] = init_attn(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.hd, _dtype(cfg), device)
+    return blk
+
+
 def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
             *, device: str | torch.device = "cuda") -> Params:
     """Random weights of the reference's distributions: ``embed`` [V, d],
     ``ln_f`` [d], ``head`` [d, V] and the family's stacks: ``blocks`` [L,
-    ...] (dense, moe), ``pairs`` [L / 2, ...] (ssm), or ``mamba``
+    ...] (dense, moe), ``pairs`` [L / 2, ...] (ssm), ``mamba``
     [L / attn_period, attn_period, ...] and one ``shared`` dense block
-    (hybrid).  The MoE router and the Mamba2 scalars are f32 in every
-    model dtype, as in the reference.
+    (hybrid), dense ``blocks`` [L, ...] and ``cross_blocks`` [L /
+    cross_attn_period, ...] (vlm), or ``enc_blocks`` [enc_layers, ...],
+    decoder ``blocks`` [L, ...] and ``enc_ln_f`` (audio).  The MoE router
+    and the Mamba2 scalars are f32 in every model dtype, as in the
+    reference.
 
     Drawn with ``generator`` on its own device and moved to ``device``:
     a CUDA generator draws on the card (seconds for a full-width model), a
@@ -184,11 +223,21 @@ def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         "ln_f": _ones(cfg, dev),
         "head": dense_init(gen, cfg.d_model, cfg.vocab, dt, dev),
     }
-    if cfg.family in ("dense", "moe"):
-        block = _init_dense_block if cfg.family == "dense" \
-            else _init_moe_block
+    if cfg.family in ("dense", "moe", "vlm"):
+        block = _init_moe_block if cfg.family == "moe" \
+            else _init_dense_block
         params["blocks"] = _stacked(lambda: block(gen, cfg, dev),
                                     (cfg.n_layers,))
+        if cfg.family == "vlm":
+            params["cross_blocks"] = _stacked(
+                lambda: _init_cross_block(gen, cfg, dev),
+                (cfg.n_layers // cfg.cross_attn_period,))
+    elif cfg.family == "audio":
+        params["enc_blocks"] = _stacked(
+            lambda: _init_dense_block(gen, cfg, dev), (cfg.enc_layers,))
+        params["blocks"] = _stacked(lambda: _init_dec_block(gen, cfg, dev),
+                                    (cfg.n_layers,))
+        params["enc_ln_f"] = _ones(cfg, dev)
     elif cfg.family == "ssm":
         params["pairs"] = _stacked(lambda: _init_pair(gen, cfg, dev),
                                    (cfg.n_layers // 2,))
@@ -236,11 +285,22 @@ def init_serve_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
     ``seq_len``).  ssm: ``{"mlstm": MLSTMState, "slstm": SLSTMState}``
     over the L / 2 pairs, f32, constant size.  hybrid: ``{"mamba":
     Mamba2State}`` [groups, period, ...] and ``{"attn": ...}``, one
-    attention cache a group for the shared block."""
+    attention cache a group for the shared block.  vlm / audio: ``kv``
+    over the L decoder layers and the context's ``cross_k`` / ``cross_v``,
+    zeros of the model dtype: [L / cross_attn_period, B, n_patches, Hkv,
+    dh] (vlm), [L, B, enc_seq, Hkv, dh] (audio); a caller that has the
+    context writes its keys and values there."""
     dev = resolve_device(device)
     check_family(cfg)
     if cfg.family in ("dense", "moe"):
         return {"kv": _attn_cache(cfg, cfg.n_layers, batch, seq_len, dev)}
+    if cfg.family in CROSS_FAMILIES:
+        n, f = ((cfg.n_layers // cfg.cross_attn_period, cfg.n_patches)
+                if cfg.family == "vlm" else (cfg.n_layers, cfg.enc_seq))
+        shape = (n, batch, f, cfg.n_kv_heads, cfg.hd)
+        return {"kv": _attn_cache(cfg, cfg.n_layers, batch, seq_len, dev),
+                "cross_k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+                "cross_v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
     if cfg.family == "ssm":
         n = cfg.n_layers // 2
         return {"mlstm": _stacked(lambda: init_mlstm_state(
@@ -297,6 +357,32 @@ def _ffn(bp: dict, x: torch.Tensor, cfg: ArchConfig
         torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _cross_attn(bp: dict, x: torch.Tensor, ctx_k: torch.Tensor,
+                ctx_v: torch.Tensor, cfg: ArchConfig,
+                gated: bool = False) -> torch.Tensor:
+    """Cross attention of ``x`` [B, S, d] to context keys / values [B, F,
+    Hkv, dh]: whisper's decoder reads ``ln_x`` and ``cross``, the vlm's
+    cross block ``ln1`` and ``attn`` and gates the output by
+    ``tanh(gate)``."""
+    b, s, _ = x.shape
+    h = rmsnorm(x, bp["ln_x" if "ln_x" in bp else "ln1"], cfg.norm_eps)
+    attn = bp["cross" if "cross" in bp else "attn"]
+    q = (h @ attn.wq).reshape(b, s, cfg.n_heads, cfg.hd)
+    o = gqa_attend(q, ctx_k, ctx_v, causal=False)
+    o = o.reshape(b, s, -1) @ attn.wo
+    if gated:
+        o = torch.tanh(bp["gate"]) * o
+    return x + o
+
+
+def _ctx_kv(attn, ctx: torch.Tensor, cfg: ArchConfig
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The context's keys and values [B, F, Hkv, dh] (no norm, no RoPE)."""
+    b, f, _ = ctx.shape
+    return ((ctx @ attn.wk).reshape(b, f, cfg.n_kv_heads, cfg.hd),
+            (ctx @ attn.wv).reshape(b, f, cfg.n_kv_heads, cfg.hd))
+
+
 def _pair_train(bp: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = x + apply_mlstm_train(bp["mlstm"], rmsnorm(x, bp["ln1"],
                                                    cfg.norm_eps),
@@ -339,9 +425,16 @@ def forward_train(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (final hidden states [B, S, d] after ``ln_f``, the
     MoE aux loss summed over the layers: 0 for the other families).
-    ``aux_embeds`` is the reference's input of the audio / vision
-    families; the families here ignore it."""
+    ``aux_embeds``: the audio family's frame embeddings [B, enc_seq, d]
+    or the vlm's patch embeddings [B, n_patches, d] (required there; the
+    other families ignore it)."""
     check_family(cfg)
+    if cfg.family in CROSS_FAMILIES and aux_embeds is None:
+        what = ("stub frame embeddings [B, enc_seq, d_model]"
+                if cfg.family == "audio"
+                else "stub patch embeddings [B, n_patches, d_model]")
+        raise ValueError(f"{cfg.name}: the {cfg.family} family's forward "
+                         f"needs aux_embeds, the {what}")
     b, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, cfg.vocab)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
@@ -378,6 +471,44 @@ def forward_train(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
                 x, a = ckpt(body, x, bp)
                 auxs.append(a)
         moe_aux = _sum(auxs)
+    elif cfg.family == "vlm":
+        period = cfg.cross_attn_period
+
+        def group_body(xc, text_blocks, cross_bp, ctx):
+            for bp in text_blocks:
+                xc = _ffn(bp, _attn_train(bp, xc, cfg, positions), cfg)[0]
+            ck, cv = _ctx_kv(cross_bp["attn"], ctx, cfg)
+            xc = _cross_attn(cross_bp, xc, ck, cv, cfg, gated=True)
+            return _ffn(cross_bp, xc, cfg)[0]
+        text = per_layer(params["blocks"])
+        for g, cross_bp in enumerate(per_layer(params["cross_blocks"])):
+            x = ckpt(group_body, x, text[g * period:(g + 1) * period],
+                     cross_bp, aux_embeds)
+    elif cfg.family == "audio":
+        f = aux_embeds.shape[1]
+        fpos = torch.arange(f, device=x.device)[None].expand(b, f)
+
+        def enc_body(ec, bp):
+            h = rmsnorm(ec, bp["ln1"], cfg.norm_eps)
+            # no qk_norm in the encoder, whatever cfg.qk_norm says (as in
+            # the reference)
+            q, k, v = qkv(bp["attn"], h, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.hd, fpos, rope_theta=cfg.rope_theta)
+            o = gqa_attend(q, k, v, causal=False)
+            ec = ec + o.reshape(*ec.shape[:2], -1) @ bp["attn"].wo
+            return _ffn(bp, ec, cfg)[0]
+
+        def dec_body(xc, bp, enc):
+            xc = _attn_train(bp, xc, cfg, positions)
+            ck, cv = _ctx_kv(bp["cross"], enc, cfg)
+            xc = _cross_attn(bp, xc, ck, cv, cfg)
+            return _ffn(bp, xc, cfg)[0]
+        enc = aux_embeds
+        for bp in per_layer(params["enc_blocks"]):
+            enc = ckpt(enc_body, enc, bp)
+        enc = rmsnorm(enc, params["enc_ln_f"], cfg.norm_eps)
+        for bp in per_layer(params["blocks"]):
+            x = ckpt(dec_body, x, bp, enc)
     elif cfg.family == "ssm":
         for bp in per_layer(params["pairs"]):
             x = ckpt(_pair_train, bp, x, cfg)
@@ -437,6 +568,27 @@ def serve_step(params: Params, token: torch.Tensor, cache: dict,
             x, _ = _attn_decode(bp, x, c, cfg)
             x, _ = _ffn(bp, x, cfg)
         cache = {"kv": kv._replace(pos=kv.pos + 1)}
+    elif cfg.family in CROSS_FAMILIES:
+        kv = cache["kv"]
+        layers, caches = per_layer(params["blocks"]), per_layer(kv)
+        ctx = list(zip(per_layer(cache["cross_k"]),
+                       per_layer(cache["cross_v"])))
+        if cfg.family == "vlm":
+            # groups of ``period`` text layers, each followed by its
+            # gated cross block
+            period = cfg.cross_attn_period
+            for g, cb in enumerate(per_layer(params["cross_blocks"])):
+                for l in range(g * period, (g + 1) * period):
+                    x, _ = _attn_decode(layers[l], x, caches[l], cfg)
+                    x, _ = _ffn(layers[l], x, cfg)
+                x = _cross_attn(cb, x, *ctx[g], cfg, gated=True)
+                x, _ = _ffn(cb, x, cfg)
+        else:
+            for bp, c, (ck, cv) in zip(layers, caches, ctx):
+                x, _ = _attn_decode(bp, x, c, cfg)
+                x = _cross_attn(bp, x, ck, cv, cfg)
+                x, _ = _ffn(bp, x, cfg)
+        cache = dict(cache, kv=kv._replace(pos=kv.pos + 1))
     elif cfg.family == "ssm":
         for bp, ms, ss in zip(per_layer(params["pairs"]),
                               per_layer(cache["mlstm"]),

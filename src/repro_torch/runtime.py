@@ -3,11 +3,9 @@ from __future__ import annotations
 
 import torch
 
-# Later slices of the port; error messages name them so a caller knows
+# A later slice of the port; error messages name it so a caller knows
 # where the missing feature lands (ROADMAP.md, queue 1).
 MESH_SLICE = "the multi-device LM slice, ROADMAP queue 1 item 8"
-LM_FAMILIES_SLICE = ("the cross-attention LM families slice (audio, vlm), "
-                     "ROADMAP queue 1 item 7")
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

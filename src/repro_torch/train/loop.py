@@ -35,14 +35,18 @@ class TrainState(NamedTuple):
     step: torch.Tensor       # [] int32
 
 
-def loss_and_grads(params: Any, tokens: torch.Tensor, cfg: ArchConfig
+def loss_and_grads(params: Any, tokens: torch.Tensor, cfg: ArchConfig,
+                   aux_embeds: Optional[torch.Tensor] = None
                    ) -> tuple[torch.Tensor, Any]:
     """``lm.train_loss`` and its gradient in every parameter leaf (in the
-    leaf's dtype), without touching the params' own ``requires_grad``."""
+    leaf's dtype), without touching the params' own ``requires_grad``.
+    ``aux_embeds`` (the audio / vlm families' stub context) is an input,
+    not differentiated, as in the reference."""
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
-        loss = lm.train_loss(tree_unflatten(params, leaves), tokens, cfg)
+        loss = lm.train_loss(tree_unflatten(params, leaves), tokens, cfg,
+                             aux_embeds)
         # a leaf the model does not read (the qk norms of an arch without
         # qk_norm) gets zeros, as jax.grad gives it
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
@@ -52,29 +56,37 @@ def loss_and_grads(params: Any, tokens: torch.Tensor, cfg: ArchConfig
 
 def make_train_step(cfg: ArchConfig, opt: Optimizer, accum: int = 1,
                     accum_dtype: torch.dtype = torch.float32) -> Callable:
-    """Returns ``train_step(state, tokens) -> (state, metrics)``, metrics
-    ``{"loss", "grad_norm"}`` (device tensors; the norm is of the averaged
-    gradient before clipping).
+    """Returns ``train_step(state, tokens, aux_embeds=None) -> (state,
+    metrics)``, metrics ``{"loss", "grad_norm"}`` (device tensors; the
+    norm is of the averaged gradient before clipping).  ``aux_embeds``
+    [B, F, d] is the audio / vlm families' stub context, one row a
+    sequence.
 
     With ``accum > 1`` the batch is split into ``accum`` strided
     microbatches, as the reference splits it (``reshape(mb, accum,
-    ...).swapaxes(0, 1)``: microbatch i holds rows i, i + accum, ...);
-    losses and gradients are summed in ``accum_dtype``, then divided by
-    ``accum``, before one optimizer update."""
+    ...).swapaxes(0, 1)``: microbatch i holds rows i, i + accum, ...),
+    ``aux_embeds`` the same way; losses and gradients are summed in
+    ``accum_dtype``, then divided by ``accum``, before one optimizer
+    update."""
 
-    def step_fn(state: TrainState, tokens: torch.Tensor):
+    def split(t: Optional[torch.Tensor]) -> list:
+        if t is None:
+            return [None] * accum
+        mb = t.shape[0] // accum
+        return list(t.reshape(mb, accum, *t.shape[1:]).transpose(0, 1))
+
+    def step_fn(state: TrainState, tokens: torch.Tensor,
+                aux_embeds: Optional[torch.Tensor] = None):
         if accum == 1:
-            loss, grads = loss_and_grads(state.params, tokens, cfg)
+            loss, grads = loss_and_grads(state.params, tokens, cfg,
+                                         aux_embeds)
         else:
-            mb = tokens.shape[0] // accum
-            tok_r = tokens.reshape(mb, accum, *tokens.shape[1:]
-                                   ).transpose(0, 1)
             loss = torch.zeros((), dtype=torch.float32,
                                device=tokens.device)
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=accum_dtype, device=p.device), state.params)
-            for i in range(accum):
-                l, g = loss_and_grads(state.params, tok_r[i], cfg)
+            for tok, aux in zip(split(tokens), split(aux_embeds)):
+                l, g = loss_and_grads(state.params, tok, cfg, aux)
                 loss = loss + l
                 for a, b in zip(tree_leaves(grads), tree_leaves(g)):
                     a.add_(b.to(a.dtype))

@@ -847,6 +847,7 @@ def _vq_attn_operands(n, g, d, kcb, w, seed, dtype):
                                          (16, 8, 64, 128, 64),
                                          (128, 1, 80, 128, 64),
                                          (32, 4, 128, 128, 64),
+                                         (24, 1, 64, 128, 64),
                                          (5, 2, 64, 16, 8), (1, 1, 8, 4, 4),
                                          (3, 16, 256, 70, 130),
                                          (2, 4, 100, 3, 1), (4, 8, 128, 0, 9)])
@@ -1157,6 +1158,56 @@ def test_lm_families_cuda_vs_cpu(cuda, arch, vq):
                           generator=torch.Generator().manual_seed(2))
     lc, gc = loss_and_grads(gpu_params, batch.to(cuda), cfg)
     lh, gh = loss_and_grads(params, batch, cfg)
+    assert_allclose(lc.cpu().numpy(), lh.numpy(), rtol=1e-4, atol=1e-5)
+    for a, b in zip(tree_leaves(gc), tree_leaves(gh)):
+        assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("vq", [False, True])
+def test_lm_cross_families_cuda_vs_cpu(cuda, arch, vq):
+    """The audio and vlm smokes (f32), every vlm gate nonzero and the
+    cross caches filled from a seeded generator (at init both would make
+    the cross output 0): 24 teacher-forced decode steps card vs CPU
+    (logits ``rtol=1e-4, atol=1e-4``, codebook counts equal,
+    ``vq_attention`` once per decoder layer and step), then
+    ``train_loss`` with the stub context and its gradients at
+    ``rtol=1e-4, atol=1e-5``."""
+    from repro_torch import convert
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.kernels import vq_attention as tvatt
+    from repro_torch.models import lm
+    from repro_torch.train.loop import loss_and_grads
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = get_smoke(arch)
+    if vq:
+        cfg = cfg.with_vq(k=4, window=8)
+    gen = torch.Generator().manual_seed(0)
+    params = lm.init_lm(cfg, gen, device="cpu")
+    if cfg.family == "vlm":
+        params["cross_blocks"]["gate"].uniform_(0.4, 1.2, generator=gen)
+    gpu_params = convert.to_device(params, cuda)
+    cpu_cache = lm.init_serve_cache(cfg, 3, 32, device="cpu")
+    for name in ("cross_k", "cross_v"):
+        cpu_cache[name].normal_(generator=gen)
+    caches = [cpu_cache, convert.to_device(cpu_cache, cuda)]
+    tokens = torch.randint(0, cfg.vocab, (24, 3, 1), generator=gen)
+    before = tvatt.launches
+    for s in range(24):
+        want, caches[0] = lm.serve_step(params, tokens[s], caches[0], cfg)
+        got, caches[1] = lm.serve_step(gpu_params, tokens[s].to(cuda),
+                                       caches[1], cfg)
+        assert_allclose(got.cpu().numpy(), want.numpy(), **LM_STEP)
+        if vq:
+            assert torch.equal(caches[1]["kv"].count.cpu(),
+                               caches[0]["kv"].count)
+    assert tvatt.launches - before == (24 * cfg.n_layers if vq else 0)
+    batch = torch.randint(0, cfg.vocab, (2, 33), generator=gen)
+    f = cfg.enc_seq if cfg.family == "audio" else cfg.n_patches
+    aux = torch.randn((2, f, cfg.d_model), generator=gen)
+    lc, gc = loss_and_grads(gpu_params, batch.to(cuda), cfg, aux.to(cuda))
+    lh, gh = loss_and_grads(params, batch, cfg, aux)
     assert_allclose(lc.cpu().numpy(), lh.numpy(), rtol=1e-4, atol=1e-5)
     for a, b in zip(tree_leaves(gc), tree_leaves(gh)):
         assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-5)

@@ -15,6 +15,16 @@ scores); and with the boundary moved by a few f32 ulps, which flips the
 clamp's derivative for exactly the scores that close to it.  A card
 gradient that one of the moved boundaries reproduces comes from scores
 that the card's summation order put on the other side of the clip.
+
+Then it runs ``chip_smoke.split_step_check`` -- the parity's split of
+the step into its gradients, each side's RMSprop of the same gradients,
+and the params where RMSprop's gain does not magnify a gradient
+difference past STEP_TOL -- with each moved boundary's gradients (and the
+saved card gradients) standing for the card's, beside the direct
+comparison of the two steps' params; and, as a control, with the largest
+gradient leaf of the CPU's scaled by 1.001, which the split check must
+refuse.  It exits 1 if the saved card gradients fail the split check or
+the control passes it.
 """
 from __future__ import annotations
 
@@ -42,7 +52,7 @@ def main() -> int:
     from repro_torch.graph.datasets import synthetic_arxiv
     from repro_torch.nn import gnn_layers as gl
     d = torch.load(args.run, weights_only=False)
-    g = synthetic_arxiv(n=cs.TRANSFORMER_N, seed=cs.SEED)
+    g = synthetic_arxiv(n=d.get("n", cs.TRANSFORMER_N), seed=cs.SEED)
     cfg = paper_config(g, full_scale=True)._replace(
         backbone="transformer", heads=cs.ATTN_HEADS)
     cpu = cs.Model(g, cfg, cs.TRANSFORMER_PARITY_BATCH, "cpu")
@@ -109,12 +119,58 @@ def main() -> int:
         show("CPU, score products rounded once from f64", grads())
     finally:
         gl.torch.einsum = orig_einsum
+    shifted = {}
     try:
         for rel in (-4e-7, 4e-7, -1e-6, 1e-6):
             gl.SCORE_CLIP = clip0 * (1 + rel)
-            show(f"CPU, clip at {clip0} x (1 {rel:+g})", grads())
+            shifted[rel] = grads()
+            show(f"CPU, clip at {clip0} x (1 {rel:+g})", shifted[rel])
     finally:
         gl.SCORE_CLIP = clip0
+    return split_checks(d, gg, gc, shifted)
+
+
+def split_checks(d, gg, gc, shifted) -> int:
+    """``chip_smoke.split_step_check`` with each set of gradients standing
+    for the card's against the CPU's, the direct param comparison beside
+    it, then the 1.001 control."""
+    from repro_torch.configs.vq_gnn_paper import PAPER_LR
+    from repro_torch.train.optimizer import rmsprop
+    opt = rmsprop(PAPER_LR)
+    p0, o0 = d["params"], d["opt_state"]
+    step_b = opt.update(gc, o0, p0)
+
+    def run(tag, ga) -> bool:
+        step_a = opt.update(ga, o0, p0)
+        at, rt = cs.STEP_TOL["atol"], cs.STEP_TOL["rtol"]
+        direct = sum(int(((step_a[0][l][k] - step_b[0][l][k]).abs()
+                          > at + rt * step_b[0][l][k].abs()).sum())
+                     for l in range(len(gc)) for k in gc[l])
+        try:
+            rep = cs.split_step_check(tag, p0, o0, ga, gc, step_a,
+                                      step_a[0], step_b[0], opt, PAPER_LR)
+            verdict = f"passes ({rep['ill_conditioned']} of " \
+                f"{rep['elements']} elements ill-conditioned)"
+        except SystemExit as e:
+            rep, verdict = None, f"fails: {e}"
+        print(f"split check, {tag}: {verdict}; the direct comparison of "
+              f"the two steps' params: {direct} elements beyond STEP_TOL")
+        return rep is not None
+
+    ok = run("saved card gradients", gg)
+    for rel, gs in shifted.items():
+        run(f"clip x (1 {rel:+g})", gs)
+    l, k = max(((l, k) for l in range(len(gc)) for k in gc[l]),
+               key=lambda lk: float(gc[lk[0]][lk[1]].abs().max()))
+    bad = [{n: (t * 1.001 if (i, n) == (l, k) else t)
+            for n, t in layer.items()} for i, layer in enumerate(gc)]
+    caught = not run(f"control: the CPU's gradients with leaf {l}.{k} "
+                     f"(max |g| {float(gc[l][k].abs().max()):.4g}) x 1.001",
+                     bad)
+    if not ok or not caught:
+        print("transformer_parity_clip_probe: the saved card gradients fail "
+              "the split check, or the control passes it")
+        return 1
     return 0
 
 

@@ -8,14 +8,20 @@ Each run trains the Graph Transformer as ``chip_smoke.py``'s
 "transformer-train without Eq. 7" phase does (n 20,000, 10 epochs, depth
 3, from seed 0: the card's steps add in no fixed order, so every run ends
 in a slightly different state), then runs ``phase_train_parity`` on it
-(one step at batch 1,024, card vs CPU, every param and RMSprop moment
-within STEP_TOL).  Beside the check's verdict each run prints, for every
-param, its worst element as a share of STEP_TOL (|card - CPU| / (atol +
-rtol |CPU|)) with the element's state: the param and RMSprop's v before
-the step, the gradients of both devices, the two updates.  A run whose
-check fails (or whose worst share passes 1) saves its trained state, the
-batch's ids and both devices' gradients under ``--out`` (``torch.save``)
-for a rerun off the card.  The last line is a JSON summary.
+(one step at batch 1,024, card vs CPU, with the attention backbones'
+split step check: the gradients, each side's RMSprop of the card's
+gradients, and the params where RMSprop's gain does not carry a
+gradient difference past STEP_TOL -- ``chip_smoke.split_step_check``).
+Beside the check's verdict each run prints, for every param, its worst
+element of the direct card-vs-CPU comparison as a share of STEP_TOL
+(|card - CPU| / (atol + rtol |CPU|)) with the element's state: the param
+and RMSprop's v before the step, the gradients of both devices, the two
+updates.  A run whose check fails (or whose worst direct share passes 1)
+saves its trained state, the batch's ids and both devices' gradients
+under ``--out`` (``torch.save``) for a rerun off the card
+(``tools/transformer_parity_clip_probe.py``), and the run with the
+largest worst share is saved as ``worst.pt`` too.  The last line is a
+JSON summary.
 """
 from __future__ import annotations
 
@@ -98,7 +104,8 @@ def main() -> int:
         try:
             cs.phase_train_parity(m, params, vq, ost, cpu,
                                   f"repeat {run}: transformer-train parity",
-                                  False, cs.TRANSFORMER_PARITY_BATCH, True)
+                                  False, cs.TRANSFORMER_PARITY_BATCH, True,
+                                  True)
         except SystemExit as e:
             verdict = f"fail: {e}"
         # the parity's own batch and step, taken apart element by element
@@ -125,12 +132,17 @@ def main() -> int:
                                     eps))
         worst.sort(key=lambda w: -w["share"])
         rec = {"run": run, "verdict": verdict, "worst": worst[:3]}
+        saved = {"params": state_c[0], "vq_states": state_c[1],
+                 "opt_state": state_c[2], "bids": bids, "n": g.n,
+                 "grads_card": gg, "grads_cpu": gc}
         if verdict != "pass" or worst[0]["share"] > 1.0:
             path = os.path.join(args.out, f"run{run}.pt")
-            torch.save({"params": state_c[0], "vq_states": state_c[1],
-                        "opt_state": state_c[2], "bids": bids,
-                        "grads_card": gg, "grads_cpu": gc}, path)
+            torch.save(saved, path)
             rec["saved"] = os.path.relpath(path, ROOT)
+        if worst[0]["share"] >= max((r["worst"][0]["share"] for r in runs),
+                                    default=0.0):
+            torch.save(saved, os.path.join(args.out, "worst.pt"))
+            rec["saved_as_worst"] = True
         cs.log(json.dumps({"repeat": rec}))
         runs.append(rec)
         del r, params, vq, ost, state_c, outs
