@@ -353,7 +353,32 @@ Phases (each prints its own lines; any failure exits non-zero):
    decode steps at k 16, W 4 (24 past the window; logits ``rtol=1e-4,
    atol=1e-4``, counts equal), then ``loss_and_grads`` with a stub context
    on 1 x 96 and the launcher's Adam update, as in phase 39;
-43. a ``{"kernels": [...]}`` line (the quantized and wide forms, the
+43. lm-mesh, the LM mesh on torch.distributed (no hand-written kernel,
+   as in the reference): four gloo ranks sharing the card
+   (``share_device``), each building a (2, 2) ("data", "model") host mesh
+   and taking LM_MESH_STEPS bf16 steps of ``launch.train.
+   build_sharded_step`` (llama3.2-3b at full width, tp_fsdp on this mesh,
+   cut to LM_MESH_LAYERS of 28 layers, 4 x 256 tokens from the stream,
+   the launcher's optimizer): finite losses, falling or flat (the last
+   within 1 % over the first), step p50 ms and each rank's
+   ``max_memory_allocated``; then one f32 step at 2 layers on the mesh,
+   and each rank in turn the same step unsharded on the card from the
+   same weights: loss, gradient norm, and its own shard of every
+   gradient (``loss_and_grads`` on the mesh) and of both moments within
+   LM_TRAIN_TOL and with an error norm within LM_MESH_REL of the norm
+   (LM_MESH_REL_BF16 for the bf16 moments),
+   of every param at rtol 1e-5, atol 1e-6 where the update is
+   well-conditioned (``split_step_check``'s rule) or both gradients are
+   0, the shards waiting on the host during the other ranks' turns;
+   DTensor's
+   collectives synchronous within the ranks' part
+   (``ranks.sync_functional_collectives``); every counted kernel 0 on
+   every rank; beside the ranks, on the host in a subprocess that sees no
+   card, the fake-rank dry-run of granite-3-8b's prefill_32k cell at 2
+   layers on (16, 16) (``launch.dryrun``; its JSON line); then the
+   analytic roofline terms of llama3.2-3b's train_4k cell
+   (``launch.roofline``);
+44. a ``{"kernels": [...]}`` line (the quantized and wide forms, the
    link shapes and the dispatch phase's shapes under each kernel's
    ``also``, each with its launches on the main paths -- a wide form's
    at its operand shape, as the wrapper counts them, every wide shape's
@@ -5697,6 +5722,363 @@ def phase_xattn_parity() -> dict:
                                      **kw)}
 
 
+# ---------------------------------------------------------------------------
+# the LM mesh
+# ---------------------------------------------------------------------------
+
+LM_MESH_RANKS = 4             # gloo ranks sharing the one card
+LM_MESH_MODEL = 2             # the host mesh (2, 2): ("data", "model")
+LM_MESH_LAYERS = 4            # of llama3.2-3b's 28
+LM_MESH_BATCH = 4
+LM_MESH_SEQ = 256
+LM_MESH_STEPS = 3
+LM_MESH_PARITY_LAYERS = 2
+# a shard's error norm over its norm, for each gradient leaf: a flipped
+# sign or a misplaced shard gives ~1, rounding ~1e-7 -- the check that
+# holds gradients too small for LM_TRAIN_TOL's atol; the bf16 moments'
+# own rounding (their values one ulp apart) bounds theirs by 2^-7
+LM_MESH_REL = 1e-4
+LM_MESH_REL_BF16 = 2.0 ** -7
+
+
+def _offload(tree) -> list:
+    """Every DTensor leaf of ``tree`` as (path, this rank's shard on the
+    host, its mesh, its placements): what a rank keeps while another
+    rank has the shared card."""
+    from repro_torch.distributed.sharding import leaf_paths
+    return [(key, t.to_local().cpu(), t.device_mesh, t.placements)
+            for key, t in leaf_paths(tree)]
+
+
+def _local_of(full, mesh, placements):
+    """This rank's slice of the plain tensor ``full`` in the layout
+    ``placements`` on ``mesh`` (cut here, no communication)."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(full, mesh, placements,
+                             src_data_rank=None).to_local()
+
+
+def _shard_close(what: str, held: list, plain, rtol: float, atol: float,
+                 rel_max: float = LM_MESH_REL) -> tuple[float, float, int]:
+    """Each shard of ``held`` (``_offload``) within ``atol + rtol |want|``
+    of the same slice of ``plain``'s leaf, on ``plain``'s device, element
+    by element, and its error norm within ``rel_max`` of the slice's norm
+    (a slice of zeros: the shard all zeros); (largest abs error, largest
+    relative error norm, elements and shards beyond the tolerances,
+    non-finite ones included)."""
+    import torch
+    from repro_torch.distributed.sharding import leaf_paths
+    want = dict(leaf_paths(plain))
+    worst, worst_rel, bad = 0.0, 0.0, 0
+    for key, loc, dm, pl in held:
+        w = _local_of(want[key], dm, pl).float()
+        err = loc.to(w.device).float() - w
+        norm, enorm = float(torch.linalg.vector_norm(w)), \
+            float(torch.linalg.vector_norm(err))
+        rel = enorm / norm if norm > 0 else (0.0 if enorm == 0 else math.inf)
+        err = err.abs()
+        n_bad = int((~(err <= atol + rtol * w.abs())).sum())
+        if n_bad or not rel <= rel_max:
+            log(f"{what} {key}: {n_bad} elements beyond rtol {rtol} atol "
+                f"{atol} (max abs err {float(err.max())}), error norm "
+                f"{rel:.3g} of the norm")
+        bad += n_bad + int(not rel <= rel_max)
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        worst_rel = max(worst_rel, rel)
+    return worst, worst_rel, bad
+
+
+def _lm_mesh_params_close(what: str, held: list, plain, grads,
+                          held_grads: list, nu, scale: float, lr_t: float
+                          ) -> tuple[float, int, int, int]:
+    """Each param shard of ``held`` (``_offload`` of the mesh's step)
+    against the same slice of ``plain`` (the unsharded step) at rtol 1e-5,
+    atol 1e-6 (a tenth of the step-1 lr_t), on every element where the
+    update is well-conditioned, by ``split_step_check``'s rule (phase 23)
+    for the launcher's Adam: lr_t (1 - b1) s / (sqrt(v) + eps), the gain
+    from a gradient to its param (s the clip scale, v the unsharded
+    step's new ``nu``), times the gradient's LM_TRAIN_TOL is within the
+    param's tolerance; and where both steps' gradients are exactly 0
+    (the first moment 0: neither step moves the param).  Where the
+    gradient is within rounding of 0 the gain reaches ~1e2 and a sign
+    that differs moves the param 2 lr_t apart: the gradients hold those
+    (``_shard_close``).  ``grads`` are the unsharded step's gradients and
+    ``held_grads`` the mesh's (``_offload``), in ``held``'s order.
+    (largest abs error on the well-conditioned elements, those beyond the
+    tolerance, elements left to the gradients, all elements)."""
+    import torch
+    from repro_torch.distributed.sharding import leaf_paths
+    at, rt = 1e-6, 1e-5
+    ag, rg = LM_TRAIN_TOL["atol"], LM_TRAIN_TOL["rtol"]
+    want, gd, vd = (dict(leaf_paths(x)) for x in (plain, grads, nu))
+    worst, bad, outside, n_all = 0.0, 0, 0, 0
+    mesh_g = {key: loc for key, loc, _, _ in held_grads}
+    for key, loc, dm, pl in held:
+        p, g, v = (_local_of(x[key], dm, pl).float() for x in (want, gd, vd))
+        gain = lr_t * 0.1 * scale / (torch.sqrt(v) + 1e-8)
+        ok = (gain * (ag + rg * g.abs()) <= at + rt * p.abs()) | (
+            (g == 0) & (mesh_g[key].to(g.device) == 0))
+        err = (loc.to(p.device).float() - p).abs()
+        n_bad = int((ok & ~(err <= at + rt * p.abs())).sum())
+        if n_bad:
+            log(f"{what} {key}: {n_bad} well-conditioned elements beyond "
+                f"rtol {rt} atol {at} (max abs err {float(err[ok].max())})")
+        bad += n_bad
+        if bool(ok.any()):
+            worst = max(worst, float(err[ok].max()))
+        outside += int((~ok).sum())
+        n_all += ok.numel()
+    return worst, bad, outside, n_all
+
+
+def _lm_mesh_rank(mesh, cfg) -> dict:
+    """lm-mesh, one rank's part (phase 43) on ``cfg`` (the train
+    launcher's configuration, cut in depth), with DTensor's collectives
+    synchronous where the ranks share the card (gloo): the bf16 steps
+    timed, then the f32 step against the unsharded step, which each rank
+    runs in turn."""
+    import contextlib
+
+    from repro_torch.distributed.ranks import sync_functional_collectives
+    with sync_functional_collectives(mesh.device.type) \
+            if mesh.share_device else contextlib.nullcontext():
+        return _lm_mesh_rank_steps(mesh, cfg)
+
+
+def _lm_mesh_rank_steps(mesh, cfg) -> dict:
+    import dataclasses
+
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.train.loop import TrainState, loss_and_grads
+    from repro_torch.train.optimizer import global_norm
+    dev = mesh.device
+    reset_counts()
+    cuda = dev.type == "cuda"
+    dmesh = make_host_mesh(model=LM_MESH_MODEL, device=dev)
+
+    def sharded_state(cfg_, opt, sh, seed):
+        # the same weights on every rank from the seed; each keeps its shard
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = lm.init_lm(cfg_, gen, device=dev)
+        dparams = shd.distribute(params, sh.params, src_data_rank=None)
+        state = TrainState(dparams, opt.init(dparams),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        return shd.distribute(state, sh, src_data_rank=None), params
+
+    opt = tlaunch.optimizer(LM_TRAIN_LR, LM_MESH_STEPS)
+    step, sh = tlaunch.build_sharded_step(cfg, dmesh, opt, 1)
+    strategy = shd.strategy_for(cfg, dmesh)
+    state, params = sharded_state(cfg, opt, sh, SEED)
+    del params
+    local = {k: list(t.to_local().shape) for k, t in
+             shd.leaf_paths(state.params)
+             if k in ("['blocks']['mlp'].w1", "['embed']")}
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    batches = _lm_batches(cfg, LM_MESH_BATCH, LM_MESH_SEQ, LM_MESH_STEPS)
+    losses, ms = [], []
+    for tok in batches:
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, tok.to(dev))
+        losses.append(float(m["loss"]))
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    del state
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # one f32 step at 2 layers on the mesh, and its gradients as the step
+    # takes them; then each rank in turn runs it unsharded from the same
+    # weights and holds its own shards to it: gradients, both moments and
+    # the well-conditioned params
+    import torch.distributed as dist
+    cfg32 = dataclasses.replace(cfg, n_layers=LM_MESH_PARITY_LAYERS,
+                                dtype="float32")
+    opt32 = tlaunch.optimizer(LM_TRAIN_LR, 1)
+    step32, sh32 = tlaunch.build_sharded_step(cfg32, dmesh, opt32, 1)
+    strategy32 = shd.strategy_for(cfg32, dmesh)
+    st32, params = sharded_state(cfg32, opt32, sh32, SEED + 5)
+    del params                       # drawn again in this rank's turn
+    tok = batches[0].to(dev)
+    with tlaunch.on_mesh(dmesh, cfg32, strategy32, tok.shape[0]):
+        _, g32 = loss_and_grads(st32.params, tlaunch.place_batch(
+            tok, dmesh, cfg32, strategy32), cfg32)
+    new32, m32 = step32(st32, tok)
+    # each rank's shards wait on the host while the ranks take the card in
+    # turn for the unsharded step
+    held = {"grad": _offload(g32), "mu": _offload(new32.opt.mu),
+            "nu": _offload(new32.opt.nu), "params": _offload(new32.params)}
+    del st32, new32, g32
+    if cuda:
+        torch.cuda.empty_cache()
+    par = {"loss": float(m32["loss"]), "grad_norm": float(m32["grad_norm"])}
+    errs = torch.zeros(8, dtype=torch.float64, device=dev)
+    counts = torch.zeros(2, dtype=torch.float64, device=dev)
+    for r in range(mesh.world_size):
+        dist.barrier()
+        if r != mesh.rank:
+            continue
+        if cuda:
+            par["card_bytes_at_turn"] = [torch.cuda.memory_allocated(dev),
+                                         torch.cuda.memory_reserved(dev),
+                                         torch.cuda.mem_get_info(dev)[0]]
+        # the unsharded step as ``make_train_step`` takes it at accum 1,
+        # its gradients kept: the same weights from the seed
+        params = lm.init_lm(cfg32, torch.Generator(device=dev).manual_seed(
+            SEED + 5), device=dev)
+        lp, gp = loss_and_grads(params, tok, cfg32)
+        mp = {"loss": lp, "grad_norm": global_norm(gp)}
+        new_p, new_o = opt32.update(gp, opt32.init(params), params)
+        del params
+        plain = TrainState(new_p, new_o, None)
+        for k_ in ("loss", "grad_norm"):
+            check_close(f"lm-mesh f32 {k_}", m32[k_].reshape(1),
+                        mp[k_].reshape(1), LM_TRAIN_TOL)
+            par[f"{k_}_unsharded"] = float(mp[k_])
+        tag = f"lm-mesh f32 rank {mesh.rank}"
+        worst_g, rel_g, bad_g = _shard_close(f"{tag} grad", held["grad"],
+                                             gp, **LM_TRAIN_TOL)
+        worst_mu, rel_mu, bad_mu = _shard_close(
+            f"{tag} mu", held["mu"], plain.opt.mu, **LM_TRAIN_TOL,
+            rel_max=LM_MESH_REL_BF16)
+        worst_nu, rel_nu, bad_nu = _shard_close(
+            f"{tag} nu", held["nu"], plain.opt.nu, **LM_TRAIN_TOL,
+            rel_max=LM_MESH_REL_BF16)
+        scale = min(1.0, 1.0 / max(float(mp["grad_norm"]), 1e-9))
+        worst_p, bad_p, outside, n_all = _lm_mesh_params_close(
+            f"{tag} params", held["params"], plain.params, gp,
+            held["grad"], plain.opt.nu, scale, _lm_lr_t(1, 1))
+        errs = torch.tensor([worst_g, worst_mu, worst_nu, worst_p,
+                             float(bad_g + bad_mu + bad_nu + bad_p),
+                             rel_g, rel_mu, rel_nu],
+                            dtype=torch.float64, device=dev)
+        counts = torch.tensor([float(outside), float(n_all)],
+                              dtype=torch.float64, device=dev)
+        del plain, gp
+        if cuda:
+            torch.cuda.empty_cache()
+    del held
+    dist.all_reduce(errs, op=dist.ReduceOp.MAX)
+    dist.all_reduce(counts)
+    if float(errs[4]) > 0:
+        raise SystemExit(f"lm-mesh f32 step: shards beyond tolerance on a "
+                         f"rank (max abs errs: grad {float(errs[0])}, mu "
+                         f"{float(errs[1])}, nu {float(errs[2])}, params "
+                         f"{float(errs[3])})")
+    par.update(grad_err=float(errs[0]), mu_err=float(errs[1]),
+               nu_err=float(errs[2]), param_err=float(errs[3]),
+               grad_rel=float(errs[5]), mu_rel=float(errs[6]),
+               nu_rel=float(errs[7]),
+               params_held_by_gradients=int(counts[0]),
+               param_elements=int(counts[1]))
+    if cuda:
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    return {"rank": mesh.rank, "strategy": strategy, "losses": losses,
+            "step_ms": ms, "step_p50_ms": float(np.percentile(ms, 50)),
+            "max_memory_allocated": int(peak), "local_shapes": local,
+            "parity": par,
+            "launches": {k: v for k, v in counts.items()
+                         if k not in KEYED and v}}
+
+
+def phase_lm_mesh() -> dict:
+    """Phase 43 (module docstring)."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.distributed.ranks import run_ranks
+    from repro_torch.launch import roofline
+    import dataclasses
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(_lm_train_cfg(False), n_layers=LM_MESH_LAYERS)
+    # the fake-rank dry-run on the host, beside the ranks: a subprocess
+    # that sees no card
+    out_dir = os.path.join(ROOT, "build", "dryrun_torch")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.time()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "granite-3-8b", "--shape", "prefill_32k", "--layers", "2",
+         "--out", out_dir], env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        outs = run_ranks(_lm_mesh_rank, LM_MESH_RANKS, "gloo", DEVICE, cfg,
+                         share_device=DEVICE == "cuda", timeout_s=600)
+        wall = time.time() - t0
+        _, err = dry.communicate(timeout=300)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    dry_s = time.time() - t0
+    for o in outs:
+        if not all(math.isfinite(x) for x in o["losses"]):
+            raise SystemExit(f"lm-mesh: rank {o['rank']}'s losses "
+                             f"{o['losses']} are not finite")
+        if o["losses"] != outs[0]["losses"]:
+            raise SystemExit(f"lm-mesh: ranks disagree on the losses: "
+                             f"{[x['losses'] for x in outs]}")
+        if o["launches"]:
+            raise SystemExit(f"lm-mesh: rank {o['rank']} launched counted "
+                             f"kernels {o['launches']}; the LM mesh path "
+                             f"has none")
+        log(f"lm-mesh rank {o['rank']}: losses {o['losses']}, step ms "
+            f"{[round(x, 3) for x in o['step_ms']]} (p50 "
+            f"{o['step_p50_ms']:.3f}), max_memory_allocated "
+            f"{o['max_memory_allocated']} B, local shapes "
+            f"{o['local_shapes']}, card bytes allocated / reserved / free "
+            f"at its unsharded turn "
+            f"{o['parity'].get('card_bytes_at_turn')}")
+    losses = outs[0]["losses"]
+    if losses[-1] > losses[0] * 1.01:
+        raise SystemExit(f"lm-mesh: the loss rose: {losses}")
+    par = outs[0]["parity"]
+    log(f"lm-mesh f32 step at {LM_MESH_PARITY_LAYERS} layers, the mesh vs "
+        f"each rank's unsharded step on the card: {par}")
+    if dry.returncode != 0:
+        raise SystemExit("lm-mesh dry-run failed:\n" + err[-3000:])
+    with open(os.path.join(out_dir, "granite-3-8b__prefill_32k__pod16x16__"
+                           "l2.json")) as f:
+        cell = json.load(f)
+    if not (cell["cost"]["flops"] > 0 and cell["memory"]["argument_bytes"]
+            == cell["memory"]["spec_argument_bytes"]
+            and sum(cell["collectives"]["by_axis"]["model"].values()) > 0):
+        raise SystemExit(f"lm-mesh dry-run: {cell}")
+    log(json.dumps({"lm_mesh_dryrun": cell}))
+    cfg = ARCHS["llama3.2-3b"]
+    strategy = "fsdp"          # strategy_for on (16, 16): 24 heads
+    terms = {"model_flops": roofline.model_flops(cfg, "train_4k"),
+             "hbm_bytes": roofline.model_hbm_bytes(cfg, "train_4k", 256, 8,
+                                                   strategy),
+             "coll_bytes": roofline.model_collective_bytes(
+                 cfg, "train_4k", 256, 16, 16, 8, strategy)}
+    terms.update(compute_s=terms["model_flops"] / (256 * roofline.PEAK_FLOPS),
+                 memory_s=terms["hbm_bytes"] / roofline.HBM_BW,
+                 collective_s=terms["coll_bytes"] / roofline.LINK_BW)
+    log(f"lm-mesh roofline, llama3.2-3b train_4k on 256 H100s ({strategy}, "
+        f"accum 8): {terms}")
+    return {"ranks": LM_MESH_RANKS, "mesh": [LM_MESH_RANKS // LM_MESH_MODEL,
+                                             LM_MESH_MODEL],
+            "layers": LM_MESH_LAYERS, "batch": LM_MESH_BATCH,
+            "seq": LM_MESH_SEQ, "strategy": outs[0]["strategy"],
+            "losses": losses, "wall_s": wall,
+            "step_p50_ms": [o["step_p50_ms"] for o in outs],
+            "max_memory_allocated": [o["max_memory_allocated"] for o in outs],
+            "parity": par, "dryrun_s": dry_s,
+            "dryrun_trace_s": cell["trace_s"],
+            "roofline_llama3.2-3b_train_4k": terms}
+
+
 def main() -> int:
     import argparse
     import torch
@@ -5968,6 +6350,10 @@ def main() -> int:
                                 *(r["max_abs_err"] for r in xa_rows))
     vq_row["launches_lm_xattn"] = xa_counts["vq_attention"]
 
+    # --- the LM mesh: four gloo ranks sharing the card, the fake-rank
+    # dry-run and the roofline on the host ---
+    lm_mesh = timed("lm-mesh", phase_lm_mesh)
+
     # --- launches on the main paths, and the kernels line ---
     launches = train_counts
     link_counts = add_counts(add_counts(link_train_counts, link_full_counts),
@@ -6141,6 +6527,7 @@ def main() -> int:
     log(json.dumps({"lm_xattn_serve": xa_rep}))
     log(json.dumps({"lm_xattn_train": xa_train}))
     log(json.dumps({"lm_xattn_parity": xa_parity}))
+    log(json.dumps({"lm_mesh": lm_mesh}))
     seconds["total"] = time.time() - T_START
     log(json.dumps({"seconds": seconds}))
     log(f"chip_smoke: {seconds['total']:.1f} s from start to the "

@@ -12,6 +12,9 @@ other package), and come back as :func:`np_states` dicts.
 """
 from __future__ import annotations
 
+import contextlib
+import os
+import shutil
 from types import SimpleNamespace
 
 import numpy as np
@@ -255,3 +258,118 @@ def run_jobs(mesh: GraphMesh, jobs: dict) -> dict:
     """Every job of ``jobs`` (name -> (job in :data:`JOBS`, kwargs)) on
     this rank, in order; their outputs by name."""
     return {name: JOBS[job](mesh, **kw) for name, (job, kw) in jobs.items()}
+
+
+# ---------------------------------------------------------------------------
+# the LM mesh: one sharded training step on a (data, model) host mesh
+# ---------------------------------------------------------------------------
+
+def lm_state_numpy(state) -> dict:
+    """{reference path string: array} of every leaf of an LM state (full
+    tensors; bf16 as f32)."""
+    from repro_torch.distributed.sharding import leaf_paths
+    from repro_torch.train.checkpoint import _to_numpy
+    return {p: _to_numpy(t) for p, t in leaf_paths(state)}
+
+
+def lm_state_like(cfg, opt):
+    """The structure, shapes and dtypes of ``cfg``'s LM ``TrainState``
+    under ``opt``, as fake tensors (nothing allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import lm
+    from repro_torch.train.loop import TrainState
+    with FakeTensorMode():
+        params = lm.init_lm(cfg, device="cpu")
+        return TrainState(params, opt.init(params),
+                          torch.zeros((), dtype=torch.int32))
+
+
+def lm_state_from_numpy(like, flat: dict, device) -> "TrainState":
+    """``like``'s structure with each leaf from ``flat`` (by path), in the
+    leaf's dtype on ``device``."""
+    from repro_torch.distributed.sharding import map_with_path
+    return map_with_path(lambda p, t: torch.from_numpy(
+        np.array(flat[p])).to(device=device, dtype=t.dtype), like)
+
+
+def lm_step_job(mesh: GraphMesh, arch: str, strategy: str, flat: dict,
+                tokens: np.ndarray, accum: int, model: int,
+                lr: float, clip_norm: float | None = None,
+                sync: bool = False, ckpt: bool | None = None) -> dict:
+    """One ``launch.train.build_sharded_step`` step of ``arch``'s smoke
+    config from the carried state ``flat`` on a (world / model, model)
+    host mesh over the ranks, the strategy forced, with Adam under
+    ``warmup_cosine(lr, 2, 20)`` and ``clip_norm`` (None: no clipping),
+    ``accum`` microbatches accumulated in f32 (the reference's
+    ``make_train_step`` default):
+    loss, gradient norm, the new state gathered whole, and each leaf's
+    local shape.  ``sync`` routes DTensor's collectives through the
+    synchronous calls for the step (``ranks.sync_functional_collectives``,
+    as ranks sharing a card run).  ``ckpt`` (True: ``async_write``) then
+    saves the new state to a directory of rank 0's, shared by the ranks,
+    and restores it into the sharded layout: the file's arrays
+    (``file``, rank 0) and the restored state gathered whole
+    (``restored``)."""
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.distributed.sharding import distribute, gather_full
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_sharded_step
+    from repro_torch.distributed.ranks import sync_functional_collectives
+    from repro_torch.train.optimizer import adam, warmup_cosine
+    cfg = SMOKES[arch]()
+    dmesh = make_host_mesh(model=model, device=mesh.device)
+    opt = adam(warmup_cosine(lr, 2, 20), clip_norm=clip_norm)
+    step, state_sh = build_sharded_step(cfg, dmesh, opt, accum, strategy,
+                                        accum_dtype=torch.float32)
+    state = distribute(lm_state_from_numpy(lm_state_like(cfg, opt), flat,
+                                           mesh.device), state_sh)
+    with sync_functional_collectives(mesh.device.type) if sync \
+            else contextlib.nullcontext():
+        new, metrics = step(state, torch.as_tensor(tokens).to(mesh.device))
+    from repro_torch.distributed.sharding import leaf_paths
+    local = {p: tuple(t.to_local().shape) for p, t in leaf_paths(new)}
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "state": lm_state_numpy(gather_full(new)), "local": local}
+    if ckpt is not None:
+        out.update(_ckpt_round_trip(new, ckpt))
+    return out
+
+
+def _ckpt_round_trip(state, async_write: bool) -> dict:
+    """``state`` (DTensor leaves) saved as checkpoint 1 under a directory
+    that rank 0 makes and broadcasts, then restored into its own layout;
+    the file's arrays by reference path on rank 0, and the restored state
+    gathered whole."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import gather_full
+    from repro_torch.train import checkpoint as ckpt
+    name = [tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+            if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(name, src=0)
+    try:
+        t = ckpt.save(name[0], 1, state, async_write=async_write)
+        if t is not None:
+            t.join()
+        dist.barrier()
+        restored, manifest = ckpt.restore(name[0], state)
+        assert manifest["step"] == 1
+        out = {"restored": lm_state_numpy(gather_full(restored))}
+        if dist.get_rank() == 0:
+            with np.load(os.path.join(name[0], "step_1",
+                                      "arrays.npz")) as z:
+                # the file's "/"-joined paths as reference path strings
+                out["file"] = {k.replace("/", ""): z[k] for k in z.files}
+        dist.barrier()
+    finally:
+        if dist.get_rank() == 0:
+            shutil.rmtree(name[0], ignore_errors=True)
+    return out
+
+
+def lm_step_jobs(mesh: GraphMesh, runs: list[dict]) -> list[dict]:
+    """:func:`lm_step_job` for each keyword set of ``runs``, in order, in
+    one spawn of the ranks."""
+    return [lm_step_job(mesh, **r) for r in runs]

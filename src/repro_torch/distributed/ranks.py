@@ -58,6 +58,88 @@ def process_group(backend: str, world_size: int, rank: int, store_path: str,
         dist.destroy_process_group()
 
 
+@contextmanager
+def sync_functional_collectives(device_type: str = "cuda"):
+    """Within the context, route the functional collectives that DTensor
+    issues (``torch.ops._c10d_functional``: all-gather, reduce-scatter,
+    all-reduce, all-to-all, broadcast, and ``wait_tensor``) on
+    ``device_type`` tensors through the synchronous ``torch.distributed``
+    calls; torch's own implementations are back on the way out.  gloo
+    carries every one of those calls on CUDA tensors, but its
+    asynchronous functional collectives crash the process when waited on
+    (``tools/gloo_cuda_probe.py``, torch 2.11), and a card shared by
+    several ranks can only be a gloo group (NCCL wants a card a rank).
+    Each collective then completes before it returns, so ``wait_tensor``
+    returns its input.  Not reentrant."""
+    import torch.distributed.distributed_c10d as c10d
+    key = {"cuda": "CUDA", "cpu": "CPU"}[device_type]
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
+
+    def group(name):
+        return c10d._resolve_process_group(name)
+
+    def all_gather(inp, group_size, group_name):
+        out = inp.new_empty((inp.shape[0] * group_size, *inp.shape[1:]))
+        dist.all_gather_into_tensor(out, inp.contiguous(),
+                                    group=group(group_name))
+        return out
+
+    def reduce_scatter(inp, reduce_op, group_size, group_name):
+        out = inp.new_empty((inp.shape[0] // group_size, *inp.shape[1:]))
+        op = reduce_op.lower()
+        dist.reduce_scatter_tensor(out, inp.contiguous(),
+                                   op=ops["sum" if op == "avg" else op],
+                                   group=group(group_name))
+        return out.div_(group_size) if op == "avg" else out
+
+    def all_reduce_(inp, reduce_op, group_name):
+        # gloo has no AVG: a sum, then divided by the group's size
+        op, g = reduce_op.lower(), group(group_name)
+        dist.all_reduce(inp, op=ops["sum" if op == "avg" else op], group=g)
+        return inp.div_(g.size()) if op == "avg" else inp
+
+    def all_reduce(inp, reduce_op, group_name):
+        return all_reduce_(inp.clone(), reduce_op, group_name)
+
+    def all_to_all(inp, out_splits, in_splits, group_name):
+        rows = sum(out_splits) if out_splits else inp.shape[0]
+        out = inp.new_empty((rows, *inp.shape[1:]))
+        dist.all_to_all_single(out, inp.contiguous(),
+                               list(out_splits) or None,
+                               list(in_splits) or None,
+                               group=group(group_name))
+        return out
+
+    def broadcast_(inp, src, group_name):
+        g = group(group_name)
+        dist.broadcast(inp, src=dist.get_global_rank(g, src), group=g)
+        return inp
+
+    def broadcast(inp, src, group_name):
+        return broadcast_(inp.clone(), src, group_name)
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for name, fn in (
+            ("all_gather_into_tensor", all_gather),
+            ("all_gather_into_tensor_coalesced",
+             lambda xs, n, g: [all_gather(x, n, g) for x in xs]),
+            ("reduce_scatter_tensor", reduce_scatter),
+            ("reduce_scatter_tensor_coalesced",
+             lambda xs, op, n, g: [reduce_scatter(x, op, n, g) for x in xs]),
+            ("all_reduce", all_reduce), ("all_reduce_", all_reduce_),
+            ("all_reduce_coalesced",
+             lambda xs, op, g: [all_reduce(x, op, g) for x in xs]),
+            ("all_to_all_single", all_to_all),
+            ("broadcast", broadcast), ("broadcast_", broadcast_),
+            ("wait_tensor", lambda t: t)):
+        lib.impl(name, fn, key)
+    try:
+        yield
+    finally:
+        lib._destroy()             # torch's kernels take over again
+
+
 def _rank_main(rank: int, world_size: int, backend: str, device: str,
                share_device: bool, store_path: str, timeout_s: float,
                threads: int, fn: Callable, args: tuple, results) -> None:

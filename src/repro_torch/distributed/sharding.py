@@ -19,8 +19,20 @@ cut them; here each rank cuts its own part, so the three specs become
 split helpers: :func:`epoch_batch_shard` (training: the rank's b/ndev
 columns of every [S, b] batch), :func:`scan_shard` (inference: the rank's
 S/ndev whole batches) and :func:`serve_rows` (a serving micro-batch's
-b/ndev rows).  The LM half of the reference's
-module (strategies, parameter and cache shardings) is not ported here.
+b/ndev rows).
+
+The LM half (the reference's ``:35-287``, after the graph helpers) is the
+reference's rules verbatim on DTensor: ``strategy_for``,
+``_spec_for_leaf``, ``param_shardings``, ``token_sharding``,
+``_seq_axes_for``, ``cache_shardings`` and ``replicated``.  A spec is
+the port's own :class:`PartitionSpec` (a tuple with an entry a tensor
+dim: None, an axis name or a tuple of axis names), a leaf is named by the
+reference's ``jax.tree_util`` path string (``['blocks']['attn'].wq``:
+dict keys ``['k']``, NamedTuple fields ``.f``), so the same strings meet
+the same rules; :func:`to_placements` turns a spec into DTensor
+placements on a ``DeviceMesh``, and :func:`distribute` places a tree.
+The rules read only the mesh's axis names and sizes, so an abstract mesh
+(``axis_names`` and ``shape[name]``) serves as well as a ``DeviceMesh``.
 """
 from __future__ import annotations
 
@@ -32,6 +44,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import axes_size, axis_names, axis_sizes, dp_axes
 from repro_torch.runtime import resolve_device
 
 
@@ -238,3 +252,438 @@ def per_device_bytes(tree) -> int:
     blocks of every rank are of one size, so each rank reports the same
     figure -- the reference's peak over devices -- with no collective."""
     return int(sum(t.numel() * t.element_size() for t in _tensors(tree)))
+
+
+# ===========================================================================
+# the LM half: per-architecture strategies (DESIGN.md section 5)
+# ===========================================================================
+#
+# Strategies (chosen by ``strategy_for(cfg)`` from head / ff divisibility):
+#   tp_fsdp    -- Megatron tensor parallelism on the ``model`` axis (q heads
+#                 / d_ff / vocab / experts) + FSDP of params and optimizer
+#                 states over the data axes ("pod", "data"): column-parallel
+#                 wq / wk / wv / w1 / w3, row-parallel wo / w2;
+#   moe_ep_dp  -- experts over ``model``, everything else over the data
+#                 axes (attention runs pure DP);
+#   fsdp       -- no TP (head counts indivisible by the model axis): params
+#                 over the flattened mesh on their largest divisible dim;
+#   replicate  -- tiny models (whisper-tiny): pure DP.
+# Every rule checks divisibility against the mesh: a dim that does not
+# divide stays unsharded.
+
+# stacked-layer containers: leading dims are layer axes, never sharded
+_STACKED1 = ("blocks", "pairs", "enc_blocks", "cross_blocks")
+_STACKED2 = ("mamba",)
+
+
+class PartitionSpec(tuple):
+    """A tensor's layout over a mesh, one entry a dim: None (whole), an
+    axis name, or a tuple of axis names (major to minor); trailing dims
+    without an entry are whole.  The port's own twin of
+    ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec bound to a mesh (the reference's ``NamedSharding``)."""
+    mesh: Any
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> list:
+        return to_placements(self.spec, self.mesh)
+
+
+def _axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def to_placements(spec: PartitionSpec, mesh: Any) -> list:
+    """DTensor placements of ``spec``, one a mesh dim: ``Shard(d)`` on
+    every mesh dim that an entry of tensor dim ``d`` names, ``Replicate()``
+    on the others.  A tuple of axes on one dim shards it major to minor in
+    the tuple's order, as JAX lays it out; DTensor nests shards of one dim
+    in mesh-dim order, so the tuple must follow the mesh's axis order.  A
+    mesh dim of size 1 gets ``Replicate()`` (the same layout: DTensor's
+    view rules treat a shard over one rank as a sharded dim)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = axis_names(mesh)
+    sizes = axis_sizes(mesh)
+    out: list = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        idx = [names.index(a) for a in _axes(entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: axes {_axes(entry)} of dim {d} "
+                             f"are out of the mesh's order {names}")
+        for i in idx:
+            if sizes[names[i]] == 1:
+                continue
+            if out[i] != Replicate():
+                raise ValueError(f"spec {spec}: mesh axis {names[i]} "
+                                 f"shards two dims")
+            out[i] = Shard(d)
+    return out
+
+
+def shard_shape(shape: tuple[int, ...], spec: PartitionSpec,
+                mesh: Any) -> tuple[int, ...]:
+    """A rank's local shape of a ``shape`` tensor laid out by ``spec``
+    (every sharded dim divides: the rules shard no other)."""
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for a in _axes(entry):
+            if out[d] % sizes[a]:
+                raise ValueError(f"dim {d} of {shape} does not divide over "
+                                 f"{a} ({sizes[a]})")
+            out[d] //= sizes[a]
+    return tuple(out)
+
+
+def strategy_for(cfg: ArchConfig, mesh: Any) -> str:
+    tp = axis_sizes(mesh)["model"]
+    if cfg.param_count() < 200e6:
+        return "replicate"
+    if cfg.family == "moe" and cfg.n_experts % tp == 0:
+        # experts-on-model + DP attention: one all-reduce a layer where
+        # Megatron-TP on a d_model 2048 attention takes four
+        return "moe_ep_dp"
+    if cfg.n_heads % tp == 0 and (cfg.d_ff == 0 or cfg.d_ff % tp == 0):
+        return "tp_fsdp"
+    return "fsdp"
+
+
+def _divides(dim: int, size: int) -> bool:
+    return size > 0 and dim % size == 0
+
+
+def _spec_for_leaf(pathstr: str, shape: tuple[int, ...], strategy: str,
+                   mesh: Any, cfg: ArchConfig) -> PartitionSpec:
+    dp = dp_axes(mesh)
+    dp_n = axes_size(mesh, dp)
+    tp_n = axis_sizes(mesh)["model"]
+    all_ax = dp + ("model",)
+    all_n = dp_n * tp_n
+
+    # number of leading stacked dims to skip
+    skip = 0
+    if any(f"['{k}']" in pathstr for k in _STACKED1):
+        skip = 1
+    if any(f"['{k}']" in pathstr for k in _STACKED2):
+        skip = 2
+    dims = list(shape[skip:])
+    lead = [None] * skip
+
+    def out(spec_tail):
+        return P(*lead, *spec_tail)
+
+    if len(dims) == 0:
+        return out([])
+
+    if strategy == "replicate":
+        return out([None] * len(dims))
+
+    # vocab-parallel embedding / head in every sharded strategy; the
+    # d_model axis stays whole (d over dp would conflict with batch-over-
+    # dp activations)
+    if "['embed']" in pathstr and len(dims) == 2:
+        spec = [None, None]
+        if _divides(dims[0], tp_n):
+            spec[0] = "model"
+        elif _divides(dims[0], dp_n):
+            spec[0] = dp          # odd vocabs: shard vocab over dp instead
+        return out(spec)
+    if "['head']" in pathstr and len(dims) == 2:
+        spec = [None, None]
+        if _divides(dims[1], tp_n):
+            spec[1] = "model"
+        elif _divides(dims[1], dp_n):
+            spec[1] = dp
+        return out(spec)
+
+    if strategy == "moe_ep_dp":
+        # experts over ``model`` (EP); everything else over dp, replicated
+        # over ``model`` (attention runs pure DP)
+        spec = [None] * len(dims)
+        if (".w1" in pathstr or ".w3" in pathstr or ".w2" in pathstr) \
+                and len(dims) == 3:
+            if _divides(dims[0], tp_n):
+                spec[0] = "model"
+            rest = 1 if ".w2" not in pathstr else 2
+            if _divides(dims[rest], dp_n):
+                spec[rest] = dp
+            return out(spec)
+        if ".router" in pathstr and len(dims) == 2:
+            if _divides(dims[1], tp_n):
+                spec[1] = "model"
+            return out(spec)
+        order = sorted(range(len(dims)), key=lambda i: -dims[i])
+        for i in order:
+            if _divides(dims[i], dp_n):
+                spec[i] = dp
+                break
+        return out(spec)
+
+    if strategy == "fsdp":
+        # shard the largest dim divisible by the whole mesh; else by dp
+        spec = [None] * len(dims)
+        order = sorted(range(len(dims)), key=lambda i: -dims[i])
+        for i in order:
+            if _divides(dims[i], all_n):
+                spec[i] = all_ax
+                return out(spec)
+        for i in order:
+            if _divides(dims[i], dp_n):
+                spec[i] = dp
+                return out(spec)
+        return out(spec)
+
+    # ----- tp_fsdp: named Megatron rules + generic fallback -----
+    def col(d_in_idx: int, d_out_idx: int):
+        """column-parallel: out dim over model, in dim over dp."""
+        spec = [None] * len(dims)
+        if _divides(dims[d_out_idx], tp_n):
+            spec[d_out_idx] = "model"
+        if _divides(dims[d_in_idx], dp_n):
+            spec[d_in_idx] = dp
+        return out(spec)
+
+    def row(d_in_idx: int, d_out_idx: int):
+        """row-parallel: in dim over model, out dim over dp."""
+        spec = [None] * len(dims)
+        if _divides(dims[d_in_idx], tp_n):
+            spec[d_in_idx] = "model"
+        if _divides(dims[d_out_idx], dp_n):
+            spec[d_out_idx] = dp
+        return out(spec)
+
+    if ".wq" in pathstr or ".wv" in pathstr or ".wk" in pathstr:
+        if "cross" in pathstr or len(dims) == 2:
+            return col(0, 1)
+    if ".wo" in pathstr and len(dims) == 2:
+        return row(0, 1)
+    if ".w1" in pathstr or ".w3" in pathstr:
+        if len(dims) == 2:
+            return col(0, 1)
+        if len(dims) == 3:     # MoE experts [E, d, eff]: EP over model
+            spec = [None, None, None]
+            if _divides(dims[0], tp_n):
+                spec[0] = "model"
+            if _divides(dims[1], dp_n):
+                spec[1] = dp
+            return out(spec)
+    if ".w2" in pathstr:
+        if len(dims) == 2:
+            return row(0, 1)
+        if len(dims) == 3:     # [E, eff, d]
+            spec = [None, None, None]
+            if _divides(dims[0], tp_n):
+                spec[0] = "model"
+            if _divides(dims[2], dp_n):
+                spec[2] = dp
+            return out(spec)
+    if ".router" in pathstr and len(dims) == 2:
+        return col(0, 1)
+    if "['embed']" in pathstr:
+        spec = [None, None]
+        if _divides(dims[0], tp_n):
+            spec[0] = "model"        # vocab-parallel embedding
+        if _divides(dims[1], dp_n):
+            spec[1] = dp
+        return out(spec)
+    if "['head']" in pathstr:
+        return col(0, 1)
+
+    # generic fallback (mamba in_proj / out_proj, xlstm projections, ...):
+    # last dim over model, largest other dim over dp
+    spec = [None] * len(dims)
+    if len(dims) >= 2:
+        if _divides(dims[-1], tp_n):
+            spec[-1] = "model"
+        rest = sorted(range(len(dims) - 1), key=lambda i: -dims[i])
+        for i in rest:
+            if _divides(dims[i], dp_n):
+                spec[i] = dp
+                break
+    return out(spec)
+
+
+def leaf_paths(tree: Any, sep: str = "") -> list[tuple[str, Any]]:
+    """(path string, leaf) of every leaf in ``jax.tree_util``'s order:
+    dict keys sorted, ``['k']``; NamedTuple fields ``.f``; list / tuple
+    items ``[i]``; None an empty subtree; the components joined by
+    ``sep`` ("": the reference's path strings; the checkpoint's keys join
+    them by "/").  A leaf is a tensor (a fake one too) or a
+    :class:`NamedSharding`."""
+    out: list = []
+
+    def walk(t, parts: tuple) -> None:
+        if t is None:
+            return
+        if isinstance(t, (torch.Tensor, NamedSharding)):
+            out.append((sep.join(parts), t))
+        elif hasattr(t, "_fields"):
+            for f in t._fields:
+                walk(getattr(t, f), parts + (f".{f}",))
+        elif isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], parts + (f"[{k!r}]",))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, parts + (f"[{i}]",))
+        else:
+            raise TypeError(f"leaf_paths: unsupported node {type(t)}")
+    walk(tree, ())
+    return out
+
+
+def map_with_path(fn, tree: Any, *rest: Any, prefix: str = "") -> Any:
+    """``tree``'s structure with each leaf ``fn(path string, leaf, *the
+    same leaf of each of rest)``."""
+    if tree is None:
+        return None
+    if isinstance(tree, (torch.Tensor, NamedSharding)):
+        return fn(prefix, tree, *rest)
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(
+            map_with_path(fn, getattr(tree, f), *(getattr(r, f) for r in rest),
+                          prefix=f"{prefix}.{f}") for f in tree._fields))
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, *(r[k] for r in rest),
+                                 prefix=f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, *(r[i] for r in rest),
+                                        prefix=f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    raise TypeError(f"map_with_path: unsupported node {type(tree)}")
+
+
+def param_shardings(params: Any, cfg: ArchConfig, mesh: Any,
+                    strategy: str | None = None) -> Any:
+    """A :class:`NamedSharding` for every leaf of ``params`` (or of an Adam
+    moment tree of the same structure)."""
+    strategy = strategy or strategy_for(cfg, mesh)
+    return map_with_path(lambda path, leaf: NamedSharding(
+        mesh, _spec_for_leaf(path, tuple(leaf.shape), strategy, mesh, cfg)),
+        params)
+
+
+# ---------------------------------------------------------------------------
+# activations / batch / cache shardings
+# ---------------------------------------------------------------------------
+
+def token_sharding(batch: int, mesh: Any, cfg: ArchConfig,
+                   strategy: str = "tp_fsdp") -> NamedSharding:
+    """Batch goes over the data axes; when the strategy does not use the
+    ``model`` axis for tensor parallelism (replicate / fsdp), the batch
+    spreads over it too (the model axis would otherwise idle)."""
+    dp = dp_axes(mesh)
+    if strategy in ("replicate", "fsdp"):
+        allax = dp + ("model",)
+        if _divides(batch, axes_size(mesh, allax)):
+            return NamedSharding(mesh, P(allax, None))
+    b_spec = dp if _divides(batch, axes_size(mesh, dp)) else None
+    return NamedSharding(mesh, P(b_spec, None))
+
+
+def _seq_axes_for(seq: int, batch: int, mesh: Any):
+    """For decode caches: shard sequence over as much mesh as the batch
+    leaves unused (long_500k batch 1 -> sequence over the whole mesh)."""
+    dp = dp_axes(mesh)
+    tp_n = axis_sizes(mesh)["model"]
+    if _divides(batch, axes_size(mesh, dp)):
+        return dp, ("model",) if _divides(seq, tp_n) else None
+    # batch unshardable: put everything on the sequence
+    allax = dp + ("model",)
+    if _divides(seq, axes_size(mesh, allax)):
+        return None, allax
+    return None, ("model",) if _divides(seq, tp_n) else None
+
+
+def cache_shardings(cache: Any, cfg: ArchConfig, mesh: Any, batch: int,
+                    seq_len: int) -> Any:
+    """Shardings for the serve-step cache tree (``lm.init_serve_cache``'s
+    structure; its shapes are enough)."""
+    b_ax, s_ax = _seq_axes_for(seq_len, batch, mesh)
+
+    def spec(pathstr: str, leaf) -> NamedSharding:
+        shape = tuple(leaf.shape)
+        pspec: list = [None] * len(shape)
+        # the batch dim: the first dim of size ``batch`` after the layer dim
+        for i, d in enumerate(shape):
+            if i == 0:
+                continue           # stacked layer dim
+            if d == batch and b_ax is not None:
+                pspec[i] = b_ax
+                break
+        if (pathstr.endswith(".k") or pathstr.endswith(".v")
+                or "win_" in pathstr or "cross_" in pathstr
+                or "sum_" in pathstr):
+            # KV-like tensors: shard their sequence / window / codebook dim
+            for i, d in enumerate(shape):
+                if i == 0 or pspec[i] is not None:
+                    continue
+                if d in (seq_len, cfg.vq_k, cfg.n_patches, cfg.enc_seq) \
+                        and s_ax is not None and _divides(
+                            d, axes_size(mesh, s_ax)):
+                    pspec[i] = s_ax
+                    break
+        return NamedSharding(mesh, P(*pspec))
+
+    return map_with_path(spec, cache)
+
+
+def replicated(mesh: Any) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+# ---------------------------------------------------------------------------
+# placing trees
+# ---------------------------------------------------------------------------
+
+def distribute(tree: Any, shardings: Any, *,
+               src_data_rank: Optional[int] = 0) -> Any:
+    """Every leaf of ``tree`` as a DTensor laid out by its
+    :class:`NamedSharding` in ``shardings`` (same structure, or one
+    sharding for every leaf); a DTensor leaf is redistributed.  A plain
+    leaf is cut from rank ``src_data_rank``'s tensor (``distribute_tensor``:
+    every rank passes one of the same shape and dtype), or, with None,
+    from each rank's own -- no communication, for tensors every rank holds
+    whole and equal."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def place(_, t, sh):
+        if isinstance(t, DTensor):
+            return t.redistribute(sh.mesh, sh.placements)
+        d = distribute_tensor(t, sh.mesh, sh.placements,
+                              src_data_rank=src_data_rank)
+        if src_data_rank is not None:
+            return d
+        # the shard is a view of the whole tensor: a copy of its own lets
+        # the caller free the whole
+        return DTensor.from_local(d.to_local().clone(), sh.mesh,
+                                  sh.placements, run_check=False,
+                                  shape=d.shape, stride=d.stride())
+    if isinstance(shardings, NamedSharding):
+        return map_with_path(lambda p, t: place(p, t, shardings), tree)
+    return map_with_path(place, tree, shardings)
+
+
+def gather_full(tree: Any) -> Any:
+    """Every DTensor leaf of ``tree`` as its full tensor on every rank
+    (other leaves as they are)."""
+    from torch.distributed.tensor import DTensor
+    return map_with_path(lambda _, t: t.full_tensor()
+                         if isinstance(t, DTensor) else t, tree)

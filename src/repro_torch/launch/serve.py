@@ -16,12 +16,14 @@ its shared attention block), audio (whisper-tiny) and vlm
 (llama-3.2-vision-11b).  The last two decode as the reference's launcher
 decodes them: from a fresh cache whose cross-attention keys and values
 are zeros, with no encoder pass and no patch input (``--vq`` applies to
-their decoder self-attention).  The printed line is the reference's,
-without its ``strategy=`` field: the sharding strategy belongs to the
-multi-device LM slice, and one device has none.
-
-Not in this slice: ``--production-mesh`` (it raises, naming the slice
-that brings it).
+their decoder self-attention).  The printed line is the reference's:
+``<arch> strategy=<s> vq=<b>: <tok/s> tok/s, cache <MB> MB``, the
+strategy ``distributed/sharding.py`` picks for the mesh -- the host mesh
+over the process group's ranks (a one-rank group for a plain run), or
+the (16, 16) production mesh under ``--production-mesh``, which raises
+unless the group has 256 ranks.  Decode itself stays unsharded, as in the
+reference (its jitted step takes no shardings): each rank decodes the
+whole batch.
 """
 from __future__ import annotations
 
@@ -34,8 +36,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import ARCHS, SMOKES
+from repro_torch.distributed.sharding import strategy_for
+from repro_torch.launch.mesh import (launch_group, make_host_mesh,
+                                     make_production_mesh)
 from repro_torch.models import lm
-from repro_torch.runtime import MESH_SLICE, resolve_device
+from repro_torch.runtime import resolve_device
 
 
 def parser() -> argparse.ArgumentParser:
@@ -48,7 +53,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--context", type=int, default=1024)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the production device mesh (not in this slice)")
+                    help="the (16, 16) mesh: 256 ranks")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the CUDA kernels; cpu their plain "
                     "PyTorch versions")
@@ -58,8 +63,6 @@ def parser() -> argparse.ArgumentParser:
 def config(args: argparse.Namespace) -> ArchConfig:
     """The served configuration: the arch (or its smoke), with
     VQ-Attention at k = min(vq_k, 128), window 64 under ``--vq``."""
-    if args.production_mesh:
-        raise NotImplementedError(f"--production-mesh comes with {MESH_SLICE}")
     cfg = SMOKES[args.arch]() if args.smoke else ARCHS[args.arch]
     if args.vq:
         cfg = cfg.with_vq(k=min(cfg.vq_k, 128), window=64)
@@ -119,11 +122,17 @@ def main(argv: Sequence[str] | None = None) -> dict:
     args = parser().parse_args(argv)
     cfg = config(args)
     dev = resolve_device(args.device)
+    with launch_group(dev):
+        mesh = (make_production_mesh(device=dev) if args.production_mesh
+                else make_host_mesh(device=dev))
+        strategy = strategy_for(cfg, mesh)
     params = lm.init_lm(cfg, device=dev)
     _, _, report = decode(params, cfg, batch=args.batch,
                           context=args.context, tokens=args.tokens,
                           device=dev)
-    print(f"{cfg.name} vq={cfg.vq_attn}: {report['tok_per_s']:.1f} tok/s, "
+    report["strategy"] = strategy
+    print(f"{cfg.name} strategy={strategy} vq={cfg.vq_attn}: "
+          f"{report['tok_per_s']:.1f} tok/s, "
           f"cache {report['cache_bytes'] / 2**20:.1f} MB")
     return report
 

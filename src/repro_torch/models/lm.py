@@ -56,9 +56,14 @@ import math
 from typing import Any, Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.act_constraints import (constrain_tokens,
+                                                     gather_params,
+                                                     is_dtensor, keep_layout,
+                                                     split_ready)
 from repro_torch.nn.attention import (KVCache, decode_attend, gqa_attend,
                                       init_attn, qkv)
 from repro_torch.nn.ffn import apply_mlp, apply_moe, init_mlp, init_moe
@@ -321,14 +326,16 @@ def init_serve_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
 def _attn_train(bp: dict, x: torch.Tensor, cfg: ArchConfig,
                 positions: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
-    h = rmsnorm(x, bp["ln1"], cfg.norm_eps)
-    q, k, v = qkv(bp["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+    x = constrain_tokens(x)
+    ln1, attn = gather_params((bp["ln1"], bp["attn"]), x)
+    h = rmsnorm(x, ln1, cfg.norm_eps)
+    q, k, v = qkv(attn, h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                   positions, qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta)
     if cfg.vq_attn:
         o = vq_attention_train(q, k, v, _vq_cfg(cfg))
     else:
         o = gqa_attend(q, k, v, causal=True)
-    return x + o.reshape(b, s, -1) @ bp["attn"].wo
+    return constrain_tokens(x + o.reshape(b, s, -1) @ attn.wo)
 
 
 def _attn_decode(bp: dict, x: torch.Tensor, cache, cfg: ArchConfig):
@@ -349,11 +356,13 @@ def _ffn(bp: dict, x: torch.Tensor, cfg: ArchConfig
     """The block's second half -> (x + its output, the MoE aux loss: 0
     for an MLP block)."""
     b, s, d = x.shape
-    h = rmsnorm(x, bp["ln2"], cfg.norm_eps)
+    ln2, ff = gather_params((bp["ln2"], bp["moe" if "moe" in bp else "mlp"]),
+                            x)
+    h = rmsnorm(x, ln2, cfg.norm_eps)
     if "moe" in bp:
-        y, aux = apply_moe(bp["moe"], h.reshape(b * s, d), cfg.top_k)
-        return x + y.reshape(b, s, d), aux
-    return x + apply_mlp(bp["mlp"], h), \
+        y, aux = apply_moe(ff, h.reshape(b * s, d), cfg.top_k)
+        return constrain_tokens(x + y.reshape(b, s, d)), aux
+    return constrain_tokens(x + apply_mlp(ff, h)), \
         torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -365,25 +374,31 @@ def _cross_attn(bp: dict, x: torch.Tensor, ctx_k: torch.Tensor,
     cross block ``ln1`` and ``attn`` and gates the output by
     ``tanh(gate)``."""
     b, s, _ = x.shape
-    h = rmsnorm(x, bp["ln_x" if "ln_x" in bp else "ln1"], cfg.norm_eps)
-    attn = bp["cross" if "cross" in bp else "attn"]
-    q = (h @ attn.wq).reshape(b, s, cfg.n_heads, cfg.hd)
+    ln, attn = gather_params((bp["ln_x" if "ln_x" in bp else "ln1"],
+                              bp["cross" if "cross" in bp else "attn"]), x)
+    h = rmsnorm(x, ln, cfg.norm_eps)
+    q = split_ready(h @ attn.wq, -1, cfg.n_heads).reshape(
+        b, s, cfg.n_heads, cfg.hd)
     o = gqa_attend(q, ctx_k, ctx_v, causal=False)
     o = o.reshape(b, s, -1) @ attn.wo
     if gated:
         o = torch.tanh(bp["gate"]) * o
-    return x + o
+    # on a mesh, pinned as the self-attention's output is (the reference
+    # leaves this one to GSPMD's propagation)
+    return constrain_tokens(x + o)
 
 
 def _ctx_kv(attn, ctx: torch.Tensor, cfg: ArchConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The context's keys and values [B, F, Hkv, dh] (no norm, no RoPE)."""
     b, f, _ = ctx.shape
-    return ((ctx @ attn.wk).reshape(b, f, cfg.n_kv_heads, cfg.hd),
-            (ctx @ attn.wv).reshape(b, f, cfg.n_kv_heads, cfg.hd))
+    attn = gather_params(attn, ctx)
+    return tuple(split_ready(ctx @ w, -1, cfg.n_kv_heads).reshape(
+        b, f, cfg.n_kv_heads, cfg.hd) for w in (attn.wk, attn.wv))
 
 
 def _pair_train(bp: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    bp = gather_params(bp, x)
     x = x + apply_mlstm_train(bp["mlstm"], rmsnorm(x, bp["ln1"],
                                                    cfg.norm_eps),
                               cfg.n_heads)
@@ -411,6 +426,14 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
     8192 the reference gathers from the table itself, and so does the
     port."""
     tokens = tokens.long()
+    if is_dtensor(embed):
+        # DTensor's vocab-parallel embedding (its rows, and a gradient
+        # summed by ``embedding_dense_backward`` in the same dtypes): the
+        # indexing's backward (``index_put``) has no sharding rule that
+        # holds on every torch release
+        if vocab < 8192:
+            return F.embedding(tokens, embed)
+        return F.embedding(tokens, embed.float()).to(embed.dtype)
     if vocab < 8192:
         return embed[tokens]
     return embed.float()[tokens].to(embed.dtype)
@@ -436,7 +459,7 @@ def forward_train(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
         raise ValueError(f"{cfg.name}: the {cfg.family} family's forward "
                          f"needs aux_embeds, the {what}")
     b, s = tokens.shape
-    x = embed_lookup(params["embed"], tokens, cfg.vocab)
+    x = constrain_tokens(embed_lookup(params["embed"], tokens, cfg.vocab))
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
 
@@ -489,6 +512,7 @@ def forward_train(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
         fpos = torch.arange(f, device=x.device)[None].expand(b, f)
 
         def enc_body(ec, bp):
+            bp = gather_params(bp, ec)
             h = rmsnorm(ec, bp["ln1"], cfg.norm_eps)
             # no qk_norm in the encoder, whatever cfg.qk_norm says (as in
             # the reference)
@@ -516,16 +540,30 @@ def forward_train(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
         shared = params["shared"]
 
         def group_body(xc, mblocks):
-            for bp in per_layer(mblocks):
-                xc = xc + apply_mamba2_train(
+            for bp in per_layer(gather_params(mblocks, xc)):
+                # on a mesh, pinned as an attention block's output is
+                xc = constrain_tokens(xc + apply_mamba2_train(
                     bp["mamba"], rmsnorm(xc, bp["ln"], cfg.norm_eps),
-                    cfg.d_model, cfg.ssm_state)
+                    cfg.d_model, cfg.ssm_state))
             xc = _attn_train(shared, xc, cfg, positions)
             return _ffn(shared, xc, cfg)[0]
         for group in per_layer(params["mamba"]):
             x = ckpt(group_body, x, group)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return x, moe_aux
+
+
+def _target_logit(logits: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+    """``logits[..., targets]``: a gather; on a DTensor (its vocab dim
+    possibly sharded) the reference's contraction with the targets'
+    one-hot, as a select and a sum over the vocab dim -- exact, since
+    every other term adds 0."""
+    if not is_dtensor(logits):
+        return logits.gather(-1, targets[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=targets.device)
+    hit = targets[..., None] == vocab
+    return torch.where(hit, logits, 0.0).sum(-1)
 
 
 def train_loss(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
@@ -539,8 +577,8 @@ def train_loss(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     targets = tokens[:, 1:].long()
     logits = (hidden @ params["head"]).float()
     lse = torch.logsumexp(logits, dim=-1)
-    target_logit = logits.gather(-1, targets[..., None])[..., 0]
-    return torch.mean(lse - target_logit) + 0.01 * moe_aux
+    target_logit = _target_logit(logits, targets)
+    return torch.mean(keep_layout(lse - target_logit)) + 0.01 * moe_aux
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
@@ -555,21 +593,48 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
 # decode
 # ===========================================================================
 
+def _stack_layers(layers: list) -> Any:
+    """Per-layer trees (NamedTuples of tensors, or lists of them for a
+    two-deep stack) stacked into one tree along a new leading dim."""
+    if isinstance(layers[0], list):
+        return _stack_layers([_stack_layers(g) for g in layers])
+    return type(layers[0])(*(torch.stack(f) for f in zip(*layers)))
+
+
 def serve_step(params: Params, token: torch.Tensor, cache: dict,
                cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
     """One decode step.  token: [B, 1] integer -> (logits [B, vocab] in the
     model's dtype, the cache updated in place; its attention caches with
-    ``pos + 1``)."""
+    ``pos + 1``).  DTensor params and cache (the dry-run's sharded decode
+    cells) run functionally: each layer's new state is kept and the cache
+    stacked anew, as the reference returns it."""
     check_family(cfg)
     x = params["embed"][token]                           # [B, 1, d]
+    functional = is_dtensor(x)
+
+    def done(stack, news):
+        """An attention stack after the step: the views updated in place
+        and ``pos + 1``, or the new layers stacked (their ``pos`` + 1)."""
+        return _stack_layers(news) if functional \
+            else stack._replace(pos=stack.pos + 1)
+
+    def write(view, new, news):
+        """A recurrent state's new value: into its view of the stack, or
+        kept for the new stack."""
+        if functional:
+            news.append(new)
+        else:
+            _write(view, new)
+
     if cfg.family in ("dense", "moe"):
-        kv = cache["kv"]
+        kv, news = cache["kv"], []
         for bp, c in zip(per_layer(params["blocks"]), per_layer(kv)):
-            x, _ = _attn_decode(bp, x, c, cfg)
+            x, c = _attn_decode(bp, x, c, cfg)
+            news.append(c)
             x, _ = _ffn(bp, x, cfg)
-        cache = {"kv": kv._replace(pos=kv.pos + 1)}
+        cache = {"kv": done(kv, news)}
     elif cfg.family in CROSS_FAMILIES:
-        kv = cache["kv"]
+        kv, news = cache["kv"], []
         layers, caches = per_layer(params["blocks"]), per_layer(kv)
         ctx = list(zip(per_layer(cache["cross_k"]),
                        per_layer(cache["cross_v"])))
@@ -579,43 +644,53 @@ def serve_step(params: Params, token: torch.Tensor, cache: dict,
             period = cfg.cross_attn_period
             for g, cb in enumerate(per_layer(params["cross_blocks"])):
                 for l in range(g * period, (g + 1) * period):
-                    x, _ = _attn_decode(layers[l], x, caches[l], cfg)
+                    x, c = _attn_decode(layers[l], x, caches[l], cfg)
+                    news.append(c)
                     x, _ = _ffn(layers[l], x, cfg)
                 x = _cross_attn(cb, x, *ctx[g], cfg, gated=True)
                 x, _ = _ffn(cb, x, cfg)
         else:
             for bp, c, (ck, cv) in zip(layers, caches, ctx):
-                x, _ = _attn_decode(bp, x, c, cfg)
+                x, c = _attn_decode(bp, x, c, cfg)
+                news.append(c)
                 x = _cross_attn(bp, x, ck, cv, cfg)
                 x, _ = _ffn(bp, x, cfg)
-        cache = dict(cache, kv=kv._replace(pos=kv.pos + 1))
+        cache = dict(cache, kv=done(kv, news))
     elif cfg.family == "ssm":
+        m_news, s_news = [], []
         for bp, ms, ss in zip(per_layer(params["pairs"]),
                               per_layer(cache["mlstm"]),
                               per_layer(cache["slstm"])):
             o, new = apply_mlstm_step(
                 bp["mlstm"], rmsnorm(x, bp["ln1"], cfg.norm_eps), ms,
                 cfg.n_heads)
-            _write(ms, new)
+            write(ms, new, m_news)
             x = x + o
             o, new = apply_slstm_step(
                 bp["slstm"], rmsnorm(x, bp["ln2"], cfg.norm_eps), ss)
-            _write(ss, new)
+            write(ss, new, s_news)
             x = x + o
+        if functional:
+            cache = {"mlstm": _stack_layers(m_news),
+                     "slstm": _stack_layers(s_news)}
     else:                                                # hybrid
         shared, attn = params["shared"], cache["attn"]
+        news, mamba_news = [], []
         for group, states, c in zip(per_layer(params["mamba"]),
                                     per_layer(cache["mamba"]),
                                     per_layer(attn)):
+            group_news = []
             for bp, st in zip(per_layer(group), per_layer(states)):
                 o, new = apply_mamba2_step(
                     bp["mamba"], rmsnorm(x, bp["ln"], cfg.norm_eps), st,
                     cfg.d_model, cfg.ssm_state)
-                _write(st, new)
+                write(st, new, group_news)
                 x = x + o
-            x, _ = _attn_decode(shared, x, c, cfg)
+            mamba_news.append(group_news)
+            x, c = _attn_decode(shared, x, c, cfg)
+            news.append(c)
             x, _ = _ffn(shared, x, cfg)
-        cache = {"mamba": cache["mamba"],
-                 "attn": attn._replace(pos=attn.pos + 1)}
+        cache = {"mamba": _stack_layers(mamba_news) if functional
+                 else cache["mamba"], "attn": done(attn, news)}
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return x[:, 0] @ params["head"], cache

@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.act_constraints import (by_heads, is_dtensor,
+                                                     split_ready)
 from repro_torch.nn.layers import dense_init, rmsnorm, rope
 
 
@@ -52,9 +54,9 @@ def qkv(p: AttnParams, x: torch.Tensor, n_heads: int, n_kv: int,
         head_dim: int, positions: torch.Tensor, *, qk_norm: bool = False,
         rope_theta: float = 500000.0, use_rope: bool = True):
     b, s, _ = x.shape
-    q = (x @ p.wq).reshape(b, s, n_heads, head_dim)
-    k = (x @ p.wk).reshape(b, s, n_kv, head_dim)
-    v = (x @ p.wv).reshape(b, s, n_kv, head_dim)
+    q = split_ready(x @ p.wq, -1, n_heads).reshape(b, s, n_heads, head_dim)
+    k = split_ready(x @ p.wk, -1, n_kv).reshape(b, s, n_kv, head_dim)
+    v = split_ready(x @ p.wv, -1, n_kv).reshape(b, s, n_kv, head_dim)
     if qk_norm:
         q = rmsnorm(q, p.q_norm)
         k = rmsnorm(k, p.k_norm)
@@ -102,6 +104,9 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [_Q_CHUNK, skv] scores are recomputed in the backward pass, not
     stored (8 GiB a layer of f32 scores otherwise at [4, 24, 2048, 2048]).
     """
+    if is_dtensor(q):
+        return by_heads(lambda *a: gqa_attend(*a[:3], causal=causal,
+                                              kv_mask=a[3]), q, k, v, kv_mask)
     b, sq, hq, dh = q.shape
     skv = k.shape[1]
     if sq <= _Q_CHUNK or sq % _Q_CHUNK != 0:
@@ -143,9 +148,16 @@ def decode_attend(q: torch.Tensor, cache: KVCache, k_new: torch.Tensor,
     write is in place (module docstring)."""
     s_max = cache.k.shape[1]
     slot = cache.pos.clamp(0, s_max - 1).reshape(1).long()
-    cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
-    cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+    if is_dtensor(cache.k):
+        # DTensor cannot lay out an in-place indexed write: new arrays,
+        # as the reference makes them
+        k = cache.k.index_copy(1, slot, k_new.to(cache.k.dtype))
+        v = cache.v.index_copy(1, slot, v_new.to(cache.v.dtype))
+    else:
+        k, v = cache.k, cache.v
+        k.index_copy_(1, slot, k_new.to(k.dtype))
+        v.index_copy_(1, slot, v_new.to(v.dtype))
     valid = (torch.arange(s_max, device=q.device) <= cache.pos).float()
-    mask = valid[None, :].expand(cache.k.shape[0], s_max)
-    out = gqa_attend(q, cache.k, cache.v, causal=False, kv_mask=mask)
-    return out, KVCache(cache.k, cache.v, cache.pos + 1)
+    mask = valid[None, :].expand(k.shape[0], s_max)
+    out = gqa_attend(q, k, v, causal=False, kv_mask=mask)
+    return out, KVCache(k, v, cache.pos + 1)

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.act_constraints import by_batch
 from repro_torch.nn.layers import _normal, dense_init
 from repro_torch.nn.xlstm import softplus
 
@@ -134,22 +135,34 @@ def apply_mamba2_train(p: Mamba2Params, xin: torch.Tensor, d_model: int,
     """xin: [B, S, d] -> [B, S, d], the recurrence scanned over time in
     chunks (module docstring)."""
     di, h, n = dims(d_model, ssm_state)
+    # the recurrence reads one sequence at a time: on a mesh, each rank's
+    # rows (``act_constraints.by_batch``)
+    y = by_batch(_mamba2_rows, 1, xin @ p.in_proj, p.conv_w, p.dt_bias,
+                 p.a_log, p.d_skip, p.norm_scale, di, h, n, xin.dtype)
+    return y @ p.out_proj
+
+
+def _mamba2_rows(proj: torch.Tensor, conv_w: torch.Tensor,
+                 dt_bias: torch.Tensor, a_log: torch.Tensor,
+                 d_skip: torch.Tensor, norm_scale: torch.Tensor, di: int,
+                 h: int, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """The block between its projections: proj [B, S, 2 di + 2 N + H] ->
+    the gated, normed scan output [B, S, di] in ``dtype``."""
     pdim = di // h
-    b, s, _ = xin.shape
-    proj = xin @ p.in_proj
+    b, s, _ = proj.shape
     x, z, bmat, cmat, dt = _split(proj, di, n)
     xbc = torch.cat([x, bmat, cmat], dim=-1)
-    xbc = F.silu(_causal_conv(xbc, p.conv_w))
+    xbc = F.silu(_causal_conv(xbc, conv_w))
     x, bmat, cmat = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
 
-    dt = softplus(dt.float() + p.dt_bias)                        # [B,S,H]
-    a = torch.exp(-dt * torch.exp(p.a_log))                      # [B,S,H]
+    dt = softplus(dt.float() + dt_bias)                          # [B,S,H]
+    a = torch.exp(-dt * torch.exp(a_log))                        # [B,S,H]
     xh = x.reshape(b, s, h, pdim).float()
     b32, c32 = bmat.float(), cmat.float()
     remat = torch.is_grad_enabled() and any(
         t.requires_grad for t in (a, xh, b32, c32))
     state = torch.zeros((b, h, n, pdim), dtype=torch.float32,
-                        device=xin.device)
+                        device=proj.device)
     ys = []
     for c in range(0, s, SCAN_CHUNK):
         sl = slice(c, c + SCAN_CHUNK)
@@ -157,9 +170,8 @@ def apply_mamba2_train(p: Mamba2Params, xin: torch.Tensor, d_model: int,
         yc, state = checkpoint(_scan_chunk, *args, use_reentrant=False) \
             if remat else _scan_chunk(*args)
         ys.append(yc)
-    y = torch.cat(ys, dim=1) + p.d_skip[None, None, :, None] * xh
-    y = _gated_norm(y.reshape(b, s, di), z, p.norm_scale, xin.dtype)
-    return y @ p.out_proj
+    y = torch.cat(ys, dim=1) + d_skip[None, None, :, None] * xh
+    return _gated_norm(y.reshape(b, s, di), z, norm_scale, dtype)
 
 
 def init_mamba2_state(b: int, d_model: int, ssm_state: int,

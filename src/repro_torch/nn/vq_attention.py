@@ -50,6 +50,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.act_constraints import by_heads, is_dtensor
 from repro_torch.kernels import ops as kops
 
 
@@ -120,7 +121,11 @@ def vq_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     docstring).  q: [B, S, Hq, dh], k/v: [B, S, Hkv, dh] -> [B, S, Hq, dh]
     in ``q``'s dtype; S must be a multiple of min(cfg.window, S).  The
     scores and the codebook are f32; the previous block is carried in the
-    keys' dtype."""
+    keys' dtype.  DTensor q / k / v run each rank's (batch, kv head)
+    blocks locally (``act_constraints.by_heads``: a codebook is a (batch,
+    kv head)'s own)."""
+    if is_dtensor(q):
+        return by_heads(vq_attention_train, q, k, v, cfg)
     return train_blocks(q, k, v, cfg)[0]
 
 
@@ -199,12 +204,40 @@ def train_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # decode: O(k + W) per step through the vq_attention kernel
 # ---------------------------------------------------------------------------
 
+def _decode_gathered(q: torch.Tensor, k_new: torch.Tensor,
+                     v_new: torch.Tensor, cache: VQKVCache,
+                     cfg: VQAttnConfig) -> tuple[torch.Tensor, VQKVCache]:
+    """:func:`vq_attention_decode` on DTensors: the step's inputs and the
+    cache gathered whole on every rank, the step run on them, each new
+    cache field cut back to its own layout (each rank keeps its part; the
+    output whole).  The eviction's argmin over a sharded codebook and the
+    global seeding test (``count.max()`` over the whole batch) have no
+    per-rank form."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    mesh = cache.sum_k.device_mesh
+
+    def whole(t):
+        return t.full_tensor() if is_dtensor(t) else t
+
+    def back(w, like):
+        pl = like.placements if is_dtensor(like) else \
+            [Replicate()] * mesh.ndim
+        return distribute_tensor(w, mesh, pl, src_data_rank=None)
+    out, new = vq_attention_decode(whole(q), whole(k_new), whole(v_new),
+                                   VQKVCache(*(whole(t) for t in cache)),
+                                   cfg)
+    return back(out, None), VQKVCache(*(back(w, like)
+                                        for w, like in zip(new, cache)))
+
+
 def vq_attention_decode(q: torch.Tensor, k_new: torch.Tensor,
                         v_new: torch.Tensor, cache: VQKVCache,
                         cfg: VQAttnConfig
                         ) -> tuple[torch.Tensor, VQKVCache]:
     """One decode step.  q: [B, 1, Hq, dh], k/v_new: [B, 1, Hkv, dh] ->
     ([B, 1, Hq, dh], the cache updated in place with ``pos + 1``)."""
+    if is_dtensor(cache.sum_k):
+        return _decode_gathered(q, k_new, v_new, cache, cfg)
     b, _, hq, dh = q.shape
     hkv = k_new.shape[2]
     g = hq // hkv

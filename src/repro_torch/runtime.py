@@ -3,11 +3,6 @@ from __future__ import annotations
 
 import torch
 
-# A later slice of the port; error messages name it so a caller knows
-# where the missing feature lands (ROADMAP.md, queue 1).
-MESH_SLICE = "the multi-device LM slice, ROADMAP queue 1 item 8"
-
-
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     the CPU.  A CUDA request without a card raises -- the port never

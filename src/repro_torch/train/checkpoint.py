@@ -14,6 +14,16 @@ tuple index ``[i]``, joined by ``/`` -- e.g. ``.params/['blocks']/
 ['attn']/.wq`` or ``.opt/.nu/['embed']``.  npz has no bf16, so bf16
 leaves are stored as f32 and restored to the leaf's dtype (exact both
 ways).
+
+A state on a device mesh (DTensor leaves) is saved as full tensors:
+every rank gathers each leaf in turn and rank 0 writes it before the
+next is gathered (the others drop theirs), so a rank's host holds one
+leaf at a time; the ranks meet at a barrier before ``save`` returns.
+With ``async_write`` rank 0 keeps every gathered leaf on its host and
+writes them in a thread, as a one-device save does.  ``restore`` reads the
+full arrays on every rank and keeps each leaf's own shard, in the layout
+of the ``state_like`` leaf.  The file is the one-device layout, so either
+package, on a mesh or not, restores it.
 """
 from __future__ import annotations
 
@@ -33,32 +43,27 @@ from typing import Any, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.act_constraints import is_dtensor
+from repro_torch.distributed.sharding import leaf_paths
+
 
 _READERS = 4            # arrays a restore reads ahead, each in a thread
 
 
-def _paths(tree: Any, prefix: tuple = ()) -> Iterator[tuple[str, Any]]:
-    """(path string, leaf) in jax's flattening order; None is an empty
-    subtree, as in jax."""
-    if tree is None:
-        return
-    if isinstance(tree, torch.Tensor):
-        yield "/".join(prefix), tree
-    elif hasattr(tree, "_fields"):
-        for f in tree._fields:
-            yield from _paths(getattr(tree, f), prefix + (f".{f}",))
-    elif isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _paths(tree[k], prefix + (f"[{k!r}]",))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _paths(v, prefix + (f"[{i}]",))
-    else:
-        raise TypeError(f"checkpoint: unsupported node {type(tree)}")
+def _paths(tree: Any) -> list[tuple[str, Any]]:
+    """(path string, leaf) in jax's flattening order, the components
+    joined by "/"; None is an empty subtree, as in jax."""
+    return leaf_paths(tree, "/")
+
+
+def _sharded(tree: Any) -> bool:
+    return any(is_dtensor(t) for _, t in _paths(tree))
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach()
+    if is_dtensor(t):                      # every rank gathers, in order
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:          # npz cannot store bf16
         t = t.float()                      # (on the leaf's device)
     return t.cpu().numpy()
@@ -149,8 +154,13 @@ def _unflatten(tree_like: Any, read, prefix: tuple = ()) -> Any:
         if tuple(a.shape) != tuple(tree_like.shape):
             raise ValueError(f"{key}: checkpoint shape {a.shape}, state "
                              f"shape {tuple(tree_like.shape)}")
-        return torch.from_numpy(a).to(device=tree_like.device,
-                                      dtype=tree_like.dtype)
+        t = torch.from_numpy(a).to(device=tree_like.device,
+                                   dtype=tree_like.dtype)
+        if is_dtensor(tree_like):          # this rank's shard of it
+            from torch.distributed.tensor import distribute_tensor
+            t = distribute_tensor(t, tree_like.device_mesh,
+                                  tree_like.placements, src_data_rank=None)
+        return t
     if hasattr(tree_like, "_fields"):
         return type(tree_like)(*(
             _unflatten(getattr(tree_like, f), read, prefix + (f".{f}",))
@@ -173,8 +183,27 @@ def save(ckpt_dir: str, step: int, state: Any,
     """Write checkpoint ``step``.  With ``async_write=True`` every leaf is
     copied to the host here and the disk write runs in a thread (returned)
     so it overlaps the next training steps; otherwise the leaves are
-    copied and written one at a time (the host holds two leaves)."""
-    items = _flatten(state).items() if async_write else _host_arrays(state)
+    copied and written one at a time (the host holds two leaves).  A
+    state with DTensor leaves is gathered leaf by leaf on every rank and
+    written by rank 0 (module docstring); a thread is returned on rank 0
+    only."""
+    sharded = _sharded(state)
+    if sharded:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            # this rank's part of each leaf's gather, in rank 0's order;
+            # the whole leaf is dropped
+            for _, t in _paths(state):
+                if is_dtensor(t):
+                    t.detach().full_tensor()
+            if not async_write:
+                dist.barrier()
+            return None
+        gathered = ((k, _to_numpy(t)) for k, t in _paths(state))
+        items = list(gathered) if async_write else gathered
+    else:
+        items = _flatten(state).items() if async_write \
+            else _host_arrays(state)
 
     def _write():
         tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
@@ -189,6 +218,10 @@ def save(ckpt_dir: str, step: int, state: Any,
         os.rename(tmp, final)                    # atomic publish
         _gc(ckpt_dir, keep)
 
+    if sharded and not async_write:
+        _write()
+        dist.barrier()
+        return None
     if async_write:
         t = threading.Thread(target=_write, daemon=True)
         t.start()

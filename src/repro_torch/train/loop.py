@@ -21,6 +21,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.tokens import TokenStreamConfig, batch_shard
+from repro_torch.distributed.act_constraints import (is_dtensor,
+                                                     match_layout,
+                                                     relayout_batch)
 from repro_torch.models import lm
 from repro_torch.runtime import resolve_device
 from repro_torch.train import checkpoint as ckpt
@@ -51,7 +54,9 @@ def loss_and_grads(params: Any, tokens: torch.Tensor, cfg: ArchConfig,
         # qk_norm) gets zeros, as jax.grad gives it
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-    return loss.detach(), tree_unflatten(params, list(grads))
+    # on a mesh each gradient takes its parameter's layout
+    grads = [match_layout(g, p) for g, p in zip(grads, leaves)]
+    return loss.detach(), tree_unflatten(params, grads)
 
 
 def make_train_step(cfg: ArchConfig, opt: Optimizer, accum: int = 1,
@@ -73,6 +78,11 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, accum: int = 1,
         if t is None:
             return [None] * accum
         mb = t.shape[0] // accum
+        if is_dtensor(t):
+            # the strided rows cross the shards: the whole batch (tokens,
+            # a stub context) is split, and each microbatch laid out as t
+            whole = split(t.full_tensor())
+            return [relayout_batch(m, t) for m in whole]
         return list(t.reshape(mb, accum, *t.shape[1:]).transpose(0, 1))
 
     def step_fn(state: TrainState, tokens: torch.Tensor,
@@ -83,8 +93,8 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, accum: int = 1,
         else:
             loss = torch.zeros((), dtype=torch.float32,
                                device=tokens.device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=accum_dtype, device=p.device), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=accum_dtype), state.params)
             for tok, aux in zip(split(tokens), split(aux_embeds)):
                 l, g = loss_and_grads(state.params, tok, cfg, aux)
                 loss = loss + l

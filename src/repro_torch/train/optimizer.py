@@ -26,6 +26,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.act_constraints import is_dtensor, match_layout
+
 Tree = Any
 
 
@@ -128,8 +130,12 @@ def _step_of(params: Tree) -> torch.Tensor:
 
 
 def _zeros(params: Tree, dtype: torch.dtype = torch.float32) -> Tree:
-    return tree_map(lambda x: torch.zeros(x.shape, dtype=dtype,
-                                          device=x.device), params)
+    return tree_map(lambda x: torch.zeros_like(x, dtype=dtype), params)
+
+
+def _full(x):
+    """A replicated (or partial) DTensor scalar as its plain value."""
+    return x.full_tensor() if is_dtensor(x) else x
 
 
 # elements of one leaf updated at a time, by device type
@@ -151,13 +157,23 @@ def adam(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.999,
                         _zeros(params, moment_dtype))
 
     def update(grads, state, params):
-        scale = None if clip_norm is None else _clip_scale(grads, clip_norm)
+        scale = None if clip_norm is None \
+            else _full(_clip_scale(grads, clip_norm))
         step = state.step + 1
-        t = step.float()
-        lr_s = sched(step)
+        t = _full(step).float()
+        lr_s = sched(_full(step))
         lr_t = lr_s * torch.sqrt(1 - torch.pow(b2, t)) / (1 - torch.pow(b1, t))
 
         def upd(g, m, v, p):
+            if is_dtensor(p):
+                # elementwise: each rank updates its own shard, the
+                # gradient first laid out as its parameter
+                from torch.distributed.tensor import DTensor
+                outs = upd(*(x.to_local() for x in (match_layout(g, p), m,
+                                                    v, p)))
+                return tuple(DTensor.from_local(
+                    o, p.device_mesh, p.placements, run_check=False,
+                    shape=p.shape, stride=p.stride()) for o in outs)
             p2 = torch.empty(p.shape, dtype=p.dtype, device=p.device)
             m2 = torch.empty(m.shape, dtype=moment_dtype, device=m.device)
             v2 = torch.empty(v.shape, dtype=moment_dtype, device=v.device)

@@ -461,7 +461,8 @@ def test_serve_launcher_runs_on_cpu():
          "cpu"], env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     line = res.stdout.strip().splitlines()[-1]
-    assert line.startswith("llama3b-smoke vq=True: ") and "tok/s" in line
+    assert line.startswith("llama3b-smoke strategy=replicate vq=True: ") \
+        and "tok/s" in line
     assert line.endswith("cache 0.2 MB"), line
     report = tserve.main(["--arch", "llama3.2-3b", "--smoke", "--vq",
                           "--tokens", "6", "--device", "cpu"])
@@ -474,10 +475,11 @@ def test_serve_launcher_runs_on_cpu():
 
 
 def test_serve_launcher_refuses_later_slices():
-    """``--production-mesh`` raises, naming its slice; the cross-attention
-    families, once refused here, now serve (their parity:
-    ``tests/test_torch_lm_cross.py``)."""
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    """``--production-mesh`` on a one-rank world raises, naming the 256
+    ranks the mesh needs (the mesh itself: ``tests/test_torch_lm_sharding.
+    py``); the cross-attention families, once refused here, now serve
+    (their parity: ``tests/test_torch_lm_cross.py``)."""
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         tserve.main(["--arch", "llama3.2-3b", "--production-mesh",
                      "--smoke", "--device", "cpu"])
     for arch in ("whisper-tiny", "llama-3.2-vision-11b"):

@@ -476,7 +476,8 @@ def test_launchers_serve_and_refuse_to_train(arch, capsys):
                               "--device", "cpu"] + (["--vq"] if vq else []))
         assert report["tokens"] == 4 and report["tok_per_s"] > 0
         line = capsys.readouterr().out.strip().splitlines()[-1]
-        assert line.startswith(f"{name} vq={vq}: ") and "tok/s" in line
+        assert line.startswith(f"{name} strategy=replicate vq={vq}: ") \
+            and "tok/s" in line
         jc = jreg.get_smoke(arch)
         if vq:
             jc = jc.with_vq(k=min(jc.vq_k, 128), window=64)

@@ -389,7 +389,7 @@ def test_launchers_serve_and_train_the_recurrent_families(arch, capsys,
                               "--device", "cpu"] + (["--vq"] if vq else []))
         assert report["tokens"] == 4 and report["tok_per_s"] > 0
         line = capsys.readouterr().out.strip().splitlines()[-1]
-        assert line.startswith(f"{name} vq={vq}: ")
+        assert line.startswith(f"{name} strategy=replicate vq={vq}: ")
     argv = ["--arch", arch, "--smoke", "--steps", "10", "--batch", "2",
             "--seq", "16", "--device", "cpu", "--ckpt-dir", str(tmp_path),
             "--ckpt-every", "10"]

@@ -223,9 +223,12 @@ def test_train_launcher_runs_and_resumes_on_cpu(tmp_path, capsys):
 
 
 def test_train_launcher_refuses_later_slices():
-    for argv, match in [(["--production-mesh"], "multi-device"),
-                        (["--multi-pod"], "multi-device")]:
-        with pytest.raises(NotImplementedError, match=match):
+    """The production meshes on a one-rank world raise, naming the ranks
+    they need (the meshes themselves: ``tests/test_torch_lm_sharding.py``);
+    the cross-attention families raise naming their stub context."""
+    for argv, match in [(["--production-mesh"], "needs 256 ranks"),
+                        (["--multi-pod"], "needs 512 ranks")]:
+        with pytest.raises(ValueError, match=match):
             tlaunch.main(["--arch", "llama3.2-3b", "--smoke", "--device",
                           "cpu", *argv])
     # the cross-attention families need their stub context, which the

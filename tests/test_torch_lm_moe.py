@@ -273,7 +273,8 @@ def test_launchers_serve_and_train_the_moe_family(arch, capsys):
                           "4", "--device", "cpu"])
     assert report["tokens"] == 4 and report["vq"] and report["tok_per_s"] > 0
     line = capsys.readouterr().out.strip().splitlines()[-1]
-    assert line.startswith(f"{treg.get_smoke(arch).name} vq=True: ")
+    assert line.startswith(
+        f"{treg.get_smoke(arch).name} strategy=replicate vq=True: ")
     state = tlaunch.main(["--arch", arch, "--smoke", "--steps", "10",
                           "--batch", "2", "--seq", "16", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
