@@ -378,7 +378,20 @@ Phases (each prints its own lines; any failure exits non-zero):
    layers on (16, 16) (``launch.dryrun``; its JSON line); then the
    analytic roofline terms of llama3.2-3b's train_4k cell
    (``launch.roofline``);
-44. a ``{"kernels": [...]}`` line (the quantized and wide forms, the
+44. analysis, the static contract checker (``repro_torch.analysis``):
+   (a) its CLI on the card with all four passes (the AST lint, the
+   dispatch contracts with the card's launch counters held against the
+   recorder, shared memory against the card's opt-in limit and plans,
+   and no host synchronization in any hot entry), failing on any
+   finding; (b) each pinned entry and the single-device training entries
+   run on the card with the kernels' launch counters reset, their
+   launches by kernel and form equal to what the dispatch recorder
+   predicts for the same entry on the CPU, and to the pinned table;
+   (c) the card's opt-in shared memory a block equals ``SMEM_LIMIT``, and
+   the wide scan's plan on the card equals ``vq_update.wide_plan`` at the
+   registry's widths; (d) REPRO102 fires on a seeded ``.item()``.  Its
+   launches are counted apart from the main paths' (its JSON line);
+45. a ``{"kernels": [...]}`` line (the quantized and wide forms, the
    link shapes and the dispatch phase's shapes under each kernel's
    ``also``, each with its launches on the main paths -- a wide form's
    at its operand shape, as the wrapper counts them, every wide shape's
@@ -6079,6 +6092,85 @@ def phase_lm_mesh() -> dict:
             "roofline_llama3.2-3b_train_4k": terms}
 
 
+def phase_analysis() -> dict:
+    """Phase 44: the contract checker on the card (the docstring's (a) to
+    (d)); every launch here is counted apart from the main paths'."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.analysis import (dispatch_checks, registry, smem_checks,
+                                      trace_count)
+    from repro_torch.analysis.__main__ import main as analysis_main
+    t0 = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = analysis_main(["--device", "cuda"])
+    findings = out.getvalue().splitlines()
+    for line in findings:
+        log(f"analysis finding: {line}")
+    if rc != 0:
+        raise SystemExit(f"analysis: the checker exits {rc} on the card "
+                         f"with {len(findings)} finding(s)")
+    cli_s = time.time() - t0
+    launches = {}
+    entries = [e for e in registry.entries()
+               if e.dispatch_count is not None
+               or e.name in ("vq_train_epoch", "sampler_train_epoch")]
+    for e in entries:
+        want = dispatch_checks.dispatch_counts(
+            dispatch_checks.recorded(e, "cpu").records)
+        reset_counts()
+        e.run("cuda")
+        torch.cuda.synchronize()
+        got = trace_count.launch_counts()
+        launches[e.name] = {f"{k} {f}": v for (k, f), v in sorted(got.items())}
+        if got != want:
+            raise SystemExit(f"analysis: {e.name} launched {got} on the "
+                             f"card, the CPU recorder predicted {want}")
+        if e.dispatch_count is not None and \
+                sum(got.values()) != e.dispatch_count * e.steps:
+            raise SystemExit(f"analysis: {e.name} launched {got}, not the "
+                             f"pinned {e.dispatch_count} a step over "
+                             f"{e.steps} steps")
+    reset_counts()
+    props = torch.cuda.get_device_properties(0)
+    optin = getattr(props, "shared_memory_per_block_optin", None)
+    from repro_torch.kernels import context_ell, vq_assign, vq_update
+    optin_lib = context_ell.smem_optin()
+    if optin_lib != smem_checks.SMEM_LIMIT or \
+            (optin is not None and int(optin) != optin_lib):
+        raise SystemExit(f"analysis: opt-in shared memory {optin} (torch) / "
+                         f"{optin_lib} (the kernels), the wrappers size "
+                         f"blocks for {smem_checks.SMEM_LIMIT}")
+    widths = sorted({d.shapes[0][-1] for e in entries
+                     for d in dispatch_checks.recorded(e, "cpu").records
+                     if d.kernel in ("vq_update", "vq_assign")})
+    plans = {}
+    for f in widths:
+        for wgs in (1, 2):
+            card = vq_assign.wide_plan_card(f, wgs)
+            if card != vq_update.wide_plan(f, wgs):
+                raise SystemExit(f"analysis: wide plan at f={f}, wgs={wgs}: "
+                                 f"card {card}, host "
+                                 f"{vq_update.wide_plan(f, wgs)}")
+            plans[f"f={f} wgs={wgs}"] = list(card)
+    x = torch.ones(8, device="cuda")
+    seeded = registry.Entry("fixture:item", make=lambda dev: (x,),
+                            call=lambda t: float((t * 2).sum().item()))
+    sync = dispatch_checks.sync_findings(seeded, "cuda")
+    if [f.rule for f in sync] != ["REPRO102"]:
+        raise SystemExit(f"analysis: a seeded .item() gave {sync}, not one "
+                         f"REPRO102")
+    rep = {"findings": len(findings), "cli_s": cli_s,
+           "launches": launches, "smem_optin": optin_lib,
+           "smem_optin_torch": optin, "wide_plans": plans,
+           "seeded_sync": sync[0].message, "seconds": time.time() - t0}
+    log(f"analysis: clean on the card, {len(entries)} entries' launches "
+        f"equal to the CPU recorder's, opt-in shared memory {optin_lib} B, "
+        f"{time.time() - t0:.2f} s")
+    return rep
+
+
 def main() -> int:
     import argparse
     import torch
@@ -6354,6 +6446,9 @@ def main() -> int:
     # dry-run and the roofline on the host ---
     lm_mesh = timed("lm-mesh", phase_lm_mesh)
 
+    # --- the static contract checker, its launches counted apart ---
+    analysis_rep = timed("analysis", phase_analysis)
+
     # --- launches on the main paths, and the kernels line ---
     launches = train_counts
     link_counts = add_counts(add_counts(link_train_counts, link_full_counts),
@@ -6528,6 +6623,7 @@ def main() -> int:
     log(json.dumps({"lm_xattn_train": xa_train}))
     log(json.dumps({"lm_xattn_parity": xa_parity}))
     log(json.dumps({"lm_mesh": lm_mesh}))
+    log(json.dumps({"analysis": analysis_rep}))
     seconds["total"] = time.time() - T_START
     log(json.dumps({"seconds": seconds}))
     log(f"chip_smoke: {seconds['total']:.1f} s from start to the "

@@ -18,7 +18,7 @@ from repro_torch.core import codebook as cbm
 from repro_torch.core.codebook import CodebookConfig, CodebookState
 from repro_torch.core.message_passing import ConvOperands
 from repro_torch.distributed.quantization import (PackedAssignment, QTensor,
-                                                  last_occurrence)
+                                                  last_positions)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.context_ell import is_node_major
 from repro_torch.kernels.spmm_ell_hbm import StripeIndex
@@ -134,12 +134,13 @@ def refresh_assignment(state: LayerVQState, batch_ids: torch.Tensor,
     if packed:
         assignment = table.scatter(idx, new)
     else:
-        keep = last_occurrence(idx, table.shape[1])
+        # every entry writes its id's last value: duplicates agree, and no
+        # entry is selected by a mask, so nothing waits on the host
+        new = new[:, last_positions(idx, table.shape[1])]
         if is_node_major(table):        # written along its storage rows
-            assignment = table.t().index_copy(0, idx[keep],
-                                              new[:, keep].t()).t()
+            assignment = table.t().index_copy(0, idx, new.t()).t()
         else:
-            assignment = table.index_copy(1, idx[keep], new[:, keep])
+            assignment = table.index_copy(1, idx, new)
     return LayerVQState(state.codebook, assignment, state.counts + delta,
                         state.qcw)
 

@@ -164,16 +164,23 @@ def gather_nibbles(packed: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return (byte >> ((idx & 1) * 4).to(torch.uint8)) & 0xF
 
 
-def last_occurrence(ids: torch.Tensor, size: int) -> torch.Tensor:
-    """[m] mask of the entries that are the last of their id in ``ids``
-    (every id in [0, size)): the winners of a sequential scatter, found
+def last_positions(ids: torch.Tensor, size: int) -> torch.Tensor:
+    """[m]: for each entry of ``ids`` (every id in [0, size)) the position
+    of its id's last entry -- the winner of a sequential scatter, found
     with an ``amax`` reduction over the entry numbers, which is
-    deterministic on every device."""
+    deterministic on every device and needs no host synchronization."""
     idx = ids.long()
     order = torch.arange(idx.numel(), device=idx.device)
     last = torch.full((size,), -1, dtype=torch.int64, device=idx.device)
     last.scatter_reduce_(0, idx, order, reduce="amax")
-    return last[idx] == order
+    return last[idx]
+
+
+def last_occurrence(ids: torch.Tensor, size: int) -> torch.Tensor:
+    """[m] mask of the entries that are the last of their id in ``ids``
+    (every id in [0, size)): the winners of a sequential scatter."""
+    return last_positions(ids, size) == torch.arange(ids.numel(),
+                                                     device=ids.device)
 
 
 def scatter_nibbles(packed: torch.Tensor, ids: torch.Tensor,
@@ -185,18 +192,21 @@ def scatter_nibbles(packed: torch.Tensor, ids: torch.Tensor,
     the sibling nibble, replace ours) and needs distinct ids.  Here the
     last entry of a repeated id wins, as in a sequential scatter, so the
     table does not depend on the order a device applies duplicate writes
-    in; with distinct ids the two agree."""
+    in; with distinct ids the two agree.  Each id's winner adds its nibble
+    and its clear mask into per-byte sums (disjoint bits, so a sum is an
+    OR): no entry is selected by a mask, so nothing waits on the host."""
     idx = ids.long()
-    keep = last_occurrence(idx, 2 * packed.shape[-1])
-    idx = idx[keep]
-    v = (vals[..., keep] & 0xF).to(torch.uint8)
+    win = last_occurrence(idx, 2 * packed.shape[-1])
+    shift = (idx & 1) * 4
     byte = idx >> 1
-    out = packed.clone()
-    for parity, mask, shift in ((0, 0xF0, 0), (1, 0x0F, 4)):
-        sel = (idx & 1) == parity
-        b = byte[sel]
-        out[..., b] = (out[..., b] & mask) | (v[..., sel] << shift)
-    return out
+    nbytes = packed.shape[-1]
+    dev = packed.device
+    clear = torch.zeros(nbytes, dtype=torch.int32, device=dev).index_add_(
+        0, byte, torch.where(win, 0xF << shift, 0).to(torch.int32))
+    sets = torch.zeros(packed.shape, dtype=torch.int32, device=dev)
+    sets.index_add_(-1, byte, torch.where(
+        win, (vals.long() & 0xF) << shift, 0).to(torch.int32))
+    return ((packed.to(torch.int32) & ~clear) | sets).to(torch.uint8)
 
 
 class PackedAssignment:

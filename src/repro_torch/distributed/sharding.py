@@ -36,7 +36,6 @@ The rules read only the mesh's axis names and sizes, so an abstract mesh
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -44,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import hostenv
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import axes_size, axis_names, axis_sizes, dp_axes
 from repro_torch.runtime import resolve_device
@@ -128,7 +128,7 @@ def graph_dp_mesh(n_devices: Optional[int] = None, *,
             dev = torch.device("cuda", dev.index or 0)
         else:
             dev = torch.device("cuda",
-                               int(os.environ.get("LOCAL_RANK", rank)))
+                               int(hostenv.env_knob("LOCAL_RANK", rank)))
         torch.cuda.set_device(dev)
     return GraphMesh(group=dist.group.WORLD, rank=rank, world_size=world,
                      device=dev, backend=backend, share_device=share_device)

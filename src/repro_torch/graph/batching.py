@@ -317,9 +317,8 @@ def plan_batch(plan: EpochPlan, batch_ids: torch.Tensor,
     nmask = plan.nbr_mask[ids64]
     rev = plan.rev_ids[ids64]
     rmask = plan.rev_mask[ids64]
-    minus1 = torch.tensor(-1, dtype=torch.int32, device=dev)
-    npos = torch.where(nmask != 0, slot[nbr.long()], minus1)
-    rpos = torch.where(rmask != 0, slot[rev.long()], minus1)
+    npos = torch.where(nmask != 0, slot[nbr.long()], -1)
+    rpos = torch.where(rmask != 0, slot[rev.long()], -1)
     return MinibatchPack(
         batch_ids=batch_ids, nbr_ids=nbr, nbr_mask=nmask, nbr_pos=npos,
         rev_ids=rev, rev_mask=rmask, rev_pos=rpos, slot_mask=slot_mask)

@@ -23,11 +23,17 @@ from pathlib import Path
 
 import torch
 
+from repro_torch import hostenv
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 LIB_NAME = "librepro_torch_kernels.so"
+# dynamic shared memory one H100 block may use (the card's opt-in limit,
+# cudaDevAttrMaxSharedMemoryPerBlockOptin): every wrapper sizes its blocks
+# against it
+SMEM_LIMIT = 232448
 
 _vp, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _flt = ctypes.c_float
@@ -54,6 +60,7 @@ for _e in ("f32", "u8_f32"):
         + [_vp]
 SIGNATURES["repro_vq_wide_probe_f32"] = [_vp] * 4 + [_int] * 4 + [_vp]
 SIGNATURES["repro_vq_wide_plan"] = [_int, _int, _vp]
+SIGNATURES["repro_smem_optin"] = [_vp]
 for _dt in ("f32", "bf16"):
     SIGNATURES[f"repro_vq_attention_{_dt}"] = [_vp] * 11 + [_int] * 6 \
         + [_flt, _vp]
@@ -83,7 +90,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+    home = hostenv.env_knob("CUDA_HOME") or hostenv.env_knob("CUDA_PATH") \
         or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():

@@ -182,8 +182,8 @@ def _source(n: int, f: int, dtype: torch.dtype, gen: torch.Generator):
 # per-kernel tuners (ops.py consumers)
 # ---------------------------------------------------------------------------
 
-def tuned_spmm(n_src: int, f: int, itemsize: int = 4, dtype=None
-               ) -> Optional[dict[str, Any]]:
+def tuned_spmm(n_src: int, f: int, itemsize: int = 4, dtype=None, *,
+               measure: bool = True) -> Optional[dict[str, Any]]:
     """{'variant': 'resident'|'hbm', 'bb': int, 'stripe': int, 'ms': ...}
     for an [n_src, f] source of ``itemsize``-byte elements, or None when
     tuning is off.  The candidates: the resident kernel, and the staged one
@@ -191,7 +191,8 @@ def tuned_spmm(n_src: int, f: int, itemsize: int = 4, dtype=None
     {256, 512, 1024} that its shared memory takes; a resident winner
     carries the default tiles.  ``dtype`` (the source's storage dtype)
     keys the entry: int8 and fp8 share an itemsize but not a winner.  A
-    caller's precomputed ``StripeIndex`` still pins the staged tiles."""
+    caller's precomputed ``StripeIndex`` still pins the staged tiles.
+    With ``measure=False`` a missing entry is None, not a race."""
     if not enabled():
         return None
     from repro_torch.kernels import spmm_ell_hbm as hbm
@@ -200,7 +201,7 @@ def tuned_spmm(n_src: int, f: int, itemsize: int = 4, dtype=None
         dtype = torch.int8 if itemsize == 1 else torch.float32
     key = cache_key("spmm", (n_src, f, itemsize), dtype)
     hit = lookup(key)
-    if hit is not None:
+    if hit is not None or not measure:
         return hit
     gen = _generator()
     ns = shape_bucket(n_src)
@@ -227,13 +228,15 @@ def tuned_spmm(n_src: int, f: int, itemsize: int = 4, dtype=None
 
 
 def tuned_context(n_nodes: int, n_branches: int, itemsize: float = 4,
-                  dtype=None) -> Optional[dict[str, Any]]:
+                  dtype=None, *, measure: bool = True
+                  ) -> Optional[dict[str, Any]]:
     """{'variant': 'fused'|'loop', 'ms': ...} for an [n_branches, n_nodes]
     assignment table, or None when tuning is off.  ``dtype`` keys the
     entry by the table's storage (``"uint4"`` for a packed table,
     ``itemsize`` 0.5).  The loop candidate is ``ops._context_ell_loop``
     itself, which calls the SpMM kernel without a dispatch; both race on
-    the packed table, as the dispatch would run each."""
+    the packed table, as the dispatch would run each.  With
+    ``measure=False`` a missing entry is None, not a race."""
     if not enabled():
         return None
     from repro_torch.distributed.quantization import PackedAssignment
@@ -245,7 +248,7 @@ def tuned_context(n_nodes: int, n_branches: int, itemsize: float = 4,
     name = dtype_name(dtype)
     key = cache_key("context", (n_nodes, n_branches), name)
     hit = lookup(key)
-    if hit is not None:
+    if hit is not None or not measure:
         return hit
     gen = _generator()
     n, nb = shape_bucket(n_nodes), int(n_branches)

@@ -38,13 +38,24 @@ launches_q = 0
 launches_q_wt = 0
 launches_by_entry: dict[str, int] = {}
 
-# dynamic shared memory one H100 block may use; the w_t form holds at least
-# 8 rows of the [b, nb * f_blk] context in it (32 where they fit)
-SMEM_LIMIT = 232448
+# the w_t form holds at least 8 rows of the [b, nb * f_blk] context in a
+# block's shared memory (32 where they fit)
+SMEM_LIMIT = _build.SMEM_LIMIT
 WT_ROWS = 8
 # codeword storage dtype -> entry name part; table kind -> (part, largest k)
 _CW = {torch.float32: "f32", torch.int8: "i8", torch.float8_e4m3fn: "f8"}
 _TABLE_K = {"i32": None, "u8": 256, "a4": 16}
+_TABLE = {torch.int32: "i32", torch.uint8: "u8"}
+
+
+def entry_name(cw_dtype, assignment, wt: bool) -> str:
+    """The library entry launched for codewords of ``cw_dtype`` over
+    ``assignment`` (a table or a ``PackedAssignment``), with or without the
+    ``w_t`` epilogue: ``launches_by_entry``'s key."""
+    tab = "a4" if isinstance(assignment, PackedAssignment) \
+        else _TABLE.get(assignment.dtype, str(assignment.dtype))
+    cw = _CW.get(cw_dtype, str(cw_dtype))
+    return f"repro_context_ell{'_wt' if wt else ''}_{cw}_{tab}"
 
 
 def context_ell_cuda(out_ids: torch.Tensor, out_vals: torch.Tensor,
@@ -80,7 +91,7 @@ def context_ell_cuda(out_ids: torch.Tensor, out_vals: torch.Tensor,
     if packed:
         tab, a_dtype = "a4", torch.uint8
     else:
-        tab = {torch.int32: "i32", torch.uint8: "u8"}.get(table.dtype)
+        tab = _TABLE.get(table.dtype)
         if tab is None:
             raise TypeError(f"context_ell: assignment of dtype {table.dtype}; "
                             f"the kernel takes int32, uint8 or a "
@@ -145,12 +156,11 @@ def context_ell_cuda(out_ids: torch.Tensor, out_vals: torch.Tensor,
     # the table's strides: element (br, v) at br * s_br + v * s_id
     head = (out_ids.data_ptr(), out_vals.data_ptr(), table.data_ptr(),
             *table.stride(), codewords.data_ptr(), scale)
+    entry = entry_name(codewords.dtype, assignment, w_t is not None)
     if w_t is None:
-        entry = f"repro_context_ell_{cw_name}_{tab}"
         err = getattr(lib, entry)(
             *head, out.data_ptr(), b, deg, n, nb, k, f_blk, stream)
     else:
-        entry = f"repro_context_ell_wt_{cw_name}_{tab}"
         err = getattr(lib, entry)(
             *head, w_t.data_ptr(), out.data_ptr(), b, deg, n, nb, k, f_blk,
             f_out, stream)
@@ -161,3 +171,13 @@ def context_ell_cuda(out_ids: torch.Tensor, out_vals: torch.Tensor,
     launches_q += quantized
     launches_q_wt += quantized and w_t is not None
     return out
+
+
+def smem_optin() -> int:
+    """The card's opt-in shared memory a block
+    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``), as the kernels read it
+    (``repro_smem_optin``)."""
+    import ctypes
+    out = (ctypes.c_int * 1)()
+    _build.check(_build.library().repro_smem_optin(out), "smem_optin")
+    return int(out[0])

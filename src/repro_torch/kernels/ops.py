@@ -36,6 +36,12 @@ to the loop).  With
 a ``StripeIndex`` pins them) and the wide VQ scan's row tile.  Every
 ``REPRO_*`` read goes through ``repro_torch.hostenv``.
 
+Inside ``analysis.trace_count.recording()`` every public dispatcher here
+also notes the kernel the card would launch for its operands, on either
+device: for a CPU tensor it takes the card's decision above, the tuner's
+cached winners included, and measures nothing.  Outside a recording a CPU
+tensor goes to ``ref.py`` without consulting any variant.
+
 The precision tiers are data-driven here as in the reference: quantized
 codewords arrive as a ``QTensor``, narrow tables as uint8 tensors or a
 ``PackedAssignment``, and each reaches its kernel form in its storage
@@ -51,10 +57,15 @@ from typing import Optional
 import torch
 
 from repro_torch import hostenv
+from repro_torch.analysis import trace_count
 from repro_torch.distributed.quantization import PackedAssignment, QTensor
 from repro_torch.kernels import autotune, ref
-from repro_torch.kernels.context_ell import context_ell_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels import vq_assign as _vq_assign
+from repro_torch.kernels import vq_update as _vq_update
+from repro_torch.kernels.context_ell import (context_ell_cuda,
+                                             entry_name as context_entry)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 route as _flash_route)
 from repro_torch.kernels.spmm_ell import spmm_ell_cuda, spmm_ell_t_cuda
 from repro_torch.kernels.spmm_ell_hbm import StripeIndex, spmm_ell_hbm_cuda
 from repro_torch.kernels.vq_assign import vq_assign_cuda
@@ -186,12 +197,14 @@ def configure_spmm_dispatch(variant: Optional[str] = None,
 
 
 def spmm_ell_variant(n_src: int, f: int, itemsize: int = 4,
-                     dtype: Optional[torch.dtype] = None) -> str:
+                     dtype: Optional[torch.dtype] = None, *,
+                     measure: bool = True) -> str:
     """'resident' or 'hbm' for an [n_src, f] source of ``itemsize``-byte
     elements (of storage ``dtype``, which keys the tuner).  Precedence: a
     forced variant (``configure_spmm_dispatch``, else
     ``REPRO_SPMM_VARIANT``), then a configured budget, then the tuner
-    (``REPRO_AUTOTUNE=1``), then the default budget, 50 MiB."""
+    (``REPRO_AUTOTUNE=1``; with ``measure=False`` its cached winners
+    only), then the default budget, 50 MiB."""
     forced = _dispatch_overrides.get(
         "variant", hostenv.env_knob("REPRO_SPMM_VARIANT", "auto"))
     if forced not in SPMM_VARIANTS:
@@ -201,7 +214,8 @@ def spmm_ell_variant(n_src: int, f: int, itemsize: int = 4,
         return str(forced)
     if not _budget_forced(_dispatch_overrides, "REPRO_SPMM_L2_BUDGET_MB",
                           "REPRO_SPMM_VMEM_BUDGET_MB"):
-        tuned = autotune.tuned_spmm(n_src, f, itemsize, dtype)
+        tuned = autotune.tuned_spmm(n_src, f, itemsize, dtype,
+                                    measure=measure)
         if tuned is not None:
             return str(tuned["variant"])
     budget = _l2_budget_mb(_dispatch_overrides, "REPRO_SPMM_L2_BUDGET_MB",
@@ -209,12 +223,36 @@ def spmm_ell_variant(n_src: int, f: int, itemsize: int = 4,
     return "hbm" if n_src * f * itemsize > budget * 2 ** 20 else "resident"
 
 
+def _spmm_variant(x: torch.Tensor, measure: bool = True) -> str:
+    n_src, f = x.shape
+    return spmm_ell_variant(n_src, f, x.element_size(), x.dtype,
+                            measure=measure)
+
+
+def _note_spmm(variant, nbr_idx, nbr_val, x, x_scale) -> None:
+    """Record the SpMM kernel ``variant`` names (the resident one launches
+    nothing for an empty output)."""
+    if trace_count.active() and (
+            variant == "hbm" or (nbr_idx.shape[0] > 0 and x.shape[1] > 0)):
+        trace_count.note("spmm_ell_hbm" if variant == "hbm" else "spmm_ell",
+                         "f32" if x_scale is None else "q", nbr_idx, nbr_val,
+                         x, x_scale)
+
+
+def _note_spmm_cpu(nbr_idx, nbr_val, x, x_scale) -> None:
+    if trace_count.active():
+        _note_spmm(_spmm_variant(x, measure=False), nbr_idx, nbr_val, x,
+                   x_scale)
+
+
 def _spmm_cuda(nbr_idx, nbr_val, x, stripe_index, x_scale):
     """The card's SpMM kernel for this source, by ``spmm_ell_variant``;
     the staged kernel at the tuner's tiles unless ``stripe_index`` pins
     its own."""
     n_src, f = x.shape
-    if spmm_ell_variant(n_src, f, x.element_size(), x.dtype) == "hbm":
+    variant = _spmm_variant(x)
+    _note_spmm(variant, nbr_idx, nbr_val, x, x_scale)
+    if variant == "hbm":
         tiles = {}
         if stripe_index is None:
             tuned = autotune.tuned_spmm(n_src, f, x.element_size(), x.dtype)
@@ -263,14 +301,15 @@ def configure_context_dispatch(variant: Optional[str] = None,
 
 
 def context_ell_variant(n_nodes: int, n_branches: int,
-                        itemsize: float = 4, dtype=None) -> str:
+                        itemsize: float = 4, dtype=None, *,
+                        measure: bool = True) -> str:
     """'fused' or 'loop' for an [n_branches, n_nodes] assignment table of
     ``itemsize`` bytes an entry -- fractional: 0.5 for a
     ``PackedAssignment`` -- whose storage ``dtype`` (``"uint4"`` when
     packed) keys the tuner.  Precedence: a forced variant
     (``configure_context_dispatch``, else ``REPRO_CONTEXT_VARIANT``), then
-    a configured budget, then the tuner (``REPRO_AUTOTUNE=1``), then the
-    default budget."""
+    a configured budget, then the tuner (``REPRO_AUTOTUNE=1``; with
+    ``measure=False`` its cached winners only), then the default budget."""
     forced = _context_overrides.get(
         "variant", hostenv.env_knob("REPRO_CONTEXT_VARIANT", "auto"))
     if forced not in CONTEXT_VARIANTS:
@@ -280,7 +319,8 @@ def context_ell_variant(n_nodes: int, n_branches: int,
         return str(forced)
     if not _budget_forced(_context_overrides, "REPRO_CONTEXT_L2_BUDGET_MB",
                           "REPRO_CONTEXT_VMEM_BUDGET_MB"):
-        tuned = autotune.tuned_context(n_nodes, n_branches, itemsize, dtype)
+        tuned = autotune.tuned_context(n_nodes, n_branches, itemsize, dtype,
+                                       measure=measure)
         if tuned is not None:
             return str(tuned["variant"])
     budget = _l2_budget_mb(_context_overrides, "REPRO_CONTEXT_L2_BUDGET_MB",
@@ -313,18 +353,47 @@ def _context_ell_loop(out_ids, out_vals, assignment, codewords, w_t,
     return out
 
 
+def _note_context(variant, out_ids, out_vals, assignment, codewords, w_t,
+                  cw_scale) -> None:
+    """Record the context dispatch ``variant`` names: one fused launch
+    (none without neighbour slots), or one resident SpMM a branch."""
+    if not trace_count.active():
+        return
+    b, deg = out_ids.shape
+    nb, _, f_blk = codewords.shape
+    form = "f32" if cw_scale is None else "q"
+    if variant == "loop":
+        if b > 0 and f_blk > 0:
+            for i in range(nb):
+                trace_count.note("spmm_ell", form, out_ids, out_vals,
+                                 codewords[i],
+                                 None if cw_scale is None else cw_scale[i])
+        return
+    f_out = nb * f_blk if w_t is None else w_t.shape[1]
+    if deg > 0 and b > 0 and f_out > 0:
+        entry = context_entry(codewords.dtype, assignment, w_t is not None)
+        trace_count.note("context_ell", entry, out_ids, out_vals, assignment,
+                         codewords, cw_scale, w_t)
+
+
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
 
 
+@trace_count.dispatcher
 def vq_assign(x: torch.Tensor, codewords: torch.Tensor) -> torch.Tensor:
     """[nb, n, f] rows vs [nb, k, f] codewords -> [nb, n] int32."""
+    if trace_count.active() and x.shape[0] > 0 and x.shape[1] > 0:
+        wide = _vq_assign.uses_wide(codewords.shape[1], x.shape[-1])
+        trace_count.note("vq_assign", "wide" if wide else "narrow", x,
+                         codewords)
     if x.is_cuda:
         return vq_assign_cuda(x, codewords)
     return ref.vq_assign(x, codewords)
 
 
+@trace_count.dispatcher
 def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor, *,
                      emit_dtype=torch.int32
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -335,7 +404,12 @@ def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor, *,
     ``"uint4"`` (k <= 16, a uint8 tensor of values < 16) emits the
     assignment in a narrow tier's table type; an emit dtype that cannot
     index k raises, on either device."""
-    check_emit(emit_dtype, codewords.shape[1])
+    emit = check_emit(emit_dtype, codewords.shape[1])
+    if trace_count.active() and x.shape[0] > 0 and x.shape[1] > 0:
+        wide = _vq_update.uses_wide(codewords.shape[1], codewords.shape[-1])
+        trace_count.note(
+            "vq_update", f"{'wide' if wide else 'narrow'} "
+            f"{'int32' if emit == 'int32' else 'uint8'}", x, codewords)
     if x.is_cuda:
         tuned = autotune.tuned_vq_update(
             x.shape[1], codewords.shape[1], x.shape[-1], x.shape[0],
@@ -347,9 +421,13 @@ def vq_assign_update(x: torch.Tensor, codewords: torch.Tensor, *,
     return ref.vq_assign_update(x, codewords, emit_dtype)
 
 
+@trace_count.dispatcher
 def spmm_ell_t(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
                g: torch.Tensor, n_src: int) -> torch.Tensor:
     """Transposed ELLPACK SpMM: [b, D] ids/values, g [b, f] -> [n_src, f]."""
+    if trace_count.active() and min(nbr_idx.shape[0], nbr_idx.shape[1],
+                                    g.shape[1]) > 0:
+        trace_count.note("spmm_ell_t", "f32", nbr_idx, nbr_val, g)
     if g.is_cuda:
         return spmm_ell_t_cuda(nbr_idx, nbr_val, g, n_src)
     return ref.spmm_ell_t(nbr_idx, nbr_val, g, n_src)
@@ -368,6 +446,7 @@ class _SpmmEll(torch.autograd.Function):
         ctx.n_src = x.shape[0]
         if x.is_cuda:
             return _spmm_cuda(nbr_idx, nbr_val, x, stripe_index, None)
+        _note_spmm_cpu(nbr_idx, nbr_val, x, None)
         return ref.spmm_ell(nbr_idx, nbr_val, x)
 
     @staticmethod
@@ -377,6 +456,7 @@ class _SpmmEll(torch.autograd.Function):
                                       ctx.n_src), None
 
 
+@trace_count.dispatcher
 def spmm_ell(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
              x: torch.Tensor | QTensor,
              stripe_index: Optional[StripeIndex] = None, *,
@@ -399,6 +479,7 @@ def spmm_ell(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
     if x_scale is not None:
         if x.is_cuda:
             return _spmm_cuda(nbr_idx, nbr_val, x, stripe_index, x_scale)
+        _note_spmm_cpu(nbr_idx, nbr_val, x, x_scale)
         return ref.spmm_ell(nbr_idx, nbr_val, x, x_scale)
     if nbr_val.requires_grad and torch.is_grad_enabled():
         raise ValueError("spmm_ell: nbr_val requires grad; the kernel's "
@@ -406,6 +487,7 @@ def spmm_ell(nbr_idx: torch.Tensor, nbr_val: torch.Tensor,
     return _SpmmEll.apply(nbr_idx, nbr_val, x, stripe_index)
 
 
+@trace_count.dispatcher
 def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,
                 assignment: torch.Tensor | PackedAssignment,
                 codewords: torch.Tensor | QTensor,
@@ -419,29 +501,38 @@ def context_ell(out_ids: torch.Tensor, out_vals: torch.Tensor,
     cw_scale = None
     if isinstance(codewords, QTensor):
         codewords, cw_scale = codewords.q, codewords.scale
-    if out_vals.is_cuda:
+    if out_vals.is_cuda or trace_count.active():
         packed = isinstance(assignment, PackedAssignment)
         nb, n = assignment.shape
         itemsize = 0.5 if packed else assignment.element_size()
         dtype = "uint4" if packed else assignment.dtype
-        if context_ell_variant(n, nb, itemsize, dtype) == "loop":
-            return _context_ell_loop(out_ids, out_vals, assignment,
-                                     codewords, w_t, cw_scale)
-        return context_ell_cuda(out_ids, out_vals, assignment, codewords, w_t,
-                                cw_scale)
+        variant = context_ell_variant(n, nb, itemsize, dtype,
+                                      measure=out_vals.is_cuda)
+        _note_context(variant, out_ids, out_vals, assignment, codewords, w_t,
+                      cw_scale)
+        if out_vals.is_cuda:
+            if variant == "loop":
+                return _context_ell_loop(out_ids, out_vals, assignment,
+                                         codewords, w_t, cw_scale)
+            return context_ell_cuda(out_ids, out_vals, assignment, codewords,
+                                    w_t, cw_scale)
     return ref.context_ell(out_ids, out_vals, assignment, codewords, w_t,
                            cw_scale)
 
 
+@trace_count.dispatcher
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Softmax attention: q [b, h, sq, d], k/v [b, h, skv, d] ->
     [b, h, sq, d]; causal masks keys past ``i + (skv - sq)``."""
+    if trace_count.active():
+        trace_count.note("flash_attention", _flash_route(q, k, v), q, k, v)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal)
     return ref.flash_attention(q, k, v, causal=causal)
 
 
+@trace_count.dispatcher
 def vq_attention_decode(q: torch.Tensor, cb_k: torch.Tensor,
                         cb_v: torch.Tensor, mass: torch.Tensor,
                         win_k: torch.Tensor, win_v: torch.Tensor,
@@ -449,6 +540,9 @@ def vq_attention_decode(q: torch.Tensor, cb_k: torch.Tensor,
     """One VQ-Attention decode step for n GQA groups: q [n, g, d],
     codewords [n, k, d] with masses [n, k], window [n, w, d] with its mask
     [n, w] -> [n, g, d]."""
+    if trace_count.active():
+        trace_count.note("vq_attention", "decode", q, cb_k, cb_v, mass,
+                         win_k, win_v, win_mask)
     if q.is_cuda:
         return vq_attention_decode_cuda(q, cb_k, cb_v, mass, win_k, win_v,
                                         win_mask)

@@ -29,7 +29,7 @@ from repro_torch.kernels import _build
 launches = 0
 launches_q = 0
 
-SMEM_LIMIT = 232448           # dynamic shared memory one H100 block may use
+SMEM_LIMIT = _build.SMEM_LIMIT
 DEFAULT_BB = 128              # the reference's row tile ...
 DEFAULT_STRIPE = 512          # ... and stripe (repro/graph/batching.py)
 MAX_BB = 128                  # rows a block's 8 warps take in turn

@@ -68,10 +68,10 @@ def check_emit(emit_dtype, k: int) -> str:
     return emit
 
 MAX_F = 32                    # widest branch the narrow build holds
-# dynamic shared memory one H100 block may use: the narrow build stages a
-# branch's [k, f] codewords and their [k] squared norms, k (f + 1) * 4
-# bytes (k <= 2,641 at f 21), and its warps' rows where they fit beside
-SMEM_LIMIT = 232448
+# the narrow build stages a branch's [k, f] codewords and their [k] squared
+# norms in a block's shared memory, k (f + 1) * 4 bytes (k <= 2,641 at
+# f 21), and its warps' rows where they fit beside
+SMEM_LIMIT = _build.SMEM_LIMIT
 # the wide build (csrc/vq_update.cuh: kWideMaxF, kWideBN, the ring's
 # stages and K chunk): the widest branch, codewords a tile, stages
 WIDE_MAX_F = 440

@@ -592,14 +592,13 @@ def _vq_infer_layer_body(params_l: Params, vq_state: LayerVQState,
     act = _act_for_layer(cfg, layer)
     n = plan.n
     out = torch.zeros((n + 1, fo), dtype=acts.dtype, device=acts.device)
-    sink = torch.tensor(n, dtype=torch.int64, device=acts.device)
     for s in range(perm.shape[0]):
         bids, smask = perm[s], slot_mask[s]
         pack = plan_batch(plan, bids, smask)
         ids64 = bids.long()
         y = bk.vq_apply(params_l, acts[ids64], None, pack, vq_state,
                         degrees, cb_cfg, act, fi, fo, inject=False)
-        out.index_copy_(0, torch.where(smask > 0, ids64, sink), y)
+        out.index_copy_(0, torch.where(smask > 0, ids64, n), y)
     return out[:n]
 
 

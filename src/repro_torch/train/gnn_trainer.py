@@ -49,6 +49,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import hostenv
 from repro_torch.core import codebook as cbm
 from repro_torch.core.conv import MinibatchPack, refresh_assignment
 from repro_torch.distributed.data_parallel import (ShardedGraphState,
@@ -278,7 +279,7 @@ def train_vq(g: Graph, cfg: GNNConfig, *, epochs: int, batch_size: int,
         raise ValueError("batch_fn= is a node-task batch-construction "
                          "hook (link pair mining is per-batch host work)")
     use_epoch = (cfg.task == "node"
-                 and os.environ.get("REPRO_EPOCH_EXECUTOR", "1") != "0")
+                 and hostenv.env_knob("REPRO_EPOCH_EXECUTOR", "1") != "0")
     if batch_fn is not None and mesh is not None:
         # the data-parallel split assumes the fixed epoch_slices batch
         # width; sampler-widened rows would break its divisibility contract

@@ -2396,3 +2396,27 @@ def test_tuner_measures_once_and_steers_the_dispatch(cuda, tmp_path,
         assert len(autotune.measured) == n0 + 4
     finally:
         autotune.clear(memory_only=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", ["item", "masked_index", "host_scalar"])
+def test_analysis_sync_pass_fires_on_a_seeded_sync(cuda, seed):
+    """REPRO102: an entry that reads a value back to the host (``.item()``),
+    selects by a mask (``nonzero`` underneath) or copies a host scalar to
+    the card (the H2D copy waits for the host) is a finding; an entry that
+    only queues work is clean; the registry's serving entry is clean."""
+    from repro_torch.analysis import dispatch_checks, registry
+    x = torch.ones(8, device=cuda)
+    calls = {"item": lambda t: float((t * 2).sum().item()),
+             "masked_index": lambda t: t[t > 0],
+             "host_scalar": lambda t: t + torch.tensor(2.0, device=t.device)}
+    seeded = registry.Entry(f"fixture:{seed}", make=lambda dev: (x,),
+                            call=calls[seed])
+    found = dispatch_checks.sync_findings(seeded, cuda)
+    assert [f.rule for f in found] == ["REPRO102"]
+    clean = registry.Entry("fixture:clean", make=lambda dev: (x,),
+                           call=lambda t: t * 2)
+    assert dispatch_checks.sync_findings(clean, cuda) == []
+    serve = {e.name: e for e in registry.entries()}["vq_serve_batch[int8]"]
+    assert dispatch_checks.sync_findings(serve, cuda) == []
+    assert torch.cuda.get_sync_debug_mode() == 0

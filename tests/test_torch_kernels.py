@@ -568,6 +568,9 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert len(mods) >= 15, mods\n"
+        "assert {'repro_torch.analysis.' + m for m in (\n"
+        "    'ast_checks', 'dispatch_checks', 'registry', 'smem_checks',\n"
+        "    'trace_count', '__main__')} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n"
